@@ -1,0 +1,725 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # on a machine with one NVIDIA GPU
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, in parallel), then:
+
+  1. kernel checks — each kernel against its plain PyTorch version on
+     the card at the serving path's shapes, with its time, the plain
+     version's time, one PyTorch-call yardstick and the card's bound;
+  2. serving at full width — a 100,000-entry catalog, the full-width
+     analyzer (seeded random weights), bandit + load + semantic cache,
+     4 batches of 256 requests through ``ServingEngine.submit`` ->
+     ``observe``, in fp32 and again with int8 catalog, cache and
+     analyzer; every kernel must launch and repeats must hit the cache.
+     The decisions (tie-aware) and the bandit posterior must match the
+     same run on the CPU (plain versions) fed the card run's task
+     signatures, and those signatures must match the analyzer run on
+     the CPU over the same batches;
+  3. a per-stage breakdown of one served batch.
+
+The last lines are the card's ``nvidia-smi`` name and power limit, a
+``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
+Any failure exits non-zero without those lines; so does a machine
+without a CUDA device.  ``--rehearse`` runs every phase on the CPU at a
+small size (plain versions, no timing claims) and exits 3 without
+printing a result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
+PEAK_INT8_S = 1979e12           # int8 tensor-core dense TOP/s
+NEG_INF = float("-inf")
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+
+def time_graph_ms(torch, fn, dev, iters: int = 20, reps: int = 3) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, the mean over ``reps`` replays timed with CUDA events.  The
+    replay launches the recorded kernels back to back, so the wrapper's
+    host work (operand checks, scratch allocation, the ctypes call) is
+    not in the reading.  Host wall time on the CPU."""
+    if dev.type != "cuda":
+        return time_ms(torch, fn, dev, iters)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize(dev)
+    del graph
+    return t0.elapsed_time(t1) / (iters * reps)
+
+
+def time_ms(torch, fn, dev, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms of ``fn()`` called eagerly, host work included (CUDA
+    events over ``iters`` calls after ``warmup``), or host wall time on
+    the CPU.  For what a CUDA graph cannot capture: the plain top-k's
+    ``nonzero`` waits for the device."""
+    for _ in range(warmup):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize(dev)
+        return t0.elapsed_time(t1) / iters
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ----------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def topk_inputs(torch, dev, rng, Q, N, D, R):
+    """Unit rows with duplicate catalog rows (ties) and queries aimed at
+    them; a filter table with empty and full rows."""
+    emb = rng.standard_normal((N, D)).astype(np.float32)
+    ndup = min(1000, N // 4)
+    emb[N // 2:N // 2 + ndup] = emb[:ndup]              # exact duplicates
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    q[: Q // 4] = emb[rng.integers(0, ndup, Q // 4)]    # aim at the ties
+    q /= np.linalg.norm(q, axis=1, keepdims=True) + 1e-9
+    dens = rng.choice([0.01, 0.1, 0.5, 0.9], size=(R, 1))
+    table = (rng.random((R, N)) < dens).astype(np.uint8)
+    table[0] = 0                                        # empty rows
+    table[1] = 1
+    table[2, :N // 2] = 0
+    rows = rng.integers(0, R, Q).astype(np.int32)
+    rows[:4] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(q), t(emb), t(table), t(rows)
+
+
+def compare_topk(torch, got, want, what: str) -> float:
+    """Finite slots agree (values within 1e-6, same indices: the plain
+    version breaks ties toward the lowest index too); returns the max
+    value error."""
+    gv, gi = got
+    wv, wi = want
+    fin = torch.isfinite(wv)
+    check(torch.equal(torch.isfinite(gv), fin),
+          f"{what}: finite slots differ")
+    err = float((gv[fin] - wv[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= 1e-6, f"{what}: max |vals err| {err} > 1e-6")
+    check(torch.equal(gi[fin], wi[fin]), f"{what}: indices differ")
+    return err
+
+
+def kernel_phase(torch, dev, rng, small: bool):
+    from repro_torch.kernels import bandit_update as BU
+    from repro_torch.kernels import router_topk as RT
+    from repro_torch.kernels.route_step import quantize_rows
+
+    N = 4000 if small else 100_000
+    Q, D, K, R = 256, 8, 8, 98
+    results = {}
+
+    # -- fp32 router_topk at the route step's shape
+    q, emb, table, rows = topk_inputs(torch, dev, rng, Q, N, D, R)
+    got = RT.router_topk(q, emb, table, rows, K)
+    want = RT.router_topk_plain(q, emb, table, rows, K)
+    err = compare_topk(torch, got, want, "router_topk fp32 route step")
+    check(bool(torch.isinf(got[0][:4]).all()), "empty rows must be -inf")
+    # the tie rule, independently of the plain version: the duplicate
+    # rows [N//2, N//2 + ndup) score bit-equal to rows [0, ndup), so a
+    # duplicate index may only appear after its original
+    gi = got[1].cpu().numpy()
+    gv = got[0].cpu().numpy()
+    tab = table.cpu().numpy()
+    ndup = min(1000, N // 4)
+    n_ties = 0
+    for qi, (rowv, row_v) in enumerate(zip(gi.tolist(), gv.tolist())):
+        for pos, j in enumerate(rowv):
+            if N // 2 <= j < N // 2 + ndup and row_v[pos] > NEG_INF \
+                    and tab[int(rows[qi]), j - N // 2]:
+                check(j - N // 2 in rowv[:pos],
+                      "tie broken toward a higher index")
+                n_ties += 1
+    check(n_ties > 0, "the tie check saw no tie")
+    used = len(set(rows.tolist()))
+    nb = Q * D * 4 + N * D * 4 + used * N + Q * 4 + Q * K * 8
+    # the dot products the data needs: one per (query, row its mask
+    # lets through); the kernel skips the others
+    live = int(table[rows.long()].sum())
+    bms, by = bound_ms(nb, 2.0 * D * live, PEAK_FP32_S)
+
+    def lib_fp32():
+        s = q @ emb.T
+        s = torch.where(table[rows.long()].bool(), s, NEG_INF)
+        return torch.topk(s, K)
+
+    results["router_topk"] = dict(
+        name="router_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/router_topk.cu",
+        replaces="src/repro/kernels/router_topk.py:203",
+        max_abs_err=err,
+        ms=time_graph_ms(torch, lambda: RT.router_topk(
+            q, emb, table, rows, K), dev),
+        plain_ms=time_ms(torch, lambda: RT.router_topk_plain(
+            q, emb, table, rows, K), dev),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_graph_ms(torch, lib_fp32, dev))
+    eager = time_ms(torch, lambda: RT.router_topk(q, emb, table, rows, K),
+                    dev)
+    log(f"[kernels] router_topk route-step shape: {live} of {Q * N} "
+        f"(query, row) pairs pass the mask; eager call, host work "
+        f"included: {eager:.4f} ms")
+
+    # -- fp32 router_topk at the cache lookup's shape (k=1, threshold)
+    C, DC = 4096, 40
+    keys = rng.standard_normal((C, DC)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    qk = rng.standard_normal((Q, DC)).astype(np.float32)
+    qk[: Q // 2] = keys[rng.integers(0, C, Q // 2)] \
+        + 0.01 * rng.standard_normal((Q // 2, DC)).astype(np.float32)
+    qk /= np.linalg.norm(qk, axis=1, keepdims=True)
+    cmask = (rng.random((Q, C)) < 0.5).astype(np.uint8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    qk_d, keys_d, cmask_d = t(qk), t(keys), t(cmask)
+    crow = torch.arange(Q, dtype=torch.int32, device=dev)
+    got = RT.router_topk(qk_d, keys_d, cmask_d, crow, 1, min_score=0.95)
+    want = RT.router_topk_plain(qk_d, keys_d, cmask_d, crow, 1,
+                                min_score=0.95)
+    err_c = compare_topk(torch, got, want, "router_topk fp32 cache")
+    check(bool(torch.isfinite(got[0]).any()), "cache check found no hit")
+    results["router_topk"]["max_abs_err"] = max(err, err_c)
+    cache_ms = time_graph_ms(torch, lambda: RT.router_topk(
+        qk_d, keys_d, cmask_d, crow, 1, min_score=0.95), dev)
+    cache_plain = time_ms(torch, lambda: RT.router_topk_plain(
+        qk_d, keys_d, cmask_d, crow, 1, min_score=0.95), dev)
+
+    def lib_cache():
+        s = qk_d @ keys_d.T
+        s = torch.where(cmask_d.bool() & (s >= 0.95), s, NEG_INF)
+        return torch.topk(s, 1)
+
+    cache_lib = time_graph_ms(torch, lib_cache, dev)
+    cb, cby = bound_ms(Q * DC * 4 + C * DC * 4 + Q * C + Q * 4 + Q * 8,
+                       2.0 * DC * int(cmask.sum()), PEAK_FP32_S)
+    log(f"[kernels] router_topk cache shape Q={Q} C={C} D={DC} k=1: "
+        f"{cache_ms:.4f} ms (plain {cache_plain:.4f}, library "
+        f"{cache_lib:.4f}, bound {cb:.4f} by {cby}), max err {err_c:.3g}")
+
+    # -- int8 router_topk at the route step's shape: bit-equal
+    q8, qs = quantize_rows(q)
+    e8, es = quantize_rows(emb)
+    qs, es = qs[:, 0].contiguous(), es[:, 0].contiguous()
+    q8, e8 = q8.contiguous(), e8.contiguous()
+    got = RT.router_topk_q8(q8, e8, qs, es, table, rows, K)
+    want = RT.router_topk_q8_plain(q8, e8, qs, es, table, rows, K)
+    fin = torch.isfinite(want[0])
+    check(torch.equal(got[0], want[0]), "router_topk_q8: values not bit-equal")
+    check(torch.equal(got[1][fin], want[1][fin]),
+          "router_topk_q8: indices differ")
+    nb8 = Q * D + N * D + (Q + N) * 4 + used * N + Q * 4 + Q * K * 8
+    bms8, by8 = bound_ms(nb8, 2.0 * D * live, PEAK_INT8_S)
+
+    def lib_q8():
+        s = (q8.float() @ e8.float().T) * (qs[:, None] * es[None, :])
+        s = torch.where(table[rows.long()].bool(), s, NEG_INF)
+        return torch.topk(s, K)
+
+    results["router_topk_q8"] = dict(
+        name="router_topk_q8", route="cuda",
+        source="src/repro_torch/kernels/csrc/router_topk.cu",
+        replaces="src/repro/kernels/router_topk.py:301",
+        max_abs_err=float((got[0][fin] - want[0][fin]).abs().max()),
+        ms=time_graph_ms(torch, lambda: RT.router_topk_q8(
+            q8, e8, qs, es, table, rows, K), dev),
+        plain_ms=time_ms(torch, lambda: RT.router_topk_q8_plain(
+            q8, e8, qs, es, table, rows, K), dev),
+        bound_ms=bms8, bound_by=by8,
+        library_ms=time_graph_ms(torch, lib_q8, dev))
+
+    # -- bandit_update at the learning step's shape
+    Bu = Bs = 256
+    DD = 9
+    chosen = rng.integers(0, N, Bu)
+    w = np.zeros((Bu, N), np.float32)
+    w[np.arange(Bu), chosen] = 1.0
+    x = rng.random((Bu, DD)).astype(np.float32)
+    r = rng.random(Bu).astype(np.float32)
+    xs = rng.random((Bs, DD)).astype(np.float32)
+    theta = (rng.standard_normal((N, DD)) * 0.1).astype(np.float32)
+    L = (rng.standard_normal((N, DD, DD)) * 0.05).astype(np.float32)
+    ainv = (np.einsum("nde,nfe->ndf", L, L)
+            + 0.5 * np.eye(DD, dtype=np.float32)).astype(np.float32)
+    args = [t(a) for a in (w, x, r, xs, theta, ainv)]
+    got = BU.bandit_update(*args, 0.8)
+    want = BU.bandit_update_plain(*args, 0.8)
+    err_b = 0.0
+    for g, wv, nm in zip(got, want, ("dA", "db", "ucb")):
+        d = (g - wv).abs()
+        err_b = max(err_b, float(d.max()))
+        check(bool((d <= 1e-5 * wv.abs() + 1e-6).all()),
+              f"bandit_update {nm}: beyond rtol 1e-5 (atol 1e-6)")
+    nbb = 4 * (Bu * N + Bu * DD + Bu + Bs * DD + N * DD + N * DD * DD
+               + N * DD * DD + N * DD + Bs * N)
+    # the (Bu, N) mask is one-hot: the deltas need 2*Bu*(D^2+D) flops
+    opsb = 2.0 * Bu * (DD * DD + DD) + 2.0 * Bs * N * (DD * DD + DD)
+    bmb, byb = bound_ms(nbb, opsb, PEAK_FP32_S)
+    xx = (args[1][:, :, None] * args[1][:, None, :]).reshape(Bu, -1)
+    xr = args[1] * args[2][:, None]
+    xxs = (args[3][:, :, None] * args[3][:, None, :]).reshape(Bs, -1)
+    a2 = 0.64 * args[5].reshape(N, -1)
+
+    def lib_bandit():
+        return (args[0].T @ xx, args[0].T @ xr,
+                args[3] @ args[4].T + torch.sqrt(torch.clamp(
+                    xxs @ a2.T, min=0.0)))
+
+    results["bandit_update"] = dict(
+        name="bandit_update", route="cuda",
+        source="src/repro_torch/kernels/csrc/bandit_update.cu",
+        replaces="src/repro/kernels/bandit_update.py:67",
+        max_abs_err=err_b,
+        ms=time_graph_ms(torch, lambda: BU.bandit_update(*args, 0.8), dev),
+        plain_ms=time_ms(torch, lambda: BU.bandit_update_plain(
+            *args, 0.8), dev),
+        bound_ms=bmb, bound_by=byb,
+        library_ms=time_graph_ms(torch, lib_bandit, dev))
+    upd_ms = time_graph_ms(torch, lambda: BU.bandit_update(
+        *args[:3], args[3][:0], None, None, 0.8), dev)
+    log(f"[kernels] bandit_update without scores (Bs=0, the update half "
+        f"alone): {upd_ms:.4f} ms")
+    for v in results.values():
+        log(f"[kernels] {v['name']}: ok, max err {v['max_abs_err']:.3g}, "
+            f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
+            f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
+            f"{v['bound_by']})")
+    return results
+
+
+# ----------------------------------------------------------------------
+# phase 2: serving at full width
+# ----------------------------------------------------------------------
+
+def make_catalog(n: int, seed: int):
+    """Seeded synthetic registry: 1-3 task types and 1-2 domains per
+    entry, ~5% generalists; vision task types never carry a regulated
+    domain, so those (task type, domain) filter rows are empty and the
+    fallback ladder runs."""
+    from repro_torch.core.mres import MRES, ModelEntry
+    from repro_torch.core.preferences import DOMAINS, TASK_TYPES
+
+    rng = np.random.default_rng(seed)
+    vision = {"vqa", "captioning", "transcription"}
+    regulated = ["legal", "finance", "healthcare"]
+    open_dm = [d for d in DOMAINS if d not in regulated]
+    acc = rng.random(n)
+    lat = rng.random(n) * 500 + 1
+    cost = rng.random(n) * 20 + 0.1
+    eth = rng.random((n, 5))
+    ntt = rng.integers(1, 4, n)
+    ndm = rng.integers(1, 3, n)
+    gen = rng.random(n) < 0.05
+    entries = []
+    for i in range(n):
+        tts = tuple(rng.choice(TASK_TYPES, size=int(ntt[i]), replace=False))
+        pool = open_dm if vision & set(tts) else DOMAINS
+        dms = tuple(rng.choice(pool, size=int(ndm[i]), replace=False))
+        raw = {"accuracy": float(acc[i]), "latency_ms": float(lat[i]),
+               "cost_per_mtok": float(cost[i]),
+               "helpfulness": float(eth[i, 0]),
+               "harmlessness": float(eth[i, 1]),
+               "honesty": float(eth[i, 2]),
+               "steerability": float(eth[i, 3]),
+               "creativity": float(eth[i, 4])}
+        entries.append(ModelEntry(name=f"m{i}", raw_metrics=raw,
+                                  task_types=tts, domains=dms,
+                                  generalist=bool(gen[i])))
+    m = MRES()
+    m.register_many(entries)
+    m.snapshot()
+    return m
+
+
+def make_batches(n_batch: int, seed: int):
+    """4 batches of Requests; batches 3 and 4 repeat half of batch 1."""
+    from repro_torch.core.preferences import PROFILES
+    from repro_torch.data.workload import make_workload
+    from repro_torch.serving.engine import Request
+
+    profiles = sorted(PROFILES)
+    recs = make_workload(4 * n_batch, seed=seed)
+    reqs = [(Request(text=r.text, prefs=profiles[i % len(profiles)], id=i),
+             r) for i, r in enumerate(recs)]
+    b1 = reqs[:n_batch]
+    h = n_batch // 2
+    return [b1, reqs[n_batch:2 * n_batch],
+            b1[:h] + reqs[2 * n_batch:2 * n_batch + n_batch - h],
+            b1[h:] + reqs[3 * n_batch:3 * n_batch + h]]
+
+
+class ReplayAnalyzer:
+    """Serves the card run's task signatures, batch by batch, to the CPU
+    reference run, so both runs route the same task vectors and filter
+    rows.  Without this, float noise in the analyzer's complexity output
+    -- which also varies with the batch a text rides in -- can move an
+    int8 query row across a rounding boundary and change its kNN set
+    with no tie in the final scores.
+
+    Before replaying a batch it holds the card's signatures, which the
+    fused analyze->route program produced, against the same weights
+    run on the CPU over exactly that batch's texts: heads equal where
+    the CPU's top-2 probability gap exceeds 1e-4, complexity and
+    confidence within 1e-5."""
+
+    def __init__(self, torch, card_analyzer, batches, tag: str):
+        from repro_torch.kernels.analyze_step import AnalyzerEncoder
+
+        self.torch = torch
+        self.tokenize = card_analyzer.encode_batch
+        self.cpu_enc = AnalyzerEncoder(card_analyzer.cfg, card_analyzer.state)
+        self.batches = list(batches)          # [(texts, sigs)] per submit
+        self.tag = tag
+        self.n_texts = self.n_heads = 0
+
+    def analyze_batch(self, texts):
+        from repro_torch.core.preferences import DOMAINS, TASK_TYPES
+        from repro_torch.kernels import ops
+
+        torch = self.torch
+        check(bool(self.batches), "the CPU run routed more batches")
+        want, sigs = self.batches.pop(0)
+        check(list(texts) == want, "the CPU run routed other requests "
+                                   "than the card run")
+        if not sigs:
+            return sigs
+        toks = self.tokenize(texts)
+        cpu = ops.analyze_step(self.cpu_enc, toks, device="cpu")
+        with torch.no_grad():
+            logits = self.cpu_enc(torch.from_numpy(toks))[:2]
+        decided = np.ones(len(texts), bool)
+        for lg in logits:
+            p = torch.sort(torch.softmax(lg, dim=-1), dim=1).values.numpy()
+            decided &= (p[:, -1] - p[:, -2]) > 1e-4
+        card = {"tt_idx": np.array([TASK_TYPES.index(s.task_type)
+                                    for s in sigs]),
+                "dm_idx": np.array([DOMAINS.index(s.domain) for s in sigs]),
+                "cx": np.array([s.complexity for s in sigs], np.float32),
+                "conf": np.array([s.confidence for s in sigs], np.float32)}
+        for key in ("tt_idx", "dm_idx"):
+            check(np.array_equal(card[key][decided], cpu[key][decided]),
+                  f"{self.tag}: served analyzer {key} differs from the CPU")
+        for key in ("cx", "conf"):
+            err = float(np.abs(card[key] - cpu[key]).max())
+            check(err <= 1e-5, f"{self.tag}: served analyzer {key} off by "
+                               f"{err}")
+        self.n_texts += len(texts)
+        self.n_heads += int(decided.sum())
+        return sigs
+
+
+def serve_run(mres, batches, dev, quant: bool, seed: int, analyzer=None):
+    """One serving run: 4 submits, each followed by observe."""
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.cache.semantic import SemanticCache
+    from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
+    from repro_torch.core.orchestrator import OptiRoute
+    from repro_torch.data.workload import meta_of, quality_of
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.load import LoadTracker
+
+    n = len(mres)
+    if analyzer is None:
+        analyzer = TaskAnalyzer(AnalyzerConfig(), seed=seed, device=dev)
+        if quant:                       # int8 analyzer weights as well
+            analyzer.quantize()
+    router = OptiRoute(
+        mres, analyzer, adaptive=LinearBandit(n, device=dev),
+        adaptive_weight=1.0, load=LoadTracker(n), load_weight=0.5,
+        cache=SemanticCache(capacity=4096, min_quality=0.0, quantize=quant,
+                            device=dev), device=dev)
+    router.engine.confidence_threshold = 0.0
+    router.engine.quantize = quant
+    eng = ServingEngine(router)
+    out, lat, obs_s = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        resp = eng.submit([r for r, _ in batch])
+        lat.append(time.perf_counter() - t0)
+        qual = [quality_of(meta_of(mres.entry(x.model)), rec.sig)
+                for x, (_, rec) in zip(resp, batch)]
+        t0 = time.perf_counter()
+        eng.observe(resp, qual)
+        obs_s.append(time.perf_counter() - t0)
+        out.append(resp)
+    return router, out, lat, obs_s
+
+
+def _row_detail(resp) -> str:
+    """Candidates, scores and task vector of one routed response."""
+    if resp.rq is None:
+        return f"{resp.model} ({resp.admission}, no routed query)"
+    bt, j = resp.rq._batch, resp.rq._bidx
+    return (f"cand {bt.cand_idx[j][:4].tolist()} "
+            f"scores {np.round(bt.cand_score[j][:4], 6).tolist()} "
+            f"T {bt.task_vectors[j].tolist()}")
+
+
+def decisions_match(ref, got, what: str) -> int:
+    """Tie-aware comparison of two runs' responses; returns the number
+    of tie-broken mismatches."""
+    ties = 0
+    for bi, (rb, gb) in enumerate(zip(ref, got)):
+        for i, (a, b) in enumerate(zip(rb, gb)):
+            check(a.cache_hit == b.cache_hit,
+                  f"{what}: batch {bi} row {i} cache_hit differs")
+            if a.cache_hit:
+                check(a.model == b.model, f"{what}: cached model differs")
+                continue
+            check((a.admission, a.fallback) == (b.admission, b.fallback)
+                  or a.model != b.model,
+                  f"{what}: batch {bi} row {i} admission/fallback differs")
+            if a.model == b.model:
+                continue
+            ok = False
+            for x in (a, b):
+                cs = x.rq._batch.cand_score[x.rq._bidx] if x.rq else None
+                if cs is not None and np.isfinite(cs[:2]).all() \
+                        and cs[0] - cs[1] <= 1e-5:
+                    ok = True
+            check(ok, f"{what}: batch {bi} row {i} model {a.model} vs "
+                      f"{b.model} without a tie; "
+                      + "; ".join(_row_detail(x) for x in (a, b)))
+            ties += 1
+    return ties
+
+
+def serving_phase(torch, dev, small: bool, kernels):
+    from repro_torch.kernels import bandit_update as BU
+    from repro_torch.kernels import router_topk as RT
+
+    n = 4000 if small else 100_000
+    nb = 64 if small else 256
+    t0 = time.perf_counter()
+    mres = make_catalog(n, seed=1)
+    batches = make_batches(nb, seed=2)
+    log(f"[serving] catalog of {n} entries built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cpu = torch.device("cpu")
+    counters = {"router_topk": RT.router_topk,
+                "router_topk_q8": RT.router_topk_q8,
+                "bandit_update": BU.bandit_update}
+    launches = {k: 0 for k in counters}
+    stats = {}
+    for quant in (False, True):
+        tag = "int8" if quant else "fp32"
+        for f in counters.values():
+            f.launches = 0
+        router, got, lat, obs_s = serve_run(mres, batches, dev, quant, seed=3)
+        counts = {k: f.launches for k, f in counters.items()}
+        log(f"[serving {tag}] launches on the main path: {counts}")
+        on_path = ["router_topk_q8" if quant else "router_topk",
+                   "bandit_update"]
+        if dev.type == "cuda":
+            for k in on_path:
+                check(counts[k] > 0, f"{tag}: {k} never launched")
+        for k, v in counts.items():
+            launches[k] += v
+        hits = [sum(x.cache_hit for x in b) for b in got]
+        log(f"[serving {tag}] cache hits per batch: {hits}")
+        check(hits[2] > 0 and hits[3] > 0, f"{tag}: repeats missed the cache")
+        fallback = sum(bool(x.fallback) for b in got for x in b)
+        log(f"[serving {tag}] fallback decisions: {fallback}")
+        for i, (b, s) in enumerate(zip(got, lat)):
+            miss = sum(not x.cache_hit for x in b)
+            log(f"[serving {tag}] batch {i}: {len(b)} requests ({miss} "
+                f"routed) submit {s * 1e3:.1f} ms = "
+                f"{len(b) / s:.0f} decisions/s; observe "
+                f"{obs_s[i] * 1e3:.1f} ms")
+        steady = lat[1:]
+        log(f"[serving {tag}] submit latency over batches 2-4: p50 "
+            f"{np.quantile(steady, 0.5) * 1e3:.1f} ms, p99 "
+            f"{np.quantile(steady, 0.99) * 1e3:.1f} ms")
+        stats[tag] = {"submit_s": lat, "observe_s": obs_s}
+        if dev.type == "cuda":
+            routed = [[x for x in b if not x.cache_hit] for b in got]
+            replay = ReplayAnalyzer(
+                torch, router.analyzer,
+                (([x.request.text for x in b], [x.sig for x in b])
+                 for b in routed), tag)
+            ref_router, ref, _, _ = serve_run(mres, batches, cpu, quant,
+                                              seed=3, analyzer=replay)
+            check(not replay.batches, f"{tag}: the CPU run routed fewer "
+                                      "batches")
+            log(f"[serving {tag}] the served analyzer outputs match the CPU "
+                f"on the {replay.n_texts} routed texts, batch by batch "
+                f"(heads compared on {replay.n_heads} with a top-2 gap "
+                f"> 1e-4)")
+            ties = decisions_match(ref, got, tag)
+            log(f"[serving {tag}] decisions match the CPU run "
+                f"({ties} tie-broken)")
+            for nm in ("A", "b"):
+                a = getattr(router.adaptive, nm)
+                e = getattr(ref_router.adaptive, nm)
+                check(np.allclose(a, e, rtol=1e-5, atol=1e-6),
+                      f"{tag}: bandit {nm} differs from the CPU run")
+            log(f"[serving {tag}] bandit A/b match the CPU run "
+                "(rtol 1e-5)")
+        breakdown(torch, dev, router, batches[1])
+    for k, v in kernels.items():
+        v["launches"] = launches[k]
+    return stats
+
+
+def breakdown(torch, dev, router, batch):
+    """Host-clock split of one served batch's stages (each stage ends
+    in a synchronize)."""
+    from repro_torch.kernels import ops
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    reqs = [r for r, _ in batch]
+    cache = router.cache
+    an = router.analyzer
+    eng = router.engine
+    marks = {}
+
+    def stage(name, fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            best = min(best, time.perf_counter() - t)
+        marks[name] = best * 1e3
+        return out
+
+    from repro_torch.core.preferences import resolve_batch
+    prefs = resolve_batch([r.prefs for r in reqs], len(reqs))
+    keys = stage("cache keys", lambda: cache.keys_for(
+        prefs, [r.text for r in reqs]))
+    fps = cache.fingerprints(prefs, extras=[r.max_new for r in reqs])
+    stage("cache lookup", lambda: cache.lookup(keys, fps))
+    toks = stage("tokenize", lambda: an.encode_batch([r.text for r in reqs]))
+    stage("analyzer encoder", lambda: ops.analyze_step(an.params, toks,
+                                                        device=dev))
+    stage("route_tokens_batch", lambda: eng.route_tokens_batch(
+        an.params, toks, prefs))
+    bandit = router.adaptive
+    X = np.random.default_rng(0).random((len(reqs), 8)).astype(np.float32)
+    ch = np.arange(len(reqs))
+    rw = np.zeros(len(reqs), np.float32)
+    state = bandit.state()
+    stage("bandit update", lambda: bandit.update(X, ch, rw), reps=1)
+    bandit.load_state(state)
+    stage("posterior refresh (host inv)", lambda: bandit.posterior(), reps=1)
+    log("[breakdown] " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                   marks.items()))
+
+
+# ----------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rehearse", action="store_true",
+                    help="CPU, small sizes, plain versions; exits 3")
+    args = ap.parse_args()
+    try:
+        import torch
+        import repro_torch                                  # noqa: F401
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
+        return 2
+    if args.rehearse:
+        dev = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 2
+        dev = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        build.build_all(["router_topk", "bandit_update"])
+        log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+        for name, out in build.BUILD_LOG.items():
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"[build {name}] {line.strip()}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {dev}")
+    rng = np.random.default_rng(0)
+    try:
+        kernels = kernel_phase(torch, dev, rng, small=args.rehearse)
+        serving_phase(torch, dev, args.rehearse, kernels)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    if args.rehearse:
+        log("[rehearse] all phases passed on the CPU; no result printed")
+        return 3
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,205 @@
+"""OptiRoute end-to-end orchestrator (paper Fig 1, §3), batched
+per-query mode.
+
+User preferences -> Task Analyzer -> Routing Engine over the MRES ->
+feedback / bandit loop.  ``route_all`` analyzes and routes a whole
+request batch; with a ``TaskAnalyzer`` attached that is ONE program
+from token ids to model choices (``RoutingEngine.route_tokens_batch``),
+otherwise the analyzer's signatures feed ``route_many_batch``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.feedback import FeedbackStore
+from repro_torch.core.mres import MRES
+from repro_torch.core.preferences import TaskSignature, resolve_batch
+from repro_torch.core.routing import (RoutingDecision, RoutingEngine,
+                                      not_ported, require_no_observability)
+
+
+class RoutedQuery:
+    """One routed query (text, signature, decision, timings).
+
+    The decision and the signature are LAZY: the query carries a
+    (RoutingBatch, row) handle and materializes them on first access;
+    ``model``/``fallback_kind``/``task_vector`` read the batch arrays.
+    ``cache_key``/``cache_fp`` are the semantic-cache write-back key
+    stamped at submit time; ``cache_written`` is tracked separately
+    from ``observed`` (bandit freshness)."""
+    __slots__ = ("text", "analyzer_s", "route_s", "response",
+                 "observed", "cache_key", "cache_fp", "cache_written",
+                 "_sig", "_batch", "_bidx")
+
+    def __init__(self, text: str, batch, batch_idx: int,
+                 sig: Optional[TaskSignature] = None,
+                 analyzer_s: float = 0.0, route_s: float = 0.0,
+                 response: Any = None):
+        self.text = text
+        self.analyzer_s = analyzer_s
+        self.route_s = route_s
+        self.response = response
+        self.observed = False
+        self.cache_key: Optional[np.ndarray] = None
+        self.cache_fp = 0
+        self.cache_written = False
+        self._sig = sig
+        self._batch = batch
+        self._bidx = batch_idx
+
+    @property
+    def sig(self) -> TaskSignature:
+        if self._sig is None:
+            self._sig = self._batch.signature(self._bidx)
+        return self._sig
+
+    @property
+    def decision(self) -> RoutingDecision:
+        return self._batch.decision(self._bidx)
+
+    @property
+    def model(self) -> str:
+        return self._batch.model(self._bidx)
+
+    @property
+    def fallback_kind(self) -> str:
+        return self._batch.fallback_kind(self._bidx)
+
+    @property
+    def task_vector(self) -> np.ndarray:
+        return self._batch.task_vectors[self._bidx]
+
+
+class OptiRoute:
+    """The deployable facade: ``route`` / ``route_all`` / ``observe``."""
+
+    def __init__(self, mres: MRES, analyzer, *,
+                 feedback: Optional[FeedbackStore] = None,
+                 knn_k: int = 8, merge_threshold: Optional[float] = None,
+                 feedback_weight: float = 0.5, telemetry=None, tracer=None,
+                 adaptive=None, adaptive_weight: float = 0.0,
+                 reward_fn=None, reward_shaper=None, load=None,
+                 load_weight: float = 0.0, cache=None, device=None):
+        require_no_observability(telemetry, tracer)
+        if merge_threshold is not None:
+            raise not_ported("Model merging", "'model zoo and runners'")
+        self.mres = mres
+        self.analyzer = analyzer
+        self.feedback = feedback if feedback is not None else FeedbackStore()
+        self.engine = RoutingEngine(mres, self.feedback, knn_k=knn_k,
+                                    feedback_weight=feedback_weight,
+                                    adaptive=adaptive,
+                                    adaptive_weight=adaptive_weight,
+                                    load=load, load_weight=load_weight,
+                                    device=device)
+        self.device = self.engine.device
+        self.telemetry = None
+        self.tracer = None
+        # adaptive loop: ``reward_fn(rq) -> quality`` closes it inside
+        # route_all; without it, call ``observe`` explicitly
+        self.adaptive = adaptive
+        self.reward_fn = reward_fn
+        self.reward_shaper = reward_shaper
+        self.load = load
+        # semantic response cache: the serving engine consults it before
+        # routing; ``observe`` writes validated responses back
+        self.cache = cache
+
+    def route(self, text: str, prefs) -> RoutedQuery:
+        """Single-query routing — B=1 wrapper over ``route_all``."""
+        return self.route_all([text], prefs)[0]
+
+    def route_all(self, texts: Sequence[str], prefs) -> List[RoutedQuery]:
+        """Analyze and route every query in one vectorized pass; each
+        query gets its own signature and decision.  Reported per-query
+        timings are the batch cost amortized over B."""
+        if len(texts) == 0:
+            return []
+        B = len(texts)
+        prefs_list = resolve_batch(prefs, B)
+        if len(prefs_list) != B:
+            raise ValueError(f"prefs batch size {len(prefs_list)} != "
+                             f"text batch size {B}")
+        an = self.analyzer
+        t0 = time.time()
+        if getattr(an, "supports_fused_route", False):
+            toks = an.encode_batch(list(texts))
+            t1 = time.time()
+            batch = self.engine.route_tokens_batch(an.params, toks,
+                                                   prefs_list)
+            sigs = [None] * B
+        else:
+            sigs = an.analyze_batch(list(texts))
+            t1 = time.time()
+            batch = self.engine.route_many_batch(prefs_list, sigs)
+        t2 = time.time()
+        out = [RoutedQuery(text=t, batch=batch, batch_idx=i, sig=s,
+                           analyzer_s=(t1 - t0) / B, route_s=(t2 - t1) / B)
+               for i, (t, s) in enumerate(zip(texts, sigs))]
+        if self.adaptive is not None and self.reward_fn is not None:
+            self.observe(out)
+        return out
+
+    def observe(self, rqs: Sequence[RoutedQuery],
+                qualities: Optional[Sequence[float]] = None,
+                extra_penalty=None) -> Optional[np.ndarray]:
+        """Close the adaptive loop for a routed batch: one shaped reward
+        per newly-observed query into the bandit, and each query whose
+        cache key is stamped writes its (response, RAW quality) back to
+        the semantic cache.  Each query is observed at most once.
+        Returns the shaped rewards of the newly-observed queries, or
+        None."""
+        if (self.adaptive is None and self.cache is None) or not rqs:
+            return None
+        if qualities is None and self.reward_fn is None:
+            return None
+        if qualities is not None and len(qualities) != len(rqs):
+            raise ValueError(f"{len(rqs)} routed queries but "
+                             f"{len(qualities)} qualities — observations "
+                             "must align one-to-one")
+        if extra_penalty is not None and len(extra_penalty) != len(rqs):
+            raise ValueError(f"{len(rqs)} routed queries but "
+                             f"{len(extra_penalty)} extra penalties")
+        fresh = [] if self.adaptive is None else \
+            [i for i, rq in enumerate(rqs) if not rq.observed]
+        cacheable = [] if self.cache is None else \
+            [i for i, rq in enumerate(rqs)
+             if rq.cache_key is not None and not rq.cache_written]
+        todo = sorted(set(fresh) | set(cacheable))
+        if not todo:
+            return None
+        if qualities is None:
+            qual = {i: float(self.reward_fn(rqs[i])) for i in todo}
+        else:
+            qual = {i: float(qualities[i]) for i in todo}
+        for i in cacheable:
+            rq = rqs[i]
+            self.cache.put(rq.cache_key, rq.cache_fp, rq.model, rq.response,
+                           qual[i], sig=rq.sig)
+            rq.cache_written = True
+        if self.adaptive is None or not fresh:
+            for i in fresh:
+                rqs[i].observed = True
+            return None
+        sub = [rqs[i] for i in fresh]
+        sub_q = [qual[i] for i in fresh]
+        sub_ep = None if extra_penalty is None else \
+            np.asarray(extra_penalty, np.float32)[fresh]
+        names = self.mres.snapshot()[1]
+        col = {m: j for j, m in enumerate(names)}
+        midx = np.array([col[rq.model] for rq in sub])
+        X = np.stack([rq.task_vector for rq in sub])
+        if self.reward_shaper is not None:
+            rewards = self.reward_shaper.shape(sub_q, midx, sub_ep)
+        else:
+            rewards = np.asarray(sub_q, np.float32)
+            if sub_ep is not None:
+                rewards = rewards - sub_ep
+        self.adaptive.ensure(len(names))
+        self.adaptive.update(X, midx, rewards)
+        for rq in sub:
+            rq.observed = True
+        return rewards

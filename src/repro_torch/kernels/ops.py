@@ -1,0 +1,437 @@
+"""Public wrappers of the serving-path programs and kernels.
+
+Port of the JAX package's ``kernels/ops.py`` for the dense
+single-device path.  Each op pads the query axis to its power-of-two
+bucket and the catalog to its 128-aligned capacity (``q_bucket`` /
+``n_bucket``: eager PyTorch compiles nothing, but the padded shapes are
+the ones a captured CUDA graph per bucket will need), runs one program
+on ``device``, and hands host numpy arrays back sliced to the batch.
+
+Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
+On the card the route-step kNN, the cache lookup and the bandit update
+always launch their hand-written kernels; ``device="cpu"`` runs their
+plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
+                                              analyze_route_step_body,
+                                              analyze_step_body)
+from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
+from repro_torch.kernels.route_step import (quantize_rows, route_step_body,
+                                            unit_rows)
+from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
+                                             router_topk_q8 as _topk_q8_kernel)
+
+LANE = 128
+
+
+def q_bucket(q: int) -> int:
+    """Power-of-two query-axis bucket (floor 8)."""
+    return max(8, 1 << max(q - 1, 1).bit_length())
+
+
+def n_bucket(n: int) -> int:
+    """128-aligned catalog-axis capacity (floor 128)."""
+    return max(128, -(-n // LANE) * LANE)
+
+
+# dispatch counters of the bucketed serving-path ops (one count per
+# program run; eager PyTorch has no compiles to count)
+_STATS = {"route_step_dispatches": 0, "topk_dispatches": 0,
+          "analyze_step_dispatches": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def route_step_stats() -> dict:
+    """Copy of the dispatch counters."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def reset_route_step_stats() -> None:
+    with _STATS_LOCK:
+        for key in _STATS:
+            _STATS[key] = 0
+
+
+def _bump(kind: str) -> None:
+    with _STATS_LOCK:
+        _STATS[f"{kind}_dispatches"] += 1
+
+
+# device copies of the per-catalog constants, keyed on the source
+# array's identity and held by WEAK reference: when the catalog grows,
+# MRES rebuilds its embedding matrix, the old one dies, and its stale
+# packs are evicted on the next lookup (and a recycled id() can never
+# match, since the referent is gone before the id can repeat)
+_CATALOG_CACHE: list = []               # [(key, weakref(src), packed)]
+_CATALOG_CACHE_MAX = 4
+
+
+def catalog_cache_info() -> dict:
+    """Live entries of the device-constant cache (tests)."""
+    with _STATS_LOCK:
+        live = [k2 for (k2, wr, _) in _CATALOG_CACHE if wr() is not None]
+    return {"entries": len(live), "keys": live}
+
+
+def reset_catalog_cache() -> None:
+    with _STATS_LOCK:
+        _CATALOG_CACHE.clear()
+
+
+def _cache_lookup(key):
+    with _STATS_LOCK:
+        _CATALOG_CACHE[:] = [e for e in _CATALOG_CACHE if e[1]() is not None]
+        for k2, _, packed in _CATALOG_CACHE:
+            if k2 == key:
+                return packed
+    return None
+
+
+def _cache_put(key, src, packed):
+    with _STATS_LOCK:
+        _CATALOG_CACHE.append((key, weakref.ref(src), packed))
+        while len(_CATALOG_CACHE) > _CATALOG_CACHE_MAX:
+            _CATALOG_CACHE.pop(0)
+
+
+def _quantize_rows_np(x: np.ndarray):
+    """numpy twin of ``route_step.quantize_rows`` (per-row symmetric
+    int8, round half to even): q int8, s (rows, 1) f32."""
+    x = np.asarray(x, np.float32)
+    amax = np.max(np.abs(x), axis=1, keepdims=True)
+    s = np.where(amax > 0, amax / np.float32(127.0),
+                 np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint(x / s), -127, 127).astype(np.int8)
+    return q, s
+
+
+def _mask_table(tt, dm, gmask, n: int, np_pad: int) -> np.ndarray:
+    """The stacked filter table at width ``np_pad``: task-type x domain
+    combinations, task-type-only rows, the generalist row, the
+    live-catalog row.  Padded columns are False in every row."""
+    pad = np_pad - n
+    ttp = np.pad(np.asarray(tt, bool), ((0, 0), (0, pad)))
+    dmp = np.pad(np.asarray(dm, bool), ((0, 0), (0, pad)))
+    combo = (ttp[:, None, :] & dmp[None, :, :]).reshape(-1, np_pad)
+    live = np.zeros(np_pad, bool)
+    live[:n] = True
+    return np.vstack([combo, ttp,
+                      np.pad(np.asarray(gmask, bool), (0, pad))[None],
+                      live[None]])
+
+
+def _catalog_blocks(emb: np.ndarray, np_pad: int, quant: bool):
+    """(e2, e2s): ``[embn | emb]`` f32 rows, or the int8 row-quantized
+    pair with its (Np, 2) scales when ``quant`` ((1, 2) dummy else)."""
+    n = emb.shape[0]
+    pad = np_pad - n
+    embf = emb.astype(np.float32)
+    embn = embf / (np.linalg.norm(embf, axis=1, keepdims=True) + 1e-9)
+    if not quant:
+        e2 = np.pad(np.concatenate([embn, embf], axis=1), ((0, pad), (0, 0)))
+        return e2, np.zeros((1, 2), np.float32)
+    q8n, sn = _quantize_rows_np(embn)
+    q8e, se = _quantize_rows_np(embf)
+    e2 = np.pad(np.concatenate([q8n, q8e], axis=1), ((0, pad), (0, 0)))
+    e2s = np.pad(np.concatenate([sn, se], axis=1), ((0, pad), (0, 0)))
+    return e2, e2s
+
+
+def _catalog_pack(emb: np.ndarray, tt, dm, gmask, np_pad: int, *,
+                  quant: bool, device: torch.device):
+    """Device constants of ``route_step``: (e2, e2s, masks_table uint8,
+    counts_table int32), cached per catalog snapshot."""
+    key = (id(emb), np_pad, bool(quant), str(device))
+    packed = _cache_lookup(key)
+    if packed is not None:
+        return packed
+    n = emb.shape[0]
+    table = _mask_table(tt, dm, gmask, n, np_pad)
+    e2, e2s = _catalog_blocks(emb, np_pad, quant)
+    counts = table.sum(axis=1).astype(np.int32)
+    packed = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in (e2, e2s, table.astype(np.uint8), counts))
+    _cache_put(key, emb, packed)
+    return packed
+
+
+def _fb_table_pack(fb_table: np.ndarray, np_pad: int, device: torch.device):
+    """Device copy of the dense per-cluster feedback table, catalog axis
+    padded to the capacity bucket, cached on the table's identity."""
+    key = (id(fb_table), "fbt", np_pad, str(device))
+    packed = _cache_lookup(key)
+    if packed is not None:
+        return packed
+    t = np.asarray(fb_table, np.float32)
+    packed = torch.from_numpy(
+        np.pad(t, ((0, 0), (0, np_pad - t.shape[1])))).to(device)
+    _cache_put(key, fb_table, packed)
+    return packed
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.int64: np.int64,
+             torch.int32: np.int32, torch.uint8: np.uint8}
+
+
+def _to(x, device, dtype=torch.float32) -> torch.Tensor:
+    """numpy (or tensor) -> contiguous ``dtype`` tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.from_numpy(
+        np.ascontiguousarray(x, dtype=_NP_DTYPE[dtype])).to(device)
+
+
+def _host(out: dict, B: int) -> dict:
+    """ONE device->host transfer per output, sliced to the batch."""
+    return {key: v[:B].cpu().numpy() for key, v in out.items()}
+
+
+def _blend_operands(n: int, np_pad: int, theta, ainv, lpen, fb_weight,
+                    ad_weight, alpha, device):
+    """Padded device operands of the bandit and load terms (None when
+    off) and the (3,) scalar params."""
+    npad = np_pad - n
+    thp = aip = lpp = None
+    if theta is not None:
+        th = np.asarray(theta, np.float32)[:n]
+        ai = np.asarray(ainv, np.float32)[:n].reshape(n, -1)
+        thp = _to(np.pad(th, ((0, npad), (0, 0))), device)
+        aip = _to(np.pad(ai, ((0, npad), (0, 0))), device)
+    if lpen is not None:
+        lpp = _to(np.pad(np.asarray(lpen, np.float32)[:n], (0, npad)), device)
+    params = torch.tensor([fb_weight, ad_weight, alpha], dtype=torch.float32,
+                          device=device)
+    return thp, aip, lpp, params
+
+
+# ----------------------------------------------------------------------
+# router_topk (the semantic cache's lookup)
+# ----------------------------------------------------------------------
+
+def router_topk(emb, queries, k: int, mask=None, row_bias=None,
+                min_score: Optional[float] = None, *, quant: bool = False,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cosine top-k over a catalog (the reference's ``ops.router_topk``
+    contract, without its per-axis ``weights``, which no caller uses).
+
+    emb (N, D); queries (Q, D); mask None, (N,) or (Q, N) bool; row_bias
+    (N,) added on mask-valid rows; min_score floor after mask + bias.
+    ``quant`` scores int8 row-quantized rows (int32 dot, one fp32
+    rescale).  Returns (vals (Q, k) f32, idx (Q, k) i32) on ``device``;
+    empty slots have vals == -inf.
+    """
+    dev = resolve_device(device)
+    emb = _to(emb, dev)
+    queries = _to(queries, dev)
+    N = emb.shape[0]
+    Q = queries.shape[0]
+    ew = unit_rows(emb)
+    qn = unit_rows(queries)
+    if mask is None:
+        table = torch.ones((1, N), dtype=torch.uint8, device=dev)
+        rows = torch.zeros(Q, dtype=torch.int32, device=dev)
+    else:
+        table = _to(mask, dev, torch.uint8)
+        if table.ndim == 1:
+            table = table[None, :]
+            rows = torch.zeros(Q, dtype=torch.int32, device=dev)
+        else:
+            rows = torch.arange(Q, dtype=torch.int32, device=dev)
+    table = table.contiguous()
+    bias = _to(row_bias, dev).contiguous() if row_bias is not None else None
+    ms = float("-inf") if min_score is None else float(min_score)
+    if quant:
+        e8, es = quantize_rows(ew)
+        q8, qs = quantize_rows(qn)
+        return _topk_q8_kernel(q8.contiguous(), e8.contiguous(),
+                               qs[:, 0].contiguous(), es[:, 0].contiguous(),
+                               table, rows, k, bias=bias, min_score=ms)
+    return _topk_kernel(qn.contiguous(), ew.contiguous(), table, rows, k,
+                        bias=bias, min_score=ms)
+
+
+def router_topk_bucketed(emb, queries, k: int, mask=None,
+                         min_score: Optional[float] = None, *,
+                         quant: bool = False, device=None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """``router_topk`` behind the query-axis bucket (a 2-D mask pads
+    with all-False rows, so bucket rows come back -inf and are sliced
+    off).  Returns host (vals, idx)."""
+    queries = np.asarray(queries, np.float32)
+    Q = queries.shape[0]
+    qp = q_bucket(Q)
+    if qp != Q:
+        queries = np.pad(queries, ((0, qp - Q), (0, 0)))
+        if mask is not None and np.ndim(mask) == 2:
+            mask = np.pad(np.asarray(mask), ((0, qp - Q), (0, 0)))
+    vals, idx = router_topk(emb, queries, k, mask=mask, min_score=min_score,
+                            quant=quant, device=device)
+    _bump("topk")
+    return vals[:Q].cpu().numpy(), idx[:Q].cpu().numpy()
+
+
+# ----------------------------------------------------------------------
+# route_step: the dense single-device routing program
+# ----------------------------------------------------------------------
+
+def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
+               k: int, r: int, fb: Optional[np.ndarray] = None,
+               fb_weight: float = 0.0, theta: Optional[np.ndarray] = None,
+               ainv: Optional[np.ndarray] = None, alpha: float = 0.0,
+               ad_weight: float = 0.0, lpen: Optional[np.ndarray] = None,
+               quant: bool = False, device=None) -> dict:
+    """One routing step per batch (see ``kernels/route_step.py``).
+
+    Pads the batch to its Q bucket (bucket rows take the trailing
+    all-True filter rows) and the catalog to its capacity, runs the
+    program on ``device``, returns host numpy outputs sliced to B.
+    """
+    dev = resolve_device(device)
+    emb = np.asarray(emb, np.float32)
+    T = np.asarray(T, np.float32)
+    W = np.asarray(W, np.float32)
+    n = emb.shape[0]
+    B = T.shape[0]
+    if not (1 <= k <= n and 1 <= r <= n):
+        raise ValueError(f"route_step needs 1 <= k, r <= n: {(k, r, n)}")
+    qp = q_bucket(B)
+    n_tt = np.asarray(tt_matrix).shape[0]
+    n_dm = np.asarray(dm_matrix).shape[0]
+    qpad = qp - B
+    ti = np.asarray(ti, np.int64)
+    di = np.asarray(di, np.int64)
+    if qpad:
+        T = np.pad(T, ((0, qpad), (0, 0)))
+        W = np.pad(W, ((0, qpad), (0, 0)))
+        ti = np.pad(ti, (0, qpad), constant_values=n_tt - 1)
+        di = np.pad(di, (0, qpad), constant_values=n_dm - 1)
+    np_pad = n_bucket(n)
+    e2, e2s, masks, counts = _catalog_pack(emb, tt_matrix, dm_matrix, gmask,
+                                           np_pad, quant=quant, device=dev)
+    fbp = None
+    if fb is not None:
+        fbp = _to(np.pad(np.asarray(fb, np.float32),
+                         ((0, qpad), (0, np_pad - n))), dev)
+    thp, aip, lpp, params = _blend_operands(
+        n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
+    out = route_step_body(e2, e2s, masks, counts, _to(T, dev), _to(W, dev),
+                          _to(ti, dev, torch.int64), _to(di, dev, torch.int64),
+                          fbp, thp, aip, lpp, params, k=k, r=r, n_tt=n_tt,
+                          n_dm=n_dm, quant=quant)
+    _bump("route_step")
+    return _host(out, B)
+
+
+# ----------------------------------------------------------------------
+# analyze_step / analyze_route_step: the fused tokens->decision path
+# ----------------------------------------------------------------------
+
+def _encoder_tokens(encoder: AnalyzerEncoder, tokens, dev: torch.device):
+    if encoder.device != dev:
+        raise ValueError(f"analyzer weights live on {encoder.device}, the "
+                         f"program runs on {dev}")
+    tokens = np.asarray(tokens, np.int32)
+    B = tokens.shape[0]
+    if B < 1:
+        raise ValueError("analyze step requires a non-empty batch")
+    qp = q_bucket(B)
+    if qp != B:                  # all-PAD bucket rows, sliced off below
+        tokens = np.pad(tokens, ((0, qp - B), (0, 0)))
+    return _to(tokens, dev, torch.int64), B, qp
+
+
+def analyze_step(encoder: AnalyzerEncoder, tokens, *, device=None) -> dict:
+    """Bucketed analyzer run: host ``{tt_idx, dm_idx, cx, conf}``."""
+    dev = resolve_device(device)
+    toks, B, _ = _encoder_tokens(encoder, tokens, dev)
+    with torch.no_grad():
+        out = analyze_step_body(encoder, toks)
+    _bump("analyze_step")
+    return _host(out, B)
+
+
+def analyze_route_step(encoder: AnalyzerEncoder, tokens, emb, tt_matrix,
+                       dm_matrix, gmask, W, *, k: int, r: int,
+                       threshold: float, acc_col: int,
+                       use_complexity: bool = True, fb_table=None,
+                       fb_buckets: int = 4, fb_weight: float = 0.0,
+                       theta: Optional[np.ndarray] = None,
+                       ainv: Optional[np.ndarray] = None,
+                       alpha: float = 0.0, ad_weight: float = 0.0,
+                       lpen: Optional[np.ndarray] = None,
+                       quant: bool = False, device=None) -> dict:
+    """ONE program from token ids to model choice per batch (see
+    ``kernels/analyze_step.py``).  tokens (B, L) pad to the Q bucket
+    with all-PAD rows, W (B, M) with zero rows; ``fb_table`` is
+    ``FeedbackStore.bias_table(names)``.  Returns host numpy
+    ``route_step`` outputs plus ``tt_idx``/``dm_idx``/``cx``/``conf``/
+    ``task_vectors`` sliced to B."""
+    dev = resolve_device(device)
+    emb = np.asarray(emb, np.float32)
+    n = emb.shape[0]
+    if not (1 <= k <= n and 1 <= r <= n):
+        raise ValueError(f"route_step needs 1 <= k, r <= n: {(k, r, n)}")
+    toks, B, qp = _encoder_tokens(encoder, tokens, dev)
+    W = np.asarray(W, np.float32)
+    if qp != B:
+        W = np.pad(W, ((0, qp - B), (0, 0)))
+    n_tt = np.asarray(tt_matrix).shape[0]
+    n_dm = np.asarray(dm_matrix).shape[0]
+    np_pad = n_bucket(n)
+    e2, e2s, masks, counts = _catalog_pack(emb, tt_matrix, dm_matrix, gmask,
+                                           np_pad, quant=quant, device=dev)
+    fbt = _fb_table_pack(fb_table, np_pad, dev) if fb_table is not None \
+        else None
+    thp, aip, lpp, params = _blend_operands(
+        n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
+    with torch.no_grad():
+        out = analyze_route_step_body(
+            encoder, toks, _to(W, dev), float(threshold), fbt, e2, e2s,
+            masks, counts, thp, aip, lpp, params, acc_col=int(acc_col),
+            use_complexity=bool(use_complexity), fb_buckets=int(fb_buckets),
+            k=k, r=r, n_tt=n_tt, n_dm=n_dm, quant=quant)
+    _bump("route_step")
+    _bump("analyze_step")
+    return _host(out, B)
+
+
+# ----------------------------------------------------------------------
+# bandit_update
+# ----------------------------------------------------------------------
+
+def bandit_update(x_up, w, r, x_score, theta, ainv, alpha: float, *,
+                  device=None):
+    """Fused bandit posterior delta + LinUCB scores (reference contract).
+
+    x_up (Bu, D); w (Bu, N) choice mask; r (Bu,); x_score (Bs, D);
+    theta (N, D); ainv (N, D, D); alpha >= 0.  Returns tensors on
+    ``device``: (dA (N, D, D), db (N, D), ucb (Bs, N)); an empty outcome
+    batch (Bu = 0) gives zero deltas.  With no scoring rows (Bs = 0)
+    ``theta`` and ``ainv`` may be None: only the deltas are formed.
+    """
+    if alpha < 0.0:
+        raise ValueError(f"alpha must be >= 0, got {alpha}")
+    dev = resolve_device(device)
+    D = np.shape(x_up)[-1]
+    w = _to(w, dev)
+    N = w.shape[-1]
+    x_up = _to(x_up, dev).reshape(-1, D).contiguous()
+    w = w.reshape(-1, N).contiguous()
+    r = _to(r, dev).reshape(-1).contiguous()
+    x_score = _to(x_score, dev).reshape(-1, D).contiguous()
+    if theta is not None:
+        theta = _to(theta, dev).reshape(N, D).contiguous()
+        ainv = _to(ainv, dev).reshape(N, D, D).contiguous()
+    da, db, ucb = _bandit_kernel(w, x_up, r, x_score, theta, ainv, alpha)
+    return da.reshape(N, D, D), db, ucb

@@ -1,0 +1,197 @@
+"""Masked-cosine top-k over the routing catalog: wrappers of the CUDA
+kernel in ``csrc/router_topk.cu`` and their plain PyTorch versions.
+
+``router_topk`` replaces the Pallas ``router_topk_pallas`` and
+``router_topk_q8`` replaces ``router_topk_q8_pallas`` (the JAX
+package's ``kernels/router_topk.py``).  Same contract: per query, the
+k best rows by score (fp32: ``q . e``; int8: ``float(int32 dot) *
+(qscale * escale)``), ``+ bias`` on rows the mask lets through, rows
+below ``min_score`` dropped, ties toward the lowest catalog index;
+empty slots come back with ``vals == -inf`` and an unspecified index.
+
+The mask is the stacked uint8 filter table (R, N) plus one table row
+per query, not a (Q, N) float mask: the kernel reads the row itself.
+A wrapper given CUDA tensors launches the kernel (or raises); CPU
+tensors take the plain version, which computes the same scores in the
+same order, so the two agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = float("-inf")
+TILE = 128                              # csrc/router_topk.cu TILE
+MAX_K = 32
+
+_SIG = {"router_topk_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top-k of (B, M) ``x``, descending, ties toward the
+    lowest column (``lax.top_k``'s order; ``torch.topk`` promises none).
+
+    ``torch.topk`` fixes the k-th value t; every entry above t is in,
+    and the tie slots at t go to the lowest columns.  One stable sort
+    of the k survivors orders them.  Returns (vals, idx int64)."""
+    B, M = x.shape
+    if k >= M:
+        vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
+    t = torch.topk(x, k, dim=1).values[:, -1:]
+    above = x > t
+    tie = x == t
+    need = k - above.sum(dim=1, keepdim=True)
+    keep = above | (tie & (torch.cumsum(tie, dim=1) <= need))
+    idx = keep.nonzero()[:, 1].view(B, k)
+    vals, order = torch.sort(x.gather(1, idx), dim=1, descending=True,
+                             stable=True)
+    return vals, idx.gather(1, order)
+
+
+def _finish(scores: torch.Tensor, mask_table, rows, k: int,
+            bias: Optional[torch.Tensor], min_score: float):
+    """Mask, bias, floor and top-k of a (Q, N) score matrix — the
+    shared tail of both plain versions."""
+    Q, N = scores.shape
+    if bias is not None:
+        scores = scores + bias[None, :]
+    scores = torch.where(mask_table[rows.long()].bool(), scores, NEG_INF)
+    if min_score != NEG_INF:
+        scores = torch.where(scores >= min_score, scores, NEG_INF)
+    if k > N:
+        scores = torch.cat([scores, scores.new_full((Q, k - N), NEG_INF)],
+                           dim=1)
+    vals, idx = topk_stable(scores, k)
+    return vals, idx.to(torch.int32)
+
+
+def router_topk_plain(qn, embn, mask_table, rows, k: int, *, bias=None,
+                      min_score: float = NEG_INF):
+    """Plain PyTorch version of the fp32 kernel: the dot products are
+    summed left to right over D with separate multiply and add
+    roundings, exactly as the kernel does."""
+    Q, D = qn.shape
+    scores = qn.new_zeros((Q, embn.shape[0]))
+    for d in range(D):
+        scores = scores + qn[:, d, None] * embn[None, :, d]
+    return _finish(scores, mask_table, rows, k, bias, min_score)
+
+
+def router_topk_q8_plain(q8, e8, qscale, escale, mask_table, rows, k: int,
+                         *, bias=None, min_score: float = NEG_INF):
+    """Plain PyTorch version of the int8 kernel.  The int8 dot runs as
+    an fp32 matmul of the integer values: every product and partial
+    sum is an integer below 2**24 (|q|, |e| <= 127, D <= 64), so it is
+    exact — the int32 accumulation of the kernel."""
+    acc = q8.float() @ e8.float().T
+    scores = acc * (qscale.reshape(-1, 1) * escale.reshape(1, -1))
+    return _finish(scores, mask_table, rows, k, bias, min_score)
+
+
+def _chunk(dev: torch.device, Q: int, N: int) -> int:
+    """Catalog rows per block: enough (query group, chunk) blocks for
+    ~4 per SM, at least one shared-memory tile each."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qblocks = -(-Q // 8)
+    s_target = max(1, -(-4 * sms // qblocks))
+    per = -(-N // s_target)
+    return max(TILE, -(-per // TILE) * TILE)
+
+
+def _launch(quant: bool, q, e, qscale, escale, mask_table, rows, k, bias,
+            min_score):
+    dev = q.device
+    Q, D = q.shape
+    N = e.shape[0]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"router_topk kernel takes 1 <= k <= {MAX_K}, "
+                         f"got {k}")
+    if not 1 <= D <= 64:
+        raise ValueError(f"router_topk kernel takes 1 <= D <= 64, got {D}")
+    want = [(q, (Q, D)), (e, (N, D)),
+            (mask_table, (mask_table.shape[0], N)), (rows, (Q,))]
+    if bias is not None:
+        want.append((bias, (N,)))
+    if quant:
+        want += [(qscale, (Q,)), (escale, (N,))]
+    for t, shape in want:
+        if t.device != dev or not t.is_contiguous() or \
+                tuple(t.shape) != shape:
+            raise ValueError(f"router_topk: operand {tuple(t.shape)} on "
+                             f"{t.device} must be contiguous {shape} on {dev}")
+    dtype = torch.int8 if quant else torch.float32
+    if q.dtype != dtype or e.dtype != dtype or mask_table.dtype != \
+            torch.uint8 or rows.dtype != torch.int32:
+        raise TypeError("router_topk: q/e must be "
+                        f"{dtype}, mask_table uint8, rows int32")
+    lib = build.load("router_topk", _SIG)
+    chunk = _chunk(dev, Q, N)
+    S = -(-N // chunk)
+    pv = torch.empty((Q, max(S, 1), k), dtype=torch.float32, device=dev)
+    pi = torch.empty((Q, max(S, 1), k), dtype=torch.int32, device=dev)
+    vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.router_topk_launch(
+            q.data_ptr(), e.data_ptr(),
+            qscale.data_ptr() if quant else None,
+            escale.data_ptr() if quant else None,
+            mask_table.data_ptr(), rows.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            float(min_score), Q, N, D, k, chunk, int(quant),
+            pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            stream)
+    build.check(err, "router_topk")
+    return vals, idx
+
+
+def _on_card(t: torch.Tensor, kind: str) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{kind}: tensors must be on cuda or cpu, "
+                         f"not {t.device}")
+    return t.device.type == "cuda"
+
+
+def router_topk(qn, embn, mask_table, rows, k: int, *, bias=None,
+                min_score: float = NEG_INF):
+    """fp32 top-k.  qn (Q, D) query rows; embn (N, D) catalog rows;
+    mask_table (R, N) uint8 filter table; rows (Q,) int32 table row per
+    query; bias (N,) f32 or None.  Returns (vals (Q, k) f32,
+    idx (Q, k) int32)."""
+    if not _on_card(qn, "router_topk"):
+        return router_topk_plain(qn, embn, mask_table, rows, k, bias=bias,
+                                 min_score=min_score)
+    out = _launch(False, qn, embn, None, None, mask_table, rows, k, bias,
+                  min_score)
+    router_topk.launches += 1
+    return out
+
+
+def router_topk_q8(q8, e8, qscale, escale, mask_table, rows, k: int, *,
+                   bias=None, min_score: float = NEG_INF):
+    """int8 top-k.  q8 (Q, D) / e8 (N, D) int8 row-quantized rows with
+    qscale (Q,) / escale (N,) f32 per-row scales; the rest as
+    ``router_topk``."""
+    if not _on_card(q8, "router_topk_q8"):
+        return router_topk_q8_plain(q8, e8, qscale, escale, mask_table,
+                                    rows, k, bias=bias, min_score=min_score)
+    out = _launch(True, q8, e8, qscale, escale, mask_table, rows, k, bias,
+                  min_score)
+    router_topk_q8.launches += 1
+    return out
+
+
+router_topk.launches = 0
+router_topk_q8.launches = 0

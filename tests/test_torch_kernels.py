@@ -1,0 +1,312 @@
+"""The port's kernels (plain PyTorch versions, as the CPU runs them)
+against the JAX package: ``router_topk`` / ``router_topk_q8`` against
+``repro.kernels.ref.router_topk`` and the interpret-mode Pallas kernels
+behind ``repro.kernels.ops.router_topk``, and ``bandit_update`` against
+``ref.bandit_update``.  Inputs are made with numpy from a seed.
+
+Tolerances: fp32 values within 1e-6 on finite slots (different sum
+orders, same arithmetic); indices equal except inside a run of scores
+tied within 2e-6; int8 bit-equal (integer dots are exact); bandit
+outputs rtol 1e-5 (atol 1e-6 for values near zero).
+
+The CUDA kernels themselves need a card; those tests skip here and
+``chip_smoke.py`` holds each kernel against its plain version on it.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as K
+from repro.kernels import ref as R
+from repro_torch.kernels import bandit_update as BU
+from repro_torch.kernels import ops as P
+from repro_torch.kernels import router_topk as RT
+from repro_torch.kernels.route_step import quantize_rows
+
+NEG_INF = float("-inf")
+# the oracle, compiled once per shape instead of op by op
+_ref_topk = jax.jit(R.router_topk, static_argnums=(2,),
+                    static_argnames=("min_score", "quant"))
+
+
+def assert_topk_match(got, want, scores=None, *, atol=1e-6, what=""):
+    """Finite slots equal in number, values within ``atol``; indices
+    equal except where their scores tie within 2 * atol (``scores``,
+    the (Q, N) score matrix, decides ties)."""
+    gv, gi = (np.asarray(a) for a in got)
+    wv, wi = (np.asarray(a) for a in want)
+    fin = np.isfinite(wv)
+    np.testing.assert_array_equal(np.isfinite(gv), fin, err_msg=what)
+    np.testing.assert_allclose(gv[fin], wv[fin], rtol=0, atol=atol,
+                               err_msg=what)
+    diff = fin & (gi != wi)
+    for q, j in zip(*np.nonzero(diff)):
+        assert scores is not None, f"{what}: index differs at {(q, j)}"
+        assert abs(scores[q, gi[q, j]] - scores[q, wi[q, j]]) <= 2 * atol, \
+            f"{what}: index differs at {(q, j)} without a tie"
+
+
+def _problem(Q, N, D, seed, *, dups=0, empty_rows=0):
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((N, D)).astype(np.float32)
+    if dups:
+        emb[N - dups:] = emb[:dups]              # duplicate rows: ties
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    if dups:
+        q[:2] = emb[:2]
+    mask = rng.random((Q, N)) < 0.6
+    mask[:empty_rows] = False
+    return emb, q, mask
+
+
+def _cos(emb, q):
+    e = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
+    x = q / (np.linalg.norm(q, axis=1, keepdims=True) + 1e-9)
+    return x.astype(np.float64) @ e.T.astype(np.float64)
+
+
+# ----------------------------------------------------------------------
+# router_topk fp32
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("Q,N,D,k,min_score,with_bias", [
+    (5, 40, 8, 8, None, False),
+    (9, 300, 8, 8, None, True),          # row bias on valid rows
+    (4, 6, 8, 9, None, False),           # k > N: the tail is -inf
+    (16, 200, 40, 1, 0.3, False),        # the cache lookup's k=1 + floor
+    (7, 130, 5, 4, 0.1, True),
+])
+def test_router_topk_plain_matches_reference(Q, N, D, k, min_score,
+                                             with_bias):
+    emb, q, mask = _problem(Q, N, D, seed=Q * 100 + N, empty_rows=1)
+    bias = (np.random.default_rng(N).random(N).astype(np.float32) * 0.2
+            if with_bias else None)
+    got = P.router_topk(emb, q, k, mask=mask, row_bias=bias,
+                        min_score=min_score, device="cpu")
+    ref = _ref_topk(jnp.asarray(emb), jnp.asarray(q), k,
+                    mask=jnp.asarray(mask),
+                    row_bias=None if bias is None else jnp.asarray(bias),
+                    min_score=min_score)
+    pallas = K.router_topk(emb, q, k, mask=mask, row_bias=bias,
+                           min_score=min_score)
+    s = _cos(emb, q) + (0 if bias is None else bias[None, :])
+    for want, nm in ((ref, "ref"), (pallas, "pallas")):
+        assert_topk_match(got, want, s, what=nm)
+    assert np.isinf(np.asarray(got[0])[0]).all()      # the empty mask row
+
+
+def test_router_topk_duplicate_rows_tie_toward_lower_index():
+    """Bit-identical duplicate rows score equal; the lower catalog
+    index must come first, as ``lax.top_k`` orders them."""
+    Q, N, D, dups = 6, 64, 8, 16
+    emb, q, _ = _problem(Q, N, D, seed=5, dups=dups)
+    got_v, got_i = (np.asarray(a) for a in
+                    P.router_topk(emb, q, 8, device="cpu"))
+    ref_v, ref_i = (np.asarray(a) for a in
+                    _ref_topk(jnp.asarray(emb), jnp.asarray(q), 8))
+    np.testing.assert_array_equal(got_i, ref_i)
+    np.testing.assert_allclose(got_v, ref_v, atol=1e-6)
+    for row in got_i[:2]:            # queries equal to duplicated rows
+        for j in row:
+            if j >= N - dups:
+                assert j - (N - dups) in row[:list(row).index(j)]
+
+
+def test_router_topk_plain_reads_the_mask_table_rows():
+    """The kernel contract: a stacked uint8 table plus one row index per
+    query equals the (Q, N) mask it stands for."""
+    rng = np.random.default_rng(3)
+    N, D, Q = 100, 8, 12
+    emb = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((Q, D)).astype(np.float32))
+    table = torch.from_numpy((rng.random((5, N)) < 0.4).astype(np.uint8))
+    rows = torch.from_numpy(rng.integers(0, 5, Q).astype(np.int32))
+    got = RT.router_topk(q, emb, table, rows, 4)
+    full = table[rows.long()]
+    want = RT.router_topk(q, emb, full, torch.arange(Q, dtype=torch.int32), 4)
+    assert torch.equal(got[0], want[0])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(got[1][fin], want[1][fin])
+
+
+@pytest.mark.parametrize("B,M,k", [(3, 7, 2), (5, 50, 5), (2, 9, 9)])
+def test_topk_stable_matches_lax_top_k_with_ties(B, M, k):
+    rng = np.random.default_rng(B * M)
+    x = rng.integers(0, 4, (B, M)).astype(np.float32)   # many ties
+    x[0, :2] = -np.inf
+    v, i = RT.topk_stable(torch.from_numpy(x), k)
+    wv, wi = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+
+
+# ----------------------------------------------------------------------
+# router_topk int8
+# ----------------------------------------------------------------------
+
+def test_quantize_rows_bit_equal_to_reference():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((40, 9)).astype(np.float32)
+    x[3] = 0.0                                          # s = 1 rows
+    x[5, 2] = 0.5 * 127                                 # half-way values
+    q, s = quantize_rows(torch.from_numpy(x))
+    wq, ws = R.quantize_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ws))
+    nq, ns = P._quantize_rows_np(x)
+    np.testing.assert_array_equal(nq, np.asarray(wq))
+    np.testing.assert_array_equal(ns, np.asarray(ws))
+
+
+@pytest.mark.parametrize("Q,N,D,k,min_score", [
+    (6, 90, 8, 8, None), (11, 257, 40, 1, 0.2), (3, 5, 8, 7, None)])
+def test_router_topk_q8_plain_matches_reference(Q, N, D, k, min_score):
+    """End to end from float rows: the row norms before quantization
+    may differ in the last bit between the frameworks, so the scores
+    agree within 1e-6 (and bit for bit on shared int8 operands below)."""
+    emb, q, mask = _problem(Q, N, D, seed=N + k, empty_rows=1)
+    got = P.router_topk(emb, q, k, mask=mask, min_score=min_score,
+                        quant=True, device="cpu")
+    ref = _ref_topk(jnp.asarray(emb), jnp.asarray(q), k,
+                    mask=jnp.asarray(mask), min_score=min_score, quant=True)
+    assert_topk_match(got, ref, _cos(emb, q), atol=1e-6, what="q8")
+
+
+@pytest.mark.parametrize("Q,N,D,k,min_score", [
+    (6, 90, 8, 8, None), (11, 257, 40, 1, 0.2), (3, 5, 8, 7, None)])
+def test_router_topk_q8_plain_bit_equal_on_int8_operands(Q, N, D, k,
+                                                         min_score):
+    """The reference's own int8 rows and scales: ``ref._q8_matmul`` +
+    mask + floor + ``lax.top_k`` against the port's plain int8 version,
+    bit for bit."""
+    emb, q, mask = _problem(Q, N, D, seed=N + k, empty_rows=1)
+    e8, es = R.quantize_rows(jnp.asarray(emb))
+    q8, qs = R.quantize_rows(jnp.asarray(q))
+    s = R._q8_matmul(q8, e8, qs, es)
+    s = jnp.where(jnp.asarray(mask), s, -jnp.inf)
+    if min_score is not None:
+        s = jnp.where(s >= min_score, s, -jnp.inf)
+    if k > N:
+        s = jnp.pad(s, ((0, 0), (0, k - N)), constant_values=-jnp.inf)
+    wv, wi = jax.lax.top_k(s, k)
+    t = lambda a: torch.from_numpy(np.array(a))
+    gv, gi = RT.router_topk_q8(
+        t(q8), t(e8), t(qs)[:, 0], t(es)[:, 0], t(mask.astype(np.uint8)),
+        torch.arange(Q, dtype=torch.int32), k,
+        min_score=NEG_INF if min_score is None else min_score)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    fin = np.isfinite(np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy()[fin], np.asarray(wi)[fin])
+
+
+def test_router_topk_q8_same_int8_operands_as_pallas():
+    """Identical int8 operands through the port's plain int8 version
+    and the interpret-mode Pallas int8 kernel: bit-equal."""
+    from repro.kernels.router_topk import router_topk_q8_pallas
+    rng = np.random.default_rng(9)
+    Q, N, D, k = 8, 256, 128, 8
+    q8, qs = R.quantize_rows(jnp.asarray(
+        rng.standard_normal((Q, D)).astype(np.float32)))
+    e8, es = R.quantize_rows(jnp.asarray(
+        rng.standard_normal((N, D)).astype(np.float32)))
+    mask = rng.random((Q, N)) < 0.5
+    mask[0] = False
+    wv, wi = router_topk_q8_pallas(
+        q8, e8, qs, es.T, jnp.asarray(mask, jnp.float32),
+        jnp.zeros((1, N), jnp.float32), k, blk_q=8, blk_n=128,
+        interpret=True)
+    t = lambda a: torch.from_numpy(np.array(a))
+    gv, gi = RT.router_topk_q8(t(q8), t(e8), t(qs)[:, 0], t(es)[:, 0],
+                               t(mask.astype(np.uint8)),
+                               torch.arange(Q, dtype=torch.int32), k)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    fin = np.isfinite(np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy()[fin], np.asarray(wi)[fin])
+
+
+# ----------------------------------------------------------------------
+# bandit_update
+# ----------------------------------------------------------------------
+
+def _bandit_problem(Bu, Bs, N, D, seed):
+    rng = np.random.default_rng(seed)
+    w = np.zeros((Bu, N), np.float32)
+    w[np.arange(Bu), rng.integers(0, N, Bu)] = 1.0
+    x = rng.random((Bu, D)).astype(np.float32)
+    r = rng.random(Bu).astype(np.float32)
+    xs = rng.random((Bs, D)).astype(np.float32)
+    theta = (rng.standard_normal((N, D)) * 0.1).astype(np.float32)
+    L = (rng.standard_normal((N, D, D)) * 0.05).astype(np.float32)
+    ainv = np.einsum("nde,nfe->ndf", L, L) + 0.5 * np.eye(D, dtype=np.float32)
+    return x, w, r, xs, theta, ainv.astype(np.float32)
+
+
+@pytest.mark.parametrize("Bu,Bs,N,D,alpha", [
+    (16, 8, 64, 9, 0.8), (3, 1, 200, 9, 0.0), (7, 5, 33, 4, 1.5)])
+def test_bandit_update_plain_matches_reference(Bu, Bs, N, D, alpha):
+    args = _bandit_problem(Bu, Bs, N, D, seed=Bu + N)
+    got = P.bandit_update(*args, alpha, device="cpu")
+    want = R.bandit_update(*(jnp.asarray(a) for a in args), alpha)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_bandit_update_empty_outcome_batch_gives_zero_deltas():
+    x, w, r, xs, theta, ainv = _bandit_problem(4, 6, 50, 9, seed=2)
+    args = (x[:0], w[:0], r[:0], xs, theta, ainv)
+    dA, db, ucb = P.bandit_update(*args, 0.8, device="cpu")
+    assert not dA.any() and not db.any()
+    want = K.bandit_update(*args, 0.8)
+    np.testing.assert_array_equal(dA.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(ucb.numpy(), np.asarray(want[2]), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_bandit_update_without_scoring_rows_needs_no_posterior():
+    x, w, r, xs, theta, ainv = _bandit_problem(9, 3, 70, 9, seed=6)
+    dA, db, ucb = P.bandit_update(x, w, r, xs[:0], None, None, 0.8,
+                                  device="cpu")
+    want = R.bandit_update(*(jnp.asarray(a) for a in
+                             (x, w, r, xs, theta, ainv)), 0.8)
+    assert ucb.shape == (0, 70)
+    for g, w_ in zip((dA, db), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=1e-5,
+                                   atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernels: on the card only
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "for sm_90a; chip_smoke.py checks them on the card")
+    return torch.device("cuda")
+
+
+def test_cuda_router_topk_matches_plain(cuda):
+    emb, q, mask = _problem(64, 5000, 8, seed=1, dups=100, empty_rows=2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    args = (t(q), t(emb), t(mask.astype(np.uint8)),
+            torch.arange(64, dtype=torch.int32), 8)
+    want = RT.router_topk(*args)
+    got = RT.router_topk(*(a.to(cuda) if isinstance(a, torch.Tensor)
+                           else a for a in args))
+    assert torch.equal(got[0].cpu(), want[0])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(got[1].cpu()[fin], want[1][fin])
+
+
+def test_cuda_bandit_update_matches_plain(cuda):
+    args = [torch.from_numpy(a) for a in _bandit_problem(32, 16, 3000, 9, 4)]
+    x, w, r, xs, theta, ainv = args
+    want = BU.bandit_update(w, x, r, xs, theta, ainv, 0.8)
+    got = BU.bandit_update(*(a.to(cuda) for a in (w, x, r, xs, theta, ainv)),
+                           0.8)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
