@@ -18,7 +18,24 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      same run on the CPU (plain versions) fed the card run's task
      signatures, and those signatures must match the analyzer run on
      the CPU over the same batches;
-  3. a per-stage breakdown of one served batch.
+  3. a per-stage breakdown of one served batch;
+  4. the model-zoo kernels (flash attention in its prefill and decode
+     launch shapes, the SSD scan) against their plain versions at the
+     generation path's shapes (llama3.2-1b prefill and decode at B=16,
+     prompt 512; mamba2-1.3b prefill at B=16, L=512), plus a small f32
+     sweep over window, softcap, causal=False and ragged shapes;
+  5. routed generation at full width and depth: a catalog of
+     llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
+     published config with seeded random bf16 weights on the card;
+     32 requests (16 per model, by preference profile) through
+     ``ServingEngine(prompt_len=512).submit`` with ``max_new=16``; no
+     response may fail or be shed, every one carries 16 tokens, the
+     prefill logits are finite, and the kernels' launch counts are
+     exactly one per layer per prefill and one per llama layer per
+     decode step;
+  6. card against CPU: the two configs at full width, 2 layers, f32
+     compute, the same seeded weights on both devices: prefill logits
+     within 1e-3 of max |logit|, greedy tokens equal (tie-aware).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -44,6 +61,8 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 PEAK_INT8_S = 1979e12           # int8 tensor-core dense TOP/s
+PEAK_BF16_S = 989e12            # bf16 tensor-core dense FLOP/s
+GEN_ARCHS = ["llama3.2-1b", "mamba2-1.3b"]
 NEG_INF = float("-inf")
 
 
@@ -670,6 +689,414 @@ def breakdown(torch, dev, router, batch):
 
 
 # ----------------------------------------------------------------------
+# phase 4: the model-zoo kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def sdpa_call(torch, q, k, v, **kw):
+    """One PyTorch call computing attention on (B, H, L, hd) operands
+    (the yardstick only: the port never calls it).  GQA through
+    ``enable_gqa`` where this PyTorch has it, else K/V repeated once,
+    outside the timed call."""
+    import torch.nn.functional as F
+    G = q.shape[1] // k.shape[1]
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True, **kw)
+    except TypeError:
+        kr = k.repeat_interleave(G, dim=1)
+        vr = v.repeat_interleave(G, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, kr, vr, **kw)
+
+
+def attn_check(torch, FA, q, k, v, kv_valid, tol, what, **kw):
+    """Kernel (through its wrapper) against the plain version on the
+    same (B, H, L, hd) operands, |err| <= tol * (1 + |want|) (a bf16
+    output may round one ulp apart, and an ulp grows with |want|);
+    returns the max abs error."""
+    got = FA.flash_attention(q, k, v, kv_valid, **kw)
+    want = FA.flash_attention_plain(q, k, v, kv_valid, **kw)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    over = float((diff - tol * (1 + want.float().abs())).max())
+    check(over <= 0, f"{what}: |err| exceeds {tol} * (1 + |want|) by {over}")
+    return float(diff.max())
+
+
+def ssd_ops(Bb, L, H, P, N, chunk) -> float:
+    """Operations the scan needs: per (batch, head, chunk of length c)
+    2cNP (inter) + c(c+1)P (intra) + 2cPN (state), and C B^T once per
+    (batch, chunk), c(c+1)N, since B and C are shared by the heads."""
+    ops = 0.0
+    for c0 in range(0, L, chunk):
+        c = min(chunk, L - c0)
+        tri = c * (c + 1) / 2
+        ops += Bb * H * (2.0 * c * N * P + 2.0 * tri * P + 2.0 * c * P * N)
+        ops += Bb * 2.0 * tri * N
+    return ops
+
+
+def model_kernel_phase(torch, dev, small: bool):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+
+    results = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    bf = torch.bfloat16
+    # -- llama3.2-1b prefill: B=16, L=prompt_len, 32/8 heads of 64, bf16
+    B, L, Hq, Hkv, hd = (2, 64, 4, 1, 64) if small else (16, 512, 32, 8, 64)
+    # layer layout (B, L, H, hd) as the model hands it over; the kernel
+    # contract is (B, H, L, hd): transpose(1, 2) views, no copy
+    q = rn(B, L, Hq, hd, dt=bf).transpose(1, 2)
+    k = rn(B, L, Hkv, hd, dt=bf).transpose(1, 2)
+    v = rn(B, L, Hkv, hd, dt=bf).transpose(1, 2)
+    err_p = attn_check(torch, FA, q, k, v, None, 2e-2,
+                       "flash_attention prefill", causal=True)
+    nb = 2 * (2 * B * L * Hq * hd + 2 * B * L * Hkv * hd)
+    bms, by = bound_ms(nb, 4.0 * B * Hq * hd * (L * (L + 1) / 2),
+                       PEAK_BF16_S)
+    qc, kc_, vc_ = (x.contiguous() for x in (q, k, v))
+    results["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:87",
+        max_abs_err=err_p,
+        ms=time_graph_ms(torch, lambda: FA.flash_attention(
+            q, k, v, causal=True), dev),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
+            q, k, v, causal=True), dev),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_graph_ms(torch, sdpa_call(torch, qc, kc_, vc_,
+                                                  is_causal=True), dev))
+
+    # -- the decode shape: one query against a cache of capacity
+    # prompt + max_new + 8, mixed live lengths
+    C = 76 if small else 536
+    rng = np.random.default_rng(8)
+    kvv = rng.integers(1, C + 1, B)
+    kvv[0], kvv[-1] = 1, C
+    kv_valid = torch.from_numpy(kvv.astype(np.int32)).to(dev)
+    qd = rn(B, 1, Hq, hd, dt=bf).transpose(1, 2)
+    kd = rn(B, C, Hkv, hd, dt=bf).transpose(1, 2)
+    vd = rn(B, C, Hkv, hd, dt=bf).transpose(1, 2)
+    err_d = attn_check(torch, FA, qd, kd, vd, kv_valid, 2e-2,
+                       "flash_attention decode", causal=False)
+    live = int(kvv.sum())
+    dbms, dby = bound_ms(2 * (2 * B * Hq * hd + 2 * live * Hkv * hd),
+                         4.0 * Hq * hd * live, PEAK_BF16_S)
+    dec_ms = time_graph_ms(torch, lambda: FA.flash_attention(
+        qd, kd, vd, kv_valid, causal=False), dev)
+    dec_plain = time_ms(torch, lambda: FA.flash_attention_plain(
+        qd, kd, vd, kv_valid, causal=False), dev)
+    mask = (torch.arange(C, device=dev)[None, :] < kv_valid[:, None])
+    dec_lib = time_graph_ms(torch, sdpa_call(
+        torch, qd.contiguous(), kd.contiguous(), vd.contiguous(),
+        attn_mask=mask[:, None, None, :]), dev)
+    results["flash_attention"]["max_abs_err"] = max(err_p, err_d)
+    log(f"[kernels] flash_attention decode shape B={B} C={C} Hq={Hq} "
+        f"Hkv={Hkv} hd={hd} bf16, {live} live keys: {dec_ms:.4f} ms "
+        f"(plain {dec_plain:.4f}, library {dec_lib:.4f}, bound "
+        f"{dbms:.4g} by {dby}), max err {err_d:.3g}")
+
+    # -- f32 sweep: window, softcap, causal=False, ragged, zero rows
+    sweep = [((2, 90, 90, 4, 2, 64), None, dict(causal=True, window=16)),
+             ((2, 90, 90, 4, 2, 64), None,
+              dict(causal=True, window=7, softcap=50.0)),
+             ((2, 90, 90, 4, 2, 32), None, dict(causal=False, softcap=30.0)),
+             ((2, 100, 100, 4, 1, 128), None, dict(causal=True)),
+             ((2, 70, 130, 8, 2, 64), None, dict(causal=True)),
+             ((3, 1, 100, 8, 2, 128), [0, 50, 100], dict(causal=False)),
+             ((2, 1, 77, 32, 1, 64), None, dict(causal=True, window=20))]
+    worst = 0.0
+    for (b_, lq, lk, hq, hk, d), kvl, kw in sweep:
+        kvt = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
+                                                    device=dev)
+        worst = max(worst, attn_check(
+            torch, FA, rn(b_, lq, hq, d).transpose(1, 2),
+            rn(b_, lk, hk, d).transpose(1, 2),
+            rn(b_, lk, hk, d).transpose(1, 2), kvt, 2e-4,
+            f"flash_attention f32 {(b_, lq, lk, hq, hk, d)} {kw}", **kw))
+    log(f"[kernels] flash_attention f32 sweep ({len(sweep)} cases: window, "
+        f"softcap, causal=False, Lq != Lk, hd 32/64/128, a row with no "
+        f"live key): max err {worst:.3g} (tol 2e-4)")
+
+    # -- mamba2-1.3b prefill scan: B=16, L=512, 64 heads of 64, N=128
+    Bb, L, H, P, N, ch = (2, 64, 16, 32, 16, 16) if small else \
+        (16, 512, 64, 64, 128, 256)
+    x = rn(Bb, L, H, P)
+    dt = torch.rand(Bb, L, H, generator=g, device=dev) * 0.5
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, Cm, h0 = rn(Bb, L, N), rn(Bb, L, N), rn(Bb, H, P, N)
+    y, hf = SS.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=ch)
+    y2, hf2 = SS.ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=ch)
+    err_s = 0.0
+    for a, b_, nm in ((y, y2, "y"), (hf, hf2, "h_final")):
+        e = float((a - b_).abs().max())
+        tol = 1e-4 * max(1.0, float(b_.abs().max()))
+        check(e <= tol, f"ssd_scan {nm}: max |err| {e} > {tol}")
+        err_s = max(err_s, e)
+    nb = 4 * (2 * Bb * L * H * P + Bb * L * H + H + 2 * Bb * L * N
+              + 2 * Bb * H * P * N)
+    sbms, sby = bound_ms(nb, ssd_ops(Bb, L, H, P, N, ch), PEAK_FP32_S)
+    results["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:75",
+        max_abs_err=err_s,
+        ms=time_graph_ms(torch, lambda: SS.ssd_scan(
+            x, dt, A, Bm, Cm, h0, chunk=ch), dev),
+        plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
+            x, dt, A, Bm, Cm, h0, chunk=ch), dev),
+        bound_ms=sbms, bound_by=sby, library_ms=None)
+    log(f"[kernels] ssd_scan B={Bb} L={L} H={H} P={P} N={N} chunk={ch} f32 "
+        f"with h0: max |y| {float(y2.abs().max()):.3g}, max err "
+        f"{err_s:.3g} (tol 1e-4 of max |y|); no single PyTorch call "
+        f"computes it, so no library time")
+    # small f32 sweep: odd L, several chunks, narrow P and N
+    worst = 0.0
+    for b_, l_, h_, p_, n_, c_ in ((1, 32, 2, 16, 8, 16),
+                                   (2, 75, 3, 32, 16, 16),
+                                   (1, 128, 4, 64, 128, 64),
+                                   (2, 17, 1, 8, 4, 8)):
+        args = (rn(b_, l_, h_, p_),
+                torch.rand(b_, l_, h_, generator=g, device=dev) * 0.5,
+                -torch.exp(rn(h_)), rn(b_, l_, n_), rn(b_, l_, n_),
+                rn(b_, h_, p_, n_))
+        for a, b2 in zip(SS.ssd_scan(*args, chunk=c_),
+                         SS.ssd_scan_plain(*args, chunk=c_)):
+            e = float((a - b2).abs().max())
+            tol = 1e-4 * max(1.0, float(b2.abs().max()))
+            check(e <= tol, f"ssd_scan {(b_, l_, h_, p_, n_, c_)}: max |err| "
+                            f"{e} > {tol}")
+            worst = max(worst, e / tol)
+    log(f"[kernels] ssd_scan f32 sweep (4 shapes, ragged L, P 8-64, N "
+        f"4-128): worst error {worst:.3g} of its tolerance")
+    # the model's form: bf16 x / B / C as strided views of one
+    # projection, a ragged L, chaining through h0
+    xbc = rn(Bb, L - 7, H * P + 2 * N, dt=bf)
+    xs = xbc[..., :H * P].unflatten(-1, (H, P))
+    bs, cs = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dts = dt[:, :L - 7].contiguous()
+    half = (L - 7) // 2
+    ya, ha = SS.ssd_scan(xs[:, :half], dts[:, :half], A, bs[:, :half],
+                         cs[:, :half], None, chunk=ch)
+    yb, hb = SS.ssd_scan(xs[:, half:], dts[:, half:], A, bs[:, half:],
+                         cs[:, half:], ha, chunk=ch)
+    yw, hw = SS.ssd_scan_plain(xs, dts, A, bs, cs, None, chunk=ch)
+    e2 = max(float((torch.cat([ya, yb], 1) - yw).abs().max()),
+             float((hb - hw).abs().max()))
+    tol2 = 1e-4 * max(1.0, float(yw.abs().max()), float(hw.abs().max()))
+    check(e2 <= tol2, f"ssd_scan strided bf16 chained: max |err| {e2} > "
+                      f"{tol2}")
+    log(f"[kernels] ssd_scan bf16 strided views, L={L - 7} in two chained "
+        f"halves: max err {e2:.3g} (tol {tol2:.3g})")
+    for key in ("flash_attention", "ssd_scan"):
+        r = results[key]
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"[kernels] {key}: ok, max err {r['max_abs_err']:.3g}, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return results
+
+
+# ----------------------------------------------------------------------
+# phase 5: routed generation at full width and depth
+# ----------------------------------------------------------------------
+
+GEN_PROFILES = ["accuracy-first", "cost-effective", "balanced",
+                "latency-first"]
+
+
+def generation_requests(n: int, max_new: int, seed: int):
+    """n workload texts, the profiles in turn: accuracy-first and
+    balanced route to mamba2-1.3b, cost-effective and latency-first to
+    llama3.2-1b (the cheaper, faster entry), so each runner gets n/2."""
+    from repro_torch.data.workload import make_workload
+    from repro_torch.serving.engine import Request
+
+    return [Request(text=r.text, prefs=GEN_PROFILES[i % 4], id=i,
+                    max_new=max_new)
+            for i, r in enumerate(make_workload(n, seed=seed))]
+
+
+def generation_phase(torch, dev, small: bool, kernels):
+    from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
+    from repro_torch.core.orchestrator import OptiRoute
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.serving.catalog import build_catalog
+    from repro_torch.serving.engine import ServingEngine
+
+    prompt_len, max_new, n_req = (64, 4, 16) if small else (512, 16, 32)
+    t0 = time.perf_counter()
+    mres = build_catalog(archs=GEN_ARCHS, full_runners=not small,
+                         smoke_runners=small, seed=7, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log(f"[generate] runners with seeded weights on {dev} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results = {}
+    for name in GEN_ARCHS:
+        runner = mres.entry(name).runner
+        cfg = runner.cfg
+        log(f"[generate] {name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_padded}, {cfg.n_params()} "
+            f"parameters in {cfg.compute_dtype}")
+
+        def capture(toks, max_new=16, _gen=runner.generate, _n=name, **kw):
+            res = _gen(toks, max_new, **kw)
+            results[_n] = res
+            return res
+        runner.generate = capture
+    router = OptiRoute(mres, TaskAnalyzer(AnalyzerConfig(), seed=3,
+                                          device=dev), device=dev)
+    eng = ServingEngine(router, prompt_len=prompt_len)
+    reqs = generation_requests(n_req, max_new, seed=5)
+    t0 = time.perf_counter()
+    eng.submit(reqs)                                 # warm-up pass
+    log(f"[generate] warm-up submit {time.perf_counter() - t0:.2f} s")
+    for f in (FA.flash_attention, SS.ssd_scan):
+        f.launches = 0
+    FA.flash_attention.decode_launches = 0
+    t0 = time.perf_counter()
+    out = eng.submit(reqs)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "flash_attention_decode": FA.flash_attention.decode_launches,
+                "ssd_scan": SS.ssd_scan.launches}
+    log(f"[generate] launches on the main path: {launches}")
+    by_model = {}
+    for r in out:
+        check(not r.failed and not r.shed,
+              f"request {r.request.id}: {r.admission} {r.error}")
+        check(r.tokens is not None and len(r.tokens) == max_new,
+              f"request {r.request.id}: tokens {r.tokens}")
+        by_model[r.model] = by_model.get(r.model, 0) + 1
+    log(f"[generate] {len(out)} requests served per model: {by_model}")
+    for name in GEN_ARCHS:
+        check(by_model.get(name, 0) >= 8,
+              f"{name} served {by_model.get(name, 0)} requests (< 8)")
+        res = results[name]
+        check(bool(np.isfinite(res.logits_last).all()),
+              f"{name}: non-finite prefill logits")
+        check(res.tokens.shape == (by_model[name], max_new),
+              f"{name}: generated {res.tokens.shape}")
+    n_llama = mres.entry("llama3.2-1b").runner.cfg.n_layers
+    n_mamba = mres.entry("mamba2-1.3b").runner.cfg.n_layers
+    want = {"flash_attention": n_llama * max_new,
+            "flash_attention_decode": n_llama * (max_new - 1),
+            "ssd_scan": n_mamba}
+    if dev.type == "cuda":
+        check(launches == want, f"launch counts {launches}, want {want} "
+                                "(one per layer per prefill and decode step)")
+    for name in GEN_ARCHS:
+        res = results[name]
+        B = res.tokens.shape[0]
+        step = res.decode_s / max(max_new - 1, 1)
+        log(f"[generate] {name}: B={B}, prompt {prompt_len}, {max_new} "
+            f"new tokens: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+            f"{step * 1e3:.3f} ms per step, {B * max_new / res.wall_s:.1f} "
+            f"generated tokens/s ({res.wall_s * 1e3:.1f} ms in generate)")
+    log(f"[generate] submit of {len(out)} requests: {wall:.3f} s")
+    for name in GEN_ARCHS:
+        decode_profile(torch, dev, mres.entry(name).runner, name,
+                       results[name].tokens.shape[0], prompt_len)
+    kernels["flash_attention"]["launches"] = launches["flash_attention"]
+    kernels["ssd_scan"]["launches"] = launches["ssd_scan"]
+
+
+def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
+                   steps: int = 3):
+    """Device busy share of ``steps`` decode steps: the kernel time a
+    ``torch.profiler`` trace attributes to them over their wall time
+    (host clock, ending in a synchronize)."""
+    if dev.type != "cuda":
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.steps import make_decode_step, make_prefill_step
+
+    toks = torch.ones((B, prompt_len), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        last, cache, pos = make_prefill_step(
+            runner.cfg, max_len=prompt_len + steps + 2)(runner.params,
+                                                         {"tokens": toks})
+        step = make_decode_step(runner.cfg)
+        tok = torch.argmax(last, dim=-1)[:, None]
+        _, tok, cache = step(runner.params, cache, {"token": tok, "pos": pos})
+        pos = pos + 1
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, tok, cache = step(runner.params, cache,
+                                     {"token": tok, "pos": pos})
+                pos = pos + 1
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages())
+    if not dev_us:
+        log(f"[profile] {name}: the trace holds no device time; device "
+            f"busy share not measured")
+        return
+    log(f"[profile] {name}: {steps} decode steps (B={B}) in "
+        f"{wall * 1e3:.2f} ms (under the profiler), device busy "
+        f"{dev_us / 1e3:.2f} ms = {dev_us / 1e6 / wall:.1%} of it")
+
+
+# ----------------------------------------------------------------------
+# phase 6: the card against the CPU
+# ----------------------------------------------------------------------
+
+def card_vs_cpu_phase(torch, dev, small: bool):
+    """Full width, 2 layers, f32 compute: the same seeded weights on the
+    card (kernels) and the CPU (plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.serving.runner import ModelRunner
+
+    cpu = torch.device("cpu")
+    B, Lp, max_new = (2, 24, 4) if small else (4, 64, 4)
+    for name in GEN_ARCHS:
+        base = get_smoke(name) if small else get_config(name)
+        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(11), cpu)
+        toks = np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (B, Lp)).astype(np.int32)
+        ref = ModelRunner(cfg, params=params, device=cpu).generate(
+            toks, max_new, keep_logits=True)
+        got = ModelRunner(cfg, params=params, device=dev).generate(
+            toks, max_new, keep_logits=True)
+        scale = float(np.abs(ref.logits_last).max())
+        tol = 1e-3 * scale
+        err = float(np.abs(got.logits_last - ref.logits_last).max())
+        check(err <= tol, f"{name}: prefill logits off by {err} > {tol}")
+        compared = 0
+        for b in range(B):
+            for s_ in range(max_new):
+                top2 = np.sort(ref.step_logits[b, s_])[-2:]
+                if top2[1] - top2[0] < tol:
+                    break                     # near-tie: stop this row
+                check(got.tokens[b, s_] == ref.tokens[b, s_],
+                      f"{name}: row {b} step {s_} token "
+                      f"{got.tokens[b, s_]} vs {ref.tokens[b, s_]}")
+                compared += 1
+        log(f"[card vs cpu] {name} (d_model {cfg.d_model}, 2 layers, f32, "
+            f"B={B}, prompt {Lp}): prefill logits max err {err:.3g} "
+            f"(max |logit| {scale:.3g}, tol {tol:.3g}); {compared} of "
+            f"{B * max_new} greedy tokens compared, all equal")
+
+
+# ----------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -691,7 +1118,8 @@ def main() -> int:
             return 2
         dev = torch.device("cuda", 0)
         t0 = time.perf_counter()
-        build.build_all(["router_topk", "bandit_update"])
+        build.build_all(["router_topk", "bandit_update", "flash_attention",
+                         "ssd_scan"])
         log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
         for name, out in build.BUILD_LOG.items():
             for line in out.splitlines():
@@ -703,6 +1131,9 @@ def main() -> int:
     try:
         kernels = kernel_phase(torch, dev, rng, small=args.rehearse)
         serving_phase(torch, dev, args.rehearse, kernels)
+        kernels.update(model_kernel_phase(torch, dev, args.rehearse))
+        generation_phase(torch, dev, args.rehearse, kernels)
+        card_vs_cpu_phase(torch, dev, args.rehearse)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

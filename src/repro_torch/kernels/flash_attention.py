@@ -1,0 +1,147 @@
+"""Online-softmax attention: wrapper of the CUDA kernel in
+``csrc/flash_attention.cu`` and its plain PyTorch version.
+
+Replaces the Pallas ``flash_attention_pallas`` (the JAX package's
+``kernels/flash_attention.py``).  Same contract: q (B, Hq, Lq, hd),
+k / v (B, Hkv, Lk, hd) with Hq % Hkv == 0 and kv head = q head //
+(Hq / Hkv); scores ``(q . k) / sqrt(hd)`` with the true hd, an optional
+tanh softcap, then the mask -- ``ik < kv_valid[b]`` and, with
+``causal``, ``ik <= row`` and ``ik > row - window`` where ``row = iq +
+Lk - Lq`` (the ends aligned) -- softmax over the live keys, times v.
+f32 inside; the output in q's dtype; a row with no live key gives 0.
+``kv_valid`` (B,) int32 is the per-sequence live key count (decode
+against a partly filled cache); None means all Lk keys.
+
+The tensors may be strided views (the head dim contiguous): the
+model's (B, L, H, hd) activations and its KV cache go in as
+``transpose(1, 2)`` views, without a copy.  A wrapper given CUDA
+tensors launches the kernel (or raises); CPU tensors take the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (32, 64, 128)               # csrc/flash_attention.cu dispatch
+NEG_INF = float("-inf")
+
+_SIG = {"flash_attention_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p]}
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
+               window: int, device) -> torch.Tensor:
+    """(B, 1, 1, Lq, Lk) bool: the keys each query row may see."""
+    iq = torch.arange(Lq, device=device)[:, None]
+    ik = torch.arange(Lk, device=device)[None, :]
+    ok = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        row = iq + (Lk - Lq)
+        ok = ik <= row
+        if window:
+            ok = ok & (ik > row - window)
+    ok = ok[None]
+    if kv_valid is not None:
+        ok = ok & (ik[None] < kv_valid.to(device).reshape(B, 1, 1))
+    return ok[:, None, None]
+
+
+def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
+                          window: int = 0, softcap: float = 0.0):
+    """Plain PyTorch version: masked f32 scores -> softmax -> values,
+    the (m, l) guard of the kernel written out (no live key: 0)."""
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, Lq, hd)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qf, k.float()) / math.sqrt(hd)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    ok = _live_mask(B, Lq, Lk, kv_valid, causal, window, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m == NEG_INF, torch.zeros_like(m), m)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqm,bkmd->bkgqd", p, v.float())
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return o.reshape(B, Hq, Lq, hd).to(q.dtype)
+
+
+def _check(q, k, v, kv_valid):
+    dev = q.device
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel: q, k, v must all be "
+                        f"float32 or bfloat16, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if k.shape != (B, Hkv, Lk, hd) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    for t in (q, k, v):
+        if t.device != dev:
+            raise ValueError("flash_attention: q, k, v on different devices")
+        # vector loads: head dim contiguous, 16-byte aligned rows
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
+                t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: operand strides "
+                             f"{t.stride()} need a contiguous head dim and "
+                             "16-byte aligned rows")
+    if kv_valid.device != dev or kv_valid.dtype != torch.int32 or \
+            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous():
+        raise ValueError("flash_attention: kv_valid must be a contiguous "
+                         f"({B},) int32 tensor on {dev}")
+
+
+def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0):
+    """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid (B,) int32 or
+    None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the card the result
+    is a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
+    tensor, the model's layout.  Lq == 1 launches the decode shape."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: tensors must be on cuda or "
+                         f"cpu, not {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid, causal=causal,
+                                     window=window, softcap=softcap)
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if kv_valid is None:
+        kv_valid = torch.full((B,), Lk, dtype=torch.int32, device=q.device)
+    _check(q, k, v, kv_valid)
+    lib = build.load("flash_attention", _SIG)
+    out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+            out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
+            int(window), float(softcap), stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    if Lq == 1:
+        flash_attention.decode_launches += 1
+    return out
+
+
+# launches on the card: all of them, and those of the decode shape
+flash_attention.launches = 0
+flash_attention.decode_launches = 0

@@ -10,7 +10,9 @@ on ``device``, and hands host numpy arrays back sliced to the batch.
 Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
 On the card the route-step kNN, the cache lookup and the bandit update
 always launch their hand-written kernels; ``device="cpu"`` runs their
-plain PyTorch versions.
+plain PyTorch versions.  The model-zoo ops at the end (``flash_attention``,
+``flash_decode``, ``ssd_scan``) take tensors and run where those tensors
+live: on the card their kernels, on the CPU the plain versions.
 """
 from __future__ import annotations
 
@@ -26,10 +28,13 @@ from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
                                               analyze_route_step_body,
                                               analyze_step_body)
 from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_kernel
 from repro_torch.kernels.route_step import (quantize_rows, route_step_body,
                                             unit_rows)
 from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
                                              router_topk_q8 as _topk_q8_kernel)
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 LANE = 128
 
@@ -435,3 +440,43 @@ def bandit_update(x_up, w, r, x_score, theta, ainv, alpha: float, *,
         ainv = _to(ainv, dev).reshape(N, D, D).contiguous()
     da, db, ucb = _bandit_kernel(w, x_up, r, x_score, theta, ainv, alpha)
     return da.reshape(N, D, D), db, ucb
+
+
+# ----------------------------------------------------------------------
+# flash attention (the model zoo's attention, layer layout)
+# ----------------------------------------------------------------------
+
+def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q (B, Lq, Hq, hd); k, v (B, Lk, Hkv, hd) -- layer layout (L, H,
+    hd), possibly strided views (a KV cache).  kv_valid (B,) int32: the
+    per-sequence live key count (decode mode).  The kernel reads the
+    layer layout through its strides and takes the true head_dim, so
+    the reference's 128-lane pad and ``scale_fix`` have no counterpart.
+    Returns (B, Lq, Hq, hd) in q's dtype."""
+    out = _flash_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), kv_valid, causal=causal,
+                        window=window, softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def flash_decode(q, k_cache, v_cache, pos, *,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """One query token against a partly filled cache: q (B, 1, Hq, hd);
+    k_cache / v_cache (B, C, Hkv, hd); pos (B,) int -- the current
+    token's index, so the keys at slots <= pos are live (as
+    ``models/layers.attention_decode`` masks them).  Returns
+    (B, 1, Hq, hd)."""
+    kv_valid = (pos + 1).to(torch.int32).contiguous()
+    return flash_attention(q, k_cache, v_cache, kv_valid, causal=False,
+                           softcap=softcap)
+
+
+# ----------------------------------------------------------------------
+# SSD scan
+# ----------------------------------------------------------------------
+
+def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 128):
+    """Chunked SSD scan (``kernels/ssd_scan.py``): (y (Bb, L, H, P) f32,
+    h_final (Bb, H, P, N) f32)."""
+    return _ssd_kernel(x, dt, A, B, C, h0, chunk=chunk)

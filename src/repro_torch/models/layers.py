@@ -1,0 +1,279 @@
+"""Building blocks of the model zoo, for the families this port serves
+(dense attention and the Mamba2 SSM).
+
+Port of the JAX package's ``models/layers.py``.  Parameters are plain
+dicts of tensors and layers are functions ``f(p, x, ...) -> y``, as
+there.  Attention, prefill and decode alike, goes through
+``kernels/ops.flash_attention`` -- the hand-written kernel on the card
+-- and the SSD scan of a prefill through ``kernels/ops.ssd_scan``; the
+reference's jnp attention variants (``attention_full``, the naive
+masked product, ``attention_blocked``) are one structure here.  The
+decode step writes its one KV slot in place (the reference returns a
+new cache; PyTorch can update the buffer it was given).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.routing import not_ported
+from repro_torch.kernels import ops
+
+_ITEM6 = "item 6.{} '{}'"
+
+
+def check_supported(cfg) -> None:
+    """Raise ``not_ported`` for any part of ``cfg`` outside the dense
+    and SSM families this slice serves, naming its ROADMAP.md item."""
+    if cfg.is_moe:
+        raise not_ported("Mixture-of-experts layers", _ITEM6.format(
+            1, "qwen3-moe-30b-a3b with moe_block and the moe_gating "
+               "kernel"))
+    hymba = _ITEM6.format(2, "hymba-1.5b: ring decode and hybrid fusion")
+    if cfg.arch_type == "hybrid":
+        raise not_ported("Hybrid attention+SSM layers", hymba)
+    if cfg.local_global_pattern:
+        raise not_ported("Local/global attention alternation",
+                         _ITEM6.format(3, "gemma2-2b: softcaps, "
+                                          "local/global"))
+    if cfg.arch_type not in ("dense", "ssm") or cfg.frontend:
+        raise not_ported("Modality frontends and encoder-decoders",
+                         _ITEM6.format(4, "encdec/vlm/audio frontends"))
+    if cfg.sliding_window:
+        raise not_ported("The sliding-window ring cache", hymba)
+    if cfg.kv_cache_dtype == "int8":
+        raise not_ported("kv_cache_dtype='int8'",
+                         _ITEM6.format(5, "the int8 KV cache"))
+
+
+# ----------------------------------------------------------------------
+# init helper
+# ----------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype,
+               scale: Optional[float] = None, device=None) -> torch.Tensor:
+    """Normal(0, std) with std = 1/sqrt(fan_in) (or ``scale``), the
+    distribution of the reference's ``dense_init``; the draws come from
+    ``gen``, not from ``jax.random``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# norms / activations
+# ----------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ----------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, L, H, hd); positions: (B, L) int.  f32 math, cast back."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].float() * inv              # (B, L, hd/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# attention (GQA, optional bias)
+# ----------------------------------------------------------------------
+
+def init_attention(gen, cfg, device=None):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"wq": dense_init(gen, (d, qd), dt, device=device),
+         "wk": dense_init(gen, (d, kvd), dt, device=device),
+         "wv": dense_init(gen, (d, kvd), dt, device=device),
+         "wo": dense_init(gen, (qd, d), dt, device=device)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((qd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((kvd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((kvd,), dtype=dt, device=device)
+    return p
+
+
+def _split_heads(x, n_heads: int, head_dim: int):
+    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+
+
+def qkv(p, cfg, x):
+    """The q/k/v projections, split into heads: (B, L, H, hd) each."""
+    def proj(w, b):
+        y = x @ p[w]
+        return y + p[b] if b in p else y
+    q = _split_heads(proj("wq", "bq"), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(proj("wk", "bk"), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(proj("wv", "bv"), cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def attention_prefill(p, cfg, x, positions):
+    """Causal full-sequence attention (prefill / training forward), for
+    both ``attn_impl`` values: the blocked and the naive reference
+    paths compute the same function, which is one launch of the flash
+    kernel here.  Returns (out (B, L, d), (k, v)) -- k post-RoPE, the
+    prefill cache."""
+    B, L, _ = x.shape
+    q, k, v = qkv(p, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=True,
+                              softcap=cfg.attn_softcap)
+    out = out.reshape(B, L, cfg.q_dim) @ p["wo"]
+    return out, (k, v)
+
+
+def attention_decode(p, cfg, x, k_cache, v_cache, positions):
+    """Single-token decode against a KV cache.
+
+    x: (B, 1, d); k_cache / v_cache: (B, C, Hkv, hd), written in place
+    at slot ``positions`` (keys post-RoPE); positions: (B,) int -- the
+    index of the current token, so slots <= position are live.
+    Returns (out, k_cache, v_cache)."""
+    B = x.shape[0]
+    q, k, v = qkv(p, cfg, x)
+    pos2 = positions[:, None]
+    q = apply_rope(q, pos2, cfg.rope_theta)
+    k = apply_rope(k, pos2, cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, positions] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, positions] = v[:, 0].to(v_cache.dtype)
+    out = ops.flash_decode(q, k_cache, v_cache, positions,
+                           softcap=cfg.attn_softcap)
+    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+# ----------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------
+
+def init_mlp(gen, cfg, device=None):
+    d, f = cfg.d_model, cfg.d_ff
+    dt = getattr(torch, cfg.param_dtype)
+    return {"wi": dense_init(gen, (d, f), dt, device=device),
+            "wg": dense_init(gen, (d, f), dt, device=device),
+            "wo": dense_init(gen, (f, d), dt, device=device)}
+
+
+def mlp(p, x):
+    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+# ----------------------------------------------------------------------
+# Mamba2 / SSD
+# ----------------------------------------------------------------------
+
+def init_ssm(gen, cfg, device=None):
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * N                                  # groups = 1
+    dt = getattr(torch, cfg.param_dtype)
+    return {
+        "in_proj": dense_init(gen, (d, 2 * di + 2 * N + H), dt,
+                              device=device),
+        "conv_w": dense_init(gen, (cfg.ssm_conv_width, conv_dim), dt,
+                             scale=0.5, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)).to(dt),
+        "D": torch.ones((H,), dtype=dt, device=device),
+        "dt_bias": torch.zeros((H,), dtype=dt, device=device),
+        "norm": torch.zeros((di,), dtype=dt, device=device),
+        "out_proj": dense_init(gen, (di, d), dt, device=device),
+    }
+
+
+def _ssm_split(p, cfg, u):
+    """Project + split.  u: (B, L, d) -> z, xBC, dt (dt f32)."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    zxbcdt = u @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + di + 2 * N]
+    dt_raw = zxbcdt[..., di + di + 2 * N:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    return z, xBC, dt
+
+
+def _causal_conv(xBC, w, state=None):
+    """Depthwise causal conv.  xBC: (B, L, C); w: (K, C); state:
+    (B, K-1, C) previous inputs (decode) or None (zero history).
+    Returns (silu(y), new_state)."""
+    K = w.shape[0]
+    B, L, Cc = xBC.shape
+    if state is None:
+        state = xBC.new_zeros((B, K - 1, Cc))
+    xpad = torch.cat([state, xBC], dim=1)                  # (B, K-1+L, C)
+    y = xpad[:, 0:L, :] * w[0][None, None, :]
+    for i in range(1, K):
+        y = y + xpad[:, i:i + L, :] * w[i][None, None, :]
+    new_state = xpad[:, -(K - 1):, :]
+    return F.silu(y), new_state
+
+
+def ssd_chunked(p, cfg, u, h0=None, conv_state=None):
+    """SSD forward over a full sequence (prefill): the scan core is one
+    launch of the SSD kernel (``ops.ssd_scan``, any L -- the ragged
+    tail is the kernel's), then the D skip, the gated ``rms_norm`` and
+    ``out_proj``.  u: (B, L, d).  Returns (y (B, L, d), final state
+    (B, H, P, N) f32, conv_state)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    Bb, L, _ = u.shape
+    z, xBC, dt = _ssm_split(p, cfg, u)
+    xBC, conv_state = _causal_conv(xBC, p["conv_w"], conv_state)
+    x = xBC[..., :di].unflatten(-1, (H, P))                 # strided view
+    Bm = xBC[..., di:di + N]
+    Cm = xBC[..., di + N:]
+    A = -torch.exp(p["A_log"].float())
+    y, h_final = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=cfg.ssm_chunk)
+    y = y + x.float() * p["D"].float()[None, None, :, None]
+    y = y.reshape(Bb, L, di).to(u.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["out_proj"], h_final, conv_state
+
+
+def ssd_step(p, cfg, u, h, conv_state):
+    """Single-token SSD decode (plain PyTorch: the reference has no
+    kernel for it).  u: (B, 1, d); h: (B, H, P, N) f32."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    Bb = u.shape[0]
+    z, xBC, dt = _ssm_split(p, cfg, u)
+    xBC, conv_state = _causal_conv(xBC, p["conv_w"], conv_state)
+    x = xBC[:, 0, :di].reshape(Bb, H, P).float()
+    Bm = xBC[:, 0, di:di + N].float()
+    Cm = xBC[:, 0, di + N:].float()
+    dt1 = dt[:, 0, :]                                       # (B, H)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt1 * A[None, :])                         # (B, H)
+    h = h * a[:, :, None, None] + torch.einsum("bn,bhp,bh->bhpn", Bm, x, dt1)
+    y = torch.einsum("bn,bhpn->bhp", Cm, h)
+    y = y + x * p["D"].float()[None, :, None]
+    y = y.reshape(Bb, 1, di).to(u.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["out_proj"], h, conv_state

@@ -1,0 +1,226 @@
+"""The model: dense (llama-style GQA) and SSM (Mamba2) families.
+
+Port of the JAX package's ``models/model.py`` for the families this
+slice serves (``layers.check_supported`` names the ROADMAP item of
+every other one).  Entry points, as there:
+
+  * ``forward_full`` -- full-sequence logits;
+  * ``prefill``      -- the forward plus the decode cache;
+  * ``decode_step``  -- one token against the cache.
+
+Parameters are nested dicts.  The reference stacks the per-layer
+parameters along a leading ``n_layers`` axis and scans over it; here
+``params["layers"]`` is a list of per-layer dicts and the scan is a
+Python loop.  ``params_from_jax`` carries a JAX parameter tree across.
+The cache keeps the reference's stacked layout ((n_layers, B, C, Hkv,
+hd) for K/V) and ``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+# ======================================================================
+# init
+# ======================================================================
+
+def _init_layer(gen, cfg: ModelConfig, device) -> Params:
+    dt = getattr(torch, cfg.param_dtype)
+    p: Params = {k: torch.zeros((cfg.d_model,), dtype=dt, device=device)
+                 for k in ("ln_mix", "ln_mlp")}
+    if cfg.has_attention:
+        p["attn"] = L.init_attention(gen, cfg, device)
+    if cfg.has_ssm:
+        p["ssm"] = L.init_ssm(gen, cfg, device)
+    if cfg.d_ff > 0:
+        p["mlp"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> Params:
+    """Random parameters in ``cfg.param_dtype``, drawn from ``gen`` (a
+    ``torch.Generator`` on ``device``) with the distributions of the
+    reference's ``init_params``; not bit-equal to ``jax.random``."""
+    L.check_supported(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    embed = L.dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02,
+                         device=device)
+    return {"embed": embed,
+            "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+            "layers": [_init_layer(gen, cfg, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def params_from_jax(tree, device="cpu") -> Params:
+    """A JAX parameter tree (numpy leaves, per-layer parameters stacked
+    along a leading axis under ``"layers"``) as port parameters."""
+    def conv(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    def nest(node, i=None):
+        if isinstance(node, dict):
+            return {k: nest(v, i) for k, v in node.items()}
+        return conv(node if i is None else np.asarray(node)[i])
+
+    n_layers = len(next(iter(_leaves(tree["layers"]))))
+    out = {k: nest(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [nest(tree["layers"], i) for i in range(n_layers)]
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def tree_map(fn, node):
+    """``fn`` on every tensor of a parameter (or cache) tree."""
+    if isinstance(node, dict):
+        return {k: tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def cast_params(params: Params, cfg: ModelConfig) -> Params:
+    """Float parameters in the compute dtype (a no-op for tensors that
+    already are); the runner casts once, the reference on every call."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    return tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t,
+                    params)
+
+
+# ======================================================================
+# full-sequence forward (prefill)
+# ======================================================================
+
+def _mix_full(p, cfg: ModelConfig, x, positions):
+    """Sequence mixer over a full sequence.  Returns (out, kv, ssd)."""
+    h = L.rms_norm(x, p["ln_mix"])
+    if cfg.has_attention:
+        out, kv = L.attention_prefill(p["attn"], cfg, h, positions)
+        return out, kv, None
+    out, h_final, conv_state = L.ssd_chunked(p["ssm"], cfg, h)
+    return out, None, (h_final, conv_state)
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    if cfg.d_ff <= 0:
+        return x
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln_mlp"]))
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    cdt = getattr(torch, cfg.compute_dtype)
+    tokens = batch["tokens"].long()
+    x = params["embed"][tokens].to(cdt)
+    B, Lt = tokens.shape
+    positions = torch.arange(Lt, device=x.device)[None].expand(B, Lt)
+    return x, positions
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = L.rms_norm(x, params["ln_f"])
+    logits = x @ params["embed"].T.to(x.dtype)
+    return L.softcap(logits.float(), cfg.final_softcap)
+
+
+def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool):
+    L.check_supported(cfg)
+    params = cast_params(params, cfg)
+    x, positions = _embed_inputs(params, cfg, batch)
+    caches = []
+    for p in params["layers"]:
+        mix, kv, ssd = _mix_full(p, cfg, x, positions)
+        x = _ffn(p, cfg, x + mix)
+        caches.append((kv, ssd) if collect_cache else None)
+    return params, x, caches
+
+
+def forward_full(params, cfg: ModelConfig, batch, *,
+                 collect_cache: bool = False):
+    """batch: {"tokens": (B, L)}.  Returns (logits (B, L, vocab_padded)
+    f32, aux_loss, per-layer caches or Nones)."""
+    params, x, caches = _hidden(params, cfg, batch, collect_cache)
+    return _logits(params, cfg, x), 0.0, caches
+
+
+# ======================================================================
+# decode cache
+# ======================================================================
+
+def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
+               device=None, dtype: Optional[str] = None) -> Params:
+    """Zero decode cache (leading axis = n_layers)."""
+    L.check_supported(cfg)
+    dt = getattr(torch, dtype or cfg.compute_dtype)
+    nL, B = cfg.n_layers, batch_size
+    cache: Params = {}
+    if cfg.has_attention:
+        shape = (nL, B, ctx_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.has_ssm:
+        cache["ssd"] = torch.zeros((nL, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=device)
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        cache["conv"] = torch.zeros((nL, B, cfg.ssm_conv_width - 1, conv_dim),
+                                    dtype=dt, device=device)
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: Params, batch):
+    """One decode step.  batch: {"token": (B, 1) int, "pos": (B,) int}.
+    Returns (logits (B, vocab_padded) f32, cache) -- the cache updated
+    in place."""
+    params = cast_params(params, cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = params["embed"][batch["token"].long()].to(cdt)
+    pos = batch["pos"].long()
+    for i, p in enumerate(params["layers"]):
+        h = L.rms_norm(x, p["ln_mix"])
+        if cfg.has_attention:
+            mix, _, _ = L.attention_decode(p["attn"], cfg, h, cache["k"][i],
+                                           cache["v"][i], pos)
+        else:
+            mix, h_new, conv_new = L.ssd_step(p["ssm"], cfg, h,
+                                              cache["ssd"][i],
+                                              cache["conv"][i])
+            cache["ssd"][i] = h_new
+            cache["conv"][i] = conv_new
+        x = _ffn(p, cfg, x + mix)
+    return _logits(params, cfg, x[:, 0]), cache
+
+
+def prefill(params, cfg: ModelConfig, batch, *, max_len: int = 0):
+    """Full prefill.  max_len: decode-cache capacity (>= the prompt;
+    default prompt + 64).  Returns (last_logits (B, V) f32, cache,
+    new_pos (B,)).  Only the last position's logits are formed: the
+    (B, L, V) matrix of ``forward_full`` is not needed here."""
+    params, x, caches = _hidden(params, cfg, batch, collect_cache=True)
+    B, ctx = batch["tokens"].shape
+    cap = max(max_len, ctx) if max_len else ctx + 64
+    cache = init_cache(cfg, B, cap, device=x.device)
+    for i, (kv, ssd) in enumerate(caches):
+        if kv is not None:
+            cache["k"][i, :, :ctx] = kv[0].to(cache["k"].dtype)
+            cache["v"][i, :, :ctx] = kv[1].to(cache["v"].dtype)
+        if ssd is not None:
+            cache["ssd"][i] = ssd[0]
+            cache["conv"][i] = ssd[1].to(cache["conv"].dtype)
+    last = _logits(params, cfg, x[:, -1])
+    new_pos = torch.full((B,), ctx, dtype=torch.int64, device=x.device)
+    return last, cache, new_pos

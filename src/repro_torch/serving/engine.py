@@ -11,12 +11,16 @@ submitted batch:
   3. deadline-aware admission against the ``LoadTracker`` (admit,
      reroute to the best candidate that fits, or shed);
   4. requests are grouped by (model, decoding budget) and each group is
-     served as one generate call.
+     served as one batched ``generate`` call on that entry's
+     ``ModelRunner`` (prompts hashed to ``prompt_len`` token ids); an
+     entry without a runner charges its ``latency_ms`` instead.
 
-Generation through the model zoo is not ported: catalog entries carry
-``runner=None``, so a request's service time is its entry's
-``latency_ms``.  ``observe`` feeds post-generation quality into the
-router's bandit and writes validated responses back to the cache.
+A runner exception during one group's generate degrades only that
+group: its requests come back with ``admission="failed"`` and the cause
+in ``Response.error``, while every other group of the batch is served
+-- failure isolation between groups, as in the reference.  ``observe``
+feeds post-generation quality into the router's bandit and writes
+validated responses back to the cache.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 from repro_torch.core.orchestrator import OptiRoute
 from repro_torch.core.preferences import TaskSignature, resolve_batch
 from repro_torch.core.routing import not_ported, require_no_observability
+from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.serving.load import LoadTracker, plan_admission
 
 
@@ -53,13 +58,18 @@ class Response:
     analyzer_s: float
     fallback: str = ""
     rq: Any = None                    # RoutedQuery (adaptive loop handle)
-    admission: str = "admitted"       # admitted | rerouted | shed
+    admission: str = "admitted"       # admitted | rerouted | shed | failed
     est_latency_s: float = 0.0        # admission-time wait+service estimate
     cache_hit: bool = False           # served from the semantic cache
+    error: str = ""                   # failure detail (admission="failed")
 
     @property
     def shed(self) -> bool:
         return self.admission == "shed"
+
+    @property
+    def failed(self) -> bool:
+        return self.admission == "failed"
 
     @property
     def served(self) -> bool:
@@ -67,11 +77,14 @@ class Response:
 
 
 class ServingEngine:
-    def __init__(self, router: OptiRoute, *,
+    def __init__(self, router: OptiRoute, *, prompt_len: int = 32,
+                 vocab_hash: int = 4096,
                  load: Optional[LoadTracker] = None, cache=None,
                  tracer=None):
         require_no_observability(None, tracer)
         self.router = router
+        self.tok = HashTokenizer(vocab_hash)
+        self.prompt_len = prompt_len
         self.load = load if load is not None \
             else getattr(router.engine, "load", None)
         self.cache = cache if cache is not None \
@@ -84,6 +97,10 @@ class ServingEngine:
         elif cache is not None and router_cache is not cache:
             raise ValueError("ServingEngine(cache=...) conflicts with "
                              "the router's own cache — attach ONE store")
+
+    def _tokens(self, texts: Sequence[str], vocab_size: int) -> np.ndarray:
+        t = self.tok.encode_batch(texts, self.prompt_len)
+        return np.clip(t, 0, vocab_size - 1).astype(np.int32)
 
     def submit(self, requests: Sequence[Request], *,
                mode: str = "interactive") -> List[Response]:
@@ -167,25 +184,43 @@ class ServingEngine:
         out: List[Optional[Response]] = [None] * len(requests)
         for (model, max_new), idxs in groups.items():
             entry = self.router.mres.entry(model)
-            if entry.runner is not None:
-                raise not_ported("Generation through a model runner",
-                                 "'model zoo and runners'")
-            per_req_s = entry.raw_metrics.get("latency_ms", 0.0) / 1e3
             if self.load is not None:
                 self.load.admit(col[model], count=len(idxs))
                 self.load.start(col[model], count=len(idxs))
-                self.load.finish(col[model], per_req_s, count=len(idxs))
-            for i in idxs:
+            gen, per_req_s, err = None, None, ""
+            try:
+                if entry.runner is not None:
+                    toks = self._tokens([requests[i].text for i in idxs],
+                                        entry.runner.cfg.vocab_size)
+                    gen = entry.runner.generate(toks, max_new=max_new)
+                per_req_s = (gen.sim_latency_s / len(idxs)
+                             if gen is not None else
+                             entry.raw_metrics.get("latency_ms", 0.0) / 1e3)
+            except Exception as e:             # noqa: BLE001
+                # one model group failing never kills the other groups
+                # of the batch: THIS group degrades to "failed"
+                err = f"{type(e).__name__}: {e}"
+            finally:
+                # release the slots even on failure (no service-time
+                # sample then: per_req_s is still None)
+                if self.load is not None:
+                    self.load.finish(col[model], per_req_s, count=len(idxs))
+            for j, i in enumerate(idxs):
                 r, rq = routed[i]
                 # a rerouted request was served by another model than
-                # its decision: no rq handle, so observe() never
-                # credits the wrong bandit arm
+                # its decision, and a failed one produced no outcome:
+                # no rq handle, so observe() credits no wrong arm
                 out[i] = Response(
-                    request=r, model=model, sig=rq.sig, tokens=None,
-                    sim_latency_s=0.0, route_s=rq.route_s,
-                    analyzer_s=rq.analyzer_s, fallback=rq.fallback_kind,
-                    rq=rq if plans[i][1] == "admitted" else None,
-                    admission=plans[i][1], est_latency_s=plans[i][2])
+                    request=r, model=model, sig=rq.sig,
+                    tokens=None if (gen is None or err) else gen.tokens[j],
+                    sim_latency_s=0.0 if (gen is None or err)
+                    else per_req_s,
+                    route_s=rq.route_s, analyzer_s=rq.analyzer_s,
+                    fallback=rq.fallback_kind,
+                    rq=rq if (plans[i][1] == "admitted" and not err)
+                    else None,
+                    admission="failed" if err else plans[i][1],
+                    est_latency_s=plans[i][2], error=err)
         for i, (r, rq) in enumerate(routed):   # shed: fail fast, no slot
             if out[i] is None:
                 out[i] = Response(

@@ -55,6 +55,11 @@ if _SANITIZE:
                         + "\n  ".join(msgs), pytrace=False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,122 @@
+"""Card-only tests of the port: each CUDA kernel against its plain
+version on the same inputs, and generation on the card against the
+same seeded model on the CPU.  They import neither JAX nor the JAX
+package, so they run on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a CUDA device every test skips (the decision is taken inside
+the ``cuda`` fixture, at run time).  Tolerances as in
+``tests/test_torch_kernels.py``: bf16 attention 2e-2, f32 attention
+2e-4, the scan 1e-4 of max |y|, top-k values bit-equal, the bandit
+rtol 1e-5; generation: prefill logits within 1e-3, greedy tokens equal
+up to the first step whose top-2 gap on the CPU is below 1e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import bandit_update as BU
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import router_topk as RT
+from repro_torch.kernels import ssd_scan as SS
+from repro_torch.models import model as M
+from repro_torch.serving.runner import ModelRunner
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "for sm_90a; chip_smoke.py checks them on the card")
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-4)])
+@pytest.mark.parametrize("Lq,kw", [
+    (96, dict(causal=True)), (96, dict(causal=True, window=9, softcap=30.0)),
+    (1, dict(causal=False)), (33, dict(causal=False))])
+def test_flash_attention_matches_plain(cuda, dtype, tol, Lq, kw):
+    rng = np.random.default_rng(Lq)
+    dt = getattr(torch, dtype)
+    q = _rand(rng, 3, Lq, 8, 64).to(dt).transpose(1, 2)
+    k = _rand(rng, 3, 96, 2, 64).to(dt).transpose(1, 2)
+    v = _rand(rng, 3, 96, 2, 64).to(dt).transpose(1, 2)
+    kv = torch.tensor([0, 40, 96], dtype=torch.int32)
+    want = FA.flash_attention_plain(q, k, v, kv, **kw)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             kv.to(cuda), **kw)
+    assert FA.flash_attention.launches == before + 1
+    assert got.dtype == dt and not got.cpu()[0].any()
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(4)
+    Bb, L, H, P, N = 2, 75, 3, 32, 16
+    x = _rand(rng, Bb, L, H, P).to(getattr(torch, dtype))
+    dt = torch.from_numpy((rng.random((Bb, L, H)) * 0.5).astype(np.float32))
+    A = -torch.exp(_rand(rng, H))
+    Bm = _rand(rng, Bb, L, N).to(x.dtype)
+    Cm = _rand(rng, Bb, L, N).to(x.dtype)
+    h0 = _rand(rng, Bb, H, P, N)
+    want = SS.ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=16)
+    got = SS.ssd_scan(*(a.to(cuda) for a in (x, dt, A, Bm, Cm, h0)),
+                      chunk=16)
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+
+
+def test_router_topk_and_bandit_update_match_plain(cuda):
+    rng = np.random.default_rng(1)
+    q, e = _rand(rng, 32, 8), _rand(rng, 3000, 8)
+    table = torch.from_numpy((rng.random((4, 3000)) < 0.5).astype(np.uint8))
+    rows = torch.from_numpy(rng.integers(0, 4, 32).astype(np.int32))
+    want = RT.router_topk(q, e, table, rows, 8)
+    got = RT.router_topk(q.to(cuda), e.to(cuda), table.to(cuda),
+                         rows.to(cuda), 8)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    w = torch.zeros(16, 500)
+    w[torch.arange(16), torch.from_numpy(rng.integers(0, 500, 16))] = 1.0
+    gen = torch.Generator().manual_seed(3)
+    x, r, xs = (torch.rand(*s, generator=gen)
+                for s in ((16, 9), (16,), (4, 9)))
+    theta = _rand(rng, 500, 9) * 0.1
+    L = _rand(rng, 500, 9, 9) * 0.05
+    ainv = L @ L.transpose(1, 2) + 0.5 * torch.eye(9)
+    want = BU.bandit_update(w, x, r, xs, theta, ainv, 0.8)
+    got = BU.bandit_update(*(a.to(cuda) for a in (w, x, r, xs, theta, ainv)),
+                           0.8)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b"])
+def test_generate_on_card_matches_cpu(cuda, name):
+    cfg = get_smoke(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want = ModelRunner(cfg, params=params, device="cpu").generate(
+        toks, 5, keep_logits=True)
+    got = ModelRunner(cfg, params=params, device=cuda).generate(toks, 5)
+    np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=1e-3,
+                               atol=1e-3)
+    for b in range(toks.shape[0]):
+        for s in range(5):
+            top2 = np.sort(want.step_logits[b, s])[-2:]
+            if top2[1] - top2[0] < 1e-3:
+                break
+            assert got.tokens[b, s] == want.tokens[b, s], (b, s)

@@ -44,6 +44,12 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.engine, repro_torch.cache.semantic\n"
         "import repro_torch.core.analyzer, repro_torch.adaptive\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.models.model, repro_torch.serving.runner\n"
+        "import repro_torch.serving.catalog, repro_torch.training.steps\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan\n"
+        "from repro_torch.configs import ARCH_NAMES, get_config\n"
+        "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
@@ -61,7 +67,10 @@ def _entry_points():
     from repro_torch.core.mres import MRES
     from repro_torch.core.orchestrator import OptiRoute
     from repro_torch.core.routing import RoutingEngine
+    from repro_torch.configs import get_smoke
     from repro_torch.kernels import ops
+    from repro_torch.serving.catalog import build_catalog
+    from repro_torch.serving.runner import ModelRunner
 
     cfg = AnalyzerConfig(vocab_size=64, d_model=8, n_layers=1, n_heads=2,
                          d_ff=16, max_len=8)
@@ -76,13 +85,17 @@ def _entry_points():
         "ops.bandit_update": lambda: ops.bandit_update(
             np.ones((1, 9)), np.ones((1, 4)), np.ones(1), np.ones((1, 9)),
             np.ones((4, 9)), np.ones((4, 9, 9)), 0.5),
+        "ModelRunner": lambda: ModelRunner(get_smoke("llama3.2-1b")),
+        "build_catalog": lambda: build_catalog(
+            smoke_runners=True, archs=["mamba2-1.3b"]),
     }
 
 
 @pytest.mark.parametrize("name", ["TaskAnalyzer", "RoutingEngine",
                                   "OptiRoute", "SemanticCache",
                                   "LinearBandit", "ops.router_topk",
-                                  "ops.bandit_update"])
+                                  "ops.bandit_update", "ModelRunner",
+                                  "build_catalog"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
@@ -98,12 +111,15 @@ def test_resolve_device_rules():
 
 
 @pytest.mark.parametrize("which", ["router_topk", "router_topk_q8",
-                                   "bandit_update"])
+                                   "bandit_update", "flash_attention",
+                                   "ssd_scan"])
 def test_kernel_wrappers_never_fall_back_off_the_cpu(which):
     """A tensor that is not on the CPU never takes the plain version:
     the wrapper launches its kernel or raises (here: a meta tensor)."""
     from repro_torch.kernels import bandit_update as BU
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import router_topk as RT
+    from repro_torch.kernels import ssd_scan as SS
 
     m = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")
     calls = {
@@ -115,6 +131,10 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(which):
             m(1, 16, dt=torch.uint8), m(4, dt=torch.int32), 2),
         "bandit_update": lambda: BU.bandit_update(
             m(2, 16), m(2, 9), m(2), m(3, 9), m(16, 9), m(16, 9, 9), 0.5),
+        "flash_attention": lambda: FA.flash_attention(
+            m(2, 4, 8, 64), m(2, 2, 8, 64), m(2, 2, 8, 64)),
+        "ssd_scan": lambda: SS.ssd_scan(
+            m(2, 8, 3, 16), m(2, 8, 3), m(3), m(2, 8, 4), m(2, 8, 4)),
     }
     with pytest.raises(ValueError, match="cuda or cpu"):
         calls[which]()

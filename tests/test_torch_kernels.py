@@ -1,16 +1,24 @@
 """The port's kernels (plain PyTorch versions, as the CPU runs them)
 against the JAX package: ``router_topk`` / ``router_topk_q8`` against
 ``repro.kernels.ref.router_topk`` and the interpret-mode Pallas kernels
-behind ``repro.kernels.ops.router_topk``, and ``bandit_update`` against
-``ref.bandit_update``.  Inputs are made with numpy from a seed.
+behind ``repro.kernels.ops.router_topk``, ``bandit_update`` against
+``ref.bandit_update``, ``flash_attention`` against the interpret-mode
+Pallas kernel and ``ref.mha_attention``, ``ssd_scan`` against the
+interpret-mode Pallas scan and ``ref.ssd_scan``.  Inputs are made with
+numpy from a seed.
 
 Tolerances: fp32 values within 1e-6 on finite slots (different sum
 orders, same arithmetic); indices equal except inside a run of scores
 tied within 2e-6; int8 bit-equal (integer dots are exact); bandit
-outputs rtol 1e-5 (atol 1e-6 for values near zero).
+outputs rtol 1e-5 (atol 1e-6 for values near zero).  Attention 2e-4 in
+f32 and 2e-2 in bf16 (one bf16 rounding of the output, values of order
+1), 3e-4 with window and softcap; the scan 3e-4 (the reference's own
+kernel tolerance: a chunked against a sequential sum).
 
-The CUDA kernels themselves need a card; those tests skip here and
-``chip_smoke.py`` holds each kernel against its plain version on it.
+The CUDA kernels themselves need a card; those tests (marked ``cuda``)
+skip here, ``tests/test_torch_cuda.py`` holds the card-only tests that
+run without JAX, and ``chip_smoke.py`` holds each kernel against its
+plain version on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +29,7 @@ import torch
 from repro.kernels import ops as K
 from repro.kernels import ref as R
 from repro_torch.kernels import bandit_update as BU
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as P
 from repro_torch.kernels import router_topk as RT
 from repro_torch.kernels.route_step import quantize_rows
@@ -278,6 +287,163 @@ def test_bandit_update_without_scoring_rows_needs_no_posterior():
 
 
 # ----------------------------------------------------------------------
+# flash attention (layer layout through ops, kernel layout through FA)
+# ----------------------------------------------------------------------
+
+def _attn_problem(B, Lq, Lk, Hq, Hkv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Lq, Hq, hd)).astype(np.float32),
+            rng.standard_normal((B, Lk, Hkv, hd)).astype(np.float32),
+            rng.standard_normal((B, Lk, Hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,Lq,Lk,Hq,Hkv,hd", [
+    (1, 64, 64, 2, 2, 32),      # MHA, block-aligned
+    (2, 100, 100, 4, 2, 64),    # GQA, ragged lengths
+    (1, 1, 300, 8, 2, 64),      # decode-style single query
+    (2, 128, 128, 4, 1, 128),   # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_reference(B, Lq, Lk, Hq, Hkv, hd,
+                                                 dtype):
+    q, k, v = _attn_problem(B, Lq, Lk, Hq, Hkv, hd, seed=Lq + hd)
+    jt = lambda a: jnp.asarray(a, getattr(jnp, dtype))
+    tt = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))
+    got = P.flash_attention(tt(q), tt(k), tt(v))
+    assert got.dtype == getattr(torch, dtype)
+    assert tuple(got.shape) == (B, Lq, Hq, hd)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for want in (K.flash_attention(jt(q), jt(k), jt(v), blk_q=32, blk_k=32),
+                 R.mha_attention(jt(q), jt(k), jt(v))):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window,cap,causal", [
+    (16, 0.0, True), (0, 30.0, True), (7, 50.0, True), (0, 0.0, False),
+])
+def test_flash_attention_plain_window_softcap(window, cap, causal):
+    q, k, v = _attn_problem(2, 90, 90, 4, 2, 64, seed=window + int(cap))
+    got = P.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            causal=causal, window=window, softcap=cap)
+    for want in (K.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cap, blk_q=32, blk_k=32),
+                 R.mha_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("C,blk", [(64, 32), (100, 32), (33, 16)])
+def test_flash_decode_plain_matches_reference(C, blk):
+    B, Hq, Hkv, hd = 3, 4, 2, 64
+    q, kc, vc = _attn_problem(B, 1, C, Hq, Hkv, hd, seed=C)
+    pos = np.asarray([0, C // 2, C - 1], np.int32)
+    got = P.flash_decode(*(torch.from_numpy(a) for a in (q, kc, vc)),
+                         torch.from_numpy(pos))
+    want = K.flash_decode(q, kc, vc, jnp.asarray(pos), blk_k=blk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    # each row sees exactly the keys at slots <= pos
+    for b, p in enumerate(pos):
+        want_b = R.mha_attention(q[b:b + 1], kc[b:b + 1, :p + 1],
+                                 vc[b:b + 1, :p + 1], causal=False)
+        np.testing.assert_allclose(got.numpy()[b:b + 1], np.asarray(want_b),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_plain_row_without_live_key_is_zero():
+    q, k, v = _attn_problem(3, 1, 20, 4, 2, 32, seed=3)
+    kv_valid = torch.tensor([0, 5, 20], dtype=torch.int32)
+    got = P.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            kv_valid, causal=False)
+    assert not got[0].any()
+    want = R.mha_attention(q[1:2], k[1:2, :5], v[1:2, :5], causal=False)
+    np.testing.assert_allclose(got[1:2].numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_kernel_layout_takes_strided_views():
+    """The wrapper's (B, H, L, hd) contract on transposed views equals
+    the same call on contiguous copies."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _attn_problem(2, 33, 33, 4, 2, 64, seed=9))
+    a = FA.flash_attention(q, k, v, causal=True)
+    b = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ----------------------------------------------------------------------
+# ssd_scan
+# ----------------------------------------------------------------------
+
+def _ssd_problem(Bb, L, H, P_, N, seed, dt_scale=0.5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((Bb, L, H, P_)).astype(np.float32),
+            (rng.random((Bb, L, H)) * dt_scale).astype(np.float32),
+            (-np.exp(rng.standard_normal(H))).astype(np.float32),
+            rng.standard_normal((Bb, L, N)).astype(np.float32),
+            rng.standard_normal((Bb, L, N)).astype(np.float32),
+            rng.standard_normal((Bb, H, P_, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("Bb,L,H,P_,N,chunk", [
+    (1, 32, 2, 16, 8, 16), (2, 75, 3, 32, 16, 16),
+    (1, 128, 4, 64, 128, 64), (2, 17, 1, 8, 4, 8),
+])
+def test_ssd_scan_plain_matches_reference(Bb, L, H, P_, N, chunk):
+    args = _ssd_problem(Bb, L, H, P_, N, seed=L + N)
+    y, hf = P.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    assert y.dtype == hf.dtype == torch.float32
+    for want in (K.ssd_scan(*args, chunk=chunk), R.ssd_scan(*args)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want[0]),
+                                   rtol=3e-4, atol=3e-4)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(want[1]),
+                                   rtol=3e-4, atol=3e-4)
+
+
+def test_ssd_scan_plain_state_chaining():
+    """Two halves with the state carried == one scan == the reference."""
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a) for a in
+                           _ssd_problem(1, 64, 2, 16, 8, seed=5,
+                                        dt_scale=0.3))
+    y_full, h_full = P.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    h, ys = None, []
+    for s in (slice(0, 32), slice(32, 64)):
+        y, h = P.ssd_scan(x[:, s], dt[:, s], A, Bm[:, s], Cm[:, s], h,
+                          chunk=16)
+        ys.append(y)
+    torch.testing.assert_close(torch.cat(ys, 1), y_full, rtol=3e-4,
+                               atol=3e-4)
+    torch.testing.assert_close(h, h_full, rtol=3e-4, atol=3e-4)
+    want = R.ssd_scan(*(a.numpy() for a in (x, dt, A, Bm, Cm)))
+    np.testing.assert_allclose(y_full.numpy(), np.asarray(want[0]),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_ssd_scan_plain_takes_strided_bf16_operands():
+    """The model's split of its projection: x, B, C as bf16 views of
+    one (Bb, L, H*P + 2N) tensor give the f32 scan of their values."""
+    Bb, L, H, P_, N = 2, 40, 3, 8, 4
+    rng = np.random.default_rng(7)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (Bb, L, H * P_ + 2 * N)).astype(np.float32)).to(torch.bfloat16)
+    dt = torch.from_numpy((rng.random((Bb, L, H)) * 0.5).astype(np.float32))
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(H).astype(
+        np.float32)))
+    x = xbc[..., :H * P_].unflatten(-1, (H, P_))
+    Bm, Cm = xbc[..., H * P_:H * P_ + N], xbc[..., H * P_ + N:]
+    y, hf = P.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    want = R.ssd_scan(*(a.float().numpy() for a in (x, dt, A, Bm, Cm)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(want[1]), rtol=3e-4,
+                               atol=3e-4)
+
+
+# ----------------------------------------------------------------------
 # the CUDA kernels: on the card only
 # ----------------------------------------------------------------------
 
@@ -289,6 +455,7 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
 def test_cuda_router_topk_matches_plain(cuda):
     emb, q, mask = _problem(64, 5000, 8, seed=1, dups=100, empty_rows=2)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
@@ -302,6 +469,7 @@ def test_cuda_router_topk_matches_plain(cuda):
     assert torch.equal(got[1].cpu()[fin], want[1][fin])
 
 
+@pytest.mark.cuda
 def test_cuda_bandit_update_matches_plain(cuda):
     args = [torch.from_numpy(a) for a in _bandit_problem(32, 16, 3000, 9, 4)]
     x, w, r, xs, theta, ainv = args
@@ -310,3 +478,4 @@ def test_cuda_bandit_update_matches_plain(cuda):
                            0.8)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
+
