@@ -20,10 +20,12 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      the CPU over the same batches;
   3. a per-stage breakdown of one served batch;
   4. the model-zoo kernels (flash attention in its prefill and decode
-     launch shapes, the SSD scan) against their plain versions at the
-     generation path's shapes (llama3.2-1b prefill and decode at B=16,
-     prompt 512; mamba2-1.3b prefill at B=16, L=512), plus a small f32
-     sweep over window, softcap, causal=False and ragged shapes;
+     launch shapes, the SSD scan, the MoE gate) against their plain
+     versions at the generation path's shapes (llama3.2-1b prefill and
+     decode at B=16, prompt 512; mamba2-1.3b prefill at B=16, L=512;
+     qwen3-moe-30b-a3b's gate at T = 16 x 512 and T = 16, E=128, k=8,
+     and its attention at GQA group 8), plus small sweeps over window,
+     softcap, causal=False, ragged shapes, experts, k, f32 and ties;
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -33,9 +35,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      prefill logits are finite, and the kernels' launch counts are
      exactly one per layer per prefill and one per llama layer per
      decode step;
-  6. card against CPU: the two configs at full width, 2 layers, f32
+  5b. the same on a catalog of qwen3-moe-30b-a3b (all 48 layers, 59.5
+     GB of bf16 weights drawn on the card, after the earlier phases'
+     memory is released) and llama3.2-1b, 16 requests per model (a
+     fixed profile list with no near-tie between the two), and exactly
+     one ``moe_gating`` launch per MoE layer per prefill and decode step;
+  6. card against CPU: the three configs at full width, 2 layers, f32
      compute, the same seeded weights on both devices: prefill logits
-     within 1e-3 of max |logit|, greedy tokens equal (tie-aware).
+     within 1e-3 of max |logit|, greedy tokens equal (tie-aware); for
+     the MoE also the experts of every gate, tie-aware, with tokens
+     dropped at its published capacity factor.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -63,6 +72,8 @@ PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 PEAK_INT8_S = 1979e12           # int8 tensor-core dense TOP/s
 PEAK_BF16_S = 989e12            # bf16 tensor-core dense FLOP/s
 GEN_ARCHS = ["llama3.2-1b", "mamba2-1.3b"]
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_GEN_ARCHS = [MOE_ARCH, "llama3.2-1b"]
 NEG_INF = float("-inf")
 
 
@@ -904,47 +915,228 @@ def model_kernel_phase(torch, dev, small: bool):
     return results
 
 
+def gate_compare(torch, got, want, logits, what: str):
+    """The kernel's gate (vals, idx, aux) against the plain version's on
+    the same logits.  Expert indices equal in rows 0 and 1 (``gate_logits``
+    plants exact ties there, bit-equal in both softmaxes, so the order
+    toward the lower index is checked); elsewhere a position may differ
+    only where the plain version's probabilities of the two experts
+    there are within 1e-6, which the kernel's own softmax may order
+    either way.  vals within 1e-6; aux within 1e-6 relative.  Returns
+    (max vals error, rows accepted at a near-tie)."""
+    gv, gi, ga = got
+    wv, wi, wa = want
+    check(gi.dtype == torch.int32 and gv.dtype == torch.float32
+          and gi.shape == wi.shape and gv.shape == wv.shape,
+          f"{what}: outputs {gv.dtype} {tuple(gv.shape)} / {gi.dtype}")
+    gi, wi = gi.cpu().long(), wi.cpu().long()
+    diff = gi != wi
+    check(not bool(diff[:2].any()),
+          f"{what}: experts differ in a row of exact ties")
+    n_tie = int(diff.any(dim=1).sum())
+    if n_tie:
+        p = torch.softmax(logits.float().cpu(), dim=-1)
+        gap = (p.gather(1, gi) - p.gather(1, wi)).abs()
+        check(bool((gap[diff] < 1e-6).all()),
+              f"{what}: experts differ at a position without a near-tie")
+    err = float((gv - wv).abs().max())
+    check(err <= 1e-6, f"{what}: max |vals err| {err} > 1e-6")
+    aerr = abs(float(ga) - float(wa))
+    check(aerr <= 1e-6 * abs(float(wa)),
+          f"{what}: aux {float(ga)} vs {float(wa)}")
+    return err, n_tie
+
+
+def gate_logits(torch, g, dev, T: int, E: int, d: int, dt):
+    """Router logits as ``moe_block`` forms them: (T, d) activations
+    times a (d, E) router of scale 0.02, in ``dt``; rows 0 and 1 hold
+    exact ties (every expert equal; each value twice)."""
+    x = torch.randn(T, d, generator=g, device=dev).to(dt)
+    router = (torch.randn(d, E, generator=g, device=dev) * 0.02).to(dt)
+    lg = x @ router
+    lg[0] = 0
+    lg[1, E // 2:] = lg[1, :E - E // 2]
+    return lg
+
+
+def moe_kernel_phase(torch, dev, small: bool):
+    """The MoE gate at the launch shapes of qwen3-moe-30b-a3b (prefill
+    T = 16 x 512, decode T = 16; E = 128, k = 8, bf16 logits from the
+    full-width router), a sweep over E, k, T and f32, and flash
+    attention at that model's GQA group of 8 (32 query heads over 4 KV
+    heads), which the llama shapes above do not reach."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    d, E, K = (256, 128, 8) if small else (2048, 128, 8)
+    results = {}
+    shapes = {}
+    for tag, T in (("prefill", 128 if small else 16 * 512),
+                   ("decode", 16)):
+        lg = gate_logits(torch, g, dev, T, E, d, bf)
+        got = MG.moe_gating(lg, K)
+        again = MG.moe_gating(lg, K)
+        want = MG.moe_gating_plain(lg, K)
+        err, ties = gate_compare(torch, got, want, lg, f"moe_gating {tag}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"moe_gating {tag}: two launches gave different bits")
+        check(torch.equal(got[1][0].cpu(),
+                          torch.arange(K, dtype=torch.int32)),
+              f"moe_gating {tag}: an all-tied row must take experts 0..k-1")
+        # the function's bytes: logits read once, vals + idx + aux out;
+        # operations: max, exp, sum, divide and k compare passes per
+        # (token, expert)
+        bms, by = bound_ms(T * E * 2 + T * K * 8 + 4, T * E * (4.0 + K),
+                           PEAK_FP32_S)
+        shapes[tag] = dict(
+            T=T, err=err, ties=ties, bound_ms=bms, bound_by=by,
+            ms=time_graph_ms(torch, lambda: MG.moe_gating(lg, K), dev),
+            plain_ms=time_ms(torch, lambda: MG.moe_gating_plain(lg, K), dev),
+            library_ms=time_graph_ms(torch, lambda: torch.topk(
+                torch.softmax(lg.float(), dim=-1), K), dev),
+            kernel_ms=time_graph_ms(torch, lambda: MG.moe_gating_partials(
+                lg, K), dev) if dev.type == "cuda" else None)
+        r = shapes[tag]
+        kern = "n/a" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
+        log(f"[kernels] moe_gating {tag} T={T} E={E} k={K} bf16: "
+            f"{r['ms']:.4f} ms with the aux reduction ({kern} ms the kernel "
+            f"alone; plain {r['plain_ms']:.4f}, softmax+topk "
+            f"{r['library_ms']:.4f}, bound {bms:.5f} by {by}), max err "
+            f"{err:.3g}, {ties} rows at a near-tie")
+    # sweep: small and odd E, k = 1, ragged T, f32 and bf16, tied rows
+    worst = 0.0
+    for T, E_, k_, dt in ((1000, 4, 2, torch.float32),
+                          (77, 60, 4, torch.float32),
+                          (300, 128, 1, bf),
+                          (65, 128, 8, torch.float32),
+                          (3, 1024, 16, torch.float32)):
+        lg = gate_logits(torch, g, dev, T, E_, 64, dt)
+        got = MG.moe_gating(lg, k_)
+        again = MG.moe_gating(lg, k_)
+        err, _ = gate_compare(torch, got, MG.moe_gating_plain(lg, k_), lg,
+                              f"moe_gating T={T} E={E_} k={k_} {dt}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"moe_gating T={T} E={E_}: two launches gave different bits")
+        worst = max(worst, err)
+    log(f"[kernels] moe_gating sweep (E 4/60/128/1024, k 1-16, ragged T, "
+        f"f32 and bf16, tied rows): max err {worst:.3g} (tol 1e-6)")
+    pre = shapes["prefill"]
+    results["moe_gating"] = dict(
+        name="moe_gating", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gating.cu",
+        replaces="src/repro/kernels/moe_gating.py:58",
+        max_abs_err=max(worst, *(v["err"] for v in shapes.values())),
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"])
+
+    # -- flash attention at GQA group 8 (qwen3-moe-30b-a3b: 32/4 heads)
+    B, L, Hq, Hkv, hd = (2, 64, 8, 1, 64) if small else (16, 512, 32, 4, 64)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+    q = rn(B, L, Hq, hd).transpose(1, 2)
+    k = rn(B, L, Hkv, hd).transpose(1, 2)
+    v = rn(B, L, Hkv, hd).transpose(1, 2)
+    err_p = attn_check(torch, FA, q, k, v, None, 2e-2,
+                       "flash_attention prefill, group 8", causal=True)
+    bp, byp = bound_ms(2 * (2 * B * L * Hq * hd + 2 * B * L * Hkv * hd),
+                       4.0 * B * Hq * hd * (L * (L + 1) / 2), PEAK_BF16_S)
+    ms_p = time_graph_ms(torch, lambda: FA.flash_attention(
+        q, k, v, causal=True), dev)
+    lib_p = time_graph_ms(torch, sdpa_call(
+        torch, q.contiguous(), k.contiguous(), v.contiguous(),
+        is_causal=True), dev)
+    C = 76 if small else 536
+    kvv = np.random.default_rng(9).integers(1, C + 1, B)
+    kvv[0], kvv[-1] = 1, C
+    kv_valid = torch.from_numpy(kvv.astype(np.int32)).to(dev)
+    qd = rn(B, 1, Hq, hd).transpose(1, 2)
+    kd = rn(B, C, Hkv, hd).transpose(1, 2)
+    vd = rn(B, C, Hkv, hd).transpose(1, 2)
+    err_d = attn_check(torch, FA, qd, kd, vd, kv_valid, 2e-2,
+                       "flash_attention decode, group 8", causal=False)
+    live = int(kvv.sum())
+    bd, byd = bound_ms(2 * (2 * B * Hq * hd + 2 * live * Hkv * hd),
+                       4.0 * Hq * hd * live, PEAK_BF16_S)
+    ms_d = time_graph_ms(torch, lambda: FA.flash_attention(
+        qd, kd, vd, kv_valid, causal=False), dev)
+    mask = (torch.arange(C, device=dev)[None, :] < kv_valid[:, None])
+    lib_d = time_graph_ms(torch, sdpa_call(
+        torch, qd.contiguous(), kd.contiguous(), vd.contiguous(),
+        attn_mask=mask[:, None, None, :]), dev)
+    log(f"[kernels] flash_attention group 8 prefill B={B} L={L} {Hq}/{Hkv} "
+        f"heads bf16 causal: {ms_p:.4f} ms (library {lib_p:.4f}, bound "
+        f"{bp:.4f} by {byp}), max err {err_p:.3g}")
+    log(f"[kernels] flash_attention group 8 decode B={B} C={C} {Hq}/{Hkv} "
+        f"heads, {live} live keys: {ms_d:.4f} ms (library {lib_d:.4f}, "
+        f"bound {bd:.4g} by {byd}), max err {err_d:.3g}")
+    return results
+
+
 # ----------------------------------------------------------------------
 # phase 5: routed generation at full width and depth
 # ----------------------------------------------------------------------
 
 GEN_PROFILES = ["accuracy-first", "cost-effective", "balanced",
                 "latency-first"]
+# latency-first is a near-tie between llama3.2-1b and qwen3-moe-30b-a3b
+# (blended scores 1.5 and 1.5), which float noise sends either way; the
+# MoE catalog takes cost-effective in its place (margin 0.1), so each
+# model serves half the requests on every run
+MOE_PROFILES = ["accuracy-first", "cost-effective", "balanced",
+                "cost-effective"]
 
 
-def generation_requests(n: int, max_new: int, seed: int):
-    """n workload texts, the profiles in turn: accuracy-first and
-    balanced route to mamba2-1.3b, cost-effective and latency-first to
-    llama3.2-1b (the cheaper, faster entry), so each runner gets n/2."""
+def generation_requests(n: int, max_new: int, seed: int,
+                        profiles=GEN_PROFILES):
+    """n workload texts, ``profiles`` in turn.  Beside llama3.2-1b,
+    accuracy-first and balanced route to mamba2-1.3b, and to
+    qwen3-moe-30b-a3b (accuracy 0.86 against llama's 0.58);
+    cost-effective and latency-first go to llama (beside mamba2)."""
     from repro_torch.data.workload import make_workload
     from repro_torch.serving.engine import Request
 
-    return [Request(text=r.text, prefs=GEN_PROFILES[i % 4], id=i,
+    return [Request(text=r.text, prefs=profiles[i % len(profiles)], id=i,
                     max_new=max_new)
             for i, r in enumerate(make_workload(n, seed=seed))]
 
 
-def generation_phase(torch, dev, small: bool, kernels):
+def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
+                      profiles=GEN_PROFILES):
+    """One catalog of ``archs`` with runners (full width and depth on the
+    card; ``SMOKE`` when rehearsing), 32 routed requests (``profiles`` in
+    turn) through
+    ``ServingEngine(prompt_len=512).submit`` with ``max_new=16`` after
+    one warm-up submit of the same batch.  Checks every response (no
+    failure or shed, ``max_new`` tokens each, at least 8 per model,
+    finite prefill logits) and returns the catalog, the per-model
+    ``GenerationResult`` of the measured submit and the kernels' launch
+    counts on it."""
     from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
     from repro_torch.core.orchestrator import OptiRoute
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.serving.catalog import build_catalog
     from repro_torch.serving.engine import ServingEngine
 
     prompt_len, max_new, n_req = (64, 4, 16) if small else (512, 16, 32)
     t0 = time.perf_counter()
-    mres = build_catalog(archs=GEN_ARCHS, full_runners=not small,
-                         smoke_runners=small, seed=7, device=dev)
+    mres = build_catalog(archs=archs, full_runners=not small,
+                         smoke_runners=small, seed=seed, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    log(f"[generate] runners with seeded weights on {dev} built in "
+        log(f"[{tag}] {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+            f"allocated on the card after the runners were built")
+    log(f"[{tag}] runners with seeded weights on {dev} built in "
         f"{time.perf_counter() - t0:.1f} s")
     results = {}
-    for name in GEN_ARCHS:
+    for name in archs:
         runner = mres.entry(name).runner
         cfg = runner.cfg
-        log(f"[generate] {name}: {cfg.n_layers} layers, d_model "
+        log(f"[{tag}] {name}: {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, vocab {cfg.vocab_padded}, {cfg.n_params()} "
             f"parameters in {cfg.compute_dtype}")
 
@@ -956,20 +1148,23 @@ def generation_phase(torch, dev, small: bool, kernels):
     router = OptiRoute(mres, TaskAnalyzer(AnalyzerConfig(), seed=3,
                                           device=dev), device=dev)
     eng = ServingEngine(router, prompt_len=prompt_len)
-    reqs = generation_requests(n_req, max_new, seed=5)
+    reqs = generation_requests(n_req, max_new, seed=5, profiles=profiles)
     t0 = time.perf_counter()
     eng.submit(reqs)                                 # warm-up pass
-    log(f"[generate] warm-up submit {time.perf_counter() - t0:.2f} s")
-    for f in (FA.flash_attention, SS.ssd_scan):
+    log(f"[{tag}] warm-up submit {time.perf_counter() - t0:.2f} s")
+    for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = eng.submit(reqs)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": FA.flash_attention.launches,
                 "flash_attention_decode": FA.flash_attention.decode_launches,
-                "ssd_scan": SS.ssd_scan.launches}
-    log(f"[generate] launches on the main path: {launches}")
+                "ssd_scan": SS.ssd_scan.launches,
+                "moe_gating": MG.moe_gating.launches}
+    log(f"[{tag}] launches on the main path: {launches}")
     by_model = {}
     for r in out:
         check(not r.failed and not r.shed,
@@ -977,8 +1172,8 @@ def generation_phase(torch, dev, small: bool, kernels):
         check(r.tokens is not None and len(r.tokens) == max_new,
               f"request {r.request.id}: tokens {r.tokens}")
         by_model[r.model] = by_model.get(r.model, 0) + 1
-    log(f"[generate] {len(out)} requests served per model: {by_model}")
-    for name in GEN_ARCHS:
+    log(f"[{tag}] {len(out)} requests served per model: {by_model}")
+    for name in archs:
         check(by_model.get(name, 0) >= 8,
               f"{name} served {by_model.get(name, 0)} requests (< 8)")
         res = results[name]
@@ -986,23 +1181,32 @@ def generation_phase(torch, dev, small: bool, kernels):
               f"{name}: non-finite prefill logits")
         check(res.tokens.shape == (by_model[name], max_new),
               f"{name}: generated {res.tokens.shape}")
+    for name in archs:
+        res = results[name]
+        B = res.tokens.shape[0]
+        step = res.decode_s / max(max_new - 1, 1)
+        log(f"[{tag}] {name}: B={B}, prompt {prompt_len}, {max_new} "
+            f"new tokens: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+            f"{step * 1e3:.3f} ms per step, {B * max_new / res.wall_s:.1f} "
+            f"generated tokens/s ({res.wall_s * 1e3:.1f} ms in generate)")
+    log(f"[{tag}] submit of {len(out)} requests: {wall:.3f} s")
+    if dev.type == "cuda":
+        log(f"[{tag}] peak memory allocated during the submit: "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return mres, results, launches, prompt_len, max_new
+
+
+def generation_phase(torch, dev, small: bool, kernels):
+    mres, results, launches, prompt_len, max_new = routed_generation(
+        torch, dev, small, GEN_ARCHS, seed=7, tag="generate")
     n_llama = mres.entry("llama3.2-1b").runner.cfg.n_layers
     n_mamba = mres.entry("mamba2-1.3b").runner.cfg.n_layers
     want = {"flash_attention": n_llama * max_new,
             "flash_attention_decode": n_llama * (max_new - 1),
-            "ssd_scan": n_mamba}
+            "ssd_scan": n_mamba, "moe_gating": 0}
     if dev.type == "cuda":
         check(launches == want, f"launch counts {launches}, want {want} "
                                 "(one per layer per prefill and decode step)")
-    for name in GEN_ARCHS:
-        res = results[name]
-        B = res.tokens.shape[0]
-        step = res.decode_s / max(max_new - 1, 1)
-        log(f"[generate] {name}: B={B}, prompt {prompt_len}, {max_new} "
-            f"new tokens: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-            f"{step * 1e3:.3f} ms per step, {B * max_new / res.wall_s:.1f} "
-            f"generated tokens/s ({res.wall_s * 1e3:.1f} ms in generate)")
-    log(f"[generate] submit of {len(out)} requests: {wall:.3f} s")
     for name in GEN_ARCHS:
         decode_profile(torch, dev, mres.entry(name).runner, name,
                        results[name].tokens.shape[0], prompt_len)
@@ -1010,11 +1214,71 @@ def generation_phase(torch, dev, small: bool, kernels):
     kernels["ssd_scan"]["launches"] = launches["ssd_scan"]
 
 
+def release(torch, dev, what: str) -> None:
+    """Free what the earlier phases left on the card (runners and
+    catalogs reachable only through reference cycles, the routing
+    path's cached device constants) and log the free memory before and
+    after."""
+    import gc
+
+    from repro_torch.kernels import ops
+
+    ops.reset_catalog_cache()
+    if dev.type != "cuda":
+        gc.collect()
+        return
+    free0, total = torch.cuda.mem_get_info(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1, _ = torch.cuda.mem_get_info(dev)
+    log(f"[memory] {what}: free {free0 / 1e9:.2f} GB -> {free1 / 1e9:.2f} "
+        f"GB of {total / 1e9:.2f} GB ({torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB still allocated)")
+
+
+def moe_generation_phase(torch, dev, small: bool, kernels):
+    """Routed generation on qwen3-moe-30b-a3b at full width and depth
+    (bf16 weights drawn on the card, ~59.5 GB) beside llama3.2-1b: every
+    MoE layer gates once per prefill and once per decode step, each
+    time through the CUDA ``moe_gating`` kernel."""
+    mres, results, launches, prompt_len, max_new = routed_generation(
+        torch, dev, small, MOE_GEN_ARCHS, seed=17, tag="generate moe",
+        profiles=MOE_PROFILES)
+    cfg = mres.entry(MOE_ARCH).runner.cfg
+    check(prompt_len % min(cfg.moe_group, prompt_len) == 0,
+          "the prompt must be whole MoE groups: one gate per layer")
+    n_flash = sum(mres.entry(n).runner.cfg.n_layers for n in MOE_GEN_ARCHS)
+    n_llama = mres.entry("llama3.2-1b").runner.cfg.n_layers
+    want = {"flash_attention": n_flash * max_new,
+            "flash_attention_decode": n_flash * (max_new - 1),
+            "ssd_scan": 0, "moe_gating": cfg.n_layers * max_new}
+    log(f"[generate moe] flash_attention launches: {n_llama * max_new} for "
+        f"llama3.2-1b, {cfg.n_layers * max_new} for {MOE_ARCH} (GQA group "
+        f"{cfg.n_heads // cfg.n_kv_heads})")
+    if dev.type == "cuda":
+        check(launches == want, f"launch counts {launches}, want {want} "
+                                "(one per layer per prefill and decode step)")
+    decode_profile(torch, dev, mres.entry(MOE_ARCH).runner, MOE_ARCH,
+                   results[MOE_ARCH].tokens.shape[0], prompt_len)
+    kernels["moe_gating"]["launches"] = launches["moe_gating"]
+
+
+def _busy(prof) -> list:
+    """(device us, name) of a trace's kernels, largest first.  Only the
+    device's own events count: an operator's row (``aten::mm``) repeats
+    the time of the kernels it launched."""
+    ev = [(getattr(e, "self_device_time_total", 0.0), e.key)
+          for e in prof.key_averages()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sorted([x for x in ev if x[0] > 0], reverse=True)
+
+
 def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
                    steps: int = 3):
-    """Device busy share of ``steps`` decode steps: the kernel time a
-    ``torch.profiler`` trace attributes to them over their wall time
-    (host clock, ending in a synchronize)."""
+    """Device busy share of one prefill and of ``steps`` decode steps:
+    the kernel time a ``torch.profiler`` trace attributes to them over
+    their wall time (host clock, ending in a synchronize), with the
+    kernels that take the most of it."""
     if dev.type != "cuda":
         return
     from torch.profiler import ProfilerActivity, profile
@@ -1022,17 +1286,22 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
     from repro_torch.training.steps import make_decode_step, make_prefill_step
 
     toks = torch.ones((B, prompt_len), dtype=torch.int64, device=dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
-        last, cache, pos = make_prefill_step(
-            runner.cfg, max_len=prompt_len + steps + 2)(runner.params,
-                                                         {"tokens": toks})
+        prefill = make_prefill_step(runner.cfg, max_len=prompt_len + steps + 2)
+        prefill(runner.params, {"tokens": toks})
+        torch.cuda.synchronize(dev)
+        with profile(activities=acts) as pprof:
+            t0 = time.perf_counter()
+            last, cache, pos = prefill(runner.params, {"tokens": toks})
+            torch.cuda.synchronize(dev)
+            pwall = time.perf_counter() - t0
         step = make_decode_step(runner.cfg)
         tok = torch.argmax(last, dim=-1)[:, None]
         _, tok, cache = step(runner.params, cache, {"token": tok, "pos": pos})
         pos = pos + 1
         torch.cuda.synchronize(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 _, tok, cache = step(runner.params, cache,
@@ -1040,15 +1309,18 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
                 pos = pos + 1
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages())
-    if not dev_us:
-        log(f"[profile] {name}: the trace holds no device time; device "
-            f"busy share not measured")
-        return
-    log(f"[profile] {name}: {steps} decode steps (B={B}) in "
-        f"{wall * 1e3:.2f} ms (under the profiler), device busy "
-        f"{dev_us / 1e3:.2f} ms = {dev_us / 1e6 / wall:.1%} of it")
+    for what, tr, w in (("prefill", pprof, pwall),
+                        (f"{steps} decode steps", prof, wall)):
+        busy = _busy(tr)
+        dev_us = sum(x[0] for x in busy)
+        if not dev_us:
+            log(f"[profile] {name}: the trace holds no device time; device "
+                f"busy share not measured")
+            return
+        top = "; ".join(f"{n[:48]} {us / 1e3:.2f} ms" for us, n in busy[:5])
+        log(f"[profile] {name}: {what} (B={B}) in {w * 1e3:.2f} ms (under "
+            f"the profiler), device busy {dev_us / 1e3:.2f} ms = "
+            f"{dev_us / 1e6 / w:.1%} of it; most: {top}")
 
 
 # ----------------------------------------------------------------------
@@ -1096,6 +1368,125 @@ def card_vs_cpu_phase(torch, dev, small: bool):
             f"{B * max_new} greedy tokens compared, all equal")
 
 
+class GateRecorder:
+    """Within the ``with``: every ``ops.moe_gating`` call of a run (the
+    layers call it through the module), its logits as f32 on the host
+    and the experts it chose."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig, self.calls = ops, ops.moe_gating, []
+
+    def __enter__(self):
+        def record(logits, k):
+            out = self.orig(logits, k)
+            self.calls.append((logits.float().cpu(), out[1].cpu()))
+            return out
+        self.ops.moe_gating = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_gating = self.orig
+
+
+def moe_card_vs_cpu(torch, dev, small: bool):
+    """qwen3-moe-30b-a3b at full width, 2 layers, f32, its published
+    capacity factor (tokens are dropped): the same seeded weights on the
+    card (kernels) and the CPU (plain versions), compared tie-aware in
+    the gate as well as in the greedy tokens.  Each batch row is one MoE
+    group (prefill: g = the prompt; decode: g = 1), so a choice made
+    differently at a near-tie (the CPU's probabilities of the two
+    experts at that position within 1e-5) can move only its own row:
+    that row is logged and compared no further.  Any other difference
+    fails."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.serving.runner import ModelRunner
+
+    cpu = torch.device("cpu")
+    B, Lp, max_new = (2, 24, 4) if small else (4, 64, 4)
+    base = get_smoke(MOE_ARCH) if small else get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=2, compute_dtype="float32",
+        moe_capacity_factor=get_config(MOE_ARCH).moe_capacity_factor)
+    E, K, nL = cfg.n_experts, cfg.moe_top_k, cfg.n_layers
+    g = min(cfg.moe_group, Lp)
+    check(g == Lp, "one MoE group per batch row at prefill")
+    C = max(1, math.ceil(g * K / E * cfg.moe_capacity_factor))
+    params = M.init_params(cfg, torch.Generator().manual_seed(13), cpu)
+    toks = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (B, Lp)).astype(np.int32)
+    with GateRecorder() as rec_cpu:
+        ref = ModelRunner(cfg, params=params, device=cpu).generate(
+            toks, max_new, keep_logits=True)
+    with GateRecorder() as rec_dev:
+        got = ModelRunner(cfg, params=params, device=dev).generate(
+            toks, max_new, keep_logits=True)
+    del params
+    check(len(rec_cpu.calls) == len(rec_dev.calls) == nL * max_new,
+          f"gate calls {len(rec_cpu.calls)} / {len(rec_dev.calls)}, want "
+          f"{nL * max_new}")
+    # pairs past capacity at prefill (k-major, then token order)
+    dropped = 0
+    for _, idx in rec_cpu.calls[:nL]:
+        for grp in idx.reshape(-1, g, K):
+            counts = np.bincount(grp.T.reshape(-1).numpy(), minlength=E)
+            dropped += int(np.maximum(counts - C, 0).sum())
+    scale = float(np.abs(ref.logits_last).max())
+    tol = 1e-3 * scale
+    active = np.ones(B, bool)
+    min_gap, near, compared = float("inf"), [], 0
+    for s_ in range(max_new):
+        for layer in range(nL):
+            n = s_ * nL + layer
+            (lg, ri), (_, gi) = rec_cpu.calls[n], rec_dev.calls[n]
+            check(lg.shape[0] == B, "one MoE group per batch row")
+            p = torch.softmax(lg, dim=-1)
+            top = torch.sort(p, dim=-1, descending=True).values[..., :K + 1]
+            gap = (top[..., :-1] - top[..., 1:]).amin(dim=-1)   # (B, g)
+            for b in np.flatnonzero(active):
+                min_gap = min(min_gap, float(gap[b].min()))
+                diff = ri[b] != gi[b]                              # (g, K)
+                if bool(diff.any()):
+                    # the CPU's probabilities of the two experts at each
+                    # position where the choices differ
+                    pb = p[b]
+                    apart = (pb.gather(-1, gi[b].long())
+                             - pb.gather(-1, ri[b].long())).abs()
+                    worst = float(apart[diff].max())
+                    check(worst < 1e-5,
+                          f"{MOE_ARCH}: step {s_} layer {layer} row {b}: "
+                          f"the card chose other experts than the CPU "
+                          f"without a near-tie (gap {worst:.3g})")
+                    near.append((s_, layer, int(b), worst))
+                    active[b] = False
+        if s_ == 0:
+            err = float(np.abs(got.logits_last[active]
+                               - ref.logits_last[active]).max()) \
+                if active.any() else 0.0
+            check(err <= tol, f"{MOE_ARCH}: prefill logits off by {err} > "
+                              f"{tol}")
+        for b in np.flatnonzero(active):
+            top2 = np.sort(ref.step_logits[b, s_])[-2:]
+            if top2[1] - top2[0] < tol:
+                active[b] = False             # near-tie: stop this row
+                continue
+            check(got.tokens[b, s_] == ref.tokens[b, s_],
+                  f"{MOE_ARCH}: row {b} step {s_} token "
+                  f"{got.tokens[b, s_]} vs {ref.tokens[b, s_]}")
+            compared += 1
+    log(f"[card vs cpu] {MOE_ARCH} (d_model {cfg.d_model}, {E} experts "
+        f"top-{K}, 2 layers, f32, B={B}, prompt {Lp}, C={C} per group of "
+        f"{g}): {dropped} of {nL * B * g * K} (token, choice) pairs dropped "
+        f"at prefill; prefill logits max err {err:.3g} (max |logit| "
+        f"{scale:.3g}, tol {tol:.3g}); {compared} of {B * max_new} greedy "
+        f"tokens compared, all equal; smallest gate gap {min_gap:.3g}; "
+        f"choices made differently at a near-tie: {near or 'none'}")
+
+
 # ----------------------------------------------------------------------
 
 def main() -> int:
@@ -1119,7 +1510,7 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         t0 = time.perf_counter()
         build.build_all(["router_topk", "bandit_update", "flash_attention",
-                         "ssd_scan"])
+                         "ssd_scan", "moe_gating"])
         log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
         for name, out in build.BUILD_LOG.items():
             for line in out.splitlines():
@@ -1132,8 +1523,13 @@ def main() -> int:
         kernels = kernel_phase(torch, dev, rng, small=args.rehearse)
         serving_phase(torch, dev, args.rehearse, kernels)
         kernels.update(model_kernel_phase(torch, dev, args.rehearse))
+        kernels.update(moe_kernel_phase(torch, dev, args.rehearse))
         generation_phase(torch, dev, args.rehearse, kernels)
+        release(torch, dev, "after the routing and generation phases")
+        moe_generation_phase(torch, dev, args.rehearse, kernels)
+        release(torch, dev, "after the MoE generation phase")
         card_vs_cpu_phase(torch, dev, args.rehearse)
+        moe_card_vs_cpu(torch, dev, args.rehearse)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,8 +11,9 @@ Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
 On the card the route-step kNN, the cache lookup and the bandit update
 always launch their hand-written kernels; ``device="cpu"`` runs their
 plain PyTorch versions.  The model-zoo ops at the end (``flash_attention``,
-``flash_decode``, ``ssd_scan``) take tensors and run where those tensors
-live: on the card their kernels, on the CPU the plain versions.
+``flash_decode``, ``ssd_scan``, ``moe_gating``) take tensors and run
+where those tensors live: on the card their kernels, on the CPU the
+plain versions.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
 from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
+from repro_torch.kernels.moe_gating import moe_gating as _gate_kernel
 from repro_torch.kernels.route_step import (quantize_rows, route_step_body,
                                             unit_rows)
 from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
@@ -480,3 +482,17 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 128):
     """Chunked SSD scan (``kernels/ssd_scan.py``): (y (Bb, L, H, P) f32,
     h_final (Bb, H, P, N) f32)."""
     return _ssd_kernel(x, dt, A, B, C, h0, chunk=chunk)
+
+
+# ----------------------------------------------------------------------
+# MoE gating
+# ----------------------------------------------------------------------
+
+def moe_gating(logits, k: int):
+    """Fused softmax top-k gate (``kernels/moe_gating.py``).  logits
+    (..., E), flattened to (T, E).  Returns (vals (..., k) f32, idx
+    (..., k) int32, aux f32 scalar tensor)."""
+    shape = logits.shape
+    vals, idx, aux = _gate_kernel(logits.reshape(-1, shape[-1]), k)
+    return (vals.reshape(shape[:-1] + (k,)),
+            idx.reshape(shape[:-1] + (k,)), aux)

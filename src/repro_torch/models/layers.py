@@ -1,15 +1,21 @@
 """Building blocks of the model zoo, for the families this port serves
-(dense attention and the Mamba2 SSM).
+(dense attention, mixture-of-experts FFNs and the Mamba2 SSM).
 
 Port of the JAX package's ``models/layers.py``.  Parameters are plain
 dicts of tensors and layers are functions ``f(p, x, ...) -> y``, as
 there.  Attention, prefill and decode alike, goes through
 ``kernels/ops.flash_attention`` -- the hand-written kernel on the card
--- and the SSD scan of a prefill through ``kernels/ops.ssd_scan``; the
-reference's jnp attention variants (``attention_full``, the naive
-masked product, ``attention_blocked``) are one structure here.  The
-decode step writes its one KV slot in place (the reference returns a
-new cache; PyTorch can update the buffer it was given).
+-- the SSD scan of a prefill through ``kernels/ops.ssd_scan``, and the
+MoE gate through ``kernels/ops.moe_gating``; the reference's jnp
+attention variants (``attention_full``, the naive masked product,
+``attention_blocked``) are one structure here.  The decode step writes
+its one KV slot in place (the reference returns a new cache; PyTorch
+can update the buffer it was given).
+
+Every ``init_*`` takes ``dtype`` (a name, as in the config; default
+``cfg.param_dtype``) and rounds each tensor to it as soon as it is
+drawn, so a model bigger than the card in f32 can be drawn on it in
+bf16, one f32 tensor at a time.
 """
 from __future__ import annotations
 
@@ -26,12 +32,8 @@ _ITEM6 = "item 6.{} '{}'"
 
 
 def check_supported(cfg) -> None:
-    """Raise ``not_ported`` for any part of ``cfg`` outside the dense
-    and SSM families this slice serves, naming its ROADMAP.md item."""
-    if cfg.is_moe:
-        raise not_ported("Mixture-of-experts layers", _ITEM6.format(
-            1, "qwen3-moe-30b-a3b with moe_block and the moe_gating "
-               "kernel"))
+    """Raise ``not_ported`` for any part of ``cfg`` outside the dense,
+    MoE and SSM families the port serves, naming its ROADMAP.md item."""
     hymba = _ITEM6.format(2, "hymba-1.5b: ring decode and hybrid fusion")
     if cfg.arch_type == "hybrid":
         raise not_ported("Hybrid attention+SSM layers", hymba)
@@ -39,7 +41,7 @@ def check_supported(cfg) -> None:
         raise not_ported("Local/global attention alternation",
                          _ITEM6.format(3, "gemma2-2b: softcaps, "
                                           "local/global"))
-    if cfg.arch_type not in ("dense", "ssm") or cfg.frontend:
+    if cfg.arch_type not in ("dense", "moe", "ssm") or cfg.frontend:
         raise not_ported("Modality frontends and encoder-decoders",
                          _ITEM6.format(4, "encdec/vlm/audio frontends"))
     if cfg.sliding_window:
@@ -107,9 +109,9 @@ def apply_rope(x, positions, theta: float):
 # attention (GQA, optional bias)
 # ----------------------------------------------------------------------
 
-def init_attention(gen, cfg, device=None):
+def init_attention(gen, cfg, device=None, dtype=None):
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    dt = getattr(torch, cfg.param_dtype)
+    dt = getattr(torch, dtype or cfg.param_dtype)
     p = {"wq": dense_init(gen, (d, qd), dt, device=device),
          "wk": dense_init(gen, (d, kvd), dt, device=device),
          "wv": dense_init(gen, (d, kvd), dt, device=device),
@@ -177,9 +179,9 @@ def attention_decode(p, cfg, x, k_cache, v_cache, positions):
 # MLP
 # ----------------------------------------------------------------------
 
-def init_mlp(gen, cfg, device=None):
+def init_mlp(gen, cfg, device=None, dtype=None):
     d, f = cfg.d_model, cfg.d_ff
-    dt = getattr(torch, cfg.param_dtype)
+    dt = getattr(torch, dtype or cfg.param_dtype)
     return {"wi": dense_init(gen, (d, f), dt, device=device),
             "wg": dense_init(gen, (d, f), dt, device=device),
             "wo": dense_init(gen, (f, d), dt, device=device)}
@@ -190,13 +192,118 @@ def mlp(p, x):
 
 
 # ----------------------------------------------------------------------
+# Mixture of experts
+# ----------------------------------------------------------------------
+
+def init_moe(gen, cfg, device=None, dtype=None):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = getattr(torch, dtype or cfg.param_dtype)
+    p = {"router": dense_init(gen, (d, E), dt, scale=0.02, device=device),
+         "wi": dense_init(gen, (E, d, f), dt, device=device),
+         "wg": dense_init(gen, (E, d, f), dt, device=device),
+         "wo": dense_init(gen, (E, f, d), dt, device=device)}
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(gen, cfg, device, dtype)
+    return p
+
+
+def moe_gate(logits, top_k: int):
+    """Top-k gating in the reference's mask form (only its tests use
+    it; the model's path is ``moe_block``).  logits (..., E) ->
+    (weights (..., E), zero outside the top-k and renormalized inside
+    it, in logits' dtype; the load-balance aux loss).  Every expert
+    whose probability ties the k-th is in the mask, as there."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    thresh = torch.topk(probs, top_k, dim=-1).values[..., -1:]
+    mask = probs >= thresh
+    gated = probs * mask
+    gated = gated / (gated.sum(dim=-1, keepdim=True) + 1e-9)
+    me = probs.reshape(-1, E).mean(dim=0)
+    ce = mask.reshape(-1, E).float().mean(dim=0)
+    return gated.to(logits.dtype), torch.sum(me * ce) * E
+
+
+def moe_block(p, cfg, x):
+    """Capacity-based MoE over groups of the sequence, with the
+    reference's semantics (``moe_block`` there: T5X/Switch style).
+
+    Tokens are grouped along the sequence (g = min(``cfg.moe_group``,
+    L)); a trailing partial group is a second call, and the two aux
+    losses are summed.  Per group, each expert takes C = ceil(g * k /
+    E * capacity_factor) (token, choice) pairs, in k-major then token
+    order; a pair's position counts every earlier pair to its expert,
+    dropped ones included, and pairs at position >= C are dropped (the
+    token's residual passes through).  The gate is one launch of
+    ``ops.moe_gating`` per group shape.
+
+    The reference's dense one-hot (G, g, E, C) dispatch and combine
+    einsums are an index gather and a per-token product over the same
+    slots here: each slot holds at most one token, so the dispatch is
+    exact, and the combine weights are rounded to x's dtype before the
+    product as there.  The expert FFN over (E, G * C, d) is three
+    batched products.  x: (B, L, d) -> (y, aux)."""
+    B, Lx, d = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    g = min(cfg.moe_group, Lx)
+    ng = Lx // g
+    if Lx - ng * g:
+        y_h, aux_h = moe_block(p, cfg, x[:, :ng * g])
+        y_t, aux_t = moe_block(p, cfg, x[:, ng * g:])
+        return torch.cat([y_h, y_t], dim=1), aux_h + aux_t
+    C = max(1, math.ceil(g * K / E * cfg.moe_capacity_factor))
+    G = B * ng
+    dev = x.device
+    xg = x.reshape(G * g, d)
+    logits = (xg @ p["router"]).reshape(G, g, E)
+    vals, idx, aux = ops.moe_gating(logits, K)               # (G, g, K)
+
+    # pairs of a group in k-major, then token order; a pair's position
+    # is its rank among the pairs to its expert (a stable sort keeps
+    # their order), dropped pairs included
+    n_pair = K * g
+    expert = idx.transpose(1, 2).reshape(G, n_pair).long()
+    order = torch.argsort(expert, dim=1, stable=True)
+    run = expert.gather(1, order)
+    rank = torch.arange(n_pair, device=dev) - torch.searchsorted(run, run)
+    pos = torch.empty_like(order).scatter_(1, order, rank)
+    keep = pos < C
+    grp = torch.arange(G, device=dev)[:, None]
+    tok = grp * g + torch.arange(n_pair, device=dev)[None, :] % g
+    slot = torch.where(keep, (expert * G + grp) * C + pos, 0)   # (E, G, C)
+
+    # dispatch: the token row of each slot, or the zero row G * g;
+    # dropped pairs write the spare entry E * G * C, never read
+    n_slot = E * G * C
+    src = torch.full((n_slot + 1,), G * g, dtype=torch.int64, device=dev)
+    src.index_copy_(0, torch.where(keep, slot, n_slot).reshape(-1),
+                    tok.reshape(-1))
+    xin = torch.cat([xg, xg.new_zeros((1, d))])[src[:n_slot]]
+    xin = xin.view(E, G * C, d)
+    h = F.silu(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wi"])
+    out = torch.bmm(h, p["wo"]).reshape(n_slot, d)
+
+    # combine: per token, its k kept outputs weighted by their gates in
+    # x's dtype, summed by one (1, k) x (k, d) product per token
+    def per_token(t):                        # (G, K g) -> (G g, K)
+        return t.view(G, K, g).transpose(1, 2).reshape(G * g, K)
+    w = torch.where(keep, vals.transpose(1, 2).reshape(G, n_pair), 0.0)
+    y = torch.bmm(per_token(w).to(x.dtype)[:, None, :],
+                  out[per_token(slot)])
+    y = y.reshape(B, Lx, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+    return y, aux
+
+
+# ----------------------------------------------------------------------
 # Mamba2 / SSD
 # ----------------------------------------------------------------------
 
-def init_ssm(gen, cfg, device=None):
+def init_ssm(gen, cfg, device=None, dtype=None):
     d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * N                                  # groups = 1
-    dt = getattr(torch, cfg.param_dtype)
+    dt = getattr(torch, dtype or cfg.param_dtype)
     return {
         "in_proj": dense_init(gen, (d, 2 * di + 2 * N + H), dt,
                               device=device),

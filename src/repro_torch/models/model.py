@@ -1,4 +1,4 @@
-"""The model: dense (llama-style GQA) and SSM (Mamba2) families.
+"""The model: dense (llama-style GQA), MoE and SSM (Mamba2) families.
 
 Port of the JAX package's ``models/model.py`` for the families this
 slice serves (``layers.check_supported`` names the ROADMAP item of
@@ -32,31 +32,36 @@ Params = Dict[str, Any]
 # init
 # ======================================================================
 
-def _init_layer(gen, cfg: ModelConfig, device) -> Params:
-    dt = getattr(torch, cfg.param_dtype)
+def _init_layer(gen, cfg: ModelConfig, device, dtype) -> Params:
+    dt = getattr(torch, dtype or cfg.param_dtype)
     p: Params = {k: torch.zeros((cfg.d_model,), dtype=dt, device=device)
                  for k in ("ln_mix", "ln_mlp")}
     if cfg.has_attention:
-        p["attn"] = L.init_attention(gen, cfg, device)
+        p["attn"] = L.init_attention(gen, cfg, device, dtype)
     if cfg.has_ssm:
-        p["ssm"] = L.init_ssm(gen, cfg, device)
-    if cfg.d_ff > 0:
-        p["mlp"] = L.init_mlp(gen, cfg, device)
+        p["ssm"] = L.init_ssm(gen, cfg, device, dtype)
+    if cfg.is_moe:
+        p["moe"] = L.init_moe(gen, cfg, device, dtype)
+    elif cfg.d_ff > 0:
+        p["mlp"] = L.init_mlp(gen, cfg, device, dtype)
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device=None) -> Params:
-    """Random parameters in ``cfg.param_dtype``, drawn from ``gen`` (a
-    ``torch.Generator`` on ``device``) with the distributions of the
-    reference's ``init_params``; not bit-equal to ``jax.random``."""
+def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
+                dtype: Optional[str] = None) -> Params:
+    """Random parameters in ``dtype`` (default ``cfg.param_dtype``),
+    drawn from ``gen`` (a ``torch.Generator`` on ``device``) with the
+    distributions of the reference's ``init_params`` (not bit-equal to
+    ``jax.random``).  Each tensor is drawn in f32 and rounded at once:
+    the same values as ``cast_params`` of the ``param_dtype`` draw,
+    without ever holding the whole model in f32."""
     L.check_supported(cfg)
-    dt = getattr(torch, cfg.param_dtype)
+    dt = getattr(torch, dtype or cfg.param_dtype)
     embed = L.dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02,
                          device=device)
     return {"embed": embed,
             "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "layers": [_init_layer(gen, cfg, device)
+            "layers": [_init_layer(gen, cfg, device, dtype)
                        for _ in range(cfg.n_layers)]}
 
 
@@ -117,9 +122,15 @@ def _mix_full(p, cfg: ModelConfig, x, positions):
 
 
 def _ffn(p, cfg: ModelConfig, x):
-    if cfg.d_ff <= 0:
-        return x
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln_mlp"]))
+    """Feed-forward half of the block.  Returns (x, aux)."""
+    h = L.rms_norm(x, p["ln_mlp"])
+    if cfg.is_moe:
+        y, aux = L.moe_block(p["moe"], cfg, h)
+    elif cfg.d_ff > 0:
+        y, aux = L.mlp(p["mlp"], h), 0.0
+    else:
+        return x, 0.0
+    return x + y, aux
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
@@ -142,19 +153,22 @@ def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool):
     params = cast_params(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     caches = []
+    aux = 0.0
     for p in params["layers"]:
         mix, kv, ssd = _mix_full(p, cfg, x, positions)
-        x = _ffn(p, cfg, x + mix)
+        x, aux_i = _ffn(p, cfg, x + mix)
+        aux = aux + aux_i
         caches.append((kv, ssd) if collect_cache else None)
-    return params, x, caches
+    return params, x, caches, aux
 
 
 def forward_full(params, cfg: ModelConfig, batch, *,
                  collect_cache: bool = False):
     """batch: {"tokens": (B, L)}.  Returns (logits (B, L, vocab_padded)
-    f32, aux_loss, per-layer caches or Nones)."""
-    params, x, caches = _hidden(params, cfg, batch, collect_cache)
-    return _logits(params, cfg, x), 0.0, caches
+    f32, aux_loss -- the MoE load-balance losses summed over the layers,
+    0.0 without experts -- and per-layer caches or Nones)."""
+    params, x, caches, aux = _hidden(params, cfg, batch, collect_cache)
+    return _logits(params, cfg, x), aux, caches
 
 
 # ======================================================================
@@ -201,7 +215,7 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch):
                                               cache["conv"][i])
             cache["ssd"][i] = h_new
             cache["conv"][i] = conv_new
-        x = _ffn(p, cfg, x + mix)
+        x, _ = _ffn(p, cfg, x + mix)
     return _logits(params, cfg, x[:, 0]), cache
 
 
@@ -210,7 +224,7 @@ def prefill(params, cfg: ModelConfig, batch, *, max_len: int = 0):
     default prompt + 64).  Returns (last_logits (B, V) f32, cache,
     new_pos (B,)).  Only the last position's logits are formed: the
     (B, L, V) matrix of ``forward_full`` is not needed here."""
-    params, x, caches = _hidden(params, cfg, batch, collect_cache=True)
+    params, x, caches, _ = _hidden(params, cfg, batch, collect_cache=True)
     B, ctx = batch["tokens"].shape
     cap = max(max_len, ctx) if max_len else ctx + 64
     cache = init_cache(cfg, B, cap, device=x.device)

@@ -10,8 +10,9 @@ no such file.
 
 Runners: ``smoke_runners`` gives every entry a runner at its ``SMOKE``
 config, ``full_runners`` at its published ``FULL`` config (seeded
-random weights on ``device``).  Only the families of this slice
-(dense attention without a window, and SSM) can have one.
+random weights on ``device``, drawn straight into the compute dtype).
+The families the port serves (dense attention without a window, MoE
+and SSM) can have one; the others raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 

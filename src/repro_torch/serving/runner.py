@@ -48,7 +48,8 @@ class ModelRunner:
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = M.init_params(cfg, gen, device=self.device)
+            params = M.init_params(cfg, gen, device=self.device,
+                                   dtype=cfg.compute_dtype)
         # cast once: the reference casts on every call, to the same values
         self.params = M.cast_params(
             M.tree_map(lambda t: t.to(self.device), params), cfg)

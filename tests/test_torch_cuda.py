@@ -9,8 +9,12 @@ Without a CUDA device every test skips (the decision is taken inside
 the ``cuda`` fixture, at run time).  Tolerances as in
 ``tests/test_torch_kernels.py``: bf16 attention 2e-2, f32 attention
 2e-4, the scan 1e-4 of max |y|, top-k values bit-equal, the bandit
-rtol 1e-5; generation: prefill logits within 1e-3, greedy tokens equal
-up to the first step whose top-2 gap on the CPU is below 1e-3.
+rtol 1e-5; the MoE gate: expert indices equal (tie-aware: a row may
+differ only where two of its top probabilities are within 1e-6), gate
+values within 1e-6, aux within 1e-6 relative and the same bits
+on two launches; generation: prefill logits within 1e-3, greedy
+tokens equal up to the first step whose top-2 gap on the CPU is below
+1e-3.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import bandit_update as BU
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import moe_gating as MG
 from repro_torch.kernels import router_topk as RT
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models import model as M
@@ -58,6 +63,70 @@ def test_flash_attention_matches_plain(cuda, dtype, tol, Lq, kw):
     assert got.dtype == dt and not got.cpu()[0].any()
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("Lq", [64, 1])
+def test_flash_attention_gqa_group_8_matches_plain(cuda, Lq):
+    """qwen3-moe-30b-a3b's grouping: 32 query heads over 4 KV heads, so
+    a decode block serves the most query heads it can (8)."""
+    rng = np.random.default_rng(8)
+    bf = torch.bfloat16
+    q = _rand(rng, 2, Lq, 32, 64).to(bf).transpose(1, 2)
+    k = _rand(rng, 2, 80, 4, 64).to(bf).transpose(1, 2)
+    v = _rand(rng, 2, 80, 4, 64).to(bf).transpose(1, 2)
+    kv = torch.tensor([33, 80], dtype=torch.int32)
+    kw = dict(causal=Lq > 1)
+    want = FA.flash_attention_plain(q, k, v, kv, **kw)
+    got = FA.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             kv.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _assert_same_experts(got, want, logits, n_exact=0):
+    """Equal expert indices in the first ``n_exact`` rows (exact ties,
+    bit-equal in both softmaxes); elsewhere a position may differ only
+    where the plain version's probabilities of the two experts there are
+    within 1e-6: the kernel's softmax may order those either way."""
+    got, want = got.long(), want.long()
+    diff = got != want
+    assert not bool(diff[:n_exact].any()), "experts differ at an exact tie"
+    if diff.any():
+        p = torch.softmax(logits.float(), dim=-1)
+        gap = (p.gather(1, got) - p.gather(1, want)).abs()
+        assert bool((gap[diff] < 1e-6).all()), "experts differ without a tie"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,E,k", [(300, 4, 2), (77, 60, 4), (1000, 128, 8),
+                                   (16, 128, 1)])
+def test_moe_gating_matches_plain(cuda, dtype, T, E, k):
+    rng = np.random.default_rng(E + k)
+    lg = _rand(rng, T, E)
+    lg[0] = 0.0                                   # every expert ties
+    lg[1, E // 2:] = lg[1, :E - E // 2]           # each value twice
+    lg = lg.to(getattr(torch, dtype))
+    want = MG.moe_gating_plain(lg, k)
+    before = MG.moe_gating.launches
+    got = MG.moe_gating(lg.to(cuda), k)
+    again = MG.moe_gating(lg.to(cuda), k)
+    assert MG.moe_gating.launches == before + 2
+    assert got[1].dtype == torch.int32 and got[0].dtype == torch.float32
+    _assert_same_experts(got[1].cpu(), want[1], lg, n_exact=2)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)
+    assert torch.equal(got[2], again[2])          # aux: the same bits
+    assert torch.equal(got[1][0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+def test_moe_gating_takes_strided_rows(cuda):
+    rng = np.random.default_rng(3)
+    wide = _rand(rng, 50, 96).to(cuda)
+    lg = wide[:, 16:80]                            # row stride 96, E = 64
+    got = MG.moe_gating(lg, 4)
+    want = MG.moe_gating_plain(lg.cpu(), 4)
+    _assert_same_experts(got[1].cpu(), want[1], lg.cpu())
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -103,7 +172,8 @@ def test_router_topk_and_bandit_update_match_plain(cuda):
         torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",
+                                  "qwen3-moe-30b-a3b"])
 def test_generate_on_card_matches_cpu(cuda, name):
     cfg = get_smoke(name)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -1,23 +1,29 @@
 """Routed generation through the port's ``ModelRunner`` against the JAX
-package, on the CPU at the ``SMOKE`` configs of llama3.2-1b and
-mamba2-1.3b (weights from the reference's ``init_params`` through
-``params_from_jax``):
+package, on the CPU at the ``SMOKE`` configs of llama3.2-1b,
+mamba2-1.3b, qwen3-moe-30b-a3b and llama4-maverick-400b-a17b (weights
+from the reference's ``init_params`` through ``params_from_jax``):
 
   * ``ModelRunner.generate``: greedy tokens agree, tie-aware -- a token
     may differ only where the reference's top-2 logit gap at that step
     is below ``TIE`` (then that row is compared no further);
   * ``ServingEngine.submit`` with runners: the same catalog, analyzer
     and requests through both engines give the same routed model,
-    admission outcome and tokens per request.  The port's roofline
+    admission outcome and tokens per request, for a catalog of the
+    dense and SSM models and one of the two MoE models.  The port's roofline
     constants are the H100's; for this test they are set to the
     reference's, so the catalogs' latency/cost metrics (and the load
     tracker's service times) are equal;
-  * failure isolation: a runner that raises fails its own group only.
+  * failure isolation: a runner that raises fails its own group only;
+  * a runner that draws its own weights holds exactly the values of
+    ``init_params`` followed by ``cast_params``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke as jget_smoke
 from repro.core import analyzer as JA
@@ -42,7 +48,9 @@ from repro_torch.serving.engine import ServingEngine as TServingEngine
 from repro_torch.serving.load import LoadTracker as TLoad
 from repro_torch.training import steps as TS
 
-SERVED = ["llama3.2-1b", "mamba2-1.3b"]
+SERVED = ["llama3.2-1b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
+          "llama4-maverick-400b-a17b"]
+DENSE_SSM, MOE = SERVED[:2], SERVED[2:]
 TIE = 1e-4
 PROFILES = ["balanced", "cost-effective", "accuracy-first", "latency-first"]
 
@@ -137,8 +145,8 @@ def test_runner_parts_outside_the_slice_raise():
                  lambda: TS.make_train_step(tr.cfg)):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
             call()
-    with pytest.raises(NotImplementedError, match="moe_gating"):
-        TRUN.ModelRunner(get_smoke("qwen3-moe-30b-a3b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="hymba-1.5b"):
+        TRUN.ModelRunner(get_smoke("hymba-1.5b"), device="cpu")
 
 
 def test_seeded_runner_is_reproducible():
@@ -151,6 +159,24 @@ def test_seeded_runner_is_reproducible():
     assert np.isfinite(a.logits_last).all()
 
 
+@pytest.mark.parametrize("name", DENSE_SSM)
+def test_runner_weights_equal_init_then_cast(name):
+    """The runner draws each tensor and casts it at once; the values are
+    bit-equal to drawing the whole model in ``param_dtype`` and casting
+    it afterwards (here to bf16, so the cast is not a no-op)."""
+    cfg = dataclasses.replace(get_smoke(name), compute_dtype="bfloat16")
+    got = TRUN.ModelRunner(cfg, seed=9, device="cpu").params
+    want = TM.cast_params(TM.init_params(
+        cfg, torch.Generator().manual_seed(9), device="cpu"), cfg)
+    got_t, want_t = [], []
+    TM.tree_map(got_t.append, got)
+    TM.tree_map(want_t.append, want)
+    assert len(got_t) == len(want_t) > 0
+    for a, b in zip(got_t, want_t):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
 # ----------------------------------------------------------------------
 # the serving engine with runners
 # ----------------------------------------------------------------------
@@ -161,9 +187,9 @@ CFG_T = TA.AnalyzerConfig(vocab_size=512, d_model=32, n_layers=2, n_heads=2,
                           d_ff=64, max_len=24)
 
 
-def _engines(load: bool):
+def _engines(load: bool, names=DENSE_SSM):
     jm, tm = JMRES(), TMRES()
-    for i, name in enumerate(SERVED):
+    for i, name in enumerate(names):
         jr, tr = _runners(name, seed=i)
         jm.register(JCAT.build_entry(name, runner=jr))
         tm.register(TCAT.build_entry(name, runner=tr))
@@ -190,11 +216,10 @@ def _requests(n, seed, deadlines=False):
                       deadline_ms=dl(i)) for i, r in enumerate(recs)])
 
 
-@pytest.mark.parametrize("load", [False, True], ids=["plain", "load"])
-def test_serving_with_runners_matches_reference(monkeypatch, load):
+def _serve_both(monkeypatch, load, names):
     monkeypatch.setattr(TRUN, "PEAK_FLOPS", JRUN.PEAK_FLOPS)
     monkeypatch.setattr(TRUN, "HBM_BW", JRUN.HBM_BW)
-    je, te = _engines(load)
+    je, te = _engines(load, names)
     models, kinds = set(), set()
     for seed in (11, 12):
         jreq, treq = _requests(16, seed, deadlines=load)
@@ -214,12 +239,22 @@ def test_serving_with_runners_matches_reference(monkeypatch, load):
                 toks = je._tokens([a.request.text], runner.cfg.vocab_size)
                 ref, logits = jax_greedy(runner.params, runner.cfg, toks, 3)
                 assert_greedy_agrees(b.tokens[None], ref, logits)
-    assert models == set(SERVED)
+    assert models == set(names)
     if load:
         assert "shed" in kinds and "admitted" in kinds
         np.testing.assert_allclose(te.load.inflight, je.load.inflight)
         np.testing.assert_allclose(te.load.ewma_s, je.load.ewma_s,
                                    rtol=1e-9)
+
+
+@pytest.mark.parametrize("load", [False, True], ids=["plain", "load"])
+def test_serving_with_runners_matches_reference(monkeypatch, load):
+    _serve_both(monkeypatch, load, DENSE_SSM)
+
+
+@pytest.mark.parametrize("load", [False, True], ids=["plain", "load"])
+def test_serving_with_moe_runners_matches_reference(monkeypatch, load):
+    _serve_both(monkeypatch, load, MOE)
 
 
 class _Broken:

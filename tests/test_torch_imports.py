@@ -48,6 +48,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.catalog, repro_torch.training.steps\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.moe_gating\n"
         "from repro_torch.configs import ARCH_NAMES, get_config\n"
         "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
@@ -112,12 +113,13 @@ def test_resolve_device_rules():
 
 @pytest.mark.parametrize("which", ["router_topk", "router_topk_q8",
                                    "bandit_update", "flash_attention",
-                                   "ssd_scan"])
+                                   "ssd_scan", "moe_gating"])
 def test_kernel_wrappers_never_fall_back_off_the_cpu(which):
     """A tensor that is not on the CPU never takes the plain version:
     the wrapper launches its kernel or raises (here: a meta tensor)."""
     from repro_torch.kernels import bandit_update as BU
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
     from repro_torch.kernels import router_topk as RT
     from repro_torch.kernels import ssd_scan as SS
 
@@ -135,6 +137,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(which):
             m(2, 4, 8, 64), m(2, 2, 8, 64), m(2, 2, 8, 64)),
         "ssd_scan": lambda: SS.ssd_scan(
             m(2, 8, 3, 16), m(2, 8, 3), m(3), m(2, 8, 4), m(2, 8, 4)),
+        "moe_gating": lambda: MG.moe_gating(m(16, 8), 2),
     }
     with pytest.raises(ValueError, match="cuda or cpu"):
         calls[which]()

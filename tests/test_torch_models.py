@@ -2,7 +2,10 @@
 ``SMOKE`` configs: the configs themselves, each layer the port keeps
 (``attention_blocked``, the naive masked attention, ``attention_decode``,
 ``ssd_chunked``, ``ssd_step``, the small pieces), and the model's
-``prefill`` / ``decode_step`` logits for llama3.2-1b and mamba2-1.3b.
+``prefill`` / ``decode_step`` / ``forward_full`` logits for llama3.2-1b,
+mamba2-1.3b and the two MoE configs, qwen3-moe-30b-a3b (top-8) and
+llama4-maverick-400b-a17b (top-1 with a shared expert); ``forward_full``
+also returns the load-balance aux summed over the layers.
 Weights come from the reference's ``init_params`` through
 ``params_from_jax``; inputs are numpy arrays from a seed.
 
@@ -10,7 +13,9 @@ Tolerances: 1e-5 for element-wise pieces (same f32 arithmetic); 2e-4
 for attention layers (the kernel's online softmax against a
 materialised one); 2e-3 for ``ssd_chunked``, as the reference's own
 layer test holds it against the sequential scan; 1e-4 for logits
-(values of order 1, a dozen f32 products deep).
+(values of order 1, a dozen f32 products deep); 1e-5 for the summed
+aux (two layers' losses of order 1, from gates whose inputs differ
+in the last bits).
 """
 import dataclasses
 
@@ -31,7 +36,8 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_eval, get_smoke
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
-SERVED = ["llama3.2-1b", "mamba2-1.3b"]
+SERVED = ["llama3.2-1b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
+          "llama4-maverick-400b-a17b"]
 # dense GQA with q/k/v biases and no window: inside this slice as well
 RUNS = SERVED + ["qwen2-1.5b"]
 RNG = np.random.default_rng(0)
@@ -261,11 +267,15 @@ def test_prefill_and_decode_logits_match_reference(name):
 def test_forward_full_matches_reference(name):
     cfg, tcfg, jp, tp = _params(name, seed=2)
     toks = RNG.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
-    want, _, _ = JM.forward_full(jp, cfg, {"tokens": jnp.asarray(toks)})
+    want, want_aux, _ = JM.forward_full(jp, cfg,
+                                        {"tokens": jnp.asarray(toks)})
     got, aux, _ = TM.forward_full(tp, tcfg, {"tokens": torch.from_numpy(toks)})
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5,
+                               atol=1e-5)
+    assert (float(want_aux) > 0) == tcfg.is_moe
 
 
 @pytest.mark.parametrize("name", SERVED)
