@@ -735,6 +735,73 @@ def attn_check(torch, FA, q, k, v, kv_valid, tol, what, **kw):
     return float(diff.max())
 
 
+def served_decode(torch, FA, g, dev, B, C, Hq, Hkv, hd, what):
+    """The decode step as the served path runs it: one bf16 query per
+    sequence against a cache of capacity C whose live lengths are
+    prompt + step (513..528 at prompt 512), checked against the plain
+    version and timed beside SDPA with a bool mask in the same run.
+    Returns (err, kernel ms, SDPA ms)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+    kvv = np.arange(B) % 16 + (C - 23)
+    kv_valid = torch.from_numpy(kvv.astype(np.int32)).to(dev)
+    q = rn(B, 1, Hq, hd).transpose(1, 2)
+    k = rn(B, C, Hkv, hd).transpose(1, 2)
+    v = rn(B, C, Hkv, hd).transpose(1, 2)
+    err = attn_check(torch, FA, q, k, v, kv_valid, 2e-2, what,
+                     causal=False)
+    live = int(kvv.sum())
+    bms, by = bound_ms(2 * (2 * B * Hq * hd + 2 * live * Hkv * hd),
+                       4.0 * Hq * hd * live, PEAK_BF16_S)
+    ms = time_graph_ms(torch, lambda: FA.flash_attention(
+        q, k, v, kv_valid, causal=False), dev)
+    mask = torch.arange(C, device=dev)[None, :] < kv_valid[:, None]
+    lib = time_graph_ms(torch, sdpa_call(
+        torch, q.contiguous(), k.contiguous(), v.contiguous(),
+        attn_mask=mask[:, None, None, :]), dev)
+    log(f"[kernels] {what}: B={B} C={C} {Hq}/{Hkv} heads of {hd}, live "
+        f"{int(kvv.min())}-{int(kvv.max())} ({live} keys, splits "
+        f"{FA.decode_splits(B, Hkv, C)}): {ms:.4f} ms, SDPA {lib:.4f} ms, "
+        f"kernel / SDPA {ms / lib:.2f}, bound {bms:.4g} by {by} "
+        f"({ms / bms:.1f}x), max err {err:.3g}")
+    return err, ms, lib
+
+
+def attn_sweep(torch, FA, g, dev, dt, tol):
+    """Window, softcap, causal=False, Lq != Lk, hd 32/64/128, G 1-16,
+    rows with no live key, and decode over caches of 1, 63, 536 and
+    4,100 slots with kv_valid 0, 1, a split boundary and the full
+    capacity, in the model's strided layout; returns the max error."""
+    cases = [((2, 90, 90, 4, 2, 64), None, dict(causal=True, window=16)),
+             ((2, 90, 90, 4, 2, 64), None,
+              dict(causal=True, window=7, softcap=50.0)),
+             ((2, 90, 90, 4, 2, 32), None, dict(causal=False, softcap=30.0)),
+             ((2, 100, 100, 4, 1, 128), None, dict(causal=True)),
+             ((2, 70, 130, 8, 2, 64), None, dict(causal=True)),
+             ((2, 200, 200, 10, 2, 64), [0, 150], dict(causal=True)),
+             ((1, 513, 513, 8, 1, 64), None, dict(causal=True)),
+             ((3, 1, 100, 8, 2, 128), [0, 50, 100], dict(causal=False)),
+             ((2, 1, 300, 4, 4, 64), [300, 7], dict(causal=False)),
+             ((2, 1, 77, 32, 1, 64), None, dict(causal=True, window=20))]
+    for cap in (1, 63, 536, 4100):
+        n, chunk = FA.decode_splits(4, 2, cap)
+        cases.append(((4, 1, cap, 32, 2, 64),
+                      [0, 1, min(chunk, cap), cap], dict(causal=False)))
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+    worst = 0.0
+    for (b_, lq, lk, hq, hk, d), kvl, kw in cases:
+        kvt = None if kvl is None else torch.tensor(
+            kvl, dtype=torch.int32, device=dev)
+        worst = max(worst, attn_check(
+            torch, FA, rn(b_, lq, hq, d).transpose(1, 2),
+            rn(b_, lk, hk, d).transpose(1, 2),
+            rn(b_, lk, hk, d).transpose(1, 2), kvt, tol,
+            f"flash_attention {dt} {(b_, lq, lk, hq, hk, d)} {kw}", **kw))
+    return worst, len(cases)
+
+
 def ssd_ops(Bb, L, H, P, N, chunk) -> float:
     """Operations the scan needs: per (batch, head, chunk of length c)
     2cNP (inter) + c(c+1)P (intra) + 2cPN (state), and C B^T once per
@@ -808,33 +875,29 @@ def model_kernel_phase(torch, dev, small: bool):
     dec_lib = time_graph_ms(torch, sdpa_call(
         torch, qd.contiguous(), kd.contiguous(), vd.contiguous(),
         attn_mask=mask[:, None, None, :]), dev)
-    results["flash_attention"]["max_abs_err"] = max(err_p, err_d)
     log(f"[kernels] flash_attention decode shape B={B} C={C} Hq={Hq} "
         f"Hkv={Hkv} hd={hd} bf16, {live} live keys: {dec_ms:.4f} ms "
         f"(plain {dec_plain:.4f}, library {dec_lib:.4f}, bound "
         f"{dbms:.4g} by {dby}), max err {err_d:.3g}")
 
-    # -- f32 sweep: window, softcap, causal=False, ragged, zero rows
-    sweep = [((2, 90, 90, 4, 2, 64), None, dict(causal=True, window=16)),
-             ((2, 90, 90, 4, 2, 64), None,
-              dict(causal=True, window=7, softcap=50.0)),
-             ((2, 90, 90, 4, 2, 32), None, dict(causal=False, softcap=30.0)),
-             ((2, 100, 100, 4, 1, 128), None, dict(causal=True)),
-             ((2, 70, 130, 8, 2, 64), None, dict(causal=True)),
-             ((3, 1, 100, 8, 2, 128), [0, 50, 100], dict(causal=False)),
-             ((2, 1, 77, 32, 1, 64), None, dict(causal=True, window=20))]
-    worst = 0.0
-    for (b_, lq, lk, hq, hk, d), kvl, kw in sweep:
-        kvt = None if kvl is None else torch.tensor(kvl, dtype=torch.int32,
-                                                    device=dev)
-        worst = max(worst, attn_check(
-            torch, FA, rn(b_, lq, hq, d).transpose(1, 2),
-            rn(b_, lk, hk, d).transpose(1, 2),
-            rn(b_, lk, hk, d).transpose(1, 2), kvt, 2e-4,
-            f"flash_attention f32 {(b_, lq, lk, hq, hk, d)} {kw}", **kw))
-    log(f"[kernels] flash_attention f32 sweep ({len(sweep)} cases: window, "
-        f"softcap, causal=False, Lq != Lk, hd 32/64/128, a row with no "
-        f"live key): max err {worst:.3g} (tol 2e-4)")
+    # -- the served decode shape: live lengths prompt + step
+    err_s, srv_ms, srv_lib = served_decode(
+        torch, FA, g, dev, B, C, Hq, Hkv, hd,
+        "flash_attention served decode, group 4")
+    results["flash_attention"]["max_abs_err"] = max(err_p, err_d, err_s)
+    log(f"[kernels] flash_attention kernel / SDPA: prefill "
+        f"{results['flash_attention']['ms'] / results['flash_attention']['library_ms']:.2f}, "
+        f"decode (random lengths) {dec_ms / dec_lib:.2f}, served decode "
+        f"{srv_ms / srv_lib:.2f}")
+
+    # -- sweeps in f32 and bf16: window, softcap, causal=False, ragged,
+    # zero rows, G 1-16, decode caches of 1..4,100 slots
+    for dt, tol in ((torch.float32, 2e-4), (bf, 2e-2)):
+        worst, n = attn_sweep(torch, FA, g, dev, dt, tol)
+        log(f"[kernels] flash_attention {str(dt)[6:]} sweep ({n} cases: "
+            f"window, softcap, causal=False, Lq != Lk, hd 32/64/128, G "
+            f"1-16, rows with no live key, decode caches of 1, 63, 536 "
+            f"and 4,100 slots): max err {worst:.3g} (tol {tol})")
 
     # -- mamba2-1.3b prefill scan: B=16, L=512, 64 heads of 64, N=128
     Bb, L, H, P, N, ch = (2, 64, 16, 32, 16, 16) if small else \
@@ -1067,11 +1130,15 @@ def moe_kernel_phase(torch, dev, small: bool):
         torch, qd.contiguous(), kd.contiguous(), vd.contiguous(),
         attn_mask=mask[:, None, None, :]), dev)
     log(f"[kernels] flash_attention group 8 prefill B={B} L={L} {Hq}/{Hkv} "
-        f"heads bf16 causal: {ms_p:.4f} ms (library {lib_p:.4f}, bound "
-        f"{bp:.4f} by {byp}), max err {err_p:.3g}")
+        f"heads bf16 causal: {ms_p:.4f} ms (library {lib_p:.4f}, kernel / "
+        f"SDPA {ms_p / lib_p:.2f}, bound {bp:.4f} by {byp}), max err "
+        f"{err_p:.3g}")
     log(f"[kernels] flash_attention group 8 decode B={B} C={C} {Hq}/{Hkv} "
         f"heads, {live} live keys: {ms_d:.4f} ms (library {lib_d:.4f}, "
-        f"bound {bd:.4g} by {byd}), max err {err_d:.3g}")
+        f"kernel / SDPA {ms_d / lib_d:.2f}, bound {bd:.4g} by {byd}), max "
+        f"err {err_d:.3g}")
+    served_decode(torch, FA, g, dev, B, C, Hq, Hkv, hd,
+                  "flash_attention served decode, group 8")
     return results
 
 
@@ -1487,6 +1554,21 @@ def moe_card_vs_cpu(torch, dev, small: bool):
         f"choices made differently at a near-tie: {near or 'none'}")
 
 
+def kernel_name(line: str) -> str:
+    """'kernel name<args>' from ptxas's 'Compiling entry function' line
+    (a mangled name such as ...20prefill_wgmma_kernelILi64EEEv...)."""
+    import re
+    m = re.search(r"([a-z][a-z_]*_kernel)(I(.*?)EEv)?", line)
+    if m is None:
+        return line
+    args = m.group(3) or ""
+    dt = "bf16, " if "bfloat16" in args else "f32, " if args[:1] == "f" \
+        else ""
+    hd = re.findall(r"Li(\d+)E", args + "E")
+    targs = f"<{dt}{','.join(hd)}>" if args else ""
+    return f"kernel {m.group(1)}{targs}"
+
+
 # ----------------------------------------------------------------------
 
 def main() -> int:
@@ -1514,7 +1596,10 @@ def main() -> int:
         log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
         for name, out in build.BUILD_LOG.items():
             for line in out.splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
+                if "Compiling entry" in line:
+                    line = kernel_name(line)
+                if ("registers" in line or "spill" in line or "error" in line
+                        or line.startswith("kernel ")):
                     log(f"[build {name}] {line.strip()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {dev}")

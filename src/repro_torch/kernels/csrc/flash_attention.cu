@@ -2,61 +2,102 @@
 // logit softcap, GQA by index and a per-sequence live key count.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas
-// (src/repro/kernels/flash_attention.py).  Same contract: q (B, Hq, Lq,
-// hd), k / v (B, Hkv, Lk, hd), kv head = q head / (Hq / Hkv);
-// s = (q . k) / sqrt(hd), then softcap * tanh(s / softcap), then the
-// mask (ik < Lk, ik < kv_valid[b], and with causal: ik <= row with
-// row = iq + Lk - Lq, ik > row - window); softmax over the live keys,
-// times v.  Scores, running max, denominator and accumulator in f32;
-// the output in q's dtype; a row with no live key gives 0.  f32 and
-// bf16 inputs.  Every tensor is addressed through its (batch, head,
-// position) strides with the head dim contiguous, so the model's
-// (B, L, H, hd) layout and its KV cache are read without a copy.
+// (src/repro/kernels/flash_attention.py:87, body _flash_kernel :31).
+// Same contract: q (B, Hq, Lq, hd), k / v (B, Hkv, Lk, hd), kv head =
+// q head / (Hq / Hkv); s = (q . k) / sqrt(hd), then softcap * tanh(s /
+// softcap), then the mask (ik < Lk, ik < kv_valid[b], and with causal:
+// ik <= row with row = iq + Lk - Lq, ik > row - window); softmax over
+// the live keys, times v.  Scores, running max, denominator and
+// accumulator in f32; the output in q's dtype; a row with no live key
+// gives 0.  f32 and bf16 inputs.  Every tensor is addressed through its
+// (batch, head, position) strides with the head dim contiguous, so the
+// model's (B, L, H, hd) layout and its KV cache are read without a copy.
 //
-// What bounds it on an H100: prefill at B=16, L=512, Hq=32, hd=64 is
-// 4*B*Hq*hd*(L(L+1)/2) = 17 GFLOP of products against 25 MB of q/k/v/o:
-// operations, at the bf16 tensor-core rate.  Decode (Lq=1) is the
-// other way round: 2*hd*kv_valid flops per query head against the live
-// prefix of the cache, so bytes.
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
+//  * prefill, llama3.2-1b at B=16, L=512, 32/8 heads of 64, bf16,
+//    causal: 4*B*Hq*hd*L(L+1)/2 = 17.2 GFLOP (0.0174 ms at the peak)
+//    against q + k + v + o = 83.9 MB (0.0250 ms).  Bytes, but only
+//    1.4x above the operations: the products must also run near the
+//    tensor-core rate, which on Hopper only wgmma reaches.
+//  * decode (Lq = 1) at the served shape, B=16, 8 KV heads of 64,
+//    513-528 live keys in a 536-slot cache: 2*hd FLOP per (query head,
+//    key) against the live K + V, 17.0 MB (0.0051 ms).  Bytes, in a
+//    kernel so short that filling all 132 SMs matters as much as the
+//    reads themselves.
 //
-// Design (simple and right first; mma.sync, no wgmma/TMA yet):
-//  * prefill/general, grid (ceil(Lq/64), Hq, B): a block takes 64
-//    query rows of one head and walks its key tiles -- the TPU
-//    kernel's sequential key axis is this loop in the block.  Key
-//    tiles that the causal / window mask or kv_valid rule out for every
-//    row of the block are never loaded.  Two bodies:
-//    - bf16, hd 64/128: tensor cores.  4 warps of 16 rows; S = Q K^T
-//      and O += P V as mma.sync m16n8k16 with f32 accumulators (K as
-//      [key][dim], V transposed to [dim][key] in shared memory, rows
-//      padded so fragment reads hit distinct banks); P enters the
-//      second product as bf16, the row max and sum stay f32.
-//    - otherwise (f32, hd 32): CUDA cores.  Each row is held by HD/32
-//      threads, 32 of its dims each, in registers; key tiles stream
-//      through shared memory as f32; the row's threads reduce their
-//      partial dots with xor-shuffles and update (m, l, acc) per 16
-//      keys.
-//  * decode (Lq=1), grid (ceil(G/8), Hkv, B): a block serves up to 8
-//    query heads of one KV group, so each K/V row is read once per
-//    group.  Its 4 warps take 32-key slices of [0, kv_valid) in turn
-//    (a lane scores one key against all the block's heads), keep a
-//    warp-level (m, l, acc), and the block merges the 4 partial states
-//    at the end.  Only the live prefix of the cache is read.
-//  * every exp() is guarded through the mask, as the TPU kernel does:
-//    a masked score never enters exp, and a row whose running max is
-//    still -inf rescales by 1.
+// Design:
+//  * prefill, bf16, hd 64/128, 16-byte aligned strides
+//    (prefill_wgmma_kernel): grid (Hq, B, ceil(Lq / 128)) with the
+//    query-tile index reversed, so the longest causal blocks start
+//    first.  288 threads: two consumer warpgroups of 64 query rows and
+//    one producer warp; at hd 64 two blocks share an SM (96 registers),
+//    which the kernel needs: a block alone leaves the SM waiting on
+//    its products and its softmax in turn.  The producer issues TMA
+//    loads -- 4-D tensor maps over hd and the (l, h, b) axes in the
+//    operands' own strides, 128-byte swizzle -- of Q once and of 64-key
+//    K/V tiles into a 2-stage ring in dynamic shared memory, a full and
+//    an empty mbarrier per stage, so the next tile is in flight while
+//    the consumers compute.  S = Q K^T is wgmma m64n64k16 with Q and K
+//    from shared memory (K-major); O += P V is wgmma m64nHDk16 with P
+//    in registers (the S accumulator's layout is the A operand's; P is
+//    rounded to bf16 there only) and V read MN-major from shared memory
+//    through the transpose bit.  Softmax in the log2 domain on the SFU
+//    (ex2, with scale*log2(e) folded into one fma per score); tanh only
+//    when softcap != 0.  Tiles no row of a warpgroup sees are skipped,
+//    tiles all its rows see in full run with no per-score mask, and
+//    only the edge tiles (diagonal, window, kv_valid, ragged Lk) test
+//    each score.  TMA fills rows past Lq / Lk with zeros; those are
+//    masked or not stored.
+//  * prefill otherwise (f32, hd 32, unaligned strides; not on the
+//    main path): prefill_kernel on CUDA cores.  Each row is held by
+//    HD/32 threads in registers; key tiles stream through shared
+//    memory as f32; (m, l, acc) are updated per 16 keys.
+//  * decode (Lq = 1), split-KV: grid (n_split, Hkv, B).  The wrapper
+//    picks n_split and the chunk from B, Hkv and the cache capacity
+//    alone (decode_splits in flash_attention.py), never from kv_valid,
+//    so no device value is read on the host.  A block takes one chunk
+//    of keys of one (batch, KV head) for the group's query heads, so
+//    each K/V row is read once per group, and writes the chunk's
+//    (m, l, acc) in f32 to scratch; a chunk with no live key writes
+//    (-inf, 0) and exits.  bf16 with G <= 16 (decode_mma_kernel): the
+//    G heads are the 16 rows of m16n8k16 MMAs; all K/V rows of a
+//    128-key pass are in flight at once (16-byte cp.async into padded
+//    rows), B fragments come by ldmatrix (.trans for V), each of 4
+//    warps keeps an online softmax over its 32 keys, and the warps
+//    merge in order.  Otherwise (f32, G > 16) decode_split_kernel on
+//    CUDA cores: a 2-stage cp.async ring, 16 bytes of a key row per
+//    lane.  decode_combine_kernel, one block per (batch, query head),
+//    merges the splits in split order: no atomics, the same bits on
+//    every run.
+//  * masked scores never enter ex2: a masked score is -inf, and a row
+//    whose running max is still -inf subtracts 0 instead.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
 
 constexpr int BQ = 64;       // query rows per prefill block
 constexpr int SUB = 16;      // keys per online-softmax update
-constexpr int DEC_WARPS = 4;
-constexpr int MAXG = 8;      // query heads per decode block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (-inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// live keys of sequence b: kv_valid[b] within Lk (all Lk without it)
+__device__ __forceinline__ int live_keys(const int* kv_valid, int b,
+                                         int lk) {
+  return kv_valid == nullptr ? lk : min(kv_valid[b], lk);
+}
 
 struct Mask {
   int lq, lk, causal, window;
@@ -125,7 +166,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int iq = q0 + r;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / G;
-  const int live = min(kv_valid[b], mk.lk);
+  const int live = live_keys(kv_valid, b, mk.lk);
 
   // this thread's dims: float4 chunks part, part + TPR, ... (8 of
   // them), so the row's threads read adjacent 16-byte words of a key
@@ -235,22 +276,122 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// prefill / general launch shape, bf16 on the tensor cores
+// Hopper primitives: mbarriers, TMA, cp.async, wgmma
 // ---------------------------------------------------------------------
 
-// D = A * B + D for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16
-// (col), D 16x8 f32.  Fragment layout (g = lane / 4, t = lane % 4):
-// a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
-// b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); d0 d1 (g, 2t..2t+1),
-// d2 d3 (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of more than 4 s traps (a launch error) instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0, spins = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if ((++spins & 1023) == 0) {
+      if (t0 == 0) t0 = global_ns();
+      else if (global_ns() - t0 > 4000000000ull) __trap();
+    }
+  }
+}
+
+// Which of the tensor map's dims 1..3 holds each of the l, h, b axes
+// (the host orders them by stride).
+struct TmaAxes {
+  int l, h, b;
+};
+
+// One 4-D TMA box (64 head-dim columns x rows along l) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, TmaAxes ax, int d,
+                                         int row, int head, int batch) {
+  const int c1 = ax.l == 1 ? row : ax.h == 1 ? head : batch;
+  const int c2 = ax.l == 2 ? row : ax.h == 2 ? head : batch;
+  const int c3 = ax.l == 3 ? row : ax.h == 3 ? head : batch;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 16 bytes global -> shared; `full` false writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand:
+// start address, leading / stride byte offsets (16-byte units) and
+// layout type 1 (SWIZZLE_128B).  Rows are 128 bytes, 8-row groups 1024
+// bytes apart; buffers are 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses to accumulators across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -258,181 +399,301 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A block of 4 warps takes 64 query rows of one head, 16 per warp; key
-// tiles of 64 rows stream through shared memory (K as [key][dim], V
-// transposed as [dim][key], rows padded by 8 so the fragment reads hit
-// 32 distinct banks).  S = Q K^T and O += P V run as m16n8k16 MMAs
-// with f32 accumulators; P is rounded to bf16 only as the second
-// product's operand.
+// D (64 x N, f32) += A (64 x 16) * B (16 x N), bf16.  _ss: A and B from
+// shared memory, both K-major (scale_d = 0 overwrites D).  _rs: A from
+// registers in the m16n8k16 fragment layout of each warp's 16 rows, B
+// MN-major (transpose bit set).  The accumulator layout of warp w:
+// d[4c + e] is row 16w + lane/4 + 8 (e >= 2), column 8c + 2 (lane % 4)
+// + (e & 1).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// ---------------------------------------------------------------------
+// prefill, bf16 on Hopper: TMA ring + wgmma
+// ---------------------------------------------------------------------
+
 template <int HD>
-__global__ void __launch_bounds__(128)
-prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const int* __restrict__ kv_valid,
-                   __nv_bfloat16* __restrict__ out, int G, Mask mk,
-                   Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, float softcap) {
-  constexpr int MBK = 64;           // keys per tile
-  constexpr int KS = HD / 16;       // k-steps of S = Q K^T
-  constexpr int NT = HD / 8;        // n-tiles of O
-  constexpr int LDK = HD + 8;       // Ks row stride (bf16)
-  constexpr int LDV = MBK + 8;      // Vt row stride (bf16)
-  __shared__ __align__(16) __nv_bfloat16 kt[MBK * LDK];
-  __shared__ __align__(16) __nv_bfloat16 vt[HD * LDV];
+struct Wg {
+  static constexpr int BQ = 128;                  // query rows per block
+  static constexpr int BK = 64;                   // keys per tile
+  static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;   // per SM
+  static constexpr int NB = HD / 64;              // 128-byte column blocks
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 288;             // 2 warpgroups + 1 warp
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int T_BYTES = BK * HD * 2;     // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * T_BYTES + 64;
+};
 
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / G;
-  const int live = min(kv_valid[b], mk.lk);
-  const int r0 = q0 + 16 * w + g, r1 = r0 + 8;   // this thread's rows
+template <int HD>
+__global__ void __launch_bounds__(Wg<HD>::THREADS, Wg<HD>::MIN_BLOCKS)
+prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, TmaAxes qa,
+                     TmaAxes ka, const int* __restrict__ kv_valid,
+                     __nv_bfloat16* __restrict__ out, int G, Mask mk,
+                     Strides os, float scale, float softcap) {
+  using C = Wg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled TMA boxes and wgmma descriptors want 1024-byte alignment
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + C::Q_BYTES;          // [stage][column block][BK][64]
+  uint8_t* vs = ks + C::STAGES * C::T_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + C::STAGES * C::T_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + C::STAGES;
 
-  // Q fragments, once: rows r0 / r1, dims 16 ks + 2 tq (+1, +8, +9)
-  uint32_t qa[KS][4];
-  {
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* p0 = qb + (long long)min(r0, mk.lq - 1) * qs.l;
-    const __nv_bfloat16* p1 = qb + (long long)min(r1, mk.lq - 1) * qs.l;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const int d = 16 * s + 2 * tq;
-      qa[s][0] = *reinterpret_cast<const uint32_t*>(p0 + d);
-      qa[s][1] = *reinterpret_cast<const uint32_t*>(p1 + d);
-      qa[s][2] = *reinterpret_cast<const uint32_t*>(p0 + d + 8);
-      qa[s][3] = *reinterpret_cast<const uint32_t*>(p1 + d + 8);
-    }
-  }
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;   // longest first
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / G;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  // keys any row of this block can see
   int kbeg = 0, kend = live;
   if (mk.causal) {
-    const int last = min(q0 + BQ, mk.lq) - 1 + (mk.lk - mk.lq);
-    kend = min(kend, last + 1);
-    if (mk.window) kbeg = max(0, q0 + (mk.lk - mk.lq) - mk.window + 1);
+    kend = min(kend, min(q0 + C::BQ, mk.lq) + off);
+    if (mk.window) kbeg = max(0, q0 + off - mk.window + 1);
   }
-  const __nv_bfloat16* kbase = k + b * ks.b + kh * ks.h;
-  const __nv_bfloat16* vbase = v + b * vs.b + kh * vs.h;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
-  for (int k0 = kbeg; k0 < kend; k0 += MBK) {
-    const int nk = min(MBK, kend - k0);
-    __syncthreads();
-    // 16-byte loads: K rows as they are, V rows scattered into columns
-    for (int e = t; e < MBK * (HD / 8); e += 128) {
-      const int j = e / (HD / 8), c = (e - j * (HD / 8)) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (j < nk) {
-        kv4 = *reinterpret_cast<const uint4*>(kbase + (long long)(k0 + j) *
-                                              ks.l + c);
-        vv4 = *reinterpret_cast<const uint4*>(vbase + (long long)(k0 + j) *
-                                              vs.l + c);
-      }
-      *reinterpret_cast<uint4*>(kt + j * LDK + c) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(c + i) * LDV + j] = ve[i];
+  if (t == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);            // one arrival per consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T over the tile: 8 n-tiles of 8 keys
-    float s[MBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < MBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = kt + (8 * n + g) * LDK + 2 * tq;
-#pragma unroll
-      for (int ss = 0; ss < KS; ++ss) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + 16 * ss);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + 16 * ss + 8);
-        mma16816(s[n], qa[ss], b0, b1);
+  if (warp == 8) {                        // producer
+    if (lane == 0 && ntiles > 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int j = 0; j < C::NB; ++j)
+        tma_load(qs + j * C::BQ * 128, &tq, qbar, qa, 64 * j, q0, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % C::STAGES;
+        if (i >= C::STAGES) mbar_wait(empty + s, (i / C::STAGES - 1) & 1);
+        mbar_expect_tx(full + s, 2 * C::T_BYTES);
+        const int k0 = kbeg + i * BK;
+        for (int j = 0; j < C::NB; ++j) {
+          tma_load(ks + s * C::T_BYTES + j * BK * 128, &tk, full + s, ka,
+                   64 * j, k0, kh, b);
+          tma_load(vs + s * C::T_BYTES + j * BK * 128, &tv, full + s, ka,
+                   64 * j, k0, kh, b);
+        }
       }
     }
-    // scale, softcap, mask; the new running max of rows r0 / r1
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < MBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * tq + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = 8 * n + 2 * tq + (e & 1) < nk && mk.ok(row, key, live);
-        const float val = ok ? cap(s[n][e] * scale, softcap) : -CUDART_INF_F;
-        s[n][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val);
-        else mx1 = fmaxf(mx1, val);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float al0 = mx0 == -CUDART_INF_F ? 1.f : expf(m0 - mx0);
-    const float al1 = mx1 == -CUDART_INF_F ? 1.f : expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < MBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mm = e < 2 ? m0 : m1;
-        // masked scores are -inf: guard exp through them
-        const float p = s[n][e] == -CUDART_INF_F ? 0.f : expf(s[n][e] - mm);
-        s[n][e] = p;
-        if (e < 2) ps0 += p;
-        else ps1 += p;
-      }
-    l0 = l0 * al0 + ps0;            // per-thread partial sums of the row
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= al0; o[n][1] *= al0;
-      o[n][2] *= al1; o[n][3] *= al1;
-    }
-    // O += P V: P's accumulator layout is the A fragment of the next MMA
-#pragma unroll
-    for (int kk = 0; kk < MBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vr = vt + (8 * n + g) * LDV + 16 * kk + 2 * tq;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vr + 8);
-        mma16816(o[n], pa, b0, b1);
+    return;
+  }
+
+  // consumers: warpgroup wg takes rows rlo .. rlo + 63
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int rlo = q0 + 64 * wg;
+  const int rA = rlo + 16 * wl + g8, rB = rA + 8;   // this thread's rows
+  // keys some row of the warpgroup sees, and keys all its rows see
+  int see_beg = 0, see_end = 0, all_beg = 0, all_end = 0;
+  if (rlo < mk.lq) {
+    const int rhi = min(rlo + 63, mk.lq - 1);
+    see_end = all_end = live;
+    if (mk.causal) {
+      see_end = min(see_end, rhi + off + 1);
+      all_end = min(all_end, rlo + off + 1);
+      if (mk.window) {
+        see_beg = max(0, rlo + off - mk.window + 1);
+        all_beg = max(0, rhi + off - mk.window + 1);
       }
     }
   }
+  const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
+  float o[HD / 2];
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
+
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  const uint8_t* qw = qs + wg * 64 * 128;
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % C::STAGES;
+    const int k0 = kbeg + i * BK;
+    mbar_wait(full + s, (i / C::STAGES) & 1);
+    if (k0 < see_end && k0 + BK > see_beg) {
+      const uint8_t* kt = ks + s * C::T_BYTES;
+      const uint8_t* vt = vs + s * C::T_BYTES;
+      float sc[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(sc,
+                     sw128_desc(qw + (kk / 4) * C::BQ * 128 + (kk % 4) * 32,
+                                16, 1024),
+                     sw128_desc(kt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                                1024),
+                     kk > 0);
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      // with a softcap the scores go to the log2 domain here; without
+      // one, scale*log2(e) is folded into the exponent's fma (uniform)
+      if (softcap != 0.f) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          sc[e] = softcap * tanhf(sc[e] * scale / softcap) * LOG2E;
+      }
+      if (!(k0 >= all_beg && k0 + BK <= all_end)) {      // an edge tile
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+          if (!mk.ok((e & 2) ? rB : rA, key, live)) sc[e] = -CUDART_INF_F;
+        }
+      }
+      float xA = mA, xB = mB;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        if (e & 2) xB = fmaxf(xB, sc[e]);
+        else xA = fmaxf(xA, sc[e]);
+      }
+#pragma unroll
+      for (int d = 1; d < 4; d <<= 1) {
+        xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, d));
+        xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, d));
+      }
+      // a row with no live key so far subtracts 0: 2^-inf = 0
+      const float uA = xA == -CUDART_INF_F ? 0.f : xA;
+      const float uB = xB == -CUDART_INF_F ? 0.f : xB;
+      const float aA = ex2((mA - uA) * mul), aB = ex2((mB - uB) * mul);
+      const float nA = -uA * mul, nB = -uB * mul;
+      mA = xA;
+      mB = xB;
+      float pA = 0.f, pB = 0.f;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float p = ex2(fmaf(sc[e], mul, (e & 2) ? nB : nA));
+        sc[e] = p;
+        if (e & 2) pB += p;
+        else pA += p;
+      }
+      lA = lA * aA + pA;               // per-thread partial sums of the row
+      lB = lB * aB + pB;
+#pragma unroll
+      for (int e = 0; e < HD / 2; ++e) o[e] *= (e & 2) ? aB : aA;
+      // the S accumulator's layout is the A fragment of O += P V
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
+                                           1024));
+      wg_commit();
+      wg_wait0();
+      reg_fence(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
   }
-  const float i0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, d);
+    lB += __shfl_xor_sync(0xffffffffu, lB, d);
+  }
+  const float iA = lA > 0.f ? 1.f / lA : 0.f;
+  const float iB = lB > 0.f ? 1.f / lB : 0.f;
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = 8 * n + 2 * tq;
-    if (r0 < mk.lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * os.l + d) =
-          pack_bf16(o[n][0] * i0, o[n][1] * i0);
-    if (r1 < mk.lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * os.l + d) =
-          pack_bf16(o[n][2] * i1, o[n][3] * i1);
+  for (int c = 0; c < HD / 8; ++c) {
+    const int d = 8 * c + 2 * t4;
+    if (rA < mk.lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
+          pack_bf16(o[4 * c] * iA, o[4 * c + 1] * iA);
+    if (rB < mk.lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)rB * os.l + d) =
+          pack_bf16(o[4 * c + 2] * iB, o[4 * c + 3] * iB);
   }
 }
 
 // ---------------------------------------------------------------------
-// decode launch shape (Lq = 1)
+// decode (Lq = 1): split-KV partials, then an ordered merge
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -449,194 +710,654 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ kv_valid,
-              T* __restrict__ out, int G, Mask mk, Strides qs, Strides ks,
-              Strides vs, Strides os, float scale, float softcap) {
-  constexpr int DPL = HD / 32;      // value dims per lane
-  constexpr int C4 = HD / 4;
-  __shared__ float4 qsh[MAXG * C4];
-  __shared__ float ps[DEC_WARPS][MAXG][32];
-  __shared__ float mw[DEC_WARPS][MAXG], lw[DEC_WARPS][MAXG];
-  __shared__ float aw[DEC_WARPS][MAXG][HD];
+__device__ __forceinline__ void unpack16(const float* p, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
 
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int g0 = blockIdx.x * MAXG;
-  const int ng = min(MAXG, G - g0);
-  const int h0 = kh * G + g0;
-  const int live = min(kv_valid[b], mk.lk);
-  for (int e = t; e < ng * C4; e += DEC_WARPS * 32) {
-    const int g = e / C4, c = e - g * C4;
-    qsh[e] = load4(q + b * qs.b + (long long)(h0 + g) * qs.h + 4 * c);
-  }
-  __syncthreads();
-
-  int kbeg = 0, kend = live;
-  if (mk.causal) {                  // the one row sits at Lk - 1
-    const int row = mk.lk - 1;
-    kend = min(kend, row + 1);
-    if (mk.window) kbeg = max(0, row - mk.window + 1);
-  }
-  const T* kbase = k + b * ks.b + kh * ks.h;
-  const T* vbase = v + b * vs.b + kh * vs.h;
-
-  float m[MAXG], l[MAXG], acc[MAXG][DPL];
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* p,
+                                         float (&x)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = -CUDART_INF_F;
-    l[g] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) acc[g][d] = 0.f;
-  }
-
-  for (int base = kbeg + w * 32; base < kend; base += DEC_WARPS * 32) {
-    const int key = base + lane;
-    const bool ok = key < kend && mk.ok(0, key, live);
-    float s[MAXG];
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-    if (ok) {
-      const T* kr = kbase + (long long)key * ks.l;
-#pragma unroll 4
-      for (int c = 0; c < C4; ++c) {
-        const float4 x = load4(kr + 4 * c);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < ng) {
-            const float4 qq = qsh[g * C4 + c];
-            s[g] = fmaf(qq.x, x.x, s[g]);
-            s[g] = fmaf(qq.y, x.y, s[g]);
-            s[g] = fmaf(qq.z, x.z, s[g]);
-            s[g] = fmaf(qq.w, x.w, s[g]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < ng) {
-        const float sg = ok ? cap(s[g] * scale, softcap) : -CUDART_INF_F;
-        const float mx = fmaxf(m[g], warp_max(sg));
-        const float alpha = mx == -CUDART_INF_F ? 1.f : expf(m[g] - mx);
-        const float p = ok ? expf(sg - mx) : 0.f;
-        l[g] = l[g] * alpha + warp_sum(p);
-        ps[w][g][lane] = p;
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[g][d] *= alpha;
-        m[g] = mx;
-      }
-    }
-    __syncwarp();
-    const int nkey = min(32, kend - base);
-    for (int j = 0; j < nkey; ++j) {
-      const T* vr = vbase + (long long)(base + j) * vs.l;
-      float vv[DPL];
-#pragma unroll
-      for (int d = 0; d < DPL; ++d) vv[d] = to_f(vr[lane + 32 * d]);
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < ng) {
-          const float p = ps[w][g][j];
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) acc[g][d] = fmaf(p, vv[d], acc[g][d]);
-        }
-      }
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < ng) {
-      if (lane == 0) {
-        mw[w][g] = m[g];
-        lw[w][g] = l[g];
-      }
-#pragma unroll
-      for (int d = 0; d < DPL; ++d) aw[w][g][lane + 32 * d] = acc[g][d];
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < ng * HD; e += DEC_WARPS * 32) {
-    const int g = e / HD, d = e - g * HD;
-    float M = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < DEC_WARPS; ++i) M = fmaxf(M, mw[i][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int i = 0; i < DEC_WARPS; ++i) {
-      const float f = mw[i][g] == -CUDART_INF_F ? 0.f : expf(mw[i][g] - M);
-      L += lw[i][g] * f;
-      A += aw[i][g][d] * f;
-    }
-    store(out + b * os.b + (long long)(h0 + g) * os.h + d,
-          L > 0.f ? A / L : 0.f);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
-// The tensor-core prefill takes bf16 with hd 64 or 128 and 16-byte
-// aligned K/V rows (it loads them 16 bytes at a time); anything else
-// runs the CUDA-core prefill.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+constexpr int DEC_THREADS = 128;
+
 template <typename T, int HD>
-bool mma_ok(const void* q, const void* k, const void* v, Strides qs,
-            Strides ks, Strides vs) {
-  if (!std::is_same<T, __nv_bfloat16>::value || (HD != 64 && HD != 128))
-    return false;
-  const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
-  for (long long x : st)
-    if (x % 8) return false;
-  return (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
-             16 == 0;
+struct Dec {
+  static constexpr int VEC = 16 / sizeof(T);      // elements per 16 bytes
+  static constexpr int LPR = HD / VEC;            // lanes per key row
+  static constexpr int KPW = 32 / LPR;            // keys a warp scores at once
+  // keys per sub-tile: 8 KB of K and 8 KB of V, 16..64 keys
+  static constexpr int TK_ = 8192 / (HD * (int)sizeof(T));
+  static constexpr int TK = TK_ > 64 ? 64 : TK_ < 16 ? 16 : TK_;
+  static constexpr int GB = 1024 / HD;            // query heads per block
+  static constexpr int NP = GB * HD / 2 / DEC_THREADS;  // pairs per thread
+};
+
+// Block (split, kv head x head group, batch): keys [lo, hi) of chunk
+// `split` for up to GB query heads of one KV group.  Writes, per head,
+// acc[hd] (unnormalised) to part[((b Hq + h) n_split + split) hd] and
+// (m, l) -- m in the log2 domain -- to ml at the same index times 2.
+template <typename T, int HD>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_valid,
+                    float* __restrict__ part, float* __restrict__ ml, int G,
+                    Mask mk, Strides qs, Strides ks, Strides vs, float scale,
+                    float softcap, int chunk) {
+  using C = Dec<T, HD>;
+  constexpr int TK = C::TK, VEC = C::VEC, LPR = C::LPR, KPW = C::KPW;
+  __shared__ __align__(16) T kt[2][TK * HD];
+  __shared__ __align__(16) T vt[2][TK * HD];
+  __shared__ __align__(16) float qsh[C::GB * HD];
+  __shared__ float sc[C::GB][TK];
+  __shared__ float mrow[C::GB], lrow[C::GB], arow[C::GB];
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int ngrp = (G + C::GB - 1) / C::GB;
+  const int kh = blockIdx.y / ngrp, g0 = (blockIdx.y % ngrp) * C::GB;
+  const int ng = min(C::GB, G - g0);
+  const int b = blockIdx.z;
+  const int Hq = G * (gridDim.y / ngrp);
+  const int hq0 = kh * G + g0;
+  const long long slot = ((long long)b * Hq + hq0) * n_split + split;
+
+  int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
+  if (mk.causal) {                        // the one row sits at Lk - 1
+    hi = min(hi, mk.lk);
+    if (mk.window) lo = max(0, mk.lk - mk.window);
+  }
+  lo = max(lo, split * chunk);
+  hi = min(hi, split * chunk + chunk);
+  if (lo >= hi) {                         // no live key: an empty partial
+    for (int g = t; g < ng; g += DEC_THREADS) {
+      ml[2 * (slot + (long long)g * n_split)] = -CUDART_INF_F;
+      ml[2 * (slot + (long long)g * n_split) + 1] = 0.f;
+    }
+    return;
+  }
+
+  const T* kb = k + b * ks.b + kh * ks.h;
+  const T* vb = v + b * vs.b + kh * vs.h;
+  auto load_tile = [&](int st, int k0) {
+    constexpr int CH = HD / VEC;          // 16-byte pieces of a row
+    for (int e = t; e < TK * CH; e += DEC_THREADS) {
+      const int j = e / CH, c = e - j * CH;
+      const bool in = k0 + j < hi;
+      const long long key = in ? k0 + j : lo;   // any valid address
+      cp_async16(&kt[st][j * HD + c * VEC], kb + key * ks.l + c * VEC, in);
+      cp_async16(&vt[st][j * HD + c * VEC], vb + key * vs.l + c * VEC, in);
+    }
+    cp_async_commit();
+  };
+  load_tile(0, lo);
+
+  for (int e = t; e < ng * HD; e += DEC_THREADS) {
+    const int g = e / HD, d = e - g * HD;
+    qsh[e] = to_f(q[b * qs.b + (long long)(hq0 + g) * qs.h + d]) * scale;
+  }
+  if (t < C::GB) {
+    mrow[t] = -CUDART_INF_F;
+    lrow[t] = 0.f;
+  }
+  float acc[C::NP][2];
+#pragma unroll
+  for (int i = 0; i < C::NP; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const int ntile = (hi - lo + TK - 1) / TK;
+  const int sub = lane / LPR, piece = lane % LPR;
+  for (int it = 0; it < ntile; ++it) {
+    const int st = it & 1, k0 = lo + it * TK;
+    if (it + 1 < ntile) load_tile(st ^ 1, k0 + TK);
+    else cp_async_commit();               // an empty group: wait 1 holds
+    cp_async_wait1();
+    __syncthreads();
+    // scores: LPR lanes per key row, 16 bytes each, reduced by shuffles
+    for (int j = w * KPW + sub; j < TK; j += 4 * KPW) {
+      float kf[VEC];
+      unpack16(&kt[st][j * HD + piece * VEC], kf);
+      const bool ok = k0 + j < hi;
+      for (int g = 0; g < ng; ++g) {
+        const float* qg = qsh + g * HD + piece * VEC;
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qg[e], kf[e], dot);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (piece == 0) {
+          if (softcap != 0.f) dot = softcap * tanhf(dot / softcap);
+          sc[g][j] = ok ? dot * LOG2E : -CUDART_INF_F;
+        }
+      }
+    }
+    __syncthreads();
+    // online softmax per head, one warp per head
+    for (int g = w; g < ng; g += DEC_THREADS / 32) {
+      float mx = -CUDART_INF_F;
+      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, sc[g][j]);
+      mx = warp_max(mx);
+      const float mold = mrow[g], mnew = fmaxf(mold, mx);
+      const float use = mnew == -CUDART_INF_F ? 0.f : mnew;
+      float sum = 0.f;
+      for (int j = lane; j < TK; j += 32) {
+        const float p = ex2(sc[g][j] - use);
+        sc[g][j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float a = ex2(mold - use);
+        arow[g] = a;
+        lrow[g] = lrow[g] * a + sum;
+        mrow[g] = mnew;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + P V: a thread holds NP (head, dim pair) slots
+#pragma unroll
+    for (int i = 0; i < C::NP; ++i) {
+      const int idx = t + DEC_THREADS * i;
+      const int g = idx / (HD / 2), dp = idx - g * (HD / 2);
+      if (g < ng) {
+        const float a = arow[g];
+        float x = acc[i][0] * a, y = acc[i][1] * a;
+        const T* vr = &vt[st][2 * dp];
+#pragma unroll 8
+        for (int j = 0; j < TK; ++j) {
+          const float p = sc[g][j];
+          const float2 vv = load2(vr + j * HD);
+          x = fmaf(p, vv.x, x);
+          y = fmaf(p, vv.y, y);
+        }
+        acc[i][0] = x;
+        acc[i][1] = y;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < C::NP; ++i) {
+    const int idx = t + DEC_THREADS * i;
+    const int g = idx / (HD / 2), dp = idx - g * (HD / 2);
+    if (g < ng) {
+      float* pr = part + (slot + (long long)g * n_split) * HD + 2 * dp;
+      pr[0] = acc[i][0];
+      pr[1] = acc[i][1];
+    }
+  }
+  if (t < ng) {
+    ml[2 * (slot + (long long)t * n_split)] = mrow[t];
+    ml[2 * (slot + (long long)t * n_split) + 1] = lrow[t];
+  }
+}
+
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).  Fragment
+// layout (g = lane / 4, t = lane % 4): a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8..,
+// n g); d0 d1 (g, 2t..2t+1), d2 d3 (g+8, 2t..2t+1).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8; .trans hands out the transposes
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+template <int HD>
+struct DecMma {
+  static constexpr int WK = HD == 128 ? 16 : 32;  // keys per warp and pass
+  static constexpr int TK = 4 * WK;               // keys per block pass
+  static constexpr int PITCH = HD + 8;            // smem row, bf16: the 8
+                                                  // rows of an ldmatrix
+                                                  // hit distinct banks
+};
+
+// bf16, G <= 16: the same partials as decode_split_kernel, on the tensor
+// cores.  The G query heads of the group are the 16 rows of the A
+// operand (rows past G are zero); each of the 4 warps takes WK keys of
+// a pass of TK.  All K/V rows of a pass are in flight at once (16-byte
+// cp.async, PITCH-padded rows); S = Q K^T and O += P V are m16n8k16 MMAs
+// with B fragments from ldmatrix (.trans for V); each warp keeps its
+// own online softmax, and the 4 warps' states merge in warp order.
+template <int HD>
+__global__ void __launch_bounds__(128)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ kv_valid, float* __restrict__ part,
+                  float* __restrict__ ml, int G, Mask mk, Strides qs,
+                  Strides ks, Strides vs, float scale, float softcap,
+                  int chunk) {
+  using C = DecMma<HD>;
+  constexpr int WK = C::WK, TK = C::TK, P = C::PITCH;
+  constexpr int KS = HD / 16, NT = HD / 8;
+  constexpr int KV_BYTES = 2 * TK * P * 2;
+  constexpr int MERGE_BYTES = 4 * 16 * (HD + 2) * 4;
+  __shared__ __align__(16)
+      uint8_t raw[KV_BYTES > MERGE_BYTES ? KV_BYTES : MERGE_BYTES];
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(raw);
+  __nv_bfloat16* vt = kt + TK * P;
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int Hq = G * gridDim.y;
+  const long long slot = ((long long)b * Hq + kh * G) * n_split + split;
+
+  int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
+  if (mk.causal && mk.window) lo = max(0, mk.lk - mk.window);
+  lo = max(lo, split * chunk);
+  hi = min(hi, split * chunk + chunk);
+  if (lo >= hi) {                         // no live key: an empty partial
+    if (t < G) {
+      ml[2 * (slot + (long long)t * n_split)] = -CUDART_INF_F;
+      ml[2 * (slot + (long long)t * n_split) + 1] = 0.f;
+    }
+    return;
+  }
+  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+  auto load = [&](int k0) {
+    constexpr int CH = HD / 8;            // 16-byte pieces of a row
+    for (int e = t; e < TK * CH; e += 128) {
+      const int j = e / CH, c = e - j * CH;
+      const bool in = k0 + j < hi;
+      const long long key = in ? k0 + j : lo;
+      cp_async16(kt + j * P + 8 * c, kb + key * ks.l + 8 * c, in);
+      cp_async16(vt + j * P + 8 * c, vb + key * vs.l + 8 * c, in);
+    }
+    cp_async_commit();
+  };
+  load(lo);
+
+  // Q fragments (rows = the group's heads), once
+  uint32_t qa[KS][4];
+  {
+    const __nv_bfloat16* qb = q + b * qs.b + (long long)kh * G * qs.h;
+    const __nv_bfloat16* p0 = qb + (long long)g8 * qs.h;
+    const __nv_bfloat16* p1 = qb + (long long)(g8 + 8) * qs.h;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int d = 16 * s + 2 * t4;
+      qa[s][0] = g8 < G ? *reinterpret_cast<const uint32_t*>(p0 + d) : 0u;
+      qa[s][1] = g8 + 8 < G ? *reinterpret_cast<const uint32_t*>(p1 + d) : 0u;
+      qa[s][2] = g8 < G ? *reinterpret_cast<const uint32_t*>(p0 + d + 8) : 0u;
+      qa[s][3] =
+          g8 + 8 < G ? *reinterpret_cast<const uint32_t*>(p1 + d + 8) : 0u;
+    }
+  }
+  const float mul = softcap != 0.f ? LOG2E : scale * LOG2E;
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  for (int k0 = lo; k0 < hi; k0 += TK) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const int kw = k0 + w * WK;           // this warp's first key
+    if (kw < hi) {
+      float sc[WK / 8][4];
+#pragma unroll
+      for (int n = 0; n < WK / 8; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+        for (int s = 0; s < KS; s += 2) {
+          // matrices: keys 8n.., dims 16s, 16s+8, 16s+16, 16s+24
+          uint32_t r[4];
+          const int mi = lane >> 3;
+          ldsm4(r, kt + (w * WK + 8 * n + (lane & 7)) * P + 16 * s + 8 * mi);
+          mma16816(sc[n], qa[s], r[0], r[1]);
+          if (s + 1 < KS) mma16816(sc[n], qa[s + 1], r[2], r[3]);
+        }
+      }
+      float x0 = m0, x1 = m1;
+#pragma unroll
+      for (int n = 0; n < WK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[n][e];
+          if (softcap != 0.f) x = softcap * tanhf(x * scale / softcap);
+          if (kw + 8 * n + 2 * t4 + (e & 1) >= hi) x = -CUDART_INF_F;
+          sc[n][e] = x;
+          if (e < 2) x0 = fmaxf(x0, x);
+          else x1 = fmaxf(x1, x);
+        }
+#pragma unroll
+      for (int d = 1; d < 4; d <<= 1) {
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, d));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, d));
+      }
+      const float u0 = x0 == -CUDART_INF_F ? 0.f : x0;
+      const float u1 = x1 == -CUDART_INF_F ? 0.f : x1;
+      const float a0 = ex2((m0 - u0) * mul), a1 = ex2((m1 - u1) * mul);
+      m0 = x0;
+      m1 = x1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < WK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2((sc[n][e] - (e < 2 ? u0 : u1)) * mul);
+          sc[n][e] = p;
+          if (e < 2) ps0 += p;
+          else ps1 += p;
+        }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= a0; o[n][1] *= a0;
+        o[n][2] *= a1; o[n][3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+        pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+        pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+        // matrices: keys 16kk.. / 16kk+8.., dims 8n / 8n+8 (transposed)
+        const int key = w * WK + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t r[4];
+          ldsm4_t(r, vt + key * P + 8 * n + 8 * (lane >> 4));
+          mma16816(o[n], pa, r[0], r[1]);
+          mma16816(o[n + 1], pa, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();
+    if (k0 + TK < hi) load(k0 + TK);
+  }
+
+  // merge the 4 warps' states in warp order
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  float* mo = reinterpret_cast<float*>(raw);      // [warp][row][HD]
+  float* mm = mo + 4 * 16 * HD;                   // [warp][row] m, then l
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float* r0 = mo + (w * 16 + g8) * HD + 8 * n + 2 * t4;
+    float* r1 = r0 + 8 * HD;
+    r0[0] = o[n][0]; r0[1] = o[n][1];
+    r1[0] = o[n][2]; r1[1] = o[n][3];
+  }
+  if (t4 == 0) {
+    mm[2 * (w * 16 + g8)] = m0;
+    mm[2 * (w * 16 + g8) + 1] = l0;
+    mm[2 * (w * 16 + g8 + 8)] = m1;
+    mm[2 * (w * 16 + g8 + 8) + 1] = l1;
+  }
+  __syncthreads();
+  for (int e = t; e < G * HD; e += 128) {
+    const int g = e / HD, d = e - g * HD;
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) M = fmaxf(M, mm[2 * (i * 16 + g)]);
+    const float use = M == -CUDART_INF_F ? 0.f : M;
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float f = ex2((mm[2 * (i * 16 + g)] - use) * mul);
+      L += mm[2 * (i * 16 + g) + 1] * f;
+      A += mo[(i * 16 + g) * HD + d] * f;
+    }
+    part[(slot + (long long)g * n_split) * HD + d] = A;
+    if (d == 0) {
+      ml[2 * (slot + (long long)g * n_split)] = M == -CUDART_INF_F
+                                                    ? -CUDART_INF_F
+                                                    : M * mul;
+      ml[2 * (slot + (long long)g * n_split) + 1] = L;
+    }
+  }
+}
+
+// One block per (batch, query head): the n_split partials merged in
+// split order; a split with m = -inf holds no live key and is skipped.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+decode_combine_kernel(const float* __restrict__ part,
+                      const float* __restrict__ ml, T* __restrict__ out,
+                      int Hq, int n_split, Strides os) {
+  const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
+  const int d = threadIdx.x;
+  const float* mp = ml + 2LL * bh * n_split;
+  float M = -CUDART_INF_F;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, mp[2 * s]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float m = mp[2 * s];
+    if (m == -CUDART_INF_F) continue;
+    const float f = ex2(m - M);
+    L += mp[2 * s + 1] * f;
+    A += part[((long long)bh * n_split + s) * HD + d] * f;
+  }
+  store(out + b * os.b + h * os.h + d, L > 0.f ? A / L : 0.f);
+}
+
+// ---------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Byte strides of the (l, h, b) axes of a bf16 operand with `n` = (L,
+// H, B) positions: all that TMA needs is a 16-byte multiple on every
+// axis longer than 1 and a 16-byte aligned base.
+bool tma_ok(const void* p, Strides st, int L, int H, int B) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  const long long s[3] = {st.l, st.h, st.b};
+  const int n[3] = {L, H, B};
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1 && (s[i] * 2) % 16) return false;
+  return true;
+}
+
+// A 4-D map (hd, then the l / h / b axes by increasing stride, axes of
+// length 1 last) over a bf16 operand: boxes of 64 columns (128 bytes,
+// the swizzle span) by `rows` positions along l; zeros past the ends.
+cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
+                     Strides st, int L, int H, int B, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  struct Axis {
+    long long stride;
+    int n, which;
+  } a[3] = {{st.l, L, 0}, {st.h, H, 1}, {st.b, B, 2}};
+  long long span = 2LL * hd;
+  for (const Axis& x : a)
+    if (x.n > 1) span = std::max(span, x.stride * 2 * x.n);
+  for (Axis& x : a)
+    if (x.n == 1) x.stride = span / 2;    // never stepped: any legal value
+  std::stable_sort(a, a + 3, [](const Axis& x, const Axis& y) {
+    return (x.n == 1) != (y.n == 1) ? y.n == 1 : x.stride < y.stride;
+  });
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  int slot[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)a[i].n;
+    strides[i] = (cuuint64_t)(a[i].stride * 2);
+    slot[a[i].which] = i + 1;
+    if (a[i].which == 0) box[i + 1] = (cuuint32_t)rows;
+  }
+  *ax = TmaAxes{slot[0], slot[1], slot[2]};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(p), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const int* kv_valid, void* out, int B, int Hq,
+                         int Hkv, Mask mk, Strides qs, Strides ks,
+                         Strides vs, Strides os, float scale, float softcap,
+                         cudaStream_t s) {
+  using C = Wg<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  TmaAxes qa, ka, va;
+  cudaError_t e;
+  if ((e = make_map(&tq, &qa, q, HD, qs, mk.lq, Hq, B, C::BQ)) ||
+      (e = make_map(&tk, &ka, k, HD, ks, mk.lk, Hkv, B, C::BK)) ||
+      (e = make_map(&tv, &va, v, HD, vs, mk.lk, Hkv, B, C::BK)))
+    return e;
+  if (va.l != ka.l || va.h != ka.h || va.b != ka.b)
+    return cudaErrorInvalidValue;         // K and V share one coordinate map
+  dim3 grid(Hq, B, (mk.lq + C::BQ - 1) / C::BQ);
+  prefill_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, s>>>(
+      tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
+      Hq / Hkv, mk, os, scale, softcap);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_valid, void* out, int B, int Hq, int Hkv,
-                   Mask mk, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, float softcap, cudaStream_t s) {
+                   const int* kv_valid, void* out, float* scratch, int B,
+                   int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
+                   Strides vs, Strides os, float scale, float softcap,
+                   int n_split, int chunk, cudaStream_t s) {
   const int G = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (mk.lq == 1) {
-    dim3 grid((G + MAXG - 1) / MAXG, Hkv, B);
-    decode_kernel<T, HD><<<grid, DEC_WARPS * 32, 0, s>>>(
-        qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap);
-  } else if (mma_ok<T, HD>(q, k, v, qs, ks, vs)) {
-    dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
-    prefill_mma_kernel<HD><<<grid, 128, 0, s>>>(
-        reinterpret_cast<const __nv_bfloat16*>(qp),
-        reinterpret_cast<const __nv_bfloat16*>(kp),
-        reinterpret_cast<const __nv_bfloat16*>(vp), kv_valid,
-        reinterpret_cast<__nv_bfloat16*>(op), G, mk, qs, ks, vs, os, scale,
-        softcap);
-  } else {
-    dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
-    prefill_kernel<T, HD><<<grid, BQ * (HD / 32), 0, s>>>(
-        qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap);
+    // 16-byte copies of every K/V row; the splits cover all Lk keys
+    const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
+    for (long long x : st)
+      if ((x * (long long)sizeof(T)) % 16) return cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
+            16 ||
+        scratch == nullptr || n_split < 1 || chunk < 1 ||
+        (long long)n_split * chunk < mk.lk)
+      return cudaErrorInvalidValue;
+    float* ml = scratch + (long long)B * Hq * n_split * HD;
+    bool mma = false;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      mma = G <= 16;
+      if (mma)
+        decode_mma_kernel<HD><<<dim3(n_split, Hkv, B), 128, 0, s>>>(
+            qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
+            softcap, chunk);
+    }
+    if (!mma) {
+      const int ngrp = (G + Dec<T, HD>::GB - 1) / Dec<T, HD>::GB;
+      decode_split_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B),
+                                   DEC_THREADS, 0, s>>>(
+          qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
+          softcap, chunk);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    decode_combine_kernel<T, HD><<<B * Hq, HD, 0, s>>>(scratch, ml, op, Hq,
+                                                       n_split, os);
+    return cudaGetLastError();
   }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
+    if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
+        tma_ok(v, vs, mk.lk, Hkv, B))
+      return launch_wgmma<HD>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
+                              vs, os, scale, softcap, s);
+  }
+  dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
+  prefill_kernel<T, HD><<<grid, BQ * (HD / 32), 0, s>>>(
+      qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const int* kv_valid, void* out, int B, int Hq,
-                        int Hkv, Mask mk, Strides qs, Strides ks, Strides vs,
-                        Strides os, float scale, float softcap,
-                        cudaStream_t s) {
+                        const int* kv_valid, void* out, float* scratch, int B,
+                        int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
+                        Strides vs, Strides os, float scale, float softcap,
+                        int n_split, int chunk, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
-                           vs, os, scale, softcap, s);
+      return launch<T, 32>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
+                           qs, ks, vs, os, scale, softcap, n_split, chunk, s);
     case 64:
-      return launch<T, 64>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
-                           vs, os, scale, softcap, s);
+      return launch<T, 64>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
+                           qs, ks, vs, os, scale, softcap, n_split, chunk, s);
     case 128:
-      return launch<T, 128>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
-                            vs, os, scale, softcap, s);
+      return launch<T, 128>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
+                            qs, ks, vs, os, scale, softcap, n_split, chunk, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -645,26 +1366,31 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// (batch, head, position) axes; the head dim is contiguous.
+// (batch, head, position) axes; the head dim is contiguous.  Decode
+// (Lq = 1) takes `scratch`, B * Hq * n_split * (hd + 2) floats, and
+// n_split chunks of `chunk` keys covering Lk; prefill ignores the three.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_valid,
     void* out, int dtype, int B, int Hq, int Hkv, int Lq, int Lk, int hd,
     long long qsb, long long qsh, long long qsl, long long ksb,
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, float scale,
-    int causal, int window, float softcap, void* stream) {
+    int causal, int window, float softcap, void* scratch, int n_split,
+    int chunk, void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0) return cudaErrorInvalidValue;
   const Mask mk{Lq, Lk, causal, window};
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
       os{osb, osh, osl};
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, kv_valid, out, B, Hq, Hkv, mk,
-                              qs, ks, vs, os, scale, softcap, s);
+    return dispatch_hd<float>(hd, q, k, v, kv_valid, out, sc, B, Hq, Hkv, mk,
+                              qs, ks, vs, os, scale, softcap, n_split, chunk,
+                              s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_valid, out, B, Hq,
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_valid, out, sc, B, Hq,
                                       Hkv, mk, qs, ks, vs, os, scale,
-                                      softcap, s);
+                                      softcap, n_split, chunk, s);
   return cudaErrorInvalidValue;
 }

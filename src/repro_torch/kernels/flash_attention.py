@@ -16,7 +16,9 @@ The tensors may be strided views (the head dim contiguous): the
 model's (B, L, H, hd) activations and its KV cache go in as
 ``transpose(1, 2)`` views, without a copy.  A wrapper given CUDA
 tensors launches the kernel (or raises); CPU tensors take the plain
-version.
+version.  The decode shape (Lq == 1) splits the cache into chunks
+chosen by ``decode_splits`` from the shapes alone; ``decode_split_plain``
+is its split-and-merge arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -29,13 +31,16 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)               # csrc/flash_attention.cu dispatch
 NEG_INF = float("-inf")
+LOG2E = 1.4426950408889634
+SM_COUNT = 132                          # H100 SXM
+MIN_CHUNK = 64                          # fewest keys a decode split takes
 
 _SIG = {"flash_attention_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,6 +83,64 @@ def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
     return o.reshape(B, Hq, Lq, hd).to(q.dtype)
 
 
+def decode_splits(B: int, Hkv: int, Lk: int):
+    """(n_split, chunk) of the decode launch: the Lk cache slots cut
+    into n_split chunks of ``chunk`` keys (a multiple of MIN_CHUNK), so that
+    the grid (n_split, Hkv, B) puts at least two blocks on each of the
+    card's SMs where the cache is long enough (chunks of at least
+    MIN_CHUNK keys).  Decided from the shapes alone: the live lengths
+    stay on the card, and a block whose chunk holds no live key writes
+    an empty partial."""
+    want = -(-2 * SM_COUNT // max(B * Hkv, 1))
+    n = max(1, min(want, -(-Lk // MIN_CHUNK)))
+    per = -(-Lk // n)
+    chunk = max(MIN_CHUNK, -(-per // MIN_CHUNK) * MIN_CHUNK)
+    return max(1, -(-Lk // chunk)), chunk
+
+
+def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
+                       window: int = 0, softcap: float = 0.0,
+                       splits=None):
+    """The decode kernel's arithmetic in plain PyTorch, for Lq = 1:
+    per chunk of ``decode_splits`` (or ``splits``) the partial (m, l,
+    acc) in the log2 domain over the chunk's live keys, then the
+    partials merged in split order, skipping those with no live key.
+    A row with no live key gives 0."""
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Lq != 1:
+        raise ValueError("decode_split_plain takes one query row")
+    n_split, chunk = splits or decode_splits(B, Hkv, Lk)
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, hd) / math.sqrt(hd)
+    s = torch.einsum("bkgd,bkmd->bkgm", qf, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s * LOG2E
+    ok = _live_mask(B, 1, Lk, kv_valid, causal, window, q.device)
+    ok = ok.reshape(B, 1, 1, Lk)
+    M = torch.full((B, Hkv, G, 1), NEG_INF, device=q.device)
+    parts = []
+    for i in range(n_split):
+        sl = slice(i * chunk, min(Lk, (i + 1) * chunk))
+        si = torch.where(ok[..., sl], s[..., sl], NEG_INF)
+        m = si.amax(dim=-1, keepdim=True)
+        use = torch.where(m == NEG_INF, torch.zeros_like(m), m)
+        p = torch.exp2(si - use)
+        acc = torch.einsum("bkgm,bkmd->bkgd", p, v[:, :, sl].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros((B, Hkv, G, hd), device=q.device)
+    M = torch.where(M == NEG_INF, torch.zeros_like(M), M)
+    for m, l, acc in parts:                       # split order
+        f = torch.where(m == NEG_INF, torch.zeros_like(m), torch.exp2(m - M))
+        L = L + l * f
+        A = A + acc * f
+    o = torch.where(L > 0, A / torch.where(L > 0, L, 1.0), 0.0)
+    return o.reshape(B, Hq, 1, hd).to(q.dtype)
+
+
 def _check(q, k, v, kv_valid):
     dev = q.device
     B, Hq, Lq, hd = q.shape
@@ -101,8 +164,14 @@ def _check(q, k, v, kv_valid):
             raise ValueError(f"flash_attention: operand strides "
                              f"{t.stride()} need a contiguous head dim and "
                              "16-byte aligned rows")
-    if kv_valid.device != dev or kv_valid.dtype != torch.int32 or \
-            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous():
+    # the decode shape copies K/V rows 16 bytes at a time
+    if Lq == 1 and any(s * q.element_size() % 16 for t in (k, v)
+                       for s in t.stride()[:3]):
+        raise ValueError(f"flash_attention decode: K/V strides "
+                         f"{k.stride()} / {v.stride()} need 16-byte rows")
+    if kv_valid is not None and (
+            kv_valid.device != dev or kv_valid.dtype != torch.int32 or
+            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous()):
         raise ValueError("flash_attention: kv_valid must be a contiguous "
                          f"({B},) int32 tensor on {dev}")
 
@@ -112,7 +181,8 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid (B,) int32 or
     None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the card the result
     is a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
-    tensor, the model's layout.  Lq == 1 launches the decode shape."""
+    tensor, the model's layout.  Lq == 1 launches the decode shape:
+    split-KV partials into f32 scratch, then their ordered merge."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: tensors must be on cuda or "
                          f"cpu, not {q.device}")
@@ -121,20 +191,26 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                                      window=window, softcap=softcap)
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    if kv_valid is None:
-        kv_valid = torch.full((B,), Lk, dtype=torch.int32, device=q.device)
     _check(q, k, v, kv_valid)
     lib = build.load("flash_attention", _SIG)
     out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    n_split, chunk, scratch = 0, 0, None
+    if Lq == 1:                         # partials (acc, then m and l), f32
+        n_split, chunk = decode_splits(B, Hkv, Lk)
+        scratch = torch.empty(B * Hq * n_split * (hd + 2),
+                              dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_valid is None else kv_valid.data_ptr(),
             out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
-            int(window), float(softcap), stream)
+            int(window), float(softcap),
+            None if scratch is None else scratch.data_ptr(), n_split, chunk,
+            stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     if Lq == 1:

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-version on the same inputs, and generation on the card against the
-same seeded model on the CPU.  They import neither JAX nor the JAX
+version on the same inputs (flash attention's wgmma prefill and split
+decode over ragged lengths, GQA groups, window, softcap, kv_valid and
+cache capacities; two decode launches bit-equal), and generation on
+the card against the same seeded model on the CPU.  They import neither JAX nor the JAX
 package, so they run on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -81,6 +83,85 @@ def test_flash_attention_gqa_group_8_matches_plain(cuda, Lq):
                              kv.to(cuda), **kw)
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+def _attn_case(cuda, rng, B, Lq, Lk, Hq, Hkv, hd, kv, dt, tol, *,
+               contiguous=False, **kw):
+    """The kernel on the card against the plain version on the CPU,
+    |err| <= tol * (1 + |want|); returns the card's output."""
+    if contiguous:                                 # (B, H, L, hd) as is
+        q = _rand(rng, B, Hq, Lq, hd).to(dt)
+        k = _rand(rng, B, Hkv, Lk, hd).to(dt)
+        v = _rand(rng, B, Hkv, Lk, hd).to(dt)
+    else:                                          # the layer's layout
+        q = _rand(rng, B, Lq, Hq, hd).to(dt).transpose(1, 2)
+        k = _rand(rng, B, Lk, Hkv, hd).to(dt).transpose(1, 2)
+        v = _rand(rng, B, Lk, Hkv, hd).to(dt).transpose(1, 2)
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32)
+    want = FA.flash_attention_plain(q, k, v, kvt, **kw)
+    got = FA.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             None if kvt is None else kvt.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("L,Lk,Hq,Hkv,hd,kv,contiguous,kw", [
+    (100, 100, 4, 2, 64, None, False, dict(causal=True)),
+    (200, 200, 8, 8, 64, None, False, dict(causal=True)),        # G 1
+    (513, 513, 8, 1, 64, None, False, dict(causal=True)),        # G 8
+    (70, 130, 8, 2, 64, None, False, dict(causal=True)),         # Lq != Lk
+    (200, 200, 8, 2, 64, None, False,
+     dict(causal=True, window=37, softcap=30.0)),
+    (200, 200, 4, 2, 128, None, False, dict(causal=True)),       # hd 128
+    (96, 96, 10, 2, 128, None, False, dict(causal=True)),        # G 5
+    (150, 150, 8, 2, 64, [0, 77], False, dict(causal=True)),     # kv_valid
+    (200, 200, 8, 2, 64, None, True, dict(causal=True)),         # contiguous
+    (90, 90, 4, 1, 64, [90, 33], True, dict(causal=False)),
+])
+def test_flash_attention_bf16_prefill_matches_plain(cuda, L, Lk, Hq, Hkv,
+                                                    hd, kv, contiguous, kw):
+    """The wgmma/TMA prefill (bf16, hd 64/128, 16-byte strides) at
+    ragged lengths, GQA groups 1-8, window and softcap, kv_valid with a
+    row that sees no key, in the layer's strided layout and as
+    contiguous (B, H, L, hd) operands.  Tolerance 2e-2 (bf16)."""
+    rng = np.random.default_rng(L + Hq + hd)
+    got = _attn_case(cuda, rng, 2, L, Lk, Hq, Hkv, hd, kv, torch.bfloat16,
+                     2e-2, contiguous=contiguous, **kw)
+    if kv is not None and kv[0] == 0:
+        assert not got.cpu()[0].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-4)])
+@pytest.mark.parametrize("cap", [1, 63, 536, 4100])
+@pytest.mark.parametrize("Hq", [8, 32, 64])
+def test_flash_attention_split_decode_matches_plain(cuda, dtype, tol, cap,
+                                                    Hq):
+    """The split decode over caches of 1, 63, 536 and 4,100 slots with
+    kv_valid 0, 1, the first split boundary and the full capacity; GQA
+    groups 4, 16 (the tensor-core body's largest) and 32 (the CUDA-core
+    body's).  Tolerances 2e-2 (bf16) and 2e-4 (f32)."""
+    _, chunk = FA.decode_splits(4, 2, cap)
+    kv = [0, 1, min(chunk, cap), cap]
+    rng = np.random.default_rng(cap + Hq)
+    got = _attn_case(cuda, rng, 4, 1, cap, Hq, 2, 64, kv,
+                     getattr(torch, dtype), tol, causal=False)
+    assert not got.cpu()[0].any()
+
+
+@pytest.mark.parametrize("Hkv", [8, 4])
+def test_flash_attention_decode_is_bit_stable(cuda, Hkv):
+    """The splits merge in a fixed order with no atomics: two launches on
+    the served shape give the same bits."""
+    rng = np.random.default_rng(Hkv)
+    bf = torch.bfloat16
+    q = _rand(rng, 16, 1, 32, 64).to(bf).transpose(1, 2).to(cuda)
+    k = _rand(rng, 16, 536, Hkv, 64).to(bf).transpose(1, 2).to(cuda)
+    v = _rand(rng, 16, 536, Hkv, 64).to(bf).transpose(1, 2).to(cuda)
+    kv = torch.arange(513, 529, dtype=torch.int32, device=cuda)
+    a = FA.flash_attention(q, k, v, kv, causal=False)
+    b = FA.flash_attention(q, k, v, kv, causal=False)
+    assert torch.equal(a, b)
 
 
 def _assert_same_experts(got, want, logits, n_exact=0):

@@ -4,8 +4,10 @@ against the JAX package: ``router_topk`` / ``router_topk_q8`` against
 behind ``repro.kernels.ops.router_topk``, ``bandit_update`` against
 ``ref.bandit_update``, ``flash_attention`` against the interpret-mode
 Pallas kernel and ``ref.mha_attention``, ``ssd_scan`` against the
-interpret-mode Pallas scan and ``ref.ssd_scan``.  Inputs are made with
-numpy from a seed.
+interpret-mode Pallas scan and ``ref.ssd_scan``; the decode launch's
+split of the cache (``decode_splits``) and its split-and-merge
+arithmetic (``decode_split_plain``) against ``flash_attention_plain``
+and ``ref.mha_attention``.  Inputs are made with numpy from a seed.
 
 Tolerances: fp32 values within 1e-6 on finite slots (different sum
 orders, same arithmetic); indices equal except inside a run of scores
@@ -20,6 +22,8 @@ skip here, ``tests/test_torch_cuda.py`` holds the card-only tests that
 run without JAX, and ``chip_smoke.py`` holds each kernel against its
 plain version on the card.
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -373,6 +377,73 @@ def test_flash_attention_kernel_layout_takes_strided_views():
     b = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ----------------------------------------------------------------------
+# the decode launch's split of the cache (decided on the host)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Hkv,Lk", [
+    (16, 8, 536), (16, 4, 536), (1, 1, 1), (4, 2, 63), (4, 2, 4100),
+    (1, 1, 0), (64, 8, 536), (2, 1, 100_000), (3, 5, 777)])
+def test_decode_splits_cover_every_key_once(B, Hkv, Lk):
+    n, chunk = FA.decode_splits(B, Hkv, Lk)
+    assert n >= 1 and chunk >= 1 and chunk % FA.MIN_CHUNK == 0
+    # chunks [i chunk, (i + 1) chunk) tile [0, Lk) with no empty tail
+    assert n * chunk >= Lk and (n - 1) * chunk < max(Lk, 1)
+    owner = np.repeat(np.arange(n), chunk)[:Lk]
+    assert np.array_equal(np.bincount(owner, minlength=n)[:n - 1],
+                          np.full(n - 1, chunk))
+
+
+@pytest.mark.parametrize("Hkv", [8, 4])
+def test_decode_splits_fill_the_card_at_the_served_shape(Hkv):
+    """llama3.2-1b (8 KV heads) and qwen3-moe-30b-a3b (4) at B=16 over
+    the served cache of 536 slots: at least two blocks per SM."""
+    n, _ = FA.decode_splits(16, Hkv, 536)
+    assert 16 * Hkv * n >= 2 * FA.SM_COUNT
+
+
+def test_decode_splits_depend_on_shapes_only():
+    """The split is a function of (B, Hkv, Lk): the live lengths never
+    reach the host, so the wrapper needs no device sync."""
+    params = list(inspect.signature(FA.decode_splits).parameters)
+    assert params == ["B", "Hkv", "Lk"]
+
+
+def _split_problem(B, C, Hq, Hkv, hd, kv, seed):
+    q, k, v = _attn_problem(B, C, C, Hq, Hkv, hd, seed=seed)
+    tt = lambda a: torch.from_numpy(a).transpose(1, 2)
+    return (tt(q[:, :1]), tt(k), tt(v),
+            torch.tensor(kv, dtype=torch.int32), q[:, :1], k, v)
+
+
+@pytest.mark.parametrize("C,splits,kv", [
+    (63, None, [0, 1, 63, 40]),
+    (200, (4, 64), [0, 64, 65, 200]),        # a split boundary, empty tails
+    (200, (13, 16), [1, 16, 17, 0]),         # many chunks, all-empty rows
+    (536, None, [513, 520, 528, 536])])      # the served shape
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_decode_split_plain_matches_plain_and_reference(C, splits, kv,
+                                                        softcap):
+    """The decode kernel's arithmetic -- per-chunk partials in the log2
+    domain merged in split order -- against the one-pass plain version
+    and ``ref.mha_attention`` over each row's live prefix; a row with no
+    live key is 0.  Tolerance 2e-5 (f32, a different summation order)."""
+    qt, kt, vt, kvt, q, k, v = _split_problem(4, C, 8, 2, 64, kv, seed=C)
+    got = FA.decode_split_plain(qt, kt, vt, kvt, splits=splits,
+                                softcap=softcap)
+    want = FA.flash_attention_plain(qt, kt, vt, kvt, causal=False,
+                                    softcap=softcap)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for b, n in enumerate(kv):
+        if n == 0:
+            assert not got[b].any()
+            continue
+        ref = R.mha_attention(q[b:b + 1], k[b:b + 1, :n], v[b:b + 1, :n],
+                              causal=False, softcap=softcap)
+        np.testing.assert_allclose(got[b:b + 1].transpose(1, 2).numpy(),
+                                   np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 # ----------------------------------------------------------------------
