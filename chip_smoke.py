@@ -8,7 +8,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 
   1. kernel checks — each kernel against its plain PyTorch version on
      the card at the serving path's shapes, with its time, the plain
-     version's time, one PyTorch-call yardstick and the card's bound;
+     version's time, one PyTorch-call yardstick and the card's bound
+     (``bandit_update`` as the serving path launches it, the update
+     half alone, and with both halves beside the matmul form; the
+     halves' device times from a profiler trace);
   2. serving at full width — a 100,000-entry catalog, the full-width
      analyzer (seeded random weights), bandit + load + semantic cache,
      4 batches of 256 requests through ``ServingEngine.submit`` ->
@@ -22,7 +25,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
   4. the model-zoo kernels (flash attention in its prefill and decode
      launch shapes, the SSD scan, the MoE gate) against their plain
      versions at the generation path's shapes (llama3.2-1b prefill and
-     decode at B=16, prompt 512; mamba2-1.3b prefill at B=16, L=512;
+     decode at B=16, prompt 512; mamba2-1.3b prefill at B=16, L=512,
+     both as served -- bf16 x / B / C strided views, no h0 -- and in
+     f32 with an h0, each launch's device time from a profiler trace;
      qwen3-moe-30b-a3b's gate at T = 16 x 512 and T = 16, E=128, k=8,
      and its attention at GQA group 8), plus small sweeps over window,
      softcap, causal=False, ragged shapes, experts, k, f32 and ties;
@@ -51,7 +56,9 @@ The last lines are the card's ``nvidia-smi`` name and power limit, a
 Any failure exits non-zero without those lines; so does a machine
 without a CUDA device.  ``--rehearse`` runs every phase on the CPU at a
 small size (plain versions, no timing claims) and exits 3 without
-printing a result.
+printing a result.  ``--only kernels,model_kernels`` (any phases of
+``main``) runs just those on the card and exits 4 without a result:
+the quick check of a kernel after an edit.
 """
 from __future__ import annotations
 
@@ -151,6 +158,30 @@ def time_ms(torch, fn, dev, iters: int = 20, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_times(torch, dev, fn, iters: int = 20) -> dict:
+    """Device ms per launch of each kernel ``fn`` launches, by kernel
+    name, from a ``torch.profiler`` trace of ``iters`` calls after
+    three warm-ups (empty where the trace holds no device time)."""
+    if dev.type != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(dev)
+    return {kernel_label(n): us / 1e3 / iters for us, n in _busy(prof)}
+
+
+def fmt_times(times: dict) -> str:
+    return "; ".join(f"{k} {v:.4f} ms" for k, v in times.items()) or \
+        "not measured (no device time in the trace)"
 
 
 # ----------------------------------------------------------------------
@@ -319,7 +350,8 @@ def kernel_phase(torch, dev, rng, small: bool):
         bound_ms=bms8, bound_by=by8,
         library_ms=time_graph_ms(torch, lib_q8, dev))
 
-    # -- bandit_update at the learning step's shape
+    # -- bandit_update at the learning step's shape: the whole call
+    # (both halves) and the served launch (the update half, Bs = 0)
     Bu = Bs = 256
     DD = 9
     chosen = rng.integers(0, N, Bu)
@@ -333,43 +365,66 @@ def kernel_phase(torch, dev, rng, small: bool):
     ainv = (np.einsum("nde,nfe->ndf", L, L)
             + 0.5 * np.eye(DD, dtype=np.float32)).astype(np.float32)
     args = [t(a) for a in (w, x, r, xs, theta, ainv)]
-    got = BU.bandit_update(*args, 0.8)
-    want = BU.bandit_update_plain(*args, 0.8)
+    served = args[:3] + [args[3][:0], None, None]
     err_b = 0.0
-    for g, wv, nm in zip(got, want, ("dA", "db", "ucb")):
-        d = (g - wv).abs()
-        err_b = max(err_b, float(d.max()))
-        check(bool((d <= 1e-5 * wv.abs() + 1e-6).all()),
-              f"bandit_update {nm}: beyond rtol 1e-5 (atol 1e-6)")
-    nbb = 4 * (Bu * N + Bu * DD + Bu + Bs * DD + N * DD + N * DD * DD
-               + N * DD * DD + N * DD + Bs * N)
+    for a_, what in ((args, "both halves"), (served, "update half")):
+        got = BU.bandit_update(*a_, 0.8)
+        want = BU.bandit_update_plain(*a_, 0.8)
+        for g, wv, nm in zip(got, want, ("dA", "db", "ucb")):
+            d = (g - wv).abs()
+            err_b = max(err_b, float(d.max()) if d.numel() else 0.0)
+            check(bool((d <= 1e-5 * wv.abs() + 1e-6).all()),
+                  f"bandit_update {what} {nm}: beyond rtol 1e-5 (atol 1e-6)")
+        again = BU.bandit_update(*a_, 0.8)
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+              f"bandit_update {what}: two launches differ")
+    P2 = DD * DD
+    nb_upd = 4 * (Bu * N + Bu * DD + Bu + N * P2 + N * DD)
+    nb_ucb = 4 * (Bs * DD + N * DD + N * P2 + Bs * N)
     # the (Bu, N) mask is one-hot: the deltas need 2*Bu*(D^2+D) flops
-    opsb = 2.0 * Bu * (DD * DD + DD) + 2.0 * Bs * N * (DD * DD + DD)
-    bmb, byb = bound_ms(nbb, opsb, PEAK_FP32_S)
+    ops_upd = 2.0 * Bu * (P2 + DD)
+    ops_ucb = 2.0 * Bs * N * (P2 + DD)
+    bmb, byb = bound_ms(nb_upd + nb_ucb, ops_upd + ops_ucb, PEAK_FP32_S)
+    bmu, byu = bound_ms(nb_upd, ops_upd, PEAK_FP32_S)
+    bms_, bys_ = bound_ms(nb_ucb, ops_ucb, PEAK_FP32_S)
     xx = (args[1][:, :, None] * args[1][:, None, :]).reshape(Bu, -1)
     xr = args[1] * args[2][:, None]
     xxs = (args[3][:, :, None] * args[3][:, None, :]).reshape(Bs, -1)
     a2 = 0.64 * args[5].reshape(N, -1)
 
+    def lib_update():
+        return args[0].T @ xx, args[0].T @ xr
+
     def lib_bandit():
-        return (args[0].T @ xx, args[0].T @ xr,
-                args[3] @ args[4].T + torch.sqrt(torch.clamp(
-                    xxs @ a2.T, min=0.0)))
+        return lib_update() + (args[3] @ args[4].T + torch.sqrt(
+            torch.clamp(xxs @ a2.T, min=0.0)),)
 
     results["bandit_update"] = dict(
         name="bandit_update", route="cuda",
         source="src/repro_torch/kernels/csrc/bandit_update.cu",
         replaces="src/repro/kernels/bandit_update.py:67",
         max_abs_err=err_b,
-        ms=time_graph_ms(torch, lambda: BU.bandit_update(*args, 0.8), dev),
+        ms=time_graph_ms(torch, lambda: BU.bandit_update(*served, 0.8), dev),
         plain_ms=time_ms(torch, lambda: BU.bandit_update_plain(
-            *args, 0.8), dev),
-        bound_ms=bmb, bound_by=byb,
-        library_ms=time_graph_ms(torch, lib_bandit, dev))
-    upd_ms = time_graph_ms(torch, lambda: BU.bandit_update(
-        *args[:3], args[3][:0], None, None, 0.8), dev)
-    log(f"[kernels] bandit_update without scores (Bs=0, the update half "
-        f"alone): {upd_ms:.4f} ms")
+            *served, 0.8), dev),
+        bound_ms=bmu, bound_by=byu,
+        library_ms=time_graph_ms(torch, lib_update, dev))
+    both_ms = time_graph_ms(torch, lambda: BU.bandit_update(*args, 0.8), dev)
+    both_plain = time_ms(torch, lambda: BU.bandit_update_plain(*args, 0.8),
+                         dev)
+    both_lib = time_graph_ms(torch, lib_bandit, dev)
+    halves = kernel_times(torch, dev, lambda: BU.bandit_update(*args, 0.8))
+    log(f"[kernels] bandit_update served launch (update half, Bs=0, Bu={Bu}, "
+        f"N={N}, D={DD}): {results['bandit_update']['ms']:.4f} ms, bound "
+        f"{bmu:.4f} by {byu}, w.T @ xx + w.T @ xr "
+        f"{results['bandit_update']['library_ms']:.4f} ms")
+    log(f"[kernels] bandit_update both halves (Bu=Bs={Bu}): {both_ms:.4f} ms "
+        f"(plain {both_plain:.4f}, matmul form {both_lib:.4f}, bound "
+        f"{bmb:.4f} by {byb}); kernel / matmul form "
+        f"{both_ms / both_lib:.2f}")
+    log(f"[kernels] bandit_update halves inside the whole call (profiler, "
+        f"device time per launch): {fmt_times(halves)}; the score half's "
+        f"bound {bms_:.4f} by {bys_}")
     for v in results.values():
         log(f"[kernels] {v['name']}: ok, max err {v['max_abs_err']:.3g}, "
             f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
@@ -802,16 +857,24 @@ def attn_sweep(torch, FA, g, dev, dt, tol):
     return worst, len(cases)
 
 
-def ssd_ops(Bb, L, H, P, N, chunk) -> float:
-    """Operations the scan needs: per (batch, head, chunk of length c)
-    2cNP (inter) + c(c+1)P (intra) + 2cPN (state), and C B^T once per
-    (batch, chunk), c(c+1)N, since B and C are shared by the heads."""
+def ssd_ops(Bb, L, H, P, N, chunk, f32: bool, h0: bool) -> float:
+    """Tensor-core operations the scan kernel issues, each product
+    counted with the split's multiple m (an f32 operand is two bf16
+    products against a bf16 one, three against an f32 one).  Per
+    (batch, chunk of length c): C B^T over the causal pairs, c(c+1)N,
+    once for all heads (m = 3 for f32 B and C, else 1).  Per (batch,
+    head, chunk): the intra-chunk sum, c(c+1)P, the chunk's state,
+    2cPN, and the inter-chunk term, 2cNP (none in the first chunk
+    without h0), each m = 3 or 2."""
+    m1, m2 = (3, 3) if f32 else (1, 2)
     ops = 0.0
-    for c0 in range(0, L, chunk):
+    for i, c0 in enumerate(range(0, L, chunk)):
         c = min(chunk, L - c0)
         tri = c * (c + 1) / 2
-        ops += Bb * H * (2.0 * c * N * P + 2.0 * tri * P + 2.0 * c * P * N)
-        ops += Bb * 2.0 * tri * N
+        per_head = m2 * (2.0 * tri * P + 2.0 * c * P * N)
+        if i > 0 or h0:
+            per_head += m2 * 2.0 * c * N * P
+        ops += Bb * (2.0 * tri * N * m1 + H * per_head)
     return ops
 
 
@@ -899,38 +962,61 @@ def model_kernel_phase(torch, dev, small: bool):
             f"1-16, rows with no live key, decode caches of 1, 63, 536 "
             f"and 4,100 slots): max err {worst:.3g} (tol {tol})")
 
-    # -- mamba2-1.3b prefill scan: B=16, L=512, 64 heads of 64, N=128
+    # -- mamba2-1.3b prefill scan: B=16, L=512, 64 heads of 64, N=128;
+    # f32 operands with an h0 (the row kept from earlier runs) and the
+    # served call: bf16 x / B / C as strided views of the conv output
+    # (B, L, H*P + 2N), dt f32, no h0
     Bb, L, H, P, N, ch = (2, 64, 16, 32, 16, 16) if small else \
         (16, 512, 64, 64, 128, 256)
     x = rn(Bb, L, H, P)
     dt = torch.rand(Bb, L, H, generator=g, device=dev) * 0.5
     A = -torch.linspace(1.0, 16.0, H, device=dev)
     Bm, Cm, h0 = rn(Bb, L, N), rn(Bb, L, N), rn(Bb, H, P, N)
-    y, hf = SS.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=ch)
-    y2, hf2 = SS.ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=ch)
+    xbc = rn(Bb, L, H * P + 2 * N, dt=bf)
+    served = (xbc[..., :H * P].unflatten(-1, (H, P)), dt, A,
+              xbc[..., H * P:H * P + N], xbc[..., H * P + N:], None)
+    f32_args = (x, dt, A, Bm, Cm, h0)
     err_s = 0.0
-    for a, b_, nm in ((y, y2, "y"), (hf, hf2, "h_final")):
-        e = float((a - b_).abs().max())
-        tol = 1e-4 * max(1.0, float(b_.abs().max()))
-        check(e <= tol, f"ssd_scan {nm}: max |err| {e} > {tol}")
-        err_s = max(err_s, e)
-    nb = 4 * (2 * Bb * L * H * P + Bb * L * H + H + 2 * Bb * L * N
-              + 2 * Bb * H * P * N)
-    sbms, sby = bound_ms(nb, ssd_ops(Bb, L, H, P, N, ch), PEAK_FP32_S)
+    rows = {}
+    for what, a_ in (("f32 with h0", f32_args), ("bf16 views", served)):
+        y, hf = SS.ssd_scan(*a_, chunk=ch)
+        y2, hf2 = SS.ssd_scan_plain(*a_, chunk=ch)
+        for a, b_, nm in ((y, y2, "y"), (hf, hf2, "h_final")):
+            e = float((a - b_).abs().max())
+            tol = 1e-4 * max(1.0, float(b_.abs().max()))
+            check(e <= tol, f"ssd_scan {what} {nm}: max |err| {e} > {tol}")
+            err_s = max(err_s, e)
+        y3, hf3 = SS.ssd_scan(*a_, chunk=ch)
+        check(torch.equal(y, y3) and torch.equal(hf, hf3),
+              f"ssd_scan {what}: two launches differ")
+        f32 = a_[0].dtype == torch.float32
+        esz = 4 if f32 else 2
+        nb = (esz * (Bb * L * H * P + 2 * Bb * L * N) + 4 * Bb * L * H
+              + 4 * H + 4 * Bb * L * H * P + 4 * Bb * H * P * N
+              * (2 if a_[5] is not None else 1))
+        ops = ssd_ops(Bb, L, H, P, N, ch, f32, a_[5] is not None)
+        bms_, by_ = bound_ms(nb, ops, PEAK_BF16_S)
+        rows[what] = dict(
+            max_abs_err=err_s,
+            ms=time_graph_ms(torch, lambda: SS.ssd_scan(*a_, chunk=ch), dev),
+            plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
+                *a_, chunk=ch), dev),
+            bound_ms=bms_, bound_by=by_, library_ms=None)
+        parts = kernel_times(torch, dev, lambda: SS.ssd_scan(*a_, chunk=ch))
+        log(f"[kernels] ssd_scan B={Bb} L={L} H={H} P={P} N={N} chunk={ch} "
+            f"{what}: {rows[what]['ms']:.4f} ms (plain "
+            f"{rows[what]['plain_ms']:.4f}), bound {bms_:.4f} by {by_} "
+            f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP on the tensor "
+            f"cores); max |y| {float(y2.abs().max()):.3g}, "
+            f"max err {err_s:.3g} (tol 1e-4 of max |y|); launches: "
+            f"{fmt_times(parts)}")
     results["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:75",
-        max_abs_err=err_s,
-        ms=time_graph_ms(torch, lambda: SS.ssd_scan(
-            x, dt, A, Bm, Cm, h0, chunk=ch), dev),
-        plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
-            x, dt, A, Bm, Cm, h0, chunk=ch), dev),
-        bound_ms=sbms, bound_by=sby, library_ms=None)
-    log(f"[kernels] ssd_scan B={Bb} L={L} H={H} P={P} N={N} chunk={ch} f32 "
-        f"with h0: max |y| {float(y2.abs().max()):.3g}, max err "
-        f"{err_s:.3g} (tol 1e-4 of max |y|); no single PyTorch call "
-        f"computes it, so no library time")
+        replaces="src/repro/kernels/ssd_scan.py:75", **rows["bf16 views"])
+    results["ssd_scan"]["max_abs_err"] = err_s
+    log("[kernels] ssd_scan: no single PyTorch call computes the scan, so "
+        "no library time")
     # small f32 sweep: odd L, several chunks, narrow P and N
     worst = 0.0
     for b_, l_, h_, p_, n_, c_ in ((1, 32, 2, 16, 8, 16),
@@ -1277,8 +1363,8 @@ def generation_phase(torch, dev, small: bool, kernels):
     for name in GEN_ARCHS:
         decode_profile(torch, dev, mres.entry(name).runner, name,
                        results[name].tokens.shape[0], prompt_len)
-    kernels["flash_attention"]["launches"] = launches["flash_attention"]
-    kernels["ssd_scan"]["launches"] = launches["ssd_scan"]
+    for k in ("flash_attention", "ssd_scan"):
+        kernels.setdefault(k, {})["launches"] = launches[k]
 
 
 def release(torch, dev, what: str) -> None:
@@ -1327,7 +1413,7 @@ def moe_generation_phase(torch, dev, small: bool, kernels):
                                 "(one per layer per prefill and decode step)")
     decode_profile(torch, dev, mres.entry(MOE_ARCH).runner, MOE_ARCH,
                    results[MOE_ARCH].tokens.shape[0], prompt_len)
-    kernels["moe_gating"]["launches"] = launches["moe_gating"]
+    kernels.setdefault("moe_gating", {})["launches"] = launches["moe_gating"]
 
 
 def _busy(prof) -> list:
@@ -1388,6 +1474,17 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
         log(f"[profile] {name}: {what} (B={B}) in {w * 1e3:.2f} ms (under "
             f"the profiler), device busy {dev_us / 1e3:.2f} ms = "
             f"{dev_us / 1e6 / w:.1%} of it; most: {top}")
+        # the port's own kernels, by the names in its CUDA sources
+        ours = {}
+        for us, n in busy:
+            lab = kernel_label(n)
+            if lab.split("<")[0] in port_kernels():
+                ours[lab] = ours.get(lab, 0.0) + us
+        if ours:
+            log(f"[profile] {name}: {what}: the port's kernels "
+                + "; ".join(f"{k} {us / 1e3:.2f} ms" for k, us in
+                            ours.items())
+                + f"; together {sum(ours.values()) / 1e3:.2f} ms")
 
 
 # ----------------------------------------------------------------------
@@ -1554,6 +1651,24 @@ def moe_card_vs_cpu(torch, dev, small: bool):
         f"choices made differently at a near-tie: {near or 'none'}")
 
 
+def port_kernels() -> set:
+    """The names of the kernels in the port's CUDA sources."""
+    import re
+    names = set()
+    for src in sorted((ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    return names
+
+
+def kernel_label(name: str) -> str:
+    """'update_kernel<true>' from a profiler's demangled kernel name."""
+    import re
+    m = re.search(r"(\w+)(<[^>(]*>)?\(", name)
+    return name[:48] if m is None else m.group(1) + (m.group(2) or "")
+
+
 def kernel_name(line: str) -> str:
     """'kernel name<args>' from ptxas's 'Compiling entry function' line
     (a mangled name such as ...20prefill_wgmma_kernelILi64EEEv...)."""
@@ -1565,6 +1680,8 @@ def kernel_name(line: str) -> str:
     dt = "bf16, " if "bfloat16" in args else "f32, " if args[:1] == "f" \
         else ""
     hd = re.findall(r"Li(\d+)E", args + "E")
+    hd += ["true" if b == "1" else "false"
+           for b in re.findall(r"Lb([01])E", args + "E")]
     targs = f"<{dt}{','.join(hd)}>" if args else ""
     return f"kernel {m.group(1)}{targs}"
 
@@ -1575,6 +1692,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
                     help="CPU, small sizes, plain versions; exits 3")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run (kernels, serving, "
+                         "model_kernels, moe_kernels, generate, "
+                         "moe_generate, card_vs_cpu); prints no result, "
+                         "exits 4")
     args = ap.parse_args()
     try:
         import torch
@@ -1604,23 +1726,44 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {dev}")
     rng = np.random.default_rng(0)
+    small = args.rehearse
+    kernels = {}
+    phases = {
+        "kernels": lambda: kernels.update(
+            kernel_phase(torch, dev, rng, small)),
+        "serving": lambda: serving_phase(torch, dev, small, kernels),
+        "model_kernels": lambda: kernels.update(
+            model_kernel_phase(torch, dev, small)),
+        "moe_kernels": lambda: kernels.update(
+            moe_kernel_phase(torch, dev, small)),
+        "generate": lambda: (
+            generation_phase(torch, dev, small, kernels),
+            release(torch, dev, "after the routing and generation phases")),
+        "moe_generate": lambda: (
+            moe_generation_phase(torch, dev, small, kernels),
+            release(torch, dev, "after the MoE generation phase")),
+        "card_vs_cpu": lambda: (card_vs_cpu_phase(torch, dev, small),
+                                moe_card_vs_cpu(torch, dev, small)),
+    }
+    only = args.only.split(",") if args.only else list(phases)
+    unknown = set(only) - set(phases)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}; choose from "
+              f"{list(phases)}", file=sys.stderr)
+        return 2
     try:
-        kernels = kernel_phase(torch, dev, rng, small=args.rehearse)
-        serving_phase(torch, dev, args.rehearse, kernels)
-        kernels.update(model_kernel_phase(torch, dev, args.rehearse))
-        kernels.update(moe_kernel_phase(torch, dev, args.rehearse))
-        generation_phase(torch, dev, args.rehearse, kernels)
-        release(torch, dev, "after the routing and generation phases")
-        moe_generation_phase(torch, dev, args.rehearse, kernels)
-        release(torch, dev, "after the MoE generation phase")
-        card_vs_cpu_phase(torch, dev, args.rehearse)
-        moe_card_vs_cpu(torch, dev, args.rehearse)
+        for name in phases:
+            if name in only:
+                phases[name]()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     if args.rehearse:
         log("[rehearse] all phases passed on the CPU; no result printed")
         return 3
+    if args.only:
+        log(f"[only] phases {only} passed; no result printed")
+        return 4
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -11,442 +11,900 @@
 // A ragged last chunk is cut short, which is what the TPU kernel's
 // dt = 0 padding amounts to (unit decay, no input).  x, B and C may be
 // f32 or bf16 and strided along (batch, position), as the model's
-// split of its projection gives them; all arithmetic is f32.
+// split of its projection gives them.  P <= 64 and N <= 128 (zero-padded
+// to those tiles inside the kernel).
 //
 // What bounds it on an H100: at the mamba2-1.3b prefill (Bb=16, L=512,
-// H=64, P=64, N=128, chunk 256) the products come to ~26 GFLOP against
-// ~0.34 GB of inputs and outputs, so operations: f32 operations on the
-// CUDA cores in this version.
+// H=64, P=64, N=128, chunk 256; bf16 x, B, C, no h0) the bytes are
+// ~241 MB (x 67 MB in, y 134 MB and h_final 34 MB out), 72 us at
+// 3.35 TB/s; the tensor-core products (each f32 operand with its
+// split's multiple, below) are ~43 GFLOP, 44 us at 989 TFLOP/s: bytes.
+// With f32 operands and an h0 the bytes are ~346 MB (103 us) and the
+// products ~78 GFLOP (79 us): bytes.  Scratch traffic on top: each
+// chunk's state out and back (f32), the state entering it (bf16 hi and
+// lo), C B^T (8 MB, read from L2).
 //
-// Design (simple and right first, then the shared-memory reads cut):
-//  * pass 1, grid (ceil(chunk/32), chunks, Bb): G = C B^T, the raw
-//    intra-chunk scores, once per (batch, chunk) into an f32 scratch
-//    (8 MB at the shape above, L2-resident): B and C are shared by the
-//    heads, so no head recomputes the 128-deep products.
-//  * pass 2, grid (H, Bb): one block per (batch, head) walks the chunks
-//    in order -- the TPU kernel's sequential chunk axis becomes a loop
-//    inside the block.  The (P, N) f32 state stays in shared memory
-//    for the whole sequence (33 KB at P=64, N=128).
-//  * the TPU kernel formed the (c, c) C B^T and decay matrices whole:
-//    256 KB each at chunk 256, above the 227 KB a block can hold.  Here
-//    the chunk's outputs are made 32 query rows at a time against the
-//    causal key prefix, 32 keys at a time: a head's 32 x 32 score tile
-//    is G times its decay, loaded elementwise, so shared memory holds
-//    only 32-row tiles (~90 KB in all, two blocks per SM).
-//  * every product runs through one register-tiled helper: each thread
-//    a 4 x RN tile whose A operand comes as float4 (four k of a row, or
-//    four rows of a k) broadcast to the warp, and whose B operand is
-//    read by consecutive lanes (odd row stride where lanes walk rows),
-//    so no read conflicts on shared-memory banks.
-//  * the exponent is masked before exp (j > i never enters exp), as the
-//    TPU kernel does; the log-decay cumsum is a warp scan.
+// Design: the one sequential axis is the chunk axis, and it carries only
+// a (P, N) state, so the scan runs over all (batch, chunk, head) at once
+// in three launches (four with f32 operands):
+//  0. (f32 operands, or bf16 ones whose rows are not on 16 bytes)
+//     ssd_split_kernel writes x, B and C once as contiguous bf16 planes,
+//     an f32 value v as hi = bf16(v) and lo = bf16(v - hi), zero-padded
+//     to a multiple of 8 columns.  The served bf16 views are used as
+//     they are.
+//  1. ssd_cb_kernel: G = C B^T once per (batch, chunk) -- B and C are
+//     shared by the heads -- in 64 x 64 tensor-core tiles of the causal
+//     triangle, into an f32 scratch that stays in L2.
+//  2. ssd_state_kernel, grid (H, chunks, Bb): the chunk's log-decay
+//     cumsum (a warp scan; la and dt are written out head-major for
+//     launch 3) and its own state s_c = sum_j w_j x_j B_j^T,
+//     w_j = exp(la_last - la_j) dt_j: a (P x chunk) . (chunk x N)
+//     tensor-core product, w_j applied to the x fragments in registers
+//     (then split), into an f32 scratch.  The block that finishes a
+//     (batch, head) last (a ticket counter; no block waits) passes the
+//     state over its chunks in order, h_c = exp(la_last,c) h_{c-1} + s_c,
+//     writes the state entering each chunk as bf16 hi/lo planes and
+//     h_final.
+//  3. ssd_out_kernel, grid (query tiles of 128, H, chunks x Bb), 8 warps
+//     of 16 rows: the inter-chunk term exp(la_i) C_i . h_in^T, then per
+//     key tile of 64 the G rows, masked and decayed in registers
+//     (exp(la_i - la_j) dt_j, formed only where j <= i), split, and
+//     y += S x_j.  y is written once.
+// Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by
+// ldmatrix from padded shared-memory rows that 16-byte cp.async copies
+// fill; the key tiles of launches 2 and 3 are a two-deep ring, the next
+// tile's copies in flight while the tensor cores work on this one.  An
+// f32 operand is two bf16 products (hi, lo) against a bf16 one and three
+// (hi.hi + lo.hi + hi.lo) against another f32 one: what is dropped is
+// ~2^-16 of each term.  No atomics in any sum, a fixed order: the same
+// bits on every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NTHR = 256;
-constexpr int NWARP = NTHR / 32;
-constexpr int TQ = 32;       // query rows per output tile
-constexpr int TK = 32;       // keys per tile
-constexpr int RM = TQ / NWARP;
-constexpr int SS = TK + 4;   // score-tile row stride (16-byte rows)
-constexpr int SMEM_OPTIN = 232448;  // dynamic shared memory a block may use
+using bf16 = __nv_bfloat16;
 
-static_assert(RM == 4, "the float4 A operand covers four rows");
+constexpr int PT = 64;           // head-dim tile (P padded)
+constexpr int NT = 128;          // state tile (N padded)
+constexpr int KT = 64;           // keys per tile
+constexpr int QT = 128;          // query rows per output block
+constexpr int ST_THR = 256;      // state kernel: 8 warps, 16 rows of P x
+                                 // half of N each
+constexpr int OUT_THR = 256;     // output kernel: 8 warps x 16 query rows
+constexpr int PP = PT + 8;       // bf16 pitch of a PT-wide row: the 8 rows
+constexpr int NP = NT + 8;       // of an ldmatrix hit distinct banks
+constexpr int PASS = 16;         // state elements in flight per thread
+constexpr int GP = KT + 8;       // f32 pitch of a C B^T tile row in shared
+                                 // memory: a half-warp's float2 reads hit
+                                 // distinct banks
+constexpr int SMEM_OPTIN = 232448 - 1024;  // the card's 227 KB less room
+                                            // for static shared memory
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+static_assert(ST_THR / 32 / 2 * 16 == PT && OUT_THR / 32 * 16 == QT,
+              "a warp owns 16 rows");
+
+__host__ __device__ constexpr int up(int n, int m) {
+  return (n + m - 1) / m * m;
 }
 
-__host__ __device__ __forceinline__ int up4(int n) { return (n + 3) & ~3; }
-
-// acc[r][c] += sum_k A(m, k) * B(n, k) for this thread's rows
-// m = m0 + 4*warp + r and columns n = n0 + lane + 32*c; columns past Nn
-// (and a row group past M) read row 0 and are dropped by the caller.
-// KMAJOR: A(m, k) = A[m*lda + k], read as float4 over four k (K % 4 == 0,
-// rows 16-byte aligned).  Otherwise A(m, k) = A[k*lda + m], read as
-// float4 over the four rows.  B(n, k) = Bp[n*sbn + k*sbk], a scalar per
-// lane.
-template <bool KMAJOR, int RN>
-__device__ __forceinline__ void mm(float (&acc)[4][RN], const float* A,
-                                   int lda, const float* Bp, int sbn,
-                                   int sbk, int K, int m0, int M, int n0,
-                                   int Nn) {
-  const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  int mb = m0 + 4 * w;
-  if (mb + 3 >= M) mb = 0;
-  const float* br[RN];
-#pragma unroll
-  for (int c = 0; c < RN; ++c) {
-    const int n = n0 + ln + 32 * c;
-    br[c] = Bp + (n < Nn ? n : 0) * sbn;
-  }
-  if (KMAJOR) {
-    const float* ar = A + mb * lda;
-#pragma unroll 2
-    for (int k = 0; k < K; k += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        a[r] = *reinterpret_cast<const float4*>(ar + r * lda + k);
-      float b[4][RN];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) b[kk][c] = br[c][(k + kk) * sbk];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) {
-          acc[r][c] = fmaf(a[r].x, b[0][c], acc[r][c]);
-          acc[r][c] = fmaf(a[r].y, b[1][c], acc[r][c]);
-          acc[r][c] = fmaf(a[r].z, b[2][c], acc[r][c]);
-          acc[r][c] = fmaf(a[r].w, b[3][c], acc[r][c]);
-        }
-    }
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(A + k * lda + mb);
-#pragma unroll
-      for (int c = 0; c < RN; ++c) {
-        const float b = br[c][k * sbk];
-        acc[0][c] = fmaf(a.x, b, acc[0][c]);
-        acc[1][c] = fmaf(a.y, b, acc[1][c]);
-        acc[2][c] = fmaf(a.z, b, acc[2][c]);
-        acc[3][c] = fmaf(a.w, b, acc[3][c]);
-      }
-    }
-  }
+// the state kernel's key tile: B rows (KT x NP, hi [and lo]), then x
+// rows (KT x PP, hi [and lo]); lo where the operands carry lo planes
+__host__ __device__ constexpr int tile_bytes(bool lo) {
+  return (lo ? 2 : 1) * KT * (NP + PP) * 2;
 }
 
-template <int RN>
-__device__ __forceinline__ void zero(float (&acc)[4][RN]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
+// the output kernel's key tile: C B^T rows (QT x GP, f32) then x rows
+// (KT x PP, bf16 hi [, lo])
+__host__ __device__ constexpr int gtile_bytes(bool lo) {
+  return QT * GP * 4 + (lo ? 2 : 1) * KT * PP * 2;
 }
 
-// rows [j0, j0 + nk) of a (., width) operand into a tile with row
-// stride ld; rows past nk are zero.  scale (optional) multiplies row j.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          long long srow, int j0, int nk,
-                                          int rows, int width,
-                                          const float* scale) {
-  for (int e = threadIdx.x; e < rows * width; e += NTHR) {
-    const int j = e / width, n = e - j * width;
-    float val = 0.f;
-    if (j < nk) {
-      val = to_f(src[(long long)(j0 + j) * srow + n]);
-      if (scale) val *= scale[j0 + j];
-    }
-    dst[j * ld + n] = val;
-  }
+// the output kernel's start: C rows (QT x NP) and h_in (PT x NP), hi
+// [and lo]; then the same memory holds two key tiles
+__host__ __device__ constexpr int out_region(bool lo) {
+  return (lo ? 2 : 1) * QT * NP * 2 + 2 * PT * NP * 2 > 2 * gtile_bytes(lo)
+             ? (lo ? 2 : 1) * QT * NP * 2 + 2 * PT * NP * 2
+             : 2 * gtile_bytes(lo);
 }
+
+// dynamic shared memory, bytes: two key tiles and la, dt, w
+__host__ __device__ constexpr int state_smem(bool lo, int chunk) {
+  return 2 * tile_bytes(lo) + 4 * (2 * chunk + up(chunk, KT));
+}
+
+__host__ __device__ constexpr int out_smem(bool lo, int chunk) {
+  return out_region(lo) + 2 * 4 * chunk;
+}
+
+// C B^T tiles of 64 x 64: C rows and B rows, hi [and lo]
+__host__ __device__ constexpr int cb_smem(bool lo) {
+  return (lo ? 2 : 1) * 2 * KT * NP * 2;
+}
+
+// a bf16 operand: element (b, l, [head,] col) at hi + b sb + l sl
+// [+ head hs] + col; lo (null for bf16 sources) holds v - hi
+struct Plane {
+  const bf16* hi;
+  const bf16* lo;
+  long long sb, sl;
+  int hs;
+};
 
 // ---------------------------------------------------------------------
-// pass 1: G[b, chunk, i, j] = C_i . B_j for j < (end of i's row tile)
+// primitives
 // ---------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NTHR)
-cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
-          float* __restrict__ G, int L, int N, int chunk, int nc,
-          long long bsb, long long bsl, long long csb, long long csl) {
-  extern __shared__ float sm[];
-  const int i0 = blockIdx.x * TQ, ci = blockIdx.y, b = blockIdx.z;
-  const int c0 = ci * chunk;
-  const int cl = min(chunk, L - c0);
-  if (i0 >= cl) return;
-  const int nq = min(TQ, cl - i0);
-  const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  float* cs = sm;                        // TQ x N   C rows (16-byte rows)
-  float* bs = cs + TQ * N;               // TK x N+1 B rows
-  const T* cb = Cm + b * csb + (long long)c0 * csl;
-  const T* bb = Bm + b * bsb + (long long)c0 * bsl;
-  float* g = G + ((long long)b * nc + ci) * chunk * chunk;
-  load_rows(cs, N, cb, csl, i0, nq, TQ, N, (const float*)nullptr);
-  for (int j0 = 0; j0 < i0 + nq; j0 += TK) {
-    const int nk = min(TK, cl - j0);
-    __syncthreads();
-    load_rows(bs, N + 1, bb, bsl, j0, nk, TK, N, (const float*)nullptr);
-    __syncthreads();
-    float acc[4][1];
-    zero(acc);
-    mm<true, 1>(acc, cs, N, bs, N + 1, 1, N, 0, TQ, 0, TK);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `full` false writes 16 zero bytes
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, ROWS) x 16-byte granules [0, WG) of a tile with row pitch
+// `pitch`: row r < nr, granule q < ng from src + r srow + 8 q, the rest
+// zero.  Every copy is issued before any is waited for.
+template <int ROWS, int WG, int NTHR>
+__device__ __forceinline__ void tile_async(bf16* dst, int pitch,
+                                           const bf16* src, long long srow,
+                                           int nr, int ng) {
+  static_assert(ROWS * WG % NTHR == 0, "whole copies per thread");
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = 4 * w + r;
-      if (i < nq && ln < nk)
-        g[(long long)(i0 + i) * chunk + j0 + ln] = acc[r][0];
-    }
+  for (int k = 0; k < ROWS * WG / NTHR; ++k) {
+    const int e = threadIdx.x + k * NTHR;
+    const int r = e / WG, q = e % WG;
+    const bool in = r < nr && q < ng;
+    cp16(dst + r * pitch + 8 * q, in ? src + r * srow + 8 * q : src, in);
   }
 }
 
-// ---------------------------------------------------------------------
-// pass 2: the scan, one block per (batch, head)
-// ---------------------------------------------------------------------
-
-struct Layout {
-  int hs, cs, bs, xs, ss, ys, la, dts, wj, total;   // float offsets
-  __host__ __device__ Layout(int P, int N, int chunk) {
-    int o = 0;
-    hs = o; o += up4(P * (N + 1));       // P x N+1  state
-    cs = o; o += up4(TQ * N);            // TQ x N   C rows
-    bs = o; o += up4(TK * N);            // TK x N   B rows (state update)
-    xs = o; o += up4(TK * P);            // TK x P   x rows
-    ss = o; o += up4(TQ * SS);           // TQ x SS  masked decayed scores
-    ys = o; o += up4(TQ * P);            // TQ x P   output tile
-    la = o; o += up4(chunk);             // log-decay cumsum
-    dts = o; o += up4(chunk);            // dt
-    wj = o; o += up4(chunk);             // exp(la_last - la) dt
-    total = o;
+// the arrays of one state-kernel key tile (tile_bytes)
+struct Tile {
+  bf16 *bh, *bl, *xh, *xl;
+  template <bool LO>
+  __device__ static Tile at(uint8_t* p) {
+    bf16* b = reinterpret_cast<bf16*>(p);
+    const int cs = LO ? 2 : 1;
+    return Tile{b, b + KT * NP, b + cs * KT * NP, b + cs * KT * NP + KT * PP};
   }
 };
 
+// keys [j0, j0 + nk) of B and of x's head (offsets bo, xo) into a tile
+template <bool LO, int NTHR>
+__device__ __forceinline__ void load_keys(Tile d, const Plane& xq,
+                                          const Plane& bq, long long xo,
+                                          long long bo, int j0, int nk,
+                                          int P, int N8) {
+  tile_async<KT, NT / 8, NTHR>(d.bh, NP, bq.hi + bo + j0 * bq.sl, bq.sl, nk,
+                               N8 / 8);
+  tile_async<KT, PT / 8, NTHR>(d.xh, PP, xq.hi + xo + j0 * xq.sl, xq.sl, nk,
+                               (P + 7) / 8);
+  if (LO) {
+    tile_async<KT, NT / 8, NTHR>(d.bl, NP, bq.lo + bo + j0 * bq.sl, bq.sl,
+                                 nk, N8 / 8);
+    tile_async<KT, PT / 8, NTHR>(d.xl, PP, xq.lo + xo + j0 * xq.sl, xq.sl,
+                                 nk, (P + 7) / 8);
+  }
+  cp_commit();
+}
+
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).  Fragment
+// layout (g = lane / 4, t = lane % 4): a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8..,
+// n g); d0 d1 (g, 2t..2t+1), d2 d3 (g+8, 2t..2t+1).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// A fragment of rows m0.., k0.. where A[m][k] = s[m][k]
+__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* s,
+                                    int pitch, int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4(a, s + (m0 + (l & 15)) * pitch + k0 + 8 * (l >> 4));
+}
+
+// A fragment where A[m][k] = s[k][m]
+__device__ __forceinline__ void lda_t(uint32_t (&a)[4], const bf16* s,
+                                      int pitch, int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4_t(a, s + (k0 + (l & 7) + 8 * (l >> 4)) * pitch + m0 +
+                 8 * ((l >> 3) & 1));
+}
+
+// B fragments of n-tiles n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]) at
+// k0.., where B(k, n) = s[n][k]
+__device__ __forceinline__ void ldb(uint32_t (&b)[4], const bf16* s,
+                                    int pitch, int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4(b, s + (n0 + (l & 7) + 8 * (l >> 4)) * pitch + k0 +
+               8 * ((l >> 3) & 1));
+}
+
+// the same where B(k, n) = s[k][n]
+__device__ __forceinline__ void ldb_t(uint32_t (&b)[4], const bf16* s,
+                                      int pitch, int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4_t(b, s + (k0 + (l & 7) + 8 * ((l >> 3) & 1)) * pitch + n0 +
+                 8 * (l >> 4));
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// hi = bf16(v), lo = bf16(v - hi) of a pair, packed as a fragment
+// register (first element in the low half)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// inclusive cumsum of dt * a over [0, cl), by one warp
+__device__ __forceinline__ void chunk_cumsum(float* la, const float* dts,
+                                             float a, int cl) {
+  const int ln = threadIdx.x & 31;
+  const int seg = (cl + 31) / 32;
+  const int i0 = ln * seg, i1 = min(i0 + seg, cl);
+  float run = 0.f;
+  for (int i = i0; i < i1; ++i) {
+    run += dts[i] * a;
+    la[i] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (ln >= off) incl += o;
+  }
+  float before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (ln == 0) before = 0.f;
+  for (int i = i0; i < i1; ++i) la[i] += before;
+}
+
+// ---------------------------------------------------------------------
+// 0. f32 (or unaligned) operands -> contiguous bf16 hi / lo planes
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// reps rows of n values (row stride rs) -> reps rows of n8 (zero-padded)
 template <typename T>
-__global__ void __launch_bounds__(NTHR)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, const float* __restrict__ h0,
-           const float* __restrict__ G, float* __restrict__ y,
-           float* __restrict__ hf, int L, int H, int P, int N, int chunk,
-           int nc, long long xsb, long long xsl, long long dsb,
-           long long dsl, long long bsb, long long bsl, long long csb,
-           long long csl) {
-  extern __shared__ float sm[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int t = threadIdx.x, w = t >> 5, ln = t & 31;
-  const Layout lay(P, N, chunk);
-  const int ldh = N + 1;                 // odd row stride for even N
-  float* hs = sm + lay.hs;
-  float* cs = sm + lay.cs;
-  float* bs = sm + lay.bs;
-  float* xs = sm + lay.xs;
-  float* ss = sm + lay.ss;
-  float* ys = sm + lay.ys;
-  float* la = sm + lay.la;
-  float* dts = sm + lay.dts;
-  float* wj = sm + lay.wj;
-
-  const long long hoff = ((long long)b * H + h) * P * N;
-  for (int e = t; e < P * N; e += NTHR) {
-    const int p = e / N, n = e - p * N;
-    hs[p * ldh + n] = h0 ? h0[hoff + e] : 0.f;
-  }
-  const float a = A[h];
-  const T* xb = x + b * xsb + (long long)h * P;
-  const T* bb = Bm + b * bsb;
-  const T* cb = Cm + b * csb;
-  const float* db = dt + b * dsb + h;
-
-  for (int c0 = 0, ci = 0; c0 < L; c0 += chunk, ++ci) {
-    const int cl = min(chunk, L - c0);
-    const float* g = G + ((long long)b * nc + ci) * chunk * chunk;
-    __syncthreads();
-    for (int i = t; i < cl; i += NTHR) dts[i] = db[(long long)(c0 + i) * dsl];
-    __syncthreads();
-    if (w == 0) {                         // inclusive cumsum of dt * a
-      const int seg = (cl + 31) / 32;
-      const int i0 = ln * seg, i1 = min(i0 + seg, cl);
-      float run = 0.f;
-      for (int i = i0; i < i1; ++i) {
-        run += dts[i] * a;
-        la[i] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (ln >= off) incl += o;
-      }
-      float before = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (ln == 0) before = 0.f;
-      for (int i = i0; i < i1; ++i) la[i] += before;
-    }
-    __syncthreads();
-    const float lal = la[cl - 1];
-    for (int i = t; i < cl; i += NTHR) wj[i] = expf(lal - la[i]) * dts[i];
-
-    // ---- outputs, TQ rows at a time
-    for (int i0 = 0; i0 < cl; i0 += TQ) {
-      const int nq = min(TQ, cl - i0);
-      __syncthreads();
-      load_rows(cs, N, cb + (long long)c0 * csl, csl, i0, nq, TQ, N,
-                (const float*)nullptr);
-      __syncthreads();
-      // inter-chunk: y_i = exp(la_i) C_i . h
-      for (int p0 = 0; p0 < P; p0 += 64) {
-        float acc[4][2];
-        zero(acc);
-        mm<true, 2>(acc, cs, N, hs, ldh, 1, N, 0, TQ, p0, P);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 4 * w + r;
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int p = p0 + ln + 32 * c;
-            if (p < P) ys[i * P + p] = i < nq ? expf(la[i0 + i]) * acc[r][c]
-                                              : 0.f;
-          }
-        }
-      }
-      // intra-chunk, over the causal key prefix [0, i0 + nq)
-      for (int j0 = 0; j0 < i0 + nq; j0 += TK) {
-        const int nk = min(TK, cl - j0);
-        __syncthreads();
-        load_rows(xs, P, xb + (long long)c0 * xsl, xsl, j0, nk, TK, P,
-                  (const float*)nullptr);
-        for (int e = t; e < TQ * TK; e += NTHR) {
-          const int i = e / TK, j = e - i * TK;
-          const int gi = i0 + i, gj = j0 + j;
-          float s = 0.f;
-          // mask the exponent before exp: j > i never enters it
-          if (i < nq && j < nk && gj <= gi)
-            s = g[(long long)gi * chunk + gj] * expf(la[gi] - la[gj]) *
-                dts[gj];
-          ss[i * SS + j] = s;
-        }
-        __syncthreads();
-        for (int p0 = 0; p0 < P; p0 += 64) {
-          float acc[4][2];
-          zero(acc);
-          mm<true, 2>(acc, ss, SS, xs, 1, P, TK, 0, TQ, p0, P);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int i = 4 * w + r;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int p = p0 + ln + 32 * c;
-              if (p < P) ys[i * P + p] += acc[r][c];
-            }
-          }
-        }
-      }
-      __syncthreads();
-      for (int e = t; e < nq * P; e += NTHR) {
-        const int i = e / P, p = e - i * P;
-        y[(((long long)b * L + c0 + i0 + i) * H + h) * P + p] = ys[e];
-      }
-    }
-
-    // ---- state: h = exp(la_last) h + sum_j (wj_j x_j) B_j^T
-    __syncthreads();
-    const float decay = expf(lal);
-    for (int e = t; e < P * N; e += NTHR) {
-      const int p = e / N, n = e - p * N;
-      hs[p * ldh + n] *= decay;
-    }
-    for (int j0 = 0; j0 < cl; j0 += TK) {
-      const int nk = min(TK, cl - j0);
-      __syncthreads();
-      load_rows(bs, N, bb + (long long)c0 * bsl, bsl, j0, nk, TK, N,
-                (const float*)nullptr);
-      load_rows(xs, P, xb + (long long)c0 * xsl, xsl, j0, nk, TK, P, wj);
-      __syncthreads();
-      for (int p0 = 0; p0 < P; p0 += TQ) {
-        for (int n0 = 0; n0 < N; n0 += 128) {
-          float acc[4][4];
-          zero(acc);
-          mm<false, 4>(acc, xs, P, bs, 1, N, TK, p0, P, n0, N);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = p0 + 4 * w + r;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int n = n0 + ln + 32 * c;
-              if (p < P && n < N) hs[p * ldh + n] += acc[r][c];
-            }
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < P * N; e += NTHR) {
-    const int p = e / N, n = e - p * N;
-    hf[hoff + e] = hs[p * ldh + n];
+__device__ __forceinline__ void split_rows(const T* src, int n, int n8,
+                                           int reps, int rs, bf16* hi,
+                                           bf16* lo) {
+  for (int e = threadIdx.x; e < reps * n8; e += blockDim.x) {
+    const int r = e / n8, c = e - r * n8;
+    const float v = c < n ? to_f(src[(long long)r * rs + c]) : 0.f;
+    const bf16 h = __float2bfloat16_rn(v);
+    hi[e] = h;
+    if (lo) lo[e] = __float2bfloat16_rn(v - __bfloat162float(h));
   }
 }
 
+// grid (L, Bb): one (batch, position) row of x (H heads), B and C
 template <typename T>
-cudaError_t launch(const void* x, const float* dt, const float* A,
-                   const void* Bm, const void* Cm, const float* h0,
-                   float* G, float* y, float* hf, int Bb, int L, int H,
-                   int P, int N, int chunk, long long xsb, long long xsl,
-                   long long dsb, long long dsl, long long bsb,
-                   long long bsl, long long csb, long long csl,
-                   cudaStream_t s) {
+__global__ void __launch_bounds__(256)
+ssd_split_kernel(const T* __restrict__ x, const T* __restrict__ Bm,
+                 const T* __restrict__ Cm, long long xsb, long long xsl,
+                 long long bsb, long long bsl, long long csb, long long csl,
+                 int L, int H, int P, int N, int P8, int N8, bf16* xh,
+                 bf16* xl, bf16* bh, bf16* bl, bf16* ch, bf16* cl) {
+  const int l = blockIdx.x, b = blockIdx.y;
+  const long long row = (long long)b * L + l;
+  const long long ox = row * H * P8, on = row * N8;
+  split_rows(x + b * xsb + l * xsl, P, P8, H, P, xh + ox,
+             xl ? xl + ox : xl);
+  split_rows(Bm + b * bsb + l * bsl, N, N8, 1, 0, bh + on,
+             bl ? bl + on : bl);
+  split_rows(Cm + b * csb + l * csl, N, N8, 1, 0, ch + on,
+             cl ? cl + on : cl);
+}
+
+// ---------------------------------------------------------------------
+// 2. each chunk's own state, then (last block of a (batch, head)) the
+//    state passing
+// ---------------------------------------------------------------------
+
+template <bool LO>
+__global__ void __launch_bounds__(ST_THR, 2)
+ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
+                 long long dsb, long long dsl, const float* __restrict__ A,
+                 const float* __restrict__ h0, float* __restrict__ LA,
+                 float* __restrict__ DTT, float* __restrict__ S,
+                 bf16* __restrict__ hin_hi, bf16* __restrict__ hin_lo,
+                 float* __restrict__ hf, unsigned* __restrict__ tickets,
+                 int L, int H, int P, int N, int chunk) {
+  extern __shared__ __align__(16) uint8_t raw[];
+  const Tile t0 = Tile::at<LO>(raw);        // key tiles, even and odd
+  const Tile t1 = Tile::at<LO>(raw + tile_bytes(LO));
+  float* la = reinterpret_cast<float*>(raw + 2 * tile_bytes(LO));
+  float* dts = la + chunk;
+  float* wj = dts + chunk;                   // up(chunk, KT), zero tail
+  __shared__ unsigned ticket;
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int t = threadIdx.x, wp = t >> 5, ln = t & 31;
+  const int g = ln >> 2, t4 = ln & 3;
+  const int pr = wp & 3, nh = wp >> 2;       // rows 16 pr.., columns 64 nh..
+  const int c0 = c * chunk, cl = min(chunk, L - c0);
+  const int N8 = up(N, 8);
+  const long long xo =
+      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs;
+  const long long bo = b * bq.sb + (long long)c0 * bq.sl;
+  const int ntiles = (cl + KT - 1) / KT;
+  load_keys<LO, ST_THR>(t0, xq, bq, xo, bo, 0, min(KT, cl), P, N8);
+
+  const float* dg = dt + b * dsb + (long long)c0 * dsl + h;
+  for (int i = t; i < cl; i += ST_THR) dts[i] = dg[(long long)i * dsl];
+  __syncthreads();
+  if (wp == 0) chunk_cumsum(la, dts, A[h], cl);
+  __syncthreads();
+  const float lal = la[cl - 1];
+  const long long hrow = ((long long)b * H + h) * L + c0;
+  for (int i = t; i < up(cl, KT); i += ST_THR) {
+    wj[i] = i < cl ? expf(lal - la[i]) * dts[i] : 0.f;
+    if (i < cl) {
+      LA[hrow + i] = la[i];
+      DTT[hrow + i] = dts[i];
+    }
+  }
+
+  float acc[NT / 16][4];
+#pragma unroll
+  for (int n = 0; n < NT / 16; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int nnp = (N + 15) / 16;             // 16-wide state tiles in use
+  const bool live = 16 * pr < P && 64 * nh < N;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    const int j0 = jt * KT, nk = min(KT, cl - j0);
+    __syncthreads();                         // wj written / buffer free
+    if (jt + 1 < ntiles) {
+      load_keys<LO, ST_THR>(jt & 1 ? t0 : t1, xq, bq, xo, bo, j0 + KT,
+                            min(KT, cl - j0 - KT), P, N8);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (!live) continue;
+    const Tile tl = jt & 1 ? t1 : t0;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      if (16 * kk >= nk) break;
+      // A[p][j] = w_j x[j][p]: the x fragment scaled in registers, then
+      // split; a0/a1 hold keys 2t, 2t+1, a2/a3 keys 2t+8, 2t+9
+      uint32_t ah[4], al[4];
+      lda_t(ah, tl.xh, PP, 16 * pr, 16 * kk);
+      if (LO) lda_t(al, tl.xl, PP, 16 * pr, 16 * kk);
+      const float* wk = wj + j0 + 16 * kk + 2 * t4;
+      const float2 w01 = make_float2(wk[0], wk[1]);
+      const float2 w89 = make_float2(wk[8], wk[9]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float2 v = unpack(ah[r]);
+        if (LO) {
+          const float2 u = unpack(al[r]);
+          v.x += u.x;
+          v.y += u.y;
+        }
+        const float2 w = r < 2 ? w01 : w89;
+        split2(v.x * w.x, v.y * w.y, ah[r], al[r]);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 32; ++np) {
+        const int n0 = 64 * nh + 16 * np;
+        if (4 * nh + np >= nnp) break;
+        uint32_t f[4];
+        ldb_t(f, tl.bh, NP, n0, 16 * kk);    // B(j, n) = B[j][n]
+        mma(acc[2 * np], ah, f[0], f[1]);
+        mma(acc[2 * np + 1], ah, f[2], f[3]);
+        mma(acc[2 * np], al, f[0], f[1]);
+        mma(acc[2 * np + 1], al, f[2], f[3]);
+        if (LO) {
+          ldb_t(f, tl.bl, NP, n0, 16 * kk);
+          mma(acc[2 * np], ah, f[0], f[1]);
+          mma(acc[2 * np + 1], ah, f[2], f[3]);
+        }
+      }
+    }
+  }
+  const long long PN = (long long)P * N;
+  float* sg = S + (((long long)b * nc + c) * H + h) * PN;
+  if (live) {
+#pragma unroll
+    for (int n = 0; n < NT / 16; ++n) {
+      const int col = 64 * nh + 8 * n + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * pr + g + 8 * r;
+        if (p >= P) continue;
+        if (col < N) sg[p * N + col] = acc[n][2 * r];
+        if (col + 1 < N) sg[p * N + col + 1] = acc[n][2 * r + 1];
+      }
+    }
+  }
+
+  // the last of the nc blocks of (b, h) to get here passes the state,
+  // PASS elements per thread in flight
+  __threadfence();
+  __syncthreads();
+  if (t == 0) ticket = atomicAdd(&tickets[b * H + h], 1u);
+  __syncthreads();
+  if (ticket != (unsigned)nc - 1) return;
+  __threadfence();
+  const long long bh_ = (long long)b * H + h;
+  const int PN8 = P * N8;
+  for (int e0 = 0; e0 < PN8; e0 += PASS * ST_THR) {
+    float st[PASS];
+    int off[PASS];                           // p N + n, or -1 (padding)
+#pragma unroll
+    for (int u = 0; u < PASS; ++u) {
+      const int e = e0 + u * ST_THR + t;
+      const int p = e / N8, n = e - p * N8;
+      off[u] = e < PN8 && n < N ? p * N + n : -1;
+      st[u] = off[u] >= 0 && h0 ? h0[bh_ * PN + off[u]] : 0.f;
+    }
+    for (int k = 0; k < nc; ++k) {
+      const long long slot = ((long long)b * nc + k) * H + h;
+      const float dec =
+          expf(__ldcg(LA + bh_ * L + min(k * chunk + chunk, L) - 1));
+      float own[PASS];
+#pragma unroll
+      for (int u = 0; u < PASS; ++u)
+        own[u] = off[u] >= 0 ? __ldcg(S + slot * PN + off[u]) : 0.f;
+#pragma unroll
+      for (int u = 0; u < PASS; ++u) {
+        const int e = e0 + u * ST_THR + t;
+        if (e < PN8 && (k > 0 || h0)) {     // the state entering chunk k
+          const bf16 sh = __float2bfloat16_rn(st[u]);
+          hin_hi[slot * PN8 + e] = sh;
+          hin_lo[slot * PN8 + e] =
+              __float2bfloat16_rn(st[u] - __bfloat162float(sh));
+        }
+        st[u] = st[u] * dec + own[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PASS; ++u)
+      if (off[u] >= 0) hf[bh_ * PN + off[u]] = st[u];
+  }
+}
+
+// ---------------------------------------------------------------------
+// 1. C B^T per (batch, chunk), shared by the heads: 64 x 64 tiles of the
+//    causal triangle into an f32 scratch of row pitch gp
+// ---------------------------------------------------------------------
+
+template <bool LO>
+__global__ void __launch_bounds__(128, 4)
+ssd_cb_kernel(Plane bq, Plane cq, float* __restrict__ G, int L, int N,
+              int chunk, int nc, int gp) {
+  constexpr int CS = LO ? 2 : 1;
+  extern __shared__ __align__(16) uint8_t raw[];
+  bf16* cs = reinterpret_cast<bf16*>(raw);   // KT x NP C rows (hi [, lo])
+  bf16* bs = cs + CS * KT * NP;              // KT x NP B rows (hi [, lo])
+  const int kt = blockIdx.x, rt = blockIdx.y;
+  const int b = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int c0 = c * chunk, cl = min(chunk, L - c0);
+  const int i0 = rt * KT, j0 = kt * KT;
+  if (kt > rt || i0 >= cl) return;
+  const int N8 = up(N, 8);
+  const long long co = b * cq.sb + (long long)(c0 + i0) * cq.sl;
+  const long long bo = b * bq.sb + (long long)(c0 + j0) * bq.sl;
+  const int nq = min(KT, cl - i0), nk = min(KT, cl - j0);
+  tile_async<KT, NT / 8, 128>(cs, NP, cq.hi + co, cq.sl, nq, N8 / 8);
+  tile_async<KT, NT / 8, 128>(bs, NP, bq.hi + bo, bq.sl, nk, N8 / 8);
+  if (LO) {
+    tile_async<KT, NT / 8, 128>(cs + KT * NP, NP, cq.lo + co, cq.sl, nq,
+                                N8 / 8);
+    tile_async<KT, NT / 8, 128>(bs + KT * NP, NP, bq.lo + bo, bq.sl, nk,
+                                N8 / 8);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  const int wp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int g = ln >> 2, t4 = ln & 3;
+  const int nkn = (N + 15) / 16;
+  float acc[KT / 8][4];
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int k = 0; k < NT / 16; ++k) {
+    if (k >= nkn) break;
+    uint32_t a[4], al[4];
+    lda(a, cs, NP, 16 * wp, 16 * k);
+    if (LO) lda(al, cs + KT * NP, NP, 16 * wp, 16 * k);
+#pragma unroll
+    for (int np = 0; np < KT / 16; ++np) {
+      uint32_t f[4];
+      ldb(f, bs, NP, 16 * np, 16 * k);       // B(n, j) = B[j][n]
+      mma(acc[2 * np], a, f[0], f[1]);
+      mma(acc[2 * np + 1], a, f[2], f[3]);
+      if (LO) {
+        mma(acc[2 * np], al, f[0], f[1]);
+        mma(acc[2 * np + 1], al, f[2], f[3]);
+        ldb(f, bs + KT * NP, NP, 16 * np, 16 * k);
+        mma(acc[2 * np], a, f[0], f[1]);
+        mma(acc[2 * np + 1], a, f[2], f[3]);
+      }
+    }
+  }
+  float* gt = G + ((long long)blockIdx.z * gp + i0) * gp + j0;
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(gt + (16 * wp + g + 8 * r) * gp + 8 * n +
+                                 2 * t4) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+}
+
+// ---------------------------------------------------------------------
+// 3. outputs: inter-chunk term, then the causal intra-chunk sum
+// ---------------------------------------------------------------------
+
+template <bool LO>
+__global__ void __launch_bounds__(OUT_THR, 2)
+ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
+               const float* __restrict__ LA, const float* __restrict__ DTT,
+               const bf16* __restrict__ hin_hi,
+               const bf16* __restrict__ hin_lo, float* __restrict__ y,
+               int L, int H, int P, int N, int chunk, int nc, int gp,
+               int has_h0) {
+  constexpr int CS = LO ? 2 : 1;
+  extern __shared__ __align__(16) uint8_t raw[];
+  // first C rows and h_in ...
+  bf16* ch = reinterpret_cast<bf16*>(raw);   // QT x NP (hi)
+  bf16* cl_ = ch + QT * NP;                  //         (lo)
+  bf16* hh = ch + CS * QT * NP;              // PT x NP (hi)
+  bf16* hl = hh + PT * NP;                   //         (lo)
+  // ... then two key tiles in the same memory: C B^T rows, x rows
+  auto gsm = [&](int u) {
+    return reinterpret_cast<float*>(raw + u * gtile_bytes(LO));
+  };
+  auto xsm = [&](int u) {
+    return reinterpret_cast<bf16*>(raw + u * gtile_bytes(LO) + QT * GP * 4);
+  };
+  float* la = reinterpret_cast<float*>(raw + out_region(LO));
+  float* dts = la + chunk;
+
+  const int qt = blockIdx.x, h = blockIdx.y;
+  const int c = blockIdx.z % nc, b = blockIdx.z / nc;
+  const int c0 = c * chunk, cl = min(chunk, L - c0);
+  const int i0 = qt * QT;
+  if (i0 >= cl) return;
+  const int nq = min(QT, cl - i0), kend = i0 + nq;
+  const int t = threadIdx.x, wp = t >> 5, ln = t & 31;
+  const int g = ln >> 2, t4 = ln & 3;
+  const int N8 = up(N, 8);
+  const long long xo =
+      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs;
+  const float* gb = G + ((long long)blockIdx.z * gp + i0) * gp;
+  // keys [j0, j0 + KT): the block's C B^T rows and x's rows of head h
+  auto load = [&](int u, int j0) {
+    bf16* xd = xsm(u);
+    tile_async<QT, KT / 4, OUT_THR>(reinterpret_cast<bf16*>(gsm(u)), 2 * GP,
+                                    reinterpret_cast<const bf16*>(gb + j0),
+                                    2LL * gp, QT, KT / 4);
+    const int nk = min(KT, cl - j0);
+    tile_async<KT, PT / 8, OUT_THR>(xd, PP, xq.hi + xo + j0 * xq.sl, xq.sl,
+                                    nk, (P + 7) / 8);
+    if (LO)
+      tile_async<KT, PT / 8, OUT_THR>(xd + KT * PP, PP,
+                                      xq.lo + xo + j0 * xq.sl, xq.sl, nk,
+                                      (P + 7) / 8);
+    cp_commit();
+  };
+  const long long hrow = ((long long)b * H + h) * L + c0;
+  for (int i = t; i < kend; i += OUT_THR) {
+    la[i] = LA[hrow + i];
+    dts[i] = DTT[hrow + i];
+  }
+  __syncthreads();
+  const int npn = (P + 15) / 16;             // 16-wide tiles over P
+  const int ia = i0 + 16 * wp + g, ib = ia + 8;   // this thread's rows
+  const int first_row = i0 + 16 * wp, last_row = first_row + 15;
+  float acc[PT / 8][4];
+#pragma unroll
+  for (int n = 0; n < PT / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  if (c > 0 || has_h0) {
+    // y_i = exp(la_i) C_i . h_in^T
+    const long long co = b * cq.sb + (long long)(c0 + i0) * cq.sl;
+    tile_async<QT, NT / 8, OUT_THR>(ch, NP, cq.hi + co, cq.sl, nq, N8 / 8);
+    if (LO)
+      tile_async<QT, NT / 8, OUT_THR>(cl_, NP, cq.lo + co, cq.sl, nq,
+                                      N8 / 8);
+    const long long slot = (((long long)b * nc + c) * H + h) * P * N8;
+    tile_async<PT, NT / 8, OUT_THR>(hh, NP, hin_hi + slot, N8, P, N8 / 8);
+    tile_async<PT, NT / 8, OUT_THR>(hl, NP, hin_lo + slot, N8, P, N8 / 8);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    const int nkn = (N + 15) / 16;
+#pragma unroll
+    for (int k = 0; k < NT / 16; ++k) {
+      if (k >= nkn) break;
+      uint32_t a[4], al[4];
+      lda(a, ch, NP, 16 * wp, 16 * k);
+      if (LO) lda(al, cl_, NP, 16 * wp, 16 * k);
+#pragma unroll
+      for (int np = 0; np < PT / 16; ++np) {
+        if (np >= npn) break;
+        uint32_t f[4], fl[4];
+        ldb(f, hh, NP, 16 * np, 16 * k);     // B(n, p) = h[p][n]
+        ldb(fl, hl, NP, 16 * np, 16 * k);
+        mma(acc[2 * np], a, f[0], f[1]);
+        mma(acc[2 * np + 1], a, f[2], f[3]);
+        mma(acc[2 * np], a, fl[0], fl[1]);
+        mma(acc[2 * np + 1], a, fl[2], fl[3]);
+        if (LO) {
+          mma(acc[2 * np], al, f[0], f[1]);
+          mma(acc[2 * np + 1], al, f[2], f[3]);
+        }
+      }
+    }
+    const float ea = ia < cl ? expf(la[ia]) : 0.f;
+    const float eb = ib < cl ? expf(la[ib]) : 0.f;
+#pragma unroll
+    for (int n = 0; n < PT / 8; ++n) {
+      acc[n][0] *= ea; acc[n][1] *= ea;
+      acc[n][2] *= eb; acc[n][3] *= eb;
+    }
+    __syncthreads();                         // C and h_in are done with
+  }
+
+  load(0, 0);
+  const float la_a = ia < cl ? la[ia] : 0.f, la_b = ib < cl ? la[ib] : 0.f;
+  const int ntiles = (kend + KT - 1) / KT;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    const int j0 = jt * KT, nk = min(KT, cl - j0);
+    if (jt + 1 < ntiles) {
+      load((jt + 1) & 1, j0 + KT);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                         // key tile jt has landed
+    // keys after this warp's rows, or rows past the chunk: nothing to add
+    if (j0 <= last_row && first_row < cl) {
+      const float* gt = gsm(jt & 1) + (16 * wp + g) * GP + 2 * t4;
+      const bf16* xh = xsm(jt & 1);
+      // (C_i . B_j) exp(la_i - la_j) dt_j for j <= i, else 0: the
+      // exponent is formed only where j <= i
+      float s[KT / 8][4];
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n) {
+        const float2 u = *reinterpret_cast<const float2*>(gt + 8 * n);
+        const float2 v = *reinterpret_cast<const float2*>(gt + 8 * GP + 8 * n);
+        const float gv[4] = {u.x, u.y, v.x, v.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ia : ib;
+          const int j = j0 + 8 * n + 2 * t4 + (e & 1);
+          s[n][e] = j <= i && i < cl
+                        ? gv[e] * __expf((e < 2 ? la_a : la_b) - la[j]) *
+                              dts[j]
+                        : 0.f;
+        }
+      }
+      // y += S x_j, S split into hi + lo A fragments 16 keys at a time
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        if (16 * kk >= nk || j0 + 16 * kk > last_row) break;
+        uint32_t ph[4], pl[4];
+        split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int np = 0; np < PT / 16; ++np) {
+          if (np >= npn) break;
+          uint32_t f[4];
+          ldb_t(f, xh, PP, 16 * np, 16 * kk);  // B(j, p) = x[j][p]
+          mma(acc[2 * np], ph, f[0], f[1]);
+          mma(acc[2 * np + 1], ph, f[2], f[3]);
+          mma(acc[2 * np], pl, f[0], f[1]);
+          mma(acc[2 * np + 1], pl, f[2], f[3]);
+          if (LO) {
+            ldb_t(f, xh + KT * PP, PP, 16 * np, 16 * kk);
+            mma(acc[2 * np], ph, f[0], f[1]);
+            mma(acc[2 * np + 1], ph, f[2], f[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                         // the buffer may be refilled
+  }
+  // y rows ia, ib of the chunk, head h
+#pragma unroll
+  for (int n = 0; n < PT / 8; ++n) {
+    const int p = 8 * n + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r ? ib : ia;
+      if (i >= cl) continue;
+      float* yr = y + (((long long)b * L + c0 + i) * H + h) * P;
+      if (p + 1 < P && P % 2 == 0) {
+        *reinterpret_cast<float2*>(yr + p) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      } else {
+        if (p < P) yr[p] = acc[n][2 * r];
+        if (p + 1 < P) yr[p + 1] = acc[n][2 * r + 1];
+      }
+    }
+  }
+}
+
+template <bool LO>
+cudaError_t scan(const Plane& xq, const Plane& bq, const Plane& cq,
+                 const float* dt, long long dsb, long long dsl,
+                 const float* A, const float* h0, float* S, float* G,
+                 float* LA, float* DTT, bf16* hin_hi, bf16* hin_lo,
+                 unsigned* tickets, float* y, float* hf, int Bb, int L,
+                 int H, int P, int N, int chunk, cudaStream_t s) {
   // opt in once, to the most a block may have: no attribute call on
   // later launches (those may be under CUDA-graph capture)
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_state_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_OPTIN);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          cb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ssd_cb_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          SMEM_OPTIN);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          ssd_out_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           SMEM_OPTIN);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const size_t smem = sizeof(float) * (size_t)Layout(P, N, chunk).total;
-  const size_t cb_smem = sizeof(float) * ((size_t)TQ * N + TK * (N + 1));
-  if (smem > (size_t)SMEM_OPTIN || cb_smem > (size_t)SMEM_OPTIN)
-    return cudaErrorInvalidValue;
   const int nc = (L + chunk - 1) / chunk;
-  const T* bp = static_cast<const T*>(Bm);
-  const T* cp = static_cast<const T*>(Cm);
-  if (nc > 0) {
-    dim3 g1((chunk + TQ - 1) / TQ, nc, Bb);
-    cb_kernel<T><<<g1, NTHR, cb_smem, s>>>(bp, cp, G, L, N, chunk, nc, bsb,
-                                           bsl, csb, csl);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  dim3 g2(H, Bb);
-  ssd_kernel<T><<<g2, NTHR, smem, s>>>(
-      static_cast<const T*>(x), dt, A, bp, cp, h0, G, y, hf, L, H, P, N,
-      chunk, nc, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl);
+  const int gp = up(chunk, QT);
+  ssd_cb_kernel<LO><<<dim3(gp / KT, gp / KT, nc * Bb), 128, cb_smem(LO),
+                      s>>>(bq, cq, G, L, N, chunk, nc, gp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_state_kernel<LO><<<dim3(H, nc, Bb), ST_THR, state_smem(LO, chunk),
+                         s>>>(xq, bq, dt, dsb, dsl, A, h0, LA, DTT, S,
+                              hin_hi, hin_lo, hf, tickets, L, H, P, N,
+                              chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_out_kernel<LO><<<dim3(gp / QT, H, nc * Bb), OUT_THR,
+                       out_smem(LO, chunk), s>>>(
+      xq, cq, G, LA, DTT, hin_hi, hin_lo, y, L, H, P, N, chunk, nc, gp,
+      h0 != nullptr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the scan's block needs, in bytes (the wrapper checks it
-// against the card's limit before it launches).
-extern "C" long long ssd_scan_smem(int P, int N, int chunk) {
-  return (long long)sizeof(float) * Layout(P, N, chunk).total;
+// Shared memory the larger of the scan's blocks needs, in bytes (the
+// wrapper checks it against the card's limit before it launches).
+extern "C" long long ssd_scan_smem(int lo, int chunk) {
+  const int a = state_smem(lo, chunk), b = out_smem(lo, chunk);
+  return a > b ? (a > cb_smem(lo) ? a : cb_smem(lo))
+               : (b > cb_smem(lo) ? b : cb_smem(lo));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B, C); dt, A, h0, y, hf are f32.
-// G: f32 scratch of Bb * ceil(L / chunk) * chunk * chunk.  Strides in
-// elements along (batch, position); x's head stride is P, the last axis
-// of every operand is contiguous, and P, N are multiples of 4.
-extern "C" int ssd_scan_launch(const void* x, const float* dt,
-                               const float* A, const void* Bm,
-                               const void* Cm, const float* h0, float* G,
-                               float* y, float* hf, int dtype, int Bb,
-                               int L, int H, int P, int N, int chunk,
-                               long long xsb, long long xsl, long long dsb,
-                               long long dsl, long long bsb, long long bsl,
-                               long long csb, long long csl, void* stream) {
+// x (Bb, L, H, P), B / C (Bb, L, N): dtype 0 = float32, 1 = bfloat16,
+// strided along (batch, position) (strides in elements), x's head
+// stride P, the last axis contiguous; dt (Bb, L, H) f32 with strides
+// dsb, dsl and its last axis contiguous; A (H,), h0 (Bb, H, P, N) or
+// null, y (Bb, L, H, P) and hf (Bb, H, P, N) f32 contiguous.  P <= 64,
+// N <= 128, L >= 1, 1 <= chunk <= L.  With P8 / N8 = P / N rounded up
+// to 8 and nc = ceil(L / chunk), the scratch (all from the caller, on
+// 16 bytes):
+//   planes:  null where x, B and C are bf16 with P and N multiples of 8,
+//            strides multiples of 8 and bases on 16 bytes (used as they
+//            are); else bf16 of Bb L (H P8 + 2 N8) elements, twice that
+//            for f32 (hi and lo planes)
+//   S:       f32 (Bb, nc, H, P, N);  LA, DTT: f32 (Bb, H, L)
+//   G:       f32 (Bb, nc, gp, gp), gp = chunk rounded up to 128
+//   hin:     bf16 2 x (Bb, nc, H, P, N8) (hi, then lo)
+//   tickets: Bb H zeroed unsigned ints
+// Returns cudaGetLastError().
+extern "C" int ssd_scan_launch(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* h0, void* planes, float* S, float* G,
+    float* LA, float* DTT, void* hin, unsigned* tickets, float* y, float* hf,
+    int dtype, int Bb, int L, int H, int P, int N, int chunk, long long xsb,
+    long long xsl, long long dsb, long long dsl, long long bsb,
+    long long bsl, long long csb, long long csl, void* stream) {
   if (Bb <= 0 || H <= 0) return cudaSuccess;
-  if (P <= 0 || N <= 0 || P % 4 || N % 4 || chunk <= 0 || L < 0)
+  if (P <= 0 || N <= 0 || P > PT || N > NT || L <= 0 || chunk <= 0 ||
+      chunk > L || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  if (dtype == 0 && planes == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, h0, G, y, hf, Bb, L, H, P, N,
-                         chunk, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, G, y, hf, Bb, L, H,
-                                 P, N, chunk, xsb, xsl, dsb, dsl, bsb, bsl,
-                                 csb, csl, s);
-  return cudaErrorInvalidValue;
+  const int P8 = up(P, 8), N8 = up(N, 8);
+  const int nc = (L + chunk - 1) / chunk;
+  bf16* hin_hi = static_cast<bf16*>(hin);
+  bf16* hin_lo = hin_hi + (long long)Bb * nc * H * P * N8;
+  const bool lo = dtype == 0;
+  Plane xq, bq, cq;
+  if (planes) {
+    const long long nx = (long long)Bb * L * H * P8;
+    const long long nn = (long long)Bb * L * N8;
+    bf16* xh = static_cast<bf16*>(planes);
+    bf16* bh = xh + nx;
+    bf16* ch = bh + nn;
+    bf16* xl = lo ? ch + nn : nullptr;
+    bf16* bl = lo ? xl + nx : nullptr;
+    bf16* cl = lo ? bl + nn : nullptr;
+    if (lo)
+      ssd_split_kernel<float><<<dim3(L, Bb), 256, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(Bm),
+          static_cast<const float*>(Cm), xsb, xsl, bsb, bsl, csb, csl, L, H,
+          P, N, P8, N8, xh, xl, bh, bl, ch, cl);
+    else
+      ssd_split_kernel<bf16><<<dim3(L, Bb), 256, 0, s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(Bm),
+          static_cast<const bf16*>(Cm), xsb, xsl, bsb, bsl, csb, csl, L, H,
+          P, N, P8, N8, xh, xl, bh, bl, ch, cl);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    xq = Plane{xh, xl, (long long)L * H * P8, (long long)H * P8, P8};
+    bq = Plane{bh, bl, (long long)L * N8, N8, 0};
+    cq = Plane{ch, cl, (long long)L * N8, N8, 0};
+  } else {
+    xq = Plane{static_cast<const bf16*>(x), nullptr, xsb, xsl, P};
+    bq = Plane{static_cast<const bf16*>(Bm), nullptr, bsb, bsl, 0};
+    cq = Plane{static_cast<const bf16*>(Cm), nullptr, csb, csl, 0};
+  }
+  if (lo)
+    return scan<true>(xq, bq, cq, dt, dsb, dsl, A, h0, S, G, LA, DTT,
+                      hin_hi, hin_lo, tickets, y, hf, Bb, L, H, P, N, chunk,
+                      s);
+  return scan<false>(xq, bq, cq, dt, dsb, dsl, A, h0, S, G, LA, DTT, hin_hi,
+                     hin_lo, tickets, y, hf, Bb, L, H, P, N, chunk, s);
 }

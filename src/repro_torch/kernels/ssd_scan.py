@@ -15,8 +15,13 @@ which is exactly the TPU kernel's dt = 0 padding.
 
 x, B and C may be f32 or bf16 views strided along (batch, position) --
 the model's split of its input projection -- with the last axis
-contiguous (x's heads contiguous too).  A wrapper given CUDA tensors
-launches the kernel (or raises); CPU tensors take the plain version.
+contiguous (x's heads contiguous too).  The kernel's tensor-core tiles
+take P <= 64 and N <= 128 (every model of the zoo: P = 64, N = 16 or
+128); the wrapper raises on larger ones before it launches.  A wrapper
+given CUDA tensors launches the kernel (C B^T per chunk, every chunk's
+state with the state passing, every chunk's outputs; a split of f32
+operands into bf16 planes first) or raises; CPU tensors take the plain
+version.
 """
 from __future__ import annotations
 
@@ -26,11 +31,12 @@ import torch
 
 from repro_torch.kernels import build
 
-SMEM_LIMIT = 232_448                    # bytes a block may opt in to, H100
+SMEM_LIMIT = 231_424                    # csrc/ssd_scan.cu SMEM_OPTIN
 
-_SIG = {"ssd_scan_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+MAX_P, MAX_N = 64, 128                  # csrc/ssd_scan.cu PT, NT tiles
+_SIG = {"ssd_scan_launch": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p],
-        "ssd_scan_smem": [ctypes.c_int] * 3}
+        "ssd_scan_smem": [ctypes.c_int] * 2}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -73,7 +79,7 @@ def ssd_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int = 256):
     return y, h
 
 
-def _check(x, dt, A, B, C, h0):
+def _check(x, dt, A, B, C, h0, chunk):
     dev = x.device
     Bb, L, H, P = x.shape
     N = B.shape[-1]
@@ -89,14 +95,28 @@ def _check(x, dt, A, B, C, h0):
             raise ValueError(f"ssd_scan: operand {tuple(t.shape)} "
                              f"{t.dtype} on {t.device} must be {shape} "
                              f"{dtype} on {dev}")
-    if P % 4 or N % 4:
-        raise ValueError(f"ssd_scan kernel: P={P} and N={N} must be "
-                         "multiples of 4 (float4 operand reads)")
+    if P > MAX_P or N > MAX_N:
+        raise ValueError(f"ssd_scan kernel: P={P} and N={N} must be at "
+                         f"most {MAX_P} and {MAX_N} (its tensor-core tiles)")
+    if Bb * -(-L // chunk) > 65535:
+        raise ValueError(f"ssd_scan kernel: Bb x chunks = {Bb} x "
+                         f"{-(-L // chunk)} above 65535 (one grid axis)")
     if x.stride(3) != 1 or x.stride(2) != P or dt.stride(2) != 1 or \
             B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous() \
             or (h0 is not None and not h0.is_contiguous()):
         raise ValueError("ssd_scan: the last axis of every operand (and "
                          "x's head axis) must be contiguous")
+
+
+def _direct(x, B, C) -> bool:
+    """Whether the kernel copies bf16 x, B and C as they are: rows of a
+    multiple of 8 values (each head of x), every row on 16 bytes.  Else
+    it first writes them once as contiguous bf16 planes (and always for
+    f32 operands, split into hi and lo planes)."""
+    P, N = x.shape[3], B.shape[2]
+    return x.dtype == torch.bfloat16 and P % 8 == 0 and N % 8 == 0 and \
+        all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+            and t.stride(1) % 8 == 0 for t in (x, B, C))
 
 
 def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 256):
@@ -109,30 +129,49 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 256):
         raise ValueError(f"ssd_scan: chunk must be >= 1, got {chunk}")
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, h0, chunk=chunk)
-    _check(x, dt, A, B, C, h0)
     Bb, L, H, P = x.shape
     N = B.shape[-1]
-    chunk = max(1, min(chunk, L))
+    if L == 0:
+        raise ValueError("ssd_scan kernel: L must be >= 1")
+    chunk = min(chunk, L)
+    _check(x, dt, A, B, C, h0, chunk)
     lib = build.load("ssd_scan", _SIG)
     lib.ssd_scan_smem.restype = ctypes.c_longlong
-    smem = lib.ssd_scan_smem(P, N, chunk)
+    lo = x.dtype == torch.float32
+    smem = lib.ssd_scan_smem(int(lo), chunk)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan kernel: P={P}, N={N}, chunk={chunk} "
-                         f"need {smem} bytes of shared memory per block, "
-                         f"above {SMEM_LIMIT}")
-    y = torch.empty((Bb, L, H, P), dtype=torch.float32, device=x.device)
-    hf = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    # scratch of the pre-pass: C B^T per (batch, chunk), shared by heads
-    g = torch.empty((Bb, -(-L // chunk), chunk, chunk), dtype=torch.float32,
-                    device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+        raise ValueError(f"ssd_scan kernel: chunk={chunk} needs {smem} "
+                         f"bytes of shared memory per block, above "
+                         f"{SMEM_LIMIT}")
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    P8, N8, nc = -(-P // 8) * 8, -(-N // 8) * 8, -(-L // chunk)
+    y = torch.empty((Bb, L, H, P), dtype=f32, device=dev)
+    hf = torch.empty((Bb, H, P, N), dtype=f32, device=dev)
+    # scratch: bf16 operand planes (where x, B, C are not used as they
+    # are), each chunk's own state, C B^T per (batch, chunk), la and dt
+    # head-major, the state entering each chunk (bf16 hi and lo), one
+    # ticket per (batch, head)
+    planes = None if _direct(x, B, C) else torch.empty(
+        (2 if lo else 1) * Bb * L * (H * P8 + 2 * N8), dtype=bf, device=dev)
+    s_ = torch.empty((Bb, nc, H, P, N), dtype=f32, device=dev)
+    gp = -(-chunk // 128) * 128
+    g = torch.empty((Bb, nc, gp, gp), dtype=f32, device=dev)
+    la = torch.empty((Bb, H, L), dtype=f32, device=dev)
+    dtt = torch.empty((Bb, H, L), dtype=f32, device=dev)
+    hin = torch.empty((2, Bb, nc, H, P, N8), dtype=bf, device=dev)
+    tickets = torch.zeros((Bb, H), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), h0.data_ptr() if h0 is not None else None,
-            g.data_ptr(), y.data_ptr(), hf.data_ptr(), _DTYPE[x.dtype], Bb,
-            L, H, P, N,
-            chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            planes.data_ptr() if planes is not None else None,
+            s_.data_ptr(), g.data_ptr(), la.data_ptr(), dtt.data_ptr(),
+            hin.data_ptr(),
+            tickets.data_ptr(), y.data_ptr(), hf.data_ptr(),
+            _DTYPE[x.dtype], Bb, L, H, P, N, chunk,
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream)
     build.check(err, "ssd_scan")
     ssd_scan.launches += 1

@@ -253,6 +253,143 @@ def test_router_topk_and_bandit_update_match_plain(cuda):
         torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
 
 
+def _bandit_inputs(rng, Bu, Bs, N, D):
+    """A one-hot mask made denser: row 0 has two non-zeros, weights are
+    not all 1, row 1 and column 0 are all zero (where N allows)."""
+    w = np.zeros((Bu, N), np.float32)
+    if Bu:
+        lo = 1 if N > 1 else 0
+        w[np.arange(Bu), rng.integers(lo, N, Bu)] = rng.uniform(
+            0.5, 2.0, Bu).astype(np.float32)
+        w[0, N - 1] += 1.5
+        if Bu > 1:
+            w[1] = 0.0
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    x, r, xs = (torch.rand(*s, generator=gen)
+                for s in ((Bu, D), (Bu,), (Bs, D)))
+    theta = _rand(rng, N, D) * 0.1
+    L = _rand(rng, N, D, D) * 0.05
+    ainv = L @ L.transpose(1, 2) + 0.5 * torch.eye(D)
+    return torch.from_numpy(w), x, r, xs, theta, ainv
+
+
+def _assert_bandit_close(got, want):
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        torch.testing.assert_close(g.cpu(), w_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [1, 9, 12])
+@pytest.mark.parametrize("N", [1, 3000, 100_003])
+def test_bandit_update_kernel_matches_plain(cuda, N, D):
+    """Both halves at N not a multiple of any tile, two mask passes
+    (Bu = 300 > 256 rows), a mask that is not one-hot; two launches
+    give the same bits."""
+    rng = np.random.default_rng(N + D)
+    args = _bandit_inputs(rng, 300, 70, N, D)
+    want = BU.bandit_update(*args, 0.8)
+    dev = [a.to(cuda) for a in args]
+    got = BU.bandit_update(*dev, 0.8)
+    _assert_bandit_close(got, want)
+    again = BU.bandit_update(*dev, 0.8)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_bandit_update_kernel_unaligned_mask_and_empty_batches(cuda):
+    """A mask whose rows do not start on 16 bytes (the scalar-load
+    body), Bu = 0 (zero deltas), and Bs = 0 with no posterior (the
+    serving path's launch)."""
+    rng = np.random.default_rng(9)
+    w, x, r, xs, theta, ainv = _bandit_inputs(rng, 40, 16, 3000, 9)
+    want = BU.bandit_update(w, x, r, xs, theta, ainv, 0.8)
+    flat = torch.empty(w.numel() + 1, device=cuda)
+    wu = flat[1:].view(w.shape)
+    wu.copy_(w)
+    assert wu.is_contiguous() and wu.data_ptr() % 16
+    dev = [a.to(cuda) for a in (x, r, xs, theta, ainv)]
+    _assert_bandit_close(BU.bandit_update(wu, *dev, 0.8), want)
+    got = BU.bandit_update(w[:0].to(cuda), dev[0][:0], dev[1][:0], *dev[2:],
+                           0.8)
+    assert not got[0].any() and not got[1].any()
+    _assert_bandit_close(got, BU.bandit_update(w[:0], x[:0], r[:0], xs,
+                                               theta, ainv, 0.8))
+    got = BU.bandit_update(w.to(cuda), dev[0], dev[1], dev[2][:0], None,
+                           None, 0.8)
+    assert got[2].shape == (0, 3000)
+    _assert_bandit_close(got[:2], want[:2])
+
+
+def _ssd_inputs(rng, Bb, L, H, P, N, mode):
+    """f32 operands with an h0, or bf16 x / B / C as strided views of
+    one (Bb, L, H*P + 2N) tensor with no h0 (the model's split)."""
+    dt = torch.from_numpy((rng.random((Bb, L, H)) * 0.5).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, H)
+    if mode == "f32_h0":
+        return (_rand(rng, Bb, L, H, P), dt, A, _rand(rng, Bb, L, N),
+                _rand(rng, Bb, L, N), _rand(rng, Bb, H, P, N))
+    xbc = _rand(rng, Bb, L, H * P + 2 * N).to(torch.bfloat16)
+    return (xbc[..., :H * P].unflatten(-1, (H, P)), dt, A,
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:], None)
+
+
+def _to(args, dev):
+    return [None if a is None else a.to(dev) for a in args]
+
+
+def _assert_scan_close(got, want):
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("mode", ["f32_h0", "bf16_views"])
+@pytest.mark.parametrize("L", [512, 300])
+def test_ssd_scan_kernel_at_the_served_tiles(cuda, L, mode):
+    """P = 64, N = 128, chunk 256 (the mamba2-1.3b tiles) at two chunks
+    and at a ragged L; two launches give the same bits."""
+    args = _ssd_inputs(np.random.default_rng(L), 2, L, 3, 64, 128, mode)
+    want = SS.ssd_scan_plain(*args, chunk=256)
+    dev = _to(args, cuda)
+    if mode == "bf16_views":          # views of one tensor on the card too
+        xbc = torch.cat([args[0].flatten(-2), args[3], args[4]], -1).to(cuda)
+        dev[0] = xbc[..., :3 * 64].unflatten(-1, (3, 64))
+        dev[3], dev[4] = xbc[..., 192:320], xbc[..., 320:]
+        assert not dev[0].is_contiguous()
+    got = SS.ssd_scan(*dev, chunk=256)
+    _assert_scan_close(got, want)
+    again = SS.ssd_scan(*dev, chunk=256)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_ssd_scan_kernel_chained_halves_equal_one_call(cuda):
+    """L = 300 split in two calls, the state carried, equals one call."""
+    args = _to(_ssd_inputs(np.random.default_rng(3), 2, 300, 3, 64, 128,
+                           "bf16_views"), cuda)
+    x, dt, A, Bm, Cm, _ = args
+    y, h = SS.ssd_scan(*args, chunk=256)
+    ya, ha = SS.ssd_scan(x[:, :137], dt[:, :137], A, Bm[:, :137],
+                         Cm[:, :137], None, chunk=256)
+    yb, hb = SS.ssd_scan(x[:, 137:], dt[:, 137:], A, Bm[:, 137:],
+                         Cm[:, 137:], ha, chunk=256)
+    _assert_scan_close((torch.cat([ya, yb], 1), hb), (y.cpu(), h.cpu()))
+    _assert_scan_close((y, h), SS.ssd_scan_plain(*_to(args, "cpu"),
+                                                 chunk=256))
+
+
+@pytest.mark.parametrize("P,N,L,chunk", [(8, 4, 17, 8), (24, 12, 50, 16),
+                                         (10, 6, 33, 16), (64, 16, 70, 64),
+                                         (64, 128, 250, 100)])
+def test_ssd_scan_kernel_pads_narrow_tiles(cuda, P, N, L, chunk):
+    """P and N below (and not multiples of) the 64 x 128 tiles, some not
+    multiples of 8 (staged through the bf16 planes), and a chunk that is
+    not a multiple of the 64-key tiles; f32 and bf16."""
+    for mode in ("f32_h0", "bf16_views"):
+        args = _ssd_inputs(np.random.default_rng(P + N), 2, L, 2, P, N, mode)
+        _assert_scan_close(SS.ssd_scan(*_to(args, cuda), chunk=chunk),
+                           SS.ssd_scan_plain(*args, chunk=chunk))
+
+
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",
                                   "qwen3-moe-30b-a3b"])
 def test_generate_on_card_matches_cpu(cuda, name):

@@ -514,6 +514,71 @@ def test_ssd_scan_plain_takes_strided_bf16_operands():
                                atol=3e-4)
 
 
+def _ssd_chunk_parallel(x, dt, A, B, C, h0, chunk):
+    """The split the CUDA kernel (``csrc/ssd_scan.cu``) follows, in plain
+    PyTorch: (1) every chunk's log-decay cumsum and own state at once,
+    (2) the state passing over chunks, (3) every chunk's outputs at once
+    -- the intra-chunk sum and the inter-chunk term from the state
+    entering it."""
+    Bb, L, H, P_ = x.shape
+    N = B.shape[-1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+    # a ragged last chunk padded with dt = 0 rows: unit decay, no input
+    xp, dtp, bp, cp = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                               + (0, pad))
+                       for t in (x, dt, B, C))
+    xc = xp.reshape(Bb, nc, chunk, H, P_)
+    dtc = dtp.reshape(Bb, nc, chunk, H)
+    bc, cc = (t.reshape(Bb, nc, chunk, N) for t in (bp, cp))
+    la = torch.cumsum(dtc * A, dim=2)                     # (Bb, nc, c, H)
+    last = la[:, :, -1]                                   # (Bb, nc, H)
+    # (1) own states, all chunks at once
+    w = torch.exp(last[:, :, None] - la) * dtc
+    own = torch.einsum("bcjn,bcjhp,bcjh->bchpn", bc, xc, w)
+    # (2) state passing: the state entering each chunk
+    h = torch.zeros((Bb, H, P_, N)) if h0 is None else h0
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(last[:, c])[:, :, None, None] + own[:, c]
+    h_in = torch.stack(h_in, dim=1)                       # (Bb, nc, H, P, N)
+    # (3) outputs, all chunks at once
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    seg = la[:, :, :, None] - la[:, :, None]              # (Bb, nc, i, j, H)
+    dec = torch.where(causal[None, None, :, :, None],
+                      torch.exp(torch.where(causal[None, None, :, :, None],
+                                            seg, 0.0)), 0.0)
+    g = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    y = torch.einsum("bcij,bcijh,bcjh,bcjhp->bcihp", g, dec, dtc, xc)
+    y = y + torch.exp(la)[..., None] * torch.einsum("bcin,bchpn->bcihp",
+                                                    cc, h_in)
+    return y.reshape(Bb, nc * chunk, H, P_)[:, :L], h
+
+
+@pytest.mark.parametrize("Bb,L,H,P_,N,chunk,with_h0", [
+    (2, 64, 3, 16, 8, 16, False), (2, 75, 3, 32, 16, 16, True),
+    (1, 300, 2, 64, 128, 128, True), (1, 300, 2, 64, 128, 128, False),
+    (2, 17, 1, 8, 4, 8, True),
+])
+def test_ssd_chunk_parallel_split_matches_reference(Bb, L, H, P_, N, chunk,
+                                                    with_h0):
+    """The kernel's decomposition (chunk states in parallel, state
+    passing, chunk outputs in parallel) against the sequential
+    ``ref.ssd_scan``: several chunks, ragged L, with and without h0;
+    tolerance 3e-4 as for the plain version."""
+    args = _ssd_problem(Bb, L, H, P_, N, seed=L + P_)
+    if not with_h0:
+        args = args[:5] + (None,)
+    y, hf = _ssd_chunk_parallel(*(None if a is None else torch.from_numpy(a)
+                                  for a in args), chunk)
+    want = R.ssd_scan(*args)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(want[1]), rtol=3e-4,
+                               atol=3e-4)
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernels: on the card only
 # ----------------------------------------------------------------------
