@@ -11,7 +11,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      version's time, one PyTorch-call yardstick and the card's bound
      (``bandit_update`` as the serving path launches it, the update
      half alone, and with both halves beside the matmul form; the
-     halves' device times from a profiler trace);
+     halves' device times from a profiler trace); ``router_topk`` and
+     ``router_topk_q8`` bit-equal over a sweep of N, D, k, bias,
+     min_score and catalog order, and one launch a call (profiler);
   2. serving at full width — a 100,000-entry catalog, the full-width
      analyzer (seeded random weights), bandit + load + semantic cache,
      4 batches of 256 requests through ``ServingEngine.submit`` ->
@@ -29,8 +31,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      both as served -- bf16 x / B / C strided views, no h0 -- and in
      f32 with an h0, each launch's device time from a profiler trace;
      qwen3-moe-30b-a3b's gate at T = 16 x 512 and T = 16, E=128, k=8,
-     and its attention at GQA group 8), plus small sweeps over window,
-     softcap, causal=False, ragged shapes, experts, k, f32 and ties;
+     one launch a call with aux the same bits twice, beside the launch
+     floor of a one-element kernel, and its attention at GQA group 8),
+     plus small sweeps over window, softcap, causal=False, ragged
+     shapes, experts, k, f32 and ties, and the scan past one 64 x 128
+     tile and past 65,535 batches x chunks;
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -82,6 +87,7 @@ GEN_ARCHS = ["llama3.2-1b", "mamba2-1.3b"]
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_GEN_ARCHS = [MOE_ARCH, "llama3.2-1b"]
 NEG_INF = float("-inf")
+TOPK_KERNELS = ("rows_kernel", "tile_kernel")   # csrc/router_topk.cu
 
 
 class SmokeFailure(Exception):
@@ -160,10 +166,10 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def kernel_times(torch, dev, fn, iters: int = 20) -> dict:
-    """Device ms per launch of each kernel ``fn`` launches, by kernel
-    name, from a ``torch.profiler`` trace of ``iters`` calls after
-    three warm-ups (empty where the trace holds no device time)."""
+def trace_kernels(torch, dev, fn, iters: int = 20) -> dict:
+    """{kernel name: (device ms, launches) per ``fn()``} from a
+    ``torch.profiler`` trace of ``iters`` calls after three warm-ups
+    (empty where the trace holds no device time)."""
     if dev.type != "cuda":
         return {}
     from torch.profiler import ProfilerActivity, profile
@@ -176,7 +182,35 @@ def kernel_times(torch, dev, fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(dev)
-    return {kernel_label(n): us / 1e3 / iters for us, n in _busy(prof)}
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+            ms, n = out.get(kernel_label(e.key), (0.0, 0.0))
+            out[kernel_label(e.key)] = (ms + us / 1e3 / iters,
+                                        n + e.count / iters)
+    return out
+
+
+def kernel_times(torch, dev, fn, iters: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name."""
+    return {k: v[0] for k, v in trace_kernels(torch, dev, fn, iters).items()}
+
+
+def one_launch(torch, dev, fn, kernels, what: str) -> str:
+    """Check that ``fn()`` launches one kernel on the card, one of
+    ``kernels``, at most once a call (a profiler trace may drop some of
+    a run's events, never add one); returns its name, the trace's
+    launches a call and its device ms a launch as text."""
+    tr = trace_kernels(torch, dev, fn, iters=20)
+    if not tr:
+        return "not measured (no device time in the trace)"
+    check(len(tr) == 1, f"{what}: kernels launched a call {tr}, want one "
+                        f"of {kernels}")
+    (name, (ms, n)), = tr.items()
+    check(name.split("<")[0] in kernels and 0 < n <= 1.0,
+          f"{what}: {n} launches of {name} a call, want one of {kernels}")
+    return f"{name} {ms / n:.4f} ms a launch, {n:.2f} launches a call"
 
 
 def fmt_times(times: dict) -> str:
@@ -222,6 +256,65 @@ def compare_topk(torch, got, want, what: str) -> float:
     check(err <= 1e-6, f"{what}: max |vals err| {err} > 1e-6")
     check(torch.equal(gi[fin], wi[fin]), f"{what}: indices differ")
     return err
+
+
+def topk_sweep(torch, dev, rng, RT, quantize_rows) -> int:
+    """router_topk and router_topk_q8 against their plain versions, bit
+    for bit, over catalog sizes, widths and k (ragged chunks, the mask
+    read a byte at a time where N % 4 != 0), with bias and min_score,
+    queries whose mask row is empty, duplicate rows (ties to the lower
+    index) and catalogs sorted by score both ways (every row beats the
+    threshold, or none after the first step)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = 0
+    for N, D, k, extra in ((1, 8, 1, False), (127, 1, 8, True),
+                           (4000, 40, 1, True), (4000, 64, 32, False),
+                           (100_003, 8, 8, True), (5000, 8, 32, False)):
+        for order in ("random", "ascending", "descending"):
+            e = rng.standard_normal((N, D)).astype(np.float32)
+            e[N // 2:N // 2 + N // 8] = e[:N // 8]       # duplicates
+            e /= np.linalg.norm(e, axis=1, keepdims=True) + 1e-9
+            q = rng.standard_normal((37, D)).astype(np.float32)
+            q /= np.linalg.norm(q, axis=1, keepdims=True) + 1e-9
+            if order != "random":                        # by query 0's score
+                s0 = e @ q[0]
+                e = e[np.argsort(s0 if order == "ascending" else -s0,
+                                 kind="stable")]
+            table = (rng.random((5, N)) < 0.6).astype(np.uint8)
+            table[0] = 0
+            rows = rng.integers(0, 5, 37).astype(np.int32)
+            rows[1] = 0
+            rows[0] = 1 + rows[0] % 4
+            bias = t((rng.standard_normal(N) * 0.01).astype(np.float32)) \
+                if extra else None
+            ms = 0.2 if extra else NEG_INF
+            qd, ed, td, rd = t(q), t(e), t(table), t(rows)
+            for quant in (False, True):
+                if quant:
+                    q8, qs_ = quantize_rows(qd)
+                    e8, es_ = quantize_rows(ed)
+                    args = (q8.contiguous(), e8.contiguous(),
+                            qs_[:, 0].contiguous(), es_[:, 0].contiguous(),
+                            td, rd, k)
+                    got = RT.router_topk_q8(*args, bias=bias, min_score=ms)
+                    want = RT.router_topk_q8_plain(*args, bias=bias,
+                                                   min_score=ms)
+                else:
+                    args = (qd, ed, td, rd, k)
+                    got = RT.router_topk(*args, bias=bias, min_score=ms)
+                    want = RT.router_topk_plain(*args, bias=bias,
+                                                min_score=ms)
+                what = (f"router_topk{'_q8' if quant else ''} N={N} D={D} "
+                        f"k={k} {order}")
+                fin = torch.isfinite(want[0])
+                check(torch.equal(got[0], want[0]),
+                      f"{what}: values not bit-equal")
+                check(torch.equal(got[1][fin], want[1][fin]),
+                      f"{what}: indices differ")
+                check(dev.type != "cuda" or bool((got[1][~fin] == -1).all()),
+                      f"{what}: an empty slot's index is not -1")
+                n += 1
+    return n
 
 
 def kernel_phase(torch, dev, rng, small: bool):
@@ -280,9 +373,15 @@ def kernel_phase(torch, dev, rng, small: bool):
         library_ms=time_graph_ms(torch, lib_fp32, dev))
     eager = time_ms(torch, lambda: RT.router_topk(q, emb, table, rows, K),
                     dev)
+    prof = one_launch(torch, dev, lambda: RT.router_topk(
+        q, emb, table, rows, K), TOPK_KERNELS, "router_topk fp32")
+    r_ = results["router_topk"]
     log(f"[kernels] router_topk route-step shape: {live} of {Q * N} "
-        f"(query, row) pairs pass the mask; eager call, host work "
-        f"included: {eager:.4f} ms")
+        f"(query, row) pairs pass the mask; grid plan (S, chunk) "
+        f"{RT.topk_plan(Q, N, D)}; {r_['ms']:.4f} ms (profiler: "
+        f"{prof}), "
+        f"kernel / library {r_['ms'] / r_['library_ms']:.2f}; eager call, "
+        f"host work included: {eager:.4f} ms")
 
     # -- fp32 router_topk at the cache lookup's shape (k=1, threshold)
     C, DC = 4096, 40
@@ -313,11 +412,16 @@ def kernel_phase(torch, dev, rng, small: bool):
         return torch.topk(s, 1)
 
     cache_lib = time_graph_ms(torch, lib_cache, dev)
+    cache_prof = one_launch(torch, dev, lambda: RT.router_topk(
+        qk_d, keys_d, cmask_d, crow, 1, min_score=0.95), TOPK_KERNELS,
+        "router_topk cache")
     cb, cby = bound_ms(Q * DC * 4 + C * DC * 4 + Q * C + Q * 4 + Q * 8,
                        2.0 * DC * int(cmask.sum()), PEAK_FP32_S)
     log(f"[kernels] router_topk cache shape Q={Q} C={C} D={DC} k=1: "
-        f"{cache_ms:.4f} ms (plain {cache_plain:.4f}, library "
-        f"{cache_lib:.4f}, bound {cb:.4f} by {cby}), max err {err_c:.3g}")
+        f"{cache_ms:.4f} ms (profiler: {cache_prof}; plain "
+        f"{cache_plain:.4f}, library {cache_lib:.4f}, kernel / library "
+        f"{cache_ms / cache_lib:.2f}, bound {cb:.4f} by {cby}), max err "
+        f"{err_c:.3g}")
 
     # -- int8 router_topk at the route step's shape: bit-equal
     q8, qs = quantize_rows(q)
@@ -349,6 +453,17 @@ def kernel_phase(torch, dev, rng, small: bool):
             q8, e8, qs, es, table, rows, K), dev),
         bound_ms=bms8, bound_by=by8,
         library_ms=time_graph_ms(torch, lib_q8, dev))
+    r_ = results["router_topk_q8"]
+    prof = one_launch(torch, dev, lambda: RT.router_topk_q8(
+        q8, e8, qs, es, table, rows, K), TOPK_KERNELS, "router_topk_q8")
+    log(f"[kernels] router_topk_q8 route-step shape: grid plan (S, chunk) "
+        f"{RT.topk_plan(Q, N, D)}; {r_['ms']:.4f} ms "
+        f"(profiler: {prof}), kernel / library "
+        f"{r_['ms'] / r_['library_ms']:.2f}")
+    n_cases = topk_sweep(torch, dev, rng, RT, quantize_rows)
+    log(f"[kernels] router_topk sweep ({n_cases} cases, fp32 and int8: N "
+        f"1-100,003, D 1-64, k 1-32, bias, min_score, empty rows, "
+        f"duplicates, ascending and descending catalogs): bit-equal")
 
     # -- bandit_update at the learning step's shape: the whole call
     # (both halves) and the served launch (the update half, Bs = 0)
@@ -1017,12 +1132,17 @@ def model_kernel_phase(torch, dev, small: bool):
     results["ssd_scan"]["max_abs_err"] = err_s
     log("[kernels] ssd_scan: no single PyTorch call computes the scan, so "
         "no library time")
-    # small f32 sweep: odd L, several chunks, narrow P and N
+    # small f32 sweep: odd L, several chunks, narrow P and N; P and N
+    # beyond one 64 x 128 tile; Bb x chunks above 65,535 (no grid axis
+    # of the scan is limited to that)
     worst = 0.0
     for b_, l_, h_, p_, n_, c_ in ((1, 32, 2, 16, 8, 16),
                                    (2, 75, 3, 32, 16, 16),
                                    (1, 128, 4, 64, 128, 64),
-                                   (2, 17, 1, 8, 4, 8)):
+                                   (2, 17, 1, 8, 4, 8),
+                                   (2, 300, 2, 128, 256, 128),
+                                   (1, 70, 1, 72, 136, 32),
+                                   (2100, 32, 1, 8, 8, 1)):
         args = (rn(b_, l_, h_, p_),
                 torch.rand(b_, l_, h_, generator=g, device=dev) * 0.5,
                 -torch.exp(rn(h_)), rn(b_, l_, n_), rn(b_, l_, n_),
@@ -1034,8 +1154,9 @@ def model_kernel_phase(torch, dev, small: bool):
             check(e <= tol, f"ssd_scan {(b_, l_, h_, p_, n_, c_)}: max |err| "
                             f"{e} > {tol}")
             worst = max(worst, e / tol)
-    log(f"[kernels] ssd_scan f32 sweep (4 shapes, ragged L, P 8-64, N "
-        f"4-128): worst error {worst:.3g} of its tolerance")
+    log(f"[kernels] ssd_scan f32 sweep (7 shapes, ragged L, P 8-128, N "
+        f"4-256, Bb x chunks 67,200): worst error {worst:.3g} of its "
+        f"tolerance")
     # the model's form: bf16 x / B / C as strided views of one
     # projection, a ragged L, chaining through h0
     xbc = rn(Bb, L - 7, H * P + 2 * N, dt=bf)
@@ -1104,7 +1225,8 @@ def gate_logits(torch, g, dev, T: int, E: int, d: int, dt):
     router = (torch.randn(d, E, generator=g, device=dev) * 0.02).to(dt)
     lg = x @ router
     lg[0] = 0
-    lg[1, E // 2:] = lg[1, :E - E // 2]
+    if T > 1:
+        lg[1, E // 2:] = lg[1, :E - E // 2]
     return lg
 
 
@@ -1145,22 +1267,29 @@ def moe_kernel_phase(torch, dev, small: bool):
             plain_ms=time_ms(torch, lambda: MG.moe_gating_plain(lg, K), dev),
             library_ms=time_graph_ms(torch, lambda: torch.topk(
                 torch.softmax(lg.float(), dim=-1), K), dev),
-            kernel_ms=time_graph_ms(torch, lambda: MG.moe_gating_partials(
-                lg, K), dev) if dev.type == "cuda" else None)
+            profiled=one_launch(torch, dev, lambda: MG.moe_gating(lg, K),
+                                ("gate_kernel",), f"moe_gating {tag}"))
         r = shapes[tag]
-        kern = "n/a" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
-        log(f"[kernels] moe_gating {tag} T={T} E={E} k={K} bf16: "
-            f"{r['ms']:.4f} ms with the aux reduction ({kern} ms the kernel "
-            f"alone; plain {r['plain_ms']:.4f}, softmax+topk "
-            f"{r['library_ms']:.4f}, bound {bms:.5f} by {by}), max err "
-            f"{err:.3g}, {ties} rows at a near-tie")
+        log(f"[kernels] moe_gating {tag} T={T} E={E} k={K} bf16 (plan: "
+            f"{MG.gate_plan(T, E, K)} warps, blocks): {r['ms']:.4f} ms "
+            f"(profiler: {r['profiled']}; plain {r['plain_ms']:.4f}, "
+            f"softmax+topk {r['library_ms']:.4f}, kernel / library "
+            f"{r['ms'] / r['library_ms']:.2f}, bound {bms:.5f} by {by}), "
+            f"max err {err:.3g}, {ties} rows at a near-tie")
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_graph_ms(torch, lambda: one.add_(1.0), dev)
+    log(f"[kernels] the launch floor: a one-element PyTorch kernel replayed "
+        f"the same way takes {floor_ms:.4f} ms")
     # sweep: small and odd E, k = 1, ragged T, f32 and bf16, tied rows
     worst = 0.0
     for T, E_, k_, dt in ((1000, 4, 2, torch.float32),
                           (77, 60, 4, torch.float32),
                           (300, 128, 1, bf),
                           (65, 128, 8, torch.float32),
-                          (3, 1024, 16, torch.float32)):
+                          (3, 1024, 16, torch.float32),
+                          (1, 128, 8, bf),
+                          (40_000, 128, 8, bf),
+                          (200, 1024, 1024, torch.float32)):
         lg = gate_logits(torch, g, dev, T, E_, 64, dt)
         got = MG.moe_gating(lg, k_)
         again = MG.moe_gating(lg, k_)
@@ -1169,8 +1298,9 @@ def moe_kernel_phase(torch, dev, small: bool):
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"moe_gating T={T} E={E_}: two launches gave different bits")
         worst = max(worst, err)
-    log(f"[kernels] moe_gating sweep (E 4/60/128/1024, k 1-16, ragged T, "
-        f"f32 and bf16, tied rows): max err {worst:.3g} (tol 1e-6)")
+    log(f"[kernels] moe_gating sweep (E 4/60/128/1024, k 1-1024, T 1 to "
+        f"40,000 (a grid-stride plan), f32 and bf16, tied rows): max err "
+        f"{worst:.3g} (tol 1e-6)")
     pre = shapes["prefill"]
     results["moe_gating"] = dict(
         name="moe_gating", route="cuda",

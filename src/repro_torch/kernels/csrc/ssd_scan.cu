@@ -11,8 +11,16 @@
 // A ragged last chunk is cut short, which is what the TPU kernel's
 // dt = 0 padding amounts to (unit decay, no input).  x, B and C may be
 // f32 or bf16 and strided along (batch, position), as the model's
-// split of its projection gives them.  P <= 64 and N <= 128 (zero-padded
-// to those tiles inside the kernel).
+// split of its projection gives them.  Any P and N: the products work on
+// tiles of 64 (P) x 128 (N), zero-padded inside the kernel; a larger P
+// puts more blocks on the grid (the state and the outputs split over
+// P), a larger N splits the state too and is summed over inside C B^T
+// and C . h.  TL, a template flag, is set where P > 64, N > 128 or
+// Bb x chunks > 65535: those kernels take a one-axis grid (x, up to
+// 2^31 - 1 blocks), so no count of batches, chunks or heads meets the
+// 65535 limit of y and z.  A shape of one tile within that limit runs
+// the TL = false kernels, whose tile offsets are constants and whose
+// grids put Bb (x chunks) on z.
 //
 // What bounds it on an H100: at the mamba2-1.3b prefill (Bb=16, L=512,
 // H=64, P=64, N=128, chunk 256; bf16 x, B, C, no h0) the bytes are
@@ -35,21 +43,21 @@
 //  1. ssd_cb_kernel: G = C B^T once per (batch, chunk) -- B and C are
 //     shared by the heads -- in 64 x 64 tensor-core tiles of the causal
 //     triangle, into an f32 scratch that stays in L2.
-//  2. ssd_state_kernel, grid (H, chunks, Bb): the chunk's log-decay
-//     cumsum (a warp scan; la and dt are written out head-major for
-//     launch 3) and its own state s_c = sum_j w_j x_j B_j^T,
-//     w_j = exp(la_last - la_j) dt_j: a (P x chunk) . (chunk x N)
+//  2. ssd_state_kernel, grid H x state tiles x chunks x Bb: the chunk's
+//     log-decay cumsum (a warp scan; la and dt are written out
+//     head-major for launch 3) and its own state s_c = sum_j w_j x_j
+//     B_j^T, w_j = exp(la_last - la_j) dt_j: a (P x chunk) . (chunk x N)
 //     tensor-core product, w_j applied to the x fragments in registers
 //     (then split), into an f32 scratch.  The block that finishes a
-//     (batch, head) last (a ticket counter; no block waits) passes the
-//     state over its chunks in order, h_c = exp(la_last,c) h_{c-1} + s_c,
-//     writes the state entering each chunk as bf16 hi/lo planes and
-//     h_final.
-//  3. ssd_out_kernel, grid (query tiles of 128, H, chunks x Bb), 8 warps
-//     of 16 rows: the inter-chunk term exp(la_i) C_i . h_in^T, then per
-//     key tile of 64 the G rows, masked and decayed in registers
-//     (exp(la_i - la_j) dt_j, formed only where j <= i), split, and
-//     y += S x_j.  y is written once.
+//     (batch, head, state tile) last (a ticket counter; no block waits)
+//     passes that tile of the state over its chunks in order, h_c =
+//     exp(la_last,c) h_{c-1} + s_c, writes the state entering each chunk
+//     as bf16 hi/lo planes and h_final.
+//  3. ssd_out_kernel, grid query tiles of 128 x H x P tiles x chunks x
+//     Bb, 8 warps of 16 rows: the inter-chunk term exp(la_i) C_i .
+//     h_in^T, then per key tile of 64 the G rows, masked and decayed in
+//     registers (exp(la_i - la_j) dt_j, formed only where j <= i),
+//     split, and y += S x_j.  y is written once.
 // Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by
 // ldmatrix from padded shared-memory rows that 16-byte cp.async copies
 // fill; the key tiles of launches 2 and 3 are a two-deep ring, the next
@@ -323,7 +331,7 @@ __device__ __forceinline__ void split_rows(const T* src, int n, int n8,
   }
 }
 
-// grid (L, Bb): one (batch, position) row of x (H heads), B and C
+// grid L x Bb: one (batch, position) row of x (H heads), B and C
 template <typename T>
 __global__ void __launch_bounds__(256)
 ssd_split_kernel(const T* __restrict__ x, const T* __restrict__ Bm,
@@ -331,8 +339,8 @@ ssd_split_kernel(const T* __restrict__ x, const T* __restrict__ Bm,
                  long long bsb, long long bsl, long long csb, long long csl,
                  int L, int H, int P, int N, int P8, int N8, bf16* xh,
                  bf16* xl, bf16* bh, bf16* bl, bf16* ch, bf16* cl) {
-  const int l = blockIdx.x, b = blockIdx.y;
-  const long long row = (long long)b * L + l;
+  const long long row = blockIdx.x;            // b L + l
+  const int l = (int)(row % L), b = (int)(row / L);
   const long long ox = row * H * P8, on = row * N8;
   split_rows(x + b * xsb + l * xsl, P, P8, H, P, xh + ox,
              xl ? xl + ox : xl);
@@ -347,7 +355,7 @@ ssd_split_kernel(const T* __restrict__ x, const T* __restrict__ Bm,
 //    state passing
 // ---------------------------------------------------------------------
 
-template <bool LO>
+template <bool LO, bool TL>
 __global__ void __launch_bounds__(ST_THR, 2)
 ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
                  long long dsb, long long dsl, const float* __restrict__ A,
@@ -355,7 +363,8 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
                  float* __restrict__ DTT, float* __restrict__ S,
                  bf16* __restrict__ hin_hi, bf16* __restrict__ hin_lo,
                  float* __restrict__ hf, unsigned* __restrict__ tickets,
-                 int L, int H, int P, int N, int chunk) {
+                 int L, int H, int P, int N, int chunk, int nc, int nnt,
+                 int ntile) {
   extern __shared__ __align__(16) uint8_t raw[];
   const Tile t0 = Tile::at<LO>(raw);        // key tiles, even and odd
   const Tile t1 = Tile::at<LO>(raw + tile_bytes(LO));
@@ -364,18 +373,36 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
   float* wj = dts + chunk;                   // up(chunk, KT), zero tail
   __shared__ unsigned ticket;
 
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.y;
+  // TL: block x = ((b nc + c) ntile + tile) H + h; tile = pt nnt + nt,
+  // the state's rows p0 .. p0 + 63 and columns n0 .. n0 + 127; else the
+  // grid is (H, nc, Bb)
+  int h, c, b, tile = 0;
+  if constexpr (TL) {
+    unsigned bx = blockIdx.x;
+    h = bx % H;
+    bx /= H;
+    tile = bx % ntile;
+    bx /= ntile;
+    c = bx % nc;
+    b = bx / nc;
+  } else {
+    h = blockIdx.x;
+    c = blockIdx.y;
+    b = blockIdx.z;
+  }
+  const int p0 = TL ? tile / nnt * PT : 0, n0 = TL ? tile % nnt * NT : 0;
   const int t = threadIdx.x, wp = t >> 5, ln = t & 31;
   const int g = ln >> 2, t4 = ln & 3;
   const int pr = wp & 3, nh = wp >> 2;       // rows 16 pr.., columns 64 nh..
   const int c0 = c * chunk, cl = min(chunk, L - c0);
   const int N8 = up(N, 8);
+  const int Pl = TL ? min(PT, P - p0) : P, Nl = TL ? min(NT, N - n0) : N;
+  const int Nl8 = TL ? min(NT, N8 - n0) : N8;  // this tile's columns
   const long long xo =
-      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs;
-  const long long bo = b * bq.sb + (long long)c0 * bq.sl;
+      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs + p0;
+  const long long bo = b * bq.sb + (long long)c0 * bq.sl + n0;
   const int ntiles = (cl + KT - 1) / KT;
-  load_keys<LO, ST_THR>(t0, xq, bq, xo, bo, 0, min(KT, cl), P, N8);
+  load_keys<LO, ST_THR>(t0, xq, bq, xo, bo, 0, min(KT, cl), Pl, Nl8);
 
   const float* dg = dt + b * dsb + (long long)c0 * dsl + h;
   for (int i = t; i < cl; i += ST_THR) dts[i] = dg[(long long)i * dsl];
@@ -396,14 +423,14 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
 #pragma unroll
   for (int n = 0; n < NT / 16; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int nnp = (N + 15) / 16;             // 16-wide state tiles in use
-  const bool live = 16 * pr < P && 64 * nh < N;
+  const int nnp = (Nl + 15) / 16;            // 16-wide state tiles in use
+  const bool live = 16 * pr < Pl && 64 * nh < Nl;
   for (int jt = 0; jt < ntiles; ++jt) {
     const int j0 = jt * KT, nk = min(KT, cl - j0);
     __syncthreads();                         // wj written / buffer free
     if (jt + 1 < ntiles) {
       load_keys<LO, ST_THR>(jt & 1 ? t0 : t1, xq, bq, xo, bo, j0 + KT,
-                            min(KT, cl - j0 - KT), P, N8);
+                            min(KT, cl - j0 - KT), Pl, Nl8);
       cp_wait<1>();
     } else {
       cp_wait<0>();
@@ -460,31 +487,52 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int p = 16 * pr + g + 8 * r;
-        if (p >= P) continue;
-        if (col < N) sg[p * N + col] = acc[n][2 * r];
-        if (col + 1 < N) sg[p * N + col + 1] = acc[n][2 * r + 1];
+        if (p >= Pl) continue;
+        if constexpr (TL) {
+          float* sr = sg + (long long)(p0 + p) * N + n0;
+          if (col < Nl) sr[col] = acc[n][2 * r];
+          if (col + 1 < Nl) sr[col + 1] = acc[n][2 * r + 1];
+        } else {
+          if (col < N) sg[p * N + col] = acc[n][2 * r];
+          if (col + 1 < N) sg[p * N + col + 1] = acc[n][2 * r + 1];
+        }
       }
     }
   }
 
-  // the last of the nc blocks of (b, h) to get here passes the state,
-  // PASS elements per thread in flight
+  // the last of the nc blocks of (b, h, tile) to get here passes the
+  // tile's state, PASS elements per thread in flight
   __threadfence();
   __syncthreads();
-  if (t == 0) ticket = atomicAdd(&tickets[b * H + h], 1u);
+  if (t == 0) {
+    if constexpr (TL)
+      ticket = atomicAdd(&tickets[((long long)b * H + h) * ntile + tile], 1u);
+    else
+      ticket = atomicAdd(&tickets[b * H + h], 1u);
+  }
   __syncthreads();
   if (ticket != (unsigned)nc - 1) return;
   __threadfence();
   const long long bh_ = (long long)b * H + h;
   const int PN8 = P * N8;
-  for (int e0 = 0; e0 < PN8; e0 += PASS * ST_THR) {
+  const int TN8 = Pl * Nl8;                  // this tile's elements
+  for (int e0 = 0; e0 < TN8; e0 += PASS * ST_THR) {
     float st[PASS];
     int off[PASS];                           // p N + n, or -1 (padding)
+    int hof[TL ? PASS : 1];                  // p N8 + n (one tile: e)
 #pragma unroll
     for (int u = 0; u < PASS; ++u) {
       const int e = e0 + u * ST_THR + t;
-      const int p = e / N8, n = e - p * N8;
-      off[u] = e < PN8 && n < N ? p * N + n : -1;
+      int p, n;
+      if constexpr (TL) {
+        p = p0 + e / Nl8;
+        n = n0 + e % Nl8;
+        hof[u] = e < TN8 ? p * N8 + n : -1;
+      } else {
+        p = e / N8;
+        n = e - p * N8;
+      }
+      off[u] = e < TN8 && n < N ? p * N + n : -1;
       st[u] = off[u] >= 0 && h0 ? h0[bh_ * PN + off[u]] : 0.f;
     }
     for (int k = 0; k < nc; ++k) {
@@ -497,11 +545,16 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
         own[u] = off[u] >= 0 ? __ldcg(S + slot * PN + off[u]) : 0.f;
 #pragma unroll
       for (int u = 0; u < PASS; ++u) {
-        const int e = e0 + u * ST_THR + t;
-        if (e < PN8 && (k > 0 || h0)) {     // the state entering chunk k
+        int ho = e0 + u * ST_THR + t;        // one tile: ho = e
+        bool in = ho < TN8;
+        if constexpr (TL) {
+          ho = hof[u];
+          in = ho >= 0;
+        }
+        if (in && (k > 0 || h0)) {           // the state entering chunk k
           const bf16 sh = __float2bfloat16_rn(st[u]);
-          hin_hi[slot * PN8 + e] = sh;
-          hin_lo[slot * PN8 + e] =
+          hin_hi[slot * PN8 + ho] = sh;
+          hin_lo[slot * PN8 + ho] =
               __float2bfloat16_rn(st[u] - __bfloat162float(sh));
         }
         st[u] = st[u] * dec + own[u];
@@ -518,16 +571,21 @@ ssd_state_kernel(Plane xq, Plane bq, const float* __restrict__ dt,
 //    causal triangle into an f32 scratch of row pitch gp
 // ---------------------------------------------------------------------
 
-template <bool LO>
+template <bool LO, bool TL>
 __global__ void __launch_bounds__(128, 4)
 ssd_cb_kernel(Plane bq, Plane cq, float* __restrict__ G, int L, int N,
               int chunk, int nc, int gp) {
+  // TL: block x = (z nk + rt) nk + kt, z = b nc + c, nk = gp / KT; else
+  // the grid is (nk, nk, Bb nc)
   constexpr int CS = LO ? 2 : 1;
   extern __shared__ __align__(16) uint8_t raw[];
   bf16* cs = reinterpret_cast<bf16*>(raw);   // KT x NP C rows (hi [, lo])
   bf16* bs = cs + CS * KT * NP;              // KT x NP B rows (hi [, lo])
-  const int kt = blockIdx.x, rt = blockIdx.y;
-  const int b = blockIdx.z / nc, c = blockIdx.z % nc;
+  const int nk_ = gp / KT;
+  const unsigned z = TL ? blockIdx.x / (nk_ * nk_) : blockIdx.z;
+  const int kt = TL ? blockIdx.x % nk_ : blockIdx.x;
+  const int rt = TL ? blockIdx.x / nk_ % nk_ : blockIdx.y;
+  const int b = z / nc, c = z % nc;
   const int c0 = c * chunk, cl = min(chunk, L - c0);
   const int i0 = rt * KT, j0 = kt * KT;
   if (kt > rt || i0 >= cl) return;
@@ -535,46 +593,51 @@ ssd_cb_kernel(Plane bq, Plane cq, float* __restrict__ G, int L, int N,
   const long long co = b * cq.sb + (long long)(c0 + i0) * cq.sl;
   const long long bo = b * bq.sb + (long long)(c0 + j0) * bq.sl;
   const int nq = min(KT, cl - i0), nk = min(KT, cl - j0);
-  tile_async<KT, NT / 8, 128>(cs, NP, cq.hi + co, cq.sl, nq, N8 / 8);
-  tile_async<KT, NT / 8, 128>(bs, NP, bq.hi + bo, bq.sl, nk, N8 / 8);
-  if (LO) {
-    tile_async<KT, NT / 8, 128>(cs + KT * NP, NP, cq.lo + co, cq.sl, nq,
-                                N8 / 8);
-    tile_async<KT, NT / 8, 128>(bs + KT * NP, NP, bq.lo + bo, bq.sl, nk,
-                                N8 / 8);
-  }
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
   const int wp = threadIdx.x >> 5, ln = threadIdx.x & 31;
   const int g = ln >> 2, t4 = ln & 3;
-  const int nkn = (N + 15) / 16;
   float acc[KT / 8][4];
 #pragma unroll
   for (int n = 0; n < KT / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // the state axis in tiles of NT, summed over
+  for (int n0 = 0; n0 < (TL ? N : 1); n0 += NT) {
+    const int ng = (TL ? min(NT, N8 - n0) : N8) / 8;
+    if (TL && n0 > 0) __syncthreads();       // the last tile is read
+    tile_async<KT, NT / 8, 128>(cs, NP, cq.hi + co + n0, cq.sl, nq, ng);
+    tile_async<KT, NT / 8, 128>(bs, NP, bq.hi + bo + n0, bq.sl, nk, ng);
+    if (LO) {
+      tile_async<KT, NT / 8, 128>(cs + KT * NP, NP, cq.lo + co + n0, cq.sl,
+                                  nq, ng);
+      tile_async<KT, NT / 8, 128>(bs + KT * NP, NP, bq.lo + bo + n0, bq.sl,
+                                  nk, ng);
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    const int nkn = ((TL ? min(NT, N - n0) : N) + 15) / 16;
 #pragma unroll
-  for (int k = 0; k < NT / 16; ++k) {
-    if (k >= nkn) break;
-    uint32_t a[4], al[4];
-    lda(a, cs, NP, 16 * wp, 16 * k);
-    if (LO) lda(al, cs + KT * NP, NP, 16 * wp, 16 * k);
+    for (int k = 0; k < NT / 16; ++k) {
+      if (k >= nkn) break;
+      uint32_t a[4], al[4];
+      lda(a, cs, NP, 16 * wp, 16 * k);
+      if (LO) lda(al, cs + KT * NP, NP, 16 * wp, 16 * k);
 #pragma unroll
-    for (int np = 0; np < KT / 16; ++np) {
-      uint32_t f[4];
-      ldb(f, bs, NP, 16 * np, 16 * k);       // B(n, j) = B[j][n]
-      mma(acc[2 * np], a, f[0], f[1]);
-      mma(acc[2 * np + 1], a, f[2], f[3]);
-      if (LO) {
-        mma(acc[2 * np], al, f[0], f[1]);
-        mma(acc[2 * np + 1], al, f[2], f[3]);
-        ldb(f, bs + KT * NP, NP, 16 * np, 16 * k);
+      for (int np = 0; np < KT / 16; ++np) {
+        uint32_t f[4];
+        ldb(f, bs, NP, 16 * np, 16 * k);       // B(n, j) = B[j][n]
         mma(acc[2 * np], a, f[0], f[1]);
         mma(acc[2 * np + 1], a, f[2], f[3]);
+        if (LO) {
+          mma(acc[2 * np], al, f[0], f[1]);
+          mma(acc[2 * np + 1], al, f[2], f[3]);
+          ldb(f, bs + KT * NP, NP, 16 * np, 16 * k);
+          mma(acc[2 * np], a, f[0], f[1]);
+          mma(acc[2 * np + 1], a, f[2], f[3]);
+        }
       }
     }
   }
-  float* gt = G + ((long long)blockIdx.z * gp + i0) * gp + j0;
+  float* gt = G + ((long long)z * gp + i0) * gp + j0;
 #pragma unroll
   for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
@@ -588,14 +651,14 @@ ssd_cb_kernel(Plane bq, Plane cq, float* __restrict__ G, int L, int N,
 // 3. outputs: inter-chunk term, then the causal intra-chunk sum
 // ---------------------------------------------------------------------
 
-template <bool LO>
+template <bool LO, bool TL>
 __global__ void __launch_bounds__(OUT_THR, 2)
 ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
                const float* __restrict__ LA, const float* __restrict__ DTT,
                const bf16* __restrict__ hin_hi,
                const bf16* __restrict__ hin_lo, float* __restrict__ y,
                int L, int H, int P, int N, int chunk, int nc, int gp,
-               int has_h0) {
+               int nqt, int npt, int has_h0) {
   constexpr int CS = LO ? 2 : 1;
   extern __shared__ __align__(16) uint8_t raw[];
   // first C rows and h_in ...
@@ -613,8 +676,24 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
   float* la = reinterpret_cast<float*>(raw + out_region(LO));
   float* dts = la + chunk;
 
-  const int qt = blockIdx.x, h = blockIdx.y;
-  const int c = blockIdx.z % nc, b = blockIdx.z / nc;
+  // TL: block x = ((z npt + pt) H + h) nqt + qt, z = b nc + c; pt: the
+  // output columns p0 .. p0 + 63; else the grid is (nqt, H, Bb nc)
+  int qt, h, p0 = 0;
+  unsigned z;
+  if constexpr (TL) {
+    unsigned bx = blockIdx.x;
+    qt = bx % nqt;
+    bx /= nqt;
+    h = bx % H;
+    bx /= H;
+    p0 = bx % npt * PT;
+    z = bx / npt;
+  } else {
+    qt = blockIdx.x;
+    h = blockIdx.y;
+    z = blockIdx.z;
+  }
+  const int c = z % nc, b = z / nc;
   const int c0 = c * chunk, cl = min(chunk, L - c0);
   const int i0 = qt * QT;
   if (i0 >= cl) return;
@@ -622,22 +701,25 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
   const int t = threadIdx.x, wp = t >> 5, ln = t & 31;
   const int g = ln >> 2, t4 = ln & 3;
   const int N8 = up(N, 8);
+  const int Pl = TL ? min(PT, P - p0) : P;
   const long long xo =
-      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs;
-  const float* gb = G + ((long long)blockIdx.z * gp + i0) * gp;
+      b * xq.sb + (long long)c0 * xq.sl + (long long)h * xq.hs + p0;
+  const float* gb = G + ((long long)z * gp + i0) * gp;
   // keys [j0, j0 + KT): the block's C B^T rows and x's rows of head h
   auto load = [&](int u, int j0) {
     bf16* xd = xsm(u);
+    // the block's rows of C B^T (rows past the chunk are the next
+    // chunk's, or the scratch's tail pad: never used)
     tile_async<QT, KT / 4, OUT_THR>(reinterpret_cast<bf16*>(gsm(u)), 2 * GP,
                                     reinterpret_cast<const bf16*>(gb + j0),
                                     2LL * gp, QT, KT / 4);
     const int nk = min(KT, cl - j0);
     tile_async<KT, PT / 8, OUT_THR>(xd, PP, xq.hi + xo + j0 * xq.sl, xq.sl,
-                                    nk, (P + 7) / 8);
+                                    nk, (Pl + 7) / 8);
     if (LO)
       tile_async<KT, PT / 8, OUT_THR>(xd + KT * PP, PP,
                                       xq.lo + xo + j0 * xq.sl, xq.sl, nk,
-                                      (P + 7) / 8);
+                                      (Pl + 7) / 8);
     cp_commit();
   };
   const long long hrow = ((long long)b * H + h) * L + c0;
@@ -646,7 +728,7 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
     dts[i] = DTT[hrow + i];
   }
   __syncthreads();
-  const int npn = (P + 15) / 16;             // 16-wide tiles over P
+  const int npn = (Pl + 15) / 16;            // 16-wide tiles over P
   const int ia = i0 + 16 * wp + g, ib = ia + 8;   // this thread's rows
   const int first_row = i0 + 16 * wp, last_row = first_row + 15;
   float acc[PT / 8][4];
@@ -655,38 +737,43 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   if (c > 0 || has_h0) {
-    // y_i = exp(la_i) C_i . h_in^T
+    // y_i = exp(la_i) C_i . h_in^T, summed over tiles of NT states
     const long long co = b * cq.sb + (long long)(c0 + i0) * cq.sl;
-    tile_async<QT, NT / 8, OUT_THR>(ch, NP, cq.hi + co, cq.sl, nq, N8 / 8);
-    if (LO)
-      tile_async<QT, NT / 8, OUT_THR>(cl_, NP, cq.lo + co, cq.sl, nq,
-                                      N8 / 8);
-    const long long slot = (((long long)b * nc + c) * H + h) * P * N8;
-    tile_async<PT, NT / 8, OUT_THR>(hh, NP, hin_hi + slot, N8, P, N8 / 8);
-    tile_async<PT, NT / 8, OUT_THR>(hl, NP, hin_lo + slot, N8, P, N8 / 8);
-    cp_commit();
-    cp_wait<0>();
-    __syncthreads();
-    const int nkn = (N + 15) / 16;
+    const long long slot =
+        (((long long)b * nc + c) * H + h) * P * N8 + (long long)p0 * N8;
+    for (int n0 = 0; n0 < (TL ? N : 1); n0 += NT) {
+      const int ng = (TL ? min(NT, N8 - n0) : N8) / 8;
+      if (TL && n0 > 0) __syncthreads();     // the last tile is read
+      tile_async<QT, NT / 8, OUT_THR>(ch, NP, cq.hi + co + n0, cq.sl, nq, ng);
+      if (LO)
+        tile_async<QT, NT / 8, OUT_THR>(cl_, NP, cq.lo + co + n0, cq.sl, nq,
+                                        ng);
+      tile_async<PT, NT / 8, OUT_THR>(hh, NP, hin_hi + slot + n0, N8, Pl, ng);
+      tile_async<PT, NT / 8, OUT_THR>(hl, NP, hin_lo + slot + n0, N8, Pl, ng);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      const int nkn = ((TL ? min(NT, N - n0) : N) + 15) / 16;
 #pragma unroll
-    for (int k = 0; k < NT / 16; ++k) {
-      if (k >= nkn) break;
-      uint32_t a[4], al[4];
-      lda(a, ch, NP, 16 * wp, 16 * k);
-      if (LO) lda(al, cl_, NP, 16 * wp, 16 * k);
+      for (int k = 0; k < NT / 16; ++k) {
+        if (k >= nkn) break;
+        uint32_t a[4], al[4];
+        lda(a, ch, NP, 16 * wp, 16 * k);
+        if (LO) lda(al, cl_, NP, 16 * wp, 16 * k);
 #pragma unroll
-      for (int np = 0; np < PT / 16; ++np) {
-        if (np >= npn) break;
-        uint32_t f[4], fl[4];
-        ldb(f, hh, NP, 16 * np, 16 * k);     // B(n, p) = h[p][n]
-        ldb(fl, hl, NP, 16 * np, 16 * k);
-        mma(acc[2 * np], a, f[0], f[1]);
-        mma(acc[2 * np + 1], a, f[2], f[3]);
-        mma(acc[2 * np], a, fl[0], fl[1]);
-        mma(acc[2 * np + 1], a, fl[2], fl[3]);
-        if (LO) {
-          mma(acc[2 * np], al, f[0], f[1]);
-          mma(acc[2 * np + 1], al, f[2], f[3]);
+        for (int np = 0; np < PT / 16; ++np) {
+          if (np >= npn) break;
+          uint32_t f[4], fl[4];
+          ldb(f, hh, NP, 16 * np, 16 * k);     // B(n, p) = h[p][n]
+          ldb(fl, hl, NP, 16 * np, 16 * k);
+          mma(acc[2 * np], a, f[0], f[1]);
+          mma(acc[2 * np + 1], a, f[2], f[3]);
+          mma(acc[2 * np], a, fl[0], fl[1]);
+          mma(acc[2 * np + 1], a, fl[2], fl[3]);
+          if (LO) {
+            mma(acc[2 * np], al, f[0], f[1]);
+            mma(acc[2 * np + 1], al, f[2], f[3]);
+          }
         }
       }
     }
@@ -762,7 +849,7 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
     }
     __syncthreads();                         // the buffer may be refilled
   }
-  // y rows ia, ib of the chunk, head h
+  // y rows ia, ib of the chunk, head h, columns p0 ..
 #pragma unroll
   for (int n = 0; n < PT / 8; ++n) {
     const int p = 8 * n + 2 * t4;
@@ -770,19 +857,19 @@ ssd_out_kernel(Plane xq, Plane cq, const float* __restrict__ G,
     for (int r = 0; r < 2; ++r) {
       const int i = r ? ib : ia;
       if (i >= cl) continue;
-      float* yr = y + (((long long)b * L + c0 + i) * H + h) * P;
-      if (p + 1 < P && P % 2 == 0) {
+      float* yr = y + (((long long)b * L + c0 + i) * H + h) * P + p0;
+      if (p + 1 < Pl && P % 2 == 0) {
         *reinterpret_cast<float2*>(yr + p) =
             make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
       } else {
-        if (p < P) yr[p] = acc[n][2 * r];
-        if (p + 1 < P) yr[p + 1] = acc[n][2 * r + 1];
+        if (p < Pl) yr[p] = acc[n][2 * r];
+        if (p + 1 < Pl) yr[p + 1] = acc[n][2 * r + 1];
       }
     }
   }
 }
 
-template <bool LO>
+template <bool LO, bool TL>
 cudaError_t scan(const Plane& xq, const Plane& bq, const Plane& cq,
                  const float* dt, long long dsb, long long dsl,
                  const float* A, const float* h0, float* S, float* G,
@@ -794,35 +881,45 @@ cudaError_t scan(const Plane& xq, const Plane& bq, const Plane& cq,
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_state_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_OPTIN);
+        ssd_state_kernel<LO, TL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPTIN);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          ssd_cb_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ssd_cb_kernel<LO, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           SMEM_OPTIN);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          ssd_out_kernel<LO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          SMEM_OPTIN);
+          ssd_out_kernel<LO, TL>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPTIN);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const int nc = (L + chunk - 1) / chunk;
-  const int gp = up(chunk, QT);
-  ssd_cb_kernel<LO><<<dim3(gp / KT, gp / KT, nc * Bb), 128, cb_smem(LO),
-                      s>>>(bq, cq, G, L, N, chunk, nc, gp);
+  const long long nc = (L + chunk - 1) / chunk;
+  const int gp = up(chunk, KT);
+  const int nk = gp / KT, nqt = (chunk + QT - 1) / QT;
+  const int npt = (P + PT - 1) / PT, nnt = (N + NT - 1) / NT;
+  const long long zs = nc * Bb;
+  const long long grids[3] = {zs * nk * nk, zs * npt * nnt * H,
+                              zs * npt * H * nqt};
+  for (long long n : grids)
+    if (n > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 gcb = TL ? dim3((unsigned)grids[0]) : dim3(nk, nk, (unsigned)zs);
+  const dim3 gst =
+      TL ? dim3((unsigned)grids[1]) : dim3(H, (unsigned)nc, Bb);
+  const dim3 gout =
+      TL ? dim3((unsigned)grids[2]) : dim3(nqt, H, (unsigned)zs);
+  ssd_cb_kernel<LO, TL><<<gcb, 128, cb_smem(LO), s>>>(bq, cq, G, L, N, chunk,
+                                                     (int)nc, gp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_state_kernel<LO><<<dim3(H, nc, Bb), ST_THR, state_smem(LO, chunk),
-                         s>>>(xq, bq, dt, dsb, dsl, A, h0, LA, DTT, S,
-                              hin_hi, hin_lo, hf, tickets, L, H, P, N,
-                              chunk);
+  ssd_state_kernel<LO, TL><<<gst, ST_THR, state_smem(LO, chunk), s>>>(
+          xq, bq, dt, dsb, dsl, A, h0, LA, DTT, S, hin_hi, hin_lo, hf,
+          tickets, L, H, P, N, chunk, (int)nc, nnt, npt * nnt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_out_kernel<LO><<<dim3(gp / QT, H, nc * Bb), OUT_THR,
-                       out_smem(LO, chunk), s>>>(
-      xq, cq, G, LA, DTT, hin_hi, hin_lo, y, L, H, P, N, chunk, nc, gp,
-      h0 != nullptr);
+  ssd_out_kernel<LO, TL><<<gout, OUT_THR, out_smem(LO, chunk), s>>>(
+          xq, cq, G, LA, DTT, hin_hi, hin_lo, y, L, H, P, N, chunk, (int)nc,
+          gp, nqt, npt, h0 != nullptr);
   return cudaGetLastError();
 }
 
@@ -840,8 +937,8 @@ extern "C" long long ssd_scan_smem(int lo, int chunk) {
 // strided along (batch, position) (strides in elements), x's head
 // stride P, the last axis contiguous; dt (Bb, L, H) f32 with strides
 // dsb, dsl and its last axis contiguous; A (H,), h0 (Bb, H, P, N) or
-// null, y (Bb, L, H, P) and hf (Bb, H, P, N) f32 contiguous.  P <= 64,
-// N <= 128, L >= 1, 1 <= chunk <= L.  With P8 / N8 = P / N rounded up
+// null, y (Bb, L, H, P) and hf (Bb, H, P, N) f32 contiguous.  Any P and
+// N, L >= 1, 1 <= chunk <= L.  With P8 / N8 = P / N rounded up
 // to 8 and nc = ceil(L / chunk), the scratch (all from the caller, on
 // 16 bytes):
 //   planes:  null where x, B and C are bf16 with P and N multiples of 8,
@@ -849,9 +946,10 @@ extern "C" long long ssd_scan_smem(int lo, int chunk) {
 //            are); else bf16 of Bb L (H P8 + 2 N8) elements, twice that
 //            for f32 (hi and lo planes)
 //   S:       f32 (Bb, nc, H, P, N);  LA, DTT: f32 (Bb, H, L)
-//   G:       f32 (Bb, nc, gp, gp), gp = chunk rounded up to 128
+//   G:       f32 Bb nc gp gp + 128 gp, gp = chunk rounded up to 64 (a
+//            tail pad: the last chunk's 128-row tiles read past its gp rows)
 //   hin:     bf16 2 x (Bb, nc, H, P, N8) (hi, then lo)
-//   tickets: Bb H zeroed unsigned ints
+//   tickets: Bb H ceil(P / 64) ceil(N / 128) zeroed unsigned ints
 // Returns cudaGetLastError().
 extern "C" int ssd_scan_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
@@ -861,7 +959,7 @@ extern "C" int ssd_scan_launch(
     long long xsl, long long dsb, long long dsl, long long bsb,
     long long bsl, long long csb, long long csl, void* stream) {
   if (Bb <= 0 || H <= 0) return cudaSuccess;
-  if (P <= 0 || N <= 0 || P > PT || N > NT || L <= 0 || chunk <= 0 ||
+  if (P <= 0 || N <= 0 || L <= 0 || chunk <= 0 ||
       chunk > L || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   if (dtype == 0 && planes == nullptr) return cudaErrorInvalidValue;
@@ -881,13 +979,14 @@ extern "C" int ssd_scan_launch(
     bf16* xl = lo ? ch + nn : nullptr;
     bf16* bl = lo ? xl + nx : nullptr;
     bf16* cl = lo ? bl + nn : nullptr;
+    if ((long long)L * Bb > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     if (lo)
-      ssd_split_kernel<float><<<dim3(L, Bb), 256, 0, s>>>(
+      ssd_split_kernel<float><<<(unsigned)(L * Bb), 256, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(Bm),
           static_cast<const float*>(Cm), xsb, xsl, bsb, bsl, csb, csl, L, H,
           P, N, P8, N8, xh, xl, bh, bl, ch, cl);
     else
-      ssd_split_kernel<bf16><<<dim3(L, Bb), 256, 0, s>>>(
+      ssd_split_kernel<bf16><<<(unsigned)(L * Bb), 256, 0, s>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(Bm),
           static_cast<const bf16*>(Cm), xsb, xsl, bsb, bsl, csb, csl, L, H,
           P, N, P8, N8, xh, xl, bh, bl, ch, cl);
@@ -901,10 +1000,17 @@ extern "C" int ssd_scan_launch(
     bq = Plane{static_cast<const bf16*>(Bm), nullptr, bsb, bsl, 0};
     cq = Plane{static_cast<const bf16*>(Cm), nullptr, csb, csl, 0};
   }
-  if (lo)
-    return scan<true>(xq, bq, cq, dt, dsb, dsl, A, h0, S, G, LA, DTT,
-                      hin_hi, hin_lo, tickets, y, hf, Bb, L, H, P, N, chunk,
-                      s);
-  return scan<false>(xq, bq, cq, dt, dsb, dsl, A, h0, S, G, LA, DTT, hin_hi,
-                     hin_lo, tickets, y, hf, Bb, L, H, P, N, chunk, s);
+  // more than one 64 x 128 tile of the state, or more batches x chunks
+  // than a grid's z axis takes: the tiled kernels, on one-axis grids
+  const bool tl = P > PT || N > NT ||
+                  (long long)Bb * ((L + chunk - 1) / chunk) > 65535;
+#define SSD_SCAN(LO_, TL_)                                                  \
+  return scan<LO_, TL_>(xq, bq, cq, dt, dsb, dsl, A, h0, S, G, LA, DTT,    \
+                        hin_hi, hin_lo, tickets, y, hf, Bb, L, H, P, N,    \
+                        chunk, s);
+  if (lo && tl) SSD_SCAN(true, true)
+  if (lo) SSD_SCAN(true, false)
+  if (tl) SSD_SCAN(false, true)
+  SSD_SCAN(false, false)
+#undef SSD_SCAN
 }

@@ -10,12 +10,12 @@ and the load-balance loss ``aux = E * sum_e mean_t(prob) *
 mean_t(assigned)``.  Returns (vals (T, k) f32, idx (T, k) int32, aux f32
 scalar tensor).
 
-The kernel writes per-block partial sums of the probabilities and the
-assignments ((nblk, E), summed in a fixed order, no atomics); the
-wrapper sums them over the blocks, as the TPU wrapper does outside its
-kernel, so ``aux`` is the same bits on every run.  A wrapper given CUDA
-tensors launches the kernel (or raises); CPU tensors take the plain
-version.
+The kernel is one launch per call: it writes vals, idx and aux itself
+(its last block, by a ticket counter, adds the blocks' partial sums in
+a fixed order, so ``aux`` is the same bits on every run).  Its launch
+shape is ``gate_plan(T, E, k)``, a function of the shapes alone.  A
+wrapper given CUDA tensors launches the kernel (or raises); CPU tensors
+take the plain version.
 """
 from __future__ import annotations
 
@@ -27,13 +27,48 @@ from repro_torch.kernels import build
 from repro_torch.kernels.router_topk import topk_stable
 
 MAX_EXPERTS = 1024                       # csrc/moe_gating.cu MAX_E
+SM_COUNT = 132                           # H100 SXM
+SMEM_MAX = 48 * 1024                     # csrc/moe_gating.cu SMEM_MAX
+# (largest E, lanes per token, experts per lane): csrc/moe_gating.cu launch
+_LANES = ((8, 1, 8), (16, 2, 8), (32, 4, 8), (64, 8, 8), (128, 16, 8),
+          (256, 32, 8), (512, 32, 16), (1024, 32, 32))
 
 _SIG = {"moe_gating_launch": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p],
-    "moe_gating_block_tokens": []}
+    ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def gate_lanes(E: int):
+    """(lanes per token, experts per lane) of the kernel for E experts:
+    the lanes of a token cover E with whole 16-byte loads of bf16."""
+    for emax, lanes, per in _LANES:
+        if E <= emax:
+            return lanes, per
+    raise ValueError(f"moe_gating kernel takes E <= {MAX_EXPERTS}, got {E}")
+
+
+def gate_plan(T: int, E: int, k: int):
+    """(warps per block, blocks) of the gate's launch, from the shapes
+    alone.  A warp holds 32 / lanes tokens at once; a block takes as
+    many warps as its shared memory allows (each token's k winners and
+    each warp's row of probability sums; at most 32 warps, 8 where a lane
+    holds more than 8 experts) and no more than T needs; at most two
+    blocks per SM, each walking its tokens grid-stride: block b's pass p
+    takes tokens [(p * blocks + b) * tpb, ... + tpb), tpb = warps * 32 /
+    lanes."""
+    lanes, per = gate_lanes(E)
+    gpw = 32 // lanes
+    ep = lanes * per
+    warps = 32 if per <= 8 else 8
+    while warps > 1 and (8 * warps * gpw * k + 4 * max(warps, 2) * ep
+                         + 4 * ep) > SMEM_MAX:
+        warps //= 2
+    warps = max(1, min(warps, -(-T // gpw)))
+    tpb = warps * gpw
+    return warps, max(1, min(-(-T // tpb), 2 * SM_COUNT))
 
 
 def _aux(psum: torch.Tensor, asum: torch.Tensor, T: int) -> torch.Tensor:
@@ -77,38 +112,28 @@ def moe_gating(logits: torch.Tensor, k: int):
                          f"{logits.device}")
     if logits.device.type == "cpu":
         return moe_gating_plain(logits, k)
-    vals, idx, part = moe_gating_partials(logits, k)
-    tot = part.sum(dim=1)
-    return vals, idx, _aux(tot[0], tot[1], logits.shape[0])
-
-
-def moe_gating_partials(logits: torch.Tensor, k: int):
-    """The kernel's own outputs on CUDA logits (T, E): (vals, idx, and
-    the per-block sums of probabilities and of assignments as one
-    (2, ceil(T / block), E) f32 tensor), before the wrapper reduces them
-    to aux."""
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_gating_partials: the kernel takes CUDA "
-                         f"tensors, not {logits.device}")
     _check(logits, k)
     T, E = logits.shape
+    lanes, per = gate_lanes(E)
+    warps, blocks = gate_plan(T, E, k)
     lib = build.load("moe_gating", _SIG)
-    blk = lib.moe_gating_block_tokens()
-    nblk = -(-T // blk)
     dev = logits.device
     vals = torch.empty((T, k), dtype=torch.float32, device=dev)
     idx = torch.empty((T, k), dtype=torch.int32, device=dev)
-    part = torch.empty((2, nblk, E), dtype=torch.float32, device=dev)
+    aux = torch.empty((), dtype=torch.float32, device=dev)
+    part = torch.empty((blocks, 2, lanes * per), dtype=torch.float32,
+                       device=dev) if blocks > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.moe_gating_launch(
             logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
-            logits.stride(0) if T > 1 else E, vals.data_ptr(),
-            idx.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), stream)
+            logits.stride(0) if T > 1 else E, E / (T * T), vals.data_ptr(),
+            idx.data_ptr(), part.data_ptr() if part is not None else None,
+            aux.data_ptr(), warps, blocks, stream)
     build.check(err, "moe_gating")
     moe_gating.launches += 1
-    return vals, idx, part
+    return vals, idx, aux
 
 
-# launches on the card (made in ``moe_gating_partials``)
+# launches on the card
 moe_gating.launches = 0

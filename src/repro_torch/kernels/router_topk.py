@@ -11,9 +11,10 @@ empty slots come back with ``vals == -inf`` and an unspecified index.
 
 The mask is the stacked uint8 filter table (R, N) plus one table row
 per query, not a (Q, N) float mask: the kernel reads the row itself.
-A wrapper given CUDA tensors launches the kernel (or raises); CPU
-tensors take the plain version, which computes the same scores in the
-same order, so the two agree bit for bit.
+A wrapper given CUDA tensors launches the kernel, one launch a call
+(or raises); CPU tensors take the plain version, which computes the
+same scores in the same order, so the two agree bit for bit.  The
+kernel's grid is ``topk_plan``, a function of the shapes alone.
 """
 from __future__ import annotations
 
@@ -25,7 +26,11 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = float("-inf")
-TILE = 128                              # csrc/router_topk.cu TILE
+TILE = 128                              # csrc/router_topk.cu TILE: a chunk
+                                        # is whole tiles of rows
+WARPS = 8                               # warps of a block
+SM_COUNT = 132                          # H100 SXM
+BLOCKS_PER_SM = 2                       # blocks of the grid per SM
 MAX_K = 32
 
 _SIG = {"router_topk_launch": [
@@ -98,14 +103,24 @@ def router_topk_q8_plain(q8, e8, qscale, escale, mask_table, rows, k: int,
     return _finish(scores, mask_table, rows, k, bias, min_score)
 
 
-def _chunk(dev: torch.device, Q: int, N: int) -> int:
-    """Catalog rows per block: enough (query group, chunk) blocks for
-    ~4 per SM, at least one shared-memory tile each."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    qblocks = -(-Q // 8)
-    s_target = max(1, -(-4 * sms // qblocks))
-    per = -(-N // s_target)
-    return max(TILE, -(-per // TILE) * TILE)
+def queries_per_block(D: int) -> int:
+    """Queries a block of the kernel takes: 8 warps of 4 queries where
+    D <= 8 (each row a lane reads is scored for all of its warp's
+    queries; csrc QW), else of one."""
+    return WARPS * 4 if D <= 8 else WARPS
+
+
+def topk_plan(Q: int, N: int, D: int) -> Tuple[int, int]:
+    """(S, chunk) of the kernel's grid (query groups of
+    ``queries_per_block``, S chunks of ``chunk`` catalog rows, a
+    multiple of TILE): as many blocks as BLOCKS_PER_SM per SM hold at
+    once (one wave), each chunk at least one tile; chunk s takes rows
+    [s * chunk, min(N, (s + 1) * chunk)).  From the shapes alone."""
+    groups = -(-Q // queries_per_block(D))
+    s_target = max(1, BLOCKS_PER_SM * SM_COUNT // max(groups, 1))
+    per = -(-max(N, 1) // s_target)
+    chunk = max(TILE, -(-per // TILE) * TILE)
+    return max(1, -(-N // chunk)), chunk
 
 
 def _launch(quant: bool, q, e, qscale, escale, mask_table, rows, k, bias,
@@ -135,10 +150,12 @@ def _launch(quant: bool, q, e, qscale, escale, mask_table, rows, k, bias,
         raise TypeError("router_topk: q/e must be "
                         f"{dtype}, mask_table uint8, rows int32")
     lib = build.load("router_topk", _SIG)
-    chunk = _chunk(dev, Q, N)
-    S = -(-N // chunk)
-    pv = torch.empty((Q, max(S, 1), k), dtype=torch.float32, device=dev)
-    pi = torch.empty((Q, max(S, 1), k), dtype=torch.int32, device=dev)
+    S, chunk = topk_plan(Q, N, D)
+    # each chunk's partial top-k, merged inside the launch
+    pv = pi = None
+    if S > 1:
+        pv = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
+        pi = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
     vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
     idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -150,8 +167,9 @@ def _launch(quant: bool, q, e, qscale, escale, mask_table, rows, k, bias,
             mask_table.data_ptr(), rows.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             float(min_score), Q, N, D, k, chunk, int(quant),
-            pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            stream)
+            pv.data_ptr() if pv is not None else None,
+            pi.data_ptr() if pi is not None else None, vals.data_ptr(),
+            idx.data_ptr(), stream)
     build.check(err, "router_topk")
     return vals, idx
 

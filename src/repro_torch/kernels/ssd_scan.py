@@ -15,9 +15,9 @@ which is exactly the TPU kernel's dt = 0 padding.
 
 x, B and C may be f32 or bf16 views strided along (batch, position) --
 the model's split of its input projection -- with the last axis
-contiguous (x's heads contiguous too).  The kernel's tensor-core tiles
-take P <= 64 and N <= 128 (every model of the zoo: P = 64, N = 16 or
-128); the wrapper raises on larger ones before it launches.  A wrapper
+contiguous (x's heads contiguous too).  Any P and N: the kernel's
+tensor-core tiles are 64 (P) x 128 (N) (every model of the zoo fits one:
+P = 64, N = 16 or 128), and larger ones take more tiles.  A wrapper
 given CUDA tensors launches the kernel (C B^T per chunk, every chunk's
 state with the state passing, every chunk's outputs; a split of f32
 operands into bf16 planes first) or raises; CPU tensors take the plain
@@ -33,7 +33,7 @@ from repro_torch.kernels import build
 
 SMEM_LIMIT = 231_424                    # csrc/ssd_scan.cu SMEM_OPTIN
 
-MAX_P, MAX_N = 64, 128                  # csrc/ssd_scan.cu PT, NT tiles
+TILE_P, TILE_N = 64, 128                # csrc/ssd_scan.cu PT, NT tiles
 _SIG = {"ssd_scan_launch": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p],
         "ssd_scan_smem": [ctypes.c_int] * 2}
@@ -95,12 +95,6 @@ def _check(x, dt, A, B, C, h0, chunk):
             raise ValueError(f"ssd_scan: operand {tuple(t.shape)} "
                              f"{t.dtype} on {t.device} must be {shape} "
                              f"{dtype} on {dev}")
-    if P > MAX_P or N > MAX_N:
-        raise ValueError(f"ssd_scan kernel: P={P} and N={N} must be at "
-                         f"most {MAX_P} and {MAX_N} (its tensor-core tiles)")
-    if Bb * -(-L // chunk) > 65535:
-        raise ValueError(f"ssd_scan kernel: Bb x chunks = {Bb} x "
-                         f"{-(-L // chunk)} above 65535 (one grid axis)")
     if x.stride(3) != 1 or x.stride(2) != P or dt.stride(2) != 1 or \
             B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous() \
             or (h0 is not None and not h0.is_contiguous()):
@@ -151,16 +145,17 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 256):
     # scratch: bf16 operand planes (where x, B, C are not used as they
     # are), each chunk's own state, C B^T per (batch, chunk), la and dt
     # head-major, the state entering each chunk (bf16 hi and lo), one
-    # ticket per (batch, head)
+    # ticket per (batch, head, state tile)
     planes = None if _direct(x, B, C) else torch.empty(
         (2 if lo else 1) * Bb * L * (H * P8 + 2 * N8), dtype=bf, device=dev)
     s_ = torch.empty((Bb, nc, H, P, N), dtype=f32, device=dev)
-    gp = -(-chunk // 128) * 128
-    g = torch.empty((Bb, nc, gp, gp), dtype=f32, device=dev)
+    gp = -(-chunk // 64) * 64
+    g = torch.empty(Bb * nc * gp * gp + 128 * gp, dtype=f32, device=dev)
     la = torch.empty((Bb, H, L), dtype=f32, device=dev)
     dtt = torch.empty((Bb, H, L), dtype=f32, device=dev)
     hin = torch.empty((2, Bb, nc, H, P, N8), dtype=bf, device=dev)
-    tickets = torch.zeros((Bb, H), dtype=torch.int32, device=dev)
+    tiles = -(-P // TILE_P) * -(-N // TILE_N)
+    tickets = torch.zeros((Bb, H, tiles), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.ssd_scan_launch(

@@ -1,8 +1,11 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 version on the same inputs (flash attention's wgmma prefill and split
 decode over ragged lengths, GQA groups, window, softcap, kv_valid and
-cache capacities; two decode launches bit-equal), and generation on
-the card against the same seeded model on the CPU.  They import neither JAX nor the JAX
+cache capacities; two decode launches bit-equal; the scan past one
+64 x 128 tile and past 65,535 batches x chunks; the one-launch MoE gate
+over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
+min_score and catalog order), and generation on the card against the
+same seeded model on the CPU.  They import neither JAX nor the JAX
 package, so they run on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -388,6 +391,118 @@ def test_ssd_scan_kernel_pads_narrow_tiles(cuda, P, N, L, chunk):
         args = _ssd_inputs(np.random.default_rng(P + N), 2, L, 2, P, N, mode)
         _assert_scan_close(SS.ssd_scan(*_to(args, cuda), chunk=chunk),
                            SS.ssd_scan_plain(*args, chunk=chunk))
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16_views"])
+def test_ssd_scan_kernel_beyond_one_tile(cuda, mode, h0):
+    """P = 128 and N = 256: two P tiles on the grid, two N tiles summed
+    inside C B^T and C . h and splitting the state; a ragged last chunk;
+    f32 and bf16 (strided views), with and without h0."""
+    rng = np.random.default_rng(128 + h0)
+    Bb, L, H, P, N = 2, 300, 2, 128, 256
+    args = list(_ssd_inputs(rng, Bb, L, H, P, N,
+                            "f32_h0" if mode == "f32" else "bf16_views"))
+    args[5] = _rand(rng, Bb, H, P, N) if h0 else None
+    want = SS.ssd_scan_plain(*args, chunk=128)
+    got = SS.ssd_scan(*_to(args, cuda), chunk=128)
+    _assert_scan_close(got, want)
+
+
+@pytest.mark.parametrize("Bb,L,chunk", [(2100, 32, 1), (66_000, 2, 2)])
+@pytest.mark.parametrize("mode", ["f32_h0", "bf16_views"])
+def test_ssd_scan_kernel_past_the_grid_axis_limit(cuda, Bb, L, chunk, mode):
+    """Bb x chunks = 67,200 and 66,000 (above the 65,535 of a grid's y
+    and z axes; the second with Bb itself above it), at small H, P, N."""
+    args = _ssd_inputs(np.random.default_rng(Bb), Bb, L, 1, 8, 8, mode)
+    _assert_scan_close(SS.ssd_scan(*_to(args, cuda), chunk=chunk),
+                       SS.ssd_scan_plain(*args, chunk=chunk))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,k", [(E, k) for E in (4, 60, 128, 1024)
+                                 for k in (1, 8, 16) if k <= E])
+@pytest.mark.parametrize("T", [1, 16, 8192])
+def test_moe_gating_one_launch_matches_plain(cuda, T, E, k, dtype):
+    """The one-launch gate (aux formed by the block at T <= its tokens,
+    else by the last block over the partials) at the decode and prefill
+    token counts: experts tie-aware, vals within 1e-6, aux within 1e-6
+    relative and the same bits on two launches; rows of exact ties take
+    experts 0..k-1."""
+    rng = np.random.default_rng(T + E + k)
+    lg = _rand(rng, T, E)
+    lg[0] = 0.0                                   # every expert ties
+    if T > 1:
+        lg[1, E // 2:] = lg[1, :E - E // 2]       # each value twice
+    lg = lg.to(getattr(torch, dtype))
+    want = MG.moe_gating_plain(lg, k)
+    dev = lg.to(cuda)
+    before = MG.moe_gating.launches
+    got = MG.moe_gating(dev, k)
+    again = MG.moe_gating(dev, k)
+    assert MG.moe_gating.launches == before + 2
+    _assert_same_experts(got[1].cpu(), want[1], lg, n_exact=min(T, 2))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1][0].cpu(), torch.arange(k, dtype=torch.int32))
+
+
+def _topk_case(rng, N, D, order):
+    """37 queries over N unit rows (a quarter of them duplicates of the
+    first rows, exact ties), a filter table whose row 0 is empty (queries
+    1 and 2 read it), the catalog sorted by query 0's score when
+    ``order`` says so."""
+    e = rng.standard_normal((N, D)).astype(np.float32)
+    nd = N // 4
+    e[N - nd:] = e[:nd]
+    e /= np.linalg.norm(e, axis=1, keepdims=True) + 1e-9
+    q = rng.standard_normal((37, D)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True) + 1e-9
+    if order != "random":
+        s0 = e @ q[0]
+        e = e[np.argsort(-s0 if order == "descending" else s0,
+                         kind="stable")]
+    table = (rng.random((5, N)) < 0.6).astype(np.uint8)
+    table[0] = 0
+    rows = rng.integers(1, 5, 37).astype(np.int32)
+    rows[1:3] = 0
+    return [torch.from_numpy(a) for a in (q, e, table, rows)]
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("D", [1, 8, 40, 64])
+@pytest.mark.parametrize("N", [1, 127, 4000, 100_003])
+def test_router_topk_kernels_bit_equal_to_plain(cuda, N, D, k):
+    """fp32 and int8 against their plain versions, bit for bit, with and
+    without bias and min_score, in a random, a descending and an
+    ascending catalog order; all-masked queries come back (-inf, -1)."""
+    from repro_torch.kernels.route_step import quantize_rows
+
+    rng = np.random.default_rng(N + D + k)
+    for order in ("random", "descending", "ascending"):
+        q, e, table, rows = _topk_case(rng, N, D, order)
+        q8, qs = quantize_rows(q)
+        e8, es = quantize_rows(e)
+        q8, e8 = q8.contiguous(), e8.contiguous()
+        qs, es = qs[:, 0].contiguous(), es[:, 0].contiguous()
+        bias = torch.from_numpy(
+            (rng.standard_normal(N) * 0.01).astype(np.float32))
+        for kw in ({}, {"bias": bias, "min_score": 0.1}):
+            for fn, plain, args in (
+                    (RT.router_topk, RT.router_topk_plain,
+                     (q, e, table, rows)),
+                    (RT.router_topk_q8, RT.router_topk_q8_plain,
+                     (q8, e8, qs, es, table, rows))):
+                want = plain(*args, k, **kw)
+                got = fn(*(a.to(cuda) for a in args), k,
+                         **{n: (v.to(cuda) if torch.is_tensor(v) else v)
+                            for n, v in kw.items()})
+                fin = torch.isfinite(want[0])
+                assert torch.equal(got[0].cpu(), want[0]), (order, kw)
+                assert torch.equal(got[1].cpu()[fin], want[1][fin])
+                assert (got[1].cpu()[~fin] == -1).all()
+                assert not fin[1:3].any()
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",

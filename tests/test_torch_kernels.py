@@ -411,6 +411,107 @@ def test_decode_splits_depend_on_shapes_only():
     assert params == ["B", "Hkv", "Lk"]
 
 
+# ----------------------------------------------------------------------
+# the top-k launch's grid (decided on the host) and its threshold rule
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [1, 8, 40, 64])
+@pytest.mark.parametrize("Q,N", [
+    (256, 100_000), (256, 4096), (1, 1), (32, 0), (64, 5000), (1, 100_003),
+    (1024, 4096), (7, 127), (300, 1_000_000)])
+def test_topk_plan_covers_every_row_once(Q, N, D):
+    """Chunk s takes rows [s chunk, min(N, (s + 1) chunk)): every row in
+    exactly one chunk, none empty, each a whole number of tiles."""
+    S, chunk = RT.topk_plan(Q, N, D)
+    assert S >= 1 and chunk >= RT.TILE and chunk % RT.TILE == 0
+    assert S * chunk >= N and (S - 1) * chunk < max(N, 1)
+    owner = np.repeat(np.arange(S), chunk)[:N]
+    assert np.array_equal(np.bincount(owner, minlength=S)[:S - 1],
+                          np.full(S - 1, chunk))
+
+
+@pytest.mark.parametrize("Q,N,D", [(256, 100_000, 8), (256, 4096, 40)])
+def test_topk_plan_fills_the_card_at_the_served_shapes(Q, N, D):
+    """The route step and the cache lookup: about BLOCKS_PER_SM blocks
+    per SM, all resident at once (one wave)."""
+    S, _ = RT.topk_plan(Q, N, D)
+    blocks = -(-Q // RT.queries_per_block(D)) * S
+    assert 0.9 * RT.BLOCKS_PER_SM * RT.SM_COUNT <= blocks <= \
+        RT.BLOCKS_PER_SM * RT.SM_COUNT
+
+
+def test_topk_plan_depends_on_shapes_only():
+    params = list(inspect.signature(RT.topk_plan).parameters)
+    assert params == ["Q", "N", "D"]
+
+
+def _topk_kernel_model(scores, k, chunk, step):
+    """The CUDA kernel's selection for one query, in Python: per chunk,
+    ``step`` rows at a time (a row per lane), the scores at or above the
+    threshold -- the k-th best of the warp's sorted list so far, -inf
+    while it holds fewer -- are inserted in lane order, each where its
+    (value desc, index asc) rank puts it; the rest never reach the list.
+    The query's answer is the same insertion over the chunks' lists,
+    rank by rank (32 lists at a time), until a rank offers nothing.
+    ``scores`` holds -inf where the mask or the floor drops a row."""
+    def insert(lst, cands):
+        for v, n in cands:
+            if len(lst) < k or (-v, n) < lst[-1]:
+                lst = sorted(lst + [(-v, n)])[:k]
+        return lst
+
+    parts = []
+    for n0 in range(0, max(len(scores), 1), chunk):
+        lst = []
+        for base in range(n0, min(len(scores), n0 + chunk), step):
+            theta = -lst[k - 1][0] if len(lst) >= k else NEG_INF
+            lst = insert(lst, [(scores[n], n) for n in range(
+                base, min(base + step, len(scores), n0 + chunk))
+                if scores[n] != NEG_INF and not scores[n] < theta])
+        parts.append([(-v, n) for v, n in lst])
+    best = []
+    for r in range(k):
+        offered = False
+        for s0 in range(0, len(parts), 32):
+            theta = -best[k - 1][0] if len(best) >= k else NEG_INF
+            cands = [lst[r] for lst in parts[s0:s0 + 32]
+                     if len(lst) > r and not lst[r][0] < theta]
+            offered = offered or bool(cands)
+            best = insert(best, cands)
+        if not offered:
+            break
+    best += [(-NEG_INF, -1)] * (k - len(best))
+    return (np.array([-v for v, _ in best], np.float32),
+            np.array([i for _, i in best]))
+
+
+@pytest.mark.parametrize("order", ["random", "ascending", "descending",
+                                   "few values"])
+@pytest.mark.parametrize("k", [1, 3, 8, 32])
+def test_topk_threshold_rule_keeps_the_exact_top_k(order, k):
+    """The kernel's early drop (strictly below the k-th best of the
+    warp's list so far), its insertion in lane order and the merge of the
+    chunks' lists give exactly ``topk_stable``'s k best, ties to the
+    lower index included, whatever order the catalog is in."""
+    rng = np.random.default_rng(k + len(order))
+    N = 1500
+    scores = rng.standard_normal(N).astype(np.float32)
+    if order == "ascending":
+        scores.sort()
+    elif order == "descending":
+        scores[::-1].sort()
+    elif order == "few values":                  # runs of exact ties
+        scores = np.round(scores * 2).astype(np.float32)
+    scores[rng.random(N) < 0.4] = NEG_INF        # the mask
+    for chunk in (128, 384, 2048):
+        got_v, got_i = _topk_kernel_model(scores, k, chunk, 32)
+        want_v, want_i = RT.topk_stable(torch.from_numpy(scores)[None], k)
+        fin = np.isfinite(want_v[0].numpy())
+        np.testing.assert_array_equal(got_v, want_v[0].numpy())
+        np.testing.assert_array_equal(got_i[fin], want_i[0].numpy()[fin])
+        assert (got_i[~fin] == -1).all()
+
+
 def _split_problem(B, C, Hq, Hkv, hd, kv, seed):
     q, k, v = _attn_problem(B, C, C, Hq, Hkv, hd, seed=seed)
     tt = lambda a: torch.from_numpy(a).transpose(1, 2)
@@ -473,6 +574,21 @@ def test_ssd_scan_plain_matches_reference(Bb, L, H, P_, N, chunk):
                                    rtol=3e-4, atol=3e-4)
         np.testing.assert_allclose(hf.numpy(), np.asarray(want[1]),
                                    rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("Bb,L,H,P_,N,chunk", [
+    (1, 40, 2, 128, 256, 16), (2, 33, 1, 72, 136, 8)])
+def test_ssd_scan_plain_matches_reference_beyond_one_tile(Bb, L, H, P_, N,
+                                                          chunk):
+    """P and N past the kernel's 64 x 128 tile (P = 128, N = 256, and
+    ragged P = 72, N = 136): the plain version against ``ref.ssd_scan``."""
+    args = _ssd_problem(Bb, L, H, P_, N, seed=P_ + N)
+    y, hf = P.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    want = R.ssd_scan(*args)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(want[1]), rtol=3e-4,
+                               atol=3e-4)
 
 
 def test_ssd_scan_plain_state_chaining():

@@ -92,6 +92,64 @@ def test_moe_gating_bf16_logits_read_as_f32():
     np.testing.assert_allclose(float(pa), float(a2), rtol=1e-6)
 
 
+@pytest.mark.parametrize("T,E,k", [
+    (8192, 128, 8), (16, 128, 8), (1, 4, 1), (3, 1024, 16), (65, 128, 8),
+    (100_000, 128, 8), (5, 1024, 1024), (7, 60, 16), (40_000, 128, 8),
+    (300, 128, 1), (1000, 8, 2), (77, 33, 4)])
+def test_gate_plan_covers_every_token_once(T, E, k):
+    """The kernel's launch shape: a token's lanes cover E in whole 16-byte
+    loads of bf16, the block fits its thread and shared-memory limits,
+    and the grid-stride passes (block b, pass p: tokens
+    [(p blocks + b) tpb, + tpb)) take every token exactly once, with no
+    block left without a token."""
+    lanes, per = MG.gate_lanes(E)
+    assert lanes * per >= E and per % 8 == 0 and 32 % lanes == 0
+    warps, blocks = MG.gate_plan(T, E, k)
+    assert 1 <= warps * 32 <= (1024 if per <= 8 else 256)
+    gpw = 32 // lanes
+    assert (8 * warps * gpw * k + 4 * max(warps, 2) * lanes * per
+            + 4 * lanes * per) <= MG.SMEM_MAX
+    tpb = warps * gpw
+    seen = np.zeros(T, np.int64)
+    for b in range(blocks):
+        for base in range(b * tpb, T, blocks * tpb):
+            seen[base:base + tpb] += 1
+    assert (seen == 1).all()
+    assert 1 <= blocks <= 2 * MG.SM_COUNT and (blocks - 1) * tpb < T
+
+
+def test_gate_plan_decode_is_one_block_and_prefill_one_wave():
+    """qwen3-moe-30b-a3b's decode gate (T = 16) is one block, which forms
+    aux itself; its prefill gate (T = 16 x 512) at most one block per
+    SM, so the last block adds few partials."""
+    assert MG.gate_plan(16, 128, 8)[1] == 1
+    assert MG.gate_plan(16 * 512, 128, 8)[1] <= MG.SM_COUNT
+
+
+def test_gate_plan_depends_on_shapes_only():
+    import inspect
+    assert list(inspect.signature(MG.gate_plan).parameters) == \
+        ["T", "E", "k"]
+
+
+@pytest.mark.parametrize("E", [4, 60, 128, 1024])
+def test_gate_key_order_is_value_then_lower_index(E):
+    """The kernel ranks (probability, expert) by one 64-bit key,
+    bits(p) << 32 | (2**32 - 1 - expert): probabilities are >= 0, so
+    their f32 bits order like their values.  Sorting the keys gives
+    ``topk_stable``'s order on the same probabilities, exact ties and
+    underflowed zeros included."""
+    lg = _tied_logits(6, E, np.random.default_rng(E))
+    lg[4, : E // 2] = -200.0                      # probabilities of 0
+    probs = torch.softmax(torch.from_numpy(lg), dim=-1)
+    bits = probs.numpy().view(np.uint32).astype(np.uint64)
+    keys = bits << np.uint64(32) | (np.uint64(2**32 - 1)
+                                    - np.arange(E, dtype=np.uint64))
+    order = np.argsort(keys, axis=1)[:, ::-1]
+    _, want = MG.topk_stable(probs, E)
+    np.testing.assert_array_equal(order, want.numpy())
+
+
 def test_ops_moe_gating_flattens_leading_axes():
     lg = RNG.standard_normal((3, 5, 16)).astype(np.float32)
     v1, i1, a1 = K.moe_gating(jnp.asarray(lg), 2, blk_t=8)
