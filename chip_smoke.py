@@ -36,6 +36,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      plus small sweeps over window, softcap, causal=False, ragged
      shapes, experts, k, f32 and ties, and the scan past one 64 x 128
      tile and past 65,535 batches x chunks;
+  4c. the windowed models' kernel shapes: flash attention of hymba-1.5b
+     (hd 64, GQA group 5, window 1,024, a ring), h2o-danube-3-4b (hd
+     120, window 4,096, a ring) and gemma2-2b (hd 288, softcap 50, local
+     layers with window 4,096 and global ones in a full cache), prefill
+     and decode, at B=16, prompt 512 and at B=4, prompt 4,608 (every
+     window bites, gemma2's local decode anchored at each row's own
+     position), and hymba's scan (H=50, P=64, N=16) at both, each
+     against its plain version and timed beside SDPA (none with a
+     softcap) and its bound; f32 and bf16 sweeps at hd 120 and 288;
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -50,11 +59,27 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      memory is released) and llama3.2-1b, 16 requests per model (a
      fixed profile list with no near-tie between the two), and exactly
      one ``moe_gating`` launch per MoE layer per prefill and decode step;
-  6. card against CPU: the three configs at full width, 2 layers, f32
+  5c. routed generation on a catalog of the three windowed models at
+     full width and depth (about 16 GB of bf16): 48 requests, 16 per
+     model (explicit preference weights: no named profile reaches
+     hymba-1.5b or h2o-danube-3-4b beside gemma2-2b), one
+     ``flash_attention`` launch per attention layer per prefill and
+     decode step and one ``ssd_scan`` per hymba layer per prefill;
+  5d. long context: each windowed model alone at full width and depth
+     through ``ModelRunner.generate`` at B=4, prompt 4,608, 16 new
+     tokens (hymba's ring of 1,024 and h2o-danube's of 4,096 wrap);
+     finite logits and exact launch counts;
+  6. card against CPU: the six configs at full width, 2 layers, f32
      compute, the same seeded weights on both devices: prefill logits
      within 1e-3 of max |logit|, greedy tokens equal (tie-aware); for
      the MoE also the experts of every gate, tie-aware, with tokens
-     dropped at its published capacity factor.
+     dropped at its published capacity factor; the windowed models at
+     prompt 72 with their windows set to 48, so the rings (48 slots,
+     roll shift 24) and gemma2's local masks bite.
+
+Each windowed kernel shape is a row of the ``kernels`` line, its
+launches those of its kind (``flash_kind``) on the phase that runs it:
+the routed phase for B=16, the long-context phase for B=4.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -69,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1359,6 +1385,251 @@ def moe_kernel_phase(torch, dev, small: bool):
 
 
 # ----------------------------------------------------------------------
+# phase 4c: flash attention and the scan at the windowed models' shapes
+# ----------------------------------------------------------------------
+
+WINDOWED_ARCHS = ["hymba-1.5b", "h2o-danube-3-4b", "gemma2-2b"]
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention.py:87"
+
+
+def flash_kind(hd: int, Lq: int, G: int, window: int, local: int,
+               softcap: float) -> str:
+    """The attention a layer asks of ``ops.flash_attention``: head dim,
+    GQA group, prefill or decode, and its masks ('hd120 G4 prefill
+    window 4096')."""
+    kind = f"hd{hd} G{G} {'prefill' if Lq > 1 else 'decode'}"
+    if window:
+        kind += f" window {window}"
+    if local:
+        kind += f" local {local}"
+    if softcap:
+        kind += f" softcap {softcap:g}"
+    return kind
+
+
+class FlashRecorder:
+    """Within the ``with``: every ``ops.flash_attention`` call of a run
+    (prefill, and decode through ``ops.flash_decode``), counted by its
+    ``flash_kind``, with the cache capacity each decode kind read."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig = ops, ops.flash_attention
+        self.counts, self.caps = {}, {}
+
+    def __enter__(self):
+        def record(q, k, v, kv_valid=None, **kw):
+            kind = flash_kind(q.shape[-1], q.shape[1], q.shape[2] // k.shape[2],
+                              kw.get("window", 0), kw.get("local_window", 0),
+                              kw.get("softcap", 0.0))
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.caps[kind] = k.shape[1]
+            return self.orig(q, k, v, kv_valid, **kw)
+        self.ops.flash_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
+def windowed_shapes(cfg, B: int, L: int, max_new: int):
+    """The flash_attention calls one generation of ``cfg`` makes at batch
+    B, prompt L: each layer kind's prefill, and its decode at the
+    cache of ``M.cache_len`` slots, the live counts those of step 1
+    (ragged per row, as rows of one batch would sit).  Yields (kind,
+    Lq, Lk, kv_valid list or None, kwargs)."""
+    from repro_torch.models import model as M
+
+    cap = L + max_new + 8
+    C = M.cache_len(cfg, cap)
+    G = cfg.n_heads // cfg.n_kv_heads
+    ring = bool(cfg.sliding_window) and not cfg.local_global_pattern
+    pos1 = [L + 1 + (i * 5) % 16 for i in range(B)]    # pos + 1, ragged
+    for kind in sorted(set(M.layer_kinds(cfg))):
+        W = cfg.sliding_window if kind == 0 else 0
+        cap_ = cfg.attn_softcap
+        yield (flash_kind(cfg.head_dim, L, G, W, 0, cap_), L, L, None,
+               dict(causal=True, window=W, softcap=cap_))
+        local = W if cfg.local_global_pattern else 0
+        kv = [min(p, C) for p in pos1] if ring else pos1
+        yield (flash_kind(cfg.head_dim, 1, G, 0, local, cap_), 1, C, kv,
+               dict(causal=False, local_window=local, softcap=cap_))
+
+
+def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
+                    iters: int):
+    """One bf16 flash_attention shape of a windowed model in the layer
+    layout: the kernel against its plain version (|err| <= 2e-2 (1 +
+    |want|), and at most one bf16 ulp of max |want|), then the kernel's
+    device time, the plain version's, SDPA's with the same mask where
+    SDPA computes the same function (no softcap), and the bound: q, o
+    and the K/V rows some query sees, once each; 4 hd operations per
+    (query head, live key) pair at the bf16 tensor-core rate."""
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    q = rn(B, Lq, Hq, hd).transpose(1, 2)
+    k = rn(B, Lk, Hkv, hd).transpose(1, 2)
+    v = rn(B, Lk, Hkv, hd).transpose(1, 2)
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32,
+                                               device=dev)
+    err = attn_check(torch, FA, q, k, v, kvt, 2e-2, what, **kw)
+    top = float(FA.flash_attention_plain(q, k, v, kvt, **kw).abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    check(err <= ulp, f"{what}: max err {err} above one bf16 ulp ({ulp}) "
+                      f"of max |want| {top:.3g}")
+    live = FA._live_mask(B, Lq, Lk, kvt, kw["causal"], kw.get("window", 0),
+                         dev, kw.get("local_window", 0))[:, 0, 0]
+    pairs = float(live.sum())
+    keys = float(live.any(dim=1).sum())
+    bms, by = bound_ms(2 * (2 * B * Lq * Hq * hd + 2 * keys * Hkv * hd),
+                       4.0 * Hq * hd * pairs, PEAK_BF16_S)
+    row = dict(
+        name=f"flash_attention {what}", route="cuda", source=FLASH_SRC,
+        replaces=FLASH_TPU, max_abs_err=err, bound_ms=bms, bound_by=by,
+        ms=time_graph_ms(torch, lambda: FA.flash_attention(q, k, v, kvt,
+                                                           **kw), dev,
+                         iters=iters),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
+            q, k, v, kvt, **kw), dev, iters=max(2, iters // 4), warmup=1),
+        library_ms=None)
+    if not kw.get("softcap"):
+        # is_causal where every key is live and no window bites
+        bites = kw.get("window", 0) in range(1, Lk)
+        mask = (dict(is_causal=True) if Lq == Lk and kv is None and not bites
+                else dict(attn_mask=live[:, None]))
+        lib = sdpa_call(torch, q.contiguous(), k.contiguous(),
+                        v.contiguous(), **mask)
+        row["library_ms"] = time_graph_ms(torch, lib, dev, iters=iters)
+    kernels = fmt_times(kernel_times(torch, dev, lambda: FA.flash_attention(
+        q, k, v, kvt, **kw), iters=3))
+    lib = ("none: SDPA has no softcap" if row["library_ms"] is None else
+           f"{row['library_ms']:.4f} (kernel / SDPA "
+           f"{row['ms'] / row['library_ms']:.2f})")
+    log(f"[window kernels] {what}: {Hq}/{Hkv} heads of {hd}, {kw}, "
+        f"{int(pairs)} live (row, key) pairs: {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f}, SDPA {lib}, bound {bms:.4f} by {by} "
+        f"({row['ms'] / bms:.1f}x); max err {err:.3g} (one bf16 ulp of max "
+        f"|want| {top:.3g}: {ulp:.3g}); launches: {kernels}")
+    return row
+
+
+def window_kernel_phase(torch, dev, small: bool):
+    """flash_attention at the new served shapes of hymba-1.5b (hd 64, G
+    5, window 1,024, a ring), h2o-danube-3-4b (hd 120, G 4, window
+    4,096, a ring) and gemma2-2b (hd 288, G 2, softcap 50, local layers
+    with window 4,096 and global ones, a full cache) -- prefill and
+    decode at B = 16, prompt 512 (routed generation) and at B = 4,
+    prompt 4,608 (long context: every window bites, the rings wrap) --
+    and hymba's scan (H = 50, P = 64, N = 16, chunk 256, bf16 views) at
+    both; then f32 and bf16 sweeps at hd 120 and 288 (causal, window,
+    softcap, kv_valid, the windowed decode at ragged live counts with
+    chunks wholly below the window).  Returns rows keyed (phase, kind)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    phases = ((("routed", 2, 64, 4), ("long", 2, 150, 4)) if small else
+              (("routed", 16, 512, 16), ("long", 4, 4608, 16)))
+    for phase, B, L, max_new in phases:
+        for name in WINDOWED_ARCHS:
+            cfg = get_smoke(name) if small else get_config(name)
+            for kind, Lq, Lk, kv, kw in windowed_shapes(cfg, B, L, max_new):
+                rows[(phase, kind)] = window_attn_row(
+                    torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw,
+                    f"{kind} ({name}, B={B}, L={L}, Lk={Lk})",
+                    iters=20 if phase == "routed" else 4)
+            if not cfg.has_ssm:
+                continue
+            H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            ch = cfg.ssm_chunk
+            xbc = torch.randn(B, L, H * P + 2 * N, generator=g,
+                              device=dev).to(torch.bfloat16)
+            args = (xbc[..., :H * P].unflatten(-1, (H, P)),
+                    torch.rand(B, L, H, generator=g, device=dev) * 0.5,
+                    -torch.linspace(1.0, 16.0, H, device=dev),
+                    xbc[..., H * P:H * P + N], xbc[..., H * P + N:], None)
+            y, hf = SS.ssd_scan(*args, chunk=ch)
+            y2, hf2 = SS.ssd_scan_plain(*args, chunk=ch)
+            err = 0.0
+            for a, b_, nm in ((y, y2, "y"), (hf, hf2, "h_final")):
+                e = float((a - b_).abs().max())
+                tol = 1e-4 * max(1.0, float(b_.abs().max()))
+                check(e <= tol, f"ssd_scan {name} {phase} {nm}: max |err| "
+                                f"{e} > {tol}")
+                err = max(err, e)
+            y3, hf3 = SS.ssd_scan(*args, chunk=ch)
+            check(torch.equal(y, y3) and torch.equal(hf, hf3),
+                  f"ssd_scan {name} {phase}: two launches differ")
+            nb = (2 * (B * L * H * P + 2 * B * L * N) + 4 * B * L * H
+                  + 4 * H + 4 * B * L * H * P + 4 * B * H * P * N)
+            bms, by = bound_ms(nb, ssd_ops(B, L, H, P, N, ch, False, False),
+                               PEAK_BF16_S)
+            what = f"H{H} P{P} N{N} chunk {ch} ({name}, B={B}, L={L})"
+            it = 20 if phase == "routed" else 4
+            rows[(phase, "ssd_scan")] = r = dict(
+                name=f"ssd_scan {what}", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:75",
+                max_abs_err=err, bound_ms=bms, bound_by=by, library_ms=None,
+                ms=time_graph_ms(torch, lambda: SS.ssd_scan(
+                    *args, chunk=ch), dev, iters=it),
+                plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(
+                    *args, chunk=ch), dev, iters=max(2, it // 4), warmup=1))
+            parts = kernel_times(torch, dev, lambda: SS.ssd_scan(
+                *args, chunk=ch), iters=3)
+            log(f"[window kernels] ssd_scan {what}, bf16 strided views: "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "
+                f"{bms:.4f} by {by} ({r['ms'] / bms:.1f}x); max |y| "
+                f"{float(y2.abs().max()):.3g}, max err {err:.3g} (tol 1e-4 "
+                f"of max |y|); no single PyTorch call computes the scan; "
+                f"launches: {fmt_times(parts)}")
+    # sweeps at the new head dims, f32 (tol 1e-5) and bf16 (2e-2):
+    # ragged shapes, windows, softcap, kv_valid with an empty row, G 1-5,
+    # and the windowed decode over 4,100 slots with live counts whose
+    # window leaves chunks wholly below it
+    cases = []
+    for hd in (120, 288):
+        cases += [((2, 200, 200, 8, 2, hd), None, dict(causal=True)),
+                  ((2, 130, 130, 4, 4, hd), [0, 77],
+                   dict(causal=True, window=37, softcap=50.0)),
+                  ((2, 70, 130, 10, 2, hd), None,
+                   dict(causal=True, softcap=30.0)),
+                  ((3, 1, 300, 8, 2, hd), [0, 150, 300], dict(causal=False)),
+                  ((5, 1, 4100, 10, 2, hd), [1, 299, 300, 2000, 4100],
+                   dict(causal=False, local_window=300)),
+                  ((5, 1, 4100, 8, 4, hd), [40, 1000, 3000, 4099, 4100],
+                   dict(causal=False, local_window=1024, softcap=50.0))]
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        worst = 0.0
+        for (b_, lq, lk, hq, hk, d), kvl, kw in cases:
+            def rn(*shape):
+                return torch.randn(*shape, generator=g, device=dev).to(dt)
+            kvt = None if kvl is None else torch.tensor(
+                kvl, dtype=torch.int32, device=dev)
+            q = rn(b_, lq, hq, d).transpose(1, 2)
+            k = rn(b_, lk, hk, d).transpose(1, 2)
+            v = rn(b_, lk, hk, d).transpose(1, 2)
+            what = f"flash_attention {dt} {(b_, lq, lk, hq, hk, d)} {kw}"
+            worst = max(worst, attn_check(torch, FA, q, k, v, kvt, tol,
+                                          what, **kw))
+            if lq == 1:
+                a = FA.flash_attention(q, k, v, kvt, **kw)
+                check(torch.equal(a, FA.flash_attention(q, k, v, kvt, **kw)),
+                      f"{what}: two decode launches differ")
+        log(f"[window kernels] flash_attention {str(dt)[6:]} sweep at hd "
+            f"120 and 288 ({len(cases)} cases: causal, window, softcap, "
+            f"kv_valid with an empty row, G 1-5, the windowed decode over "
+            f"4,100 slots, two decode launches bit-equal): max err "
+            f"{worst:.3g} (tol {tol} (1 + |want|))")
+    return rows
+
+
+# ----------------------------------------------------------------------
 # phase 5: routed generation at full width and depth
 # ----------------------------------------------------------------------
 
@@ -1387,16 +1658,16 @@ def generation_requests(n: int, max_new: int, seed: int,
 
 
 def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
-                      profiles=GEN_PROFILES):
+                      profiles=GEN_PROFILES, n_req: int = 32):
     """One catalog of ``archs`` with runners (full width and depth on the
-    card; ``SMOKE`` when rehearsing), 32 routed requests (``profiles`` in
-    turn) through
+    card; ``SMOKE`` when rehearsing), ``n_req`` routed requests
+    (``profiles`` in turn; half as many when rehearsing) through
     ``ServingEngine(prompt_len=512).submit`` with ``max_new=16`` after
     one warm-up submit of the same batch.  Checks every response (no
     failure or shed, ``max_new`` tokens each, at least 8 per model,
     finite prefill logits) and returns the catalog, the per-model
-    ``GenerationResult`` of the measured submit and the kernels' launch
-    counts on it."""
+    ``GenerationResult`` of the measured submit, the kernels' launch
+    counts on it and its flash_attention calls by ``flash_kind``."""
     from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
     from repro_torch.core.orchestrator import OptiRoute
     from repro_torch.kernels import flash_attention as FA
@@ -1405,7 +1676,8 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     from repro_torch.serving.catalog import build_catalog
     from repro_torch.serving.engine import ServingEngine
 
-    prompt_len, max_new, n_req = (64, 4, 16) if small else (512, 16, 32)
+    prompt_len, max_new = (64, 4) if small else (512, 16)
+    n_req = n_req // 2 if small else n_req
     t0 = time.perf_counter()
     mres = build_catalog(archs=archs, full_runners=not small,
                          smoke_runners=small, seed=seed, device=dev)
@@ -1441,13 +1713,15 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = eng.submit(reqs)
+    with FlashRecorder() as rec:
+        out = eng.submit(reqs)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": FA.flash_attention.launches,
                 "flash_attention_decode": FA.flash_attention.decode_launches,
                 "ssd_scan": SS.ssd_scan.launches,
                 "moe_gating": MG.moe_gating.launches}
-    log(f"[{tag}] launches on the main path: {launches}")
+    log(f"[{tag}] launches on the main path: {launches}; flash_attention "
+        f"calls by kind: {rec.counts}")
     by_model = {}
     for r in out:
         check(not r.failed and not r.shed,
@@ -1476,11 +1750,11 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     if dev.type == "cuda":
         log(f"[{tag}] peak memory allocated during the submit: "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    return mres, results, launches, prompt_len, max_new
+    return mres, results, launches, prompt_len, max_new, rec.counts
 
 
 def generation_phase(torch, dev, small: bool, kernels):
-    mres, results, launches, prompt_len, max_new = routed_generation(
+    mres, results, launches, prompt_len, max_new, _ = routed_generation(
         torch, dev, small, GEN_ARCHS, seed=7, tag="generate")
     n_llama = mres.entry("llama3.2-1b").runner.cfg.n_layers
     n_mamba = mres.entry("mamba2-1.3b").runner.cfg.n_layers
@@ -1524,7 +1798,7 @@ def moe_generation_phase(torch, dev, small: bool, kernels):
     (bf16 weights drawn on the card, ~59.5 GB) beside llama3.2-1b: every
     MoE layer gates once per prefill and once per decode step, each
     time through the CUDA ``moe_gating`` kernel."""
-    mres, results, launches, prompt_len, max_new = routed_generation(
+    mres, results, launches, prompt_len, max_new, _ = routed_generation(
         torch, dev, small, MOE_GEN_ARCHS, seed=17, tag="generate moe",
         profiles=MOE_PROFILES)
     cfg = mres.entry(MOE_ARCH).runner.cfg
@@ -1544,6 +1818,129 @@ def moe_generation_phase(torch, dev, small: bool, kernels):
     decode_profile(torch, dev, mres.entry(MOE_ARCH).runner, MOE_ARCH,
                    results[MOE_ARCH].tokens.shape[0], prompt_len)
     kernels.setdefault("moe_gating", {})["launches"] = launches["moe_gating"]
+
+
+def windowed_profiles():
+    """Preferences that spread requests over the three windowed models.
+    Every named profile sends them all to gemma2-2b; users' explicit
+    weights do not: accuracy alone picks h2o-danube-3-4b (blended score
+    margin 0.33 over gemma2-2b), speed alone hymba-1.5b (0.48), and
+    balanced gemma2-2b (1.23) -- no near-tie, so each model serves a
+    third of the requests on every run."""
+    from repro_torch.core.preferences import METRICS
+
+    def only(metric):
+        return {m: float(m == metric) for m in METRICS}
+    return [only("accuracy"), only("speed"), "balanced"]
+
+
+def record_window_launches(kernels: dict, rows: dict, phase: str,
+                           kinds: dict) -> None:
+    """Each windowed kernel row of ``phase`` takes the launches its kind
+    had in that phase's run on the main path; every row's kind must have
+    launched."""
+    for (ph, kind), row in rows.items():
+        if ph != phase or kind == "ssd_scan":
+            continue
+        check(kinds.get(kind, 0) > 0,
+              f"{phase}: flash_attention {kind} never launched ({kinds})")
+        kernels[row["name"]] = dict(row, launches=kinds[kind])
+
+
+def windowed_generation_phase(torch, dev, small: bool, kernels, rows):
+    """Routed generation on hymba-1.5b, h2o-danube-3-4b and gemma2-2b at
+    full width and depth (seeded bf16 weights drawn on the card): 48
+    requests, 16 per model, prompt 512 (inside every window: no ring
+    wraps here), 16 new tokens; one flash_attention launch per attention
+    layer per prefill and decode step, one ssd_scan per hymba layer per
+    prefill."""
+    mres, results, launches, prompt_len, max_new, kinds = routed_generation(
+        torch, dev, small, WINDOWED_ARCHS, seed=27, tag="generate windowed",
+        profiles=windowed_profiles(), n_req=48)
+    cfgs = {n: mres.entry(n).runner.cfg for n in WINDOWED_ARCHS}
+    n_attn = sum(c.n_layers for c in cfgs.values())
+    n_ssm = sum(c.n_layers for c in cfgs.values() if c.has_ssm)
+    want = {"flash_attention": n_attn * max_new,
+            "flash_attention_decode": n_attn * (max_new - 1),
+            "ssd_scan": n_ssm, "moe_gating": 0}
+    check(sum(kinds.values()) == n_attn * max_new,
+          f"flash_attention calls {kinds}, want {n_attn * max_new}")
+    if dev.type == "cuda":
+        check(launches == want, f"launch counts {launches}, want {want} "
+                                "(one per layer per prefill and decode step)")
+    record_window_launches(kernels, rows, "routed", kinds)
+    kernels[rows[("routed", "ssd_scan")]["name"]] = dict(
+        rows[("routed", "ssd_scan")], launches=launches["ssd_scan"])
+    for name in WINDOWED_ARCHS:
+        decode_profile(torch, dev, mres.entry(name).runner, name,
+                       results[name].tokens.shape[0], prompt_len)
+
+
+def long_context_phase(torch, dev, small: bool, kernels, rows):
+    """Each windowed model alone at full width and depth through
+    ``ModelRunner.generate``: B = 4, a prompt of 4,608 tokens (past every
+    window: hymba's ring of 1,024 and h2o-danube's of 4,096 wrap,
+    gemma2's local layers mask inside its full cache), 16 new tokens.
+    Finite logits, 16 tokens a row, and exact launch counts."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import model as M
+    from repro_torch.serving.runner import ModelRunner
+
+    B, Lp, max_new = (2, 150, 4) if small else (4, 4608, 16)
+    total = {}
+    for i, name in enumerate(WINDOWED_ARCHS):
+        cfg = get_smoke(name) if small else get_config(name)
+        t0 = time.perf_counter()
+        runner = ModelRunner(cfg, seed=31 + i, device=dev)
+        toks = np.random.default_rng(32 + i).integers(
+            0, cfg.vocab_size, (B, Lp)).astype(np.int32)
+        runner.generate(toks[:, :64], 2)                     # warm-up
+        log(f"[long context] {name}: runner built and warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for f in (FA.flash_attention, SS.ssd_scan):
+            f.launches = 0
+        FA.flash_attention.decode_launches = 0
+        with FlashRecorder() as rec:
+            res = runner.generate(toks, max_new)
+        got = {"flash_attention": FA.flash_attention.launches,
+               "flash_attention_decode": FA.flash_attention.decode_launches,
+               "ssd_scan": SS.ssd_scan.launches}
+        want = {"flash_attention": cfg.n_layers * max_new,
+                "flash_attention_decode": cfg.n_layers * (max_new - 1),
+                "ssd_scan": cfg.n_layers if cfg.has_ssm else 0}
+        if dev.type == "cuda":
+            check(got == want, f"{name}: launch counts {got}, want {want}")
+        check(sum(rec.counts.values()) == cfg.n_layers * max_new,
+              f"{name}: flash_attention calls {rec.counts}")
+        check(bool(np.isfinite(res.logits_last).all()),
+              f"{name}: non-finite prefill logits")
+        check(res.tokens.shape == (B, max_new), f"{name}: {res.tokens.shape}")
+        C = M.cache_len(cfg, Lp + max_new + 8)
+        ring = bool(cfg.sliding_window) and not cfg.local_global_pattern
+        decode_caps = {k: c for k, c in rec.caps.items() if "decode" in k}
+        check(all(c == C for c in decode_caps.values()),
+              f"{name}: decode caches {decode_caps}, want {C} slots")
+        check(not ring or C == cfg.sliding_window < Lp,
+              f"{name}: the ring of {C} slots must wrap at prompt {Lp}")
+        step = res.decode_s / max(max_new - 1, 1)
+        log(f"[long context] {name}: B={B}, prompt {Lp}, {max_new} new "
+            f"tokens, window {cfg.sliding_window} ("
+            + (f"a ring of {C} slots, wrapped {Lp // C} times, roll shift "
+               f"{Lp % C}" if ring else f"local/global in a cache of {C}")
+            + f"): prefill {res.prefill_s * 1e3:.2f} ms, decode "
+            f"{step * 1e3:.3f} ms per step; launches {got}; flash_attention "
+            f"calls by kind {rec.counts}")
+        decode_profile(torch, dev, runner, name, B, Lp)
+        for kind, n in rec.counts.items():
+            total[kind] = total.get(kind, 0) + n
+        if cfg.has_ssm:
+            kernels[rows[("long", "ssd_scan")]["name"]] = dict(
+                rows[("long", "ssd_scan")], launches=got["ssd_scan"])
+        del runner, res
+        release(torch, dev, f"after the long-context run of {name}")
+    record_window_launches(kernels, rows, "long", total)
 
 
 def _busy(prof) -> list:
@@ -1621,9 +2018,13 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
 # phase 6: the card against the CPU
 # ----------------------------------------------------------------------
 
-def card_vs_cpu_phase(torch, dev, small: bool):
+def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
+                      prompt: int = 64, window: int = 0):
     """Full width, 2 layers, f32 compute: the same seeded weights on the
-    card (kernels) and the CPU (plain versions)."""
+    card (kernels) and the CPU (plain versions).  ``window`` replaces a
+    windowed model's sliding window (the one reduction besides depth),
+    so that a ring wraps and local layers mask at a prompt the CPU can
+    run."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke
@@ -1631,10 +2032,18 @@ def card_vs_cpu_phase(torch, dev, small: bool):
     from repro_torch.serving.runner import ModelRunner
 
     cpu = torch.device("cpu")
-    B, Lp, max_new = (2, 24, 4) if small else (4, 64, 4)
-    for name in GEN_ARCHS:
+    B, Lp, max_new = (2, prompt if window else 24, 4) if small else \
+        (4, prompt, 4)
+    for name in archs:
         base = get_smoke(name) if small else get_config(name)
         cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        if window:
+            cfg = dataclasses.replace(cfg, sliding_window=window)
+            C = M.cache_len(cfg, Lp + max_new + 8)
+            log(f"[card vs cpu] {name}: window {base.sliding_window} -> "
+                f"{window} (the one reduction besides depth); "
+                + (f"a ring of {C} slots, roll shift {Lp % C}"
+                   if C < Lp else f"local/global layers in a cache of {C}"))
         params = M.init_params(cfg, torch.Generator().manual_seed(11), cpu)
         toks = np.random.default_rng(12).integers(
             0, cfg.vocab_size, (B, Lp)).astype(np.int32)
@@ -1656,8 +2065,9 @@ def card_vs_cpu_phase(torch, dev, small: bool):
                       f"{name}: row {b} step {s_} token "
                       f"{got.tokens[b, s_]} vs {ref.tokens[b, s_]}")
                 compared += 1
-        log(f"[card vs cpu] {name} (d_model {cfg.d_model}, 2 layers, f32, "
-            f"B={B}, prompt {Lp}): prefill logits max err {err:.3g} "
+        log(f"[card vs cpu] {name} (d_model {cfg.d_model}, hd "
+            f"{cfg.head_dim}, 2 layers, f32, B={B}, prompt {Lp}): prefill "
+            f"logits max err {err:.3g} "
             f"(max |logit| {scale:.3g}, tol {tol:.3g}); {compared} of "
             f"{B * max_new} greedy tokens compared, all equal")
 
@@ -1694,7 +2104,6 @@ def moe_card_vs_cpu(torch, dev, small: bool):
     that row is logged and compared no further.  Any other difference
     fails."""
     import dataclasses
-    import math
 
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.models import model as M
@@ -1824,8 +2233,9 @@ def main() -> int:
                     help="CPU, small sizes, plain versions; exits 3")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, serving, "
-                         "model_kernels, moe_kernels, generate, "
-                         "moe_generate, card_vs_cpu); prints no result, "
+                         "model_kernels, moe_kernels, window_kernels, "
+                         "generate, moe_generate, generate_windowed, "
+                         "long_context, card_vs_cpu); prints no result, "
                          "exits 4")
     args = ap.parse_args()
     try:
@@ -1858,6 +2268,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     small = args.rehearse
     kernels = {}
+    window_rows = {}
     phases = {
         "kernels": lambda: kernels.update(
             kernel_phase(torch, dev, rng, small)),
@@ -1866,14 +2277,25 @@ def main() -> int:
             model_kernel_phase(torch, dev, small)),
         "moe_kernels": lambda: kernels.update(
             moe_kernel_phase(torch, dev, small)),
+        "window_kernels": lambda: window_rows.update(
+            window_kernel_phase(torch, dev, small)),
         "generate": lambda: (
             generation_phase(torch, dev, small, kernels),
             release(torch, dev, "after the routing and generation phases")),
         "moe_generate": lambda: (
             moe_generation_phase(torch, dev, small, kernels),
             release(torch, dev, "after the MoE generation phase")),
-        "card_vs_cpu": lambda: (card_vs_cpu_phase(torch, dev, small),
-                                moe_card_vs_cpu(torch, dev, small)),
+        "generate_windowed": lambda: (
+            windowed_generation_phase(torch, dev, small, kernels,
+                                      window_rows),
+            release(torch, dev, "after the windowed generation phase")),
+        "long_context": lambda: long_context_phase(torch, dev, small,
+                                                   kernels, window_rows),
+        "card_vs_cpu": lambda: (
+            card_vs_cpu_phase(torch, dev, small),
+            moe_card_vs_cpu(torch, dev, small),
+            card_vs_cpu_phase(torch, dev, small, WINDOWED_ARCHS, prompt=72,
+                              window=48)),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = set(only) - set(phases)

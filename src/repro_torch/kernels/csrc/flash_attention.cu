@@ -12,6 +12,13 @@
 // gives 0.  f32 and bf16 inputs.  Every tensor is addressed through its
 // (batch, head, position) strides with the head dim contiguous, so the
 // model's (B, L, H, hd) layout and its KV cache are read without a copy.
+// Head dims 32, 64, 120, 128 and 288.  A template's HD is a capacity: 120
+// (h2o-danube-3-4b) runs in the 128 instantiations, its columns 120..127
+// loaded as zeros (TMA's out-of-bounds fill, zero-filling cp.async) and
+// never stored.  The decode launch also takes a window that ends at each
+// sequence's live count (kv_valid[b] - local <= ik < kv_valid[b]): the
+// local layers of gemma2-2b, whose cache is full length and whose
+// sequences sit at different positions.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //  * prefill, llama3.2-1b at B=16, L=512, 32/8 heads of 64, bf16,
@@ -26,11 +33,12 @@
 //    reads themselves.
 //
 // Design:
-//  * prefill, bf16, hd 64/128, 16-byte aligned strides
-//    (prefill_wgmma_kernel): grid (Hq, B, ceil(Lq / 128)) with the
+//  * prefill, bf16, hd 64/120/128/288, 16-byte aligned strides
+//    (prefill_wgmma_kernel): grid (Hq, B, ceil(Lq / BQ)) with the
 //    query-tile index reversed, so the longest causal blocks start
 //    first.  288 threads: two consumer warpgroups of 64 query rows and
-//    one producer warp; at hd 64 two blocks share an SM (96 registers),
+//    one producer warp (at hd 288 the two share 64 rows and split O's
+//    columns: see Wg); at hd 64 two blocks share an SM (96 registers),
 //    which the kernel needs: a block alone leaves the SM waiting on
 //    its products and its softmax in turn.  The producer issues TMA
 //    loads -- 4-D tensor maps over hd and the (l, h, b) axes in the
@@ -48,10 +56,11 @@
 //    only the edge tiles (diagonal, window, kv_valid, ragged Lk) test
 //    each score.  TMA fills rows past Lq / Lk with zeros; those are
 //    masked or not stored.
-//  * prefill otherwise (f32, hd 32, unaligned strides; not on the
-//    main path): prefill_kernel on CUDA cores.  Each row is held by
-//    HD/32 threads in registers; key tiles stream through shared
-//    memory as f32; (m, l, acc) are updated per 16 keys.
+//  * prefill otherwise (f32, hd 32, unaligned strides): prefill_kernel
+//    on CUDA cores.  Each row is held by 1, 2, 4 or 8 threads in
+//    registers (8 at hd 288: 9 float4 chunks each); key tiles stream
+//    through shared memory as f32; (m, l, acc) are updated per 16
+//    keys.
 //  * decode (Lq = 1), split-KV: grid (n_split, Hkv, B).  The wrapper
 //    picks n_split and the chunk from B, Hkv and the cache capacity
 //    alone (decode_splits in flash_attention.py), never from kv_valid,
@@ -59,14 +68,16 @@
 //    of keys of one (batch, KV head) for the group's query heads, so
 //    each K/V row is read once per group, and writes the chunk's
 //    (m, l, acc) in f32 to scratch; a chunk with no live key writes
-//    (-inf, 0) and exits.  bf16 with G <= 16 (decode_mma_kernel): the
-//    G heads are the 16 rows of m16n8k16 MMAs; all K/V rows of a
+//    (-inf, 0) and exits.  bf16, hd <= 128, G <= 16
+//    (decode_mma_kernel): the G heads are the 16 rows of m16n8k16 MMAs; all K/V rows of a
 //    128-key pass are in flight at once (16-byte cp.async into padded
 //    rows), B fragments come by ldmatrix (.trans for V), each of 4
 //    warps keeps an online softmax over its 32 keys, and the warps
-//    merge in order.  Otherwise (f32, G > 16) decode_split_kernel on
-//    CUDA cores: a 2-stage cp.async ring, 16 bytes of a key row per
-//    lane.  decode_combine_kernel, one block per (batch, query head),
+//    merge in order.  Otherwise (f32, G > 16, hd 288)
+//    decode_split_kernel on CUDA cores: a 2-stage cp.async ring, 16
+//    bytes of a key row per lane (two or three pieces a lane at hd
+//    288).  A chunk wholly below a window is a chunk with no live
+//    key.  decode_combine_kernel, one block per (batch, query head),
 //    merges the splits in split order: no atomics, the same bits on
 //    every run.
 //  * masked scores never enter ex2: a masked score is -inf, and a row
@@ -99,8 +110,10 @@ __device__ __forceinline__ int live_keys(const int* kv_valid, int b,
   return kv_valid == nullptr ? lk : min(kv_valid[b], lk);
 }
 
+// The prefill mask; `local` is the decode launch's window anchored at
+// the live count (only Lq = 1 takes it: see the decode kernels' `lo`).
 struct Mask {
-  int lq, lk, causal, window;
+  int lq, lk, causal, window, local;
   __device__ __forceinline__ bool ok(int iq, int ik, int live) const {
     if (iq >= lq || ik >= lk || ik >= live) return false;
     if (causal) {
@@ -147,16 +160,33 @@ struct Strides {
 // prefill / general launch shape
 // ---------------------------------------------------------------------
 
+// Head dims are template capacities: 32, 64, 128 and 288.  A head dim
+// below its capacity (120 in 128) is the runtime `hd`: the columns past
+// it are loaded as zeros, which leave q . k unchanged, and never stored.
+// Only the 128 instantiations hold one (PAD), so every other capacity
+// compiles without the column tests.
+template <int HD>
+constexpr bool PAD = HD == 128;
+template <int HD>
+struct Pre {
+  // threads per query row (a power of two, so the row's dot products
+  // reduce by xor shuffles inside a warp) and float4 chunks per thread
+  static constexpr int TPR = HD <= 32 ? 1 : HD <= 64 ? 2 : HD <= 128 ? 4 : 8;
+  static constexpr int C4 = HD / 4;               // float4 chunks per row
+  static constexpr int NC = (C4 + TPR - 1) / TPR;
+  static constexpr int NT = BQ * TPR;
+  static constexpr int BK = 4096 / HD;            // keys per tile: 32 KB
+};
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(BQ * (HD / 32))
+__global__ void __launch_bounds__(Pre<HD>::NT)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kv_valid,
                T* __restrict__ out, int G, Mask mk, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale, float softcap) {
-  constexpr int TPR = HD / 32;      // threads per query row
-  constexpr int NT = BQ * TPR;
-  constexpr int C4 = HD / 4;        // float4 chunks per key row
-  constexpr int BK = 4096 / HD;     // keys per tile: 32 KB of K+V
+               Strides vs, Strides os, float scale, float softcap, int hd) {
+  using C = Pre<HD>;
+  constexpr int TPR = C::TPR, NC = C::NC, NT = C::NT, C4 = C::C4;
+  constexpr int BK = C::BK;
   __shared__ float4 kt[BK * C4];
   __shared__ float4 vt[BK * C4];
 
@@ -167,19 +197,22 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / G;
   const int live = live_keys(kv_valid, b, mk.lk);
+  const int c4 = hd / 4;                // live chunks of a row
 
-  // this thread's dims: float4 chunks part, part + TPR, ... (8 of
+  // this thread's dims: float4 chunks part, part + TPR, ... (NC of
   // them), so the row's threads read adjacent 16-byte words of a key
-  float qr[32], acc[32];
+  float qr[4 * NC], acc[4 * NC];
   const T* qrow = q + b * qs.b + h * qs.h + (long long)min(iq, mk.lq - 1) * qs.l;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float4 x = load4(qrow + 4 * (TPR * i + part));
+  for (int i = 0; i < NC; ++i) {
+    const int c = TPR * i + part;
+    const float4 x = !PAD<HD> || c < c4 ? load4(qrow + 4 * c)
+                                        : make_float4(0, 0, 0, 0);
     qr[4 * i] = x.x; qr[4 * i + 1] = x.y; qr[4 * i + 2] = x.z;
     qr[4 * i + 3] = x.w;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4 * NC; ++i) acc[i] = 0.f;
   float m = -CUDART_INF_F, l = 0.f;
 
   // keys any row of this block can see
@@ -197,8 +230,10 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int e = t; e < nk * C4; e += NT) {
       const int j = e / C4, c = e - j * C4;
-      kt[e] = load4(kbase + (long long)(k0 + j) * ks.l + 4 * c);
-      vt[e] = load4(vbase + (long long)(k0 + j) * vs.l + 4 * c);
+      const float4 zero = make_float4(0, 0, 0, 0);
+      const bool in = !PAD<HD> || c < c4;
+      kt[e] = in ? load4(kbase + (long long)(k0 + j) * ks.l + 4 * c) : zero;
+      vt[e] = in ? load4(vbase + (long long)(k0 + j) * vs.l + 4 * c) : zero;
     }
     __syncthreads();
     for (int s0 = 0; s0 < nk; s0 += SUB) {
@@ -209,7 +244,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (s0 + j < nk) {
           const float4* kr = kt + (s0 + j) * C4 + part;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < NC; ++i) {
             const float4 x = kr[TPR * i];
             dot = fmaf(qr[4 * i], x.x, dot);
             dot = fmaf(qr[4 * i + 1], x.y, dot);
@@ -243,7 +278,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       l = l * alpha + psum;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
+      for (int i = 0; i < 4 * NC; ++i) acc[i] *= alpha;
       m = mx;
       if (okbits) {
 #pragma unroll
@@ -252,7 +287,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float p = sc[j];
             const float4* vr = vt + (s0 + j) * C4 + part;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
+            for (int i = 0; i < NC; ++i) {
               const float4 x = vr[TPR * i];
               acc[4 * i] = fmaf(p, x.x, acc[4 * i]);
               acc[4 * i + 1] = fmaf(p, x.y, acc[4 * i + 1]);
@@ -268,11 +303,14 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = l > 0.f ? 1.f / l : 0.f;
   T* orow = out + b * os.b + h * os.h + (long long)iq * os.l;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NC; ++i) {
+    const int c = TPR * i + part;
+    if (!PAD<HD> || c < c4) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      store(orow + 4 * (TPR * i + part) + e, l > 0.f ? acc[4 * i + e] * inv
-                                                     : 0.f);
+      for (int e = 0; e < 4; ++e)
+        store(orow + 4 * c + e, l > 0.f ? acc[4 * i + e] * inv : 0.f);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -472,30 +510,223 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // ---------------------------------------------------------------------
 // prefill, bf16 on Hopper: TMA ring + wgmma
 // ---------------------------------------------------------------------
 
+// HD 64 and 128 (120 in 128): the two consumer warpgroups take 64 query
+// rows each and each holds its rows of O (64 x HD) in registers.  HD
+// 288: O's 144 floats a thread would not fit beside the S tile, so the
+// head dim is padded to 320 columns in shared memory (TMA's zero fill)
+// and the two warpgroups share the block's 64 rows: each forms the same
+// S = Q K^T and softmax state (the same bits) and keeps its own columns
+// of O, 0..191 (warpgroup 0) or 192..319 (warpgroup 1).  Q K^T is done
+// twice, on the tensor cores; K and V are loaded once per block.
 template <int HD>
 struct Wg {
-  static constexpr int BQ = 128;                  // query rows per block
+  static constexpr bool SPLIT = HD > 128;         // O's columns split
+  static constexpr int HDP = SPLIT ? 320 : HD;    // columns in smem
+  static constexpr int BQ = SPLIT ? 64 : 128;     // query rows per block
   static constexpr int BK = 64;                   // keys per tile
   static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;   // per SM
-  static constexpr int NB = HD / 64;              // 128-byte column blocks
+  static constexpr int NB = HDP / 64;             // 128-byte column blocks
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 288;             // 2 warpgroups + 1 warp
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int T_BYTES = BK * HD * 2;     // one K or V tile
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int T_BYTES = BK * HDP * 2;    // one K or V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * T_BYTES + 64;
+  static constexpr int ON0 = SPLIT ? 192 : HD;    // O columns: warpgroup 0
+  static constexpr int ON1 = SPLIT ? HDP - 192 : HD;   // and warpgroup 1
 };
+
+// One consumer warpgroup: query rows rlo .. rlo + 63, whose Q rows start
+// at qw in each column block of the Q tile; O's columns 64 cb0 .. 64 cb0
+// + ON - 1, ON / 2 accumulators a thread.  Walks the block's ntiles
+// K/V tiles from kbeg, releases each stage, and stores its part of O.
+template <int HD, int ON>
+__device__ __forceinline__ void wg_consume(
+    const uint8_t* qw, const uint8_t* ks, const uint8_t* vs, uint64_t* qbar,
+    uint64_t* full, uint64_t* empty, int ntiles, int kbeg, int rlo, int cb0,
+    int live, Mask mk, __nv_bfloat16* ob, Strides os, float scale,
+    float softcap, int hd) {
+  using C = Wg<HD>;
+  if constexpr (!PAD<HD>) hd = HD;
+  constexpr int BK = C::BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wl = warp & 3;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int off = mk.lk - mk.lq;
+  const int rA = rlo + 16 * wl + g8, rB = rA + 8;   // this thread's rows
+  // keys some row of the warpgroup sees, and keys all its rows see
+  int see_beg = 0, see_end = 0, all_beg = 0, all_end = 0;
+  if (rlo < mk.lq) {
+    const int rhi = min(rlo + 63, mk.lq - 1);
+    see_end = all_end = live;
+    if (mk.causal) {
+      see_end = min(see_end, rhi + off + 1);
+      all_end = min(all_end, rlo + off + 1);
+      if (mk.window) {
+        see_beg = max(0, rlo + off - mk.window + 1);
+        all_beg = max(0, rhi + off - mk.window + 1);
+      }
+    }
+  }
+  const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
+  float o[ON / 2];
+#pragma unroll
+  for (int i = 0; i < ON / 2; ++i) o[i] = 0.f;
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
+
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % C::STAGES;
+    const int k0 = kbeg + i * BK;
+    mbar_wait(full + s, (i / C::STAGES) & 1);
+    if (k0 < see_end && k0 + BK > see_beg) {
+      const uint8_t* kt = ks + s * C::T_BYTES;
+      const uint8_t* vt = vs + s * C::T_BYTES + cb0 * BK * 128;
+      float sc[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::HDP / 16; ++kk)
+        wgmma_ss_n64(sc,
+                     sw128_desc(qw + (kk / 4) * C::BQ * 128 + (kk % 4) * 32,
+                                16, 1024),
+                     sw128_desc(kt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                                1024),
+                     kk > 0);
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      // with a softcap the scores go to the log2 domain here; without
+      // one, scale*log2(e) is folded into the exponent's fma (uniform)
+      if (softcap != 0.f) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          sc[e] = softcap * tanhf(sc[e] * scale / softcap) * LOG2E;
+      }
+      if (!(k0 >= all_beg && k0 + BK <= all_end)) {      // an edge tile
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+          if (!mk.ok((e & 2) ? rB : rA, key, live)) sc[e] = -CUDART_INF_F;
+        }
+      }
+      float xA = mA, xB = mB;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        if (e & 2) xB = fmaxf(xB, sc[e]);
+        else xA = fmaxf(xA, sc[e]);
+      }
+#pragma unroll
+      for (int d = 1; d < 4; d <<= 1) {
+        xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, d));
+        xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, d));
+      }
+      // a row with no live key so far subtracts 0: 2^-inf = 0
+      const float uA = xA == -CUDART_INF_F ? 0.f : xA;
+      const float uB = xB == -CUDART_INF_F ? 0.f : xB;
+      const float aA = ex2((mA - uA) * mul), aB = ex2((mB - uB) * mul);
+      const float nA = -uA * mul, nB = -uB * mul;
+      mA = xA;
+      mB = xB;
+      float pA = 0.f, pB = 0.f;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float p = ex2(fmaf(sc[e], mul, (e & 2) ? nB : nA));
+        sc[e] = p;
+        if (e & 2) pB += p;
+        else pA += p;
+      }
+      lA = lA * aA + pA;               // per-thread partial sums of the row
+      lB = lB * aB + pB;
+#pragma unroll
+      for (int e = 0; e < ON / 2; ++e) o[e] *= (e & 2) ? aB : aA;
+      // the S accumulator's layout is the A fragment of O += P V
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<ON>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
+                                           1024));
+      wg_commit();
+      wg_wait0();
+      reg_fence(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, d);
+    lB += __shfl_xor_sync(0xffffffffu, lB, d);
+  }
+  const float iA = lA > 0.f ? 1.f / lA : 0.f;
+  const float iB = lB > 0.f ? 1.f / lB : 0.f;
+#pragma unroll
+  for (int c = 0; c < ON / 8; ++c) {
+    if (64 * cb0 + 8 * c >= hd) break;    // TMA's zero columns (120, 288)
+    const int d = 64 * cb0 + 8 * c + 2 * t4;
+    if (rA < mk.lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
+          pack_bf16(o[4 * c] * iA, o[4 * c + 1] * iA);
+    if (rB < mk.lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)rB * os.l + d) =
+          pack_bf16(o[4 * c + 2] * iB, o[4 * c + 3] * iB);
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(Wg<HD>::THREADS, Wg<HD>::MIN_BLOCKS)
@@ -504,7 +735,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv, TmaAxes qa,
                      TmaAxes ka, const int* __restrict__ kv_valid,
                      __nv_bfloat16* __restrict__ out, int G, Mask mk,
-                     Strides os, float scale, float softcap) {
+                     Strides os, float scale, float softcap, int hd) {
   using C = Wg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -561,134 +792,22 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup wg takes rows rlo .. rlo + 63
-  const int wg = warp >> 2, wl = warp & 3;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int rlo = q0 + 64 * wg;
-  const int rA = rlo + 16 * wl + g8, rB = rA + 8;   // this thread's rows
-  // keys some row of the warpgroup sees, and keys all its rows see
-  int see_beg = 0, see_end = 0, all_beg = 0, all_end = 0;
-  if (rlo < mk.lq) {
-    const int rhi = min(rlo + 63, mk.lq - 1);
-    see_end = all_end = live;
-    if (mk.causal) {
-      see_end = min(see_end, rhi + off + 1);
-      all_end = min(all_end, rlo + off + 1);
-      if (mk.window) {
-        see_beg = max(0, rlo + off - mk.window + 1);
-        all_beg = max(0, rhi + off - mk.window + 1);
-      }
-    }
-  }
-  const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
-  float o[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
-
-  if (ntiles > 0) mbar_wait(qbar, 0);
-  const uint8_t* qw = qs + wg * 64 * 128;
-  for (int i = 0; i < ntiles; ++i) {
-    const int s = i % C::STAGES;
-    const int k0 = kbeg + i * BK;
-    mbar_wait(full + s, (i / C::STAGES) & 1);
-    if (k0 < see_end && k0 + BK > see_beg) {
-      const uint8_t* kt = ks + s * C::T_BYTES;
-      const uint8_t* vt = vs + s * C::T_BYTES;
-      float sc[BK / 2];
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n64(sc,
-                     sw128_desc(qw + (kk / 4) * C::BQ * 128 + (kk % 4) * 32,
-                                16, 1024),
-                     sw128_desc(kt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
-                                1024),
-                     kk > 0);
-      wg_commit();
-      wg_wait0();
-      reg_fence(sc);
-      // with a softcap the scores go to the log2 domain here; without
-      // one, scale*log2(e) is folded into the exponent's fma (uniform)
-      if (softcap != 0.f) {
-#pragma unroll
-        for (int e = 0; e < BK / 2; ++e)
-          sc[e] = softcap * tanhf(sc[e] * scale / softcap) * LOG2E;
-      }
-      if (!(k0 >= all_beg && k0 + BK <= all_end)) {      // an edge tile
-#pragma unroll
-        for (int e = 0; e < BK / 2; ++e) {
-          const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
-          if (!mk.ok((e & 2) ? rB : rA, key, live)) sc[e] = -CUDART_INF_F;
-        }
-      }
-      float xA = mA, xB = mB;
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e) {
-        if (e & 2) xB = fmaxf(xB, sc[e]);
-        else xA = fmaxf(xA, sc[e]);
-      }
-#pragma unroll
-      for (int d = 1; d < 4; d <<= 1) {
-        xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, d));
-        xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, d));
-      }
-      // a row with no live key so far subtracts 0: 2^-inf = 0
-      const float uA = xA == -CUDART_INF_F ? 0.f : xA;
-      const float uB = xB == -CUDART_INF_F ? 0.f : xB;
-      const float aA = ex2((mA - uA) * mul), aB = ex2((mB - uB) * mul);
-      const float nA = -uA * mul, nB = -uB * mul;
-      mA = xA;
-      mB = xB;
-      float pA = 0.f, pB = 0.f;
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e) {
-        const float p = ex2(fmaf(sc[e], mul, (e & 2) ? nB : nA));
-        sc[e] = p;
-        if (e & 2) pB += p;
-        else pA += p;
-      }
-      lA = lA * aA + pA;               // per-thread partial sums of the row
-      lB = lB * aB + pB;
-#pragma unroll
-      for (int e = 0; e < HD / 2; ++e) o[e] *= (e & 2) ? aB : aA;
-      // the S accumulator's layout is the A fragment of O += P V
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<HD>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
-                                           1024));
-      wg_commit();
-      wg_wait0();
-      reg_fence(o);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + s);
-  }
-
-#pragma unroll
-  for (int d = 1; d < 4; d <<= 1) {
-    lA += __shfl_xor_sync(0xffffffffu, lA, d);
-    lB += __shfl_xor_sync(0xffffffffu, lB, d);
-  }
-  const float iA = lA > 0.f ? 1.f / lA : 0.f;
-  const float iB = lB > 0.f ? 1.f / lB : 0.f;
+  // consumers: warpgroup wg takes rows q0 + 64 wg .. (both take q0 ..
+  // when the head dim is split between them)
+  const int wg = warp >> 2;
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    const int d = 8 * c + 2 * t4;
-    if (rA < mk.lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
-          pack_bf16(o[4 * c] * iA, o[4 * c + 1] * iA);
-    if (rB < mk.lq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)rB * os.l + d) =
-          pack_bf16(o[4 * c + 2] * iB, o[4 * c + 3] * iB);
+  if constexpr (C::SPLIT) {
+    if (wg == 0)
+      wg_consume<HD, C::ON0>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
+                             q0, 0, live, mk, ob, os, scale, softcap, hd);
+    else
+      wg_consume<HD, C::ON1>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
+                             q0, C::ON0 / 64, live, mk, ob, os, scale,
+                             softcap, hd);
+  } else {
+    wg_consume<HD, HD>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
+                       kbeg, q0 + 64 * wg, 0, live, mk, ob, os, scale,
+                       softcap, hd);
   }
 }
 
@@ -741,13 +860,17 @@ constexpr int DEC_THREADS = 128;
 template <typename T, int HD>
 struct Dec {
   static constexpr int VEC = 16 / sizeof(T);      // elements per 16 bytes
-  static constexpr int LPR = HD / VEC;            // lanes per key row
+  static constexpr int CH = HD / VEC;             // 16-byte pieces a row
+  // lanes per key row (a power of two up to 32) and pieces per lane
+  static constexpr int LPR = CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;
+  static constexpr int NPL = (CH + LPR - 1) / LPR;
   static constexpr int KPW = 32 / LPR;            // keys a warp scores at once
-  // keys per sub-tile: 8 KB of K and 8 KB of V, 16..64 keys
+  // keys per sub-tile: 8 KB of K and 8 KB of V, 8..64 keys
   static constexpr int TK_ = 8192 / (HD * (int)sizeof(T));
-  static constexpr int TK = TK_ > 64 ? 64 : TK_ < 16 ? 16 : TK_;
+  static constexpr int TK = TK_ > 64 ? 64 : TK_ < 8 ? 8 : TK_;
   static constexpr int GB = 1024 / HD;            // query heads per block
-  static constexpr int NP = GB * HD / 2 / DEC_THREADS;  // pairs per thread
+  static constexpr int NP =                       // pairs per thread
+      (GB * HD / 2 + DEC_THREADS - 1) / DEC_THREADS;
 };
 
 // Block (split, kv head x head group, batch): keys [lo, hi) of chunk
@@ -760,9 +883,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_valid,
                     float* __restrict__ part, float* __restrict__ ml, int G,
                     Mask mk, Strides qs, Strides ks, Strides vs, float scale,
-                    float softcap, int chunk) {
+                    float softcap, int chunk, int hd) {
   using C = Dec<T, HD>;
+  if constexpr (!PAD<HD>) hd = HD;
   constexpr int TK = C::TK, VEC = C::VEC, LPR = C::LPR, KPW = C::KPW;
+  constexpr int CH = C::CH, NPL = C::NPL;
   __shared__ __align__(16) T kt[2][TK * HD];
   __shared__ __align__(16) T vt[2][TK * HD];
   __shared__ __align__(16) float qsh[C::GB * HD];
@@ -778,15 +903,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Hq = G * (gridDim.y / ngrp);
   const int hq0 = kh * G + g0;
   const long long slot = ((long long)b * Hq + hq0) * n_split + split;
+  const int ch = hd / VEC;              // live pieces of a row
 
   int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
-  if (mk.causal) {                        // the one row sits at Lk - 1
+  if (mk.local) lo = hi - mk.local;     // the window ends at the live count
+  if (mk.causal) {                      // the one row sits at Lk - 1
     hi = min(hi, mk.lk);
-    if (mk.window) lo = max(0, mk.lk - mk.window);
+    if (mk.window) lo = max(lo, mk.lk - mk.window);
   }
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
-  if (lo >= hi) {                         // no live key: an empty partial
+  if (lo >= hi) {                       // no live key: an empty partial
     for (int g = t; g < ng; g += DEC_THREADS) {
       ml[2 * (slot + (long long)g * n_split)] = -CUDART_INF_F;
       ml[2 * (slot + (long long)g * n_split) + 1] = 0.f;
@@ -797,13 +924,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ks.b + kh * ks.h;
   const T* vb = v + b * vs.b + kh * vs.h;
   auto load_tile = [&](int st, int k0) {
-    constexpr int CH = HD / VEC;          // 16-byte pieces of a row
     for (int e = t; e < TK * CH; e += DEC_THREADS) {
       const int j = e / CH, c = e - j * CH;
-      const bool in = k0 + j < hi;
-      const long long key = in ? k0 + j : lo;   // any valid address
-      cp_async16(&kt[st][j * HD + c * VEC], kb + key * ks.l + c * VEC, in);
-      cp_async16(&vt[st][j * HD + c * VEC], vb + key * vs.l + c * VEC, in);
+      const bool in = k0 + j < hi && (!PAD<HD> || c < ch);
+      const long long key = k0 + j < hi ? k0 + j : lo;  // a valid address
+      const int cs = PAD<HD> ? min(c, ch - 1) : c;
+      cp_async16(&kt[st][j * HD + c * VEC], kb + key * ks.l + cs * VEC, in);
+      cp_async16(&vt[st][j * HD + c * VEC], vb + key * vs.l + cs * VEC, in);
     }
     cp_async_commit();
   };
@@ -811,7 +938,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = t; e < ng * HD; e += DEC_THREADS) {
     const int g = e / HD, d = e - g * HD;
-    qsh[e] = to_f(q[b * qs.b + (long long)(hq0 + g) * qs.h + d]) * scale;
+    qsh[e] = !PAD<HD> || d < hd
+                 ? to_f(q[b * qs.b + (long long)(hq0 + g) * qs.h + d]) * scale
+                 : 0.f;
   }
   if (t < C::GB) {
     mrow[t] = -CUDART_INF_F;
@@ -829,16 +958,32 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     else cp_async_commit();               // an empty group: wait 1 holds
     cp_async_wait1();
     __syncthreads();
-    // scores: LPR lanes per key row, 16 bytes each, reduced by shuffles
+    // scores: LPR lanes per key row, NPL pieces of 16 bytes each,
+    // reduced by shuffles
     for (int j = w * KPW + sub; j < TK; j += 4 * KPW) {
-      float kf[VEC];
-      unpack16(&kt[st][j * HD + piece * VEC], kf);
+      float kf[NPL][VEC];
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int c = piece + LPR * i;
+        if (c < CH) {
+          unpack16(&kt[st][j * HD + c * VEC], kf[i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kf[i][e] = 0.f;
+        }
+      }
       const bool ok = k0 + j < hi;
       for (int g = 0; g < ng; ++g) {
-        const float* qg = qsh + g * HD + piece * VEC;
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qg[e], kf[e], dot);
+        for (int i = 0; i < NPL; ++i) {
+          const int c = piece + LPR * i;
+          if (c < CH) {
+            const float* qg = qsh + g * HD + c * VEC;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) dot = fmaf(qg[e], kf[i][e], dot);
+          }
+        }
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -897,8 +1042,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < C::NP; ++i) {
     const int idx = t + DEC_THREADS * i;
     const int g = idx / (HD / 2), dp = idx - g * (HD / 2);
-    if (g < ng) {
-      float* pr = part + (slot + (long long)g * n_split) * HD + 2 * dp;
+    if (g < ng && (!PAD<HD> || 2 * dp < hd)) {
+      float* pr = part + (slot + (long long)g * n_split) * hd + 2 * dp;
       pr[0] = acc[i][0];
       pr[1] = acc[i][1];
     }
@@ -964,8 +1109,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_valid, float* __restrict__ part,
                   float* __restrict__ ml, int G, Mask mk, Strides qs,
                   Strides ks, Strides vs, float scale, float softcap,
-                  int chunk) {
+                  int chunk, int hd) {
   using C = DecMma<HD>;
+  if constexpr (!PAD<HD>) hd = HD;
   constexpr int WK = C::WK, TK = C::TK, P = C::PITCH;
   constexpr int KS = HD / 16, NT = HD / 8;
   constexpr int KV_BYTES = 2 * TK * P * 2;
@@ -983,7 +1129,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long slot = ((long long)b * Hq + kh * G) * n_split + split;
 
   int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
-  if (mk.causal && mk.window) lo = max(0, mk.lk - mk.window);
+  if (mk.local) lo = hi - mk.local;     // the window ends at the live count
+  if (mk.causal && mk.window) lo = max(lo, mk.lk - mk.window);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
   if (lo >= hi) {                         // no live key: an empty partial
@@ -995,14 +1142,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+  const int ch = hd / 8;                  // live 16-byte pieces of a row
   auto load = [&](int k0) {
     constexpr int CH = HD / 8;            // 16-byte pieces of a row
     for (int e = t; e < TK * CH; e += 128) {
       const int j = e / CH, c = e - j * CH;
-      const bool in = k0 + j < hi;
-      const long long key = in ? k0 + j : lo;
-      cp_async16(kt + j * P + 8 * c, kb + key * ks.l + 8 * c, in);
-      cp_async16(vt + j * P + 8 * c, vb + key * vs.l + 8 * c, in);
+      const bool in = k0 + j < hi && (!PAD<HD> || c < ch);  // zeros past hd
+      const long long key = k0 + j < hi ? k0 + j : lo;
+      const int cs = PAD<HD> ? min(c, ch - 1) : c;
+      cp_async16(kt + j * P + 8 * c, kb + key * ks.l + 8 * cs, in);
+      cp_async16(vt + j * P + 8 * c, vb + key * vs.l + 8 * cs, in);
     }
     cp_async_commit();
   };
@@ -1016,12 +1165,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* p1 = qb + (long long)(g8 + 8) * qs.h;
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      const int d = 16 * s + 2 * t4;
-      qa[s][0] = g8 < G ? *reinterpret_cast<const uint32_t*>(p0 + d) : 0u;
-      qa[s][1] = g8 + 8 < G ? *reinterpret_cast<const uint32_t*>(p1 + d) : 0u;
-      qa[s][2] = g8 < G ? *reinterpret_cast<const uint32_t*>(p0 + d + 8) : 0u;
-      qa[s][3] =
-          g8 + 8 < G ? *reinterpret_cast<const uint32_t*>(p1 + d + 8) : 0u;
+      const int d = 16 * s + 2 * t4;      // columns past hd are zeros
+      const bool lo8 = !PAD<HD> || d < hd, hi8 = !PAD<HD> || d + 8 < hd;
+      qa[s][0] = g8 < G && lo8 ? *reinterpret_cast<const uint32_t*>(p0 + d)
+                               : 0u;
+      qa[s][1] = g8 + 8 < G && lo8
+                     ? *reinterpret_cast<const uint32_t*>(p1 + d) : 0u;
+      qa[s][2] = g8 < G && hi8
+                     ? *reinterpret_cast<const uint32_t*>(p0 + d + 8) : 0u;
+      qa[s][3] = g8 + 8 < G && hi8
+                     ? *reinterpret_cast<const uint32_t*>(p1 + d + 8) : 0u;
     }
   }
   const float mul = softcap != 0.f ? LOG2E : scale * LOG2E;
@@ -1132,8 +1285,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     mm[2 * (w * 16 + g8 + 8) + 1] = l1;
   }
   __syncthreads();
-  for (int e = t; e < G * HD; e += 128) {
-    const int g = e / HD, d = e - g * HD;
+  for (int e = t; e < G * hd; e += 128) {
+    const int g = e / hd, d = e - g * hd;
     float M = -CUDART_INF_F;
 #pragma unroll
     for (int i = 0; i < 4; ++i) M = fmaxf(M, mm[2 * (i * 16 + g)]);
@@ -1145,7 +1298,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       L += mm[2 * (i * 16 + g) + 1] * f;
       A += mo[(i * 16 + g) * HD + d] * f;
     }
-    part[(slot + (long long)g * n_split) * HD + d] = A;
+    part[(slot + (long long)g * n_split) * hd + d] = A;
     if (d == 0) {
       ml[2 * (slot + (long long)g * n_split)] = M == -CUDART_INF_F
                                                     ? -CUDART_INF_F
@@ -1161,7 +1314,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 decode_combine_kernel(const float* __restrict__ part,
                       const float* __restrict__ ml, T* __restrict__ out,
-                      int Hq, int n_split, Strides os) {
+                      int Hq, int n_split, Strides os, int hd) {
+  if constexpr (!PAD<HD>) hd = HD;
   const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
   const int d = threadIdx.x;
   const float* mp = ml + 2LL * bh * n_split;
@@ -1173,7 +1327,7 @@ decode_combine_kernel(const float* __restrict__ part,
     if (m == -CUDART_INF_F) continue;
     const float f = ex2(m - M);
     L += mp[2 * s + 1] * f;
-    A += part[((long long)bh * n_split + s) * HD + d] * f;
+    A += part[((long long)bh * n_split + s) * hd + d] * f;
   }
   store(out + b * os.b + h * os.h + d, L > 0.f ? A / L : 0.f);
 }
@@ -1265,34 +1419,36 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int* kv_valid, void* out, int B, int Hq,
                          int Hkv, Mask mk, Strides qs, Strides ks,
                          Strides vs, Strides os, float scale, float softcap,
-                         cudaStream_t s) {
+                         int hd, cudaStream_t s) {
   using C = Wg<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       prefill_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (attr != cudaSuccess) return attr;
+  // maps over the true hd: a box's columns past it (120..127) are zeros
   CUtensorMap tq, tk, tv;
   TmaAxes qa, ka, va;
   cudaError_t e;
-  if ((e = make_map(&tq, &qa, q, HD, qs, mk.lq, Hq, B, C::BQ)) ||
-      (e = make_map(&tk, &ka, k, HD, ks, mk.lk, Hkv, B, C::BK)) ||
-      (e = make_map(&tv, &va, v, HD, vs, mk.lk, Hkv, B, C::BK)))
+  if ((e = make_map(&tq, &qa, q, hd, qs, mk.lq, Hq, B, C::BQ)) ||
+      (e = make_map(&tk, &ka, k, hd, ks, mk.lk, Hkv, B, C::BK)) ||
+      (e = make_map(&tv, &va, v, hd, vs, mk.lk, Hkv, B, C::BK)))
     return e;
   if (va.l != ka.l || va.h != ka.h || va.b != ka.b)
     return cudaErrorInvalidValue;         // K and V share one coordinate map
   dim3 grid(Hq, B, (mk.lq + C::BQ - 1) / C::BQ);
   prefill_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, s>>>(
       tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
-      Hq / Hkv, mk, os, scale, softcap);
+      Hq / Hkv, mk, os, scale, softcap, hd);
   return cudaGetLastError();
 }
 
+// HD is the capacity the head dim `hd` runs in (120 runs in 128).
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_valid, void* out, float* scratch, int B,
                    int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                    Strides vs, Strides os, float scale, float softcap,
-                   int n_split, int chunk, cudaStream_t s) {
+                   int n_split, int chunk, int hd, cudaStream_t s) {
   const int G = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -1305,40 +1461,40 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       if ((x * (long long)sizeof(T)) % 16) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
             16 ||
-        scratch == nullptr || n_split < 1 || chunk < 1 ||
-        (long long)n_split * chunk < mk.lk)
+        (hd * (int)sizeof(T)) % 16 || scratch == nullptr || n_split < 1 ||
+        chunk < 1 || (long long)n_split * chunk < mk.lk)
       return cudaErrorInvalidValue;
-    float* ml = scratch + (long long)B * Hq * n_split * HD;
+    float* ml = scratch + (long long)B * Hq * n_split * hd;
     bool mma = false;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD <= 128) {
       mma = G <= 16;
       if (mma)
         decode_mma_kernel<HD><<<dim3(n_split, Hkv, B), 128, 0, s>>>(
             qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
-            softcap, chunk);
+            softcap, chunk, hd);
     }
     if (!mma) {
       const int ngrp = (G + Dec<T, HD>::GB - 1) / Dec<T, HD>::GB;
       decode_split_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B),
                                    DEC_THREADS, 0, s>>>(
           qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
-          softcap, chunk);
+          softcap, chunk, hd);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    decode_combine_kernel<T, HD><<<B * Hq, HD, 0, s>>>(scratch, ml, op, Hq,
-                                                       n_split, os);
+    decode_combine_kernel<T, HD><<<B * Hq, hd, 0, s>>>(scratch, ml, op, Hq,
+                                                       n_split, os, hd);
     return cudaGetLastError();
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
     if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
-        tma_ok(v, vs, mk.lk, Hkv, B))
+        tma_ok(v, vs, mk.lk, Hkv, B) && (hd * 2) % 16 == 0)
       return launch_wgmma<HD>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
-                              vs, os, scale, softcap, s);
+                              vs, os, scale, softcap, hd, s);
   }
   dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
-  prefill_kernel<T, HD><<<grid, BQ * (HD / 32), 0, s>>>(
-      qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap);
+  prefill_kernel<T, HD><<<grid, Pre<HD>::NT, 0, s>>>(
+      qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap, hd);
   return cudaGetLastError();
 }
 
@@ -1348,19 +1504,23 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                         Strides vs, Strides os, float scale, float softcap,
                         int n_split, int chunk, cudaStream_t s) {
+#define FA_LAUNCH(CAP)                                                     \
+  launch<T, CAP>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk, qs, ks, \
+                 vs, os, scale, softcap, n_split, chunk, hd, s)
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
-                           qs, ks, vs, os, scale, softcap, n_split, chunk, s);
+      return FA_LAUNCH(32);
     case 64:
-      return launch<T, 64>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
-                           qs, ks, vs, os, scale, softcap, n_split, chunk, s);
+      return FA_LAUNCH(64);
+    case 120:                             // h2o-danube-3-4b, in 128
     case 128:
-      return launch<T, 128>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk,
-                            qs, ks, vs, os, scale, softcap, n_split, chunk, s);
+      return FA_LAUNCH(128);
+    case 288:                             // gemma2-2b
+      return FA_LAUNCH(288);
     default:
       return cudaErrorInvalidValue;
   }
+#undef FA_LAUNCH
 }
 
 }  // namespace
@@ -1369,17 +1529,22 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // (batch, head, position) axes; the head dim is contiguous.  Decode
 // (Lq = 1) takes `scratch`, B * Hq * n_split * (hd + 2) floats, and
 // n_split chunks of `chunk` keys covering Lk; prefill ignores the three.
+// local_window > 0 (decode only) keeps the keys kv_valid[b] - local_window
+// <= ik < kv_valid[b]: a window that ends at each sequence's own live
+// count, where causal/window end it at Lk.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_valid,
     void* out, int dtype, int B, int Hq, int Hkv, int Lq, int Lk, int hd,
     long long qsb, long long qsh, long long qsl, long long ksb,
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, float scale,
-    int causal, int window, float softcap, void* scratch, int n_split,
-    int chunk, void* stream) {
+    int causal, int window, float softcap, int local_window, void* scratch,
+    int n_split, int chunk, void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0) return cudaErrorInvalidValue;
-  const Mask mk{Lq, Lk, causal, window};
+  if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0 ||
+      (local_window && Lq != 1))
+    return cudaErrorInvalidValue;
+  const Mask mk{Lq, Lk, causal, window, local_window};
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
       os{osb, osh, osl};
   float* sc = static_cast<float*>(scratch);

@@ -10,7 +10,14 @@ tanh softcap, then the mask -- ``ik < kv_valid[b]`` and, with
 Lk - Lq`` (the ends aligned) -- softmax over the live keys, times v.
 f32 inside; the output in q's dtype; a row with no live key gives 0.
 ``kv_valid`` (B,) int32 is the per-sequence live key count (decode
-against a partly filled cache); None means all Lk keys.
+against a partly filled cache); None means all Lk keys.  The decode
+shape (Lq == 1) also takes ``local_window`` W: only the keys
+``kv_valid[b] - W <= ik < kv_valid[b]`` are live, a window that ends
+at each sequence's own position (gemma2's local layers, whose cache is
+full length), where ``causal``/``window`` end it at Lk for the whole
+batch.  Head dims 32, 64, 120, 128 and 288: 120 (h2o-danube-3-4b)
+runs in the 128 instantiations with zero columns past it, 288
+(gemma2-2b) has its own.
 
 The tensors may be strided views (the head dim contiguous): the
 model's (B, L, H, hd) activations and its KV cache go in as
@@ -29,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)               # csrc/flash_attention.cu dispatch
+HEAD_DIMS = (32, 64, 120, 128, 288)     # csrc/flash_attention.cu dispatch
 NEG_INF = float("-inf")
 LOG2E = 1.4426950408889634
 SM_COUNT = 132                          # H100 SXM
@@ -40,12 +47,13 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
-               window: int, device) -> torch.Tensor:
+               window: int, device, local_window: int = 0) -> torch.Tensor:
     """(B, 1, 1, Lq, Lk) bool: the keys each query row may see."""
     iq = torch.arange(Lq, device=device)[:, None]
     ik = torch.arange(Lk, device=device)[None, :]
@@ -56,13 +64,18 @@ def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
         if window:
             ok = ok & (ik > row - window)
     ok = ok[None]
-    if kv_valid is not None:
-        ok = ok & (ik[None] < kv_valid.to(device).reshape(B, 1, 1))
+    if kv_valid is not None or local_window:
+        live = torch.full((B, 1, 1), Lk, device=device) if kv_valid is None \
+            else kv_valid.to(device).reshape(B, 1, 1).clamp(max=Lk)
+        ok = ok & (ik[None] < live)
+        if local_window:
+            ok = ok & (ik[None] >= live - local_window)
     return ok[:, None, None]
 
 
 def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
-                          window: int = 0, softcap: float = 0.0):
+                          window: int = 0, softcap: float = 0.0,
+                          local_window: int = 0):
     """Plain PyTorch version: masked f32 scores -> softmax -> values,
     the (m, l) guard of the kernel written out (no live key: 0)."""
     B, Hq, Lq, hd = q.shape
@@ -72,7 +85,8 @@ def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
     s = torch.einsum("bkgqd,bkmd->bkgqm", qf, k.float()) / math.sqrt(hd)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    ok = _live_mask(B, Lq, Lk, kv_valid, causal, window, q.device)
+    ok = _live_mask(B, Lq, Lk, kv_valid, causal, window, q.device,
+                    local_window)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m == NEG_INF, torch.zeros_like(m), m)
@@ -100,7 +114,7 @@ def decode_splits(B: int, Hkv: int, Lk: int):
 
 def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
                        window: int = 0, softcap: float = 0.0,
-                       splits=None):
+                       local_window: int = 0, splits=None):
     """The decode kernel's arithmetic in plain PyTorch, for Lq = 1:
     per chunk of ``decode_splits`` (or ``splits``) the partial (m, l,
     acc) in the log2 domain over the chunk's live keys, then the
@@ -117,7 +131,8 @@ def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     s = s * LOG2E
-    ok = _live_mask(B, 1, Lk, kv_valid, causal, window, q.device)
+    ok = _live_mask(B, 1, Lk, kv_valid, causal, window, q.device,
+                    local_window)
     ok = ok.reshape(B, 1, 1, Lk)
     M = torch.full((B, Hkv, G, 1), NEG_INF, device=q.device)
     parts = []
@@ -177,18 +192,24 @@ def _check(q, k, v, kv_valid):
 
 
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
-                    window: int = 0, softcap: float = 0.0):
+                    window: int = 0, softcap: float = 0.0,
+                    local_window: int = 0):
     """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid (B,) int32 or
     None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the card the result
     is a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
     tensor, the model's layout.  Lq == 1 launches the decode shape:
-    split-KV partials into f32 scratch, then their ordered merge."""
+    split-KV partials into f32 scratch, then their ordered merge; only
+    it takes ``local_window``."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: tensors must be on cuda or "
                          f"cpu, not {q.device}")
+    if local_window < 0 or (local_window and q.shape[2] != 1):
+        raise ValueError(f"flash_attention: local_window {local_window} "
+                         "needs one query row (the decode shape)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid, causal=causal,
-                                     window=window, softcap=softcap)
+                                     window=window, softcap=softcap,
+                                     local_window=local_window)
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     _check(q, k, v, kv_valid)
@@ -208,7 +229,7 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
             out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
-            int(window), float(softcap),
+            int(window), float(softcap), int(local_window),
             None if scratch is None else scratch.data_ptr(), n_split, chunk,
             stream)
     build.check(err, "flash_attention")

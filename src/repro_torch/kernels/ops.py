@@ -449,7 +449,8 @@ def bandit_update(x_up, w, r, x_score, theta, ainv, alpha: float, *,
 # ----------------------------------------------------------------------
 
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                    window: int = 0, softcap: float = 0.0,
+                    local_window: int = 0) -> torch.Tensor:
     """q (B, Lq, Hq, hd); k, v (B, Lk, Hkv, hd) -- layer layout (L, H,
     hd), possibly strided views (a KV cache).  kv_valid (B,) int32: the
     per-sequence live key count (decode mode).  The kernel reads the
@@ -458,20 +459,32 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     Returns (B, Lq, Hq, hd) in q's dtype."""
     out = _flash_kernel(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), kv_valid, causal=causal,
-                        window=window, softcap=softcap)
+                        window=window, softcap=softcap,
+                        local_window=local_window)
     return out.transpose(1, 2)
 
 
-def flash_decode(q, k_cache, v_cache, pos, *,
+def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
+                 local_window: int = 0,
                  softcap: float = 0.0) -> torch.Tensor:
-    """One query token against a partly filled cache: q (B, 1, Hq, hd);
-    k_cache / v_cache (B, C, Hkv, hd); pos (B,) int -- the current
-    token's index, so the keys at slots <= pos are live (as
-    ``models/layers.attention_decode`` masks them).  Returns
-    (B, 1, Hq, hd)."""
-    kv_valid = (pos + 1).to(torch.int32).contiguous()
+    """One query token against a cache: q (B, 1, Hq, hd); k_cache /
+    v_cache (B, C, Hkv, hd); pos (B,) int -- the current token's index.
+    The masks of ``models/layers.attention_decode``:
+
+      * a full cache: the keys at slots <= pos are live;
+      * ``ring``: the cache is a ring of the last C keys (slot pos % C),
+        all live once pos >= C -- ``kv_valid = min(pos + 1, C)``, the
+        order of the slots being irrelevant to the softmax;
+      * ``local_window`` W inside a full cache (gemma2's local layers):
+        the slots pos - W < idx <= pos.
+
+    Returns (B, 1, Hq, hd)."""
+    live = pos + 1
+    if ring:
+        live = torch.clamp(live, max=k_cache.shape[1])
+    kv_valid = live.to(torch.int32).contiguous()
     return flash_attention(q, k_cache, v_cache, kv_valid, causal=False,
-                           softcap=softcap)
+                           softcap=softcap, local_window=local_window)
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Building blocks of the model zoo, for the families this port serves
-(dense attention, mixture-of-experts FFNs and the Mamba2 SSM).
+(dense attention with or without a sliding window, local/global
+alternation and softcaps, mixture-of-experts FFNs, the Mamba2 SSM and
+the hybrid attention+SSM layer).
 
 Port of the JAX package's ``models/layers.py``.  Parameters are plain
 dicts of tensors and layers are functions ``f(p, x, ...) -> y``, as
@@ -31,24 +33,22 @@ from repro_torch.kernels import ops
 _ITEM6 = "item 6.{} '{}'"
 
 
-def check_supported(cfg) -> None:
-    """Raise ``not_ported`` for any part of ``cfg`` outside the dense,
-    MoE and SSM families the port serves, naming its ROADMAP.md item."""
-    hymba = _ITEM6.format(2, "hymba-1.5b: ring decode and hybrid fusion")
-    if cfg.arch_type == "hybrid":
-        raise not_ported("Hybrid attention+SSM layers", hymba)
-    if cfg.local_global_pattern:
-        raise not_ported("Local/global attention alternation",
-                         _ITEM6.format(3, "gemma2-2b: softcaps, "
-                                          "local/global"))
-    if cfg.arch_type not in ("dense", "moe", "ssm") or cfg.frontend:
+def check_supported(cfg, long_mode: bool = False) -> None:
+    """Raise ``not_ported`` for any part of ``cfg`` (or the reference's
+    ``long_mode``) the port does not serve, naming its ROADMAP.md
+    item."""
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or \
+            cfg.frontend:
         raise not_ported("Modality frontends and encoder-decoders",
-                         _ITEM6.format(4, "encdec/vlm/audio frontends"))
-    if cfg.sliding_window:
-        raise not_ported("The sliding-window ring cache", hymba)
+                         _ITEM6.format(4, "encdec and vlm frontends: "
+                                          "seamless-m4t-medium, "
+                                          "llava-next-mistral-7b"))
     if cfg.kv_cache_dtype == "int8":
         raise not_ported("kv_cache_dtype='int8'",
                          _ITEM6.format(5, "the int8 KV cache"))
+    if long_mode:
+        raise not_ported("long_mode (long_mode_local_only serving)",
+                         "item 12 'the rest'")
 
 
 # ----------------------------------------------------------------------
@@ -138,38 +138,49 @@ def qkv(p, cfg, x):
     return q, k, v
 
 
-def attention_prefill(p, cfg, x, positions):
-    """Causal full-sequence attention (prefill / training forward), for
-    both ``attn_impl`` values: the blocked and the naive reference
-    paths compute the same function, which is one launch of the flash
-    kernel here.  Returns (out (B, L, d), (k, v)) -- k post-RoPE, the
-    prefill cache."""
+def attention_prefill(p, cfg, x, positions, window: int = 0):
+    """Causal full-sequence attention (prefill / training forward): query
+    i sees keys i - window < j <= i (``window`` 0: all j <= i) -- the
+    layer's sliding window, which the caller gives per layer (a uniform
+    window, or gemma2's local layers; its global layers take 0).  Both
+    ``attn_impl`` values of the reference (``attention_blocked``, banded
+    or with the local/global switch, and the naive masked product)
+    compute this function, which is one launch of the flash kernel
+    here, with ``cfg.attn_softcap`` before the mask.  Returns (out (B,
+    L, d), (k, v)) -- k post-RoPE, the prefill cache."""
     B, L, _ = x.shape
     q, k, v = qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True,
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap)
     out = out.reshape(B, L, cfg.q_dim) @ p["wo"]
     return out, (k, v)
 
 
-def attention_decode(p, cfg, x, k_cache, v_cache, positions):
-    """Single-token decode against a KV cache.
+def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
+                     window: int = 0, local_window: int = 0):
+    """Single-token decode against a KV cache, in the reference's modes.
 
     x: (B, 1, d); k_cache / v_cache: (B, C, Hkv, hd), written in place
-    at slot ``positions`` (keys post-RoPE); positions: (B,) int -- the
-    index of the current token, so slots <= position are live.
-    Returns (out, k_cache, v_cache)."""
-    B = x.shape[0]
+    (keys post-RoPE); positions: (B,) int -- the index of the current
+    token.  ``window`` != 0: the cache is a ring of the last C keys
+    (sliding-window layers), written at slot ``position % C``, every
+    slot live once position >= C.  Otherwise the slot is ``position``
+    and slots <= position are live, and ``local_window`` W keeps only
+    the slots position - W < idx <= position (gemma2's local layers in
+    their full cache).  Returns (out, k_cache, v_cache)."""
+    B, C = x.shape[0], k_cache.shape[1]
     q, k, v = qkv(p, cfg, x)
     pos2 = positions[:, None]
     q = apply_rope(q, pos2, cfg.rope_theta)
     k = apply_rope(k, pos2, cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
-    k_cache[rows, positions] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, positions] = v[:, 0].to(v_cache.dtype)
+    slot = positions % C if window else positions
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
     out = ops.flash_decode(q, k_cache, v_cache, positions,
+                           ring=bool(window), local_window=local_window,
                            softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
     return out, k_cache, v_cache

@@ -1,7 +1,9 @@
-"""The model: dense (llama-style GQA), MoE and SSM (Mamba2) families.
+"""The model: dense (llama-style GQA, with or without a sliding window,
+gemma2's local/global alternation and softcaps), MoE, SSM (Mamba2) and
+hybrid (hymba: attention and SSM in every layer) families.
 
 Port of the JAX package's ``models/model.py`` for the families this
-slice serves (``layers.check_supported`` names the ROADMAP item of
+port serves (``layers.check_supported`` names the ROADMAP item of
 every other one).  Entry points, as there:
 
   * ``forward_full`` -- full-sequence logits;
@@ -13,7 +15,10 @@ parameters along a leading ``n_layers`` axis and scans over it; here
 ``params["layers"]`` is a list of per-layer dicts and the scan is a
 Python loop.  ``params_from_jax`` carries a JAX parameter tree across.
 The cache keeps the reference's stacked layout ((n_layers, B, C, Hkv,
-hd) for K/V) and ``decode_step`` updates it in place.
+hd) for K/V) and ``decode_step`` updates it in place.  On a
+uniform-window model (hymba, h2o-danube) the K/V cache is a ring of C =
+``cache_len`` slots; gemma2's local layers mask their window inside a
+full-length cache.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ def _init_layer(gen, cfg: ModelConfig, device, dtype) -> Params:
         p["attn"] = L.init_attention(gen, cfg, device, dtype)
     if cfg.has_ssm:
         p["ssm"] = L.init_ssm(gen, cfg, device, dtype)
+    if cfg.arch_type == "hybrid":
+        p["ln_attn_out"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["ln_ssm_out"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
     if cfg.is_moe:
         p["moe"] = L.init_moe(gen, cfg, device, dtype)
     elif cfg.d_ff > 0:
@@ -107,18 +115,51 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
                     params)
 
 
+def layer_kinds(cfg: ModelConfig) -> list:
+    """Per-layer attention kind: 0 = local/SWA, 1 = global/full (gemma2
+    alternates, starting local)."""
+    if cfg.local_global_pattern:
+        return [i % 2 for i in range(cfg.n_layers)]
+    return [0 if cfg.sliding_window > 0 else 1] * cfg.n_layers
+
+
+def cache_len(cfg: ModelConfig, ctx_len: int) -> int:
+    """K/V slots of the decode cache: a ring of at most the window on a
+    uniform-window model, else the context."""
+    if not cfg.has_attention:
+        return 0
+    if cfg.sliding_window and not cfg.local_global_pattern:
+        return min(cfg.sliding_window, ctx_len)
+    return ctx_len
+
+
+def _fuse(p, attn_out, ssm_out):
+    """hymba's fusion of the two branches: per-branch output norm, then
+    the mean."""
+    return 0.5 * (L.rms_norm(attn_out, p["ln_attn_out"])
+                  + L.rms_norm(ssm_out, p["ln_ssm_out"]))
+
+
 # ======================================================================
 # full-sequence forward (prefill)
 # ======================================================================
 
-def _mix_full(p, cfg: ModelConfig, x, positions):
-    """Sequence mixer over a full sequence.  Returns (out, kv, ssd)."""
+def _mix_full(p, cfg: ModelConfig, x, positions, kind: int):
+    """Sequence mixer over a full sequence: attention (with the layer's
+    window: ``kind`` 0 is local), the SSM, or both fused.  Returns
+    (out, kv, ssd)."""
     h = L.rms_norm(x, p["ln_mix"])
+    attn_out = kv = None
     if cfg.has_attention:
-        out, kv = L.attention_prefill(p["attn"], cfg, h, positions)
-        return out, kv, None
+        window = cfg.sliding_window if kind == 0 else 0
+        attn_out, kv = L.attention_prefill(p["attn"], cfg, h, positions,
+                                           window=window)
+        if not cfg.has_ssm:
+            return attn_out, kv, None
     out, h_final, conv_state = L.ssd_chunked(p["ssm"], cfg, h)
-    return out, None, (h_final, conv_state)
+    if attn_out is not None:
+        out = _fuse(p, attn_out, out)
+    return out, kv, (h_final, conv_state)
 
 
 def _ffn(p, cfg: ModelConfig, x):
@@ -148,14 +189,15 @@ def _logits(params, cfg: ModelConfig, x):
     return L.softcap(logits.float(), cfg.final_softcap)
 
 
-def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool):
-    L.check_supported(cfg)
+def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool,
+            long_mode: bool = False):
+    L.check_supported(cfg, long_mode)
     params = cast_params(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     caches = []
     aux = 0.0
-    for p in params["layers"]:
-        mix, kv, ssd = _mix_full(p, cfg, x, positions)
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        mix, kv, ssd = _mix_full(p, cfg, x, positions, kind)
         x, aux_i = _ffn(p, cfg, x + mix)
         aux = aux + aux_i
         caches.append((kv, ssd) if collect_cache else None)
@@ -163,11 +205,13 @@ def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool):
 
 
 def forward_full(params, cfg: ModelConfig, batch, *,
-                 collect_cache: bool = False):
+                 long_mode: bool = False, collect_cache: bool = False):
     """batch: {"tokens": (B, L)}.  Returns (logits (B, L, vocab_padded)
     f32, aux_loss -- the MoE load-balance losses summed over the layers,
-    0.0 without experts -- and per-layer caches or Nones)."""
-    params, x, caches, aux = _hidden(params, cfg, batch, collect_cache)
+    0.0 without experts -- and per-layer caches or Nones).  The
+    reference's ``long_mode`` raises ``not_ported``."""
+    params, x, caches, aux = _hidden(params, cfg, batch, collect_cache,
+                                     long_mode)
     return _logits(params, cfg, x), aux, caches
 
 
@@ -177,13 +221,15 @@ def forward_full(params, cfg: ModelConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
                device=None, dtype: Optional[str] = None) -> Params:
-    """Zero decode cache (leading axis = n_layers)."""
+    """Zero decode cache (leading axis = n_layers) for ``ctx_len``
+    positions: ``cache_len`` K/V slots."""
     L.check_supported(cfg)
     dt = getattr(torch, dtype or cfg.compute_dtype)
     nL, B = cfg.n_layers, batch_size
     cache: Params = {}
     if cfg.has_attention:
-        shape = (nL, B, ctx_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (nL, B, cache_len(cfg, ctx_len), cfg.n_kv_heads,
+                 cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v"] = torch.zeros(shape, dtype=dt, device=device)
     if cfg.has_ssm:
@@ -196,42 +242,57 @@ def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
     return cache
 
 
-def decode_step(params, cfg: ModelConfig, cache: Params, batch):
+def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
+                long_mode: bool = False):
     """One decode step.  batch: {"token": (B, 1) int, "pos": (B,) int}.
     Returns (logits (B, vocab_padded) f32, cache) -- the cache updated
-    in place."""
+    in place.  The reference's ``long_mode`` raises ``not_ported``."""
+    L.check_supported(cfg, long_mode)
     params = cast_params(params, cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     x = params["embed"][batch["token"].long()].to(cdt)
     pos = batch["pos"].long()
-    for i, p in enumerate(params["layers"]):
+    W = cfg.sliding_window
+    ring = bool(W) and not cfg.local_global_pattern
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         h = L.rms_norm(x, p["ln_mix"])
+        mix = None
         if cfg.has_attention:
-            mix, _, _ = L.attention_decode(p["attn"], cfg, h, cache["k"][i],
-                                           cache["v"][i], pos)
-        else:
-            mix, h_new, conv_new = L.ssd_step(p["ssm"], cfg, h,
-                                              cache["ssd"][i],
-                                              cache["conv"][i])
+            local = W if cfg.local_global_pattern and kind == 0 else 0
+            mix, _, _ = L.attention_decode(
+                p["attn"], cfg, h, cache["k"][i], cache["v"][i], pos,
+                window=cache["k"].shape[2] if ring else 0,
+                local_window=local)
+        if cfg.has_ssm:
+            ssm_out, h_new, conv_new = L.ssd_step(p["ssm"], cfg, h,
+                                                  cache["ssd"][i],
+                                                  cache["conv"][i])
             cache["ssd"][i] = h_new
             cache["conv"][i] = conv_new
+            mix = ssm_out if mix is None else _fuse(p, mix, ssm_out)
         x, _ = _ffn(p, cfg, x + mix)
     return _logits(params, cfg, x[:, 0]), cache
 
 
-def prefill(params, cfg: ModelConfig, batch, *, max_len: int = 0):
+def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
+            max_len: int = 0):
     """Full prefill.  max_len: decode-cache capacity (>= the prompt;
     default prompt + 64).  Returns (last_logits (B, V) f32, cache,
     new_pos (B,)).  Only the last position's logits are formed: the
-    (B, L, V) matrix of ``forward_full`` is not needed here."""
-    params, x, caches, _ = _hidden(params, cfg, batch, collect_cache=True)
+    (B, L, V) matrix of ``forward_full`` is not needed here.  A prompt
+    longer than a ring of C slots leaves its last C keys, rolled so
+    that position p sits at slot p % C.  The reference's ``long_mode``
+    raises ``not_ported``."""
+    params, x, caches, _ = _hidden(params, cfg, batch, True, long_mode)
     B, ctx = batch["tokens"].shape
     cap = max(max_len, ctx) if max_len else ctx + 64
     cache = init_cache(cfg, B, cap, device=x.device)
+    C = cache["k"].shape[2] if "k" in cache else 0
     for i, (kv, ssd) in enumerate(caches):
-        if kv is not None:
-            cache["k"][i, :, :ctx] = kv[0].to(cache["k"].dtype)
-            cache["v"][i, :, :ctx] = kv[1].to(cache["v"].dtype)
+        for key, t in zip("kv", kv or ()):
+            if C < ctx:                          # the ring: slot = pos % C
+                t = torch.roll(t[:, -C:], ctx % C, dims=1)
+            cache[key][i, :, :t.shape[1]] = t.to(cache[key].dtype)
         if ssd is not None:
             cache["ssd"][i] = ssd[0]
             cache["conv"][i] = ssd[1].to(cache["conv"].dtype)

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 version on the same inputs (flash attention's wgmma prefill and split
 decode over ragged lengths, GQA groups, window, softcap, kv_valid and
-cache capacities; two decode launches bit-equal; the scan past one
+cache capacities; head dims 120 and 288, the decode window anchored at
+each row's live count, the ring decode and hymba's group of 5; two
+decode launches bit-equal; the scan at hymba's H = 50, N = 16, past one
 64 x 128 tile and past 65,535 batches x chunks; the one-launch MoE gate
 over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
 min_score and catalog order), and generation on the card against the
@@ -29,6 +31,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.kernels import bandit_update as BU
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import moe_gating as MG
+from repro_torch.kernels import ops as OPS
 from repro_torch.kernels import router_topk as RT
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models import model as M
@@ -165,6 +168,83 @@ def test_flash_attention_decode_is_bit_stable(cuda, Hkv):
     a = FA.flash_attention(q, k, v, kv, causal=False)
     b = FA.flash_attention(q, k, v, kv, causal=False)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("hd", [120, 288])
+@pytest.mark.parametrize("Lq,Lk,Hq,Hkv,kv,contiguous,kw", [
+    (200, 200, 8, 2, None, False, dict(causal=True)),
+    (200, 200, 8, 2, [0, 150], False, dict(causal=True, window=37)),
+    (130, 130, 4, 2, None, False, dict(causal=True, window=50,
+                                       softcap=50.0)),
+    (70, 130, 10, 2, None, False, dict(causal=True, softcap=30.0)),  # G 5
+    (150, 150, 4, 4, None, True, dict(causal=True)),                 # G 1
+    (1, 300, 8, 2, [0, 211], False, dict(causal=False)),
+    (1, 300, 8, 2, [1, 300], False, dict(causal=False, softcap=50.0)),
+    (1, 536, 32, 8, [513, 528], False, dict(causal=False)),
+])
+def test_flash_attention_head_dims_120_288_match_plain(cuda, dtype, tol, hd,
+                                                       Lq, Lk, Hq, Hkv, kv,
+                                                       contiguous, kw):
+    """h2o-danube-3-4b's head dim 120 (the 128 instantiations, zero
+    columns past 120: the wgmma prefill in bf16) and gemma2-2b's 288
+    (its own: the CUDA-core prefill and split decode), prefill and
+    decode, causal and windowed, with and without softcap, in the
+    layer's strided layout and as contiguous operands.  Tolerances
+    2e-2 (bf16) and 1e-5 (f32) of (1 + |want|)."""
+    rng = np.random.default_rng(hd + Lq + Hq)
+    got = _attn_case(cuda, rng, 2, Lq, Lk, Hq, Hkv, hd, kv,
+                     getattr(torch, dtype), tol, contiguous=contiguous, **kw)
+    assert got.shape[-1] == hd
+    if kv is not None and kv[0] == 0:
+        assert not got.cpu()[0].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("hd,Hq,Hkv", [(64, 8, 4), (64, 25, 5), (120, 32, 8),
+                                       (288, 8, 4), (64, 40, 2)])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_flash_attention_local_window_decode_matches_plain(cuda, dtype, tol,
+                                                           hd, Hq, Hkv,
+                                                           softcap):
+    """The decode window anchored at each row's live count (kv_valid[b]
+    - W <= ik < kv_valid[b]) at ragged live counts over 4,100 slots:
+    whole chunks below the window write empty partials.  GQA groups 2,
+    4, 5 and 20 (the CUDA-core decode), hd 64, 120, 288; two launches
+    give the same bits."""
+    rng = np.random.default_rng(hd + Hq)
+    kv = [1, 299, 300, 2000, 4100]
+    got = _attn_case(cuda, rng, 5, 1, 4100, Hq, Hkv, hd, kv,
+                     getattr(torch, dtype), tol, causal=False,
+                     local_window=300, softcap=softcap)
+    q, k, v = (_rand(rng, 5, n, h, hd).to(getattr(torch, dtype))
+               .transpose(1, 2).to(cuda)
+               for n, h in ((1, Hq), (4100, Hkv), (4100, Hkv)))
+    kvt = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    a = FA.flash_attention(q, k, v, kvt, causal=False, local_window=300)
+    b = FA.flash_attention(q, k, v, kvt, causal=False, local_window=300)
+    assert torch.equal(a, b) and got.shape[-1] == hd
+    with pytest.raises(ValueError, match="local_window"):
+        FA.flash_attention(q.expand(5, Hq, 2, hd), k, v, local_window=300)
+
+
+@pytest.mark.parametrize("hd,Hq,Hkv,C", [(64, 25, 5, 1024),
+                                         (120, 32, 8, 4096)])
+def test_flash_decode_ring_matches_cpu(cuda, hd, Hq, Hkv, C):
+    """``ops.flash_decode(ring=True)`` at hymba-1.5b's (hd 64, group 5,
+    1,024 slots) and h2o-danube-3-4b's (hd 120, group 4, 4,096) ring:
+    rows before and after the ring fills, bf16, against the CPU."""
+    rng = np.random.default_rng(C)
+    bf = torch.bfloat16
+    q = _rand(rng, 4, 1, Hq, hd).to(bf)
+    kc = _rand(rng, 4, C, Hkv, hd).to(bf)
+    vc = _rand(rng, 4, C, Hkv, hd).to(bf)
+    pos = torch.tensor([0, C // 3, C - 1, 3 * C + 7])
+    want = OPS.flash_decode(q, kc, vc, pos, ring=True)
+    got = OPS.flash_decode(q.to(cuda), kc.to(cuda), vc.to(cuda),
+                           pos.to(cuda), ring=True)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def _assert_same_experts(got, want, logits, n_exact=0):
@@ -365,6 +445,26 @@ def test_ssd_scan_kernel_at_the_served_tiles(cuda, L, mode):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
+@pytest.mark.parametrize("mode", ["f32_h0", "bf16_views"])
+@pytest.mark.parametrize("L", [512, 300])
+def test_ssd_scan_kernel_at_hymba_shape(cuda, L, mode):
+    """hymba-1.5b's branch: H = 50 heads of P = 64, N = 16, chunk 256
+    (bf16 strided views with N a multiple of 8 go in as they are), and
+    in f32 with an h0; two launches give the same bits."""
+    args = _ssd_inputs(np.random.default_rng(L + 50), 2, L, 50, 64, 16,
+                       mode)
+    want = SS.ssd_scan_plain(*args, chunk=256)
+    dev = _to(args, cuda)
+    if mode == "bf16_views":
+        xbc = torch.cat([args[0].flatten(-2), args[3], args[4]], -1).to(cuda)
+        dev[0] = xbc[..., :50 * 64].unflatten(-1, (50, 64))
+        dev[3], dev[4] = xbc[..., 3200:3216], xbc[..., 3216:]
+    got = SS.ssd_scan(*dev, chunk=256)
+    _assert_scan_close(got, want)
+    again = SS.ssd_scan(*dev, chunk=256)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
 def test_ssd_scan_kernel_chained_halves_equal_one_call(cuda):
     """L = 300 split in two calls, the state carried, equals one call."""
     args = _to(_ssd_inputs(np.random.default_rng(3), 2, 300, 3, 64, 128,
@@ -512,6 +612,28 @@ def test_generate_on_card_matches_cpu(cuda, name):
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want = ModelRunner(cfg, params=params, device="cpu").generate(
+        toks, 5, keep_logits=True)
+    got = ModelRunner(cfg, params=params, device=cuda).generate(toks, 5)
+    np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=1e-3,
+                               atol=1e-3)
+    for b in range(toks.shape[0]):
+        for s in range(5):
+            top2 = np.sort(want.step_logits[b, s])[-2:]
+            if top2[1] - top2[0] < 1e-3:
+                break
+            assert got.tokens[b, s] == want.tokens[b, s], (b, s)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "h2o-danube-3-4b",
+                                  "gemma2-2b"])
+def test_generate_on_card_matches_cpu_past_the_window(cuda, name):
+    """The windowed models at ``SMOKE`` (window 64) with a prompt of 100:
+    the rings wrap and gemma2's local layers mask, on both devices."""
+    cfg = get_smoke(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)
     want = ModelRunner(cfg, params=params, device="cpu").generate(
         toks, 5, keep_logits=True)
     got = ModelRunner(cfg, params=params, device=cuda).generate(toks, 5)

@@ -145,8 +145,8 @@ def test_runner_parts_outside_the_slice_raise():
                  lambda: TS.make_train_step(tr.cfg)):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
             call()
-    with pytest.raises(NotImplementedError, match="hymba-1.5b"):
-        TRUN.ModelRunner(get_smoke("hymba-1.5b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="seamless-m4t-medium"):
+        TRUN.ModelRunner(get_smoke("seamless-m4t-medium"), device="cpu")
 
 
 def test_seeded_runner_is_reproducible():

@@ -38,8 +38,9 @@ from repro_torch.models import model as TM
 
 SERVED = ["llama3.2-1b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
           "llama4-maverick-400b-a17b"]
-# dense GQA with q/k/v biases and no window: inside this slice as well
-RUNS = SERVED + ["qwen2-1.5b"]
+# dense GQA with q/k/v biases and no window, and the windowed and hybrid
+# models (tests/test_torch_windowed.py holds them past their windows)
+RUNS = SERVED + ["qwen2-1.5b", "hymba-1.5b", "h2o-danube-3-4b", "gemma2-2b"]
 RNG = np.random.default_rng(0)
 
 
@@ -278,7 +279,7 @@ def test_forward_full_matches_reference(name):
     assert (float(want_aux) > 0) == tcfg.is_moe
 
 
-@pytest.mark.parametrize("name", SERVED)
+@pytest.mark.parametrize("name", RUNS)
 def test_init_params_draws_the_reference_distributions(name):
     """Same tree, shapes and dtypes as the reference's init; the same
     scales (std 1/sqrt(fan_in), 0.02 for the embedding, fixed A_log)."""
