@@ -24,6 +24,22 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      signatures, and those signatures must match the analyzer run on
      the CPU over the same batches;
   3. a per-stage breakdown of one served batch;
+  3b. ``router_paths``, on the same catalog and batches: the staged
+     path (``fused=False``, LinUCB) served on the card and on the CPU
+     fed the card's signatures, decisions tie-aware and the bandit
+     within rtol 1e-5, then batch 2 through ``route_many_staged`` and
+     ``route_many_batch`` on the card (tie-aware) and the staged kNN's
+     filter-row launch bit-equal to the dense-mask call; the same with
+     a Thompson bandit (seed 3, noise 0.3), each batch's kNN candidate
+     sets equal to the CPU's before the decisions are compared; the
+     fused path with ``Telemetry`` and ``Tracer`` attached beside the
+     same run without them (counters equal to the ops counters per
+     batch, every request's trace holding exactly its stages, the
+     Prometheus text parsing back, launches equal with and without the
+     sinks and on the staged path, decisions unchanged); then
+     ``RouterState`` saved after that run and restored into a fresh
+     router on the card (``route_many`` bit-identical, the replayed
+     head of batch 1 all cache hits) and on the CPU (tie-aware);
   4. the model-zoo kernels (flash attention in its prefill and decode
      launch shapes, the SSD scan, the MoE gate) against their plain
      versions at the generation path's shapes (llama3.2-1b prefill and
@@ -695,14 +711,15 @@ class ReplayAnalyzer:
         return sigs
 
 
-def serve_run(mres, batches, dev, quant: bool, seed: int, analyzer=None):
-    """One serving run: 4 submits, each followed by observe."""
+def build_router(mres, dev, quant: bool, seed: int, analyzer=None, *,
+                 policy: str = "linucb", fused: bool = True, telemetry=None,
+                 tracer=None):
+    """The serving router: analyzer at full width (seeded), bandit +
+    load + semantic cache, confidence threshold 0."""
     from repro_torch.adaptive import LinearBandit
     from repro_torch.cache.semantic import SemanticCache
     from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
     from repro_torch.core.orchestrator import OptiRoute
-    from repro_torch.data.workload import meta_of, quality_of
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.load import LoadTracker
 
     n = len(mres)
@@ -710,16 +727,31 @@ def serve_run(mres, batches, dev, quant: bool, seed: int, analyzer=None):
         analyzer = TaskAnalyzer(AnalyzerConfig(), seed=seed, device=dev)
         if quant:                       # int8 analyzer weights as well
             analyzer.quantize()
+    bandit = LinearBandit(n, policy=policy, seed=seed, noise=0.3,
+                          device=dev)
     router = OptiRoute(
-        mres, analyzer, adaptive=LinearBandit(n, device=dev),
-        adaptive_weight=1.0, load=LoadTracker(n), load_weight=0.5,
+        mres, analyzer, adaptive=bandit, adaptive_weight=1.0,
+        load=LoadTracker(n), load_weight=0.5,
         cache=SemanticCache(capacity=4096, min_quality=0.0, quantize=quant,
-                            device=dev), device=dev)
+                            device=dev), telemetry=telemetry, tracer=tracer,
+        device=dev)
     router.engine.confidence_threshold = 0.0
     router.engine.quantize = quant
+    router.engine.fused = fused
+    return router
+
+
+def serve_run(mres, batches, dev, quant: bool, seed: int, analyzer=None,
+              on_batch=None, **router_kw):
+    """One serving run: 4 submits, each followed by observe;
+    ``on_batch(i, responses)`` runs after each observe."""
+    from repro_torch.data.workload import meta_of, quality_of
+    from repro_torch.serving.engine import ServingEngine
+
+    router = build_router(mres, dev, quant, seed, analyzer, **router_kw)
     eng = ServingEngine(router)
     out, lat, obs_s = [], [], []
-    for batch in batches:
+    for i, batch in enumerate(batches):
         t0 = time.perf_counter()
         resp = eng.submit([r for r, _ in batch])
         lat.append(time.perf_counter() - t0)
@@ -729,17 +761,32 @@ def serve_run(mres, batches, dev, quant: bool, seed: int, analyzer=None):
         eng.observe(resp, qual)
         obs_s.append(time.perf_counter() - t0)
         out.append(resp)
+        if on_batch is not None:
+            on_batch(i, resp)
     return router, out, lat, obs_s
+
+
+def ranked_scores(rq) -> np.ndarray:
+    """A routed query's ranked candidate scores: the batch arrays on the
+    fused paths, the eager decision's list on the staged one."""
+    if rq._batch is not None:
+        return rq._batch.cand_score[rq._bidx]
+    return np.array([sc for _, sc in rq.decision.candidates] or [NEG_INF])
 
 
 def _row_detail(resp) -> str:
     """Candidates, scores and task vector of one routed response."""
     if resp.rq is None:
         return f"{resp.model} ({resp.admission}, no routed query)"
-    bt, j = resp.rq._batch, resp.rq._bidx
-    return (f"cand {bt.cand_idx[j][:4].tolist()} "
-            f"scores {np.round(bt.cand_score[j][:4], 6).tolist()} "
-            f"T {bt.task_vectors[j].tolist()}")
+    d = resp.rq.decision
+    return (f"cand {[m for m, _ in d.candidates[:4]]} "
+            f"scores {np.round(ranked_scores(resp.rq)[:4], 6).tolist()} "
+            f"T {np.asarray(resp.rq.task_vector).tolist()}")
+
+
+def near_tie(scores) -> bool:
+    return bool(len(scores) > 1 and np.isfinite(scores[:2]).all()
+                and scores[0] - scores[1] <= 1e-5)
 
 
 def decisions_match(ref, got, what: str) -> int:
@@ -758,12 +805,8 @@ def decisions_match(ref, got, what: str) -> int:
                   f"{what}: batch {bi} row {i} admission/fallback differs")
             if a.model == b.model:
                 continue
-            ok = False
-            for x in (a, b):
-                cs = x.rq._batch.cand_score[x.rq._bidx] if x.rq else None
-                if cs is not None and np.isfinite(cs[:2]).all() \
-                        and cs[0] - cs[1] <= 1e-5:
-                    ok = True
+            ok = any(x.rq is not None and near_tie(ranked_scores(x.rq))
+                     for x in (a, b))
             check(ok, f"{what}: batch {bi} row {i} model {a.model} vs "
                       f"{b.model} without a tie; "
                       + "; ".join(_row_detail(x) for x in (a, b)))
@@ -771,17 +814,25 @@ def decisions_match(ref, got, what: str) -> int:
     return ties
 
 
-def serving_phase(torch, dev, small: bool, kernels):
+def routing_inputs(small: bool, shared: dict):
+    """The routing phases' catalog and batches (100,000 entries, 4
+    batches of 256; 4,000 and 64 at ``--rehearse``), built once."""
+    if "mres" not in shared:
+        n = 4000 if small else 100_000
+        nb = 64 if small else 256
+        t0 = time.perf_counter()
+        shared["mres"] = make_catalog(n, seed=1)
+        shared["batches"] = make_batches(nb, seed=2)
+        log(f"[serving] catalog of {n} entries built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    return shared["mres"], shared["batches"]
+
+
+def serving_phase(torch, dev, small: bool, kernels, shared):
     from repro_torch.kernels import bandit_update as BU
     from repro_torch.kernels import router_topk as RT
 
-    n = 4000 if small else 100_000
-    nb = 64 if small else 256
-    t0 = time.perf_counter()
-    mres = make_catalog(n, seed=1)
-    batches = make_batches(nb, seed=2)
-    log(f"[serving] catalog of {n} entries built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    mres, batches = routing_inputs(small, shared)
     cpu = torch.device("cpu")
     counters = {"router_topk": RT.router_topk,
                 "router_topk_q8": RT.router_topk_q8,
@@ -845,6 +896,7 @@ def serving_phase(torch, dev, small: bool, kernels):
         breakdown(torch, dev, router, batches[1])
     for k, v in kernels.items():
         v["launches"] = launches[k]
+    shared["serving"] = stats
     return stats
 
 
@@ -893,6 +945,348 @@ def breakdown(torch, dev, router, batch):
     stage("posterior refresh (host inv)", lambda: bandit.posterior(), reps=1)
     log("[breakdown] " + ", ".join(f"{k} {v:.2f} ms" for k, v in
                                    marks.items()))
+
+
+# ----------------------------------------------------------------------
+# phase 2b: the router's other paths (staged, Thompson, sinks, state)
+# ----------------------------------------------------------------------
+
+def path_launches(fn):
+    """Run ``fn`` with the serving kernels' counts set to 0 just before
+    it; returns (fn's result, the counts read just after)."""
+    from repro_torch.kernels import bandit_update as BU
+    from repro_torch.kernels import router_topk as RT
+
+    counters = {"router_topk": RT.router_topk,
+                "router_topk_q8": RT.router_topk_q8,
+                "bandit_update": BU.bandit_update}
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
+def candidate_sets_match(mres, ref, got, what: str) -> int:
+    """Staged runs: per routed row whose kNN found candidates, the card's
+    candidate set equals the CPU's (a Thompson bandit draws one sample
+    per column of the union, so one flipped column shifts every later
+    draw).  Fails naming the batch, the query and the two columns with
+    their cosines.  Returns the rows compared."""
+    from repro_torch.core.routing import cosine_sim
+
+    emb = mres.embeddings()
+    col = {m: j for j, m in enumerate(mres.snapshot()[1])}
+    rows = 0
+    for bi, (rb, gb) in enumerate(zip(ref, got)):
+        for i, (a, b) in enumerate(zip(rb, gb)):
+            if a.rq is None or b.rq is None:
+                check(a.rq is None and b.rq is None,
+                      f"{what}: batch {bi} row {i} routed on one side only")
+                continue
+            da, db = a.rq.decision, b.rq.decision
+            if da.stage_sizes["filtered"] == 0 and \
+                    db.stage_sizes["filtered"] == 0:
+                continue
+            sa = {m for m, _ in da.candidates}
+            sb = {m for m, _ in db.candidates}
+            if sa != sb:
+                t = np.asarray(b.rq.task_vector, np.float32)
+                ca, cb = sorted(sa - sb)[:1], sorted(sb - sa)[:1]
+                cos = {m: float(cosine_sim(emb[col[m]][None], t)[0])
+                       for m in ca + cb}
+                raise SmokeFailure(
+                    f"{what}: batch {bi} query {i} "
+                    f"({b.request.text[:40]!r}) kNN candidate sets differ: "
+                    f"CPU has {ca} the card lacks, the card {cb}; cosines "
+                    f"{cos}")
+            rows += 1
+    return rows
+
+
+def decision_lists_match(want, got, what: str) -> int:
+    """Tie-aware comparison of two decision lists (same rung, score
+    within 1e-5, same model unless the reference's top two tie)."""
+    ties = 0
+    for i, (a, b) in enumerate(zip(want, got)):
+        check(a.fallback_kind == b.fallback_kind,
+              f"{what}: row {i} fallback {a.fallback_kind!r} vs "
+              f"{b.fallback_kind!r}")
+        check(abs(a.score - b.score) <= 1e-5,
+              f"{what}: row {i} score {a.score} vs {b.score}")
+        if a.model != b.model:
+            sc = np.array([x for _, x in a.candidates])
+            check(near_tie(sc), f"{what}: row {i} model {a.model} vs "
+                                f"{b.model} without a tie")
+            ties += 1
+    return ties
+
+
+def staged_run(torch, dev, small, mres, batches, policy: str, tag: str):
+    """Phases 1-2: the staged path on the card, then the same run on the
+    CPU fed the card's signatures; candidate sets (Thompson), decisions
+    and the bandit compared.  Returns (card router, responses, submit
+    latencies, launches)."""
+    cpu = torch.device("cpu")
+    (router, got, lat, _), counts = path_launches(
+        lambda: serve_run(mres, batches, dev, False, seed=3, policy=policy,
+                          fused=False))
+    log(f"[router_paths {tag}] launches on the staged path: {counts}")
+    if dev.type == "cuda":
+        for k in ("router_topk", "bandit_update"):
+            check(counts[k] > 0, f"{tag}: {k} never launched")
+    check(all(x.served for b in got for x in b),
+          f"{tag}: a response failed or was shed")
+    check(all(x.cache_hit or x.rq._batch is None for b in got for x in b),
+          f"{tag}: a request took a fused path")
+    routed = [[x for x in b if not x.cache_hit] for b in got]
+    replay = ReplayAnalyzer(torch, router.analyzer,
+                            (([x.request.text for x in b],
+                              [x.sig for x in b]) for b in routed), tag)
+    ref_router, ref, _, _ = serve_run(mres, batches, cpu, False, seed=3,
+                                      analyzer=replay, policy=policy,
+                                      fused=False)
+    check(not replay.batches, f"{tag}: the CPU run routed fewer batches")
+    if policy == "thompson":
+        rows = candidate_sets_match(mres, ref, got, tag)
+        log(f"[router_paths {tag}] kNN candidate sets equal the CPU's on "
+            f"all {rows} rows, batch by batch")
+    ties = decisions_match(ref, got, tag)
+    log(f"[router_paths {tag}] decisions match the CPU run ({ties} "
+        "tie-broken)")
+    for nm in ("A", "b"):
+        check(np.allclose(getattr(router.adaptive, nm),
+                          getattr(ref_router.adaptive, nm), rtol=1e-5,
+                          atol=1e-6),
+              f"{tag}: bandit {nm} differs from the CPU run")
+    log(f"[router_paths {tag}] bandit A/b match the CPU run (rtol 1e-5)")
+    return router, got, lat, counts
+
+
+def knn_against_dense_mask(torch, dev, eng, prefs, sigs) -> None:
+    """The staged kNN's (table, rows) launch against the dense (B, N)
+    mask call on the same card, bit for bit (values; indices where
+    finite), with both times."""
+    from repro_torch.kernels import ops
+
+    _, _, T, ti, di = eng._prepare_batch(prefs, sigs)
+    emb, _, tt, dm, gmask, _ = eng.mres.snapshot()
+    k = min(eng.knn_k, emb.shape[0])
+    mask = tt[ti] & dm[di]
+
+    def rows():
+        return ops.knn_rows(emb, tt, dm, gmask, T, ti, di, k=k, device=dev)
+
+    def dense():
+        return [x.cpu().numpy() for x in ops.router_topk(
+            emb, T, k, mask=mask, device=dev)]
+
+    (v1, i1), (v2, i2) = rows(), dense()
+    fin = np.isfinite(v2)
+    check(np.array_equal(v1, v2) and np.array_equal(i1[fin], i2[fin]),
+          "staged kNN differs from the dense-mask call")
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    times = {}
+    for name, fn in (("rows", rows), ("dense", dense), ("rows ", rows),
+                     ("dense ", dense)):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.setdefault(name.strip(), []).append(
+            (time.perf_counter() - t0) * 1e3)
+    log(f"[router_paths staged linucb] kNN of batch 2 (B={len(sigs)}) "
+        f"through the filter table's rows equals the dense-mask call bit "
+        f"for bit; host ms per call: rows "
+        f"{', '.join(f'{t:.2f}' for t in times['rows'])}, dense mask "
+        f"{', '.join(f'{t:.2f}' for t in times['dense'])}")
+
+
+def p50_ms(lat) -> float:
+    return float(np.quantile(lat[1:], 0.5)) * 1e3
+
+
+def router_paths_phase(torch, dev, small: bool, kernels, shared):
+    """The staged path (LinUCB with fused=False; Thompson), telemetry
+    and tracing on the fused path, and RouterState, at the serving
+    phase's full width."""
+    import tempfile
+
+    from repro_torch.checkpoint import RouterState, load_router_state
+    from repro_torch.core.preferences import resolve_batch
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, metrics_from_prom, prometheus_text
+    from repro_torch.serving.engine import ServingEngine
+
+    mres, batches = routing_inputs(small, shared)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    total = {"router_topk": 0, "bandit_update": 0}
+    fused_p50 = shared.get("serving", {}).get("fp32", {}).get("submit_s")
+    fused_txt = (f"{p50_ms(fused_p50):.1f} ms" if fused_p50
+                 else "not run in this call")
+
+    # 1. staged LinUCB (fused=False), then staged vs fused on batch 2
+    router, got, lat, counts = staged_run(torch, dev, small, mres, batches,
+                                          "linucb", "staged linucb")
+    for k in total:
+        total[k] += counts[k]
+    staged_counts = counts
+    b2 = [r for r, _ in batches[1]]
+    prefs = resolve_batch([r.prefs for r in b2], len(b2))
+    sigs = [x.sig for x in got[1]]
+    eng = router.engine
+    staged = eng.route_many_staged(prefs, sigs)
+    eng.fused = True
+    fused = eng.route_many_batch(prefs, sigs).decisions()
+    eng.fused = False
+    ties = decision_lists_match(staged, fused, "staged vs fused")
+    log(f"[router_paths staged linucb] batch 2 through route_many_staged "
+        f"and route_many_batch on the card: equal ({ties} tie-broken)")
+    knn_against_dense_mask(torch, dev, eng, prefs, sigs)
+    log(f"[router_paths staged linucb] submit p50 over batches 2-4 "
+        f"{p50_ms(lat):.1f} ms (fused fp32, serving phase: {fused_txt})")
+    shared["staged_linucb_s"] = lat
+
+    # 2. staged Thompson
+    router, got, lat, counts = staged_run(torch, dev, small, mres, batches,
+                                          "thompson", "staged thompson")
+    for k in total:
+        total[k] += counts[k]
+    log(f"[router_paths staged thompson] submit p50 over batches 2-4 "
+        f"{p50_ms(lat):.1f} ms (fused fp32, serving phase: {fused_txt})")
+    del router, got
+
+    # 3. telemetry and tracing on the fused LinUCB path, beside the same
+    #    run without sinks (one card, one call)
+    (_, plain_got, plain_lat, _), plain_counts = path_launches(
+        lambda: serve_run(mres, batches, dev, False, seed=3))
+    tel, tr = Telemetry(), Tracer()
+    ops_deltas = []
+    last = {}
+
+    def per_batch(i, resp):
+        """Per batch: the ops counters and the telemetry counters, each
+        beside its value after the previous batch."""
+        now = (ops.route_step_stats(),
+               (tel.route_step_stats(), tel.analyze_step_stats()))
+        ops_deltas.append((i, resp, last["ops"], now[0], last["tel"],
+                           now[1]))
+        last["ops"], last["tel"] = now
+
+    ops.reset_route_step_stats()
+    last["ops"] = ops.route_step_stats()
+    last["tel"] = (tel.route_step_stats(), tel.analyze_step_stats())
+    (router, got, lat, _), sink_counts = path_launches(
+        lambda: serve_run(mres, batches, dev, False, seed=3,
+                          on_batch=per_batch, telemetry=tel, tracer=tr))
+    for k in total:
+        total[k] += sink_counts[k]
+    for i, resp, o0, o1, t0, t1 in ops_deltas:
+        misses = sum(not x.cache_hit for x in resp)
+        for j, fam in enumerate(("route_step", "analyze_step")):
+            d_ops = o1[f"{fam}_dispatches"] - o0[f"{fam}_dispatches"]
+            d_tel = t1[j]["dispatches"] - t0[j]["dispatches"]
+            check(d_tel == d_ops == int(misses > 0),
+                  f"telemetry: batch {i} {fam} dispatches {d_tel}, ops "
+                  f"{d_ops}, misses {misses}")
+            check(t1[j]["compiles"] == 0, f"telemetry: {fam} compiles")
+    hits = sum(x.cache_hit for b in got for x in b)
+    check(tel.cache_funnel()["hit"] == hits,
+          f"telemetry: cache hits {tel.cache_funnel()['hit']} vs {hits}")
+    check(tel.summary()["events"] == sum(not x.cache_hit for b in got
+                                         for x in b),
+          "telemetry: one route event per routed request")
+    for b in got:
+        for x in b:
+            tree = tr.summary_tree(x.trace_id)
+            check(tree is not None, "tracing: a response has no trace")
+            want = ["cache_lookup"] if x.cache_hit else \
+                ["analyze", "cache_lookup", "generate", "observe",
+                 "route_step"]
+            names = sorted(c["name"] for c in tree["children"])
+            check(names == want, f"tracing: request {x.request.id} has "
+                                 f"stages {names}, want {want}")
+    submits = [sp for sp in tr.spans() if sp.name == "submit"]
+    check(len(submits) == len(batches), "tracing: one submit per batch")
+    for sp, b in zip(submits, got):
+        tree = tr.summary_tree(sp.trace_id)
+        names = sorted(c["name"] for c in tree["children"])
+        want = ["admission", "analyze", "cache_lookup", "generate",
+                "route_step"]
+        if all(x.cache_hit for x in b):       # nothing routed
+            want = ["cache_lookup"]
+        check(names == want, f"tracing: batch stages {names}")
+        rs = [c for c in tree["children"] if c["name"] == "route_step"]
+        check(all(c["attrs"]["path"] == "fused"
+                  and c["attrs"]["catalog_n"] == len(mres) for c in rs),
+              "tracing: route_step span attributes")
+    prom = metrics_from_prom(prometheus_text(tel, tracer=tr,
+                                             load=router.load))
+    for key, val in (("route_step_dispatches",
+                      tel.route_step_stats()["dispatches"]),
+                     ("analyze_step_dispatches",
+                      tel.analyze_step_stats()["dispatches"]),
+                     ("route_step_compiles", 0), ("events",
+                                                  tel.summary()["events"]),
+                     ("repro_trace_spans_total", tr.stats()["spans_total"]),
+                     ('repro_cache_total{kind="hit"}', hits)):
+        check(prom[key] == val, f"prometheus: {key} {prom[key]} vs {val}")
+    check(sink_counts == plain_counts == staged_counts,
+          f"launches with sinks {sink_counts}, without {plain_counts}, "
+          f"staged {staged_counts}")
+    check([[(x.model, x.cache_hit) for x in b] for b in got]
+          == [[(x.model, x.cache_hit) for x in b] for b in plain_got],
+          "the sinks changed a decision")
+    log(f"[router_paths sinks] telemetry = ops counters on every batch "
+        f"({tel.route_step_stats()}, {tel.analyze_step_stats()}); "
+        f"{tr.stats()['spans_total']} spans, every request's trace holds "
+        f"its stages; Prometheus text parses back; launches {sink_counts} "
+        f"with the sinks, {plain_counts} without")
+    log(f"[router_paths sinks] fused submit p50 over batches 2-4: sinks on "
+        f"{p50_ms(lat):.1f} ms, off {p50_ms(plain_lat):.1f} ms")
+    shared["sinks_on_s"], shared["sinks_off_s"] = lat, plain_lat
+    del plain_got
+
+    # 4. RouterState: save after run 3, restore into fresh routers
+    b1 = [r for r, _ in batches[0]]
+    sigs = [x.sig for x in got[1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        state = RouterState(tmp)
+        t0 = time.perf_counter()
+        path = state.save(router, step=4)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        fresh = build_router(mres, dev, False, seed=3)
+        t0 = time.perf_counter()
+        check(state.restore(fresh) == 4, "RouterState: restore step")
+        restore_s = time.perf_counter() - t0
+        want = router.engine.route_many_batch(prefs, sigs)
+        have = fresh.engine.route_many_batch(prefs, sigs)
+        check(np.array_equal(want.model_idx, have.model_idx)
+              and np.array_equal(want.score, have.score),
+              "RouterState: restored decisions are not bit-identical")
+        on_cpu = build_router(mres, cpu, False, seed=3)
+        load_router_state(str(path), on_cpu)
+        cpu_dec = on_cpu.engine.route_many_batch(prefs, sigs).decisions()
+        ties = decision_lists_match(cpu_dec, have.decisions(),
+                                    "RouterState card vs CPU")
+        head = b1[:len(b1) // 2]
+        replay = ServingEngine(fresh).submit(head)
+        warm = sum(x.cache_hit for x in replay)
+        check(warm == len(head), f"RouterState: {warm} of {len(head)} "
+                                 "replayed head requests hit")
+    log(f"[router_paths state] RouterState file {size} bytes, save "
+        f"{save_s * 1e3:.1f} ms, restore {restore_s * 1e3:.1f} ms; "
+        f"route_many of batch 2 bit-identical after restore; the CPU "
+        f"restore matches ({ties} tie-broken); {warm} of {len(head)} "
+        "replayed head requests hit the restored cache")
+    for k, v in total.items():
+        if k in kernels:
+            kernels[k]["launches"] += v
+    log(f"[router_paths] launches on the phase's main paths {total}; "
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------------------
@@ -2233,7 +2627,7 @@ def main() -> int:
                     help="CPU, small sizes, plain versions; exits 3")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, serving, "
-                         "model_kernels, moe_kernels, window_kernels, "
+                         "router_paths, model_kernels, moe_kernels, window_kernels, "
                          "generate, moe_generate, generate_windowed, "
                          "long_context, card_vs_cpu); prints no result, "
                          "exits 4")
@@ -2269,10 +2663,14 @@ def main() -> int:
     small = args.rehearse
     kernels = {}
     window_rows = {}
+    shared = {}
     phases = {
         "kernels": lambda: kernels.update(
             kernel_phase(torch, dev, rng, small)),
-        "serving": lambda: serving_phase(torch, dev, small, kernels),
+        "serving": lambda: serving_phase(torch, dev, small, kernels,
+                                         shared),
+        "router_paths": lambda: router_paths_phase(torch, dev, small,
+                                                   kernels, shared),
         "model_kernels": lambda: kernels.update(
             model_kernel_phase(torch, dev, small)),
         "moe_kernels": lambda: kernels.update(

@@ -15,9 +15,18 @@ an intercept, so D = M + 1: the intercept learns each model's base
 quality and the weight axes learn how quality co-varies with what the
 user asked for.
 
-The port serves the ``linucb`` policy, score = x.theta + alpha *
-sqrt(x^T Ainv x); the reference's ``thompson`` policy runs on its staged
-path, which is not ported yet.
+Policies over the shared posterior:
+
+  * ``linucb``   — score = x.theta + alpha * sqrt(x^T Ainv x)
+  * ``thompson`` — score = x.theta~ with theta~ ~ N(theta, noise^2 Ainv)
+
+Thompson draws ``z`` from the bandit's own ``np.random.default_rng(seed)``
+on the host, exactly as the reference does: the generator stays
+explicit, and the port and the reference draw the same stream, which
+is what lets the two be compared.  Only the staged routing path serves
+it (``RoutingEngine.route_many_staged``), scoring at most B*k candidate
+columns, so the Cholesky of their 9x9 ``Ainv`` and the score matmuls
+stay host numpy, as in the reference.
 
 Non-stationarity is handled by exponential forgetting (``forget`` < 1
 decays A toward the lam*I prior and b toward 0 on every outcome batch),
@@ -25,11 +34,12 @@ so the posterior tracks drifting model quality instead of averaging
 over it.
 
 The posterior stays host-side numpy.  The learning step runs on
-``device``: ``update`` builds the (B, N) choice mask there and the
-hand-written ``bandit_update`` kernel forms the rank-1 deltas (dA, db)
-of the whole batch; ``update_and_score`` also takes the next batch's
-LinUCB scores from the same launch.  ``device="cpu"`` runs the
-kernel's plain version.
+``device`` under both policies: ``update`` builds the (B, N) choice
+mask there and the hand-written ``bandit_update`` kernel forms the
+rank-1 deltas (dA, db) of the whole batch (the reference's numpy path
+for Thompson forms the same deltas); ``update_and_score`` also takes
+the next batch's LinUCB scores from the same launch.  ``device="cpu"``
+runs the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -39,26 +49,26 @@ import numpy as np
 import torch
 
 from repro_torch.core.preferences import N_METRICS
-from repro_torch.core.routing import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-POLICIES = ("linucb",)
+POLICIES = ("linucb", "thompson")
 
 
 class LinearBandit:
     def __init__(self, n_models: int, context_dim: int = N_METRICS, *,
                  policy: str = "linucb", alpha: float = 0.8,
-                 lam: float = 1.0, forget: float = 1.0, device=None):
-        if policy == "thompson":
-            raise not_ported("A Thompson-policy bandit",
-                             "'route_many_staged and the Thompson path'")
-        assert policy in POLICIES, policy
+                 lam: float = 1.0, noise: float = 0.3,
+                 forget: float = 1.0, seed: int = 0, device=None):
+        if policy not in POLICIES:
+            raise ValueError(f"policy {policy!r} not in {POLICIES}")
         assert 0.0 < forget <= 1.0, forget
         self.policy = policy
         self.alpha = float(alpha)
         self.lam = float(lam)
+        self.noise = float(noise)
         self.forget = float(forget)
+        self._rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
         self.dim = context_dim + 1                     # + intercept
         self.n_models = 0
@@ -112,6 +122,39 @@ class LinearBandit:
         the arrays the fused ``route_step`` program scores LinUCB
         against on device."""
         return self._refresh()
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        """(B, N) posterior-mean reward estimates (no exploration)."""
+        theta, _ = self._refresh()
+        return self._ctx(X) @ theta.T
+
+    def scores(self, X: np.ndarray) -> np.ndarray:
+        """(B, N) policy scores for (B, M) task-vector contexts."""
+        return self.scores_at(X, None)
+
+    def scores_at(self, X: np.ndarray, cols: Optional[np.ndarray]
+                  ) -> np.ndarray:
+        """(B, C) policy scores restricted to the ``cols`` model subset
+        (None = all models): the staged routing path scores only its
+        kNN candidate columns.  Thompson draws one posterior sample per
+        column, ``z`` (C, D) from the bandit's generator."""
+        theta, ainv = self._refresh()
+        ctx = self._ctx(X)
+        if cols is not None:
+            theta, ainv = theta[cols], ainv[cols]
+        if self.policy == "thompson":
+            # theta~ = theta + noise * L z,  L L^T = Ainv
+            L = np.linalg.cholesky(
+                ainv + 1e-6 * np.eye(self.dim, dtype=np.float32))
+            z = self._rng.standard_normal(
+                (theta.shape[0], self.dim)).astype(np.float32)
+            theta = theta + self.noise * np.einsum("nde,ne->nd", L, z)
+            return ctx @ theta.T
+        mean = ctx @ theta.T                                    # (B, C)
+        # x^T Ainv x over the flattened rank-1 layout: one matmul
+        xx = (ctx[:, :, None] * ctx[:, None, :]).reshape(ctx.shape[0], -1)
+        var = xx @ ainv.reshape(theta.shape[0], -1).T
+        return mean + self.alpha * np.sqrt(np.maximum(var, 0.0))
 
     # ---------------- learning ----------------
     def _choice_mask(self, chosen: np.ndarray, B: int) -> torch.Tensor:
@@ -181,8 +224,13 @@ class LinearBandit:
         """Serving-cadence step: score the incoming batch under the
         CURRENT posterior, then fold the finished batch's outcomes in.
         Both halves are one ``bandit_update`` launch.  Returns the
-        (Bs, N) LinUCB scores.
+        (Bs, N) LinUCB scores; a Thompson bandit samples its scores
+        (``scores``) and then updates, as the reference does.
         """
+        if self.policy == "thompson":
+            s = self.scores(X_score)
+            self.update(X_up, chosen, rewards)
+            return s
         ctx_up = self._ctx(X_up)
         B = ctx_up.shape[0]
         w = self._choice_mask(chosen, B) if B else \

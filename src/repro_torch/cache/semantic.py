@@ -23,7 +23,10 @@ has not lapsed, and its cosine similarity clears ``threshold``.
 Expired entries are purged lazily at lookup/insert time, a full store
 evicts the least-recently-used slot, inserts below ``min_quality`` are
 rejected, and an insert that semantically duplicates a live entry
-refreshes it in place.  Thread-safe.
+refreshes it in place.  Thread-safe; all state round-trips through
+``state()``/``load_state`` for ``repro_torch.checkpoint.RouterState``
+(the reference's layout, so a snapshot of either package restores in
+the other).
 """
 from __future__ import annotations
 
@@ -36,9 +39,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.preferences import N_METRICS, TaskSignature, resolve
-from repro_torch.core.routing import require_no_observability
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import NOOP_SPAN
 
 # cache_funnel outcome kinds (Telemetry.cache_funnel key set, stable
 # even on empty engines): lookup outcomes, then insert outcomes
@@ -98,8 +101,10 @@ class SemanticCache:
                  tracer=None, time_fn=time.time, device=None):
         assert capacity > 0, capacity
         assert -1.0 <= threshold <= 1.0, threshold
-        require_no_observability(None, tracer)
         self.device = resolve_device(device)
+        # span sink (obs.Tracer): batched lookups report a
+        # "cache_lookup" span nested under the caller's ambient span
+        self.tracer = tracer
         self.capacity = int(capacity)
         self.threshold = float(threshold)
         self.ttl_s = None if ttl_s is None else float(ttl_s)
@@ -234,11 +239,16 @@ class SemanticCache:
         Like ``lookup`` but hit rows are materialized under the SAME
         lock, so a concurrent put/eviction/expiry between lookup and
         get can never invalidate a hit mid-serve."""
-        with self._lock:
-            hit, slot, sim = self._lookup_locked(
-                np.asarray(vecs, np.float32), np.asarray(fps, np.int64))
-            entries = [self._entry_locked(int(s)) if h else None
-                       for h, s in zip(hit, slot)]
+        span = self.tracer.span("cache_lookup",
+                                batch=int(np.asarray(vecs).shape[0])) \
+            if self.tracer is not None else NOOP_SPAN
+        with span:
+            with self._lock:
+                hit, slot, sim = self._lookup_locked(
+                    np.asarray(vecs, np.float32), np.asarray(fps, np.int64))
+                entries = [self._entry_locked(int(s)) if h else None
+                           for h, s in zip(hit, slot)]
+            span.set(hits=int(np.asarray(hit).sum()))
         return hit, entries, sim
 
     def _entry_locked(self, slot: int) -> CacheEntry:
@@ -333,3 +343,67 @@ class SemanticCache:
                     "capacity": self.capacity,
                     "hit_rate": self.counters["hit"] / n if n else 0.0,
                     **dict(self.counters)}
+
+    def state(self) -> Dict[str, Any]:
+        """Everything ``load_state`` needs to resume bit-exactly."""
+        with self._lock:
+            return {
+                "vecs": self.vecs.copy(), "fps": self.fps.copy(),
+                "quality": self.quality.copy(),
+                "created": self.created.copy(),
+                "last_used": self.last_used.copy(),
+                "valid": self.valid.copy(), "tick": self._tick,
+                "models": list(self.models),
+                "responses": list(self.responses),
+                "sigs": [None if s is None else
+                         (s.task_type, s.domain, s.complexity,
+                          s.confidence) for s in self.sigs],
+            }
+
+    def load_state(self, st: Dict[str, Any]) -> None:
+        """Restore a ``state()`` snapshot into THIS cache's configured
+        capacity: a same-size snapshot restores slot-for-slot
+        (bit-exact); a differently-sized one has its live entries
+        compacted into the configured arrays, so restoring an old
+        snapshot never silently shrinks (or grows) a reconfigured
+        cache.  Raises when the snapshot holds more live entries than
+        the capacity can hold."""
+        vecs = np.asarray(st["vecs"], np.float32)
+        C, dim = vecs.shape
+        if dim != self.dim:
+            raise ValueError(f"cache dim mismatch: snapshot {dim}, "
+                             f"cache {self.dim}")
+        valid = np.asarray(st["valid"], bool)
+        sigs = [None if s is None else
+                TaskSignature(task_type=str(s[0]), domain=str(s[1]),
+                              complexity=float(s[2]),
+                              confidence=float(s[3]))
+                for s in st["sigs"]]
+        with self._lock:
+            K = self.capacity
+            src = np.arange(C) if C == K else np.flatnonzero(valid)
+            if src.size > K:
+                raise ValueError(f"snapshot holds {src.size} live "
+                                 f"entries but cache capacity is {K}")
+            n = src.size
+            self.vecs = np.zeros((K, self.dim), np.float32)
+            self.vecs[:n] = vecs[src]
+            self.fps = np.zeros(K, np.int64)
+            self.fps[:n] = np.asarray(st["fps"], np.int64)[src]
+            self.quality = np.zeros(K, np.float32)
+            self.quality[:n] = np.asarray(st["quality"], np.float32)[src]
+            self.created = np.zeros(K, np.float64)
+            self.created[:n] = np.asarray(st["created"], np.float64)[src]
+            self.last_used = np.zeros(K, np.int64)
+            self.last_used[:n] = np.asarray(st["last_used"],
+                                            np.int64)[src]
+            self.valid = np.zeros(K, bool)
+            self.valid[:n] = valid[src]
+            self._tick = int(st["tick"])
+            models = list(st["models"])
+            responses = list(st["responses"])
+            self.models = [str(models[j]) for j in src] + \
+                [""] * (K - n)
+            self.responses = [responses[j] for j in src] + \
+                [None] * (K - n)
+            self.sigs = [sigs[j] for j in src] + [None] * (K - n)

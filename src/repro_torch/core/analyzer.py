@@ -180,6 +180,10 @@ class TaskAnalyzer:
         self.state = state if state is not None \
             else init_analyzer_np(cfg, seed)
         self.params = AnalyzerEncoder(cfg, self.state).to(self.device)
+        # dispatch counter sink (Telemetry) and span sink (obs.Tracer)
+        # of the analyzer program; OptiRoute hands down its own
+        self.telemetry = None
+        self.tracer = None
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         """Prune + tokenize: (B, max_len) int32 token ids."""
@@ -199,7 +203,8 @@ class TaskAnalyzer:
         """Tokens -> signatures: the staged half of the decision path."""
         if len(tokens) == 0:
             return []
-        out = ops.analyze_step(self.params, tokens, device=self.device)
+        out = ops.analyze_step(self.params, tokens, device=self.device,
+                               telemetry=self.telemetry, tracer=self.tracer)
         return [TaskSignature(task_type=TASK_TYPES[ti], domain=DOMAINS[di],
                               complexity=cx, confidence=conf)
                 for ti, di, cx, conf in zip(

@@ -3,9 +3,17 @@ per-query mode.
 
 User preferences -> Task Analyzer -> Routing Engine over the MRES ->
 feedback / bandit loop.  ``route_all`` analyzes and routes a whole
-request batch; with a ``TaskAnalyzer`` attached that is ONE program
-from token ids to model choices (``RoutingEngine.route_tokens_batch``),
-otherwise the analyzer's signatures feed ``route_many_batch``.
+request batch.  With a ``TaskAnalyzer`` attached and a fusable engine
+that is ONE program from token ids to model choices
+(``RoutingEngine.route_tokens_batch``); otherwise the analyzer's
+signatures feed ``route_many_batch``, or ``route_many`` (the staged
+path) when the engine cannot fuse (a Thompson bandit, ``fused=False``).
+
+``telemetry`` (``core.telemetry.Telemetry``) records one route event
+per query and the programs' dispatch counts; ``tracer`` (``obs.Tracer``)
+reports ``analyze`` / ``route_step`` / ``observe`` spans, nested under
+the caller's ambient span.  Both are handed down to the engine and to
+an attached ``TaskAnalyzer``.
 """
 from __future__ import annotations
 
@@ -18,26 +26,32 @@ from repro_torch.core.feedback import FeedbackStore
 from repro_torch.core.mres import MRES
 from repro_torch.core.preferences import TaskSignature, resolve_batch
 from repro_torch.core.routing import (RoutingDecision, RoutingEngine,
-                                      not_ported, require_no_observability)
+                                      not_ported)
+from repro_torch.obs.trace import NOOP_SPAN
 
 
 class RoutedQuery:
     """One routed query (text, signature, decision, timings).
 
-    The decision and the signature are LAZY: the query carries a
-    (RoutingBatch, row) handle and materializes them on first access;
-    ``model``/``fallback_kind``/``task_vector`` read the batch arrays.
-    ``cache_key``/``cache_fp`` are the semantic-cache write-back key
-    stamped at submit time; ``cache_written`` is tracked separately
-    from ``observed`` (bandit freshness)."""
+    The decision is either eager (the staged path hands a
+    ``RoutingDecision``) or LAZY: a query routed through a fused path
+    carries a (RoutingBatch, row) handle and materializes its decision
+    and signature on first access; ``model``/``fallback_kind``/
+    ``task_vector`` read whichever it holds.  ``cache_key``/``cache_fp``
+    are the semantic-cache write-back key stamped at submit time;
+    ``cache_written`` is tracked separately from ``observed`` (bandit
+    freshness)."""
     __slots__ = ("text", "analyzer_s", "route_s", "response",
                  "observed", "cache_key", "cache_fp", "cache_written",
-                 "_sig", "_batch", "_bidx")
+                 "_sig", "_decision", "_batch", "_bidx")
 
-    def __init__(self, text: str, batch, batch_idx: int,
-                 sig: Optional[TaskSignature] = None,
+    def __init__(self, text: str, sig: Optional[TaskSignature] = None,
+                 decision: Optional[RoutingDecision] = None,
                  analyzer_s: float = 0.0, route_s: float = 0.0,
-                 response: Any = None):
+                 response: Any = None, batch=None, batch_idx: int = -1):
+        if decision is None and batch is None:
+            raise ValueError("a RoutedQuery needs a decision or a "
+                             "(batch, row) handle")
         self.text = text
         self.analyzer_s = analyzer_s
         self.route_s = route_s
@@ -47,6 +61,7 @@ class RoutedQuery:
         self.cache_fp = 0
         self.cache_written = False
         self._sig = sig
+        self._decision = decision
         self._batch = batch
         self._bidx = batch_idx
 
@@ -58,23 +73,32 @@ class RoutedQuery:
 
     @property
     def decision(self) -> RoutingDecision:
-        return self._batch.decision(self._bidx)
+        if self._decision is None:
+            self._decision = self._batch.decision(self._bidx)
+        return self._decision
 
     @property
     def model(self) -> str:
+        if self._decision is not None:
+            return self._decision.model
         return self._batch.model(self._bidx)
 
     @property
     def fallback_kind(self) -> str:
+        if self._decision is not None:
+            return self._decision.fallback_kind
         return self._batch.fallback_kind(self._bidx)
 
     @property
     def task_vector(self) -> np.ndarray:
+        if self._decision is not None:
+            return self._decision.task_vector
         return self._batch.task_vectors[self._bidx]
 
 
 class OptiRoute:
-    """The deployable facade: ``route`` / ``route_all`` / ``observe``."""
+    """The deployable facade: ``route`` / ``route_all`` / ``observe`` /
+    ``give_feedback``."""
 
     def __init__(self, mres: MRES, analyzer, *,
                  feedback: Optional[FeedbackStore] = None,
@@ -83,7 +107,6 @@ class OptiRoute:
                  adaptive=None, adaptive_weight: float = 0.0,
                  reward_fn=None, reward_shaper=None, load=None,
                  load_weight: float = 0.0, cache=None, device=None):
-        require_no_observability(telemetry, tracer)
         if merge_threshold is not None:
             raise not_ported("Model merging", "'model zoo and runners'")
         self.mres = mres
@@ -94,10 +117,11 @@ class OptiRoute:
                                     adaptive=adaptive,
                                     adaptive_weight=adaptive_weight,
                                     load=load, load_weight=load_weight,
+                                    telemetry=telemetry, tracer=tracer,
                                     device=device)
         self.device = self.engine.device
-        self.telemetry = None
-        self.tracer = None
+        self.telemetry = telemetry
+        self.tracer = tracer
         # adaptive loop: ``reward_fn(rq) -> quality`` closes it inside
         # route_all; without it, call ``observe`` explicitly
         self.adaptive = adaptive
@@ -107,10 +131,30 @@ class OptiRoute:
         # semantic response cache: the serving engine consults it before
         # routing; ``observe`` writes validated responses back
         self.cache = cache
+        # analyzer dispatches report into the same telemetry/trace
+        # stream as the route step
+        if getattr(analyzer, "supports_fused_route", False):
+            if analyzer.telemetry is None:
+                analyzer.telemetry = telemetry
+            if analyzer.tracer is None:
+                analyzer.tracer = tracer
 
     def route(self, text: str, prefs) -> RoutedQuery:
         """Single-query routing — B=1 wrapper over ``route_all``."""
         return self.route_all([text], prefs)[0]
+
+    def _record(self, rq: RoutedQuery) -> None:
+        if self.telemetry is not None:
+            entry = self.mres.entry(rq.model)
+            self.telemetry.record_decision(
+                rq, sim_cost=entry.raw_metrics.get("cost_per_mtok", 0.0))
+
+    def _fully_fused_ok(self) -> bool:
+        """Whether the single analyze->route program can serve: a
+        fusable engine and an analyzer exposing its encoder (stub
+        analyzers do not)."""
+        return (getattr(self.analyzer, "supports_fused_route", False)
+                and self.engine._fused_ok())
 
     def route_all(self, texts: Sequence[str], prefs) -> List[RoutedQuery]:
         """Analyze and route every query in one vectorized pass; each
@@ -123,22 +167,50 @@ class OptiRoute:
         if len(prefs_list) != B:
             raise ValueError(f"prefs batch size {len(prefs_list)} != "
                              f"text batch size {B}")
+        tr = self.tracer
         an = self.analyzer
         t0 = time.time()
-        if getattr(an, "supports_fused_route", False):
-            toks = an.encode_batch(list(texts))
+        if self._fully_fused_ok():
+            # the "analyze" span covers only host-side prune+tokenize:
+            # the encoder runs inside the fused program, which reports
+            # its own route_step span with path="fused"
+            span = tr.span("analyze", path="fused", batch=B) \
+                if tr is not None else NOOP_SPAN
+            with span:
+                toks = an.encode_batch(list(texts))
             t1 = time.time()
             batch = self.engine.route_tokens_batch(an.params, toks,
                                                    prefs_list)
-            sigs = [None] * B
+            t2 = time.time()
+            out = [RoutedQuery(text=t, batch=batch, batch_idx=i,
+                               analyzer_s=(t1 - t0) / B,
+                               route_s=(t2 - t1) / B)
+                   for i, t in enumerate(texts)]
         else:
-            sigs = an.analyze_batch(list(texts))
+            span = tr.span("analyze", batch=B) if tr is not None \
+                else NOOP_SPAN
+            with span:
+                sigs = an.analyze_batch(list(texts))
             t1 = time.time()
-            batch = self.engine.route_many_batch(prefs_list, sigs)
-        t2 = time.time()
-        out = [RoutedQuery(text=t, batch=batch, batch_idx=i, sig=s,
-                           analyzer_s=(t1 - t0) / B, route_s=(t2 - t1) / B)
-               for i, (t, s) in enumerate(zip(texts, sigs))]
+            if self.engine._fused_ok():
+                batch = self.engine.route_many_batch(prefs_list, sigs)
+                t2 = time.time()
+                out = [RoutedQuery(text=t, sig=s, batch=batch, batch_idx=i,
+                                   analyzer_s=(t1 - t0) / B,
+                                   route_s=(t2 - t1) / B)
+                       for i, (t, s) in enumerate(zip(texts, sigs))]
+            else:
+                span = tr.span("route_step", path="staged", batch=B) \
+                    if tr is not None else NOOP_SPAN
+                with span:
+                    decisions = self.engine.route_many(prefs_list, sigs)
+                t2 = time.time()
+                out = [RoutedQuery(text=t, sig=s, decision=d,
+                                   analyzer_s=(t1 - t0) / B,
+                                   route_s=(t2 - t1) / B)
+                       for t, s, d in zip(texts, sigs, decisions)]
+        for rq in out:
+            self._record(rq)
         if self.adaptive is not None and self.reward_fn is not None:
             self.observe(out)
         return out
@@ -171,15 +243,32 @@ class OptiRoute:
         todo = sorted(set(fresh) | set(cacheable))
         if not todo:
             return None
+        span = self.tracer.span("observe", batch=len(rqs),
+                                fresh=len(fresh),
+                                cacheable=len(cacheable)) \
+            if self.tracer is not None else NOOP_SPAN
+        with span:
+            return self._observe(rqs, qualities, extra_penalty, fresh,
+                                 cacheable, todo)
+
+    def _observe(self, rqs, qualities, extra_penalty, fresh, cacheable,
+                 todo) -> Optional[np.ndarray]:
         if qualities is None:
             qual = {i: float(self.reward_fn(rqs[i])) for i in todo}
         else:
             qual = {i: float(qualities[i]) for i in todo}
+        tel = self.telemetry
         for i in cacheable:
             rq = rqs[i]
-            self.cache.put(rq.cache_key, rq.cache_fp, rq.model, rq.response,
-                           qual[i], sig=rq.sig)
+            kind = self.cache.put(rq.cache_key, rq.cache_fp, rq.model,
+                                  rq.response, qual[i], sig=rq.sig)
             rq.cache_written = True
+            if tel is not None:
+                tel.record_cache(kind)
+        if cacheable and tel is not None:
+            # inserts can evict/expire internally; surface the churn
+            for kind, n in self.cache.drain_events().items():
+                tel.record_cache(kind, n)
         if self.adaptive is None or not fresh:
             for i in fresh:
                 rqs[i].observed = True
@@ -203,3 +292,10 @@ class OptiRoute:
         for rq in sub:
             rq.observed = True
         return rewards
+
+    def give_feedback(self, rq: RoutedQuery, thumbs_up: bool) -> float:
+        """Thumbs feedback on a routed query: into the feedback store's
+        per-cluster bias, and onto the model's latest telemetry event."""
+        if self.telemetry is not None:
+            self.telemetry.attach_thumbs(rq.model, thumbs_up)
+        return self.feedback.record(rq.sig, rq.model, thumbs_up)

@@ -1,16 +1,20 @@
 """Routing Engine (paper §3.4) — batched, array-first, one program per
 batch on the engine's device.
 
-Port of the JAX package's ``core/routing.py`` fused paths.  Per batch:
-task vectors (preference weights, accuracy axis raised to the analyzed
-complexity) -> mask-fused cosine kNN (the ``router_topk`` kernel) ->
-blend of user-weighted metric scores, feedback bias, LinUCB bandit
-estimates and load penalty at the k candidates -> candidate argmax,
-with the fallback ladder (widened-kNN -> task-type-only -> generalist
--> any) as masked re-scores in the same program.
+Port of the JAX package's ``core/routing.py``.  Per batch: task vectors
+(preference weights, accuracy axis raised to the analyzed complexity)
+-> mask-fused cosine kNN (the ``router_topk`` kernel) -> blend of
+user-weighted metric scores, feedback bias, bandit estimates and load
+penalty at the k candidates -> candidate argmax, with the fallback
+ladder (widened-kNN -> task-type-only -> generalist -> any).
 
-``route_tokens_batch`` fuses the analyzer encoder in front of it (token
-ids in, model choices out); ``route_many_batch`` takes signatures.
+The fused paths run all of it as one program: ``route_tokens_batch``
+fuses the analyzer encoder in front of it (token ids in, model choices
+out); ``route_many_batch`` takes signatures.  ``route_many_staged`` is
+the reference's staged path and serves what the fused program cannot
+express (a Thompson-policy bandit, ``fused=False``): one ``router_topk``
+launch for the kNN (``ops.knn_rows``), then the blend, the bandit
+scores at the candidate columns and the fallback ladder in host numpy.
 """
 from __future__ import annotations
 
@@ -43,9 +47,11 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"Queue 1: {item})")
 
 
-def require_no_observability(telemetry, tracer) -> None:
-    if telemetry is not None or tracer is not None:
-        raise not_ported("Telemetry/Tracer hooks", "'Telemetry, Tracer, obs'")
+def cosine_sim(emb: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Cosine similarity of each row of emb against task vector t."""
+    en = np.linalg.norm(emb, axis=1) + 1e-9
+    tn = np.linalg.norm(t) + 1e-9
+    return (emb @ t) / (en * tn)
 
 
 @dataclass
@@ -181,8 +187,8 @@ class RoutingEngine:
                  adaptive=None, adaptive_weight: float = 0.0,
                  load=None, load_weight: float = 0.0,
                  quantize: bool = False, mesh=None, ivf: bool = False,
-                 telemetry=None, tracer=None, device=None):
-        require_no_observability(telemetry, tracer)
+                 fused: bool = True, telemetry=None, tracer=None,
+                 device=None):
         if mesh is not None or ivf:
             raise not_ported("A mesh-sharded or IVF-pruned catalog",
                              "'sharded and IVF programs'")
@@ -193,6 +199,14 @@ class RoutingEngine:
         self.confidence_threshold = confidence_threshold
         self.feedback_weight = feedback_weight
         self.use_complexity = use_complexity   # ablation knob
+        # one program per batch; ``fused=False`` (or a configuration the
+        # program cannot express, a Thompson bandit) takes the staged
+        # path
+        self.fused = fused
+        # dispatch counter sink (Telemetry) and span sink (obs.Tracer)
+        # of the fused programs, set by OptiRoute
+        self.telemetry = telemetry
+        self.tracer = tracer
         # online-learning layer: LinUCB estimates at ``adaptive_weight``
         self.adaptive = adaptive
         self.adaptive_weight = float(adaptive_weight)
@@ -207,9 +221,23 @@ class RoutingEngine:
         """Single-query routing — B=1 wrapper over ``route_many``."""
         return self.route_many([prefs_or_profile], [sig])[0]
 
+    def _fused_ok(self) -> bool:
+        """Whether the fused program can serve this configuration (a
+        Thompson bandit samples host RNG per score, which no device
+        program holds)."""
+        if not self.fused:
+            return False
+        if self.adaptive is not None and self.adaptive_weight != 0.0:
+            return (getattr(self.adaptive, "policy", "") == "linucb"
+                    and hasattr(self.adaptive, "posterior"))
+        return True
+
     def route_many(self, prefs_batch, sigs: Sequence[TaskSignature]
                    ) -> List[RoutingDecision]:
-        """``route_many_batch`` with its decisions materialized."""
+        """``route_many_batch`` with its decisions materialized, or
+        ``route_many_staged`` when the configuration is not fusable."""
+        if not self._fused_ok():
+            return self.route_many_staged(prefs_batch, sigs)
         return self.route_many_batch(prefs_batch, sigs).decisions()
 
     def _blend_terms(self, n: int):
@@ -221,12 +249,17 @@ class RoutingEngine:
             theta, ainv = self.adaptive.posterior()
             alpha = float(self.adaptive.alpha)
             ad_w = self.adaptive_weight
-        lpen = None
-        if self.load is not None and self.load_weight != 0.0:
-            self.load.ensure(n)
-            # a tracker pre-sized for growth may carry more arms
-            lpen = self.load_weight * self.load.penalty()[:n]
-        return theta, ainv, alpha, ad_w, lpen
+        return theta, ainv, alpha, ad_w, self._load_penalty(n)
+
+    def _load_penalty(self, n: int) -> Optional[np.ndarray]:
+        """(N,) load penalty at ``load_weight``, or None when off.  It
+        joins the blend at the candidate columns, exactly once; the kNN
+        selection stays pure cosine."""
+        if self.load is None or self.load_weight == 0.0:
+            return None
+        self.load.ensure(n)
+        # a tracker pre-sized for growth may carry more arms
+        return self.load_weight * self.load.penalty()[:n]
 
     def _prepare_batch(self, prefs_batch, sigs: Sequence[TaskSignature]):
         """(sigs, W (B, M), T (B, M), ti (B,), di (B,))."""
@@ -262,6 +295,14 @@ class RoutingEngine:
     def route_many_batch(self, prefs_batch,
                          sigs: Sequence[TaskSignature]) -> RoutingBatch:
         """Array-first batched routing: ONE routing program."""
+        if not self._fused_ok():
+            # fail loud: scoring a Thompson bandit with the program's
+            # LinUCB formula (or bypassing fused=False) would change
+            # routing for direct callers of this method
+            raise ValueError(
+                "engine configuration is not fusable (Thompson-policy "
+                "bandit or fused=False) — use route_many / "
+                "route_many_staged")
         sigs, W, T, ti, di = self._prepare_batch(prefs_batch, sigs)
         if len(sigs) == 0:
             return _empty_batch(False)
@@ -275,7 +316,7 @@ class RoutingEngine:
             emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, k=k, r=r,
             fb=fb, fb_weight=self.feedback_weight, theta=theta, ainv=ainv,
             alpha=alpha, ad_weight=ad_w, lpen=lpen, quant=self.quantize,
-            device=self.device)
+            device=self.device, telemetry=self.telemetry, tracer=self.tracer)
         return RoutingBatch(
             names=names, model_idx=out["model_idx"], score=out["score"],
             stage=out["stage"], similarity=out["similarity"],
@@ -290,6 +331,10 @@ class RoutingEngine:
         analyzer's (B, L) token ids (``TaskAnalyzer.encode_batch``) and
         its encoder ``params`` to model choices.  The returned batch
         carries the analyzer outputs (signatures materialize lazily)."""
+        if not self._fused_ok():
+            raise ValueError(
+                "engine configuration is not fusable (Thompson-policy "
+                "bandit or fused=False) — analyze + route_many_staged")
         tokens = np.asarray(tokens, np.int32)
         B = tokens.shape[0]
         prefs_list = resolve_batch(prefs_batch, B)
@@ -312,7 +357,7 @@ class RoutingEngine:
             use_complexity=self.use_complexity, fb_table=fb_table,
             fb_weight=self.feedback_weight, theta=theta, ainv=ainv,
             alpha=alpha, ad_weight=ad_w, lpen=lpen, quant=self.quantize,
-            device=self.device)
+            device=self.device, telemetry=self.telemetry, tracer=self.tracer)
         return RoutingBatch(
             names=names, model_idx=out["model_idx"], score=out["score"],
             stage=out["stage"], similarity=out["similarity"],
@@ -321,3 +366,118 @@ class RoutingEngine:
             n_candidates=out["n_candidates"], catalog_n=n, knn_k=k, r=r,
             tt_idx=out["tt_idx"], dm_idx=out["dm_idx"], cx=out["cx"],
             conf=out["conf"])
+
+    # ------------------------------------------------------------------
+    def _knn_batch(self, T: np.ndarray, k: int, ti: np.ndarray,
+                   di: np.ndarray, snap) -> Tuple[np.ndarray, np.ndarray]:
+        """Mask-fused batched kNN: (vals (B, k), idx (B, k)), one
+        ``router_topk`` launch (``ops.knn_rows``: each query reads its
+        (task type, domain) row of the stacked filter table on the
+        device).  Rows failing the filters surface as vals == -inf;
+        the kNN is fp32 whatever ``quantize`` says, as in the
+        reference."""
+        emb, _, tt_matrix, dm_matrix, gmask, _ = snap
+        return ops.knn_rows(emb, tt_matrix, dm_matrix, gmask, T, ti, di,
+                            k=k, device=self.device)
+
+    def route_many_staged(self, prefs_batch, sigs: Sequence[TaskSignature]
+                          ) -> List[RoutingDecision]:
+        """Staged path (the reference's pre-fusion semantics): the kNN
+        on the device, then the candidate blend, the bandit scores at
+        the union of candidate columns (cost ~ B*k, not N), the load
+        penalty and the fallback ladder in host numpy, with eager
+        decision objects.  Serves configurations the fused program
+        cannot express (a Thompson bandit) and is the oracle the fused
+        path is held against."""
+        sigs, W, T, ti, di = self._prepare_batch(prefs_batch, sigs)
+        B = len(sigs)
+        if B == 0:
+            return []
+        snap, n, k, r = self._snapshot()
+        emb, names, tt_matrix, dm_matrix, gmask, _ = snap
+        adaptive_on = (self.adaptive is not None
+                       and self.adaptive_weight != 0.0)
+        if adaptive_on:
+            self.adaptive.ensure(n)
+        lpen = self._load_penalty(n)
+        vals, idx = self._knn_batch(T, k, ti, di, snap)
+        finite = np.isfinite(vals) & (idx >= 0)
+        idx = np.where(finite, idx, 0)        # safe gather index
+        has_primary = finite.any(axis=1)
+
+        cscores = np.einsum("bm,bkm->bk", W, emb[idx])            # (B, k)
+        if self.feedback is not None:
+            cscores = cscores + self.feedback_weight * \
+                self.feedback.bias_for(sigs, names, idx)
+        if adaptive_on:
+            # bandit scores only at the union of candidate columns; a
+            # Thompson bandit draws one posterior sample per column, so
+            # the union's sorted order fixes its random stream
+            cols, inv = np.unique(idx, return_inverse=True)
+            asub = self.adaptive.scores_at(T, cols)               # (B, C)
+            cscores = cscores + self.adaptive_weight * \
+                np.take_along_axis(asub, inv.reshape(idx.shape), axis=1)
+        if lpen is not None:
+            cscores = cscores - lpen[idx]
+        cscores = np.where(finite, cscores, -np.inf)
+        order = np.argsort(-cscores, axis=1, kind="stable")       # (B, k)
+        knn_found = finite.sum(axis=1).tolist()
+
+        idx_s = np.take_along_axis(idx, order, axis=1).tolist()
+        sc_s = np.take_along_axis(cscores, order, axis=1).tolist()
+        fin_s = np.take_along_axis(finite, order, axis=1).tolist()
+        sim_s = np.take_along_axis(vals, order, axis=1)[:, 0].tolist()
+
+        out: List[Optional[RoutingDecision]] = [None] * B
+        for b in np.flatnonzero(has_primary):
+            ranked = [(names[j], s) for j, s, f in
+                      zip(idx_s[b], sc_s[b], fin_s[b]) if f]
+            out[b] = RoutingDecision(
+                model=names[idx_s[b][0]], score=sc_s[b][0],
+                task_vector=T[b], similarity=sim_s[b],
+                used_fallback=False, fallback_kind="",
+                candidates=ranked[:r],
+                stage_sizes={"catalog": n, "knn": k,
+                             "filtered": knn_found[b],
+                             "candidates": knn_found[b]})
+        # the ladder for rows whose kNN came up empty: widened-kNN (rows
+        # passing both filters; a safety net, since the fused search
+        # already saw them) -> task-type-only -> generalist -> any
+        for b in np.flatnonzero(~has_primary):
+            tt_b = tt_matrix[ti[b]]
+            bias_b = (self.feedback.bias(sigs[b], names)
+                      if self.feedback is not None else None)
+            out[b] = self._route_fallback(
+                b, emb, names, T, W, (tt_b & dm_matrix[di[b]], tt_b, gmask),
+                bias_b, adaptive_on, lpen, n, k, r)
+        return out                      # type: ignore[return-value]
+
+    def _route_fallback(self, b: int, emb, names, T, W, ladder, bias_row,
+                        adaptive_on: bool, lpen, n: int, k: int,
+                        r: int) -> RoutingDecision:
+        """Fallback ladder for one row whose kNN came up empty."""
+        for kind, mask in zip(FALLBACK_LADDER[1:], ladder):
+            if mask.any():
+                break
+        else:
+            kind, mask = FALLBACK_LADDER[-1], np.ones(n, bool)
+        cidx = np.flatnonzero(mask)
+        scores = emb[cidx] @ W[b]
+        if bias_row is not None:
+            scores = scores + self.feedback_weight * bias_row[cidx]
+        if adaptive_on:
+            scores = scores + self.adaptive_weight * \
+                self.adaptive.scores_at(T[b:b + 1], cidx)[0]
+        if lpen is not None:
+            scores = scores - lpen[cidx]
+        order = np.argsort(-scores, kind="stable")
+        best = int(cidx[order[0]])
+        return RoutingDecision(
+            model=names[best], score=float(scores[order[0]]),
+            task_vector=T[b],
+            similarity=float(cosine_sim(emb[best:best + 1], T[b])[0]),
+            candidates=[(names[int(cidx[j])], float(scores[j]))
+                        for j in order[:r]],
+            used_fallback=True, fallback_kind=kind,
+            stage_sizes={"catalog": n, "knn": k, "filtered": 0,
+                         "candidates": int(len(cidx))})

@@ -7,9 +7,18 @@ bucket and the catalog to its 128-aligned capacity (``q_bucket`` /
 the ones a captured CUDA graph per bucket will need), runs one program
 on ``device``, and hands host numpy arrays back sliced to the batch.
 
+``route_step``, ``analyze_step`` and ``analyze_route_step`` take the
+observability sinks of the reference's ops: ``telemetry`` (a
+``core.telemetry.Telemetry``) receives one dispatch per call and 0
+compiles (eager PyTorch compiles nothing; a captured CUDA graph per
+bucket will count as one), and ``tracer`` (an ``obs.Tracer``) wraps
+the launch and the host copy of its outputs in one span.  With
+neither attached the path and its launches are unchanged.
+
 Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
-On the card the route-step kNN, the cache lookup and the bandit update
-always launch their hand-written kernels; ``device="cpu"`` runs their
+On the card the route-step kNN, the staged path's kNN (``knn_rows``),
+the cache lookup and the bandit update always launch their
+hand-written kernels; ``device="cpu"`` runs their
 plain PyTorch versions.  The model-zoo ops at the end (``flash_attention``,
 ``flash_decode``, ``ssd_scan``, ``moe_gating``) take tensors and run
 where those tensors live: on the card their kernels, on the CPU the
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
                                               analyze_route_step_body,
                                               analyze_step_body)
@@ -288,6 +298,50 @@ def router_topk_bucketed(emb, queries, k: int, mask=None,
     return vals[:Q].cpu().numpy(), idx[:Q].cpu().numpy()
 
 
+def _unit_catalog(emb: np.ndarray, e2: torch.Tensor, np_pad: int,
+                  device: torch.device) -> torch.Tensor:
+    """(Np, M) unit rows of the packed catalog's raw half, normalized as
+    ``router_topk`` normalizes a catalog (``unit_rows``), cached per
+    catalog snapshot beside the pack."""
+    key = (id(emb), "unit", np_pad, str(device))
+    packed = _cache_lookup(key)
+    if packed is not None:
+        return packed
+    M = e2.shape[1] // 2
+    packed = unit_rows(e2[:, M:]).contiguous()
+    _cache_put(key, emb, packed)
+    return packed
+
+
+def knn_rows(emb, tt_matrix, dm_matrix, gmask, T, ti, di, *, k: int,
+             device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """The staged routing path's mask-fused cosine kNN: ONE
+    ``router_topk`` launch per batch.
+
+    Each query's filter is its (task type ``ti``, domain ``di``) row of
+    the stacked table ``route_step`` already holds on the device
+    (``_mask_table``: row ``ti * n_dm + di``), so no (B, N) mask is
+    built or copied; the catalog's unit rows are cached per snapshot.
+    Equal bit for bit to ``router_topk(emb, T, k,
+    mask=tt_matrix[ti] & dm_matrix[di])``.  Returns host (vals (B, k)
+    f32, idx (B, k) i32); rows failing the filters come back -inf."""
+    dev = resolve_device(device)
+    emb = np.asarray(emb, np.float32)
+    n = emb.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"knn_rows needs 1 <= k <= n: {(k, n)}")
+    np_pad = n_bucket(n)
+    e2, _, masks, _ = _catalog_pack(emb, tt_matrix, dm_matrix, gmask,
+                                    np_pad, quant=False, device=dev)
+    embn = _unit_catalog(emb, e2, np_pad, dev)
+    n_dm = np.asarray(dm_matrix).shape[0]
+    rows = np.asarray(ti, np.int64) * n_dm + np.asarray(di, np.int64)
+    qn = unit_rows(_to(T, dev)).contiguous()
+    vals, idx = _topk_kernel(qn, embn, masks, _to(rows, dev, torch.int32),
+                             k)
+    return vals.cpu().numpy(), idx.cpu().numpy()
+
+
 # ----------------------------------------------------------------------
 # route_step: the dense single-device routing program
 # ----------------------------------------------------------------------
@@ -297,12 +351,15 @@ def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
                fb_weight: float = 0.0, theta: Optional[np.ndarray] = None,
                ainv: Optional[np.ndarray] = None, alpha: float = 0.0,
                ad_weight: float = 0.0, lpen: Optional[np.ndarray] = None,
-               quant: bool = False, device=None) -> dict:
+               quant: bool = False, device=None, telemetry=None,
+               tracer=None) -> dict:
     """One routing step per batch (see ``kernels/route_step.py``).
 
     Pads the batch to its Q bucket (bucket rows take the trailing
     all-True filter rows) and the catalog to its capacity, runs the
     program on ``device``, returns host numpy outputs sliced to B.
+    ``tracer`` wraps the launch and the host copy in a ``route_step``
+    span (``path="dense"``); ``telemetry`` counts one dispatch.
     """
     dev = resolve_device(device)
     emb = np.asarray(emb, np.float32)
@@ -332,12 +389,20 @@ def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
                          ((0, qpad), (0, np_pad - n))), dev)
     thp, aip, lpp, params = _blend_operands(
         n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
-    out = route_step_body(e2, e2s, masks, counts, _to(T, dev), _to(W, dev),
-                          _to(ti, dev, torch.int64), _to(di, dev, torch.int64),
-                          fbp, thp, aip, lpp, params, k=k, r=r, n_tt=n_tt,
-                          n_dm=n_dm, quant=quant)
+    span = tracer.span("route_step", path="dense", batch=B, q_bucket=qp,
+                       n_bucket=np_pad, catalog_n=n, quant=quant,
+                       shards=1) if tracer is not None else NOOP_SPAN
+    with span:
+        out = route_step_body(
+            e2, e2s, masks, counts, _to(T, dev), _to(W, dev),
+            _to(ti, dev, torch.int64), _to(di, dev, torch.int64), fbp, thp,
+            aip, lpp, params, k=k, r=r, n_tt=n_tt, n_dm=n_dm, quant=quant)
+        out = _host(out, B)
+        span.set(compiles=0)
     _bump("route_step")
-    return _host(out, B)
+    if telemetry is not None:
+        telemetry.record_route_step(dispatches=1, compiles=0)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -358,14 +423,26 @@ def _encoder_tokens(encoder: AnalyzerEncoder, tokens, dev: torch.device):
     return _to(tokens, dev, torch.int64), B, qp
 
 
-def analyze_step(encoder: AnalyzerEncoder, tokens, *, device=None) -> dict:
-    """Bucketed analyzer run: host ``{tt_idx, dm_idx, cx, conf}``."""
+def analyze_step(encoder: AnalyzerEncoder, tokens, *, device=None,
+                 telemetry=None, tracer=None) -> dict:
+    """Bucketed analyzer run: host ``{tt_idx, dm_idx, cx, conf}``.
+    ``tracer`` wraps it in an ``analyze_step`` span (``path="analyze"``,
+    the token axis as ``n_bucket``); ``telemetry`` counts one analyzer
+    dispatch."""
     dev = resolve_device(device)
-    toks, B, _ = _encoder_tokens(encoder, tokens, dev)
-    with torch.no_grad():
-        out = analyze_step_body(encoder, toks)
+    toks, B, qp = _encoder_tokens(encoder, tokens, dev)
+    span = tracer.span("analyze_step", path="analyze", batch=B,
+                       q_bucket=qp, n_bucket=int(toks.shape[1]),
+                       quant=encoder.quantized, shards=1) \
+        if tracer is not None else NOOP_SPAN
+    with span:
+        with torch.no_grad():
+            out = _host(analyze_step_body(encoder, toks), B)
+        span.set(compiles=0)
     _bump("analyze_step")
-    return _host(out, B)
+    if telemetry is not None:
+        telemetry.record_analyze_step(dispatches=1, compiles=0)
+    return out
 
 
 def analyze_route_step(encoder: AnalyzerEncoder, tokens, emb, tt_matrix,
@@ -377,13 +454,16 @@ def analyze_route_step(encoder: AnalyzerEncoder, tokens, emb, tt_matrix,
                        ainv: Optional[np.ndarray] = None,
                        alpha: float = 0.0, ad_weight: float = 0.0,
                        lpen: Optional[np.ndarray] = None,
-                       quant: bool = False, device=None) -> dict:
+                       quant: bool = False, device=None, telemetry=None,
+                       tracer=None) -> dict:
     """ONE program from token ids to model choice per batch (see
     ``kernels/analyze_step.py``).  tokens (B, L) pad to the Q bucket
     with all-PAD rows, W (B, M) with zero rows; ``fb_table`` is
     ``FeedbackStore.bias_table(names)``.  Returns host numpy
     ``route_step`` outputs plus ``tt_idx``/``dm_idx``/``cx``/``conf``/
-    ``task_vectors`` sliced to B."""
+    ``task_vectors`` sliced to B.  The one program feeds both counter
+    families of ``telemetry`` and one ``route_step`` span
+    (``path="fused"``, with ``analyzer_quant``)."""
     dev = resolve_device(device)
     emb = np.asarray(emb, np.float32)
     n = emb.shape[0]
@@ -402,15 +482,26 @@ def analyze_route_step(encoder: AnalyzerEncoder, tokens, emb, tt_matrix,
         else None
     thp, aip, lpp, params = _blend_operands(
         n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
-    with torch.no_grad():
-        out = analyze_route_step_body(
-            encoder, toks, _to(W, dev), float(threshold), fbt, e2, e2s,
-            masks, counts, thp, aip, lpp, params, acc_col=int(acc_col),
-            use_complexity=bool(use_complexity), fb_buckets=int(fb_buckets),
-            k=k, r=r, n_tt=n_tt, n_dm=n_dm, quant=quant)
+    span = tracer.span("route_step", path="fused", batch=B, q_bucket=qp,
+                       n_bucket=np_pad, catalog_n=n, quant=quant,
+                       analyzer_quant=encoder.quantized, shards=1) \
+        if tracer is not None else NOOP_SPAN
+    with span:
+        with torch.no_grad():
+            out = analyze_route_step_body(
+                encoder, toks, _to(W, dev), float(threshold), fbt, e2, e2s,
+                masks, counts, thp, aip, lpp, params, acc_col=int(acc_col),
+                use_complexity=bool(use_complexity),
+                fb_buckets=int(fb_buckets), k=k, r=r, n_tt=n_tt, n_dm=n_dm,
+                quant=quant)
+        out = _host(out, B)
+        span.set(compiles=0)
     _bump("route_step")
     _bump("analyze_step")
-    return _host(out, B)
+    if telemetry is not None:
+        telemetry.record_route_step(dispatches=1, compiles=0)
+        telemetry.record_analyze_step(dispatches=1, compiles=0)
+    return out
 
 
 # ----------------------------------------------------------------------

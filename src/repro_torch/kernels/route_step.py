@@ -48,14 +48,18 @@ def quantize_rows(x: torch.Tensor):
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:
     """``x / (|x| + 1e-9)`` per row, with the squared norm summed left to
-    right in separate multiply and add passes: the card and the CPU give
-    the same bits.  The int8 paths re-quantize these rows, and one ulp
-    of difference can move a value across a rounding boundary and change
-    a query's whole kNN set."""
+    right in separate multiply and add passes and its square root taken
+    in f64: the card and the CPU give the same bits.  (PyTorch's f32
+    ``sqrt`` on the card is not correctly rounded; the f64 root rounded
+    to f32 is, since 53 >= 2 * 24 + 2 bits.)  The int8 paths re-quantize
+    these rows, and one ulp of difference can move a value across a
+    rounding boundary and change a query's whole kNN set; a Thompson
+    bandit's draws follow the kNN sets."""
     ss = x[:, 0] * x[:, 0]
     for d in range(1, x.shape[1]):
         ss = ss + x[:, d] * x[:, d]
-    return x / (torch.sqrt(ss)[:, None] + 1e-9)
+    norm = torch.sqrt(ss.double()).float()
+    return x / (norm[:, None] + 1e-9)
 
 
 def _ladder(counts_table, ti, di, n_tt: int, n_dm: int):

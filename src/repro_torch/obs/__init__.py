@@ -1,0 +1,27 @@
+"""Observability layer: tracing, bounded metrics, export, SLOs.
+
+Port of the JAX package's ``obs`` (which imports nothing of JAX; the
+port keeps its own copies, with plain ``threading.Lock`` locks):
+
+* ``trace``   — nestable span tracer threaded through the serving path
+* ``metrics`` — fixed-memory counters / gauges / log histograms
+* ``export``  — Prometheus text exposition (+ /metrics endpoint)
+* ``slo``     — declarative SLO rules with burn-rate breach detection
+
+The reference's ``profile`` (XLA ``cost_analysis``) has no counterpart
+yet (ROADMAP.md, Queue 1, item 12).
+"""
+from .export import (MetricsServer, metrics_from_prom, parse_prom_text,
+                     prometheus_text, serve_metrics, write_prom)
+from .metrics import Counter, Gauge, LogHistogram
+from .slo import (SLOEvaluator, SLORule, Verdict, evaluate_rules,
+                  parse_rule, parse_rules)
+from .trace import NOOP_SPAN, Span, Tracer
+
+__all__ = [
+    "Counter", "Gauge", "LogHistogram", "MetricsServer", "NOOP_SPAN",
+    "SLOEvaluator", "SLORule", "Span", "Tracer", "Verdict",
+    "evaluate_rules", "metrics_from_prom", "parse_prom_text",
+    "parse_rule", "parse_rules", "prometheus_text", "serve_metrics",
+    "write_prom",
+]

@@ -6,8 +6,9 @@ each row's live count, the ring decode and hymba's group of 5; two
 decode launches bit-equal; the scan at hymba's H = 50, N = 16, past one
 64 x 128 tile and past 65,535 batches x chunks; the one-launch MoE gate
 over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
-min_score and catalog order), and generation on the card against the
-same seeded model on the CPU.  They import neither JAX nor the JAX
+min_score and catalog order; the staged kNN's filter-row launch against
+the dense-mask call; staged routing, LinUCB and Thompson), and
+generation on the card against the same seeded model on the CPU.  They import neither JAX nor the JAX
 package, so they run on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -603,6 +604,75 @@ def test_router_topk_kernels_bit_equal_to_plain(cuda, N, D, k):
                 assert torch.equal(got[1].cpu()[fin], want[1][fin])
                 assert (got[1].cpu()[~fin] == -1).all()
                 assert not fin[1:3].any()
+
+
+@pytest.mark.parametrize("B,N,k", [(1, 200, 8), (256, 100_000, 8),
+                                   (37, 4099, 16)])
+def test_staged_knn_rows_on_card_match_dense_mask_and_cpu(cuda, B, N, k):
+    """The staged path's kNN (one launch reading each query's filter
+    row) against the dense (B, N) mask call on the card and against
+    its CPU run, values bit for bit, indices where finite."""
+    rng = np.random.default_rng(B + N)
+    emb = rng.random((N, 8)).astype(np.float32)
+    tt = np.vstack([rng.random((11, N)) < 0.1, np.ones((1, N), bool)])
+    dm = np.vstack([rng.random((6, N)) < 0.2, np.ones((1, N), bool)])
+    tt[:2] = False
+    gmask = rng.random(N) < 0.05
+    T = rng.random((B, 8)).astype(np.float32)
+    ti, di = rng.integers(0, 12, B), rng.integers(0, 7, B)
+    got = OPS.knn_rows(emb, tt, dm, gmask, T, ti, di, k=k, device=cuda)
+    cpu = OPS.knn_rows(emb, tt, dm, gmask, T, ti, di, k=k, device="cpu")
+    dense = [x.cpu().numpy() for x in OPS.router_topk(
+        emb, T, k, mask=tt[ti] & dm[di], device=cuda)]
+    fin = np.isfinite(cpu[0])
+    for want in (cpu, dense):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1][fin], want[1][fin])
+
+
+@pytest.mark.parametrize("policy", ["linucb", "thompson"])
+def test_staged_routing_on_card_matches_cpu(cuda, policy):
+    """``route_many_staged`` on the card and on the CPU over one seeded
+    catalog and bandit (Thompson: the same draws), decisions equal up to
+    a tie within 1e-5."""
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.core.mres import MRES, ModelEntry
+    from repro_torch.core.preferences import (DOMAINS, METRICS, TASK_TYPES,
+                                              TaskSignature)
+    from repro_torch.core.routing import RoutingEngine
+
+    rng = np.random.default_rng(3)
+    n = 5000
+    entries = [ModelEntry(
+        name=f"m{i}", raw_metrics={m: float(rng.random()) for m in (
+            "accuracy", "helpfulness", "harmlessness", "honesty",
+            "steerability", "creativity")} | {
+            "latency_ms": float(rng.random() * 500 + 1),
+            "cost_per_mtok": float(rng.random() * 20 + 0.1)},
+        task_types=tuple(rng.choice(TASK_TYPES, 2, replace=False)),
+        domains=(str(rng.choice(DOMAINS)),),
+        generalist=bool(rng.random() < 0.05)) for i in range(n)]
+    mres = MRES()
+    mres.register_many(entries)
+    sigs = [TaskSignature(task_type=str(rng.choice(TASK_TYPES)),
+                          domain=str(rng.choice(DOMAINS)),
+                          complexity=float(rng.random()),
+                          confidence=float(rng.random()))
+            for _ in range(64)]
+    X = rng.random((64, len(METRICS))).astype(np.float32)
+    ch, r = rng.integers(0, n, 64), rng.random(64).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        bandit = LinearBandit(n, policy=policy, seed=5, device=dev)
+        bandit.update(X, ch, r)
+        eng = RoutingEngine(mres, adaptive=bandit, adaptive_weight=1.0,
+                            fused=False, device=dev)
+        out.append(eng.route_many("balanced", sigs))
+    for a, b in zip(out[1], out[0]):
+        assert a.fallback_kind == b.fallback_kind
+        assert abs(a.score - b.score) <= 1e-5
+        c = a.candidates
+        assert a.model == b.model or c[0][1] - c[1][1] <= 1e-5
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",

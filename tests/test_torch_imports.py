@@ -49,6 +49,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan\n"
         "import repro_torch.kernels.moe_gating\n"
+        "import repro_torch.obs, repro_torch.core.telemetry\n"
+        "import repro_torch.checkpoint\n"
         "from repro_torch.configs import ARCH_NAMES, get_config\n"
         "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"

@@ -62,7 +62,7 @@ def _entries(n, seed):
     return out
 
 
-def _systems(n, quant):
+def _systems(n, quant, policy="linucb"):
     spec = _entries(n, seed=1)
     jm, tm = JMRES(), TMRES()
     jm.register_many([JEntry(**dict(e, raw_metrics=dict(e["raw_metrics"])))
@@ -74,13 +74,15 @@ def _systems(n, quant):
         jax.tree_util.tree_map(np.asarray, ja.params)))
     jr = JOptiRoute(
         jm, ja, use_kernel=True,
-        adaptive=JBandit(n, use_kernel=True, kernel_min_n=1),
+        adaptive=JBandit(n, policy=policy, seed=3, use_kernel=True,
+                         kernel_min_n=1),
         adaptive_weight=1.0, load=JLoad(n), load_weight=0.5,
         cache=JCache(capacity=32, min_quality=0.0, use_kernel=True,
                      kernel_min_n=1, quantize=quant))
     jr.engine._kernel_min_n = 1
     tr = TOptiRoute(
-        tm, ta, adaptive=TBandit(n, device="cpu"), adaptive_weight=1.0,
+        tm, ta, adaptive=TBandit(n, policy=policy, seed=3, device="cpu"),
+        adaptive_weight=1.0,
         load=TLoad(n), load_weight=0.5,
         cache=TCache(capacity=32, min_quality=0.0, quantize=quant,
                      device="cpu"), device="cpu")
@@ -102,15 +104,30 @@ def _batches(nb):
 
 def _tied(resp):
     rq = resp.rq
-    if rq is None or rq._batch is None:
+    if rq is None:
         return False
+    if rq._batch is None:               # staged: an eager decision
+        c = rq.decision.candidates
+        return len(c) > 1 and c[0][1] - c[1][1] <= 1e-5
     cs = rq._batch.cand_score[rq._bidx]
     return bool(np.isfinite(cs[:2]).all() and cs[0] - cs[1] <= 1e-5)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 def test_serving_sequence_matches_jax(quant):
-    (jm, je), (tm, te) = _systems(96, quant)
+    _serving_sequence(quant, "linucb")
+
+
+def test_thompson_serving_sequence_matches_jax():
+    """The same sequence with a Thompson-policy bandit: both packages
+    route on their staged paths (analyzer program, then one kNN launch
+    and host blending) and draw the same posterior samples from the
+    same seed."""
+    _serving_sequence(False, "thompson")
+
+
+def _serving_sequence(quant, policy):
+    (jm, je), (tm, te) = _systems(96, quant, policy)
     hits = 0
     for batch in _batches(12):
         jres = je.submit([JRequest(text=r.text, prefs=p, id=i,
@@ -141,11 +158,6 @@ def test_serving_sequence_matches_jax(quant):
                                       getattr(je.load, name))
     np.testing.assert_allclose(te.load.ewma_s, je.load.ewma_s, rtol=1e-6)
     assert len(te.cache) == len(je.cache)
-
-
-def test_thompson_bandit_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TBandit(16, policy="thompson", device="cpu")
 
 
 @pytest.mark.parametrize("B", [0, 7], ids=["empty", "batch"])
