@@ -91,7 +91,29 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      the MoE also the experts of every gate, tie-aware, with tokens
      dropped at its published capacity factor; the windowed models at
      prompt 72 with their windows set to 48, so the rings (48 slots,
-     roll shift 24) and gemma2's local masks bite.
+     roll shift 24) and gemma2's local masks bite;
+  7. ``serve_loop``, the service loop of ``repro_torch.launch.serve``:
+     ``TaskAnalyzer.train`` (250 steps) on the card and on the CPU from
+     one seeded init (first 20 losses within 1e-3 relative, accuracies
+     within 0.02, complexity MAE within 0.01; saved in the reference's
+     layout and loaded back bit-equal); the launcher's ``main`` at full
+     width on the six default configs in its four modes -- 48 requests
+     with 16 new tokens (none failed or shed, Prometheus text parsing
+     back), batch mode (one model, the CPU's route of the same
+     aggregate signature), ``--async`` (windows of at most 8, the load
+     tracker back at zero, three ``stream`` calls of 8 tokens) and
+     ``--soak 30`` (intake counters equal to the CPU run's, the flood
+     rate-limited, the quiet tenants not shed at intake); the
+     continuous batcher on llama3.2-1b, mamba2-1.3b and gemma2-2b at
+     full width and depth (4 slots, ctx 128, 12 requests, one ticking
+     at pos = C; exact launches), and at full width, 2 layers, f32
+     against the CPU batcher (tokens tie-aware); merging two
+     llama3.2-1b runners (the soup registered and chosen, a soup tensor
+     bit-equal to the CPU's, the soup generating) and a full-width
+     runner checkpoint round trip.  Its new kernel shapes (the
+     batcher's B=4 decode over 128 slots, its B=1 prefill and scan)
+     are rows of the ``kernels`` line with the launches of the
+     batcher's run.
 
 Each windowed kernel shape is a row of the ``kernels`` line, its
 launches those of its kind (``flash_kind``) on the phase that runs it:
@@ -2584,6 +2606,511 @@ def moe_card_vs_cpu(torch, dev, small: bool):
         f"choices made differently at a near-tie: {near or 'none'}")
 
 
+# ----------------------------------------------------------------------
+# serve_loop: the deployable service loop (launch/serve.py)
+# ----------------------------------------------------------------------
+
+SCAN_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SCAN_TPU = "src/repro/kernels/ssd_scan.py:75"
+BATCHER_ARCHS = ["llama3.2-1b", "mamba2-1.3b", "gemma2-2b"]
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
+    from repro_torch.kernels import router_topk as RT
+    from repro_torch.kernels import ssd_scan as SS
+    for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating,
+              RT.router_topk, RT.router_topk_q8):
+        f.launches = 0
+    FA.flash_attention.decode_launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
+    from repro_torch.kernels import router_topk as RT
+    from repro_torch.kernels import ssd_scan as SS
+    return {"router_topk": RT.router_topk.launches,
+            "flash_attention": FA.flash_attention.launches,
+            "flash_attention_decode": FA.flash_attention.decode_launches,
+            "ssd_scan": SS.ssd_scan.launches,
+            "moe_gating": MG.moe_gating.launches}
+
+
+def train_analyzers(torch, dev, small: bool, path: str):
+    """``TaskAnalyzer.train`` with ``load_analyzer``'s 250 steps on the
+    card and on the CPU from the same seeded init: the first 20 losses
+    within 1e-3 relative, the accuracies within 0.02 and the complexity
+    MAE within 0.01 (CUDA's embedding backward sums in another order:
+    tolerances, not bits).  The card's analyzer is saved at ``path`` in
+    the reference's layout and must load back bit-equal."""
+    from repro_torch.checkpoint import save
+    from repro_torch.core.analyzer import (AnalyzerConfig, TaskAnalyzer,
+                                           params_to_tree)
+    from repro_torch.launch.serve import load_analyzer
+
+    kw = dict(steps=60, n_samples=1024) if small else dict(steps=250)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        an = TaskAnalyzer(AnalyzerConfig(), seed=0, device=where)
+        t0 = time.perf_counter()
+        metrics = an.train(**kw)
+        wall = time.perf_counter() - t0
+        runs[where.type] = (an, metrics)
+        log(f"[serve_loop] analyzer trained on {where}: {kw['steps']} steps "
+            f"of batch 128 in {an.train_s:.2f} s ("
+            f"{kw['steps'] / an.train_s:.1f} steps/s; train() {wall:.2f} s "
+            f"with data and evaluate), final loss "
+            f"{an.train_losses[-1]:.4f}, {metrics}")
+    (an, mc), (cpu_an, mh) = runs[dev.type], runs["cpu"]
+    a, b = np.array(an.train_losses[:20]), np.array(cpu_an.train_losses[:20])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    check(rel <= 1e-3, f"analyzer losses of the first 20 steps differ by "
+                       f"{rel:.3g} relative (> 1e-3)")
+    for k, tol in (("task_type_acc", 0.02), ("domain_acc", 0.02),
+                   ("complexity_mae", 0.01)):
+        check(abs(mc[k] - mh[k]) <= tol,
+              f"analyzer {k}: card {mc[k]} vs CPU {mh[k]} (tol {tol})")
+    save(path, params_to_tree(an.state), {"metrics": mc})
+    back = load_analyzer(path, device=dev)
+    check(all(np.array_equal(back.state[k], v) for k, v in an.state.items()),
+          "analyzer checkpoint did not load back bit-equal")
+    log(f"[serve_loop] analyzer card vs CPU: first 20 losses within "
+        f"{rel:.3g} relative; saved in the reference's layout and loaded "
+        f"back bit-equal")
+    return an
+
+
+def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
+    """``repro_torch.launch.serve.main`` at full width in its four modes
+    (the default archs on the card), each run's responses checked, the
+    launch counts of its main path read, and the card's memory released
+    after each."""
+    import asyncio
+
+    from repro_torch.core.mres import MRES
+    from repro_torch.core.routing import RoutingEngine
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics_from_prom
+    from repro_torch.serving.async_engine import AsyncServingEngine
+    from repro_torch.serving.catalog import build_entry
+    from repro_torch.serving.engine import Request
+
+    base = ["--analyzer-ckpt", ckpt] + (["--device", "cpu"] if small else [])
+    n_req, max_new = (12, 4) if small else (48, 16)
+    soak = "5" if small else "30"
+    archs = serve.default_archs(dev)
+    seen = {}
+
+    def run(tag, *args):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve.main(base + list(args))
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        log(f"[serve_loop] launcher {tag}: served in {out['serve_s']:.3f} s "
+            f"({wall:.2f} s with the catalog build and analyzer load); "
+            f"launches {got}")
+        for k, v in got.items():
+            seen[k] = seen.get(k, 0) + v
+        return out, got
+
+    def served(resps, what):
+        for r in resps:
+            check(r.served and not r.failed and not r.shed,
+                  f"{what}: request {r.request.id} {r.admission} {r.error}")
+            check(r.tokens is not None and len(r.tokens) == max_new,
+                  f"{what}: request {r.request.id} tokens {r.tokens}")
+
+    def tracker_zero(engine, what):
+        load = engine.load
+        check(bool((load.queue == 0).all() and (load.inflight == 0).all()),
+              f"{what}: load tracker not back at zero ({load.queue}, "
+              f"{load.inflight})")
+
+    # -- flat stream, with metrics and trace out
+    prom, trace = f"{tmp}/metrics.prom", f"{tmp}/trace.jsonl"
+    out, got = run("flat stream", "--requests", str(n_req), "--max-new",
+                   str(max_new), "--metrics-out", prom, "--trace-out", trace)
+    served(out["responses"], "flat stream")
+    parsed = metrics_from_prom(Path(prom).read_text())
+    check(len(parsed) > 0, "flat stream: the Prometheus text parsed to nothing")
+    by_model = {}
+    for r in out["responses"]:
+        by_model[r.model] = by_model.get(r.model, 0) + 1
+    log(f"[serve_loop] flat stream: {len(out['responses'])} requests served "
+        f"per model {by_model}; {len(parsed)} Prometheus series parsed back; "
+        f"summary admissions {out['summary']['admissions']}")
+    if dev.type == "cuda":
+        check(got["router_topk"] >= 1 and got["flash_attention"] > 0,
+              f"flat stream: kernels not launched {got}")
+    del out
+    release(torch, dev, "after the launcher's flat stream")
+
+    # -- batch mode: one decision, equal to the CPU's route_batch fed
+    # the same aggregate of the sampled signatures
+    out, got = run("batch mode", "--mode", "batch", "--requests",
+                   str(n_req), "--max-new", str(max_new))
+    resps = out["responses"]
+    served(resps, "batch mode")
+    models = {r.model for r in resps}
+    check(len(models) == 1, f"batch mode served {models}")
+    agg, prefs = resps[0].sig, resps[0].request.prefs
+    cpu_mres = MRES()
+    for name in archs:
+        cpu_mres.register(build_entry(name))
+    cpu_d = RoutingEngine(cpu_mres, device="cpu").route(prefs, agg)
+    c = cpu_d.candidates
+    tie = len(c) > 1 and c[0][1] - c[1][1] <= 1e-5
+    check(cpu_d.model in models or tie,
+          f"batch mode: card chose {models}, the CPU {cpu_d.model}")
+    log(f"[serve_loop] batch mode: {len(resps)} requests, one model "
+        f"{models}, aggregate {agg}; the CPU's route of that aggregate: "
+        f"{cpu_d.model} (score {cpu_d.score:.6f})")
+    del out, resps
+    release(torch, dev, "after the launcher's batch mode")
+
+    # -- async front end, then a few streams on the same engine
+    out, got = run("async", "--async", "--requests", str(n_req),
+                   "--max-new", str(max_new))
+    served(out["responses"], "async")
+    check(len(out["responses"]) == n_req and sum(out["windows"]) == n_req
+          and max(out["windows"]) <= 8,
+          f"async windows {out['windows']} (max_batch 8)")
+    tracker_zero(out["engine"], "async")
+    aeng = AsyncServingEngine(out["engine"], stream_slots=4,
+                              stream_ctx_len=64)
+    streams = [Request(text=f"stream request {i} about a python bug " * 2,
+                       prefs="balanced", id=1000 + i, max_new=8)
+               for i in range(3)]
+
+    async def drive():
+        async def one(r):
+            return [t async for t in aeng.stream(r)]
+        async with aeng:
+            return await asyncio.gather(*(one(r) for r in streams))
+
+    toks = asyncio.run(drive())
+    check(all(len(t) == 8 for t in toks), f"streams yielded {toks}")
+    tracker_zero(out["engine"], "async streams")
+    log(f"[serve_loop] async: {n_req} requests in windows {out['windows']}; "
+        f"3 streams yielded {[len(t) for t in toks]} tokens")
+    del out, aeng
+    release(torch, dev, "after the launcher's async run")
+
+    # -- soak, on the card and on the CPU (MicroBatcher is clock-agnostic)
+    out, got = run(f"soak {soak}", "--soak", soak)
+    tracker_zero(out["engine"], "soak")
+    intake = out["intake"]
+    windows = out["windows"]
+    cpu = serve.main(["--analyzer-ckpt", ckpt, "--device", "cpu", "--soak",
+                      soak, "--archs", *archs])
+    check(intake == cpu["intake"], f"soak intake {intake} vs the CPU's "
+                                   f"{cpu['intake']}")
+    tracker_zero(cpu["engine"], "soak on the CPU")
+    check(intake["flood"]["rate_limited"] > 0, "flood was not rate-limited")
+    for t in ("acme", "globex"):
+        check(intake[t]["rate_limited"] == intake[t]["backlog_shed"] == 0,
+              f"quiet tenant {t} shed at intake: {intake[t]}")
+    failed = sum(k.get("failed", 0) for k in out["tally"].values())
+    check(failed == 0, f"soak: {failed} failed responses {out['tally']}")
+    log(f"[serve_loop] soak {soak} s: {len(windows)} windows (max "
+        f"{max(windows)}), tally {out['tally']}, intake {intake} (equal to "
+        f"the CPU run's)")
+    del out, cpu
+    release(torch, dev, "after the launcher's soak")
+    return seen
+
+
+def batcher_requests(vocab: int, seed: int):
+    """12 requests: prompts of 5-100 tokens, max_new 4-24, and one of 120
+    tokens that ``submit(truncate=True)`` clips to its limit (ctx - 23
+    with max_new 24), whose last tick decodes at pos = ctx."""
+    from repro_torch.serving.scheduler import SlotRequest
+    rng = np.random.default_rng(seed)
+    lens = [5, 100, 37, 64, 12, 88, 120, 23, 51, 9, 76, 30]
+    news = [4, 24, 9, 16, 20, 6, 24, 12, 4, 18, 8, 14]
+    return [SlotRequest(id=i, tokens=rng.integers(2, vocab, L).astype(
+        np.int32), max_new=m) for i, (L, m) in enumerate(zip(lens, news))]
+
+
+def run_batcher(torch, cfg, params, dev, ctx: int, seed: int, gaps=None):
+    """The 12 requests through a 4-slot ``ContinuousBatcher``; with
+    ``gaps`` (a dict), each request's top-2 logit gap at every kept
+    token is recorded there (prefill, then each decode tick)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.scheduler import ContinuousBatcher
+
+    cb = ContinuousBatcher(cfg, params, slots=4, ctx_len=ctx, device=dev)
+    reqs = batcher_requests(cfg.vocab_size, seed)
+    for r in reqs:
+        cb.submit(r, truncate=True)
+    orig_prefill, orig_decode = M.prefill, cb._decode
+
+    def gap(row):
+        """The top-2 logit gap over max(1, max |logit|)."""
+        top2 = torch.topk(row.float(), 2).values
+        return float(top2[0] - top2[1]) / max(1.0, float(row.abs().max()))
+    if gaps is not None:
+        def prefill(*a, **kw):
+            last, cache, pos = orig_prefill(*a, **kw)
+            req = cb.active[[i for i, r in enumerate(cb.active)
+                             if r is not None and r.slot == -1][0]]
+            gaps[req.id] = [gap(last[0])]
+            return last, cache, pos
+
+        def decode(params_, cache, batch):
+            logits, nxt, cache = orig_decode(params_, cache, batch)
+            for i, r in enumerate(cb.active):
+                if r is not None and len(r.out) + 1 < r.max_new:
+                    gaps[r.id].append(gap(logits[i]))
+            return logits, nxt, cache
+        M.prefill, cb._decode = prefill, decode
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        done = cb.run_until_drained()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        M.prefill = orig_prefill
+    return cb, reqs, done, wall
+
+
+def batcher_phase(torch, dev, small: bool, kernels, rows):
+    """The continuous batcher at full width and depth (4 slots, ctx 128,
+    12 requests) on llama3.2-1b, mamba2-1.3b and gemma2-2b: every request
+    gets max_new tokens, and the launches are exact (one flash_attention
+    decode per attention layer per tick, one prefill and one ssd_scan per
+    layer per admission).  Then full width, 2 layers, f32: the card's
+    tokens equal the CPU batcher's up to each request's first near-tie
+    on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.serving.runner import ModelRunner
+
+    ctx = 128
+    for i, name in enumerate(BATCHER_ARCHS):
+        cfg = get_smoke(name) if small else get_config(name)
+        runner = ModelRunner(cfg, seed=41 + i, device=dev)
+        run_batcher(torch, cfg, runner.params, dev, ctx, seed=3)   # warm-up
+        reset_launches()
+        cb, reqs, done, wall = run_batcher(torch, cfg, runner.params, dev,
+                                           ctx, seed=3)
+        got = read_launches()
+        check(len(done) == 12 and all(len(r.out) == r.max_new for r in done),
+              f"batcher {name}: {[(r.id, len(r.out)) for r in done]}")
+        check(len(reqs[6].tokens) == ctx - 23, "the clipped prompt")
+        check(int(cb.pos.max()) >= ctx, f"batcher {name}: no tick at pos = "
+                                        f"C ({cb.pos})")
+        n_attn = cfg.n_layers if cfg.has_attention else 0
+        want = {"flash_attention": n_attn * (cb.ticks + 12),
+                "flash_attention_decode": n_attn * cb.ticks,
+                "ssd_scan": cfg.n_layers * 12 if cfg.has_ssm else 0}
+        if dev.type == "cuda":
+            have = {k: got[k] for k in want}
+            check(have == want, f"batcher {name}: launches {have}, want "
+                                f"{want} ({cb.ticks} ticks, 12 admissions)")
+        toks = sum(r.max_new for r in done)
+        log(f"[serve_loop] batcher {name} ({cfg.n_layers} layers, "
+            f"{cfg.compute_dtype}): 12 requests through 4 slots of ctx {ctx} "
+            f"in {cb.ticks} ticks, {wall:.3f} s ({wall / cb.ticks * 1e3:.2f} "
+            f"ms a tick with its admissions, {toks / wall:.1f} tokens/s); "
+            f"launches {got}")
+        for key, kind in (("decode", "flash_attention_decode"),
+                          ("prefill", "flash_attention"),
+                          ("scan", "ssd_scan")):
+            row = rows.get((name, key))
+            if row is not None:
+                n = got[kind] - (got["flash_attention_decode"]
+                                 if key == "prefill" else 0)
+                check(n > 0 or dev.type != "cuda",
+                      f"batcher {name}: {key} never launched")
+                kernels[row["name"]] = dict(row, launches=n)
+        del runner, cb
+        release(torch, dev, f"after the batcher on {name}")
+    # full width, 2 layers, f32: card against CPU
+    for name in BATCHER_ARCHS:
+        base = get_smoke(name) if small else get_config(name)
+        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(13), "cpu")
+        gaps = {}
+        _, _, want, _ = run_batcher(torch, cfg, params, torch.device("cpu"),
+                                    ctx, seed=4, gaps=gaps)
+        _, _, got, _ = run_batcher(torch, cfg, params, dev, ctx, seed=4)
+        want = {r.id: r.out for r in want}
+        compared = 0
+        for r in got:
+            for j, (a, b) in enumerate(zip(r.out, want[r.id])):
+                if gaps[r.id][j] < 1e-3:
+                    break                        # near-tie on the CPU
+                check(a == b, f"batcher {name} request {r.id} token {j}: "
+                              f"card {a}, CPU {b}")
+                compared += 1
+        log(f"[serve_loop] batcher card vs CPU {name} (full width, 2 layers, "
+            f"f32): {compared} of {sum(len(o) for o in want.values())} "
+            f"tokens compared, all equal")
+        release(torch, dev, f"after the batcher's card vs CPU on {name}")
+
+
+def batcher_kernel_rows(torch, dev, small: bool):
+    """The kernel shapes new with the batcher, each against its plain
+    version and timed: flash_attention's joint decode over 4 slots of a
+    128-slot cache (live counts ragged, one slot idle at C) and its B = 1
+    prefill at a ragged prompt of 100 (llama3.2-1b), and ssd_scan at B =
+    1, L = 100 as served (mamba2-1.3b, bf16 strided views, no h0)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    llama = get_smoke("llama3.2-1b") if small else get_config("llama3.2-1b")
+    iters = 4 if small else 20
+    rows[("llama3.2-1b", "decode")] = window_attn_row(
+        torch, FA, g, dev, llama, 4, 1, 128, [128, 77, 106, 9],
+        dict(causal=False), "batcher decode B=4 C=128 (llama3.2-1b)", iters)
+    rows[("llama3.2-1b", "prefill")] = window_attn_row(
+        torch, FA, g, dev, llama, 1, 100, 100, None, dict(causal=True),
+        "batcher prefill B=1 L=100 (llama3.2-1b)", iters)
+    m = get_smoke("mamba2-1.3b") if small else get_config("mamba2-1.3b")
+    H, P, N, ch, L = m.ssm_heads, m.ssm_head_dim, m.ssm_state, m.ssm_chunk, 100
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+    xbc = rn(1, L, H * P + 2 * N, dt=torch.bfloat16)
+    dt = torch.rand(1, L, H, generator=g, device=dev) * 0.5
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    args = (xbc[..., :H * P].unflatten(-1, (H, P)), dt, A,
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:], None)
+    err = 0.0
+    for a, b in zip(SS.ssd_scan(*args, chunk=ch),
+                    SS.ssd_scan_plain(*args, chunk=ch)):
+        e = float((a - b).abs().max())
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        check(e <= tol, f"ssd_scan B=1 L={L}: max |err| {e} > {tol}")
+        err = max(err, e)
+    nb = (2 * (L * H * P + 2 * L * N) + 4 * L * H + 4 * H + 4 * L * H * P
+          + 4 * H * P * N)
+    bms, by = bound_ms(nb, ssd_ops(1, L, H, P, N, ch, False, False),
+                       PEAK_BF16_S)
+    rows[("mamba2-1.3b", "scan")] = dict(
+        name=f"ssd_scan batcher prefill B=1 L={L} (mamba2-1.3b)",
+        route="cuda", source=SCAN_SRC, replaces=SCAN_TPU, max_abs_err=err,
+        ms=time_graph_ms(torch, lambda: SS.ssd_scan(*args, chunk=ch), dev,
+                         iters=iters),
+        plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(*args, chunk=ch),
+                         dev, iters=max(2, iters // 4), warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    r = rows[("mamba2-1.3b", "scan")]
+    log(f"[serve_loop] {r['name']}: H={H} P={P} N={N} chunk {ch}: "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound {bms:.4g} by "
+        f"{by}, max err {err:.3g}; no single PyTorch call computes the scan")
+    return rows
+
+
+def merging_phase(torch, dev, small: bool, analyzer, tmp: str):
+    """Two llama3.2-1b runners at full width and depth (seeds 0 and 1) in
+    entries of complementary domains, ``merge_threshold=10.0``: the soup
+    registers and the route step sees N + 1 entries, one soup tensor has
+    the bits of the same soup on the CPU, the soup runner generates;
+    then one full-width runner saved, loaded back, the same tokens."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core.merging import soup
+    from repro_torch.core.mres import MRES, ModelEntry
+    from repro_torch.core.orchestrator import OptiRoute
+    from repro_torch.data.workload import make_workload
+    from repro_torch.serving.runner import ModelRunner
+
+    cfg = get_smoke("llama3.2-1b") if small else get_config("llama3.2-1b")
+    runners = [ModelRunner(cfg, seed=s, device=dev) for s in (0, 1)]
+    mres = MRES()
+    for name, acc, lat, dom, r in (("legal-weak", 0.4, 50, "legal",
+                                    runners[0]),
+                                   ("general-strong", 0.95, 40, "general",
+                                    runners[1])):
+        raw = {"accuracy": acc, "latency_ms": lat, "cost_per_mtok": 1.0,
+               **{m: 0.5 for m in ("helpfulness", "harmlessness", "honesty",
+                                   "steerability", "creativity")}}
+        mres.register(ModelEntry(name=name, raw_metrics=raw,
+                                 task_types=("summarization",),
+                                 domains=(dom,), family="dense",
+                                 n_params=cfg.n_params(), runner=r))
+    router = OptiRoute(mres, analyzer, merge_threshold=10.0, device=dev)
+    text = make_workload(1, seed=14, task_type="summarization",
+                         domain="legal")[0].text
+    t0 = time.perf_counter()
+    rq = router.route(text, "balanced")
+    merge_s = time.perf_counter() - t0
+    soups = [e for e in mres.entries if e.name.startswith("soup:")]
+    check(len(soups) == 1 and len(mres) == 3,
+          f"merging: entries {[e.name for e in mres.entries]} after "
+          f"routing {rq.sig} to {rq.model}")
+    check(rq.model == soups[0].name,
+          f"merging: the re-route chose {rq.model}, not the soup")
+    alpha = soups[0].meta["alpha"]
+    key = lambda p: p["layers"][0]["attn"]["wq"]
+    want = soup([{"w": key(r.params).cpu()} for r in runners],
+                [alpha, 1 - alpha])["w"]
+    got = key(soups[0].runner.params).cpu()
+    check(torch.equal(got, want), "merging: soup tensor differs from the CPU")
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    res = soups[0].runner.generate(toks, 8)
+    check(res.tokens.shape == (2, 8) and bool(
+        np.isfinite(res.logits_last).all()), "merging: soup generate")
+    log(f"[serve_loop] merging: {soups[0].name} registered (N 2 -> "
+        f"{len(mres)}), the re-route chose it; route + merge {merge_s:.2f} s "
+        f"(the soup of two {cfg.n_params() / 1e9:.2f}B-parameter "
+        f"{cfg.compute_dtype} runners on {dev}); its layers.0.wq equals the "
+        f"CPU soup bit for bit; it generated {res.tokens.shape}")
+    path = f"{tmp}/runner.npz"
+    want_toks = runners[1].generate(toks, 8).tokens
+    t0 = time.perf_counter()
+    runners[1].save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    back = ModelRunner.from_checkpoint(cfg, path, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(back.generate(toks, 8).tokens, want_toks),
+          "merging: a loaded runner generates other tokens")
+    log(f"[serve_loop] runner checkpoint ({cfg.name}, {cfg.n_layers} layers): "
+        f"{size / 1e9:.3f} GB, saved in {save_s:.2f} s, loaded onto {dev} in "
+        f"{load_s:.2f} s, the same tokens")
+    del runners, mres, router, soups, back
+    Path(path).unlink()
+
+
+def serve_loop_phase(torch, dev, small: bool, kernels):
+    """The service loop of ``repro_torch.launch.serve`` on the card:
+    analyzer training, the launcher in its four modes, the continuous
+    batcher, and merging with runner checkpoints."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/analyzer.npz"
+        analyzer = train_analyzers(torch, dev, small, ckpt)
+        seen = launcher_runs(torch, dev, small, ckpt, tmp)
+        if dev.type == "cuda":
+            for k in ("router_topk", "flash_attention", "ssd_scan"):
+                check(seen[k] > 0, f"launcher: {k} never launched ({seen})")
+        rows = batcher_kernel_rows(torch, dev, small)
+        batcher_phase(torch, dev, small, kernels, rows)
+        merging_phase(torch, dev, small, analyzer, tmp)
+    release(torch, dev, "after the serve_loop phase")
+    log(f"[serve_loop] phase time {time.perf_counter() - t0:.1f} s")
+
+
 def port_kernels() -> set:
     """The names of the kernels in the port's CUDA sources."""
     import re
@@ -2629,7 +3156,8 @@ def main() -> int:
                     help="comma-separated phases to run (kernels, serving, "
                          "router_paths, model_kernels, moe_kernels, window_kernels, "
                          "generate, moe_generate, generate_windowed, "
-                         "long_context, card_vs_cpu); prints no result, "
+                         "long_context, card_vs_cpu, serve_loop); prints "
+                         "no result, "
                          "exits 4")
     args = ap.parse_args()
     try:
@@ -2694,6 +3222,7 @@ def main() -> int:
             moe_card_vs_cpu(torch, dev, small),
             card_vs_cpu_phase(torch, dev, small, WINDOWED_ARCHS, prompt=72,
                               window=48)),
+        "serve_loop": lambda: serve_loop_phase(torch, dev, small, kernels),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = set(only) - set(phases)

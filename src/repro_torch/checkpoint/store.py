@@ -69,15 +69,20 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
     return finish(root)
 
 
-def save(path: str, tree: Any, metadata: Optional[Dict] = None) -> None:
-    """Atomic save of a tree (+ json metadata) to ``path`` (.npz)."""
+def save(path: str, tree: Any, metadata: Optional[Dict] = None, *,
+         compress: bool = True) -> None:
+    """Atomic save of a tree (+ json metadata) to ``path`` (.npz).
+    ``compress=False`` writes the arrays as they are (``np.load`` reads
+    both forms): model weights hardly compress, and zlib over gigabytes
+    takes minutes."""
     flat = _flatten(to_host(tree))
     p = pathlib.Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=p.parent, suffix=".tmp")
     os.close(fd)
+    write = np.savez_compressed if compress else np.savez
     try:
-        np.savez_compressed(tmp, __meta__=json.dumps(metadata or {}), **flat)
+        write(tmp, __meta__=json.dumps(metadata or {}), **flat)
         os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz"
                    if os.path.exists(tmp + ".npz") else tmp, p)
     finally:

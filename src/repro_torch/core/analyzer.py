@@ -7,24 +7,32 @@ the paper's two latency optimizations: long-query pruning (first-n +
 last-n words + a seeded sample of the middle) and int8 weights
 (symmetric per-output-channel).
 
-Training is not ported: weights come from a seeded numpy init
-(``init_analyzer_np``) or are carried over from the JAX package's
-params pytree with ``params_from_jax``.
+Weights come from a seeded numpy init (``init_analyzer_np``), from
+the JAX package's params pytree (``params_from_jax``; a checkpoint of
+either package holds that nested layout, ``params_to_tree``), or from
+``TaskAnalyzer.train``: the reference's instruction-tuning stand-in,
+AdamW on the synthetic query logs, on the analyzer's device.
 """
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.preferences import DOMAINS, TASK_TYPES, TaskSignature
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.data.workload import QueryRecord, make_workload
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.analyze_step import (GLOBAL_KEYS, LAYER_KEYS,
-                                              AnalyzerEncoder)
+                                              AnalyzerEncoder,
+                                              encoder_forward)
+from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                            init_opt_state)
 
 N_TT = len(TASK_TYPES)
 N_DM = len(DOMAINS)
@@ -146,7 +154,7 @@ def params_from_jax(tree) -> Dict:
     numpy arrays or ``(int8, scale)`` pairs from its ``quantize_int8``).
     The arrays are copied as numpy; nothing of JAX is imported."""
     def leaf(v):
-        if isinstance(v, tuple):
+        if isinstance(v, (tuple, list)):     # a checkpoint loads pairs
             return (np.asarray(v[0], np.int8), np.asarray(v[1], np.float32))
         return np.asarray(v, np.float32)
 
@@ -157,16 +165,55 @@ def params_from_jax(tree) -> Dict:
     return state
 
 
+def params_to_tree(state: Dict) -> Dict:
+    """The reference's nested params layout (``embed``, ``pos``,
+    ``layers: [...]``, ``ln_f``, ``head_*``) of a flat port state: what
+    ``checkpoint.save`` writes, so either package loads the other's
+    analyzer checkpoint."""
+    n_layers = len({k.split(".")[1] for k in state if k.startswith("layers.")})
+    tree = {name: state[name] for name in GLOBAL_KEYS}
+    tree["layers"] = [{name: state[f"layers.{i}.{name}"]
+                       for name in LAYER_KEYS} for i in range(n_layers)]
+    return tree
+
+
+# ----------------------------------------------------------------------
+# training (instruction-tuning stand-in)
+# ----------------------------------------------------------------------
+
+def _labels(records: Sequence[QueryRecord]) -> Dict[str, np.ndarray]:
+    return {
+        "tt": np.array([TASK_TYPES.index(r.sig.task_type) for r in records]),
+        "dm": np.array([DOMAINS.index(r.sig.domain) for r in records]),
+        "cx": np.array([r.sig.complexity for r in records], np.float32),
+    }
+
+
+def analyzer_loss(cfg, weights: Dict[str, torch.Tensor], tokens, labels):
+    """Cross-entropy of both heads plus 4 x the complexity MSE; returns
+    (total, (l_tt, l_dm, l_cx))."""
+    tt, dm, cx = encoder_forward(cfg, weights.__getitem__, tokens)
+    rows = torch.arange(tt.shape[0], device=tt.device)
+
+    def ce(lg, y):
+        return -torch.mean(torch.log_softmax(lg, dim=-1)[rows, y])
+    l_tt = ce(tt, labels["tt"])
+    l_dm = ce(dm, labels["dm"])
+    l_cx = torch.mean((cx - labels["cx"]) ** 2)
+    return l_tt + l_dm + 4.0 * l_cx, (l_tt, l_dm, l_cx)
+
+
 # ----------------------------------------------------------------------
 # inference
 # ----------------------------------------------------------------------
 
 class TaskAnalyzer:
-    """The task analyzer, inference only.
+    """The task analyzer.
 
     ``params`` is the ``AnalyzerEncoder`` on ``device``; ``state`` (a
     flat weight dict, see ``params_from_jax``) replaces the seeded
-    init."""
+    init.  ``train`` updates both; ``train_losses`` holds the last
+    run's loss per step and ``train_s`` its step loop's seconds."""
 
     # marker the orchestrator checks before fusing analyze into the
     # routing program (stub analyzers lack params/cfg)
@@ -184,6 +231,73 @@ class TaskAnalyzer:
         # of the analyzer program; OptiRoute hands down its own
         self.telemetry = None
         self.tracer = None
+        self.train_losses: List[float] = []
+        self.train_s = 0.0
+
+    # -------------------------- training --------------------------
+    def train(self, n_samples: int = 4096, steps: int = 300,
+              batch_size: int = 128, seed: int = 0, lr: float = 3e-3,
+              log_every: int = 0, long_frac: float = 0.3
+              ) -> Dict[str, float]:
+        """The reference's training run on this analyzer's device:
+        ``n_samples`` workload records (``long_frac`` of them inflated
+        past the pruning budget), ``steps`` AdamW steps (warmup 20,
+        decay 0.01) on batches drawn with ``default_rng(seed).integers``
+        as there.  Returns ``evaluate(seed=seed + 1)``."""
+        if self.params.quantized:
+            raise ValueError("train needs f32 weights; quantize() after "
+                             "training")
+        dev = self.device
+        records = make_workload(n_samples, seed=seed, long_frac=long_frac)
+        toks = torch.as_tensor(self.encode_batch([r.text for r in records]),
+                               device=dev)
+        labels = {k: torch.as_tensor(v, device=dev)
+                  for k, v in _labels(records).items()}
+        opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, weight_decay=0.01)
+        weights = {k: torch.tensor(v, device=dev)
+                   for k, v in self.state.items()}
+        opt = init_opt_state(weights)
+        rng = np.random.default_rng(seed)
+        self.train_losses = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            sel = torch.as_tensor(rng.integers(0, n_samples, batch_size),
+                                  device=dev)
+            for w in weights.values():
+                w.requires_grad_(True)
+            tot, _ = analyzer_loss(self.cfg, weights, toks[sel],
+                                   {k: v[sel] for k, v in labels.items()})
+            grads = dict(zip(weights, torch.autograd.grad(
+                tot, list(weights.values()))))
+            weights, opt, _ = adamw_update(grads, opt, weights, opt_cfg)
+            self.train_losses.append(float(tot.detach()))
+            if log_every and i % log_every == 0:
+                print(f"[analyzer] step {i} loss {self.train_losses[-1]:.4f}")
+        # the loop's host time; each step ends reading its loss (a sync)
+        self.train_s = time.perf_counter() - t0
+        self.state = {k: w.detach().cpu().numpy() for k, w in weights.items()}
+        self.params = AnalyzerEncoder(self.cfg, self.state).to(dev)
+        return self.evaluate(seed=seed + 1)
+
+    @torch.no_grad()
+    def evaluate(self, n: int = 512, seed: int = 1) -> Dict[str, float]:
+        """Head accuracies and the complexity MAE on ``n`` fresh
+        workload records."""
+        records = make_workload(n, seed=seed)
+        toks = torch.as_tensor(self.encode_batch([r.text for r in records]),
+                               device=self.device)
+        labels = _labels(records)
+        tt, dm, cx = self.params(toks)
+        return {
+            "task_type_acc": float(np.mean(
+                tt.argmax(dim=1).cpu().numpy() == labels["tt"])),
+            "domain_acc": float(np.mean(
+                dm.argmax(dim=1).cpu().numpy() == labels["dm"])),
+            "complexity_mae": float(np.mean(np.abs(
+                cx.cpu().numpy() - labels["cx"]))),
+        }
+
+    # -------------------------- inference --------------------------
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         """Prune + tokenize: (B, max_len) int32 token ids."""

@@ -1,13 +1,19 @@
-"""OptiRoute end-to-end orchestrator (paper Fig 1, §3), batched
-per-query mode.
+"""OptiRoute end-to-end orchestrator (paper Fig 1, §3).
 
 User preferences -> Task Analyzer -> Routing Engine over the MRES ->
-feedback / bandit loop.  ``route_all`` analyzes and routes a whole
-request batch.  With a ``TaskAnalyzer`` attached and a fusable engine
-that is ONE program from token ids to model choices
-(``RoutingEngine.route_tokens_batch``); otherwise the analyzer's
-signatures feed ``route_many_batch``, or ``route_many`` (the staged
-path) when the engine cannot fuse (a Thompson bandit, ``fused=False``).
+(optional) model-merging fallback -> execution -> feedback / bandit
+loop.  Two modes:
+
+  * batched per-query (``route_all``, the serving engine's default):
+    every query gets its own signature and decision.  With a
+    ``TaskAnalyzer`` attached and a fusable engine that is ONE program
+    from token ids to model choices (``RoutingEngine.route_tokens_batch``);
+    otherwise the analyzer's signatures feed ``route_many_batch``, or
+    ``route_many`` (the staged path) when the engine cannot fuse (a
+    Thompson bandit, ``fused=False``) or a merger is attached (it needs
+    eager scores and may grow the catalog mid-pass);
+  * batch (``route_batch``): a ~2% sample of the batch is analyzed and
+    the aggregate signature routes the WHOLE batch to one model.
 
 ``telemetry`` (``core.telemetry.Telemetry``) records one route event
 per query and the programs' dispatch counts; ``tracer`` (``obs.Tracer``)
@@ -18,15 +24,16 @@ an attached ``TaskAnalyzer``.
 from __future__ import annotations
 
 import time
-from typing import Any, List, Optional, Sequence
+from collections import Counter
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.feedback import FeedbackStore
+from repro_torch.core.merging import ModelMerger
 from repro_torch.core.mres import MRES
 from repro_torch.core.preferences import TaskSignature, resolve_batch
-from repro_torch.core.routing import (RoutingDecision, RoutingEngine,
-                                      not_ported)
+from repro_torch.core.routing import RoutingDecision, RoutingEngine
 from repro_torch.obs.trace import NOOP_SPAN
 
 
@@ -97,18 +104,19 @@ class RoutedQuery:
 
 
 class OptiRoute:
-    """The deployable facade: ``route`` / ``route_all`` / ``observe`` /
-    ``give_feedback``."""
+    """The deployable facade: ``route`` / ``route_all`` /
+    ``route_batch`` / ``serve`` / ``observe`` / ``give_feedback``.
+    ``merge_threshold`` attaches a ``ModelMerger``: queries whose best
+    score falls below it may synthesize a soup entry."""
 
     def __init__(self, mres: MRES, analyzer, *,
                  feedback: Optional[FeedbackStore] = None,
                  knn_k: int = 8, merge_threshold: Optional[float] = None,
+                 batch_sample_frac: float = 0.02,
                  feedback_weight: float = 0.5, telemetry=None, tracer=None,
                  adaptive=None, adaptive_weight: float = 0.0,
                  reward_fn=None, reward_shaper=None, load=None,
                  load_weight: float = 0.0, cache=None, device=None):
-        if merge_threshold is not None:
-            raise not_ported("Model merging", "'model zoo and runners'")
         self.mres = mres
         self.analyzer = analyzer
         self.feedback = feedback if feedback is not None else FeedbackStore()
@@ -120,6 +128,9 @@ class OptiRoute:
                                     telemetry=telemetry, tracer=tracer,
                                     device=device)
         self.device = self.engine.device
+        self.merger = (ModelMerger(mres, merge_threshold)
+                       if merge_threshold is not None else None)
+        self.batch_sample_frac = batch_sample_frac
         self.telemetry = telemetry
         self.tracer = tracer
         # adaptive loop: ``reward_fn(rq) -> quality`` closes it inside
@@ -150,10 +161,11 @@ class OptiRoute:
                 rq, sim_cost=entry.raw_metrics.get("cost_per_mtok", 0.0))
 
     def _fully_fused_ok(self) -> bool:
-        """Whether the single analyze->route program can serve: a
-        fusable engine and an analyzer exposing its encoder (stub
-        analyzers do not)."""
-        return (getattr(self.analyzer, "supports_fused_route", False)
+        """Whether the single analyze->route program can serve: no
+        merger, a fusable engine and an analyzer exposing its encoder
+        (stub analyzers do not)."""
+        return (self.merger is None
+                and getattr(self.analyzer, "supports_fused_route", False)
                 and self.engine._fused_ok())
 
     def route_all(self, texts: Sequence[str], prefs) -> List[RoutedQuery]:
@@ -192,7 +204,7 @@ class OptiRoute:
             with span:
                 sigs = an.analyze_batch(list(texts))
             t1 = time.time()
-            if self.engine._fused_ok():
+            if self.merger is None and self.engine._fused_ok():
                 batch = self.engine.route_many_batch(prefs_list, sigs)
                 t2 = time.time()
                 out = [RoutedQuery(text=t, sig=s, batch=batch, batch_idx=i,
@@ -204,6 +216,8 @@ class OptiRoute:
                     if tr is not None else NOOP_SPAN
                 with span:
                     decisions = self.engine.route_many(prefs_list, sigs)
+                if self.merger is not None:
+                    self._merge_low(prefs_list, sigs, decisions)
                 t2 = time.time()
                 out = [RoutedQuery(text=t, sig=s, decision=d,
                                    analyzer_s=(t1 - t0) / B,
@@ -214,6 +228,23 @@ class OptiRoute:
         if self.adaptive is not None and self.reward_fn is not None:
             self.observe(out)
         return out
+
+    def _merge_low(self, prefs_list, sigs, decisions) -> None:
+        """The merger branch: each query scoring below the threshold may
+        register a soup that beats its incumbent; if the catalog grew,
+        the low scorers are routed again in one pass (in place)."""
+        low = [i for i, d in enumerate(decisions)
+               if d.score < self.merger.score_threshold]
+        grew = False
+        for i in low:
+            if self.merger.maybe_merge(prefs_list[i], sigs[i],
+                                       decisions[i].score) is not None:
+                grew = True
+        if grew:
+            redo = self.engine.route_many([prefs_list[i] for i in low],
+                                          [sigs[i] for i in low])
+            for j, i in enumerate(low):
+                decisions[i] = redo[j]
 
     def observe(self, rqs: Sequence[RoutedQuery],
                 qualities: Optional[Sequence[float]] = None,
@@ -292,6 +323,47 @@ class OptiRoute:
         for rq in sub:
             rq.observed = True
         return rewards
+
+    def route_batch(self, texts: Sequence[str], prefs, *, seed: int = 0
+                    ) -> Tuple[RoutingDecision, List[TaskSignature], Dict]:
+        """Sample-analyze-aggregate-route (paper batch mode).
+
+        Returns (one decision for the whole batch, sampled signatures,
+        stats).  ``batch_sample_frac`` of the texts (at least one) are
+        drawn with ``default_rng(seed).choice`` as in the reference; the
+        aggregate signature takes the majority task type / domain and
+        the MAX complexity of the sample (the chosen model must handle
+        the hardest sampled query)."""
+        n = len(texts)
+        if n == 0:
+            raise ValueError("route_batch requires at least one text; "
+                             "got an empty batch")
+        k = max(1, int(round(n * self.batch_sample_frac)))
+        rng = np.random.default_rng(seed)
+        pick = rng.choice(n, size=min(k, n), replace=False)
+        t0 = time.time()
+        sigs = self.analyzer.analyze_batch([texts[i] for i in pick])
+        t1 = time.time()
+        tt = Counter(s.task_type for s in sigs).most_common(1)[0][0]
+        dm = Counter(s.domain for s in sigs).most_common(1)[0][0]
+        agg = TaskSignature(
+            task_type=tt, domain=dm,
+            complexity=max(s.complexity for s in sigs),
+            confidence=float(np.mean([s.confidence for s in sigs])))
+        decision = self.engine.route(prefs, agg)
+        stats = {"batch": n, "sampled": len(pick),
+                 "analyzer_s": t1 - t0, "route_s": time.time() - t1,
+                 "aggregate_sig": agg}
+        return decision, sigs, stats
+
+    def serve(self, text: str, prefs, tokens: np.ndarray,
+              max_new: int = 8) -> RoutedQuery:
+        """Route + execute on the selected entry's runner."""
+        rq = self.route(text, prefs)
+        entry = self.mres.entry(rq.model)
+        if entry.runner is not None:
+            rq.response = entry.runner.generate(tokens, max_new=max_new)
+        return rq
 
     def give_feedback(self, rq: RoutedQuery, thumbs_up: bool) -> float:
         """Thumbs feedback on a routed query: into the feedback store's

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -185,3 +185,150 @@ def quality_of(entry_meta: Dict, sig: TaskSignature) -> float:
     if sig.domain not in entry_meta.get("domains", ()):
         q -= 0.15
     return float(np.clip(q, 0.0, 1.0))
+
+
+# ----------------------------------------------------------------------
+# bursty open-loop traffic (load-/SLO-aware serving) and multi-tenant
+# traffic (the async front end and the soak)
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrafficScenario:
+    """A bursty open-loop arrival episode.
+
+    Arrivals follow a piecewise-homogeneous Poisson process: ``base_rate``
+    req/s outside the burst window, ``burst_rate`` inside it (the window
+    spans ``[burst_start, burst_start + burst_len)`` as fractions of the
+    episode).  Every request carries the same latency SLO
+    ``deadline_ms``.  The stress shape this models: steady traffic a
+    catalog handles easily, then a burst that saturates the statically
+    best-scoring model while its alternates still have headroom.
+    """
+    duration_s: float = 20.0
+    base_rate: float = 30.0           # req/s outside the burst
+    burst_rate: float = 150.0         # req/s inside the burst
+    burst_start: float = 0.25         # fraction of the episode
+    burst_len: float = 0.35           # fraction of the episode
+    deadline_ms: float = 400.0
+    seed: int = 0
+    task_type: Optional[str] = "chat"
+    domain: Optional[str] = "general"
+
+    def validate(self) -> "TrafficScenario":
+        assert self.duration_s > 0 and self.base_rate > 0
+        assert self.burst_rate >= self.base_rate
+        assert 0.0 <= self.burst_start < 1.0
+        assert 0.0 < self.burst_len <= 1.0 - self.burst_start
+        return self
+
+    @property
+    def burst_window_s(self) -> Tuple[float, float]:
+        t0 = self.burst_start * self.duration_s
+        return t0, t0 + self.burst_len * self.duration_s
+
+
+def poisson_arrivals(sc: TrafficScenario) -> np.ndarray:
+    """Arrival times for the scenario by thinning: draw a homogeneous
+    process at the peak rate, keep each point with prob rate(t)/peak.
+    Deterministic in ``sc.seed``."""
+    sc = sc.validate()
+    rng = np.random.default_rng(sc.seed)
+    rmax = sc.burst_rate
+    ts: List[np.ndarray] = []
+    t = 0.0
+    while t < sc.duration_s:                 # chunked gap draws
+        gaps = rng.exponential(1.0 / rmax, int(rmax * sc.duration_s) + 64)
+        chunk = t + np.cumsum(gaps)
+        ts.append(chunk)
+        t = float(chunk[-1])
+    all_ts = np.concatenate(ts)
+    all_ts = all_ts[all_ts < sc.duration_s]
+    b0, b1 = sc.burst_window_s
+    rate = np.where((all_ts >= b0) & (all_ts < b1),
+                    sc.burst_rate, sc.base_rate)
+    keep = rng.random(all_ts.size) < rate / rmax
+    return all_ts[keep]
+
+
+# ----------------------------------------------------------------------
+# multi-tenant traffic (async serving + soak harness)
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's share of a multi-tenant episode.
+
+    ``rate_scale`` multiplies the base scenario's arrival rates (a
+    flooding tenant is simply ``rate_scale`` >> 1); ``weight`` is the
+    fair-dequeue share the serving layer should give it; ``rate_limit``
+    (req/s) is the token-bucket ceiling intake enforces (None = no
+    limit); ``deadline_ms`` overrides the base scenario's SLO for this
+    tenant's requests (None = inherit)."""
+    name: str
+    weight: float = 1.0
+    rate_scale: float = 1.0
+    rate_limit: Optional[float] = None
+    deadline_ms: Optional[float] = None
+
+    def validate(self) -> "TenantSpec":
+        assert self.name, "tenant needs a name"
+        assert self.weight > 0 and self.rate_scale > 0
+        assert self.rate_limit is None or self.rate_limit > 0
+        return self
+
+
+@dataclass(frozen=True)
+class MultiTenantScenario:
+    """A shared bursty episode fanned out across tenants: every tenant
+    draws its own independent Poisson process shaped like ``base``
+    scaled by its ``rate_scale`` (seeded per tenant, so episodes are
+    reproducible and tenants are independent)."""
+    base: TrafficScenario = TrafficScenario()
+    tenants: Tuple[TenantSpec, ...] = (
+        TenantSpec("acme"), TenantSpec("globex"))
+
+    def validate(self) -> "MultiTenantScenario":
+        self.base.validate()
+        names = [t.validate().name for t in self.tenants]
+        assert len(names) == len(set(names)), f"duplicate tenants: {names}"
+        assert names, "need at least one tenant"
+        return self
+
+    def deadline_ms_of(self, tenant_idx: int) -> float:
+        t = self.tenants[tenant_idx]
+        return float(t.deadline_ms if t.deadline_ms is not None
+                     else self.base.deadline_ms)
+
+
+def multi_tenant_arrivals(sc: MultiTenantScenario
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Merged arrival stream: ``(times, tenant_idx)`` — times sorted
+    ascending, ``tenant_idx[i]`` indexing ``sc.tenants``.  Each
+    tenant's process is an independently-seeded copy of the base
+    scenario with its rates scaled by ``rate_scale``."""
+    sc = sc.validate()
+    times: List[np.ndarray] = []
+    idx: List[np.ndarray] = []
+    for i, t in enumerate(sc.tenants):
+        per = dataclasses.replace(
+            sc.base,
+            base_rate=sc.base.base_rate * t.rate_scale,
+            burst_rate=sc.base.burst_rate * t.rate_scale,
+            seed=sc.base.seed + 7919 * (i + 1))
+        a = poisson_arrivals(per)
+        times.append(a)
+        idx.append(np.full(a.size, i, np.int64))
+    ts = np.concatenate(times) if times else np.zeros(0)
+    ti = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+    order = np.argsort(ts, kind="stable")
+    return ts[order], ti[order]
+
+
+def jain_fairness(x: Sequence[float]) -> float:
+    """Jain's fairness index of per-tenant allocations: 1.0 when all
+    equal, -> 1/n as one tenant dominates.  Feed it WEIGHT-NORMALIZED
+    goodput (served/weight) so weighted fairness scores as 1.0."""
+    v = np.asarray(list(x), np.float64)
+    if v.size == 0 or not np.any(v):
+        return 1.0
+    return float(v.sum() ** 2 / (v.size * (v ** 2).sum()))

@@ -12,7 +12,10 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raise when CUDA is asked for and absent."""
+    """``None`` -> ``cuda``; raise when CUDA is asked for and absent.
+    A card without an index gets the current one (``cuda:0``), so two
+    parts built with ``device=None`` compare equal to the device their
+    tensors report."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
@@ -20,6 +23,8 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "repro_torch: no CUDA device is available — pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

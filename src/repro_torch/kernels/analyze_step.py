@@ -67,32 +67,38 @@ class AnalyzerEncoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor):
         """tokens (B, L) int -> (tt_logits, dm_logits, complexity (B,))."""
-        cfg = self.cfg
-        B, L = tokens.shape
-        mask = tokens != PAD_ID
-        x = self.w("embed")[tokens.long()] + self.w("pos")[None, :L]
-        H, hd = cfg.n_heads, cfg.head_dim
-        neg = torch.where(mask, 0.0, -1e30)[:, None, None, :]
-        for i in range(cfg.n_layers):
-            p = f"layers.{i}."
-            h = _ln(x, self.w(p + "ln1"))
-            q = (h @ self.w(p + "wq")).reshape(B, L, H, hd)
-            k = (h @ self.w(p + "wk")).reshape(B, L, H, hd)
-            v = (h @ self.w(p + "wv")).reshape(B, L, H, hd)
-            s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(hd) + neg
-            a = torch.softmax(s, dim=-1)
-            o = torch.einsum("bhlm,bmhd->blhd", a, v).reshape(B, L, -1)
-            x = x + o @ self.w(p + "wo")
-            h = _ln(x, self.w(p + "ln2"))
-            x = x + F.gelu(h @ self.w(p + "wi"),
-                           approximate="tanh") @ self.w(p + "wp")
-        x = _ln(x, self.w("ln_f"))
-        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
-        pooled = (x * mask[..., None]).sum(dim=1) / denom
-        tt = pooled @ self.w("head_tt")
-        dm = pooled @ self.w("head_dm")
-        cx = torch.sigmoid(pooled @ self.w("head_cx"))[:, 0]
-        return tt, dm, cx
+        return encoder_forward(self.cfg, self.w, tokens)
+
+
+def encoder_forward(cfg, w, tokens: torch.Tensor):
+    """The encoder + heads with weights from ``w(name)`` (a flat name
+    such as ``layers.0.wq`` -> tensor): the module's buffers at
+    inference, leaf tensors that require grad in training.  tokens (B,
+    L) int -> (tt_logits, dm_logits, complexity (B,))."""
+    B, L = tokens.shape
+    mask = tokens != PAD_ID
+    x = w("embed")[tokens.long()] + w("pos")[None, :L]
+    H, hd = cfg.n_heads, cfg.head_dim
+    neg = torch.where(mask, 0.0, -1e30)[:, None, None, :]
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        h = _ln(x, w(p + "ln1"))
+        q = (h @ w(p + "wq")).reshape(B, L, H, hd)
+        k = (h @ w(p + "wk")).reshape(B, L, H, hd)
+        v = (h @ w(p + "wv")).reshape(B, L, H, hd)
+        s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(hd) + neg
+        a = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhlm,bmhd->blhd", a, v).reshape(B, L, -1)
+        x = x + o @ w(p + "wo")
+        h = _ln(x, w(p + "ln2"))
+        x = x + F.gelu(h @ w(p + "wi"), approximate="tanh") @ w(p + "wp")
+    x = _ln(x, w("ln_f"))
+    denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+    pooled = (x * mask[..., None]).sum(dim=1) / denom
+    tt = pooled @ w("head_tt")
+    dm = pooled @ w("head_dm")
+    cx = torch.sigmoid(pooled @ w("head_cx"))[:, 0]
+    return tt, dm, cx
 
 
 def analyze_heads(encoder: AnalyzerEncoder, tokens: torch.Tensor):

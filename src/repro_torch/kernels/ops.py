@@ -555,24 +555,25 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
-                 local_window: int = 0,
+def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
                  softcap: float = 0.0) -> torch.Tensor:
     """One query token against a cache: q (B, 1, Hq, hd); k_cache /
     v_cache (B, C, Hkv, hd); pos (B,) int -- the current token's index.
     The masks of ``models/layers.attention_decode``:
 
-      * a full cache: the keys at slots <= pos are live;
-      * ``ring``: the cache is a ring of the last C keys (slot pos % C),
-        all live once pos >= C -- ``kv_valid = min(pos + 1, C)``, the
-        order of the slots being irrelevant to the softmax;
+      * a full cache: the keys at slots <= pos are live, all C of them
+        once pos >= C;
+      * a ring of the last C keys (slot pos % C): all live once
+        pos >= C;
       * ``local_window`` W inside a full cache (gemma2's local layers):
-        the slots pos - W < idx <= pos.
+        the slots pos - W < idx <= pos (the last W slots once pos >= C).
+
+    All three are ``kv_valid = min(pos + 1, C)`` (the order of a ring's
+    slots being irrelevant to the softmax): the kernel never reads past
+    the cache.
 
     Returns (B, 1, Hq, hd)."""
-    live = pos + 1
-    if ring:
-        live = torch.clamp(live, max=k_cache.shape[1])
+    live = torch.clamp(pos + 1, max=k_cache.shape[1])
     kv_valid = live.to(torch.int32).contiguous()
     return flash_attention(q, k_cache, v_cache, kv_valid, causal=False,
                            softcap=softcap, local_window=local_window)

@@ -169,18 +169,34 @@ def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
     slot live once position >= C.  Otherwise the slot is ``position``
     and slots <= position are live, and ``local_window`` W keeps only
     the slots position - W < idx <= position (gemma2's local layers in
-    their full cache).  Returns (out, k_cache, v_cache)."""
+    their full cache).  Returns (out, k_cache, v_cache).
+
+    A row at position >= C in a full cache writes nothing and sees all
+    C slots, as the reference's dropped out-of-bounds write and
+    ``idx <= pos`` mask give (the continuous batcher's idle slots and
+    a request's last, discarded tick sit there).  The write is masked
+    on the device: such a row writes its slot's old value back, so no
+    step waits on the host.  On a local layer such a row sees the last
+    W slots of the cache, where the reference sees the slots past
+    position - W; the two differ only once position >= W too."""
     B, C = x.shape[0], k_cache.shape[1]
     q, k, v = qkv(p, cfg, x)
     pos2 = positions[:, None]
     q = apply_rope(q, pos2, cfg.rope_theta)
     k = apply_rope(k, pos2, cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
-    slot = positions % C if window else positions
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    if window:
+        slot = positions % C
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    else:
+        inside = (positions < C)[:, None, None]
+        slot = torch.where(positions < C, positions, 0)
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache[rows, slot] = torch.where(
+                inside, new[:, 0].to(cache.dtype), cache[rows, slot])
     out = ops.flash_decode(q, k_cache, v_cache, positions,
-                           ring=bool(window), local_window=local_window,
+                           local_window=local_window,
                            softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
     return out, k_cache, v_cache

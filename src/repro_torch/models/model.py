@@ -98,13 +98,16 @@ def _leaves(node):
         yield node
 
 
-def tree_map(fn, node):
-    """``fn`` on every tensor of a parameter (or cache) tree."""
+def tree_map(fn, node, *rest):
+    """``fn`` on every tensor of a parameter (or cache) tree, or on the
+    matching leaves of several trees of one structure."""
     if isinstance(node, dict):
-        return {k: tree_map(fn, v) for k, v in node.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in node.items()}
     if isinstance(node, list):
-        return [tree_map(fn, v) for v in node]
-    return fn(node)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(node)]
+    return fn(node, *rest)
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:

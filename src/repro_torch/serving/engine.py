@@ -1,8 +1,8 @@
-"""Batched serving engine wired to the router, interactive mode (paper
-§3.5 inference engine + the MLaaS use-case of §2).
+"""Batched serving engine wired to the router (paper §3.5 inference
+engine + the MLaaS use-case of §2).
 
-Port of the JAX package's ``serving/engine.py`` interactive path.  Per
-submitted batch:
+Port of the JAX package's ``serving/engine.py``.  Per submitted batch
+in interactive mode (the default):
 
   1. the semantic cache (if attached) answers repeats FIRST, in one
      batched lookup; a hit takes no slot and skips everything below;
@@ -18,7 +18,14 @@ submitted batch:
 A runner exception during one group's generate degrades only that
 group: its requests come back with ``admission="failed"`` and the cause
 in ``Response.error``, while every other group of the batch is served
--- failure isolation between groups, as in the reference.  ``observe``
+-- failure isolation between groups, as in the reference.
+
+Batch mode (``submit(..., mode="batch")``) keeps that lifecycle: the
+cache answers repeats first, and the misses share ONE sample-and-
+aggregate decision (``OptiRoute.route_batch``) and one grouped
+``generate``, with one telemetry route event per served request.  Its
+responses carry no routed-query handle (one aggregate decision has no
+per-query bandit context), so ``observe`` skips them.  ``observe``
 feeds post-generation quality into the router's bandit and writes
 validated responses back to the cache; ``feedback`` records thumbs and
 ``summary`` aggregates the engine's log.
@@ -33,6 +40,7 @@ the stages that ran for it (``Response.trace_id``/``trace_root``).
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -41,7 +49,7 @@ import numpy as np
 
 from repro_torch.core.orchestrator import OptiRoute
 from repro_torch.core.preferences import TaskSignature, resolve_batch
-from repro_torch.core.routing import not_ported
+from repro_torch.core.telemetry import RouteEvent
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.serving.load import LoadTracker, plan_admission
@@ -124,57 +132,64 @@ class ServingEngine:
 
     def submit(self, requests: Sequence[Request], *,
                mode: str = "interactive") -> List[Response]:
-        """Cache -> route -> admission -> grouped generate."""
-        if mode != "interactive":
-            raise not_ported("Batch-mode serving",
-                             "'AsyncServingEngine and batch mode'")
+        """Cache -> route -> admission -> grouped generate (interactive),
+        or cache -> one aggregate decision -> one generate (batch)."""
+        if mode not in ("interactive", "batch"):
+            raise ValueError(f"mode must be 'interactive' or 'batch', "
+                             f"not {mode!r}")
         if not requests:
             return []
         reqs = list(requests)
-        out: List[Optional[Response]] = [None] * len(reqs)
-        keys = fps = None
-        miss = list(range(len(reqs)))
-        tel = self.router.telemetry
         tr = self.tracer
-        batch_span = tr.start_trace("submit", batch=len(reqs),
-                                    mode="interactive") \
+        batch_span = tr.start_trace("submit", batch=len(reqs), mode=mode) \
             if tr is not None else NOOP_SPAN
         with batch_span:
             # resolve each request's preferences once: the cache keys,
             # the fingerprints and the routing task vectors reuse them
             prefs_res = resolve_batch([r.prefs for r in reqs], len(reqs))
-            if self.cache is not None:
-                keys = self.cache.keys_for(prefs_res,
-                                           [r.text for r in reqs])
-                # the decoding budget joins the exact-match gate
-                fps = self.cache.fingerprints(
-                    prefs_res, extras=[r.max_new for r in reqs])
-                hit, entries, _ = self.cache.lookup_entries(keys, fps)
-                if tel is not None:
-                    for kind, n in self.cache.drain_events().items():
-                        tel.record_cache(kind, n)
-                miss = []
-                for i, r in enumerate(reqs):
-                    if tel is not None:
-                        tel.record_cache("hit" if hit[i] else "miss")
-                    if hit[i]:
-                        e = entries[i]
-                        out[i] = Response(
-                            request=r, model=e.model, sig=e.sig,
-                            tokens=e.response, sim_latency_s=0.0,
-                            route_s=0.0, analyzer_s=0.0, cache_hit=True)
-                    else:
-                        miss.append(i)
-            if miss:
+            out, miss, keys, fps = self._cache_lookup(reqs, prefs_res)
+            if miss and mode == "batch":
+                served = self._serve_batch_group([reqs[i] for i in miss])
+            elif miss:
                 served = self._route_and_serve(
                     [reqs[i] for i in miss], [prefs_res[i] for i in miss],
                     None if keys is None else keys[miss],
                     None if fps is None else fps[miss])
-                for j, i in enumerate(miss):
-                    out[i] = served[j]
+            for j, i in enumerate(miss):
+                out[i] = served[j]
         self._fanout_trace(reqs, out, batch_span)
         self.log.extend(out)            # type: ignore[arg-type]
         return out                      # type: ignore[return-value]
+
+    def _cache_lookup(self, reqs: Sequence[Request], prefs_res):
+        """The semantic cache's batched lookup: (responses with the hits
+        filled in, miss indices, keys, fingerprints); without a cache
+        every request misses and keys/fingerprints are None."""
+        out: List[Optional[Response]] = [None] * len(reqs)
+        if self.cache is None:
+            return out, list(range(len(reqs))), None, None
+        tel = self.router.telemetry
+        keys = self.cache.keys_for(prefs_res, [r.text for r in reqs])
+        # the decoding budget joins the exact-match gate
+        fps = self.cache.fingerprints(prefs_res,
+                                      extras=[r.max_new for r in reqs])
+        hit, entries, _ = self.cache.lookup_entries(keys, fps)
+        if tel is not None:
+            for kind, n in self.cache.drain_events().items():
+                tel.record_cache(kind, n)
+        miss = []
+        for i, r in enumerate(reqs):
+            if tel is not None:
+                tel.record_cache("hit" if hit[i] else "miss")
+            if hit[i]:
+                e = entries[i]
+                out[i] = Response(
+                    request=r, model=e.model, sig=e.sig, tokens=e.response,
+                    sim_latency_s=0.0, route_s=0.0, analyzer_s=0.0,
+                    cache_hit=True)
+            else:
+                miss.append(i)
+        return out, miss, keys, fps
 
     def _fanout_trace(self, reqs: Sequence[Request],
                       out: Sequence[Response], batch_span) -> None:
@@ -337,6 +352,64 @@ class ServingEngine:
                 rq=rq if (plans[i][1] == "admitted" and not err) else None,
                 admission="failed" if err else plans[i][1],
                 est_latency_s=plans[i][2], error=err)
+
+    def _serve_batch_group(self, requests: Sequence[Request]
+                           ) -> List[Response]:
+        """One aggregate decision -> one batched generate, with the
+        tracker's admit -> start -> finish around it, the group's
+        failure degrading it to ``admission="failed"``, and one
+        telemetry route event per request (``route_batch`` records
+        none itself)."""
+        texts = [r.text for r in requests]
+        decision, _, stats = self.router.route_batch(texts,
+                                                     requests[0].prefs)
+        model = decision.model
+        entry = self.router.mres.entry(model)
+        tel = self.router.telemetry
+        col = -1
+        if self.load is not None:
+            names = self.router.mres.snapshot()[1]
+            col = names.index(model)
+            self.load.ensure(len(names))
+            self.load.admit(col, count=len(requests))
+            self.load.start(col, count=len(requests))
+        gen, per_req_s, err = None, None, ""
+        try:
+            if entry.runner is not None:
+                toks = self._tokens(texts, entry.runner.cfg.vocab_size)
+                gen = entry.runner.generate(toks,
+                                            max_new=requests[0].max_new)
+            per_req_s = (gen.sim_latency_s / len(requests)
+                         if gen is not None else
+                         entry.raw_metrics.get("latency_ms", 0.0) / 1e3)
+        except Exception as e:                     # noqa: BLE001
+            err = f"{type(e).__name__}: {e}"
+        finally:
+            if self.load is not None:
+                self.load.finish(col, per_req_s, count=len(requests))
+        agg = stats["aggregate_sig"]
+        out = [Response(
+            request=r, model=model, sig=agg,
+            tokens=None if (gen is None or err) else gen.tokens[i],
+            sim_latency_s=0.0 if (gen is None or err) else per_req_s,
+            route_s=stats["route_s"] / len(requests),
+            analyzer_s=stats["analyzer_s"] / len(requests),
+            fallback=decision.fallback_kind,
+            admission="failed" if err else "admitted",
+            error=err) for i, r in enumerate(requests)]
+        if tel is not None:
+            sim_cost = entry.raw_metrics.get("cost_per_mtok", 0.0)
+            for resp in out:
+                tel.record(RouteEvent(
+                    ts=time.time(), model=model, task_type=agg.task_type,
+                    domain=agg.domain, complexity=agg.complexity,
+                    fallback=decision.fallback_kind,
+                    analyzer_s=resp.analyzer_s, route_s=resp.route_s,
+                    sim_cost=sim_cost))
+                if resp.failed:
+                    tel.record_admission(
+                        "failed", tenant=resp.request.tenant or None)
+        return out
 
     def feedback(self, resp: Response, thumbs_up: bool) -> float:
         """Thumbs feedback on a served response into the router's

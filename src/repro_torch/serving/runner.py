@@ -6,9 +6,15 @@ compute dtype on its device, runs ``generate`` (greedy, batched:
 prefill, then one decode step per new token) and accounts a simulated
 latency from the architecture's analytic FLOPs, so the serving engine
 can charge each request to the model that served it.
+
+``from_checkpoint``/``save_checkpoint`` keep the reference's npz layout
+(per-layer parameters stacked along a leading axis), so a checkpoint
+saved by either package loads in the other; ``merged_with`` produces
+the model-soup runner of the §5 fallback (``core/merging.soup``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -17,7 +23,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.routing import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.training.steps import make_decode_step, make_prefill_step
@@ -58,17 +63,55 @@ class ModelRunner:
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_checkpoint(cls, cfg: ModelConfig, path: str) -> "ModelRunner":
-        raise not_ported("Runner checkpoints",
-                         "'Checkpoints and RouterState' (item 4)")
+    def from_checkpoint(cls, cfg: ModelConfig, path: str,
+                        device=None) -> "ModelRunner":
+        """Cold-load a runner from an npz checkpoint of either package
+        onto ``device``.  bf16 weights are stored as their int16 bit
+        patterns (numpy has no bf16) and come back bit-equal."""
+        from repro_torch.checkpoint import load
+        tree, meta = load(path)
+        params = M.params_from_jax(tree)
+        if meta.get("dtype") == "bfloat16":
+            params = M.tree_map(lambda t: t.view(torch.bfloat16), params)
+        runner = cls(cfg, params=params, device=device)
+        runner.meta = meta
+        return runner
 
     def save_checkpoint(self, path: str, metadata=None) -> None:
-        raise not_ported("Runner checkpoints",
-                         "'Checkpoints and RouterState' (item 4)")
+        """The parameters in the reference's layout (layers stacked),
+        uncompressed, with the config's name and the weights' dtype."""
+        from repro_torch.checkpoint import save
+        from repro_torch.checkpoint.store import to_host
+        dtype = self.params["embed"].dtype
 
-    def merged_with(self, other: "ModelRunner", alpha: float):
-        raise not_ported("Model merging (core/merging.py)",
-                         "'runner checkpoints and core/merging.py' (item 6)")
+        def host(t):
+            return to_host(t.view(torch.int16) if t.dtype == torch.bfloat16
+                           else t)
+        tree = {k: M.tree_map(host, v) for k, v in self.params.items()
+                if k != "layers"}
+        layers = [M.tree_map(host, p) for p in self.params["layers"]]
+        tree["layers"] = M.tree_map(lambda *xs: np.stack(xs), *layers)
+        save(path, tree, {"config": self.cfg.name,
+                          "dtype": str(dtype).replace("torch.", ""),
+                          **(metadata or {})}, compress=False)
+
+    def merged_with(self, other: "ModelRunner",
+                    alpha: float) -> "ModelRunner":
+        """Model-soup merge (paper §5): the same-family weight average
+        ``alpha * self + (1 - alpha) * other``.  Another config raises
+        ``AssertionError``, which ``ModelMerger`` turns into a
+        metrics-only soup."""
+        if dataclasses.replace(self.cfg, name="") != \
+                dataclasses.replace(other.cfg, name=""):
+            raise AssertionError("soup needs same family")
+        from repro_torch.core.merging import soup
+        merged = ModelRunner.__new__(ModelRunner)
+        merged.cfg = self.cfg
+        merged.device = self.device
+        merged.params = soup([self.params, other.params], [alpha, 1 - alpha])
+        merged._decode = self._decode           # same arch: same step
+        merged._calls = []
+        return merged
 
     # ------------------------------------------------------------------
     def sim_step_latency(self, batch: int, decode: bool = True) -> float:

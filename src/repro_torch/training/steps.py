@@ -1,7 +1,8 @@
 """Step factories: the prefill step and the greedy decode (serve) step.
 
 Port of the JAX package's ``training/steps.py`` without the training
-step (ROADMAP.md, Queue 1, item 7).  PyTorch runs eagerly, so these are
+step of the served models (ROADMAP.md, Queue 1, item 13; the analyzer
+trains in ``core/analyzer.TaskAnalyzer.train``).  PyTorch runs eagerly, so these are
 the functions the runner calls, not programs to compile.
 """
 from __future__ import annotations
@@ -14,7 +15,8 @@ from repro_torch.models import model as M
 
 
 def make_train_step(cfg: ModelConfig, *args, **kwargs):
-    raise not_ported("The training step", "'Analyzer training' (item 7)")
+    raise not_ported("The training step of the served models",
+                     "'LLM training' (item 13)")
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int = 0):

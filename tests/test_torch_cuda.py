@@ -232,7 +232,7 @@ def test_flash_attention_local_window_decode_matches_plain(cuda, dtype, tol,
 @pytest.mark.parametrize("hd,Hq,Hkv,C", [(64, 25, 5, 1024),
                                          (120, 32, 8, 4096)])
 def test_flash_decode_ring_matches_cpu(cuda, hd, Hq, Hkv, C):
-    """``ops.flash_decode(ring=True)`` at hymba-1.5b's (hd 64, group 5,
+    """``ops.flash_decode`` over a ring at hymba-1.5b's (hd 64, group 5,
     1,024 slots) and h2o-danube-3-4b's (hd 120, group 4, 4,096) ring:
     rows before and after the ring fills, bf16, against the CPU."""
     rng = np.random.default_rng(C)
@@ -241,9 +241,9 @@ def test_flash_decode_ring_matches_cpu(cuda, hd, Hq, Hkv, C):
     kc = _rand(rng, 4, C, Hkv, hd).to(bf)
     vc = _rand(rng, 4, C, Hkv, hd).to(bf)
     pos = torch.tensor([0, C // 3, C - 1, 3 * C + 7])
-    want = OPS.flash_decode(q, kc, vc, pos, ring=True)
+    want = OPS.flash_decode(q, kc, vc, pos)
     got = OPS.flash_decode(q.to(cuda), kc.to(cuda), vc.to(cuda),
-                           pos.to(cuda), ring=True)
+                           pos.to(cuda))
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                atol=2e-2)
 
@@ -715,3 +715,52 @@ def test_generate_on_card_matches_cpu_past_the_window(cuda, name):
             if top2[1] - top2[0] < 1e-3:
                 break
             assert got.tokens[b, s] == want.tokens[b, s], (b, s)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma2-2b", "hymba-1.5b"])
+def test_decode_past_cache_on_card_matches_cpu(cuda, name):
+    """A decode step at pos = C and C + 1 (prompt 6, C = 8): the card's
+    logits within 1e-3 of the CPU's, a full cache left unchanged (the
+    masked write), a ring written at pos % C as on the CPU, and no
+    device-side assert (``torch.cuda.synchronize`` after the step)."""
+    cfg = get_smoke(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 6)))
+    ring = bool(cfg.sliding_window) and not cfg.local_global_pattern
+    out = {}
+    for dev in ("cpu", cuda):
+        p = M.tree_map(lambda x: x.to(dev), params)
+        _, cache, _ = M.prefill(p, cfg, {"tokens": toks.to(dev)}, max_len=8)
+        before = {k: v.clone() for k, v in cache.items()}
+        logits, after = M.decode_step(
+            p, cfg, cache, {"token": torch.tensor([[3], [7]], device=dev),
+                            "pos": torch.tensor([8, 9], device=dev)})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        if not ring:
+            for key in ("k", "v"):
+                assert torch.equal(after[key], before[key]), key
+        out[str(dev)] = (logits.cpu(), {k: v.cpu() for k, v in after.items()})
+    (want, wc), (got, gc) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    for key in wc:
+        torch.testing.assert_close(gc[key], wc[key], rtol=1e-4, atol=1e-4)
+
+
+def test_default_device_routes_with_an_analyzer(cuda):
+    """``device=None`` everywhere (the launcher's default): the analyzer
+    and the router resolve to the same card, and the fused program
+    routes."""
+    from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
+    from repro_torch.core.orchestrator import OptiRoute
+    from repro_torch.device import resolve_device
+    from repro_torch.serving.catalog import build_catalog
+
+    assert resolve_device() == resolve_device("cuda") == \
+        torch.device("cuda", torch.cuda.current_device())
+    router = OptiRoute(build_catalog(archs=["llama3.2-1b", "mamba2-1.3b"]),
+                       TaskAnalyzer(AnalyzerConfig()))
+    rqs = router.route_all(["write a python function", "summarize this"],
+                           "balanced")
+    assert {rq.model for rq in rqs} <= {"llama3.2-1b", "mamba2-1.3b"}

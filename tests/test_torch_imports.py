@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, it imports with JAX blocked, and its entry points refuse to
-run quietly on the CPU when no CUDA device is present."""
+package, it imports with JAX blocked, and its entry points (the
+launcher, the analyzer's training through its constructor and
+``load_analyzer``, the continuous batcher among them) refuse to run
+quietly on the CPU when no CUDA device is present."""
 import ast
 import os
 import subprocess
@@ -51,6 +53,11 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.moe_gating\n"
         "import repro_torch.obs, repro_torch.core.telemetry\n"
         "import repro_torch.checkpoint\n"
+        "import repro_torch.launch.serve, repro_torch.core.merging\n"
+        "import repro_torch.serving.scheduler\n"
+        "import repro_torch.serving.async_engine\n"
+        "import repro_torch.training.optimizer\n"
+        "from repro_torch.serving import AsyncServingEngine, MicroBatcher\n"
         "from repro_torch.configs import ARCH_NAMES, get_config\n"
         "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
@@ -73,7 +80,9 @@ def _entry_points():
     from repro_torch.configs import get_smoke
     from repro_torch.kernels import ops
     from repro_torch.serving.catalog import build_catalog
+    from repro_torch.launch import serve
     from repro_torch.serving.runner import ModelRunner
+    from repro_torch.serving.scheduler import ContinuousBatcher
 
     cfg = AnalyzerConfig(vocab_size=64, d_model=8, n_layers=1, n_heads=2,
                          d_ff=16, max_len=8)
@@ -91,6 +100,10 @@ def _entry_points():
         "ModelRunner": lambda: ModelRunner(get_smoke("llama3.2-1b")),
         "build_catalog": lambda: build_catalog(
             smoke_runners=True, archs=["mamba2-1.3b"]),
+        "ContinuousBatcher": lambda: ContinuousBatcher(
+            get_smoke("llama3.2-1b"), {}),
+        "load_analyzer": lambda: serve.load_analyzer("missing.npz"),
+        "serve.main": lambda: serve.main(["--requests", "1"]),
     }
 
 
@@ -98,7 +111,8 @@ def _entry_points():
                                   "OptiRoute", "SemanticCache",
                                   "LinearBandit", "ops.router_topk",
                                   "ops.bandit_update", "ModelRunner",
-                                  "build_catalog"])
+                                  "build_catalog", "ContinuousBatcher",
+                                  "load_analyzer", "serve.main"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")

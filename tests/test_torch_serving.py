@@ -190,11 +190,6 @@ def test_sharded_and_ivf_catalogs_are_not_ported_yet(kw):
         RoutingEngine(TMRES(), device="cpu", **kw)
 
 
-def test_merger_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        TOptiRoute(TMRES(), None, merge_threshold=0.5, device="cpu")
-
-
 class _StubAnalyzer:
     """An analyzer without fused-route support: ``route_all`` takes the
     analyze-then-``route_many_batch`` branch in both packages."""
