@@ -40,6 +40,24 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      ``RouterState`` saved after that run and restored into a fresh
      router on the card (``route_many`` bit-identical, the replayed
      head of batch 1 all cache hits) and on the CPU (tie-aware);
+  3c. ``mega_catalog``, on the same catalog and batches, the
+     signatures the workload's own: ``route_many_batch`` on seven
+     engines -- (a) dense fp32, (b) sharded fp32 over 4 shards on the
+     card, (c) dense int8, (d) sharded int8, (e) IVF fp32 and (f) IVF
+     int8 at nprobe 8 of C = 316 cells, (g) IVF fp32 at nprobe C --
+     each without blend terms and with a warmed LinUCB bandit and the
+     load penalty at ``build_router``'s weights.  (b) equals (a) and
+     (d) equals (c) bit for bit on all eight outputs; (g) equals (a)
+     (scores within 1e-5); (e) and (f) reach recall@8 >= 0.99 by
+     ``bench_mega``'s metric (the exact-set recall is logged); (b) to
+     (f) match their CPU runs (tie-aware within 1e-5) and the IVF
+     engines probe the same cells on both; 4 ``router_topk`` launches
+     per sharded batch, one per dense batch; each batch one
+     ``route_step`` span with the program's path and shard count.
+     Logs the IVF index's build time, cap and gather sizes, the escape
+     branch's hits, the host p50 per engine and CUDA-event times; the
+     top-k kernels at the shard's launch shape are rows of the
+     ``kernels`` line;
   4. the model-zoo kernels (flash attention in its prefill and decode
      launch shapes, the SSD scan, the MoE gate) against their plain
      versions at the generation path's shapes (llama3.2-1b prefill and
@@ -1309,6 +1327,373 @@ def router_paths_phase(torch, dev, small: bool, kernels, shared):
             kernels[k]["launches"] += v
     log(f"[router_paths] launches on the phase's main paths {total}; "
         f"phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# phase 2c: the mega-catalog programs (sharded, IVF)
+# ----------------------------------------------------------------------
+
+ROUTE_KEYS = ("model_idx", "score", "stage", "similarity", "cand_idx",
+              "cand_score", "n_filtered", "n_candidates")
+# (tag, int8, sharded, nprobe: None = exhaustive dense, "C" = every cell)
+MEGA_ENGINES = (("a dense fp32", False, False, None),
+                ("b sharded fp32", False, True, None),
+                ("c dense int8", True, False, None),
+                ("d sharded int8", True, True, None),
+                ("e ivf fp32 nprobe 8", False, False, 8),
+                ("f ivf int8 nprobe 8", True, False, 8),
+                ("g ivf fp32 nprobe C", False, False, "C"))
+MEGA_SHARDS = 4
+
+
+def mega_engine(mres, dev, spec, blend, n_cells: int):
+    """A ``RoutingEngine`` of one mega-catalog mode, its knobs set after
+    construction; with ``blend`` (a bandit state and the load tracker's
+    admits) the bandit and load terms at ``build_router``'s weights."""
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.core.routing import RoutingEngine
+    from repro_torch.launch.mesh import make_routing_mesh
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.load import LoadTracker
+
+    _, quant, sharded, nprobe = spec
+    n = len(mres)
+    kw = {}
+    if blend is not None:
+        state, admits = blend
+        bandit = LinearBandit(n, policy="linucb", seed=3, noise=0.3,
+                              device=dev)
+        bandit.load_state(state)
+        load = LoadTracker(n)
+        load.admit_many(admits)
+        kw = dict(adaptive=bandit, adaptive_weight=1.0, load=load,
+                  load_weight=0.5)
+    eng = RoutingEngine(mres, confidence_threshold=0.0, tracer=Tracer(),
+                        device=dev, **kw)
+    eng.quantize = quant
+    if sharded:
+        eng.mesh = make_routing_mesh(MEGA_SHARDS, device=dev)
+    if nprobe is not None:
+        eng.ivf, eng.nprobe = True, n_cells if nprobe == "C" else nprobe
+        # the default gate (4,096) stays at N = 100,000; the rehearsal's
+        # 4,000 entries would sit below it
+        eng.ivf_min_n = min(eng.ivf_min_n, n)
+    return eng
+
+
+def mega_run(eng, inputs):
+    """``route_many_batch`` over the batches: per batch the output
+    arrays, the host seconds and the kernels' launches (counts set to 0
+    just before each batch, read just after)."""
+    outs, lat, launches = [], [], []
+    for prefs, sigs in inputs:
+        t0 = time.perf_counter()
+        out, counts = path_launches(lambda: eng.route_many_batch(prefs,
+                                                                 sigs))
+        lat.append(time.perf_counter() - t0)
+        outs.append(out)
+        launches.append(counts)
+    return outs, lat, launches
+
+
+def route_arrays_close(want, got, what: str) -> int:
+    """Two runs' route outputs: stages and counts exact, scores within
+    1e-5, candidate indices equal except inside a run of the
+    reference's scores tied within 1e-5.  Returns the tie-broken
+    slots."""
+    ties = 0
+    for key in ("stage", "n_filtered", "n_candidates"):
+        check(np.array_equal(getattr(want, key), getattr(got, key)),
+              f"{what}: {key} differs")
+    ws, gs = want.cand_score, got.cand_score
+    fin = np.isfinite(ws)
+    check(np.array_equal(np.isfinite(gs), fin), f"{what}: finite slots")
+    err = float(np.abs(gs[fin] - ws[fin]).max()) if fin.any() else 0.0
+    check(err <= 1e-5, f"{what}: candidate scores off by {err}")
+    wi, gi = want.cand_idx, got.cand_idx
+    for b, j in zip(*np.nonzero(fin & (gi != wi))):
+        alt = np.nonzero(wi[b] == gi[b, j])[0]
+        check(alt.size > 0 and abs(ws[b, alt[0]] - ws[b, j]) <= 1e-5,
+              f"{what}: row {b} slot {j} index {gi[b, j]} vs {wi[b, j]} "
+              "without a tie")
+        ties += 1
+    return ties
+
+
+def mega_recall(want, got, emb, exact: bool) -> float:
+    """Recall@k of ``got`` against ``want``: the exact candidate sets,
+    or (``exact=False``) ``bench_mega``'s metric -- a candidate whose
+    exact cosine is within the int8 error bound of the reference's
+    k-th best counts, over rows both serve at stage 0."""
+    tol = float(np.sqrt(emb.shape[1]) / 127.0
+                + emb.shape[1] / (2.0 * 127.0 ** 2))
+    embn = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
+    num = den = 0
+    for w, g in zip(want, got):
+        qn = w.task_vectors / (np.linalg.norm(w.task_vectors, axis=1,
+                                              keepdims=True) + 1e-9)
+        for b in range(len(w)):
+            rrow = [int(x) for x in w.cand_idx[b] if x >= 0]
+            trow = [int(x) for x in g.cand_idx[b] if x >= 0]
+            if exact:
+                den += len(rrow)
+                num += len(set(rrow) & set(trow))
+                continue
+            if w.stage[b] or g.stage[b] or not rrow:
+                continue
+            ckth = float((embn[rrow] @ qn[b]).min())
+            den += len(rrow)
+            num += min(len(rrow), int(((embn[trow] @ qn[b])
+                                       >= ckth - tol).sum()))
+    return num / max(den, 1)
+
+
+def probed_cells(torch, dev, T: np.ndarray, cent: np.ndarray, nprobe: int):
+    """The cells the IVF program probes for task vectors ``T`` on
+    ``dev`` (its own coarse step)."""
+    from repro_torch.kernels.route_step import _dot_cols, unit_rows
+    from repro_torch.kernels.router_topk import topk_stable
+
+    qn = unit_rows(torch.from_numpy(np.ascontiguousarray(T)).to(dev))
+    c = torch.from_numpy(cent).to(dev)
+    return topk_stable(_dot_cols(qn, c), min(nprobe, c.shape[0]))[1].cpu()
+
+
+def shard_topk_rows(torch, dev, mres, prefs, sigs, launches: dict):
+    """``router_topk`` and ``router_topk_q8`` at the sharded batch's
+    launch shape (shard 0's catalog block and filter rows, batch 2's
+    queries, k = R = 8) against their plain versions, timed beside one
+    ``torch.matmul`` + ``topk`` and the bound."""
+    from repro_torch.core.routing import RoutingEngine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import router_topk as RT
+    from repro_torch.kernels.route_step import quantize_rows, unit_rows
+    from repro_torch.launch.mesh import make_routing_mesh
+
+    eng = RoutingEngine(mres, confidence_threshold=0.0, device=dev)
+    _, _, T, ti, di = eng._prepare_batch(prefs, sigs)
+    emb, _, tt, dm, gmask, _ = mres.snapshot()
+    Q = ops.q_bucket(len(sigs))
+    n_dm = dm.shape[0]
+    rows_np = np.pad(ti.astype(np.int64) * n_dm + di,
+                     (0, Q - len(sigs)), constant_values=(
+                         tt.shape[0] - 1) * n_dm + n_dm - 1)
+    qn = unit_rows(torch.from_numpy(np.pad(T, ((0, Q - len(sigs)),
+                                               (0, 0)))).to(dev))
+    rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+    out = {}
+    for quant, name in ((False, "router_topk"), (True, "router_topk_q8")):
+        shards, _, np_pad = ops._catalog_pack_sharded(
+            emb, tt, dm, gmask, make_routing_mesh(MEGA_SHARDS, device=dev),
+            quant=quant)
+        sh = shards[0]
+        n_loc = sh.e2.shape[0]
+        e = sh.e2[:, :8].contiguous()
+        table = sh.masks
+        live = int(table[rows.long()].sum())
+        used = len(set(rows_np.tolist()))
+        if quant:
+            q8, qs = quantize_rows(qn)
+            q8, qs = q8.contiguous(), qs[:, 0].contiguous()
+            es = sh.e2s[:, 0].contiguous()
+            args = (q8, e, qs, es, table, rows, 8)
+            fn, plain = RT.router_topk_q8, RT.router_topk_q8_plain
+            nb = Q * 8 + n_loc * 8 + (Q + n_loc) * 4
+            peak = PEAK_INT8_S
+
+            def lib():
+                s = (q8.float() @ e.float().T) * (qs[:, None] * es[None, :])
+                s = torch.where(table[rows.long()].bool(), s, NEG_INF)
+                return torch.topk(s, 8)
+        else:
+            args = (qn.contiguous(), e, table, rows, 8)
+            fn, plain = RT.router_topk, RT.router_topk_plain
+            nb = Q * 8 * 4 + n_loc * 8 * 4
+            peak = PEAK_FP32_S
+
+            def lib():
+                s = args[0] @ e.T
+                s = torch.where(table[rows.long()].bool(), s, NEG_INF)
+                return torch.topk(s, 8)
+        got, want = fn(*args), plain(*args)
+        fin = torch.isfinite(want[0])
+        check(torch.equal(got[0], want[0]) and
+              torch.equal(got[1][fin], want[1][fin]),
+              f"{name} at the shard shape: not bit-equal to the plain "
+              "version")
+        bms, by = bound_ms(nb + used * n_loc + Q * 4 + Q * 8 * 8,
+                           2.0 * 8 * live, peak)
+        label = (f"{name} shard Q={Q} N={n_loc:,} D=8 k=8 "
+                 f"({MEGA_SHARDS} shards of {np_pad:,})")
+        out[label] = dict(
+            name=label, route="cuda",
+            source="src/repro_torch/kernels/csrc/router_topk.cu",
+            replaces="src/repro/kernels/router_topk.py:"
+                     + ("301" if quant else "203"),
+            launches=launches[name], max_abs_err=0.0,
+            ms=time_graph_ms(torch, lambda: fn(*args), dev),
+            plain_ms=time_ms(torch, lambda: plain(*args), dev),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_graph_ms(torch, lib, dev))
+        r = out[label]
+        log(f"[mega_catalog] {label}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, matmul + topk {r['library_ms']:.4f}, "
+            f"bound {bms:.4f} by {by}; grid plan (S, chunk) "
+            f"{RT.topk_plan(Q, n_loc, 8)}), {live} (query, row) pairs "
+            f"pass the mask; {r['launches']} launches on the phase")
+    return out
+
+
+def mega_catalog_phase(torch, dev, small: bool, kernels, shared):
+    """The sharded and IVF programs over the routing phases' catalog and
+    batches, each engine without and with blend terms; checks,
+    recall, card against CPU, launch counts and spans."""
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.core.mres import build_ivf, default_n_cells
+    from repro_torch.core.preferences import METRICS, resolve_batch
+    from repro_torch.kernels import ops
+
+    mres, batches = routing_inputs(small, shared)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    n = len(mres)
+    inputs = [(resolve_batch([r.prefs for r, _ in b], len(b)),
+               [rec.sig for _, rec in b]) for b in batches]
+    C = default_n_cells(n)
+    t0 = time.perf_counter()
+    index = mres.ivf_index()
+    build_s = time.perf_counter() - t0
+    again = build_ivf(mres.embeddings(), C)
+    check(index.n_cells == C and np.array_equal(index.centroids,
+                                                again.centroids)
+          and np.array_equal(index.cell_of, again.cell_of),
+          "the IVF index is not reproducible")
+    sizes = np.bincount(index.cell_of, minlength=C)
+    cap = max(8, -(-int(sizes.max()) // 8) * 8)
+    Qp = ops.q_bucket(len(batches[0]))
+    log(f"[mega_catalog] IVF index: C={C} cells (sizes {int(sizes.min())}"
+        f"-{int(sizes.max())}, mean {n / C:.1f}), build_ivf {build_s:.3f} s "
+        f"(host numpy), rebuilt bit-equal; cap {cap}, packed slots "
+        f"{C * cap:,}; the fine gather (Q={Qp}, 8 cells x {cap} slots, 8 "
+        f"dims) {Qp * 8 * cap * 8 * 4 / 1e6:.1f} MB fp32 / "
+        f"{Qp * 8 * cap * 8 / 1e6:.1f} MB int8; the escape's (Q, C x cap) "
+        f"blend {Qp * C * cap * 4 / 1e6:.1f} MB")
+    rng = np.random.default_rng(4)
+    X = rng.random((256, len(METRICS))).astype(np.float32)
+    warm = LinearBandit(n, policy="linucb", seed=3, device=cpu)
+    warm.update(X, rng.integers(0, n, 256), rng.random(256).astype(
+        np.float32))
+    blends = {"no blend terms": None,
+              "bandit + load": (warm.state(), rng.integers(0, n, 3 * n))}
+    shard_launches = {"router_topk": 0, "router_topk_q8": 0}
+    timing = {}
+    for label, blend in blends.items():
+        runs = {}
+        for spec in MEGA_ENGINES:
+            tag, quant, sharded, nprobe = spec
+            eng = mega_engine(mres, dev, spec, blend, C)
+            outs, lat, launches = mega_run(eng, inputs)
+            runs[tag] = outs
+            kname = "router_topk_q8" if quant else "router_topk"
+            for counts in launches:
+                want = MEGA_SHARDS if sharded else (0 if nprobe else 1)
+                other = {k: v for k, v in counts.items() if k != kname}
+                if dev.type == "cuda":
+                    check(counts[kname] == want and not any(other.values()),
+                          f"{tag}: launches {counts} a batch, want "
+                          f"{want} of {kname}")
+                if sharded:
+                    shard_launches[kname] += counts[kname]
+                elif kname in kernels:
+                    row = kernels[kname]
+                    row["launches"] = row.get("launches", 0) + counts[kname]
+            spans = [sp for sp in eng.tracer.spans()
+                     if sp.name == "route_step"]
+            path = "sharded" if sharded else "ivf" if nprobe else "dense"
+            check(len(spans) == len(inputs) and all(
+                sp.attrs["path"] == path
+                and sp.attrs["shards"] == (MEGA_SHARDS if sharded else 1)
+                for sp in spans), f"{tag}: route_step spans "
+                f"{[(sp.attrs['path'], sp.attrs['shards']) for sp in spans]}")
+            extra = ""
+            if nprobe:
+                esc = [sp.attrs["escape_rows"] for sp in spans]
+                check(all(sp.attrs["n_bucket"] == cap for sp in spans),
+                      f"{tag}: span n_bucket is not cap")
+                extra = (f"; escape branch ran on {sum(e > 0 for e in esc)}"
+                         f" of {len(esc)} batches ({sum(esc)} rows)")
+            if blend is None:
+                timing[tag] = lat
+            log(f"[mega_catalog {label}] {tag}: host ms per batch "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in lat)}; launches "
+                f"{launches[0]} a batch{extra}")
+            if dev.type == "cuda" and tag[0] in "bcdef":
+                ref = mega_run(mega_engine(mres, cpu, spec, blend, C),
+                               inputs)[0]
+                ties = sum(route_arrays_close(w, g, f"{tag} {label} card "
+                                                    f"vs CPU batch {i}")
+                           for i, (w, g) in enumerate(zip(ref, outs)))
+                moved = 0
+                if nprobe:
+                    for w in outs:
+                        a = probed_cells(torch, dev, w.task_vectors,
+                                         index.centroids, eng.nprobe)
+                        b = probed_cells(torch, cpu, w.task_vectors,
+                                         index.centroids, eng.nprobe)
+                        moved += int((a != b).any(dim=1).sum())
+                    check(moved == 0, f"{tag}: {moved} queries probe other "
+                                      "cells on the card than on the CPU")
+                log(f"[mega_catalog {label}] {tag}: card = CPU run on all "
+                    f"{len(outs)} batches ({ties} tie-broken slots"
+                    + (f"; 0 queries probe other cells)" if nprobe else ")"))
+            del eng
+        for x, y in (("b sharded fp32", "a dense fp32"),
+                     ("d sharded int8", "c dense int8")):
+            for i, (g, w) in enumerate(zip(runs[x], runs[y])):
+                for key in ROUTE_KEYS:
+                    check(np.array_equal(getattr(g, key), getattr(w, key)),
+                          f"{label}: {x} != {y} on {key}, batch {i}")
+        for i, (g, w) in enumerate(zip(runs["g ivf fp32 nprobe C"],
+                                       runs["a dense fp32"])):
+            for key in ("model_idx", "stage", "cand_idx", "n_filtered",
+                        "n_candidates"):
+                check(np.array_equal(getattr(g, key), getattr(w, key)),
+                      f"{label}: nprobe = C != dense on {key}, batch {i}")
+            for key in ("score", "similarity", "cand_score"):
+                check(np.allclose(getattr(g, key), getattr(w, key),
+                                  rtol=1e-5, atol=1e-5),
+                      f"{label}: nprobe = C scores off dense, batch {i}")
+        dense = runs["a dense fp32"]
+        emb = mres.embeddings()
+        rec = {t: (mega_recall(dense, runs[t], emb, True),
+                   mega_recall(dense, runs[t], emb, False))
+               for t in ("e ivf fp32 nprobe 8", "f ivf int8 nprobe 8")}
+        for t, (ex, eps) in rec.items():     # a property of N = 100,000
+            check(small or eps >= 0.99, f"{label}: {t} recall@8 {eps:.4f} "
+                                        "< 0.99 (bench_mega's metric)")
+        log(f"[mega_catalog {label}] sharded = dense bit for bit on all 8 "
+            f"outputs (fp32 and int8, 4 batches); nprobe = C = dense "
+            f"(indices, stages, counts; scores within 1e-5); recall@8 "
+            f"against (a), exact-set / bench_mega's: " + "; ".join(
+                f"{t} {ex:.4f} / {eps:.4f}" for t, (ex, eps) in rec.items()))
+    p2, s2 = inputs[1]
+    for spec in MEGA_ENGINES[:2] + MEGA_ENGINES[4:5]:
+        eng = mega_engine(mres, dev, spec, None, C)
+        ev = time_ms(torch, lambda: eng.route_many_batch(p2, s2), dev,
+                     iters=5, warmup=1)
+        busy = sum(v[0] for v in trace_kernels(
+            torch, dev, lambda: eng.route_many_batch(p2, s2),
+            iters=5).values())
+        log(f"[mega_catalog] {spec[0]}, batch 2 without blend terms: "
+            f"{ev:.3f} ms a call (CUDA events, host work included), "
+            f"kernels {busy:.3f} ms (profiler)" if dev.type == "cuda"
+            else f"[mega_catalog] {spec[0]}: {ev:.1f} ms a call (host)")
+    log("[mega_catalog] route_many_batch p50 over batches 2-4 without "
+        "blend terms, host ms: " + "; ".join(
+            f"{t} {p50_ms(v):.1f}" for t, v in timing.items()))
+    kernels.update(shard_topk_rows(torch, dev, mres, p2, s2,
+                                   shard_launches))
+    log(f"[mega_catalog] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------------------
@@ -3154,7 +3539,7 @@ def main() -> int:
                     help="CPU, small sizes, plain versions; exits 3")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, serving, "
-                         "router_paths, model_kernels, moe_kernels, window_kernels, "
+                         "router_paths, mega_catalog, model_kernels, moe_kernels, window_kernels, "
                          "generate, moe_generate, generate_windowed, "
                          "long_context, card_vs_cpu, serve_loop); prints "
                          "no result, "
@@ -3198,6 +3583,8 @@ def main() -> int:
         "serving": lambda: serving_phase(torch, dev, small, kernels,
                                          shared),
         "router_paths": lambda: router_paths_phase(torch, dev, small,
+                                                   kernels, shared),
+        "mega_catalog": lambda: mega_catalog_phase(torch, dev, small,
                                                    kernels, shared),
         "model_kernels": lambda: kernels.update(
             model_kernel_phase(torch, dev, small)),

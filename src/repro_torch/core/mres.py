@@ -46,6 +46,59 @@ RAW_TO_AXIS = {
 
 
 @dataclass
+class IVFIndex:
+    """Two-level pruned-search index over the catalog (mega-catalog
+    path): spherical k-means centroids over the UNIT-normalized metric
+    embeddings and each entry's cell assignment.  Consumed by
+    ``kernels/ops.route_step(ivf=(centroids, cell_of), nprobe=...)``
+    — only the top-``nprobe`` cells per query are scanned, so recall
+    versus the exhaustive search is the ``nprobe`` knob."""
+    centroids: np.ndarray             # (C, N_METRICS) f32 unit rows
+    cell_of: np.ndarray               # (n,) i32 cell per catalog row
+    n_cells: int
+
+    def as_tuple(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.centroids, self.cell_of
+
+
+def build_ivf(emb: np.ndarray, n_cells: int, *, seed: int = 0,
+              iters: int = 5) -> IVFIndex:
+    """Spherical k-means over unit-normalized embedding rows, in host
+    numpy (the reference's arithmetic, so the index is the reference's
+    bit for bit).
+
+    Deterministic (fixed ``seed``), a handful of Lloyd iterations —
+    routing embeddings are low-dimensional and heavily clustered by
+    construction (min-max normalized metric profiles), so cheap
+    centroids already give high recall at small ``nprobe``.  Empty
+    cells keep their previous centroid (their slots simply stay dead
+    in the packed layout).
+    """
+    n = emb.shape[0]
+    C = max(1, min(int(n_cells), n))
+    embf = emb.astype(np.float32)
+    embn = embf / (np.linalg.norm(embf, axis=1, keepdims=True) + 1e-9)
+    rng = np.random.default_rng(seed)
+    cent = embn[rng.choice(n, C, replace=False)].copy()
+    for _ in range(max(0, int(iters))):
+        cell = (embn @ cent.T).argmax(axis=1)
+        sums = np.zeros_like(cent)
+        np.add.at(sums, cell, embn)
+        cnt = np.bincount(cell, minlength=C)
+        nz = cnt > 0
+        cent[nz] = sums[nz] / (
+            np.linalg.norm(sums[nz], axis=1, keepdims=True) + 1e-9)
+    cell = (embn @ cent.T).argmax(axis=1).astype(np.int32)
+    return IVFIndex(cent.astype(np.float32), cell, C)
+
+
+def default_n_cells(n: int) -> int:
+    """~sqrt(N) cells: balances coarse-scan cost (C per query) against
+    fine-scan cost (nprobe * N / C per query)."""
+    return max(1, int(round(float(n) ** 0.5)))
+
+
+@dataclass
 class ModelEntry:
     name: str
     raw_metrics: Dict[str, float]
@@ -113,6 +166,7 @@ class MRES:
         self._gmask: Optional[np.ndarray] = None
         self._route_mat: Optional[np.ndarray] = None
         self._name_list: List[str] = []
+        self._ivf: Optional[IVFIndex] = None
         self._dirty = True
         self._lock = threading.Lock()
 
@@ -199,6 +253,7 @@ class MRES:
             A[:, DM_COL:BIAS_COL] = MASK_BONUS * dm.T
             A[:, BIAS_COL] = 1.0
         self._route_mat = A
+        self._ivf = None            # rebuilt lazily on next ivf_index()
         self._dirty = False
 
     def embeddings(self) -> np.ndarray:
@@ -231,3 +286,20 @@ class MRES:
         with self._lock:
             self._refresh_locked()
             return self._gmask
+
+    def ivf_index(self, n_cells: Optional[int] = None) -> IVFIndex:
+        """The catalog's IVF pruned-search index (built lazily, cached
+        until the next registration/metric update dirties the store —
+        i.e. rebuilt at ``register_many`` granularity, not per query).
+        ``n_cells`` defaults to ~sqrt(N); passing a different value
+        rebuilds."""
+        with self._lock:
+            self._refresh_locked()
+            n = len(self._entries)
+            if n == 0:
+                raise RuntimeError("empty MRES catalog")
+            want = default_n_cells(n) if n_cells is None else \
+                max(1, min(int(n_cells), n))
+            if self._ivf is None or self._ivf.n_cells != want:
+                self._ivf = build_ivf(self._emb, want)
+            return self._ivf

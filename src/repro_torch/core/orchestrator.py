@@ -162,11 +162,14 @@ class OptiRoute:
 
     def _fully_fused_ok(self) -> bool:
         """Whether the single analyze->route program can serve: no
-        merger, a fusable engine and an analyzer exposing its encoder
-        (stub analyzers do not)."""
+        merger, a fusable engine on the dense program (a mesh or IVF
+        pruning keeps the analyzer plus ``route_many_batch``) and an
+        analyzer exposing its encoder (stub analyzers do not)."""
         return (self.merger is None
                 and getattr(self.analyzer, "supports_fused_route", False)
-                and self.engine._fused_ok())
+                and self.engine._fused_ok()
+                and self.engine.mesh is None
+                and not self.engine.ivf)
 
     def route_all(self, texts: Sequence[str], prefs) -> List[RoutedQuery]:
         """Analyze and route every query in one vectorized pass; each

@@ -10,7 +10,10 @@ ladder (widened-kNN -> task-type-only -> generalist -> any).
 
 The fused paths run all of it as one program: ``route_tokens_batch``
 fuses the analyzer encoder in front of it (token ids in, model choices
-out); ``route_many_batch`` takes signatures.  ``route_many_staged`` is
+out); ``route_many_batch`` takes signatures, and also serves the
+mega-catalog programs (``mesh``: the catalog sharded over a routing
+mesh; ``ivf``: IVF-pruned search from catalogs of ``ivf_min_n``
+entries).  ``route_many_staged`` is
 the reference's staged path and serves what the fused program cannot
 express (a Thompson-policy bandit, ``fused=False``): one ``router_topk``
 launch for the kNN (``ops.knn_rows``), then the blend, the bandit
@@ -186,12 +189,9 @@ class RoutingEngine:
                  use_complexity: bool = True,
                  adaptive=None, adaptive_weight: float = 0.0,
                  load=None, load_weight: float = 0.0,
-                 quantize: bool = False, mesh=None, ivf: bool = False,
                  fused: bool = True, telemetry=None, tracer=None,
-                 device=None):
-        if mesh is not None or ivf:
-            raise not_ported("A mesh-sharded or IVF-pruned catalog",
-                             "'sharded and IVF programs'")
+                 mesh=None, quantize: bool = False, ivf: bool = False,
+                 nprobe: int = 8, ivf_min_n: int = 4096, device=None):
         self.device = resolve_device(device)
         self.mres = mres
         self.feedback = feedback
@@ -213,8 +213,19 @@ class RoutingEngine:
         # load-aware layer: expected-wait penalty at ``load_weight``
         self.load = load
         self.load_weight = float(load_weight)
-        # serve from the int8 row-quantized catalog
+        # mega-catalog knobs (kernels/ops.route_step), read per batch:
+        #   mesh     — a routing mesh (launch.mesh.make_routing_mesh):
+        #              the catalog split into column blocks, one per
+        #              shard, bit-identical to the dense program
+        #   quantize — serve from the int8 row-quantized catalog
+        #   ivf      — two-level pruned search via MRES.ivf_index(),
+        #              scanning the top-``nprobe`` cells per query; only
+        #              at catalogs >= ``ivf_min_n``, and not with a mesh
+        self.mesh = mesh
         self.quantize = bool(quantize)
+        self.ivf = bool(ivf)
+        self.nprobe = int(nprobe)
+        self.ivf_min_n = int(ivf_min_n)
 
     # ------------------------------------------------------------------
     def route(self, prefs_or_profile, sig: TaskSignature) -> RoutingDecision:
@@ -294,7 +305,8 @@ class RoutingEngine:
     # ------------------------------------------------------------------
     def route_many_batch(self, prefs_batch,
                          sigs: Sequence[TaskSignature]) -> RoutingBatch:
-        """Array-first batched routing: ONE routing program."""
+        """Array-first batched routing: ONE routing program (dense, or
+        the sharded or IVF program when ``mesh``/``ivf`` say so)."""
         if not self._fused_ok():
             # fail loud: scoring a Thompson bandit with the program's
             # LinUCB formula (or bypassing fused=False) would change
@@ -312,11 +324,15 @@ class RoutingEngine:
         fb = None
         if self.feedback is not None and self.feedback.has_bias():
             fb = self.feedback.bias_batch(sigs, names)
+        ivf = None
+        if self.ivf and self.mesh is None and n >= self.ivf_min_n:
+            ivf = self.mres.ivf_index().as_tuple()
         out = ops.route_step(
             emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, k=k, r=r,
             fb=fb, fb_weight=self.feedback_weight, theta=theta, ainv=ainv,
             alpha=alpha, ad_weight=ad_w, lpen=lpen, quant=self.quantize,
-            device=self.device, telemetry=self.telemetry, tracer=self.tracer)
+            mesh=self.mesh, ivf=ivf, nprobe=self.nprobe, device=self.device,
+            telemetry=self.telemetry, tracer=self.tracer)
         return RoutingBatch(
             names=names, model_idx=out["model_idx"], score=out["score"],
             stage=out["stage"], similarity=out["similarity"],
@@ -335,6 +351,10 @@ class RoutingEngine:
             raise ValueError(
                 "engine configuration is not fusable (Thompson-policy "
                 "bandit or fused=False) — analyze + route_many_staged")
+        if self.mesh is not None:
+            raise ValueError("route_tokens_batch is single-device only "
+                             "(mesh-sharded catalogs keep the staged "
+                             "analyze)")
         tokens = np.asarray(tokens, np.int32)
         B = tokens.shape[0]
         prefs_list = resolve_batch(prefs_batch, B)
@@ -344,6 +364,9 @@ class RoutingEngine:
         if B == 0:
             return _empty_batch(True)
         snap, n, k, r = self._snapshot()
+        if self.ivf and n >= self.ivf_min_n:
+            raise ValueError("route_tokens_batch does not compose with "
+                             "IVF pruning — use the staged analyze")
         emb, names, tt_matrix, dm_matrix, gmask, _ = snap
         W = _prefs_matrix(prefs_list)
         theta, ainv, alpha, ad_w, lpen = self._blend_terms(n)

@@ -170,10 +170,12 @@ class Telemetry:
     def record_sharding(self, *, silent_replications: int = 0) -> None:
         """Count partition-spec fallbacks: ``silent_replications`` is
         how many times a sharded layout quietly replicated a tensor
-        because its named axis was absent from the mesh.  Nothing in
-        the port calls it until the sharded programs are ported
-        (ROADMAP.md, Queue 1, item 9); the counter keeps the
-        reference's summary and export keys."""
+        because its named axis was absent from the mesh.  The
+        reference counts its model-sharding rules' fallbacks here; the
+        port's catalog shards never replicate, and its model rules come
+        with LLM training (ROADMAP.md, Queue 1, item 13), so nothing
+        calls it yet; the counter keeps the reference's summary and
+        export keys."""
         with self._lock:
             self._sharding["silent_replications"] += \
                 int(silent_replications)

@@ -1,8 +1,8 @@
 """Public wrappers of the serving-path programs and kernels.
 
-Port of the JAX package's ``kernels/ops.py`` for the dense
-single-device path.  Each op pads the query axis to its power-of-two
-bucket and the catalog to its 128-aligned capacity (``q_bucket`` /
+Port of the JAX package's ``kernels/ops.py``.  Each op pads the query
+axis to its power-of-two bucket and the catalog to its 128-aligned
+capacity (``q_bucket`` /
 ``n_bucket``: eager PyTorch compiles nothing, but the padded shapes are
 the ones a captured CUDA graph per bucket will need), runs one program
 on ``device``, and hands host numpy arrays back sliced to the batch.
@@ -19,13 +19,18 @@ Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
 On the card the route-step kNN, the staged path's kNN (``knn_rows``),
 the cache lookup and the bandit update always launch their
 hand-written kernels; ``device="cpu"`` runs their
-plain PyTorch versions.  The model-zoo ops at the end (``flash_attention``,
-``flash_decode``, ``ssd_scan``, ``moe_gating``) take tensors and run
+plain PyTorch versions.  ``route_step`` also serves the mega-catalog
+programs: ``mesh=`` (a ``launch.mesh.RoutingMesh``: the catalog split
+into column blocks, one ``router_topk`` launch per shard) and ``ivf=``
+(the IVF-pruned search over a cell-packed catalog).  The model-zoo ops
+at the end (``flash_attention``, ``flash_decode``, ``ssd_scan``,
+``moe_gating``) take tensors and run
 where those tensors live: on the card their kernels, on the CPU the
 plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import weakref
 from typing import Optional, Tuple
@@ -42,11 +47,15 @@ from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
 from repro_torch.kernels.moe_gating import moe_gating as _gate_kernel
-from repro_torch.kernels.route_step import (quantize_rows, route_step_body,
+from repro_torch.kernels.route_step import (CatalogShard, quantize_rows,
+                                            route_step_body,
+                                            route_step_ivf_body,
+                                            route_step_sharded_body,
                                             unit_rows)
 from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
                                              router_topk_q8 as _topk_q8_kernel)
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.sharding.rules import CATALOG_AXIS, shard_bounds
 
 LANE = 128
 
@@ -59,6 +68,14 @@ def q_bucket(q: int) -> int:
 def n_bucket(n: int) -> int:
     """128-aligned catalog-axis capacity (floor 128)."""
     return max(128, -(-n // LANE) * LANE)
+
+
+def n_bucket_sharded(n: int, ndev: int) -> int:
+    """Catalog capacity of the sharded path: every shard gets an equal
+    128-aligned block, so the bucket is the next multiple of
+    ``ndev * 128``."""
+    step = ndev * LANE
+    return max(step, -(-n // step) * step)
 
 
 # dispatch counters of the bucketed serving-path ops (one count per
@@ -179,6 +196,76 @@ def _catalog_pack(emb: np.ndarray, tt, dm, gmask, np_pad: int, *,
     counts = table.sum(axis=1).astype(np.int32)
     packed = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                    for a in (e2, e2s, table.astype(np.uint8), counts))
+    _cache_put(key, emb, packed)
+    return packed
+
+
+def _catalog_pack_ivf(emb: np.ndarray, tt, dm, gmask, cent: np.ndarray,
+                      cell_of: np.ndarray, *, quant: bool,
+                      device: torch.device):
+    """Cell-packed device constants of the IVF program: (e2, e2s,
+    masks_table uint8, counts_table, orig int64, cent, cap), cached per
+    (catalog snapshot, index).
+
+    The catalog is permuted into contiguous equal-capacity cells
+    (``cap`` = the largest cell rounded up to 8 slots; dead slots carry
+    ``orig == -1``, zero rows and all-False mask columns), so "scan the
+    top-nprobe cells" is ONE gather of ``nprobe * cap`` slots.  The
+    counts table keeps the TRUE full-catalog populations."""
+    C = cent.shape[0]
+    key = (id(emb), "ivf", id(cent), C, bool(quant), str(device))
+    packed = _cache_lookup(key)
+    if packed is not None:
+        return packed
+    n = emb.shape[0]
+    cell_of = np.asarray(cell_of, np.int64)
+    sizes = np.bincount(cell_of, minlength=C)
+    cap = max(8, int(-(-int(sizes.max()) // 8) * 8))
+    order = np.argsort(cell_of, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    pos_in_cell = np.arange(n) - starts[cell_of[order]]
+    orig = np.full(C * cap, -1, np.int64)
+    orig[cell_of[order] * cap + pos_in_cell] = order
+    valid = orig >= 0
+    osafe = np.where(valid, orig, 0)
+    table = _mask_table(tt, dm, gmask, n, n)
+    counts = table.sum(axis=1).astype(np.int32)
+    e2, e2s = _catalog_blocks(emb, n, quant)
+    e2pk = e2[osafe] * valid[:, None].astype(e2.dtype)
+    e2spk = e2s[osafe] * valid[:, None] if quant else e2s
+    packed = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (e2pk, e2spk, (table[:, osafe] & valid).astype(np.uint8),
+                  counts, orig, np.asarray(cent, np.float32))) + (cap,)
+    _cache_put(key, emb, packed)
+    return packed
+
+
+def _catalog_pack_sharded(emb: np.ndarray, tt, dm, gmask, mesh, *,
+                          quant: bool):
+    """Per-shard device constants of the sharded program: (list of
+    ``CatalogShard`` holding each shard's ``e2``/``e2s`` rows and its
+    own contiguous (rows, n_loc) uint8 filter block on its device,
+    counts_table on the first shard's device, np_pad), cached per
+    catalog snapshot and mesh."""
+    S = len(mesh.devices)
+    n = emb.shape[0]
+    np_pad = n_bucket_sharded(n, S)
+    key = (id(emb), "sharded", np_pad, bool(quant),
+           tuple(str(d) for d in mesh.devices))
+    packed = _cache_lookup(key)
+    if packed is not None:
+        return packed
+    table = _mask_table(tt, dm, gmask, n, np_pad).astype(np.uint8)
+    e2, e2s = _catalog_blocks(emb, np_pad, quant)
+    dev = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+    shards = [CatalogShard(
+        offset=lo, e2=dev(e2[lo:hi], d),
+        e2s=dev(e2s[lo:hi] if quant else e2s, d),
+        masks=dev(table[:, lo:hi], d))
+        for (lo, hi), d in zip(shard_bounds(np_pad, S), mesh.devices)]
+    packed = (shards, dev(table.sum(axis=1).astype(np.int32),
+                          mesh.devices[0]), np_pad)
     _cache_put(key, emb, packed)
     return packed
 
@@ -351,22 +438,39 @@ def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
                fb_weight: float = 0.0, theta: Optional[np.ndarray] = None,
                ainv: Optional[np.ndarray] = None, alpha: float = 0.0,
                ad_weight: float = 0.0, lpen: Optional[np.ndarray] = None,
-               quant: bool = False, device=None, telemetry=None,
-               tracer=None) -> dict:
+               quant: bool = False, mesh=None, ivf=None, nprobe: int = 8,
+               device=None, telemetry=None, tracer=None) -> dict:
     """One routing step per batch (see ``kernels/route_step.py``).
 
     Pads the batch to its Q bucket (bucket rows take the trailing
-    all-True filter rows) and the catalog to its capacity, runs the
-    program on ``device``, returns host numpy outputs sliced to B.
-    ``tracer`` wraps the launch and the host copy in a ``route_step``
-    span (``path="dense"``); ``telemetry`` counts one dispatch.
+    all-True filter rows) and the catalog to its capacity, runs one
+    program, returns host numpy outputs sliced to B:
+
+    * dense (default) on ``device``;
+    * ``mesh`` (``launch.mesh.make_routing_mesh``): the catalog in
+      equal column blocks over the mesh's shards (capacity
+      ``n_bucket_sharded``), one ``router_topk`` launch per shard, the
+      carries merged on the first shard's device, which must be
+      ``device``; bit-identical to dense;
+    * ``ivf=(centroids, cell_of)`` (``MRES.ivf_index().as_tuple()``):
+      the top-``nprobe`` cells per query of the cell-packed catalog
+      (``nprobe >= n_cells`` is exhaustive).  Not composed with
+      ``mesh``.
+
+    ``tracer`` wraps the program and the host copy in a ``route_step``
+    span (``path`` "dense", "sharded" or "ivf"; ``n_bucket`` the
+    capacity, or ``cap`` for IVF; ``shards``; IVF adds
+    ``escape_rows``); ``telemetry`` counts one dispatch.
     """
+    if ivf is not None and mesh is not None:
+        raise ValueError("IVF + mesh sharding is not composed yet")
     dev = resolve_device(device)
     emb = np.asarray(emb, np.float32)
     T = np.asarray(T, np.float32)
     W = np.asarray(W, np.float32)
     n = emb.shape[0]
     B = T.shape[0]
+    R = max(k, r)
     if not (1 <= k <= n and 1 <= r <= n):
         raise ValueError(f"route_step needs 1 <= k, r <= n: {(k, r, n)}")
     qp = q_bucket(B)
@@ -380,25 +484,93 @@ def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
         W = np.pad(W, ((0, qpad), (0, 0)))
         ti = np.pad(ti, (0, qpad), constant_values=n_tt - 1)
         di = np.pad(di, (0, qpad), constant_values=n_dm - 1)
-    np_pad = n_bucket(n)
-    e2, e2s, masks, counts = _catalog_pack(emb, tt_matrix, dm_matrix, gmask,
-                                           np_pad, quant=quant, device=dev)
-    fbp = None
-    if fb is not None:
-        fbp = _to(np.pad(np.asarray(fb, np.float32),
-                         ((0, qpad), (0, np_pad - n))), dev)
-    thp, aip, lpp, params = _blend_operands(
-        n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
-    span = tracer.span("route_step", path="dense", batch=B, q_bucket=qp,
-                       n_bucket=np_pad, catalog_n=n, quant=quant,
-                       shards=1) if tracer is not None else NOOP_SPAN
+    fb = None if fb is None else np.asarray(fb, np.float32)
+    query = dict(T=_to(T, dev), W=_to(W, dev), ti=_to(ti, dev, torch.int64),
+                 di=_to(di, dev, torch.int64))
+    shape = dict(k=k, r=r, n_tt=n_tt, n_dm=n_dm, quant=quant)
+    attrs = {}
+    if ivf is not None:
+        cent, cell_of = ivf
+        e2, e2s, masks, counts, orig, cent_d, cap = _catalog_pack_ivf(
+            emb, tt_matrix, dm_matrix, gmask, np.asarray(cent, np.float32),
+            cell_of, quant=quant, device=dev)
+        # the blend terms in packed order, gathered on the device: dead
+        # slots take zeros
+        live, osafe = orig >= 0, orig.clamp(min=0)
+
+        def pk(a, rows=True):
+            a = _to(np.asarray(a, np.float32), dev)
+            if rows:
+                return torch.where(live.reshape((-1,) + (1,) * (a.ndim - 1)),
+                                   a[osafe], 0.0)
+            return torch.where(live[None, :], a[:, osafe], 0.0)
+
+        thp = aip = lpp = fbp = None
+        if theta is not None:
+            thp = pk(np.asarray(theta)[:n])
+            aip = pk(np.asarray(ainv)[:n].reshape(n, -1))
+        if lpen is not None:
+            lpp = pk(np.asarray(lpen)[:n])
+        if fb is not None:
+            fbp = pk(np.pad(fb, ((0, qpad), (0, 0))), rows=False)
+        params = torch.tensor([fb_weight, ad_weight, alpha],
+                              dtype=torch.float32, device=dev)
+        path, n_pad, shards = "ivf", cap, 1
+
+        def run():
+            out, n_escape = route_step_ivf_body(
+                e2, e2s, masks, counts, orig, cent_d, **query, fb=fbp,
+                theta=thp, ainv_flat=aip, lpen=lpp, params=params,
+                nprobe=int(nprobe), cap=cap, **shape)
+            attrs["escape_rows"] = n_escape
+            return out
+    elif mesh is not None:
+        S = mesh.shape[CATALOG_AXIS]
+        if mesh.devices[0] != dev:
+            raise ValueError(f"the routing mesh merges on "
+                             f"{mesh.devices[0]}, the program runs on {dev}")
+        shards_, counts, np_pad = _catalog_pack_sharded(
+            emb, tt_matrix, dm_matrix, gmask, mesh, quant=quant)
+        if R > np_pad // S:
+            raise ValueError(f"max(k, r) = {R} exceeds a shard's "
+                             f"{np_pad // S} columns")
+        fbp = None if fb is None else _to(
+            np.pad(fb, ((0, qpad), (0, np_pad - n))), dev)
+        thp, aip, lpp, params = _blend_operands(
+            n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
+        cut = lambda x, lo, hi, d, col=False: None if x is None else (
+            x[:, lo:hi] if col else x[lo:hi]).to(d)
+        shards_ = [dataclasses.replace(
+            sh, fb=cut(fbp, lo, hi, d, col=True), theta=cut(thp, lo, hi, d),
+            ainv_flat=cut(aip, lo, hi, d), lpen=cut(lpp, lo, hi, d))
+            for sh, (lo, hi), d in zip(shards_, shard_bounds(np_pad, S),
+                                       mesh.devices)]
+        path, n_pad, shards = "sharded", np_pad, S
+
+        def run():
+            return route_step_sharded_body(shards_, counts, **query,
+                                           params=params, **shape)
+    else:
+        np_pad = n_bucket(n)
+        e2, e2s, masks, counts = _catalog_pack(
+            emb, tt_matrix, dm_matrix, gmask, np_pad, quant=quant,
+            device=dev)
+        fbp = None if fb is None else _to(
+            np.pad(fb, ((0, qpad), (0, np_pad - n))), dev)
+        thp, aip, lpp, params = _blend_operands(
+            n, np_pad, theta, ainv, lpen, fb_weight, ad_weight, alpha, dev)
+        path, n_pad, shards = "dense", np_pad, 1
+
+        def run():
+            return route_step_body(e2, e2s, masks, counts, **query, fb=fbp,
+                                   theta=thp, ainv_flat=aip, lpen=lpp,
+                                   params=params, **shape)
+    span = tracer.span("route_step", path=path, batch=B, q_bucket=qp,
+                       n_bucket=n_pad, catalog_n=n, quant=quant,
+                       shards=shards) if tracer is not None else NOOP_SPAN
     with span:
-        out = route_step_body(
-            e2, e2s, masks, counts, _to(T, dev), _to(W, dev),
-            _to(ti, dev, torch.int64), _to(di, dev, torch.int64), fbp, thp,
-            aip, lpp, params, k=k, r=r, n_tt=n_tt, n_dm=n_dm, quant=quant)
-        out = _host(out, B)
-        span.set(compiles=0)
+        out = _host(run(), B)
+        span.set(compiles=0, **attrs)
     _bump("route_step")
     if telemetry is not None:
         telemetry.record_route_step(dispatches=1, compiles=0)

@@ -9,6 +9,9 @@ k best rows by score (fp32: ``q . e``; int8: ``float(int32 dot) *
 below ``min_score`` dropped, ties toward the lowest catalog index;
 empty slots come back with ``vals == -inf`` and an unspecified index.
 
+``tree_merge_topk`` (with ``merge_topk_multi``) is the reference's
+cross-shard merge of per-shard top-k carries, over torch tensors.
+
 The mask is the stacked uint8 filter table (R, N) plus one table row
 per query, not a (Q, N) float mask: the kernel reads the row itself.
 A wrapper given CUDA tensors launches the kernel, one launch a call
@@ -61,6 +64,117 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     vals, order = torch.sort(x.gather(1, idx), dim=1, descending=True,
                              stable=True)
     return vals, idx.gather(1, order)
+
+
+def _pow2_ge(x: int) -> int:
+    """Smallest power of two >= x (x >= 1)."""
+    return 1 << max(x - 1, 1).bit_length() if x > 1 else 1
+
+
+def _bitonic_merge(av, bv, a_payloads, b_payloads):
+    """The reference's bitonic merge of two sorted-descending (Q, k)
+    carries, step for step, before its cut to k: the kp-wide result
+    (kp = k rounded up to a power of two), sorted descending.
+
+    Carries narrower than kp pad with -inf values, -1 integer payloads
+    and 0 float payloads.  One reversal exchange keeps the kp largest
+    of the 2kp (ties keep the ``a`` element), then log2(kp) bitonic
+    stages sort them; every payload takes the values' keep mask, so
+    lanes never mix."""
+    assert len(a_payloads) == len(b_payloads)
+    k = av.shape[1]
+    kp = _pow2_ge(k)
+    a_pl, b_pl = list(a_payloads), list(b_payloads)
+    if kp != k:
+        def pad(x, fill):
+            return torch.cat([x, x.new_full((x.shape[0], kp - k), fill)],
+                             dim=1)
+
+        def fill(p):
+            return 0 if p.is_floating_point() else -1
+
+        av, bv = pad(av, NEG_INF), pad(bv, NEG_INF)
+        a_pl = [pad(p, fill(p)) for p in a_pl]
+        b_pl = [pad(p, fill(p)) for p in b_pl]
+    rv = bv.flip(1)
+    keep_a = av >= rv
+    v = torch.where(keep_a, av, rv)
+    pl = [torch.where(keep_a, pa, pb.flip(1)) for pa, pb in zip(a_pl, b_pl)]
+    pos = torch.arange(kp, device=v.device)
+    s = kp // 2
+    while s >= 1:
+        partner = pos ^ s
+        pv = v[:, partner]
+        first = ((pos & s) == 0)[None, :]       # lower index of each pair
+        keep = torch.where(first, v >= pv, v <= pv)
+        pl = [torch.where(keep, p, p[:, partner]) for p in pl]
+        v = torch.where(keep, v, pv)
+        s //= 2
+    return v, pl
+
+
+def merge_topk_multi(av, bv, a_payloads, b_payloads):
+    """Top-k union of two sorted-descending (Q, k) carries, with any
+    number of payload columns riding along every compare-exchange (the
+    reference's ``merge_topk_multi``).  Returns (vals (Q, k), tuple of
+    merged payloads)."""
+    k = av.shape[1]
+    v, pl = _bitonic_merge(av, bv, a_payloads, b_payloads)
+    return v[:, :k], tuple(p[:, :k] for p in pl)
+
+
+def merge_topk(av, ai, bv, bi):
+    """Top-k of the union of two sorted-descending (Q, k) carries with
+    their indices (one-payload ``merge_topk_multi``)."""
+    v, (i,) = merge_topk_multi(av, bv, (ai,), (bi,))
+    return v, i
+
+
+def _value_then_index(v, pl, index: int):
+    """Lanes re-ordered to value descending, then payload ``index``
+    ascending among equal values."""
+    o = torch.sort(pl[index], dim=1, stable=True).indices
+    v, pl = v.gather(1, o), [p.gather(1, o) for p in pl]
+    o = torch.sort(v, dim=1, descending=True, stable=True).indices
+    return v.gather(1, o), tuple(p.gather(1, o) for p in pl)
+
+
+def tree_merge_topk(vals, payloads, *, index: Optional[int] = None):
+    """Pairwise-tree reduction of S sorted-descending per-shard carries
+    into one (Q, k) top-k: the cross-shard step of the sharded
+    ``route_step``.
+
+    vals (S, Q, k) stacked per-shard values (shard-major); payloads a
+    tuple of (S, Q, k) tensors.  Adjacent pairs merge per level
+    (``merge_topk_multi``), the higher shard folding into the lower,
+    as the reference does.  Its bitonic stages can leave equal values
+    out of index order, and the cut to k (or a later level's exchange)
+    then keeps the wrong ones of a tie that straddles it.  With
+    ``index`` (the position of a payload holding global catalog
+    indices), each merge's full kp-wide result is put in (value
+    descending, index ascending) order before the cut: its exchange
+    keeps a prefix of each canonical carry, so the kept set is right,
+    and the result is the top-k of the concatenated catalog with ties
+    to the lowest index, as a dense top-k gives.  Without it the result
+    is the reference's, lane for lane.  Returns (vals (Q, k),
+    tuple of payloads (Q, k))."""
+    S = vals.shape[0]
+    parts = [(vals[s], tuple(p[s] for p in payloads)) for s in range(S)]
+    while len(parts) > 1:
+        nxt = []
+        for i in range(0, len(parts) - 1, 2):
+            (av, apl), (bv, bpl) = parts[i], parts[i + 1]
+            if index is None:
+                nxt.append(merge_topk_multi(av, bv, apl, bpl))
+                continue
+            k = av.shape[1]
+            v, pl = _value_then_index(*_bitonic_merge(av, bv, apl, bpl),
+                                      index)
+            nxt.append((v[:, :k], tuple(p[:, :k] for p in pl)))
+        if len(parts) % 2:
+            nxt.append(parts[-1])
+        parts = nxt
+    return parts[0]
 
 
 def _finish(scores: torch.Tensor, mask_table, rows, k: int,

@@ -7,7 +7,9 @@ decode launches bit-equal; the scan at hymba's H = 50, N = 16, past one
 64 x 128 tile and past 65,535 batches x chunks; the one-launch MoE gate
 over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
 min_score and catalog order; the staged kNN's filter-row launch against
-the dense-mask call; staged routing, LinUCB and Thompson), and
+the dense-mask call; staged routing, LinUCB and Thompson; the sharded
+route step bit-equal to the dense one on the card, ties included, and
+the IVF route step against its CPU run, probed cells equal), and
 generation on the card against the same seeded model on the CPU.  They import neither JAX nor the JAX
 package, so they run on a machine with a card and no JAX:
 
@@ -764,3 +766,109 @@ def test_default_device_routes_with_an_analyzer(cuda):
     rqs = router.route_all(["write a python function", "summarize this"],
                            "balanced")
     assert {rq.model for rq in rqs} <= {"llama3.2-1b", "mamba2-1.3b"}
+
+
+def _mega_problem(rng, B, N, *, dup=False, blend=True):
+    """A routing step's operands with sparse filters (every fallback
+    rung fires) and, with ``dup``, every catalog row duplicated into
+    the other half of the catalog (rows, filters and blend terms), the
+    first half of the queries aimed at them: exact ties."""
+    half = N // 2 if dup else N
+    emb = rng.random((half, 8)).astype(np.float32)
+    tt = np.vstack([rng.random((11, half)) < 0.05, np.ones((1, half), bool)])
+    dm = np.vstack([rng.random((6, half)) < 0.1, np.ones((1, half), bool)])
+    tt[:3] = False
+    gmask = rng.random(half) < 0.02
+    L = rng.standard_normal((half, 9, 9)).astype(np.float32) * 0.05
+    kw = dict(fb=(rng.random((B, half)) - 0.5).astype(np.float32),
+              fb_weight=0.5,
+              theta=rng.standard_normal((half, 9)).astype(np.float32) * 0.1,
+              ainv=np.einsum("nde,nfe->ndf", L, L)
+              + 0.5 * np.eye(9, dtype=np.float32), alpha=0.8, ad_weight=0.6,
+              lpen=(rng.random(half) * 0.3).astype(np.float32)) \
+        if blend else {}
+    if dup:
+        two = lambda a, ax: np.concatenate([a, a], axis=ax)
+        emb, tt, dm, gmask = two(emb, 0), two(tt, 1), two(dm, 1), \
+            two(gmask, 0)
+        kw.update({key: two(kw[key], 1 if key == "fb" else 0)
+                   for key in ("fb", "theta", "ainv", "lpen") if key in kw})
+    T = rng.random((B, 8)).astype(np.float32)
+    if dup:
+        T[: B // 2] = emb[rng.integers(0, half, B // 2)]
+    W = rng.random((B, 8)).astype(np.float32)
+    ti, di = rng.integers(0, 12, B), rng.integers(0, 7, B)
+    return (emb, tt, dm, gmask, T, W, ti, di), kw
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,N,k,dup,blend", [
+    (5, 5, 3, False, True), (256, 100_000, 8, False, True),
+    (64, 20_000, 8, True, True), (33, 515, 8, False, False)])
+def test_sharded_route_step_on_card_bit_equal_to_dense(cuda, quant, B, N, k,
+                                                      dup, blend):
+    """Four shards on one card (one ``router_topk`` launch each) against
+    the dense program on the same card, all eight outputs bit for bit,
+    ties included; and against the CPU's sharded run, tie-aware."""
+    from repro_torch.launch.mesh import make_routing_mesh
+
+    rng = np.random.default_rng(N + B)
+    args, kw = _mega_problem(rng, B, N, dup=dup, blend=blend)
+    r = min(max(5, k), N)
+    dense = OPS.route_step(*args, k=k, r=r, quant=quant, device=cuda, **kw)
+    RT.router_topk.launches = RT.router_topk_q8.launches = 0
+    got = OPS.route_step(*args, k=k, r=r, quant=quant,
+                         mesh=make_routing_mesh(4, device=cuda),
+                         device=cuda, **kw)
+    launched = RT.router_topk_q8 if quant else RT.router_topk
+    assert launched.launches == 4
+    for key in dense:
+        np.testing.assert_array_equal(got[key], dense[key], err_msg=key)
+    cpu = OPS.route_step(*args, k=k, r=r, quant=quant,
+                         mesh=make_routing_mesh(4, device="cpu"),
+                         device="cpu", **kw)
+    _assert_route_close(got, cpu)
+
+
+def _assert_route_close(got, want, tol=1e-5):
+    """Stages and counts exact, scores within ``tol``, candidate
+    indices equal except inside a run of reference scores tied within
+    ``tol``."""
+    for key in ("stage", "n_filtered", "n_candidates"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    gs, ws = got["cand_score"], want["cand_score"]
+    fin = np.isfinite(ws)
+    np.testing.assert_array_equal(np.isfinite(gs), fin)
+    np.testing.assert_allclose(gs[fin], ws[fin], rtol=0, atol=tol)
+    gi, wi = got["cand_idx"], want["cand_idx"]
+    for b, j in zip(*np.nonzero(fin & (gi != wi))):
+        alt = np.nonzero(wi[b] == gi[b, j])[0]
+        assert alt.size and abs(ws[b, alt[0]] - ws[b, j]) <= tol, (b, j)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("N,nprobe", [(4000, 2), (100_000, 8)])
+def test_ivf_route_step_on_card_matches_cpu(cuda, quant, N, nprobe):
+    """The IVF program on the card against its CPU run on the same
+    index: the same probed cells for every query, then the same
+    decisions (tie-aware within 1e-5, stages and counts exact)."""
+    from repro_torch.core.mres import build_ivf, default_n_cells
+    from repro_torch.kernels.route_step import _dot_cols, unit_rows
+    from repro_torch.kernels.router_topk import topk_stable
+
+    rng = np.random.default_rng(N)
+    args, kw = _mega_problem(rng, 256, N)
+    ivf = build_ivf(args[0], default_n_cells(N))
+    cells = []
+    for dev in (cuda, torch.device("cpu")):
+        T = torch.from_numpy(args[4]).to(dev)
+        cent = torch.from_numpy(ivf.centroids).to(dev)
+        cells.append(topk_stable(_dot_cols(unit_rows(T), cent),
+                                 nprobe)[1].cpu())
+    assert torch.equal(cells[0], cells[1])
+    got, want = (OPS.route_step(*args, k=8, r=8, quant=quant,
+                                ivf=ivf.as_tuple(), nprobe=nprobe,
+                                device=dev, **kw)
+                 for dev in (cuda, "cpu"))
+    _assert_route_close(got, want)
+    assert (want["stage"] > 0).any()

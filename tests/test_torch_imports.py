@@ -57,6 +57,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.scheduler\n"
         "import repro_torch.serving.async_engine\n"
         "import repro_torch.training.optimizer\n"
+        "import repro_torch.sharding.rules, repro_torch.launch.mesh\n"
         "from repro_torch.serving import AsyncServingEngine, MicroBatcher\n"
         "from repro_torch.configs import ARCH_NAMES, get_config\n"
         "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"
@@ -81,6 +82,7 @@ def _entry_points():
     from repro_torch.kernels import ops
     from repro_torch.serving.catalog import build_catalog
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_routing_mesh
     from repro_torch.serving.runner import ModelRunner
     from repro_torch.serving.scheduler import ContinuousBatcher
 
@@ -90,6 +92,7 @@ def _entry_points():
     return {
         "TaskAnalyzer": lambda: TaskAnalyzer(cfg),
         "RoutingEngine": lambda: RoutingEngine(MRES()),
+        "make_routing_mesh": lambda: make_routing_mesh(4),
         "OptiRoute": lambda: OptiRoute(MRES(), None),
         "SemanticCache": lambda: SemanticCache(capacity=4),
         "LinearBandit": lambda: LinearBandit(4),
@@ -108,7 +111,7 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["TaskAnalyzer", "RoutingEngine",
-                                  "OptiRoute", "SemanticCache",
+                                  "make_routing_mesh", "OptiRoute", "SemanticCache",
                                   "LinearBandit", "ops.router_topk",
                                   "ops.bandit_update", "ModelRunner",
                                   "build_catalog", "ContinuousBatcher",

@@ -182,12 +182,27 @@ def test_bandit_update_and_score_matches_jax(B):
         np.testing.assert_array_equal(tb.counts, jb.counts)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"ivf": True}],
-                         ids=["mesh", "ivf"])
-def test_sharded_and_ivf_catalogs_are_not_ported_yet(kw):
+@pytest.mark.parametrize("mode", ["sharded", "ivf"])
+def test_sharded_and_ivf_catalogs_route_a_batch(mode):
+    """A routing mesh (two CPU shards) and IVF pruning each serve
+    ``route_many_batch``; the route_step span names the program."""
+    from repro_torch.core.preferences import TaskSignature
     from repro_torch.core.routing import RoutingEngine
-    with pytest.raises(NotImplementedError, match="sharded and IVF"):
-        RoutingEngine(TMRES(), device="cpu", **kw)
+    from repro_torch.launch.mesh import make_routing_mesh
+    from repro_torch.obs import Tracer
+
+    tm = TMRES()
+    tm.register_many([TEntry(**e) for e in _entries(48, seed=6)])
+    kw = {"mesh": make_routing_mesh(2, device="cpu")} if mode == "sharded" \
+        else {"ivf": True, "ivf_min_n": 1}
+    eng = RoutingEngine(tm, device="cpu", tracer=Tracer(), **kw)
+    sigs = [TaskSignature(task_type="chat", domain="general",
+                          complexity=0.1 * i) for i in range(5)]
+    batch = eng.route_many_batch("balanced", sigs)
+    assert len(batch) == 5 and (batch.model_idx >= 0).all()
+    (span,) = [sp for sp in eng.tracer.spans() if sp.name == "route_step"]
+    assert span.attrs["path"] == mode
+    assert span.attrs["shards"] == (2 if mode == "sharded" else 1)
 
 
 class _StubAnalyzer:
