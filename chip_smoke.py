@@ -79,6 +79,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      position), and hymba's scan (H=50, P=64, N=16) at both, each
      against its plain version and timed beside SDPA (none with a
      softcap) and its bound; f32 and bf16 sweeps at hd 120 and 288;
+  4d. the frontend models' kernel shapes (``frontend_kernels``): flash
+     attention of seamless-m4t-medium (16 heads of 64, G 1: the
+     encoder's non-causal 16 x 16, the causal prefill at L=512, the
+     cross-attention's 512 queries over 16 keys, the decode over 536
+     slots and the cross decode with every key live) and of
+     llava-next-mistral-7b (32/8 heads of 128: the prefill over 2,880
+     frontend + 512 text tokens and the decode past its cache of
+     3,392), at B=16, each against its plain version (over slices of
+     the batch where its scores would not fit) and timed beside SDPA
+     and its bound; f32 and bf16 sweeps at 12, 16 and 17 keys;
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -103,21 +113,31 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      through ``ModelRunner.generate`` at B=4, prompt 4,608, 16 new
      tokens (hymba's ring of 1,024 and h2o-danube's of 4,096 wrap);
      finite logits and exact launch counts;
-  6. card against CPU: the six configs at full width, 2 layers, f32
+  5e. ``generate_frontends``: routed generation on seamless-m4t-medium
+     and llava-next-mistral-7b at full width and depth (about 15.6 GB
+     of bf16), 32 requests by preference profile, prompt 512, 16 new
+     tokens, the runners' zero frontend embeddings as the reference's
+     (16 frames; 2,880 patches); exact launch counts (seamless's
+     encoder once, self + cross per decoder layer per step), the
+     analyzer's task types per model, prefill ms, ms per decode step,
+     the card's busy share and peak memory;
+  6. card against CPU: the eight configs at full width, 2 layers, f32
      compute, the same seeded weights on both devices: prefill logits
      within 1e-3 of max |logit|, greedy tokens equal (tie-aware); for
      the MoE also the experts of every gate, tie-aware, with tokens
      dropped at its published capacity factor; the windowed models at
      prompt 72 with their windows set to 48, so the rings (48 slots,
-     roll shift 24) and gemma2's local masks bite;
+     roll shift 24) and gemma2's local masks bite; the frontend models
+     with 2 encoder layers (seamless) and 64 frontend tokens (llava),
+     fed seeded standard-normal embeddings;
   7. ``serve_loop``, the service loop of ``repro_torch.launch.serve``:
      ``TaskAnalyzer.train`` (250 steps) on the card and on the CPU from
      one seeded init (first 20 losses within 1e-3 relative, accuracies
      within 0.02, complexity MAE within 0.01; saved in the reference's
      layout and loaded back bit-equal); the launcher's ``main`` at full
-     width on the six default configs in its four modes -- 48 requests
+     width on the eight default configs in its four modes -- 48 requests
      with 16 new tokens (none failed or shed, Prometheus text parsing
-     back), batch mode (one model, the CPU's route of the same
+     back), batch mode with 24 (one model, the CPU's route of the same
      aggregate signature), ``--async`` (windows of at most 8, the load
      tracker back at zero, three ``stream`` calls of 8 tokens) and
      ``--soak 30`` (intake counters equal to the CPU run's, the flood
@@ -133,9 +153,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      are rows of the ``kernels`` line with the launches of the
      batcher's run.
 
-Each windowed kernel shape is a row of the ``kernels`` line, its
-launches those of its kind (``flash_kind``) on the phase that runs it:
-the routed phase for B=16, the long-context phase for B=4.
+Each windowed and frontend kernel shape is a row of the ``kernels``
+line, its launches those of its kind (``flash_kind``) on the phase that
+runs it: the routed phases for B=16, the long-context phase for B=4.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": ...}``.
@@ -974,7 +994,7 @@ def breakdown(torch, dev, router, batch):
     stage("analyzer encoder", lambda: ops.analyze_step(an.params, toks,
                                                         device=dev))
     stage("route_tokens_batch", lambda: eng.route_tokens_batch(
-        an.params, toks, prefs))
+        an.params, an.cfg, toks, prefs))
     bandit = router.adaptive
     X = np.random.default_rng(0).random((len(reqs), 8)).astype(np.float32)
     ch = np.arange(len(reqs))
@@ -2195,10 +2215,13 @@ FLASH_TPU = "src/repro/kernels/flash_attention.py:87"
 
 
 def flash_kind(hd: int, Lq: int, G: int, window: int, local: int,
-               softcap: float) -> str:
+               softcap: float, causal: bool = True, Lk: int = 0,
+               all_live: bool = False) -> str:
     """The attention a layer asks of ``ops.flash_attention``: head dim,
     GQA group, prefill or decode, and its masks ('hd120 G4 prefill
-    window 4096')."""
+    window 4096'); a non-causal prefill (an encoder's, or a
+    cross-attention's over Lk != Lq keys) and a decode with every key
+    live (no ``kv_valid``: the cross decode) say so."""
     kind = f"hd{hd} G{G} {'prefill' if Lq > 1 else 'decode'}"
     if window:
         kind += f" window {window}"
@@ -2206,6 +2229,10 @@ def flash_kind(hd: int, Lq: int, G: int, window: int, local: int,
         kind += f" local {local}"
     if softcap:
         kind += f" softcap {softcap:g}"
+    if Lq > 1 and not causal:
+        kind += " non-causal" + (f" Lk {Lk}" if Lk != Lq else "")
+    if Lq == 1 and all_live:
+        kind += " all keys live"
     return kind
 
 
@@ -2223,7 +2250,8 @@ class FlashRecorder:
         def record(q, k, v, kv_valid=None, **kw):
             kind = flash_kind(q.shape[-1], q.shape[1], q.shape[2] // k.shape[2],
                               kw.get("window", 0), kw.get("local_window", 0),
-                              kw.get("softcap", 0.0))
+                              kw.get("softcap", 0.0), kw.get("causal", True),
+                              k.shape[1], kv_valid is None)
             self.counts[kind] = self.counts.get(kind, 0) + 1
             self.caps[kind] = k.shape[1]
             return self.orig(q, k, v, kv_valid, **kw)
@@ -2258,11 +2286,25 @@ def windowed_shapes(cfg, B: int, L: int, max_new: int):
                dict(causal=False, local_window=local, softcap=cap_))
 
 
+def plain_in_pieces(torch, FA, q, k, v, kvt, **kw):
+    """``flash_attention_plain`` over slices of the batch, each holding at
+    most 2**31 f32 scores (a sequence's rows are independent, so this is
+    the same function; llava's B=16, L=3,392 prefill would need 24 GB of
+    scores at once, and the plain version holds several such tensors)."""
+    B, Hq, Lq, _ = q.shape
+    n = max(1, min(B, (1 << 31) // max(1, Hq * Lq * k.shape[2])))
+    return torch.cat([FA.flash_attention_plain(
+        q[i:i + n], k[i:i + n], v[i:i + n],
+        None if kvt is None else kvt[i:i + n], **kw)
+        for i in range(0, B, n)])
+
+
 def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
-                    iters: int):
-    """One bf16 flash_attention shape of a windowed model in the layer
+                    iters: int, tag: str = "window kernels"):
+    """One bf16 flash_attention shape of a served model in the layer
     layout: the kernel against its plain version (|err| <= 2e-2 (1 +
-    |want|), and at most one bf16 ulp of max |want|), then the kernel's
+    |want|), and at most one bf16 ulp of max |want|; the plain version
+    over slices of the batch, ``plain_in_pieces``), then the kernel's
     device time, the plain version's, SDPA's with the same mask where
     SDPA computes the same function (no softcap), and the bound: q, o
     and the K/V rows some query sees, once each; 4 hd operations per
@@ -2276,13 +2318,24 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
     v = rn(B, Lk, Hkv, hd).transpose(1, 2)
     kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32,
                                                device=dev)
-    err = attn_check(torch, FA, q, k, v, kvt, 2e-2, what, **kw)
-    top = float(FA.flash_attention_plain(q, k, v, kvt, **kw).abs().max())
+    got = FA.flash_attention(q, k, v, kvt, **kw)
+    want = plain_in_pieces(torch, FA, q, k, v, kvt, **kw)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    over = float((diff - 2e-2 * (1 + want.float().abs())).max())
+    check(over <= 0, f"{what}: |err| exceeds 2e-2 * (1 + |want|) by {over}")
+    err = float(diff.max())
+    top = float(want.abs().max())
+    del got, want, diff
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
     check(err <= ulp, f"{what}: max err {err} above one bf16 ulp ({ulp}) "
                       f"of max |want| {top:.3g}")
+    # (B, Lq, Lk): the mask has a batch axis of 1 where it is the same
+    # for every sequence, and every sequence's pairs and keys count
     live = FA._live_mask(B, Lq, Lk, kvt, kw["causal"], kw.get("window", 0),
-                         dev, kw.get("local_window", 0))[:, 0, 0]
+                         dev, kw.get("local_window", 0))[:, 0, 0].expand(
+                             B, Lq, Lk)
     pairs = float(live.sum())
     keys = float(live.any(dim=1).sum())
     bms, by = bound_ms(2 * (2 * B * Lq * Hq * hd + 2 * keys * Hkv * hd),
@@ -2293,13 +2346,16 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
         ms=time_graph_ms(torch, lambda: FA.flash_attention(q, k, v, kvt,
                                                            **kw), dev,
                          iters=iters),
-        plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
-            q, k, v, kvt, **kw), dev, iters=max(2, iters // 4), warmup=1),
+        plain_ms=time_ms(torch, lambda: plain_in_pieces(
+            torch, FA, q, k, v, kvt, **kw), dev, iters=max(2, iters // 4),
+            warmup=1),
         library_ms=None)
     if not kw.get("softcap"):
-        # is_causal where every key is live and no window bites
+        # no mask where every key is live for every query, is_causal
+        # where the causal mask is all and no window bites
         bites = kw.get("window", 0) in range(1, Lk)
-        mask = (dict(is_causal=True) if Lq == Lk and kv is None and not bites
+        mask = (dict() if not kw["causal"] and kv is None else
+                dict(is_causal=True) if Lq == Lk and kv is None and not bites
                 else dict(attn_mask=live[:, None]))
         lib = sdpa_call(torch, q.contiguous(), k.contiguous(),
                         v.contiguous(), **mask)
@@ -2309,7 +2365,7 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
     lib = ("none: SDPA has no softcap" if row["library_ms"] is None else
            f"{row['library_ms']:.4f} (kernel / SDPA "
            f"{row['ms'] / row['library_ms']:.2f})")
-    log(f"[window kernels] {what}: {Hq}/{Hkv} heads of {hd}, {kw}, "
+    log(f"[{tag}] {what}: {Hq}/{Hkv} heads of {hd}, {kw}, "
         f"{int(pairs)} live (row, key) pairs: {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f}, SDPA {lib}, bound {bms:.4f} by {by} "
         f"({row['ms'] / bms:.1f}x); max err {err:.3g} (one bf16 ulp of max "
@@ -2445,21 +2501,30 @@ MOE_PROFILES = ["accuracy-first", "cost-effective", "balanced",
 
 
 def generation_requests(n: int, max_new: int, seed: int,
-                        profiles=GEN_PROFILES):
-    """n workload texts, ``profiles`` in turn.  Beside llama3.2-1b,
-    accuracy-first and balanced route to mamba2-1.3b, and to
-    qwen3-moe-30b-a3b (accuracy 0.86 against llama's 0.58);
-    cost-effective and latency-first go to llama (beside mamba2)."""
+                        profiles=GEN_PROFILES, task_types=None):
+    """n workload texts (only those of ``task_types``, where given),
+    ``profiles`` in turn, and each request's task type in the workload.
+    Beside llama3.2-1b, accuracy-first and balanced route to
+    mamba2-1.3b, and to qwen3-moe-30b-a3b (accuracy 0.86 against
+    llama's 0.58); cost-effective and latency-first go to llama (beside
+    mamba2).  Between the two frontend models, accuracy-first and
+    balanced go to llava-next-mistral-7b (accuracy 0.76 against 0.74),
+    cost-effective and latency-first to seamless-m4t-medium (a tenth of
+    its active parameters)."""
     from repro_torch.data.workload import make_workload
     from repro_torch.serving.engine import Request
 
-    return [Request(text=r.text, prefs=profiles[i % len(profiles)], id=i,
-                    max_new=max_new)
-            for i, r in enumerate(make_workload(n, seed=seed))]
+    recs = make_workload(n, seed=seed) if task_types is None else [
+        r for r in make_workload(12 * n, seed=seed)
+        if r.sig.task_type in task_types][:n]
+    return ([Request(text=r.text, prefs=profiles[i % len(profiles)], id=i,
+                     max_new=max_new) for i, r in enumerate(recs)],
+            {i: r.sig.task_type for i, r in enumerate(recs)})
 
 
 def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
-                      profiles=GEN_PROFILES, n_req: int = 32):
+                      profiles=GEN_PROFILES, n_req: int = 32,
+                      task_types=None):
     """One catalog of ``archs`` with runners (full width and depth on the
     card; ``SMOKE`` when rehearsing), ``n_req`` routed requests
     (``profiles`` in turn; half as many when rehearsing) through
@@ -2504,7 +2569,9 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     router = OptiRoute(mres, TaskAnalyzer(AnalyzerConfig(), seed=3,
                                           device=dev), device=dev)
     eng = ServingEngine(router, prompt_len=prompt_len)
-    reqs = generation_requests(n_req, max_new, seed=5, profiles=profiles)
+    reqs, truth = generation_requests(n_req, max_new, seed=5,
+                                      profiles=profiles,
+                                      task_types=task_types)
     t0 = time.perf_counter()
     eng.submit(reqs)                                 # warm-up pass
     log(f"[{tag}] warm-up submit {time.perf_counter() - t0:.2f} s")
@@ -2523,14 +2590,22 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
                 "moe_gating": MG.moe_gating.launches}
     log(f"[{tag}] launches on the main path: {launches}; flash_attention "
         f"calls by kind: {rec.counts}")
-    by_model = {}
+    by_model, analysis = {}, {}
     for r in out:
         check(not r.failed and not r.shed,
               f"request {r.request.id}: {r.admission} {r.error}")
         check(r.tokens is not None and len(r.tokens) == max_new,
               f"request {r.request.id}: tokens {r.tokens}")
         by_model[r.model] = by_model.get(r.model, 0) + 1
+        seen = analysis.setdefault(r.model, {})
+        prefs = r.request.prefs
+        key = (f"{prefs if isinstance(prefs, str) else 'weights'}: "
+               f"{truth[r.request.id]} -> {r.sig.task_type}/{r.sig.domain}")
+        seen[key] = seen.get(key, 0) + 1
     log(f"[{tag}] {len(out)} requests served per model: {by_model}")
+    for name, seen in analysis.items():
+        log(f"[{tag}] {name} served (profile: the workload's task type -> "
+            f"the analyzer's task type/domain): {seen}")
     for name in archs:
         check(by_model.get(name, 0) >= 8,
               f"{name} served {by_model.get(name, 0)} requests (< 8)")
@@ -2744,6 +2819,129 @@ def long_context_phase(torch, dev, small: bool, kernels, rows):
     record_window_launches(kernels, rows, "long", total)
 
 
+# ----------------------------------------------------------------------
+# the frontend models: seamless-m4t-medium and llava-next-mistral-7b
+# ----------------------------------------------------------------------
+
+FRONTEND_ARCHS = ["seamless-m4t-medium", "llava-next-mistral-7b"]
+# the task types the two configs' EVAL records list (speech and vision)
+FRONTEND_TASKS = ("translation", "transcription", "vqa", "captioning")
+ENC_LEN = 16                 # the runner's src_embeds frames (reference)
+
+
+def frontend_shapes(cfg, B: int, L: int, max_new: int):
+    """The flash_attention calls one generation of a frontend model makes
+    at batch B, prompt L: the encoder's non-causal self-attention over
+    ``ENC_LEN`` frames, the decoder's causal prefill over the context
+    (L, plus llava's frontend tokens), the cross-attention's prefill
+    (L queries, ``ENC_LEN`` keys), the decode against the self cache
+    (capacity max(L + max_new + 8, context), the runner's sizing: llava
+    decodes past its cache, so every key is live) and the cross decode
+    (every key live, no ``kv_valid``).  Yields (kind, Lq, Lk, kv_valid
+    list or None, kwargs)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    ctx = L + (0 if cfg.is_encdec else cfg.frontend_tokens)
+    C = max(L + max_new + 8, ctx)
+    kv = [min(ctx + 1 + (i * 5) % max_new, C) for i in range(B)]
+    shapes = [(ctx, ctx, None, dict(causal=True, window=0)),
+              (1, C, kv, dict(causal=False, local_window=0))]
+    if cfg.is_encdec:          # the cross-attention has no softcap
+        shapes += [(ENC_LEN, ENC_LEN, None, dict(causal=False)),
+                   (ctx, ENC_LEN, None, dict(causal=False, softcap=0.0)),
+                   (1, ENC_LEN, None, dict(causal=False, softcap=0.0))]
+    for Lq, Lk, kv_, kw in shapes:
+        kw.setdefault("softcap", cfg.attn_softcap)
+        yield (flash_kind(cfg.head_dim, Lq, G, 0, 0, kw["softcap"],
+                          kw["causal"], Lk, kv_ is None), Lq, Lk, kv_, kw)
+
+
+def frontend_kernel_phase(torch, dev, small: bool):
+    """flash_attention at every shape the two frontend models serve, at
+    full width (B = 16, prompt 512, 16 new tokens): seamless's encoder
+    (16 x 16, non-causal), its G = 1 causal prefill, its
+    cross-attention (512 queries, 16 keys: shorter than one key tile),
+    its self decode over 536 slots and its cross decode with every key
+    live; llava's hd-128 prefill over 2,880 frontend + 512 text tokens
+    and its decode past the cache (3,392 keys).  Each row against its
+    plain version, timed beside SDPA, with its bound.  Then f32 and bf16
+    sweeps at odd key counts (12, 17) of the cross shapes.  Returns
+    rows keyed ("frontend", kind)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    B, L, max_new = (2, 64, 4) if small else (16, 512, 16)
+    rows = {}
+    for name in FRONTEND_ARCHS:
+        cfg = get_smoke(name) if small else get_config(name)
+        for kind, Lq, Lk, kv, kw in frontend_shapes(cfg, B, L, max_new):
+            rows[("frontend", kind)] = window_attn_row(
+                torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw,
+                f"{kind} ({name}, B={B}, Lq={Lq}, Lk={Lk})",
+                iters=20 if Lq * Lk < 4e6 else 5, tag="frontend kernels")
+    cases = []
+    for lk in (12, 16, 17):
+        cases += [((3, 100, lk, 16, 16, 64), None, dict(causal=False)),
+                  ((3, 1, lk, 16, 16, 64), None, dict(causal=False)),
+                  ((3, lk, lk, 16, 16, 64), None, dict(causal=False))]
+    cases += [((2, 300, 300, 32, 8, 128), None, dict(causal=True)),
+              ((2, 1, 300, 32, 8, 128), [300, 300], dict(causal=False))]
+    for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        worst = 0.0
+        for (b_, lq, lk, hq, hk, d), kvl, kw in cases:
+            def rn(*shape):
+                return torch.randn(*shape, generator=g, device=dev).to(dt)
+            kvt = None if kvl is None else torch.tensor(
+                kvl, dtype=torch.int32, device=dev)
+            worst = max(worst, attn_check(
+                torch, FA, rn(b_, lq, hq, d).transpose(1, 2),
+                rn(b_, lk, hk, d).transpose(1, 2),
+                rn(b_, lk, hk, d).transpose(1, 2), kvt, tol,
+                f"flash_attention {dt} {(b_, lq, lk, hq, hk, d)} {kw}", **kw))
+        log(f"[frontend kernels] flash_attention {str(dt)[6:]} sweep "
+            f"({len(cases)} cases: non-causal with 12, 16 and 17 keys as "
+            f"the cross prefill, the cross decode and the encoder, G 1; "
+            f"hd 128 G 4 prefill and decode): max err {worst:.3g} (tol "
+            f"{tol} (1 + |want|))")
+    return rows
+
+
+def frontend_generation_phase(torch, dev, small: bool, kernels, rows):
+    """Routed generation on seamless-m4t-medium (an encoder over 16 zero
+    frames, as the reference's runner feeds it) and
+    llava-next-mistral-7b (2,880 zero patch embeddings before the
+    prompt) at full width and depth, seeded bf16 weights drawn on the
+    card: 32 requests of the workload's translation, transcription, vqa
+    and captioning texts, prompt 512, 16 new tokens.  seamless launches
+    flash_attention once per encoder layer and twice per decoder layer
+    (self, cross) per prefill and decode step; llava once per layer."""
+    mres, results, launches, prompt_len, max_new, kinds = routed_generation(
+        torch, dev, small, FRONTEND_ARCHS, seed=37,
+        tag="generate frontends", task_types=FRONTEND_TASKS)
+    sc, lc = (mres.entry(n).runner.cfg for n in FRONTEND_ARCHS)
+    n_flash = sc.n_enc_layers + (2 * sc.n_layers + lc.n_layers) * max_new
+    want = {"flash_attention": n_flash,
+            "flash_attention_decode": (2 * sc.n_layers + lc.n_layers)
+            * (max_new - 1), "ssd_scan": 0, "moe_gating": 0}
+    check(sum(kinds.values()) == n_flash,
+          f"flash_attention calls {kinds}, want {n_flash}")
+    if dev.type == "cuda":
+        check(launches == want, f"launch counts {launches}, want {want} "
+                                "(per prefill and decode step: seamless "
+                                "self + cross per layer, llava one per "
+                                "layer; seamless's encoder once)")
+    record_window_launches(kernels, rows, "frontend", kinds)
+    for name in FRONTEND_ARCHS:
+        res = results[name]
+        ctx = prompt_len + (0 if mres.entry(name).runner.cfg.is_encdec
+                            else lc.frontend_tokens)
+        log(f"[generate frontends] {name}: context {ctx} tokens "
+            f"(prompt {prompt_len}), decode cache "
+            f"{max(prompt_len + max_new + 8, ctx)} slots")
+        decode_profile(torch, dev, mres.entry(name).runner, name,
+                       res.tokens.shape[0], prompt_len)
+
+
 def _busy(prof) -> list:
     """(device us, name) of a trace's kernels, largest first.  Only the
     device's own events count: an operator's row (``aten::mm``) repeats
@@ -2766,15 +2964,15 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
 
     from repro_torch.training.steps import make_decode_step, make_prefill_step
 
-    toks = torch.ones((B, prompt_len), dtype=torch.int64, device=dev)
+    batch = runner._batch(np.ones((B, prompt_len), np.int64))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
         prefill = make_prefill_step(runner.cfg, max_len=prompt_len + steps + 2)
-        prefill(runner.params, {"tokens": toks})
+        prefill(runner.params, batch)
         torch.cuda.synchronize(dev)
         with profile(activities=acts) as pprof:
             t0 = time.perf_counter()
-            last, cache, pos = prefill(runner.params, {"tokens": toks})
+            last, cache, pos = prefill(runner.params, batch)
             torch.cuda.synchronize(dev)
             pwall = time.perf_counter() - t0
         step = make_decode_step(runner.cfg)
@@ -2825,7 +3023,11 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
     card (kernels) and the CPU (plain versions).  ``window`` replaces a
     windowed model's sliding window (the one reduction besides depth),
     so that a ring wraps and local layers mask at a prompt the CPU can
-    run."""
+    run.  The frontend models get 2 encoder layers (seamless) and 64
+    frontend tokens (llava's 2,880 cut, widths unchanged: an f32 CPU
+    prefill over 2,880 + 64 tokens would not finish in the time
+    limit), and are fed seeded standard-normal embeddings on both
+    devices (the runners' zeros would leave seamless's cross term 0)."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke
@@ -2845,13 +3047,28 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
                 f"{window} (the one reduction besides depth); "
                 + (f"a ring of {C} slots, roll shift {Lp % C}"
                    if C < Lp else f"local/global layers in a cache of {C}"))
+        rng = np.random.default_rng(12)
+        emb = None
+        if cfg.frontend:
+            cfg = dataclasses.replace(cfg, n_enc_layers=2) if cfg.is_encdec \
+                else dataclasses.replace(cfg, frontend_tokens=min(
+                    64, cfg.frontend_tokens))
+            shape = (B, ENC_LEN if cfg.is_encdec else cfg.frontend_tokens,
+                     cfg.frontend_dim)
+            emb = rng.standard_normal(shape).astype(np.float32)
+            log(f"[card vs cpu] {name}: "
+                + ("2 encoder layers of " + str(base.n_enc_layers)
+                   if cfg.is_encdec else
+                   f"frontend tokens {base.frontend_tokens} -> "
+                   f"{cfg.frontend_tokens}")
+                + f" (besides depth); seeded standard-normal {shape} "
+                f"frontend embeddings")
         params = M.init_params(cfg, torch.Generator().manual_seed(11), cpu)
-        toks = np.random.default_rng(12).integers(
-            0, cfg.vocab_size, (B, Lp)).astype(np.int32)
+        toks = rng.integers(0, cfg.vocab_size, (B, Lp)).astype(np.int32)
         ref = ModelRunner(cfg, params=params, device=cpu).generate(
-            toks, max_new, keep_logits=True)
+            toks, max_new, keep_logits=True, embeds=emb)
         got = ModelRunner(cfg, params=params, device=dev).generate(
-            toks, max_new, keep_logits=True)
+            toks, max_new, keep_logits=True, embeds=emb)
         scale = float(np.abs(ref.logits_last).max())
         tol = 1e-3 * scale
         err = float(np.abs(got.logits_last - ref.logits_last).max())
@@ -3136,8 +3353,11 @@ def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
 
     # -- batch mode: one decision, equal to the CPU's route_batch fed
     # the same aggregate of the sampled signatures
+    # half the stream: batch mode sends every request to one model, and
+    # where that is llava-next-mistral-7b, 48 prompts of 2,912 tokens
+    # beside the eight configs' weights would outgrow the card
     out, got = run("batch mode", "--mode", "batch", "--requests",
-                   str(n_req), "--max-new", str(max_new))
+                   str(n_req // 2), "--max-new", str(max_new))
     resps = out["responses"]
     served(resps, "batch mode")
     models = {r.model for r in resps}
@@ -3539,11 +3759,12 @@ def main() -> int:
                     help="CPU, small sizes, plain versions; exits 3")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, serving, "
-                         "router_paths, mega_catalog, model_kernels, moe_kernels, window_kernels, "
+                         "router_paths, mega_catalog, model_kernels, "
+                         "moe_kernels, window_kernels, frontend_kernels, "
                          "generate, moe_generate, generate_windowed, "
-                         "long_context, card_vs_cpu, serve_loop); prints "
-                         "no result, "
-                         "exits 4")
+                         "long_context, generate_frontends, card_vs_cpu, "
+                         "serve_loop; generate_frontends needs "
+                         "frontend_kernels); prints no result, exits 4")
     args = ap.parse_args()
     try:
         import torch
@@ -3576,6 +3797,7 @@ def main() -> int:
     small = args.rehearse
     kernels = {}
     window_rows = {}
+    frontend_rows = {}
     shared = {}
     phases = {
         "kernels": lambda: kernels.update(
@@ -3592,6 +3814,8 @@ def main() -> int:
             moe_kernel_phase(torch, dev, small)),
         "window_kernels": lambda: window_rows.update(
             window_kernel_phase(torch, dev, small)),
+        "frontend_kernels": lambda: frontend_rows.update(
+            frontend_kernel_phase(torch, dev, small)),
         "generate": lambda: (
             generation_phase(torch, dev, small, kernels),
             release(torch, dev, "after the routing and generation phases")),
@@ -3604,11 +3828,16 @@ def main() -> int:
             release(torch, dev, "after the windowed generation phase")),
         "long_context": lambda: long_context_phase(torch, dev, small,
                                                    kernels, window_rows),
+        "generate_frontends": lambda: (
+            frontend_generation_phase(torch, dev, small, kernels,
+                                      frontend_rows),
+            release(torch, dev, "after the frontend generation phase")),
         "card_vs_cpu": lambda: (
             card_vs_cpu_phase(torch, dev, small),
             moe_card_vs_cpu(torch, dev, small),
             card_vs_cpu_phase(torch, dev, small, WINDOWED_ARCHS, prompt=72,
-                              window=48)),
+                              window=48),
+            card_vs_cpu_phase(torch, dev, small, FRONTEND_ARCHS)),
         "serve_loop": lambda: serve_loop_phase(torch, dev, small, kernels),
     }
     only = args.only.split(",") if args.only else list(phases)

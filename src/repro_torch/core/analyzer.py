@@ -325,3 +325,20 @@ class TaskAnalyzer:
                     out["tt_idx"].tolist(), out["dm_idx"].tolist(),
                     out["cx"].tolist(), out["conf"].tolist())]
 
+
+    def analyze(self, text: str) -> TaskSignature:
+        return self.analyze_batch([text])[0]
+
+    def to_json(self, sig: TaskSignature) -> Dict:
+        """The paper's structured-json analyzer contract (Fig 3)."""
+        return {"task_type": sig.task_type, "domain": sig.domain,
+                "complexity": round(sig.complexity, 3),
+                "confidence": round(sig.confidence, 3)}
+
+
+class OracleAnalyzer:
+    """Ground-truth analyzer (reads the workload's true signature), so
+    benchmarks can isolate routing quality from analyzer error."""
+
+    def analyze_record(self, rec: QueryRecord) -> TaskSignature:
+        return rec.sig

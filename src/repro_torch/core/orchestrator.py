@@ -194,7 +194,7 @@ class OptiRoute:
             with span:
                 toks = an.encode_batch(list(texts))
             t1 = time.time()
-            batch = self.engine.route_tokens_batch(an.params, toks,
+            batch = self.engine.route_tokens_batch(an.params, an.cfg, toks,
                                                    prefs_list)
             t2 = time.time()
             out = [RoutedQuery(text=t, batch=batch, batch_idx=i,

@@ -119,11 +119,18 @@ class RoutingBatch:
             self._sigs[b] = s
         return s
 
+    def signatures(self) -> List[TaskSignature]:
+        return [self.signature(b) for b in range(len(self))]
+
     def __len__(self) -> int:
         return int(self.model_idx.shape[0])
 
     def model(self, b: int) -> str:
         return self.names[int(self.model_idx[b])]
+
+    def models(self) -> List[str]:
+        """Chosen model names, no decision materialization."""
+        return [self.names[j] for j in self.model_idx.tolist()]
 
     def fallback_kind(self, b: int) -> str:
         return FALLBACK_LADDER[int(self.stage[b])]
@@ -228,6 +235,14 @@ class RoutingEngine:
         self.ivf_min_n = int(ivf_min_n)
 
     # ------------------------------------------------------------------
+    def task_vector(self, prefs, sig: TaskSignature) -> np.ndarray:
+        """One query's task vector: the preference weights, the accuracy
+        axis raised to the analyzed complexity (``use_complexity``)."""
+        v = prefs.vector().copy()
+        if getattr(self, "use_complexity", True):
+            v[_ACC] = max(v[_ACC], float(sig.complexity))
+        return v
+
     def route(self, prefs_or_profile, sig: TaskSignature) -> RoutingDecision:
         """Single-query routing — B=1 wrapper over ``route_many``."""
         return self.route_many([prefs_or_profile], [sig])[0]
@@ -341,12 +356,16 @@ class RoutingEngine:
             n_candidates=out["n_candidates"], catalog_n=n, knn_k=k, r=r)
 
     # ------------------------------------------------------------------
-    def route_tokens_batch(self, params, tokens,
+    def route_tokens_batch(self, params, cfg, tokens,
                            prefs_batch) -> RoutingBatch:
         """Fused tokens->decision routing: ONE program from the
-        analyzer's (B, L) token ids (``TaskAnalyzer.encode_batch``) and
-        its encoder ``params`` to model choices.  The returned batch
-        carries the analyzer outputs (signatures materialize lazily)."""
+        analyzer's (B, L) token ids (``TaskAnalyzer.encode_batch``), its
+        encoder ``params`` and its config ``cfg`` to model choices.  The
+        returned batch carries the analyzer outputs (signatures
+        materialize lazily)."""
+        if params is not None and getattr(params, "cfg", cfg) != cfg:
+            raise ValueError(f"analyzer config {cfg} does not match its "
+                             f"encoder's {params.cfg}")
         if not self._fused_ok():
             raise ValueError(
                 "engine configuration is not fusable (Thompson-policy "

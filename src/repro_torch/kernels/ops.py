@@ -323,24 +323,29 @@ def _blend_operands(n: int, np_pad: int, theta, ainv, lpen, fb_weight,
 # router_topk (the semantic cache's lookup)
 # ----------------------------------------------------------------------
 
-def router_topk(emb, queries, k: int, mask=None, row_bias=None,
-                min_score: Optional[float] = None, *, quant: bool = False,
+def router_topk(emb, queries, k: int, mask=None, weights=None,
+                row_bias=None, min_score: Optional[float] = None, *,
+                quant: bool = False,
                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cosine top-k over a catalog (the reference's ``ops.router_topk``
-    contract, without its per-axis ``weights``, which no caller uses).
+    """Weighted-cosine top-k over a catalog (the reference's
+    ``ops.router_topk`` contract, in its positional order).
 
-    emb (N, D); queries (Q, D); mask None, (N,) or (Q, N) bool; row_bias
-    (N,) added on mask-valid rows; min_score floor after mask + bias.
-    ``quant`` scores int8 row-quantized rows (int32 dot, one fp32
-    rescale).  Returns (vals (Q, k) f32, idx (Q, k) i32) on ``device``;
-    empty slots have vals == -inf.
+    emb (N, D); queries (Q, D); mask None, (N,) or (Q, N) bool; weights
+    (D,) per-axis importance inside the dot product (sim = sum_d w_d e_d
+    q_d / (|e| |q|)), folded into the catalog rows before the kernel, as
+    the reference folds them; row_bias (N,) added on mask-valid rows;
+    min_score floor after mask + bias.  ``quant`` scores int8
+    row-quantized rows (int32 dot, one fp32 rescale) of the weighted
+    rows.  The rows are formed per call (no cached pack), so a weighted
+    call never reuses an unweighted catalog.  Returns (vals (Q, k) f32,
+    idx (Q, k) i32) on ``device``; empty slots have vals == -inf.
     """
     dev = resolve_device(device)
     emb = _to(emb, dev)
     queries = _to(queries, dev)
     N = emb.shape[0]
     Q = queries.shape[0]
-    ew = unit_rows(emb)
+    ew = unit_rows(emb, None if weights is None else _to(weights, dev))
     qn = unit_rows(queries)
     if mask is None:
         table = torch.ones((1, N), dtype=torch.uint8, device=dev)

@@ -65,8 +65,11 @@ def quantize_rows(x: torch.Tensor):
     return q, s
 
 
-def unit_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x / (|x| + 1e-9)`` per row, with the squared norm summed left to
+def unit_rows(x: torch.Tensor, weights: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """``x / (|x| + 1e-9)`` per row (``x * weights / (|x| + 1e-9)`` with
+    per-axis ``weights``, the reference's weighted cosine), with the
+    squared norm summed left to
     right in separate multiply and add passes and its square root taken
     in f64: the card and the CPU give the same bits.  (PyTorch's f32
     ``sqrt`` on the card is not correctly rounded; the f64 root rounded
@@ -78,7 +81,8 @@ def unit_rows(x: torch.Tensor) -> torch.Tensor:
     for d in range(1, x.shape[1]):
         ss = ss + x[:, d] * x[:, d]
     norm = torch.sqrt(ss.double()).float()
-    return x / (norm[:, None] + 1e-9)
+    num = x if weights is None else x * weights[None, :]
+    return num / (norm[:, None] + 1e-9)
 
 
 def _dot_cols(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

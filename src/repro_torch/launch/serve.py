@@ -41,25 +41,23 @@ ANALYZER_CKPT = (pathlib.Path(__file__).resolve().parents[3] / "results"
                  / "analyzer.npz")
 
 # configs the card serves by default: their full-width bf16 weights fit
-# one H100 together (about 25 GB); the others, and why
+# one H100 together (about 41 GB by ``n_params``); the others, and why
 CARD_ARCHS = ("llama3.2-1b", "qwen2-1.5b", "mamba2-1.3b", "hymba-1.5b",
-              "h2o-danube-3-4b", "gemma2-2b")
-FRONTENDS = ("seamless-m4t-medium", "llava-next-mistral-7b")
+              "h2o-danube-3-4b", "gemma2-2b", "seamless-m4t-medium",
+              "llava-next-mistral-7b")
 LEFT_OUT = {
     "qwen3-moe-30b-a3b": "59.5 GB of bf16 weights alone; serve it with "
                          "--archs qwen3-moe-30b-a3b llama3.2-1b",
     "llama4-maverick-400b-a17b": "does not fit one card (ROADMAP item 6.1)",
-    **{a: "frontend configs are not ported (ROADMAP item 6.4)"
-       for a in FRONTENDS},
 }
 
 
 def default_archs(device) -> List[str]:
     """The configs served when ``--archs`` is not given: on the card
-    ``CARD_ARCHS``, on the CPU every config the port serves (``SMOKE``)."""
+    ``CARD_ARCHS``, on the CPU all ten (``SMOKE``), as the reference."""
     if resolve_device(device).type == "cuda":
         return list(CARD_ARCHS)
-    return [a for a in ARCH_NAMES if a not in FRONTENDS]
+    return list(ARCH_NAMES)
 
 
 def load_analyzer(path=ANALYZER_CKPT, train_steps: int = 250, *,
@@ -194,8 +192,8 @@ def main(argv=None) -> Dict:
     ap.add_argument("--max-new", type=int, default=4)
     ap.add_argument("--archs", nargs="*", default=None,
                     help="subset of catalog archs to load runners for "
-                         "(default: the card's CARD_ARCHS, or every "
-                         "config the port serves with --device cpu)")
+                         "(default: the card's CARD_ARCHS, or all ten "
+                         "with --device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--merge-threshold", type=float, default=None)
     ap.add_argument("--metrics-out", default=None,

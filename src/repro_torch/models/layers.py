@@ -1,7 +1,8 @@
-"""Building blocks of the model zoo, for the families this port serves
-(dense attention with or without a sliding window, local/global
-alternation and softcaps, mixture-of-experts FFNs, the Mamba2 SSM and
-the hybrid attention+SSM layer).
+"""Building blocks of the model zoo: dense attention with or without a
+sliding window, local/global alternation and softcaps, the encoder's
+non-causal attention and the decoder's cross-attention,
+mixture-of-experts FFNs, the Mamba2 SSM and the hybrid attention+SSM
+layer.
 
 Port of the JAX package's ``models/layers.py``.  Parameters are plain
 dicts of tensors and layers are functions ``f(p, x, ...) -> y``, as
@@ -37,12 +38,6 @@ def check_supported(cfg, long_mode: bool = False) -> None:
     """Raise ``not_ported`` for any part of ``cfg`` (or the reference's
     ``long_mode``) the port does not serve, naming its ROADMAP.md
     item."""
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or \
-            cfg.frontend:
-        raise not_ported("Modality frontends and encoder-decoders",
-                         _ITEM6.format(4, "encdec and vlm frontends: "
-                                          "seamless-m4t-medium, "
-                                          "llava-next-mistral-7b"))
     if cfg.kv_cache_dtype == "int8":
         raise not_ported("kv_cache_dtype='int8'",
                          _ITEM6.format(5, "the int8 KV cache"))
@@ -109,14 +104,17 @@ def apply_rope(x, positions, theta: float):
 # attention (GQA, optional bias)
 # ----------------------------------------------------------------------
 
-def init_attention(gen, cfg, device=None, dtype=None):
+def init_attention(gen, cfg, device=None, dtype=None, cross: bool = False):
+    """q/k/v/o projections, with zero q/k/v biases where ``cfg.qkv_bias``
+    asks for them -- never on a cross-attention (``cross``), as in the
+    reference."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = getattr(torch, dtype or cfg.param_dtype)
     p = {"wq": dense_init(gen, (d, qd), dt, device=device),
          "wk": dense_init(gen, (d, kvd), dt, device=device),
          "wv": dense_init(gen, (d, kvd), dt, device=device),
          "wo": dense_init(gen, (qd, d), dt, device=device)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((qd,), dtype=dt, device=device)
         p["bk"] = torch.zeros((kvd,), dtype=dt, device=device)
         p["bv"] = torch.zeros((kvd,), dtype=dt, device=device)
@@ -127,35 +125,65 @@ def _split_heads(x, n_heads: int, head_dim: int):
     return x.reshape(x.shape[:-1] + (n_heads, head_dim))
 
 
-def qkv(p, cfg, x):
-    """The q/k/v projections, split into heads: (B, L, H, hd) each."""
-    def proj(w, b):
-        y = x @ p[w]
+def qkv(p, cfg, x, kv_x=None):
+    """The q/k/v projections, split into heads: (B, L, H, hd) each; the
+    keys and values from ``kv_x`` where it is given (cross-attention)."""
+    src = x if kv_x is None else kv_x
+
+    def proj(t, w, b):
+        y = t @ p[w]
         return y + p[b] if b in p else y
-    q = _split_heads(proj("wq", "bq"), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(proj("wk", "bk"), cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(proj("wv", "bv"), cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(proj(x, "wq", "bq"), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(proj(src, "wk", "bk"), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(proj(src, "wv", "bv"), cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
 
 
-def attention_prefill(p, cfg, x, positions, window: int = 0):
-    """Causal full-sequence attention (prefill / training forward): query
-    i sees keys i - window < j <= i (``window`` 0: all j <= i) -- the
-    layer's sliding window, which the caller gives per layer (a uniform
-    window, or gemma2's local layers; its global layers take 0).  Both
+def attention_prefill(p, cfg, x, positions, window: int = 0, *,
+                      causal: bool = True, kv_x=None):
+    """Full-sequence attention (prefill / training forward, the encoder,
+    the cross-attention), one launch of the flash kernel.
+
+    Self-attention (``kv_x`` None): RoPE at ``positions``, then
+    ``cfg.attn_softcap`` before the mask.  ``causal``: query i sees
+    keys i - window < j <= i (``window`` 0: all j <= i) -- the layer's
+    sliding window, which the caller gives per layer (a uniform window,
+    or gemma2's local layers; its global layers take 0).  Both
     ``attn_impl`` values of the reference (``attention_blocked``, banded
     or with the local/global switch, and the naive masked product)
-    compute this function, which is one launch of the flash kernel
-    here, with ``cfg.attn_softcap`` before the mask.  Returns (out (B,
-    L, d), (k, v)) -- k post-RoPE, the prefill cache."""
+    compute this function.  ``causal=False`` is the encoder's: every
+    query sees every key, as ``attention_blocked(causal=False)``.
+
+    Cross-attention (``kv_x``, the encoder's output, with
+    ``causal=False``): queries from ``x``, keys and values from
+    ``kv_x``, no RoPE, no mask and no softcap -- the reference's
+    ``attention_full(kv_x=..., causal=False, rope=False)``, its only
+    call with ``kv_x``.
+
+    Returns (out (B, L, d), (k, v)) -- the self-attention's k post-RoPE
+    (the prefill cache), or the cross cache."""
     B, L, _ = x.shape
-    q, k, v = qkv(p, cfg, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap)
+    q, k, v = qkv(p, cfg, x, kv_x)
+    if kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap if kv_x is None
+                              else 0.0)
     out = out.reshape(B, L, cfg.q_dim) @ p["wo"]
     return out, (k, v)
+
+
+def cross_attention_decode(p, cfg, x, k_cross, v_cross):
+    """One decoder token against the cross cache (the encoder's keys and
+    values, un-roped): x (B, 1, d); k_cross / v_cross (B, S, Hkv, hd),
+    every key live -- the decode kernel with ``kv_valid`` None.  The
+    reference's ``attention_decode(..., rope=False, update_cache=False,
+    full_valid=True)``.  Returns (B, 1, d)."""
+    B = x.shape[0]
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    out = ops.flash_attention(q, k_cross, v_cross, causal=False)
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
 def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,

@@ -1,10 +1,13 @@
 """The model: dense (llama-style GQA, with or without a sliding window,
-gemma2's local/global alternation and softcaps), MoE, SSM (Mamba2) and
-hybrid (hymba: attention and SSM in every layer) families.
+gemma2's local/global alternation and softcaps), MoE, SSM (Mamba2),
+hybrid (hymba: attention and SSM in every layer), encoder-decoder
+(seamless: an encoder over projected frontend embeddings, and a
+cross-attention in every decoder layer) and vision-language (llava:
+projected frontend tokens before the text) families.
 
-Port of the JAX package's ``models/model.py`` for the families this
-port serves (``layers.check_supported`` names the ROADMAP item of
-every other one).  Entry points, as there:
+Port of the JAX package's ``models/model.py`` (``layers.check_supported``
+names the ROADMAP item of every option it leaves out).  Entry points,
+as there:
 
   * ``forward_full`` -- full-sequence logits;
   * ``prefill``      -- the forward plus the decode cache;
@@ -12,10 +15,13 @@ every other one).  Entry points, as there:
 
 Parameters are nested dicts.  The reference stacks the per-layer
 parameters along a leading ``n_layers`` axis and scans over it; here
-``params["layers"]`` is a list of per-layer dicts and the scan is a
-Python loop.  ``params_from_jax`` carries a JAX parameter tree across.
+``params["layers"]`` (and an encoder's ``params["enc_layers"]``) is a
+list of per-layer dicts and the scan is a Python loop.
+``params_from_jax`` carries a JAX parameter tree across.
 The cache keeps the reference's stacked layout ((n_layers, B, C, Hkv,
-hd) for K/V) and ``decode_step`` updates it in place.  On a
+hd) for K/V, and the encoder-decoder's cross K/V (n_layers, B, S, Hkv,
+hd), filled once by the prefill) and ``decode_step`` updates it in
+place.  On a
 uniform-window model (hymba, h2o-danube) the K/V cache is a ring of C =
 ``cache_len`` slots; gemma2's local layers mask their window inside a
 full-length cache.
@@ -52,7 +58,18 @@ def _init_layer(gen, cfg: ModelConfig, device, dtype) -> Params:
         p["moe"] = L.init_moe(gen, cfg, device, dtype)
     elif cfg.d_ff > 0:
         p["mlp"] = L.init_mlp(gen, cfg, device, dtype)
+    if cfg.is_encdec:
+        p["cross"] = L.init_attention(gen, cfg, device, dtype, cross=True)
+        p["ln_cross"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
     return p
+
+
+def _init_encoder_layer(gen, cfg: ModelConfig, device, dtype) -> Params:
+    dt = getattr(torch, dtype or cfg.param_dtype)
+    return {"attn": L.init_attention(gen, cfg, device, dtype),
+            "mlp": L.init_mlp(gen, cfg, device, dtype),
+            **{k: torch.zeros((cfg.d_model,), dtype=dt, device=device)
+               for k in ("ln_mix", "ln_mlp")}}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
@@ -67,15 +84,31 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
     dt = getattr(torch, dtype or cfg.param_dtype)
     embed = L.dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02,
                          device=device)
-    return {"embed": embed,
-            "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-            "layers": [_init_layer(gen, cfg, device, dtype)
-                       for _ in range(cfg.n_layers)]}
+    params = {"embed": embed,
+              "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+              "layers": [_init_layer(gen, cfg, device, dtype)
+                         for _ in range(cfg.n_layers)]}
+    if cfg.is_encdec:
+        params["enc_layers"] = [_init_encoder_layer(gen, cfg, device, dtype)
+                                for _ in range(cfg.n_enc_layers)]
+        params["ln_enc"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                       device=device)
+    if cfg.frontend:
+        params["front_proj"] = {
+            "w": L.dense_init(gen, (cfg.frontend_dim, cfg.d_model), dt,
+                              device=device),
+            "b": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
+    return params
+
+
+# the parameter trees' stacked per-layer lists (the reference's scans)
+STACKED = ("layers", "enc_layers")
 
 
 def params_from_jax(tree, device="cpu") -> Params:
     """A JAX parameter tree (numpy leaves, per-layer parameters stacked
-    along a leading axis under ``"layers"``) as port parameters."""
+    along a leading axis under ``"layers"`` and ``"enc_layers"``) as
+    port parameters."""
     def conv(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)
 
@@ -84,9 +117,13 @@ def params_from_jax(tree, device="cpu") -> Params:
             return {k: nest(v, i) for k, v in node.items()}
         return conv(node if i is None else np.asarray(node)[i])
 
-    n_layers = len(next(iter(_leaves(tree["layers"]))))
-    out = {k: nest(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [nest(tree["layers"], i) for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k in STACKED:
+            n = len(next(iter(_leaves(v))))
+            out[k] = [nest(v, i) for i in range(n)]
+        else:
+            out[k] = nest(v)
     return out
 
 
@@ -177,11 +214,40 @@ def _ffn(p, cfg: ModelConfig, x):
     return x + y, aux
 
 
+def _project_frontend(params, cfg: ModelConfig, embeds):
+    fp = params["front_proj"]
+    cdt = getattr(torch, cfg.compute_dtype)
+    return embeds.to(device=fp["w"].device, dtype=cdt) @ fp["w"] + fp["b"]
+
+
+def encode(params, cfg: ModelConfig, src_embeds):
+    """The encoder stack over projected frontend embeddings (B, S,
+    frontend_dim): per layer a non-causal self-attention (RoPE at 0..S-1)
+    and the MLP, each after its rms norm, then ``ln_enc``.  Returns
+    (B, S, d)."""
+    x = _project_frontend(params, cfg, src_embeds)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    for p in params["enc_layers"]:
+        out, _ = L.attention_prefill(p["attn"], cfg,
+                                     L.rms_norm(x, p["ln_mix"]), pos,
+                                     causal=False)
+        x = x + out
+        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln_mlp"]))
+    return L.rms_norm(x, params["ln_enc"])
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Token embeddings; a vision-language model's projected frontend
+    tokens (``batch["frontend"]``) go before them.  Returns (x (B, Ltot,
+    d), positions 0..Ltot-1)."""
     cdt = getattr(torch, cfg.compute_dtype)
     tokens = batch["tokens"].long()
     x = params["embed"][tokens].to(cdt)
-    B, Lt = tokens.shape
+    if cfg.frontend and not cfg.is_encdec:
+        front = _project_frontend(params, cfg, batch["frontend"]).to(cdt)
+        x = torch.cat([front, x], dim=1)
+    B, Lt = x.shape[:2]
     positions = torch.arange(Lt, device=x.device)[None].expand(B, Lt)
     return x, positions
 
@@ -192,29 +258,49 @@ def _logits(params, cfg: ModelConfig, x):
     return L.softcap(logits.float(), cfg.final_softcap)
 
 
-def _hidden(params, cfg: ModelConfig, batch, collect_cache: bool,
+def _hidden(params, cfg: ModelConfig, batch, store=None,
             long_mode: bool = False):
+    """The layers over the embedded inputs.  ``store(i, kv, cross_kv,
+    ssd)`` takes each layer's cache parts as the layer finishes (so a
+    prefill writes them straight into its cache, never holding every
+    layer's K/V twice).  Returns (params in the compute dtype, x,
+    aux)."""
     L.check_supported(cfg, long_mode)
     params = cast_params(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    caches = []
+    enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec \
+        else None
     aux = 0.0
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         mix, kv, ssd = _mix_full(p, cfg, x, positions, kind)
-        x, aux_i = _ffn(p, cfg, x + mix)
+        x = x + mix
+        cross_kv = None
+        if enc_out is not None:
+            cross, cross_kv = L.attention_prefill(
+                p["cross"], cfg, L.rms_norm(x, p["ln_cross"]), positions,
+                causal=False, kv_x=enc_out)
+            x = x + cross
+        x, aux_i = _ffn(p, cfg, x)
         aux = aux + aux_i
-        caches.append((kv, ssd) if collect_cache else None)
-    return params, x, caches, aux
+        if store is not None:
+            store(i, kv, cross_kv, ssd)
+    return params, x, aux
 
 
 def forward_full(params, cfg: ModelConfig, batch, *,
                  long_mode: bool = False, collect_cache: bool = False):
-    """batch: {"tokens": (B, L)}.  Returns (logits (B, L, vocab_padded)
-    f32, aux_loss -- the MoE load-balance losses summed over the layers,
-    0.0 without experts -- and per-layer caches or Nones).  The
-    reference's ``long_mode`` raises ``not_ported``."""
-    params, x, caches, aux = _hidden(params, cfg, batch, collect_cache,
-                                     long_mode)
+    """batch: {"tokens": (B, L)}, plus ``"src_embeds"`` (B, S,
+    frontend_dim) for an encoder-decoder or ``"frontend"`` (B, F,
+    frontend_dim) for a vision-language model.  Returns (logits (B,
+    Ltot, vocab_padded) f32 -- Ltot = F + L with a frontend prefix --,
+    aux_loss -- the MoE load-balance losses summed over the layers, 0.0
+    without experts -- and per-layer caches or Nones).  The reference's
+    ``long_mode`` raises ``not_ported``."""
+    caches = [None] * cfg.n_layers
+    params, x, aux = _hidden(
+        params, cfg, batch,
+        (lambda i, *parts: caches.__setitem__(i, parts)) if collect_cache
+        else None, long_mode)
     return _logits(params, cfg, x), aux, caches
 
 
@@ -223,9 +309,11 @@ def forward_full(params, cfg: ModelConfig, batch, *,
 # ======================================================================
 
 def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
-               device=None, dtype: Optional[str] = None) -> Params:
+               enc_len: int = 0, device=None,
+               dtype: Optional[str] = None) -> Params:
     """Zero decode cache (leading axis = n_layers) for ``ctx_len``
-    positions: ``cache_len`` K/V slots."""
+    positions: ``cache_len`` K/V slots; an encoder-decoder's cross K/V
+    of ``enc_len`` encoder positions."""
     L.check_supported(cfg)
     dt = getattr(torch, dtype or cfg.compute_dtype)
     nL, B = cfg.n_layers, batch_size
@@ -242,6 +330,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
         conv_dim = cfg.d_inner + 2 * cfg.ssm_state
         cache["conv"] = torch.zeros((nL, B, cfg.ssm_conv_width - 1, conv_dim),
                                     dtype=dt, device=device)
+    if cfg.is_encdec:
+        shape = (nL, B, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 
@@ -273,32 +365,49 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
             cache["ssd"][i] = h_new
             cache["conv"][i] = conv_new
             mix = ssm_out if mix is None else _fuse(p, mix, ssm_out)
-        x, _ = _ffn(p, cfg, x + mix)
+        x = x + mix
+        if cfg.is_encdec:
+            x = x + L.cross_attention_decode(
+                p["cross"], cfg, L.rms_norm(x, p["ln_cross"]),
+                cache["cross_k"][i], cache["cross_v"][i])
+        x, _ = _ffn(p, cfg, x)
     return _logits(params, cfg, x[:, 0]), cache
 
 
 def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
             max_len: int = 0):
-    """Full prefill.  max_len: decode-cache capacity (>= the prompt;
-    default prompt + 64).  Returns (last_logits (B, V) f32, cache,
-    new_pos (B,)).  Only the last position's logits are formed: the
-    (B, L, V) matrix of ``forward_full`` is not needed here.  A prompt
-    longer than a ring of C slots leaves its last C keys, rolled so
-    that position p sits at slot p % C.  The reference's ``long_mode``
-    raises ``not_ported``."""
-    params, x, caches, _ = _hidden(params, cfg, batch, True, long_mode)
+    """Full prefill.  max_len: decode-cache capacity (default context +
+    64); the cache holds max(max_len, context) positions, where the
+    context counts a vision-language model's frontend tokens beside the
+    prompt, as the reference sizes it (so a runner's ``max_len`` of
+    prompt + max_new + 8 leaves llava's decode past its cache, where
+    each step sees the prefilled keys only, as there).  Returns
+    (last_logits (B, V) f32, cache, new_pos (B,) = the context).  Only
+    the last position's logits are formed: the (B, L, V) matrix of
+    ``forward_full`` is not needed here.  A prompt longer than a ring of
+    C slots leaves its last C keys, rolled so that position p sits at
+    slot p % C.  An encoder-decoder's cross K/V are filled here once.
+    The reference's ``long_mode`` raises ``not_ported``."""
     B, ctx = batch["tokens"].shape
+    if cfg.frontend and not cfg.is_encdec:
+        ctx += batch["frontend"].shape[1]
     cap = max(max_len, ctx) if max_len else ctx + 64
-    cache = init_cache(cfg, B, cap, device=x.device)
+    enc_len = batch["src_embeds"].shape[1] if cfg.is_encdec else 0
+    cache = init_cache(cfg, B, cap, enc_len=enc_len,
+                       device=params["embed"].device)
     C = cache["k"].shape[2] if "k" in cache else 0
-    for i, (kv, ssd) in enumerate(caches):
+
+    def store(i, kv, cross_kv, ssd):
         for key, t in zip("kv", kv or ()):
             if C < ctx:                          # the ring: slot = pos % C
                 t = torch.roll(t[:, -C:], ctx % C, dims=1)
             cache[key][i, :, :t.shape[1]] = t.to(cache[key].dtype)
+        for key, t in zip(("cross_k", "cross_v"), cross_kv or ()):
+            cache[key][i] = t.to(cache[key].dtype)
         if ssd is not None:
             cache["ssd"][i] = ssd[0]
             cache["conv"][i] = ssd[1].to(cache["conv"].dtype)
+    params, x, _ = _hidden(params, cfg, batch, store, long_mode)
     last = _logits(params, cfg, x[:, -1])
     new_pos = torch.full((B,), ctx, dtype=torch.int64, device=x.device)
     return last, cache, new_pos

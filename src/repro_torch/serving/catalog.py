@@ -11,10 +11,9 @@ no such file.
 Runners: ``smoke_runners`` gives every entry a runner at its ``SMOKE``
 config, ``full_runners`` at its published ``FULL`` config (seeded
 random weights on ``device``, drawn straight into the compute dtype).
-The families the port serves (dense attention, with or without a
-sliding window or local/global layers, MoE, SSM and the hybrid
-attention+SSM) can have one; the frontend families (seamless-m4t-medium,
-llava-next-mistral-7b) raise, naming their ROADMAP item.
+Every family has one, the frontend ones included (seamless-m4t-medium's
+encoder-decoder, llava-next-mistral-7b's vision prefix; their runners
+feed zero frontend embeddings, as the reference's do).
 """
 from __future__ import annotations
 

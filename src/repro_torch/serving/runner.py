@@ -87,10 +87,13 @@ class ModelRunner:
         def host(t):
             return to_host(t.view(torch.int16) if t.dtype == torch.bfloat16
                            else t)
-        tree = {k: M.tree_map(host, v) for k, v in self.params.items()
-                if k != "layers"}
-        layers = [M.tree_map(host, p) for p in self.params["layers"]]
-        tree["layers"] = M.tree_map(lambda *xs: np.stack(xs), *layers)
+        tree = {}
+        for k, v in self.params.items():
+            if k in M.STACKED:
+                tree[k] = M.tree_map(lambda *xs: np.stack(xs),
+                                     *[M.tree_map(host, p) for p in v])
+            else:
+                tree[k] = M.tree_map(host, v)
         save(path, tree, {"config": self.cfg.name,
                           "dtype": str(dtype).replace("torch.", ""),
                           **(metadata or {})}, compress=False)
@@ -122,6 +125,25 @@ class ModelRunner:
         mem = 2.0 * n_act  # bf16 weight bytes touched once per step
         return max(flops / PEAK_FLOPS, mem / HBM_BW)
 
+    def _batch(self, tokens: np.ndarray, embeds=None) -> Dict:
+        """The model's batch for ``tokens`` (B, L), as the reference's
+        runner builds it: an encoder-decoder's ``src_embeds`` (B, 16,
+        frontend_dim) and a vision-language model's ``frontend`` (B,
+        frontend_tokens, frontend_dim) are zeros in the compute dtype
+        (the frontends are stubs), or the numpy ``embeds`` where given."""
+        cfg = self.cfg
+        b = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
+                                       device=self.device)}
+        if cfg.frontend:
+            cdt = getattr(torch, cfg.compute_dtype)
+            n = 16 if cfg.is_encdec else cfg.frontend_tokens
+            b["src_embeds" if cfg.is_encdec else "frontend"] = (
+                torch.zeros((len(tokens), n, cfg.frontend_dim), dtype=cdt,
+                            device=self.device) if embeds is None else
+                torch.from_numpy(np.array(embeds, np.float32)).to(
+                    self.device, cdt))
+        return b
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -129,16 +151,19 @@ class ModelRunner:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def generate(self, tokens: np.ndarray, max_new: int = 16, *,
-                 keep_logits: bool = False) -> GenerationResult:
+                 keep_logits: bool = False,
+                 embeds=None) -> GenerationResult:
         """Greedy generation.  tokens (B, L) int (right-aligned, no
-        pad); the cache holds L + max_new + 8 positions.  With
-        ``keep_logits`` the result carries every step's logits, the
-        ones each greedy token was taken from."""
+        pad); the prefill gets ``max_len`` L + max_new + 8 (a frontend
+        prefix beyond it leaves the decode past the cache, as in the
+        reference).  With ``keep_logits`` the result carries every
+        step's logits, the ones each greedy token was taken from.
+        ``embeds``: the frontend's embeddings (``_batch``), zeros by
+        default as in the reference."""
         t0 = time.perf_counter()
         cfg = self.cfg
         B, Lp = tokens.shape
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens, np.int64),
-                                           device=self.device)}
+        batch = self._batch(tokens, embeds)
         prefill = make_prefill_step(cfg, max_len=Lp + max_new + 8)
         last, cache, pos = prefill(self.params, batch)
         tok = torch.argmax(last, dim=-1)[:, None]

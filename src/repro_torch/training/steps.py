@@ -20,6 +20,9 @@ def make_train_step(cfg: ModelConfig, *args, **kwargs):
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int = 0):
+    """The prefill of ``batch``: its tokens and, where the family takes
+    them, its ``src_embeds`` (encoder-decoder) or ``frontend`` (vision
+    prefix), passed through to ``M.prefill``."""
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch, max_len=max_len)
     return prefill_step

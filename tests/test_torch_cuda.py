@@ -9,9 +9,13 @@ over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
 min_score and catalog order; the staged kNN's filter-row launch against
 the dense-mask call; staged routing, LinUCB and Thompson; the sharded
 route step bit-equal to the dense one on the card, ties included, and
-the IVF route step against its CPU run, probed cells equal), and
-generation on the card against the same seeded model on the CPU.  They import neither JAX nor the JAX
-package, so they run on a machine with a card and no JAX:
+the IVF route step against its CPU run, probed cells equal; the
+frontend models' attention shapes: the non-causal encoder, the
+cross-attention with 12-17 keys, G = 1, the cross decode with every key
+live), and generation on the card against the same seeded model on the
+CPU, the two frontend models at full width and 2 layers included.  They
+import neither JAX nor the JAX package, so they run on a machine with a
+card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -139,6 +143,31 @@ def test_flash_attention_bf16_prefill_matches_plain(cuda, L, Lk, Hq, Hkv,
                      2e-2, contiguous=contiguous, **kw)
     if kv is not None and kv[0] == 0:
         assert not got.cpu()[0].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-4)])
+@pytest.mark.parametrize("Lq,Lk,Hq,Hkv,hd,kw", [
+    (16, 16, 16, 16, 64, dict(causal=False)),          # seamless encoder
+    (100, 16, 16, 16, 64, dict(causal=False)),         # cross, Lk < a tile
+    (100, 12, 16, 16, 64, dict(causal=False)),
+    (100, 17, 16, 16, 64, dict(causal=False)),
+    (130, 130, 16, 16, 64, dict(causal=True)),         # G 1 self-attention
+    (1, 16, 16, 16, 64, dict(causal=False)),           # cross decode
+    (1, 12, 16, 16, 64, dict(causal=False)),
+    (1, 17, 16, 16, 64, dict(causal=False)),
+    (300, 300, 32, 8, 128, dict(causal=True)),         # llava's prefill
+    (1, 300, 32, 8, 128, dict(causal=False)),          # and its decode
+])
+def test_flash_attention_frontend_shapes_match_plain(cuda, dtype, tol, Lq, Lk,
+                                                     Hq, Hkv, hd, kw):
+    """The shapes the frontend models add: the encoder's non-causal
+    square attention, the cross-attention with Lq != Lk and Lk of 12, 16
+    and 17 (inside one key tile, with odd lengths), the G = 1 prefill,
+    the cross decode over a cache with every key live (``kv_valid``
+    None), and llava's hd-128 groups of 4."""
+    rng = np.random.default_rng(Lq * 7 + Lk + hd)
+    _attn_case(cuda, rng, 3, Lq, Lk, Hq, Hkv, hd, None, getattr(torch, dtype),
+               tol, **kw)
 
 
 @pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-4)])
@@ -715,6 +744,44 @@ def test_generate_on_card_matches_cpu_past_the_window(cuda, name):
         for s in range(5):
             top2 = np.sort(want.step_logits[b, s])[-2:]
             if top2[1] - top2[0] < 1e-3:
+                break
+            assert got.tokens[b, s] == want.tokens[b, s], (b, s)
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
+def test_generate_frontends_on_card_matches_cpu(cuda, name):
+    """Both frontend models at full width and 2 layers (seamless also 2
+    encoder layers), f32, fed seeded standard-normal frontend embeddings
+    (zeros would leave seamless's cross term 0); llava's frontend cut to
+    64 tokens (``dataclasses.replace``, widths unchanged), its decode
+    past the cache as the runner sizes it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(name), n_layers=2,
+                              compute_dtype="float32")
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
+        shape = (2, 16, cfg.frontend_dim)
+    else:
+        cfg = dataclasses.replace(cfg, frontend_tokens=64)
+        shape = (2, 64, cfg.frontend_dim)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    emb = rng.standard_normal(shape).astype(np.float32)
+    want = ModelRunner(cfg, params=params, device="cpu").generate(
+        toks, 5, keep_logits=True, embeds=emb)
+    got = ModelRunner(cfg, params=params, device=cuda).generate(
+        toks, 5, embeds=emb)
+    tol = 1e-3 * float(np.abs(want.logits_last).max())
+    np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=0,
+                               atol=tol)
+    for b in range(toks.shape[0]):
+        for s in range(5):
+            top2 = np.sort(want.step_logits[b, s])[-2:]
+            if top2[1] - top2[0] < tol:
                 break
             assert got.tokens[b, s] == want.tokens[b, s], (b, s)
 

@@ -68,6 +68,20 @@ def test_flat_and_batch_route_like_the_reference(same_roofline, ckpt,
     assert out["summary"]["requests"] == 8
 
 
+def test_cpu_defaults_serve_all_ten_like_the_reference(same_roofline, ckpt,
+                                                        capsys):
+    """No ``--archs``: both launchers build all ten SMOKE runners, the
+    frontend configs included, and route alike; every request served."""
+    args = ["--requests", "12", "--max-new", "3"]
+    JSERVE.main(args)
+    want = _models(capsys)
+    out = TSERVE.main(["--device", "cpu", "--analyzer-ckpt", str(ckpt),
+                       *args])
+    assert [r.model for r in out["responses"]] == want == _models(capsys)
+    assert all(r.served and len(r.tokens) == 3 for r in out["responses"])
+    assert len(out["engine"].router.mres) == 10
+
+
 def test_async_mode_serves_every_request(ckpt, tmp_path):
     prom, trace = tmp_path / "m.prom", tmp_path / "t.jsonl"
     out = _port(ckpt, "--requests", "10", "--async", "--max-batch", "4",
@@ -119,8 +133,10 @@ def test_soak_tally_matches_reference(same_roofline, ckpt, monkeypatch,
 
 
 def test_default_archs_and_device():
-    assert TSERVE.default_archs("cpu") == [
-        a for a in TSERVE.ARCH_NAMES if a not in TSERVE.FRONTENDS]
-    assert len(TSERVE.default_archs("cpu")) == 8
+    assert TSERVE.default_archs("cpu") == list(TSERVE.ARCH_NAMES)
+    assert len(TSERVE.default_archs("cpu")) == 10
+    assert len(TSERVE.CARD_ARCHS) == 8 and {
+        "seamless-m4t-medium", "llava-next-mistral-7b"} <= set(
+        TSERVE.CARD_ARCHS)
     assert set(TSERVE.CARD_ARCHS) | set(TSERVE.LEFT_OUT) == \
         set(TSERVE.ARCH_NAMES)

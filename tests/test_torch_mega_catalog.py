@@ -376,7 +376,7 @@ def test_route_tokens_batch_refuses_both_modes(mode):
     toks = np.zeros((2, 8), np.int32)
     with pytest.raises(ValueError, match="mesh-sharded" if mode == "sharded"
                        else "IVF"):
-        te.route_tokens_batch(None, toks, "balanced")
+        te.route_tokens_batch(None, None, toks, "balanced")
 
 
 def test_catalog_cache_holds_the_variants_capped():

@@ -3,10 +3,13 @@
 (``attention_blocked``, the naive masked attention, ``attention_decode``,
 ``ssd_chunked``, ``ssd_step``, the small pieces), and the model's
 ``prefill`` / ``decode_step`` / ``forward_full`` logits for llama3.2-1b,
-mamba2-1.3b and the two MoE configs, qwen3-moe-30b-a3b (top-8) and
-llama4-maverick-400b-a17b (top-1 with a shared expert); ``forward_full``
-also returns the load-balance aux summed over the layers.
-Weights come from the reference's ``init_params`` through
+mamba2-1.3b, the two MoE configs, qwen3-moe-30b-a3b (top-8) and
+llama4-maverick-400b-a17b (top-1 with a shared expert), and the two
+frontend configs, seamless-m4t-medium (encoder-decoder) and
+llava-next-mistral-7b (vision prefix), fed seeded standard-normal
+frontend embeddings (zeros would leave seamless's cross term 0);
+``forward_full`` also returns the load-balance aux summed over the
+layers.  Weights come from the reference's ``init_params`` through
 ``params_from_jax``; inputs are numpy arrays from a seed.
 
 Tolerances: 1e-5 for element-wise pieces (same f32 arithmetic); 2e-4
@@ -36,8 +39,9 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_eval, get_smoke
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
+FRONTENDS = ["seamless-m4t-medium", "llava-next-mistral-7b"]
 SERVED = ["llama3.2-1b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
-          "llama4-maverick-400b-a17b"]
+          "llama4-maverick-400b-a17b"] + FRONTENDS
 # dense GQA with q/k/v biases and no window, and the windowed and hybrid
 # models (tests/test_torch_windowed.py holds them past their windows)
 RUNS = SERVED + ["qwen2-1.5b", "hymba-1.5b", "h2o-danube-3-4b", "gemma2-2b"]
@@ -46,6 +50,24 @@ RNG = np.random.default_rng(0)
 
 def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def inputs(cfg, toks, seed=0):
+    """numpy batch of ``toks`` plus the family's frontend embeddings,
+    standard normal from ``seed``: (B, 16, frontend_dim) ``src_embeds``
+    for an encoder-decoder, (B, frontend_tokens, frontend_dim)
+    ``frontend`` for a vision prefix."""
+    b = {"tokens": toks}
+    rng = np.random.default_rng(seed + 100)
+    B = toks.shape[0]
+    if cfg.is_encdec:
+        b["src_embeds"] = rng.standard_normal(
+            (B, 16, cfg.frontend_dim)).astype(np.float32)
+    elif cfg.frontend:
+        b["frontend"] = rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
 
 
 def _params(name, seed=0):
@@ -69,11 +91,20 @@ def test_config_catalog_matches_reference(name):
     assert jget_eval(name) == get_eval(name)
 
 
-@pytest.mark.parametrize("name", [n for n in J_ARCHS if n not in RUNS])
+@pytest.mark.parametrize("name", FRONTENDS)
 def test_unported_families_raise_naming_their_item(name):
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1"):
-        TM.init_params(get_smoke(name), gen, device="cpu")
+    """Every family is ported; what still raises is the reference's
+    ``long_mode`` (ROADMAP item 12), here on the two frontend configs
+    whose ``prefill`` and ``decode_step`` take it."""
+    assert set(J_ARCHS) <= set(RUNS)
+    cfg = get_smoke(name)
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    _, tb = inputs(cfg, np.zeros((1, 4), np.int32))
+    for call in (lambda: TM.prefill(tp, cfg, tb, long_mode=True),
+                 lambda: TM.decode_step(tp, cfg, {}, {}, long_mode=True)):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md, Queue 1: item 12"):
+            call()
 
 
 def test_int8_kv_cache_raises_naming_its_item():
@@ -241,10 +272,9 @@ def test_ssd_step_matches_reference():
 def test_prefill_and_decode_logits_match_reference(name):
     cfg, tcfg, jp, tp = _params(name, seed=1)
     toks = RNG.integers(0, cfg.vocab_size, (2, 21)).astype(np.int32)
-    jl, jc, jpos = JM.prefill(jp, cfg, {"tokens": jnp.asarray(toks)},
-                              max_len=30)
-    tl, tc, tpos = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
-                              max_len=30)
+    jb, tb = inputs(cfg, toks, seed=1)
+    jl, jc, jpos = JM.prefill(jp, cfg, jb, max_len=30)
+    tl, tc, tpos = TM.prefill(tp, tcfg, tb, max_len=30)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
@@ -268,9 +298,11 @@ def test_prefill_and_decode_logits_match_reference(name):
 def test_forward_full_matches_reference(name):
     cfg, tcfg, jp, tp = _params(name, seed=2)
     toks = RNG.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
-    want, want_aux, _ = JM.forward_full(jp, cfg,
-                                        {"tokens": jnp.asarray(toks)})
-    got, aux, _ = TM.forward_full(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    jb, tb = inputs(cfg, toks, seed=2)
+    want, want_aux, _ = JM.forward_full(jp, cfg, jb)
+    got, aux, _ = TM.forward_full(tp, tcfg, tb)
+    assert got.shape[1] == 17 + (cfg.frontend_tokens if cfg.frontend and
+                                 not cfg.is_encdec else 0)
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
@@ -293,21 +325,23 @@ def test_init_params_draws_the_reference_distributions(name):
                 walk(v, prefix + (k,))
             else:
                 flat_t[prefix + (k,)] = v
-    walk({k: v for k, v in tp.items() if k != "layers"}, ())
-    for i, layer in enumerate(tp["layers"]):
-        walk(layer, ("layers", i))
+    walk({k: v for k, v in tp.items() if k not in TM.STACKED}, ())
+    depth = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
+    for stack in TM.STACKED:
+        for i, layer in enumerate(tp.get(stack, [])):
+            walk(layer, (stack, i))
     leaves = jax.tree_util.tree_flatten_with_path(jp)[0]
     want_keys = set()
     for path, _ in leaves:
         keys = tuple(p.key for p in path)
-        want_keys |= ({("layers", i) + keys[1:] for i in range(cfg.n_layers)}
-                      if keys[0] == "layers" else {keys})
+        want_keys |= ({(keys[0], i) + keys[1:] for i in range(depth[keys[0]])}
+                      if keys[0] in depth else {keys})
     assert set(flat_t) == want_keys
     for path, leaf in leaves:
         keys = tuple(p.key for p in path)
-        if keys[0] == "layers":
-            got = [flat_t[("layers", i) + keys[1:]] for i in
-                   range(cfg.n_layers)]
+        if keys[0] in depth:
+            got = [flat_t[(keys[0], i) + keys[1:]] for i in
+                   range(depth[keys[0]])]
             want = np.asarray(leaf)
         else:
             got, want = [flat_t[keys]], np.asarray(leaf)[None]
@@ -315,7 +349,7 @@ def test_init_params_draws_the_reference_distributions(name):
             assert tuple(g.shape) == w.shape and str(g.dtype)[6:] == \
                 str(w.dtype), keys
             if keys[-1] in ("A_log", "D", "dt_bias", "norm", "ln_mix",
-                            "ln_mlp", "ln_f"):
+                            "ln_mlp", "ln_f", "ln_cross", "ln_enc", "b"):
                 np.testing.assert_allclose(g.numpy(), w, rtol=1e-6)
             elif w.size > 1000:
                 assert abs(g.std().item() / w.std() - 1) < 0.05, keys

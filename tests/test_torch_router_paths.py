@@ -278,7 +278,8 @@ def test_thompson_refuses_to_fuse():
     with pytest.raises(ValueError, match="not fusable"):
         eng.route_many_batch(tp, ts)
     with pytest.raises(ValueError, match="not fusable"):
-        eng.route_tokens_batch(None, np.zeros((4, 8), np.int32), tp)
+        eng.route_tokens_batch(None, None, np.zeros((4, 8), np.int32),
+                               tp)
     out = eng.route_many(tp, ts)            # staged, and functional
     assert len(out) == 4 and all(d.model for d in out)
     eng.adaptive_weight = 0.0               # a bandit out of the blend
