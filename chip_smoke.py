@@ -58,6 +58,19 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      branch's hits, the host p50 per engine and CUDA-event times; the
      top-k kernels at the shard's launch shape are rows of the
      ``kernels`` line;
+  3d. ``workloads``, on the same catalog, with the cost profiler and the
+     recompile hook attached to the card's runs: the default
+     ``DriftScenario`` (model-degrade, 60 steps of 16; the degraded
+     model step 0's accuracy-first majority) routed with LinUCB and
+     observed, with an fp32 and an int8 catalog (recovery after the
+     shift, the degraded model's share of choices, per-step p50);
+     ``zipf_replay`` (64 queries, 512 requests) through the semantic
+     cache (hit rate; every repeat of an earlier submit's query must
+     hit); a ``ServingSimulator`` whose ``route_fn`` routes each arrival
+     of a bursty trace with the live tracker's load penalty and
+     ``plan_admission``.  Each against its CPU run, tie-aware; one hook
+     event per dispatch, every one with 0 compiles; each bucket's FLOPs
+     and bytes logged;
   4. the model-zoo kernels (flash attention in its prefill and decode
      launch shapes, the SSD scan, the MoE gate) against their plain
      versions at the generation path's shapes (llama3.2-1b prefill and
@@ -89,6 +102,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      3,392), at B=16, each against its plain version (over slices of
      the batch where its scores would not fit) and timed beside SDPA
      and its bound; f32 and bf16 sweeps at 12, 16 and 17 keys;
+  4e. ``kv_int8_kernels``: the int8 decode (``flash_decode_q8``) at the
+     served decode shapes -- llama3.2-1b (B=16, 536 slots, live
+     513-528), gemma2-2b's local and global layers (hd 288, softcap
+     50), h2o-danube-3-4b's full ring of 4,096 (B=4, hd 120) and
+     llava-next-mistral-7b's 3,392 slots (hd 128) -- against
+     ``decode_q8_plain``, timed beside the bf16 decode on the same
+     values, with both bounds; an f32 sweep (G 1-40, hd 32-288);
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -121,6 +141,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      encoder once, self + cross per decoder layer per step), the
      analyzer's task types per model, prefill ms, ms per decode step,
      the card's busy share and peak memory;
+  5f. ``kv_int8_generation``: routed generation on llama3.2-1b and
+     gemma2-2b at full width and depth, 32 requests, prompt 512, 16 new
+     tokens, first with the bf16 cache and then the same catalog and
+     requests with ``kv_cache_dtype="int8"``: every decode of every
+     layer one ``flash_decode_q8`` launch; prefill ms, ms per step,
+     the card's busy share, the cache's bytes and the tokens equal to
+     the bf16 run (reported); then both with an int8 cache on the card
+     against the CPU at full width, 2 layers (the first decode step's
+     logits held too);
   6. card against CPU: the eight configs at full width, 2 layers, f32
      compute, the same seeded weights on both devices: prefill logits
      within 1e-3 of max |logit|, greedy tokens equal (tie-aware); for
@@ -140,7 +169,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      back), batch mode with 24 (one model, the CPU's route of the same
      aggregate signature), ``--async`` (windows of at most 8, the load
      tracker back at zero, three ``stream`` calls of 8 tokens) and
-     ``--soak 30`` (intake counters equal to the CPU run's, the flood
+     ``--soak 15`` (intake counters equal to the CPU run's, the flood
      rate-limited, the quiet tenants not shed at intake); the
      continuous batcher on llama3.2-1b, mamba2-1.3b and gemma2-2b at
      full width and depth (4 slots, ctx 128, 12 requests, one ticking
@@ -2524,7 +2553,7 @@ def generation_requests(n: int, max_new: int, seed: int,
 
 def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
                       profiles=GEN_PROFILES, n_req: int = 32,
-                      task_types=None):
+                      task_types=None, kv_cache_dtype: str = ""):
     """One catalog of ``archs`` with runners (full width and depth on the
     card; ``SMOKE`` when rehearsing), ``n_req`` routed requests
     (``profiles`` in turn; half as many when rehearsing) through
@@ -2533,7 +2562,11 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     failure or shed, ``max_new`` tokens each, at least 8 per model,
     finite prefill logits) and returns the catalog, the per-model
     ``GenerationResult`` of the measured submit, the kernels' launch
-    counts on it and its flash_attention calls by ``flash_kind``."""
+    counts on it and its flash_attention calls by ``flash_kind``.
+    ``kv_cache_dtype="int8"``: every runner serves its config with an
+    int8 KV cache (the same weights), and the launch counts also hold
+    the int8 decode's (``flash_decode_q8``) and its calls by kind
+    (``Q8Recorder``) join the flash_attention calls."""
     from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
     from repro_torch.core.orchestrator import OptiRoute
     from repro_torch.kernels import flash_attention as FA
@@ -2553,6 +2586,18 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
             f"allocated on the card after the runners were built")
     log(f"[{tag}] runners with seeded weights on {dev} built in "
         f"{time.perf_counter() - t0:.1f} s")
+    if kv_cache_dtype:
+        import dataclasses
+
+        from repro_torch.serving.runner import ModelRunner
+        for name in archs:
+            entry = mres.entry(name)
+            entry.runner = ModelRunner(
+                dataclasses.replace(entry.runner.cfg,
+                                    kv_cache_dtype=kv_cache_dtype),
+                params=entry.runner.params, device=dev)
+        log(f"[{tag}] every runner serves kv_cache_dtype="
+            f"{kv_cache_dtype!r} with the same weights")
     results = {}
     for name in archs:
         runner = mres.entry(name).runner
@@ -2575,19 +2620,23 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     t0 = time.perf_counter()
     eng.submit(reqs)                                 # warm-up pass
     log(f"[{tag}] warm-up submit {time.perf_counter() - t0:.2f} s")
-    for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating):
+    for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating,
+              FA.flash_decode_q8):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with FlashRecorder() as rec:
+    with FlashRecorder() as rec, Q8Recorder() as rec8:
         out = eng.submit(reqs)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": FA.flash_attention.launches,
                 "flash_attention_decode": FA.flash_attention.decode_launches,
                 "ssd_scan": SS.ssd_scan.launches,
                 "moe_gating": MG.moe_gating.launches}
+    if kv_cache_dtype:
+        launches["flash_decode_q8"] = FA.flash_decode_q8.launches
+        rec.counts.update({"int8 " + k: v for k, v in rec8.counts.items()})
     log(f"[{tag}] launches on the main path: {launches}; flash_attention "
         f"calls by kind: {rec.counts}")
     by_model, analysis = {}, {}
@@ -2942,6 +2991,260 @@ def frontend_generation_phase(torch, dev, small: bool, kernels, rows):
                        res.tokens.shape[0], prompt_len)
 
 
+# ----------------------------------------------------------------------
+# phase 8: the int8 KV cache
+# ----------------------------------------------------------------------
+
+INT8_ARCHS = ["llama3.2-1b", "gemma2-2b"]
+# the served decode shapes the int8 decode is held at: (model, B, cache
+# slots, live counts: "ragged" = prompt 512 + step, 513-528 a row, or
+# "all", local window)
+Q8_SHAPES = (("llama3.2-1b", 16, 536, "ragged", 0),
+             ("gemma2-2b", 16, 536, "ragged", 4096),
+             ("gemma2-2b", 16, 536, "ragged", 0),
+             ("h2o-danube-3-4b", 4, 4096, "all", 0),
+             ("llava-next-mistral-7b", 16, 3392, "all", 0))
+
+
+class Q8Recorder:
+    """Within the ``with``: every int8 decode of a run (the calls
+    ``ops.flash_decode`` makes on an int8 cache), counted by its
+    ``flash_kind``."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig = ops, ops._flash_q8_kernel
+        self.counts = {}
+
+    def __enter__(self):
+        def record(q, k8, v8, ks, vs, kv_valid=None, **kw):
+            kind = flash_kind(q.shape[-1], 1, q.shape[1] // k8.shape[1], 0,
+                              kw.get("local_window", 0),
+                              kw.get("softcap", 0.0), False)
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            return self.orig(q, k8, v8, ks, vs, kv_valid, **kw)
+        self.ops._flash_q8_kernel = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._flash_q8_kernel = self.orig
+
+
+def q8_bound(B, Hq, Hkv, hd, live: float, int8: bool):
+    """The decode's bound: q and o in bf16, and each live (slot, KV
+    head) row of K and V once -- 1 byte an element plus a 4-byte scale
+    in an int8 cache, 2 bytes an element in bf16; 4 hd operations per
+    (query head, live key) at the bf16 tensor-core rate."""
+    row = hd + 4 if int8 else 2 * hd
+    return bound_ms(2 * 2 * B * Hq * hd + 2 * live * Hkv * row,
+                    4.0 * Hq * hd * live, PEAK_BF16_S)
+
+
+def kv_int8_kernel_phase(torch, dev, small: bool):
+    """The int8 decode (``flash_decode_q8``) at the served decode shapes
+    of ``Q8_SHAPES``, bf16 queries against an int8 cache in the model's
+    (B, C, Hkv, hd) layout with its f32 scales (``quantize_kv`` of
+    seeded bf16 rows): the kernel against ``decode_q8_plain`` (|err| <=
+    2e-2 (1 + |want|) and at most one bf16 ulp of max |want|: both
+    dequantize to the same bf16 values), one launch a call, two launches
+    bit-equal; then its device time, the plain version's, the bf16
+    decode's (``flash_attention``) on the same dequantized values in a
+    bf16 cache, and both bounds.  Returns rows keyed ("int8", kind) for
+    the served kinds, and logs every shape."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.layers import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    rows = {}
+    for name, B, C, live_kind, local in Q8_SHAPES:
+        cfg = get_smoke(name) if small else get_config(name)
+        if small:
+            B, C, local = min(B, 4), min(C, 150), min(local, 64)
+        Hq, Hkv, hd, cap = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                            cfg.attn_softcap)
+        G = Hq // Hkv
+        kv = (np.arange(B) % 16 + (C - 23)) if live_kind == "ragged" \
+            else np.full(B, C)
+        kvt = torch.from_numpy(kv.astype(np.int32)).to(dev)
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        k8, ks = quantize_kv(rn(B, C, Hkv, hd))
+        v8, vs = quantize_kv(rn(B, C, Hkv, hd))
+        q = rn(B, 1, Hq, hd).transpose(1, 2)
+        args = [x.transpose(1, 2) for x in (k8, v8, ks, vs)]
+        kw = dict(softcap=cap, local_window=local)
+        kind = flash_kind(hd, 1, G, 0, local, cap)
+        what = f"{kind} ({name}, B={B}, C={C}, live " + (
+            f"{int(kv.min())}-{int(kv.max())})" if live_kind == "ragged"
+            else "all)")
+        before = FA.flash_decode_q8.launches
+        got = FA.flash_decode_q8(q, *args, kvt, **kw)
+        check(dev.type != "cuda" or FA.flash_decode_q8.launches == before + 1,
+              f"int8 decode {what}: not one launch")
+        want = FA.decode_q8_plain(q, *args, kvt, **kw)
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"int8 decode {what}: output {got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - want.float()).abs()
+        over = float((diff - 2e-2 * (1 + want.float().abs())).max())
+        check(over <= 0, f"int8 decode {what}: |err| exceeds 2e-2 (1 + "
+                         f"|want|) by {over}")
+        err = float(diff.max())
+        top = float(want.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        check(err <= ulp, f"int8 decode {what}: max err {err} above one "
+                          f"bf16 ulp ({ulp}) of max |want| {top:.3g}")
+        check(torch.equal(got, FA.flash_decode_q8(q, *args, kvt, **kw)),
+              f"int8 decode {what}: two launches differ")
+        live = float(np.minimum(kv, local).sum() if local else kv.sum())
+        bms, by = q8_bound(B, Hq, Hkv, hd, live, True)
+        b16, _ = q8_bound(B, Hq, Hkv, hd, live, False)
+        kb = FA.dequantize_kv(args[0], args[2])
+        vb = FA.dequantize_kv(args[1], args[3])
+        iters = 20 if C < 1000 else 10
+        row = dict(
+            name=f"flash_decode_q8 {what}", route="cuda", source=FLASH_SRC,
+            replaces=FLASH_TPU, max_abs_err=err, bound_ms=bms, bound_by=by,
+            ms=time_graph_ms(torch, lambda: FA.flash_decode_q8(
+                q, *args, kvt, **kw), dev, iters=iters),
+            plain_ms=time_ms(torch, lambda: FA.decode_q8_plain(
+                q, *args, kvt, **kw), dev, iters=max(2, iters // 4),
+                warmup=1),
+            library_ms=None)
+        bf16_ms = time_graph_ms(torch, lambda: FA.flash_attention(
+            q, kb, vb, kvt, causal=False, **kw), dev, iters=iters)
+        parts = fmt_times(kernel_times(torch, dev, lambda: FA.flash_decode_q8(
+            q, *args, kvt, **kw), iters=3))
+        log(f"[kv int8 kernels] {what}: {Hq}/{Hkv} heads of {hd}, softcap "
+            f"{cap:g}, local {local}, splits "
+            f"{FA.decode_splits_q8(B, Hkv, C)}: "
+            f"{row['ms']:.4f} ms, bound {bms:.4f} by {by} "
+            f"({row['ms'] / bms:.1f}x); the bf16 decode on the same values "
+            f"{bf16_ms:.4f} ms (bound {b16:.4f}; int8 / bf16 "
+            f"{row['ms'] / bf16_ms:.2f}); plain {row['plain_ms']:.4f}; "
+            f"library: none, no PyTorch call reads int8 K/V; max err "
+            f"{err:.3g} (one bf16 ulp of max |want| {top:.3g}: {ulp:.3g}); "
+            f"launches: {parts}")
+        if name in INT8_ARCHS:
+            rows[("int8", kind)] = dict(row, bf16_ms=bf16_ms)
+    # f32 queries and odd shapes: G 1 and 40, kv_valid 0 and 1, a local
+    # window cutting chunks, hd 32 and 120, f32 tolerance 2e-4
+    cases = [((3, 77, 40, 1, 32), [0, 1, 77], 0, 0.0),
+             ((2, 300, 8, 8, 64), [300, 150], 0, 0.0),
+             ((3, 4100, 32, 8, 120), [1, 2000, 4100], 300, 0.0),
+             ((2, 700, 8, 4, 288), [700, 513], 200, 50.0)]
+    worst = 0.0
+    for (b_, c_, hq, hk, d), kvl, loc, sc_ in cases:
+        k8, ks = quantize_kv(torch.randn(b_, c_, hk, d, generator=g,
+                                         device=dev))
+        v8, vs = quantize_kv(torch.randn(b_, c_, hk, d, generator=g,
+                                         device=dev))
+        q = torch.randn(b_, 1, hq, d, generator=g, device=dev).transpose(1, 2)
+        args = [x.transpose(1, 2) for x in (k8, v8, ks, vs)]
+        kvt = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        kw = dict(softcap=sc_, local_window=loc)
+        got = FA.flash_decode_q8(q, *args, kvt, **kw)
+        want = FA.decode_q8_plain(q, *args, kvt, **kw)
+        e = float((got - want).abs().max())
+        check(e <= 2e-4 * (1 + float(want.abs().max())),
+              f"int8 decode f32 {(b_, c_, hq, hk, d)}: max err {e}")
+        worst = max(worst, e)
+    log(f"[kv int8 kernels] f32 sweep ({len(cases)} cases: G 1-40, hd 32, "
+        f"64, 120 and 288, kv_valid 0 and 1, local windows, softcap): max "
+        f"err {worst:.3g} (tol 2e-4 (1 + max |want|))")
+    return rows
+
+
+def cache_bytes(torch, cfg, B: int, ctx: int) -> int:
+    """Bytes of ``init_cache(cfg, B, ctx)``, counted on the meta device."""
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, B, ctx, device="meta")
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def kv_int8_generation_phase(torch, dev, small: bool, kernels, rows):
+    """Routed generation on llama3.2-1b and gemma2-2b at full width and
+    depth (seeded bf16 weights drawn on the card), 32 requests by
+    preference profile, prompt 512, 16 new tokens: first with the
+    configs' bf16 cache, then the same catalog, weights and requests
+    with ``kv_cache_dtype="int8"``.  The int8 run: every decode step of
+    every layer one ``flash_decode_q8`` launch and no bf16 decode, the
+    prefill unchanged (one flash_attention launch a layer); prefill ms,
+    ms per step, the card's busy share, the cache's bytes against bf16
+    and the greedy tokens that agree with the bf16 run (reported, not
+    gated).  Then both configs with an int8 cache on the card against
+    the CPU at full width, 2 layers (gemma2 with its window cut to 48 at
+    prompt 72, so its local layers mask)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    runs = {}
+    for kv_dt in ("", "int8"):
+        tag = "kv int8 generate" + ("" if kv_dt else " (bf16 cache)")
+        mres, results, launches, prompt_len, max_new, kinds = \
+            routed_generation(torch, dev, small, INT8_ARCHS, seed=47,
+                              tag=tag, kv_cache_dtype=kv_dt)
+        cfgs = {n: mres.entry(n).runner.cfg for n in INT8_ARCHS}
+        n_attn = sum(c.n_layers for c in cfgs.values())
+        if kv_dt:
+            want = {"flash_attention": n_attn,
+                    "flash_attention_decode": 0, "ssd_scan": 0,
+                    "moe_gating": 0, "flash_decode_q8": n_attn * (max_new - 1)}
+            q8 = {k[5:]: v for k, v in kinds.items() if k.startswith("int8 ")}
+            check(sum(q8.values()) == n_attn * (max_new - 1),
+                  f"int8 decode calls {q8}, want {n_attn * (max_new - 1)}")
+            if dev.type == "cuda":
+                check(launches == want, f"launch counts {launches}, want "
+                                        f"{want} (prefill: flash_attention; "
+                                        f"every decode: flash_decode_q8)")
+            for (_, kind), row in rows.items():
+                check(q8.get(kind, 0) > 0,
+                      f"int8 decode {kind} never launched ({q8})")
+                kernels[row["name"]] = dict(
+                    {k: v for k, v in row.items() if k != "bf16_ms"},
+                    launches=q8[kind])
+            for name in INT8_ARCHS:
+                decode_profile(torch, dev, mres.entry(name).runner,
+                               f"{name} int8 KV",
+                               results[name].tokens.shape[0], prompt_len)
+        runs[kv_dt] = {n: results[n] for n in INT8_ARCHS}
+        runs[kv_dt + "cfg"] = cfgs
+        del mres, results
+        release(torch, dev, f"after the {tag} run")
+    for name in INT8_ARCHS:
+        a, b = runs[""][name], runs["int8"][name]
+        check(a.tokens.shape == b.tokens.shape,
+              f"{name}: the two runs served {a.tokens.shape} and "
+              f"{b.tokens.shape}")
+        same = a.tokens == b.tokens
+        prefix = int(sum(np.cumprod(r).sum() for r in same))
+        cfg8 = runs["int8cfg"][name]
+        B = b.tokens.shape[0]
+        ctx = prompt_len + max_new + 8
+        nb8 = cache_bytes(torch, cfg8, B, ctx)
+        nb16 = cache_bytes(torch, dataclasses.replace(cfg8, kv_cache_dtype=""),
+                           B, ctx)
+        step8 = b.decode_s / max(max_new - 1, 1)
+        step16 = a.decode_s / max(max_new - 1, 1)
+        log(f"[kv int8 generate] {name}: B={B}, prompt {prompt_len}, "
+            f"{max_new} new tokens: prefill {b.prefill_s * 1e3:.2f} ms "
+            f"(bf16 cache {a.prefill_s * 1e3:.2f}), decode "
+            f"{step8 * 1e3:.3f} ms per step (bf16 cache "
+            f"{step16 * 1e3:.3f}); cache of {M.cache_len(cfg8, ctx)} "
+            f"slots: {nb8 / 1e6:.2f} MB int8 + scales against "
+            f"{nb16 / 1e6:.2f} MB {cfg8.compute_dtype} ({nb8 / nb16:.3f}); "
+            f"greedy tokens "
+            f"equal to the bf16 run: {int(same.sum())} of {same.size} "
+            f"({prefix} before each row's first difference)")
+    card_vs_cpu_phase(torch, dev, small, ["llama3.2-1b"],
+                      kv_cache_dtype="int8")
+    card_vs_cpu_phase(torch, dev, small, ["gemma2-2b"], prompt=72, window=48,
+                      kv_cache_dtype="int8")
+
+
 def _busy(prof) -> list:
     """(device us, name) of a trace's kernels, largest first.  Only the
     device's own events count: an operator's row (``aten::mm``) repeats
@@ -3018,7 +3321,8 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
 # ----------------------------------------------------------------------
 
 def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
-                      prompt: int = 64, window: int = 0):
+                      prompt: int = 64, window: int = 0,
+                      kv_cache_dtype: str = ""):
     """Full width, 2 layers, f32 compute: the same seeded weights on the
     card (kernels) and the CPU (plain versions).  ``window`` replaces a
     windowed model's sliding window (the one reduction besides depth),
@@ -3027,7 +3331,10 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
     frontend tokens (llava's 2,880 cut, widths unchanged: an f32 CPU
     prefill over 2,880 + 64 tokens would not finish in the time
     limit), and are fed seeded standard-normal embeddings on both
-    devices (the runners' zeros would leave seamless's cross term 0)."""
+    devices (the runners' zeros would leave seamless's cross term 0).
+    ``kv_cache_dtype="int8"`` serves both with an int8 KV cache and also
+    holds the first decode step's logits to the same tolerance (the
+    decode is where the cache's type shows)."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke
@@ -3039,7 +3346,8 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
         (4, prompt, 4)
     for name in archs:
         base = get_smoke(name) if small else get_config(name)
-        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32",
+                                  kv_cache_dtype=kv_cache_dtype)
         if window:
             cfg = dataclasses.replace(cfg, sliding_window=window)
             C = M.cache_len(cfg, Lp + max_new + 8)
@@ -3073,6 +3381,14 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
         tol = 1e-3 * scale
         err = float(np.abs(got.logits_last - ref.logits_last).max())
         check(err <= tol, f"{name}: prefill logits off by {err} > {tol}")
+        same = got.tokens[:, 0] == ref.tokens[:, 0]
+        if kv_cache_dtype and same.any():
+            derr = float(np.abs(got.step_logits[same, 1]
+                                - ref.step_logits[same, 1]).max())
+            check(derr <= tol, f"{name}: {kv_cache_dtype} decode logits "
+                               f"off by {derr} > {tol}")
+            log(f"[card vs cpu] {name} {kv_cache_dtype} KV cache: first "
+                f"decode step's logits max err {derr:.3g} (tol {tol:.3g})")
         compared = 0
         for b in range(B):
             for s_ in range(max_new):
@@ -3084,7 +3400,9 @@ def card_vs_cpu_phase(torch, dev, small: bool, archs=GEN_ARCHS,
                       f"{got.tokens[b, s_]} vs {ref.tokens[b, s_]}")
                 compared += 1
         log(f"[card vs cpu] {name} (d_model {cfg.d_model}, hd "
-            f"{cfg.head_dim}, 2 layers, f32, B={B}, prompt {Lp}): prefill "
+            f"{cfg.head_dim}, 2 layers, f32"
+            f"{', int8 KV cache' if kv_cache_dtype else ''}, B={B}, prompt "
+            f"{Lp}): prefill "
             f"logits max err {err:.3g} "
             f"(max |logit| {scale:.3g}, tol {tol:.3g}); {compared} of "
             f"{B * max_new} greedy tokens compared, all equal")
@@ -3212,6 +3530,309 @@ def moe_card_vs_cpu(torch, dev, small: bool):
 # serve_loop: the deployable service loop (launch/serve.py)
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# phase 3d: the drift, Zipf-replay and simulator workloads
+# ----------------------------------------------------------------------
+
+class SigAnalyzer:
+    """Analyzer stand-in serving each text's workload signature (the
+    reference's drift benchmark does the same: the episode measures the
+    router, not the analyzer), so the card and CPU runs route the same
+    task vectors."""
+
+    def __init__(self, table: dict):
+        self.table = table
+
+    def analyze_batch(self, texts):
+        return [self.table[t] for t in texts]
+
+    def analyze(self, text):
+        return self.table[text]
+
+
+class HookLog:
+    """The cost profiler and the recompile hook attached to the ops
+    layer for the ``with``, beside the dispatch counters' deltas."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.obs import DeviceCostProfiler
+        self.ops, self.prof, self.events = ops, DeviceCostProfiler(), []
+        self.delta = {}                   # dispatches inside the withs
+
+    def __enter__(self):
+        self.before = self.ops.route_step_stats()
+        self.ops.set_cost_profiler(self.prof)
+        self.ops.set_recompile_hook(self.events.append)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.set_cost_profiler(None)
+        self.ops.set_recompile_hook(None)
+        after = self.ops.route_step_stats()
+        for k in after:
+            self.delta[k] = self.delta.get(k, 0) + after[k] - self.before[k]
+
+    def check_one_event_per_dispatch(self, what: str) -> None:
+        """Every route-step dispatch (dense, sharded, ivf, fused) and
+        every analyzer dispatch (analyze, fused) saw exactly one event,
+        each with 0 compiles."""
+        paths = [e["path"] for e in self.events]
+        routes = sum(p in ("dense", "sharded", "ivf", "fused") for p in paths)
+        analyzes = sum(p in ("analyze", "fused") for p in paths)
+        check(routes == self.delta["route_step_dispatches"] and
+              analyzes == self.delta["analyze_step_dispatches"],
+              f"{what}: hook events {len(paths)} ({routes} route, "
+              f"{analyzes} analyzer) against dispatches {self.delta}")
+        check(all(e["compiles"] == 0 for e in self.events),
+              f"{what}: an event reports compiles")
+
+
+def drift_episode(torch, dev, mres, wl, quant: bool, prefs: str):
+    """One model-degrade episode: each step's batch routed
+    (``route_all`` with the batch's own signatures, LinUCB at weight 2,
+    alpha 0.5, forget 0.96 -- the reference's drift benchmark) and
+    ``observe``-d with its true qualities at that step.  Returns the
+    routed queries per step, the chosen models, the reward per step
+    and the wall seconds per step (route + observe)."""
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.core.orchestrator import OptiRoute
+
+    an = SigAnalyzer({})
+    bandit = LinearBandit(len(mres), alpha=0.5, forget=0.96, seed=11,
+                          device=dev)
+    router = OptiRoute(mres, an, adaptive=bandit, adaptive_weight=2.0,
+                       device=dev)
+    router.engine.quantize = quant
+    steps, chosen, reward, wall = [], [], [], []
+    for t in range(wl.sc.n_steps):
+        batch = wl.batch(t)
+        an.table = {q.text: q.sig for q in batch}
+        t0 = time.perf_counter()
+        rqs = router.route_all([q.text for q in batch], prefs)
+        models = [rq.decision.model for rq in rqs]
+        qual = np.array([wl.quality(t, m, q.sig)
+                         for m, q in zip(models, batch)])
+        router.observe(rqs, qualities=qual)
+        wall.append(time.perf_counter() - t0)
+        steps.append(rqs)
+        chosen.append(models)
+        reward.append(float(qual.sum()))
+    return steps, chosen, np.array(reward), np.array(wall)
+
+
+def step_decisions_match(ref, got, what: str):
+    """Tie-aware, step by step, as ``decisions_match``; after the first
+    tie-broken difference the two bandits learn from different choices,
+    so the comparison stops there.  Returns (steps compared, ties)."""
+    for t, (a_s, b_s) in enumerate(zip(ref, got)):
+        for i, (a, b) in enumerate(zip(a_s, b_s)):
+            if a.decision.model == b.decision.model:
+                continue
+            check(near_tie(ranked_scores(a)) or near_tie(ranked_scores(b)),
+                  f"{what}: step {t} row {i} model {a.decision.model} vs "
+                  f"{b.decision.model} without a tie")
+            return t + 1, 1
+    return len(ref), 0
+
+
+def recovery_steps(chosen, wl):
+    """The reference benchmark's recovery: steps after the shift until
+    the degraded model stops winning the batch majority."""
+    deg = wl.degraded_model
+    for t in range(wl.shift_step, wl.sc.n_steps):
+        top = max(set(chosen[t]), key=chosen[t].count)
+        if top != deg:
+            return t - wl.shift_step
+    return None
+
+
+def workloads_phase(torch, dev, small: bool, shared):
+    """Over the serving phase's catalog (100,000 entries), with the cost
+    profiler and the recompile hook attached to the card's runs: (1) the
+    default ``DriftScenario`` (model-degrade, 60 steps of 16), its
+    degraded model the one ``accuracy-first`` routes most of step 0 to
+    (the reference's drift benchmark picks it so), served with an fp32
+    and an int8 catalog: recovery after the shift and per-step p50;
+    (2) ``zipf_replay`` (64 queries, 512 requests) through
+    ``ServingEngine.submit`` with the semantic cache and LinUCB, in
+    submits of 64 each observed: the hit rate; (3) a
+    ``ServingSimulator`` over the catalog (capacity 2 a model, service
+    time its latency) fed a bursty ``TrafficScenario``, its ``route_fn``
+    routing each arrival with the live tracker's load penalty in the
+    blend and ``plan_admission`` against the tracker (deadline 400 ms).
+    Each against the same run on the CPU, tie-aware; the hook must see
+    one event per dispatch, each with 0 compiles; each bucket's FLOPs
+    and bytes are logged."""
+    import dataclasses
+
+    from repro_torch.adaptive import LinearBandit
+    from repro_torch.cache.semantic import SemanticCache
+    from repro_torch.core.orchestrator import OptiRoute
+    from repro_torch.core.routing import RoutingEngine
+    from repro_torch.data.workload import (DriftScenario,
+                                           NonStationaryWorkload,
+                                           ServingSimulator, TrafficScenario,
+                                           ZipfReplayScenario, meta_of,
+                                           poisson_arrivals, quality_of,
+                                           zipf_replay)
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.load import LoadTracker, plan_admission
+
+    mres, _ = routing_inputs(small, shared)
+    cpu = torch.device("cpu")
+    n = len(mres)
+    metas = [meta_of(e) for e in mres.entries]
+    t_phase = time.perf_counter()
+    hooks = HookLog()
+
+    # -- (1) the drift episode
+    sc = DriftScenario()
+    if small:
+        sc = dataclasses.replace(sc, n_steps=12)
+    probe = NonStationaryWorkload(metas, sc)
+    eng = RoutingEngine(mres, device=cpu)
+    picked = [d.model for d in eng.route_many(
+        "accuracy-first", [q.sig for q in probe.batch(0)])]
+    sc = dataclasses.replace(sc, degrade_model=max(set(picked),
+                                                   key=picked.count))
+    wl = NonStationaryWorkload(metas, sc)
+    log(f"[workloads] drift: {sc.kind}, {sc.n_steps} steps of {sc.batch}, "
+        f"shift at step {wl.shift_step}, degraded model {wl.degraded_model} "
+        f"(step 0's accuracy-first majority, {picked.count(wl.degraded_model)}"
+        f" of {sc.batch})")
+    for quant in (False, True):
+        tag = "int8" if quant else "fp32"
+        with hooks:
+            steps, chosen, reward, wall = drift_episode(
+                torch, dev, mres, wl, quant, "accuracy-first")
+        ref_steps, ref_chosen, ref_reward, _ = drift_episode(
+            torch, cpu, mres, wl, quant, "accuracy-first")
+        compared, ties = step_decisions_match(ref_steps, steps,
+                                              f"drift {tag}")
+        deg = wl.degraded_model
+        share = lambda lo, hi: np.mean([c.count(deg) / len(c)
+                                        for c in chosen[lo:hi]])
+        log(f"[workloads] drift {tag}: recovery "
+            f"{recovery_steps(chosen, wl)} steps after the shift (CPU run "
+            f"{recovery_steps(ref_chosen, wl)}); the degraded model's share "
+            f"of choices {share(0, wl.shift_step):.3f} before the shift, "
+            f"{share(wl.shift_step, sc.n_steps):.3f} after; reward per "
+            f"step {reward[:wl.shift_step].mean():.3f} before, "
+            f"{reward[wl.shift_step:].mean():.3f} after; route + observe "
+            f"per step p50 {np.quantile(wall[1:], 0.5) * 1e3:.1f} ms, p99 "
+            f"{np.quantile(wall[1:], 0.99) * 1e3:.1f} ms; decisions match "
+            f"the CPU run over {compared} of {sc.n_steps} steps "
+            f"({ties} tie-broken)")
+    hooks.check_one_event_per_dispatch("drift")
+
+    # -- (2) Zipf replay through the semantic cache
+    zsc = ZipfReplayScenario(n_requests=128 if small else 512)
+    pool, order = zipf_replay(zsc)
+    sigs = {q.text: q.sig for q in pool}
+
+    def replay(d):
+        an = SigAnalyzer(sigs)
+        router = OptiRoute(
+            mres, an, adaptive=LinearBandit(n, seed=3, device=d),
+            adaptive_weight=1.0, cache=SemanticCache(
+                capacity=4096, min_quality=0.0, device=d), device=d)
+        eng = ServingEngine(router)
+        out, lat = [], []
+        for lo in range(0, len(order), 64):
+            idx = order[lo:lo + 64]
+            t0 = time.perf_counter()
+            resp = eng.submit([Request(text=pool[j].text, prefs="balanced",
+                                       id=int(lo + i))
+                               for i, j in enumerate(idx)])
+            eng.observe(resp, [quality_of(meta_of(mres.entry(r.model)),
+                                          pool[j].sig)
+                               for r, j in zip(resp, idx)])
+            lat.append(time.perf_counter() - t0)
+            out.append(resp)
+        return out, lat
+    with hooks:
+        got, lat = replay(dev)
+    ref, _ = replay(cpu)
+    ties = decisions_match(ref, got, "zipf replay")
+    hits = [sum(r.cache_hit for r in b) for b in got]
+    rate = sum(hits) / len(order)
+    # a request whose query an earlier submit served (and observed,
+    # writing it back) must hit
+    seen, repeats = set(), 0
+    for lo in range(0, len(order), 64):
+        repeats += sum(int(j) in seen for j in order[lo:lo + 64])
+        seen.update(int(j) for j in order[lo:lo + 64])
+    log(f"[workloads] zipf replay ({zsc.n_unique} queries, {len(order)} "
+        f"requests, a={zsc.zipf_a}): hits per submit of 64 {hits}, hit rate "
+        f"{rate:.3f} ({repeats} requests repeat a query of an earlier "
+        f"submit); submit + observe p50 {np.quantile(lat, 0.5) * 1e3:.1f} "
+        f"ms; decisions and hits match the CPU run ({ties} tie-broken)")
+    check(sum(hits) >= repeats, f"zipf replay: {sum(hits)} hits, fewer "
+                                f"than the {repeats} repeats")
+    hooks.check_one_event_per_dispatch("zipf replay")
+
+    # -- (3) the serving simulator with a live tracker
+    tsc = TrafficScenario(duration_s=1.5 if small else 4.0, seed=3)
+    arrivals = poisson_arrivals(tsc)
+    lat_ms = np.array([e.raw_metrics["latency_ms"] for e in mres.entries])
+    # four queries in turn: each one's favourite model takes a quarter
+    # of the burst, past its two servers, so the tracker's load penalty
+    # and plan_admission have queues to steer around
+    qsigs = [q.sig for q in probe.batch(1)][:4]
+
+    def simulate(d):
+        tracker = LoadTracker(n, tau_s=tsc.deadline_ms / 2e3,
+                              default_service_s=float(lat_ms.mean() / 1e3))
+        eng = RoutingEngine(mres, knn_k=8, load=tracker, load_weight=1.0,
+                            device=d)
+        sim = ServingSimulator(lat_ms / 1e3, np.full(n, 2), tracker=tracker)
+        col = {e.name: j for j, e in enumerate(mres.entries)}
+        decisions = []
+
+        def route(i, t):
+            dcs = eng.route_many_batch(
+                "accuracy-first", [qsigs[i % len(qsigs)]]).decisions()[0]
+            decisions.append(dcs)
+            m, kind, _ = plan_admission(dcs, tracker, col, tsc.deadline_ms)
+            return col[m], kind
+        t0 = time.perf_counter()
+        res = sim.run(arrivals, route, deadline_ms=tsc.deadline_ms)
+        return res, decisions, time.perf_counter() - t0
+    with hooks:
+        res, dec, wall = simulate(dev)
+    ref_res, ref_dec, _ = simulate(cpu)
+    compared = len(dec)
+    for i, (a, b) in enumerate(zip(ref_dec, dec)):
+        if a.model != b.model:
+            c = [s for _, s in a.candidates]
+            check(len(c) > 1 and c[0] - c[1] <= 1e-5,
+                  f"simulator: arrival {i} model {a.model} vs {b.model} "
+                  "without a tie")
+            compared = i
+            break
+    if compared == len(dec):
+        for key in ("model", "shed", "rerouted"):
+            check(np.array_equal(res[key], ref_res[key]),
+                  f"simulator: {key} differs from the CPU run")
+    kinds = {k: int(v) for k, v in (("shed", res["shed"].sum()),
+                                    ("rerouted", res["rerouted"].sum()))}
+    log(f"[workloads] simulator: {arrivals.size} arrivals over "
+        f"{tsc.duration_s} s (burst {tsc.burst_rate}/s), {kinds}, latency "
+        f"p50 {res['p50_s'] * 1e3:.1f} ms, p99 {res['p99_s'] * 1e3:.1f} ms, "
+        f"SLO miss rate {res['slo_miss_rate']:.3f}; routing "
+        f"{wall / max(arrivals.size, 1) * 1e3:.2f} ms an arrival on the card "
+        f"(host clock); decisions match the CPU run over {compared} of "
+        f"{len(dec)} arrivals")
+    hooks.check_one_event_per_dispatch("simulator")
+    for bucket, costs in sorted(hooks.prof.profile().items()):
+        log(f"[workloads] cost profile {bucket}: {costs['flops']:.4g} "
+            f"FLOPs, {costs['bytes_accessed']:.4g} bytes")
+    log(f"[workloads] recompile hook: {len(hooks.events)} events, one per "
+        f"dispatch, every one with compiles == 0; phase time "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 SCAN_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SCAN_TPU = "src/repro/kernels/ssd_scan.py:75"
 BATCHER_ARCHS = ["llama3.2-1b", "mamba2-1.3b", "gemma2-2b"]
@@ -3302,7 +3923,7 @@ def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
 
     base = ["--analyzer-ckpt", ckpt] + (["--device", "cpu"] if small else [])
     n_req, max_new = (12, 4) if small else (48, 16)
-    soak = "5" if small else "30"
+    soak = "5" if small else "15"
     archs = serve.default_archs(dev)
     seen = {}
 
@@ -3759,12 +4380,14 @@ def main() -> int:
                     help="CPU, small sizes, plain versions; exits 3")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (kernels, serving, "
-                         "router_paths, mega_catalog, model_kernels, "
-                         "moe_kernels, window_kernels, frontend_kernels, "
-                         "generate, moe_generate, generate_windowed, "
-                         "long_context, generate_frontends, card_vs_cpu, "
-                         "serve_loop; generate_frontends needs "
-                         "frontend_kernels); prints no result, exits 4")
+                         "router_paths, mega_catalog, workloads, "
+                         "model_kernels, moe_kernels, window_kernels, "
+                         "frontend_kernels, kv_int8_kernels, generate, "
+                         "moe_generate, generate_windowed, long_context, "
+                         "generate_frontends, kv_int8_generation, "
+                         "card_vs_cpu, serve_loop; generate_frontends "
+                         "needs frontend_kernels, kv_int8_generation "
+                         "kv_int8_kernels); prints no result, exits 4")
     args = ap.parse_args()
     try:
         import torch
@@ -3798,6 +4421,7 @@ def main() -> int:
     kernels = {}
     window_rows = {}
     frontend_rows = {}
+    int8_rows = {}
     shared = {}
     phases = {
         "kernels": lambda: kernels.update(
@@ -3808,6 +4432,7 @@ def main() -> int:
                                                    kernels, shared),
         "mega_catalog": lambda: mega_catalog_phase(torch, dev, small,
                                                    kernels, shared),
+        "workloads": lambda: workloads_phase(torch, dev, small, shared),
         "model_kernels": lambda: kernels.update(
             model_kernel_phase(torch, dev, small)),
         "moe_kernels": lambda: kernels.update(
@@ -3816,6 +4441,8 @@ def main() -> int:
             window_kernel_phase(torch, dev, small)),
         "frontend_kernels": lambda: frontend_rows.update(
             frontend_kernel_phase(torch, dev, small)),
+        "kv_int8_kernels": lambda: int8_rows.update(
+            kv_int8_kernel_phase(torch, dev, small)),
         "generate": lambda: (
             generation_phase(torch, dev, small, kernels),
             release(torch, dev, "after the routing and generation phases")),
@@ -3832,6 +4459,8 @@ def main() -> int:
             frontend_generation_phase(torch, dev, small, kernels,
                                       frontend_rows),
             release(torch, dev, "after the frontend generation phase")),
+        "kv_int8_generation": lambda: kv_int8_generation_phase(
+            torch, dev, small, kernels, int8_rows),
         "card_vs_cpu": lambda: (
             card_vs_cpu_phase(torch, dev, small),
             moe_card_vs_cpu(torch, dev, small),
@@ -3849,7 +4478,9 @@ def main() -> int:
     try:
         for name in phases:
             if name in only:
+                t0 = time.perf_counter()
                 phases[name]()
+                log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,8 +9,9 @@ per-model ground-truth quality table used by the routing benchmarks.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -332,3 +333,284 @@ def jain_fairness(x: Sequence[float]) -> float:
     if v.size == 0 or not np.any(v):
         return 1.0
     return float(v.sum() ** 2 / (v.size * (v ** 2).sum()))
+
+
+# ----------------------------------------------------------------------
+# non-stationary scenarios (online-learning benchmarks)
+# ----------------------------------------------------------------------
+
+DRIFT_KINDS = ("quality-drift", "domain-shift", "model-degrade")
+
+
+@dataclass(frozen=True)
+class DriftScenario:
+    """A non-stationary traffic episode for the adaptive router.
+
+    kind:
+      * ``quality-drift``  — every model's true quality follows a slow
+        deterministic sinusoid around its catalog value (phase-shifted
+        per model, amplitude ``drift_amp``), so the best model keeps
+        changing;
+      * ``domain-shift``   — the query mix jumps from ``domain_a`` to
+        ``domain_b`` at ``shift_frac`` of the episode (quality table
+        static: the context distribution is what moves);
+      * ``model-degrade``  — ``degrade_model`` (default: the catalog's
+        accuracy leader) loses ``degrade_delta`` true quality at
+        ``shift_frac`` of the episode while its catalog metrics stay
+        stale — the recovery-after-drift stress test.
+    """
+    kind: str = "model-degrade"
+    n_steps: int = 60
+    batch: int = 16
+    seed: int = 0
+    task_type: Optional[str] = None
+    drift_amp: float = 0.35
+    drift_period: float = 40.0
+    shift_frac: float = 0.5
+    domain_a: str = "general"
+    domain_b: str = "healthcare"
+    degrade_model: Optional[str] = None
+    degrade_delta: float = 0.6
+
+    def validate(self) -> "DriftScenario":
+        assert self.kind in DRIFT_KINDS, self.kind
+        assert 0.0 < self.shift_frac < 1.0
+        return self
+
+
+class NonStationaryWorkload:
+    """Per-step query batches plus the time-varying ground-truth
+    quality table ``quality(t, model, sig)`` they are scored against.
+
+    ``entries_meta`` is one ``quality_of`` meta dict per catalog model
+    (see ``meta_of``), in catalog order; batches and the quality
+    trajectory are deterministic in (scenario.seed, t).
+    """
+
+    def __init__(self, entries_meta: Sequence[Dict],
+                 scenario: DriftScenario):
+        self.meta = list(entries_meta)
+        self.sc = scenario.validate()
+        self.names = [m["name"] for m in self.meta]
+        self._col = {n: j for j, n in enumerate(self.names)}
+        self.shift_step = int(round(self.sc.n_steps * self.sc.shift_frac))
+        if self.sc.kind == "model-degrade":
+            name = self.sc.degrade_model or max(
+                self.meta, key=lambda m: m["accuracy"])["name"]
+            self._degrade_idx = self._col[name]
+        else:
+            self._degrade_idx = -1
+
+    @property
+    def degraded_model(self) -> Optional[str]:
+        return (self.names[self._degrade_idx]
+                if self._degrade_idx >= 0 else None)
+
+    # ---------------- queries ----------------
+    def _domain_at(self, t: int) -> Optional[str]:
+        if self.sc.kind != "domain-shift":
+            return None                       # uniform domain mix
+        return self.sc.domain_a if t < self.shift_step else self.sc.domain_b
+
+    def batch(self, t: int) -> List[QueryRecord]:
+        """The step-t query batch (deterministic in (seed, t))."""
+        assert 0 <= t < self.sc.n_steps, t
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.sc.seed, t]))
+        return [make_query(rng, task_type=self.sc.task_type,
+                           domain=self._domain_at(t),
+                           qid=t * self.sc.batch + i)
+                for i in range(self.sc.batch)]
+
+    # ---------------- time-varying quality ----------------
+    def _offsets(self, t: int) -> np.ndarray:
+        """(N,) true-quality offsets vs. the static catalog table."""
+        n = len(self.meta)
+        off = np.zeros(n, np.float64)
+        if self.sc.kind == "quality-drift":
+            phase = 2.0 * np.pi * np.arange(n) / max(n, 1)
+            off = self.sc.drift_amp * np.sin(
+                2.0 * np.pi * t / self.sc.drift_period + phase)
+        elif self.sc.kind == "model-degrade" and t >= self.shift_step:
+            off[self._degrade_idx] = -self.sc.degrade_delta
+        return off
+
+    def quality(self, t: int, model: str, sig: TaskSignature) -> float:
+        """True quality of ``model`` answering ``sig`` at step ``t``."""
+        j = self._col[model]
+        return float(np.clip(quality_of(self.meta[j], sig)
+                             + self._offsets(t)[j], 0.0, 1.0))
+
+    def quality_matrix(self, t: int, sigs: Sequence[TaskSignature]
+                       ) -> np.ndarray:
+        """(B, N) true qualities of every model on every query — the
+        oracle table regret accounting is computed against."""
+        base = np.array([[quality_of(m, s) for m in self.meta]
+                         for s in sigs], np.float64)
+        return np.clip(base + self._offsets(t)[None, :], 0.0, 1.0)
+
+
+# ----------------------------------------------------------------------
+# repeat-heavy replay traffic (semantic-cache benchmarks)
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ZipfReplayScenario:
+    """Repeat-heavy traffic: a fixed pool of ``n_unique`` queries
+    replayed ``n_requests`` times with Zipf-distributed popularity
+    (rank r drawn with probability proportional to ``r**-zipf_a``) —
+    the production query-log shape where a small head of queries
+    dominates traffic and a semantic cache pays for itself.
+
+    ``zipf_a`` > 1 concentrates mass on the head (the classic web/LLM
+    traffic exponent is ~1); after the pool has been seen once, the
+    steady-state repeat fraction is what the cache-hit benchmarks
+    measure.  Deterministic in ``seed``.
+    """
+    n_unique: int = 64
+    n_requests: int = 512
+    zipf_a: float = 1.1
+    seed: int = 0
+    task_type: Optional[str] = None
+    domain: Optional[str] = None
+    complexity: Optional[float] = None
+
+    def validate(self) -> "ZipfReplayScenario":
+        assert self.n_unique > 0 and self.n_requests > 0
+        assert self.zipf_a > 0.0
+        return self
+
+    @property
+    def rank_probs(self) -> np.ndarray:
+        """(n_unique,) popularity of each pool rank (descending)."""
+        p = np.arange(1, self.n_unique + 1, dtype=np.float64) ** -self.zipf_a
+        return p / p.sum()
+
+
+def zipf_replay(sc: ZipfReplayScenario
+                ) -> Tuple[List[QueryRecord], np.ndarray]:
+    """(query pool, replay order): ``order`` is the (n_requests,) array
+    of pool indices in arrival order, drawn from the scenario's Zipf
+    popularity.  Replay ``pool[order[i]]`` to reproduce the episode."""
+    sc = sc.validate()
+    pool = make_workload(sc.n_unique, seed=sc.seed,
+                         task_type=sc.task_type, domain=sc.domain,
+                         complexity=sc.complexity)
+    rng = np.random.default_rng(np.random.SeedSequence([sc.seed, 1]))
+    order = rng.choice(sc.n_unique, size=sc.n_requests, p=sc.rank_probs)
+    return pool, order.astype(np.int64)
+
+
+# ----------------------------------------------------------------------
+# bursty open-loop traffic + discrete-event serving simulation
+# (load-/SLO-aware routing benchmarks)
+# ----------------------------------------------------------------------
+
+
+# ----------------------------------------------------------------------
+# discrete-event serving simulation (load-/SLO-aware routing)
+# ----------------------------------------------------------------------
+
+class ServingSimulator:
+    """Discrete-event queueing simulator over a routed catalog.
+
+    Model ``n`` has ``capacity[n]`` parallel servers with deterministic
+    per-request service time ``service_s[n]``.  Requests arrive at the
+    given times, are assigned a model by ``route_fn`` (which sees the
+    LIVE tracker state, because every queue/slot transition is mirrored
+    into ``tracker`` as it happens), wait FIFO for a free server,
+    execute, and complete.  Shed requests never occupy a server.
+
+    ``route_fn(i, t) -> (model_col, admission_kind)`` with kind in
+    ``repro_torch.serving.load.ADMISSION_KINDS``; a load-blind policy simply
+    always returns ("admitted", static choice).
+
+    ``run`` returns packed per-request arrays (model, admission codes,
+    wait/latency seconds, SLO misses) plus aggregate percentiles — the
+    evidence table the load-aware benchmark reads.
+    """
+
+    def __init__(self, service_s: Sequence[float],
+                 capacity: Sequence[float], tracker=None):
+        self.service_s = np.asarray(service_s, np.float64)
+        self.capacity = np.asarray(capacity, np.int64)
+        assert self.service_s.shape == self.capacity.shape
+        assert (self.service_s > 0).all() and (self.capacity > 0).all()
+        self.tracker = tracker
+        if tracker is not None:
+            tracker.ensure(len(self.service_s))
+            for j, c in enumerate(self.capacity):
+                tracker.set_capacity(j, float(c))
+
+    # ------------------------------------------------------------------
+    def run(self, arrivals: np.ndarray,
+            route_fn: Callable[[int, float], Tuple[int, str]],
+            deadline_ms: Optional[float] = None) -> Dict[str, np.ndarray]:
+        arrivals = np.asarray(arrivals, np.float64)
+        R = arrivals.size
+        n = len(self.service_s)
+        busy = np.zeros(n, np.int64)
+        queues: List[List[Tuple[float, int]]] = [[] for _ in range(n)]
+        qhead = np.zeros(n, np.int64)        # FIFO pop index per model
+        done_t = np.full(R, np.nan)
+        start_t = np.full(R, np.nan)
+        model = np.full(R, -1, np.int64)
+        shed = np.zeros(R, bool)
+        rerouted = np.zeros(R, bool)
+        events: List[Tuple[float, int, int]] = []   # (finish, model, req)
+        trk = self.tracker
+
+        def begin(req: int, m: int, now: float) -> None:
+            busy[m] += 1
+            start_t[req] = now
+            fin = now + self.service_s[m]
+            done_t[req] = fin
+            if trk is not None:
+                trk.start(m)
+            heapq.heappush(events, (fin, m, req))
+
+        def drain_until(now: float) -> None:
+            while events and events[0][0] <= now:
+                fin, m, req = heapq.heappop(events)
+                busy[m] -= 1
+                if trk is not None:
+                    trk.finish(m, float(self.service_s[m]))
+                if qhead[m] < len(queues[m]):        # hand the slot on
+                    _, nxt = queues[m][qhead[m]]
+                    qhead[m] += 1
+                    begin(nxt, m, fin)
+
+        for i, t in enumerate(arrivals):
+            drain_until(float(t))
+            m, kind = route_fn(i, float(t))
+            if kind == "shed":
+                shed[i] = True
+                model[i] = m
+                continue
+            rerouted[i] = kind == "rerouted"
+            model[i] = m
+            if trk is not None:
+                trk.admit(m)
+            if busy[m] < self.capacity[m]:
+                begin(i, m, float(t))
+            else:
+                queues[m].append((float(t), i))
+        drain_until(np.inf)                          # flush the tail
+
+        served = ~shed
+        latency = np.where(served, done_t - arrivals, np.nan)
+        wait = np.where(served, start_t - arrivals, np.nan)
+        out: Dict[str, np.ndarray] = {
+            "arrival_s": arrivals, "model": model, "shed": shed,
+            "rerouted": rerouted, "latency_s": latency, "wait_s": wait,
+        }
+        lat_ok = latency[served]
+        out["p50_s"] = float(np.quantile(lat_ok, 0.5)) if lat_ok.size else 0.0
+        out["p99_s"] = float(np.quantile(lat_ok, 0.99)) if lat_ok.size else 0.0
+        if deadline_ms is not None:
+            # a shed request is an SLO miss by definition: it got no answer
+            miss = shed | (np.nan_to_num(latency, nan=np.inf)
+                           > deadline_ms / 1e3)
+            out["slo_miss"] = miss
+            out["slo_miss_rate"] = float(miss.mean()) if R else 0.0
+        return out

@@ -1333,6 +1333,255 @@ decode_combine_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------
+// decode (Lq = 1) against an int8 KV cache
+// ---------------------------------------------------------------------
+
+// The reference's dequantized cache elements: bf16(bf16(x) * bf16(s)),
+// two at a time.  bf16 holds every int8 exactly and the f32 product of
+// two bf16 values is exact, so rounding it once to bf16 gives the same
+// bits as the reference's bf16 multiply.  `sb` is bf16(s) as a float.
+__device__ __forceinline__ uint32_t deq8x2(int8_t x0, int8_t x1, float sb) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn((float)x0 * sb,
+                                                 (float)x1 * sb);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int HD>
+struct DecQ8 {
+  static constexpr int P8 = HD / 8;               // 8-byte int8 pieces a row
+  // keys per sub-tile: 8 KB of K and 8 KB of V dequantized to bf16
+  static constexpr int TK_ = 4096 / HD;
+  static constexpr int TK = TK_ > 64 ? 64 : TK_ < 8 ? 8 : TK_;
+  static constexpr int CH = HD / 8;               // 16-byte bf16 pieces a row
+  static constexpr int LPR = CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;
+  static constexpr int NPL = (CH + LPR - 1) / LPR;
+  static constexpr int KPW = 32 / LPR;
+  static constexpr int GB = 1024 / HD;            // query heads per block
+  static constexpr int NP = (GB * HD / 2 + DEC_THREADS - 1) / DEC_THREADS;
+};
+
+// Block (split, kv head x head group, batch), as decode_split_kernel:
+// keys [lo, hi) of chunk `split` for up to GB query heads of one KV
+// group, the same partials (acc, then (m, l) in the log2 domain) for
+// decode_combine_kernel.  Each sub-tile's int8 K/V rows are read 8
+// bytes a thread with their per-(slot, head) scales into registers one
+// sub-tile ahead, dequantized there and kept in shared memory as the
+// bf16 values they are (16 KB a sub-tile, so many blocks share an SM);
+// then scores, the online softmax and P V in f32 on CUDA cores (no
+// tensor cores, no TMA).
+template <typename T, int HD>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                 const int8_t* __restrict__ v, const float* __restrict__ ksc,
+                 const float* __restrict__ vsc,
+                 const int* __restrict__ kv_valid, float* __restrict__ part,
+                 float* __restrict__ ml, int G, int lk, int local,
+                 Strides qs, Strides ks, Strides vs, Strides kss,
+                 Strides vss, float scale, float softcap, int chunk,
+                 int hd) {
+  using C = DecQ8<HD>;
+  if constexpr (!PAD<HD>) hd = HD;
+  constexpr int TK = C::TK, LPR = C::LPR, KPW = C::KPW, CH = C::CH;
+  constexpr int NPL = C::NPL, P8 = C::P8;
+  __shared__ __align__(16) __nv_bfloat16 kt[TK * HD];
+  __shared__ __align__(16) __nv_bfloat16 vt[TK * HD];
+  __shared__ __align__(16) float qsh[C::GB * HD];
+  __shared__ float sc[C::GB][TK];
+  __shared__ float mrow[C::GB], lrow[C::GB], arow[C::GB];
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int ngrp = (G + C::GB - 1) / C::GB;
+  const int kh = blockIdx.y / ngrp, g0 = (blockIdx.y % ngrp) * C::GB;
+  const int ng = min(C::GB, G - g0);
+  const int b = blockIdx.z;
+  const int Hq = G * (gridDim.y / ngrp);
+  const int hq0 = kh * G + g0;
+  const long long slot = ((long long)b * Hq + hq0) * n_split + split;
+
+  int lo = 0, hi = live_keys(kv_valid, b, lk);
+  if (local) lo = hi - local;           // the window ends at the live count
+  lo = max(lo, split * chunk);
+  hi = min(hi, split * chunk + chunk);
+  if (lo >= hi) {                       // no live key: an empty partial
+    for (int g = t; g < ng; g += DEC_THREADS) {
+      ml[2 * (slot + (long long)g * n_split)] = -CUDART_INF_F;
+      ml[2 * (slot + (long long)g * n_split) + 1] = 0.f;
+    }
+    return;
+  }
+
+  const int8_t* kb = k + b * ks.b + kh * ks.h;
+  const int8_t* vb = v + b * vs.b + kh * vs.h;
+  const float* kscb = ksc + b * kss.b + kh * kss.h;
+  const float* vscb = vsc + b * vss.b + kh * vss.h;
+  // a thread's share of a sub-tile: PER 8-byte pieces of K and of V,
+  // with their slots' scales; the next sub-tile's are loaded into
+  // registers while the current one is scored
+  constexpr int PER = (TK * P8 + DEC_THREADS - 1) / DEC_THREADS;
+  uint2 rk[PER], rv[PER];
+  float sk[PER], sv[PER];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = t + DEC_THREADS * i, j = e / P8, c = e - j * P8;
+      rk[i] = rv[i] = make_uint2(0u, 0u);
+      sk[i] = sv[i] = 0.f;
+      if (e < TK * P8 && k0 + j < hi && (!PAD<HD> || c * 8 < hd)) {
+        const long long key = k0 + j;
+        rk[i] = *reinterpret_cast<const uint2*>(kb + key * ks.l + c * 8);
+        rv[i] = *reinterpret_cast<const uint2*>(vb + key * vs.l + c * 8);
+        sk[i] = bf16_round(kscb[key * kss.l]);
+        sv[i] = bf16_round(vscb[key * vss.l]);
+      }
+    }
+  };
+  // dequantize the fetched pieces into the bf16 sub-tile, 16 bytes a
+  // piece (zeros where nothing was fetched: 0 * 0)
+  auto stage = [&]() {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = t + DEC_THREADS * i, j = e / P8, c = e - j * P8;
+      if (e < TK * P8) {
+        const int8_t* k8 = reinterpret_cast<const int8_t*>(&rk[i]);
+        const int8_t* v8 = reinterpret_cast<const int8_t*>(&rv[i]);
+        uint4 kx, vx;
+        kx.x = deq8x2(k8[0], k8[1], sk[i]);
+        kx.y = deq8x2(k8[2], k8[3], sk[i]);
+        kx.z = deq8x2(k8[4], k8[5], sk[i]);
+        kx.w = deq8x2(k8[6], k8[7], sk[i]);
+        vx.x = deq8x2(v8[0], v8[1], sv[i]);
+        vx.y = deq8x2(v8[2], v8[3], sv[i]);
+        vx.z = deq8x2(v8[4], v8[5], sv[i]);
+        vx.w = deq8x2(v8[6], v8[7], sv[i]);
+        *reinterpret_cast<uint4*>(&kt[j * HD + c * 8]) = kx;
+        *reinterpret_cast<uint4*>(&vt[j * HD + c * 8]) = vx;
+      }
+    }
+  };
+  fetch(lo);
+  for (int e = t; e < ng * HD; e += DEC_THREADS) {
+    const int g = e / HD, d = e - g * HD;
+    qsh[e] = !PAD<HD> || d < hd
+                 ? to_f(q[b * qs.b + (long long)(hq0 + g) * qs.h + d]) * scale
+                 : 0.f;
+  }
+  if (t < C::GB) {
+    mrow[t] = -CUDART_INF_F;
+    lrow[t] = 0.f;
+  }
+  float acc[C::NP][2];
+#pragma unroll
+  for (int i = 0; i < C::NP; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const int ntile = (hi - lo + TK - 1) / TK;
+  const int sub = lane / LPR, piece = lane % LPR;
+  for (int it = 0; it < ntile; ++it) {
+    const int k0 = lo + it * TK;
+    __syncthreads();                    // the last tile's P V is done
+    stage();
+    if (it + 1 < ntile) fetch(k0 + TK);
+    __syncthreads();
+    // scores: LPR lanes per key row, NPL 16-byte pieces each, reduced
+    // by shuffles
+    for (int j = w * KPW + sub; j < TK; j += 4 * KPW) {
+      float kf[NPL][8];
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int c = piece + LPR * i;
+        if (c < CH) {
+          unpack16(&kt[j * HD + c * 8], kf[i]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) kf[i][u] = 0.f;
+        }
+      }
+      const bool ok = k0 + j < hi;
+      for (int g = 0; g < ng; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) {
+          const int c = piece + LPR * i;
+          if (c < CH) {
+            const float* qg = qsh + g * HD + c * 8;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) dot = fmaf(qg[u], kf[i][u], dot);
+          }
+        }
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (piece == 0) {
+          if (softcap != 0.f) dot = softcap * tanhf(dot / softcap);
+          sc[g][j] = ok ? dot * LOG2E : -CUDART_INF_F;
+        }
+      }
+    }
+    __syncthreads();
+    // online softmax per head, one warp per head
+    for (int g = w; g < ng; g += DEC_THREADS / 32) {
+      float mx = -CUDART_INF_F;
+      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, sc[g][j]);
+      mx = warp_max(mx);
+      const float mold = mrow[g], mnew = fmaxf(mold, mx);
+      const float use = mnew == -CUDART_INF_F ? 0.f : mnew;
+      float sum = 0.f;
+      for (int j = lane; j < TK; j += 32) {
+        const float p = ex2(sc[g][j] - use);
+        sc[g][j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float a = ex2(mold - use);
+        arow[g] = a;
+        lrow[g] = lrow[g] * a + sum;
+        mrow[g] = mnew;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + P V: a thread holds NP (head, dim pair) slots
+#pragma unroll
+    for (int i = 0; i < C::NP; ++i) {
+      const int idx = t + DEC_THREADS * i;
+      const int g = idx / (HD / 2), dp = idx - g * (HD / 2);
+      if (g < ng) {
+        const float a = arow[g];
+        float x = acc[i][0] * a, y = acc[i][1] * a;
+        const __nv_bfloat16* vr = &vt[2 * dp];
+#pragma unroll 8
+        for (int j = 0; j < TK; ++j) {
+          const float p = sc[g][j];
+          const float2 vv = load2(vr + j * HD);
+          x = fmaf(p, vv.x, x);
+          y = fmaf(p, vv.y, y);
+        }
+        acc[i][0] = x;
+        acc[i][1] = y;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C::NP; ++i) {
+    const int idx = t + DEC_THREADS * i;
+    const int g = idx / (HD / 2), dp = idx - g * (HD / 2);
+    if (g < ng && (!PAD<HD> || 2 * dp < hd)) {
+      float* pr = part + (slot + (long long)g * n_split) * hd + 2 * dp;
+      pr[0] = acc[i][0];
+      pr[1] = acc[i][1];
+    }
+  }
+  if (t < ng) {
+    ml[2 * (slot + (long long)t * n_split)] = mrow[t];
+    ml[2 * (slot + (long long)t * n_split) + 1] = lrow[t];
+  }
+}
+
+// ---------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------
 
@@ -1523,6 +1772,66 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 #undef FA_LAUNCH
 }
 
+// The int8 decode: decode_q8_kernel's partials, then the shared merge.
+template <typename T, int HD>
+cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
+                      const float* ksc, const float* vsc,
+                      const int* kv_valid, void* out, float* scratch, int B,
+                      int Hq, int Hkv, int Lk, int local, Strides qs,
+                      Strides ks, Strides vs, Strides kss, Strides vss,
+                      Strides os, float scale, float softcap, int n_split,
+                      int chunk, int hd, cudaStream_t s) {
+  // 8-byte copies of every int8 row; the splits cover all Lk keys
+  const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
+  for (long long x : st)
+    if (x % 8) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
+          8 ||
+      hd % 8 || scratch == nullptr || n_split < 1 || chunk < 1 ||
+      (long long)n_split * chunk < Lk)
+    return cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  float* ml = scratch + (long long)B * Hq * n_split * hd;
+  const int ngrp = (G + DecQ8<HD>::GB - 1) / DecQ8<HD>::GB;
+  decode_q8_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B), DEC_THREADS, 0,
+                            s>>>(static_cast<const T*>(q), k, v, ksc, vsc,
+                                 kv_valid, scratch, ml, G, Lk, local, qs, ks,
+                                 vs, kss, vss, scale, softcap, chunk, hd);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  decode_combine_kernel<T, HD><<<B * Hq, hd, 0, s>>>(
+      scratch, ml, static_cast<T*>(out), Hq, n_split, os, hd);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_q8(int hd, const void* q, const int8_t* k,
+                        const int8_t* v, const float* ksc, const float* vsc,
+                        const int* kv_valid, void* out, float* scratch,
+                        int B, int Hq, int Hkv, int Lk, int local,
+                        Strides qs, Strides ks, Strides vs, Strides kss,
+                        Strides vss, Strides os, float scale, float softcap,
+                        int n_split, int chunk, cudaStream_t s) {
+#define Q8_LAUNCH(CAP)                                                      \
+  launch_q8<T, CAP>(q, k, v, ksc, vsc, kv_valid, out, scratch, B, Hq, Hkv, \
+                    Lk, local, qs, ks, vs, kss, vss, os, scale, softcap,   \
+                    n_split, chunk, hd, s)
+  switch (hd) {
+    case 32:
+      return Q8_LAUNCH(32);
+    case 64:
+      return Q8_LAUNCH(64);
+    case 120:                             // h2o-danube-3-4b, in 128
+    case 128:
+      return Q8_LAUNCH(128);
+    case 288:                             // gemma2-2b
+      return Q8_LAUNCH(288);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef Q8_LAUNCH
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
@@ -1557,5 +1866,45 @@ extern "C" int flash_attention_launch(
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_valid, out, sc, B, Hq,
                                       Hkv, mk, qs, ks, vs, os, scale,
                                       softcap, n_split, chunk, s);
+  return cudaErrorInvalidValue;
+}
+
+// One query row against an int8 KV cache: q (B, Hq, 1, hd) in `dtype`
+// (0 = float32, 1 = bfloat16); k / v (B, Hkv, Lk, hd) int8 and their
+// scales k_scale / v_scale (B, Hkv, Lk, 1) float32, all through their
+// (batch, head, position) strides in elements (int8 rows 8-byte
+// aligned); the output in q's dtype.  kv_valid and local_window as the
+// decode shape of flash_attention_launch; scratch holds B * Hq *
+// n_split * (hd + 2) floats.
+extern "C" int flash_decode_q8_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const int* kv_valid, void* out, int dtype, int B,
+    int Hq, int Hkv, int Lk, int hd, long long qsb, long long qsh,
+    long long qsl, long long ksb, long long ksh, long long ksl,
+    long long vsb, long long vsh, long long vsl, long long kssb,
+    long long kssh, long long kssl, long long vssb, long long vssh,
+    long long vssl, long long osb, long long osh, long long osl,
+    float scale, float softcap, int local_window, void* scratch,
+    int n_split, int chunk, void* stream) {
+  if (B <= 0 || Hq <= 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0)
+    return cudaErrorInvalidValue;
+  const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
+      kss{kssb, kssh, kssl}, vss{vssb, vssh, vssl}, os{osb, osh, osl};
+  const int8_t* kp = static_cast<const int8_t*>(k);
+  const int8_t* vp = static_cast<const int8_t*>(v);
+  const float* ksp = static_cast<const float*>(k_scale);
+  const float* vsp = static_cast<const float*>(v_scale);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_q8<float>(hd, q, kp, vp, ksp, vsp, kv_valid, out, sc, B,
+                              Hq, Hkv, Lk, local_window, qs, ks, vs, kss, vss,
+                              os, scale, softcap, n_split, chunk, s);
+  if (dtype == 1)
+    return dispatch_q8<__nv_bfloat16>(hd, q, kp, vp, ksp, vsp, kv_valid, out,
+                                      sc, B, Hq, Hkv, Lk, local_window, qs,
+                                      ks, vs, kss, vss, os, scale, softcap,
+                                      n_split, chunk, s);
   return cudaErrorInvalidValue;
 }

@@ -19,6 +19,12 @@ batch.  Head dims 32, 64, 120, 128 and 288: 120 (h2o-danube-3-4b)
 runs in the 128 instantiations with zero columns past it, 288
 (gemma2-2b) has its own.
 
+An int8 KV cache decodes through ``flash_decode_q8``: int8 K/V (B,
+Hkv, Lk, hd) with f32 per-(slot, head) scales (B, Hkv, Lk, 1), each
+element dequantized to ``bf16(bf16(k8) * bf16(scale))`` as the
+reference's jnp decode does, then the same split-KV decode and merge
+(``decode_q8_plain`` is its plain version).
+
 The tensors may be strided views (the head dim contiguous): the
 model's (B, L, H, hd) activations and its KV cache go in as
 ``transpose(1, 2)`` views, without a copy.  A wrapper given CUDA
@@ -48,7 +54,10 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+    ctypes.c_void_p], "flash_decode_q8_launch": [
+    ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 18 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -242,3 +251,131 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
 # launches on the card: all of them, and those of the decode shape
 flash_attention.launches = 0
 flash_attention.decode_launches = 0
+
+
+# ----------------------------------------------------------------------
+# decode against an int8 KV cache
+# ----------------------------------------------------------------------
+
+Q8_CHUNK = 32                           # the int8 decode's chunk unit
+
+
+def decode_splits_q8(B: int, Hkv: int, Lk: int):
+    """(n_split, chunk) of the int8 decode launch: as ``decode_splits``,
+    but for six blocks on each SM and chunks a multiple of ``Q8_CHUNK``
+    keys.  Its blocks dequantize and score their chunk one sub-tile at
+    a time, so more of them must be in flight to keep the card's memory
+    busy."""
+    want = -(-6 * SM_COUNT // max(B * Hkv, 1))
+    n = max(1, min(want, -(-Lk // Q8_CHUNK)))
+    per = -(-Lk // n)
+    chunk = max(Q8_CHUNK, -(-per // Q8_CHUNK) * Q8_CHUNK)
+    return max(1, -(-Lk // chunk)), chunk
+
+
+def dequantize_kv(x8, scale):
+    """The reference's dequantized cache: ``bf16(x8) * bf16(scale)``
+    rounded to bf16 (``models/layers.py``'s int8 decode casts both to
+    bf16 first, whatever the compute dtype).  bf16 holds every int8
+    value exactly and the product of two bf16 values exactly in f32, so
+    this is the correctly rounded product: the kernel forms the same
+    bits."""
+    return x8.to(torch.bfloat16) * scale.to(torch.bfloat16)
+
+
+def decode_q8_plain(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
+                    softcap: float = 0.0, local_window: int = 0):
+    """Plain version of ``flash_decode_q8``: the K/V dequantized as the
+    reference does (``dequantize_kv``), then the plain decode
+    (``flash_attention_plain``, no causal mask: one query row against
+    its ``kv_valid`` live keys)."""
+    return flash_attention_plain(q, dequantize_kv(k8, k_scale),
+                                 dequantize_kv(v8, v_scale), kv_valid,
+                                 causal=False, softcap=softcap,
+                                 local_window=local_window)
+
+
+def _check_q8(q, k8, v8, k_scale, v_scale, kv_valid):
+    dev = q.device
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k8.shape[1], k8.shape[2]
+    if Lq != 1:
+        raise ValueError("flash_decode_q8 takes one query row")
+    if q.dtype not in _DTYPE or k8.dtype != torch.int8 or \
+            v8.dtype != torch.int8 or k_scale.dtype != torch.float32 or \
+            v_scale.dtype != torch.float32:
+        raise TypeError(f"flash_decode_q8: q f32/bf16, int8 K/V and f32 "
+                        f"scales, got {q.dtype}/{k8.dtype}/{v8.dtype}/"
+                        f"{k_scale.dtype}/{v_scale.dtype}")
+    if hd not in HEAD_DIMS or hd % 8:
+        raise ValueError(f"flash_decode_q8 takes head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    if k8.shape != (B, Hkv, Lk, hd) or v8.shape != k8.shape or Hq % Hkv \
+            or k_scale.shape != (B, Hkv, Lk, 1) or \
+            v_scale.shape != k_scale.shape:
+        raise ValueError(f"flash_decode_q8: q {tuple(q.shape)}, k8 "
+                         f"{tuple(k8.shape)}, v8 {tuple(v8.shape)}, scales "
+                         f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)} "
+                         "do not fit")
+    for t in (q, k8, v8, k_scale, v_scale):
+        if t.device != dev:
+            raise ValueError("flash_decode_q8: operands on different "
+                             "devices")
+    if q.stride(3) != 1 or k8.stride(3) != 1 or v8.stride(3) != 1:
+        raise ValueError("flash_decode_q8: the head dim must be contiguous")
+    # int8 rows move 8 bytes at a time
+    if any(x % 8 for t in (k8, v8) for x in t.stride()[:3]) or \
+            k8.data_ptr() % 8 or v8.data_ptr() % 8:
+        raise ValueError(f"flash_decode_q8: K/V strides {k8.stride()} / "
+                         f"{v8.stride()} need 8-byte aligned rows")
+    if kv_valid is not None and (
+            kv_valid.device != dev or kv_valid.dtype != torch.int32 or
+            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous()):
+        raise ValueError("flash_decode_q8: kv_valid must be a contiguous "
+                         f"({B},) int32 tensor on {dev}")
+
+
+def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
+                    softcap: float = 0.0, local_window: int = 0):
+    """One query row against an int8 KV cache: q (B, Hq, 1, hd) f32 or
+    bf16; k8 / v8 (B, Hkv, Lk, hd) int8 and k_scale / v_scale (B, Hkv,
+    Lk, 1) f32, possibly strided views of the model's cache; kv_valid
+    (B,) int32 or None; ``local_window`` as ``flash_attention``'s.
+    Returns (B, Hq, 1, hd) in q's dtype (on the card a ``transpose(1,
+    2)`` view of a contiguous (B, 1, Hq, hd) tensor).  CPU tensors take
+    ``decode_q8_plain``; CUDA tensors launch the kernel or raise."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_decode_q8: tensors must be on cuda or "
+                         f"cpu, not {q.device}")
+    if local_window < 0:
+        raise ValueError(f"flash_decode_q8: local_window {local_window}")
+    if q.device.type == "cpu":
+        return decode_q8_plain(q, k8, v8, k_scale, v_scale, kv_valid,
+                               softcap=softcap, local_window=local_window)
+    _check_q8(q, k8, v8, k_scale, v_scale, kv_valid)
+    B, Hq, _, hd = q.shape
+    Hkv, Lk = k8.shape[1], k8.shape[2]
+    lib = build.load("flash_attention", _SIG)
+    out = torch.empty((B, 1, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    n_split, chunk = decode_splits_q8(B, Hkv, Lk)
+    scratch = torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_q8_launch(
+            q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(),
+            None if kv_valid is None else kv_valid.data_ptr(),
+            out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lk, hd,
+            *q.stride()[:3], *k8.stride()[:3], *v8.stride()[:3],
+            *k_scale.stride()[:3], *v_scale.stride()[:3],
+            *out.stride()[:3], 1.0 / math.sqrt(hd), float(softcap),
+            int(local_window), scratch.data_ptr(), n_split, chunk, stream)
+    build.check(err, "flash_decode_q8")
+    flash_decode_q8.launches += 1
+    return out
+
+
+# launches on the card
+flash_decode_q8.launches = 0

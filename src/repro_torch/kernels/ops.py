@@ -13,7 +13,11 @@ observability sinks of the reference's ops: ``telemetry`` (a
 compiles (eager PyTorch compiles nothing; a captured CUDA graph per
 bucket will count as one), and ``tracer`` (an ``obs.Tracer``) wraps
 the launch and the host copy of its outputs in one span.  With
-neither attached the path and its launches are unchanged.
+neither attached the path and its launches are unchanged.  The same
+three ops hand every dispatch to the module-level hooks
+``set_cost_profiler`` (``obs.profile.DeviceCostProfiler``: per-bucket
+FLOPs and bytes) and ``set_recompile_hook`` (one event per dispatch),
+as the reference's do; detached (``None``) they cost nothing.
 
 Every op takes ``device=None`` (= ``"cuda"``; raises without a card).
 On the card the route-step kNN, the staged path's kNN (``knn_rows``),
@@ -26,11 +30,13 @@ into column blocks, one ``router_topk`` launch per shard) and ``ivf=``
 at the end (``flash_attention``, ``flash_decode``, ``ssd_scan``,
 ``moe_gating``) take tensors and run
 where those tensors live: on the card their kernels, on the CPU the
-plain versions.
+plain versions; ``flash_decode`` given an int8 cache's scales reads
+the int8 K/V through ``flash_attention.flash_decode_q8``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import weakref
 from typing import Optional, Tuple
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import profile as _cost
 from repro_torch.obs.trace import NOOP_SPAN
 from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
                                               analyze_route_step_body,
@@ -46,6 +53,8 @@ from repro_torch.kernels.analyze_step import (AnalyzerEncoder,
 from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
+from repro_torch.kernels.flash_attention import \
+    flash_decode_q8 as _flash_q8_kernel
 from repro_torch.kernels.moe_gating import moe_gating as _gate_kernel
 from repro_torch.kernels.route_step import (CatalogShard, quantize_rows,
                                             route_step_body,
@@ -100,6 +109,65 @@ def reset_route_step_stats() -> None:
 def _bump(kind: str) -> None:
     with _STATS_LOCK:
         _STATS[f"{kind}_dispatches"] += 1
+
+
+# optional per-bucket cost profiler (obs.profile.DeviceCostProfiler):
+# when attached, every dispatch hands it its shape bucket and the cost
+# formula bound to the bucket's padded shapes, which it evaluates once
+# per NEW bucket; zero cost on the hot path when detached
+_COST_PROFILER = None
+
+
+def set_cost_profiler(profiler) -> None:
+    """Attach (or detach with ``None``) a per-bucket cost profiler."""
+    global _COST_PROFILER
+    _COST_PROFILER = profiler
+
+
+# optional recompile hook: when attached, every dispatch reports its
+# shape-bucket signature and its compile count.  Same shape as the
+# cost-profiler hook: module global, None when detached, zero hot-path
+# cost.  Eager PyTorch compiles nothing, so ``compiles`` is 0; a
+# captured CUDA graph per bucket would count its captures here.
+_RECOMPILE_HOOK = None
+
+
+def set_recompile_hook(hook) -> None:
+    """Attach (or detach with ``None``) a per-dispatch recompile hook.
+
+    The hook is called as ``hook(event)`` with ``event = {"path",
+    "q_bucket", "n_bucket", "quant", "shards", "compiles"}`` after
+    every ``route_step`` dispatch, and likewise after every
+    ``analyze_step`` dispatch (``path="analyze"``, ``n_bucket`` = the
+    token axis, ``quant`` = analyzer int8) and every fused
+    ``analyze_route_step`` dispatch (``path="fused"``, ``quant`` =
+    ``(catalog_int8, analyzer_int8)`` -- both axes change the program,
+    so both belong to the shape-bucket signature)."""
+    global _RECOMPILE_HOOK
+    _RECOMPILE_HOOK = hook
+
+
+def _observe(bucket, fn, call) -> None:
+    """Hand one dispatch to the attached profiler and hook: ``bucket``
+    is ``(path, q_bucket, n_bucket, quant, shards)``, ``call`` the cost
+    formula ``fn`` bound to its padded shapes."""
+    prof = _COST_PROFILER
+    if prof is not None:
+        prof.capture(bucket, fn, call)
+    hook = _RECOMPILE_HOOK
+    if hook is not None:
+        path, qp, n_pad, quant, shards = bucket
+        hook({"path": path, "q_bucket": qp, "n_bucket": n_pad,
+              "quant": quant, "shards": shards, "compiles": 0})
+
+
+def _head_widths(encoder: AnalyzerEncoder) -> Tuple[int, int]:
+    """The analyzer's task-type and domain head widths."""
+    def width(name):
+        t = getattr(encoder, name, None)
+        return int((t if t is not None else
+                    getattr(encoder, name + "_q")).shape[1])
+    return width("head_tt"), width("head_dm")
 
 
 # device copies of the per-catalog constants, keyed on the source
@@ -577,6 +645,11 @@ def route_step(emb, tt_matrix, dm_matrix, gmask, T, W, ti, di, *,
         out = _host(run(), B)
         span.set(compiles=0, **attrs)
     _bump("route_step")
+    _observe((path, qp, n_pad, quant, shards), _cost.route_step_cost,
+             functools.partial(
+                 _cost.route_step_cost, qp, n_pad, emb.shape[1], k, r,
+                 n_tt * n_dm, quant=quant, fb=fb is not None,
+                 ad=theta is not None, load=lpen is not None))
     if telemetry is not None:
         telemetry.record_route_step(dispatches=1, compiles=0)
     return out
@@ -617,6 +690,11 @@ def analyze_step(encoder: AnalyzerEncoder, tokens, *, device=None,
             out = _host(analyze_step_body(encoder, toks), B)
         span.set(compiles=0)
     _bump("analyze_step")
+    L = int(toks.shape[1])
+    _observe(("analyze", qp, L, encoder.quantized, 1), _cost.analyzer_cost,
+             functools.partial(_cost.analyzer_cost, qp, L, encoder.cfg,
+                               *_head_widths(encoder),
+                               quant=encoder.quantized))
     if telemetry is not None:
         telemetry.record_analyze_step(dispatches=1, compiles=0)
     return out
@@ -675,6 +753,15 @@ def analyze_route_step(encoder: AnalyzerEncoder, tokens, emb, tt_matrix,
         span.set(compiles=0)
     _bump("route_step")
     _bump("analyze_step")
+    aquant = encoder.quantized
+    _observe(("fused", qp, np_pad, (quant, aquant), 1),
+             _cost.analyze_route_cost,
+             functools.partial(
+                 _cost.analyze_route_cost, qp, int(toks.shape[1]),
+                 encoder.cfg, *_head_widths(encoder), np_pad, emb.shape[1],
+                 k, r, n_tt * n_dm, quant=quant, analyzer_quant=aquant,
+                 fb=fb_table is not None, ad=theta is not None,
+                 load=lpen is not None))
     if telemetry is not None:
         telemetry.record_route_step(dispatches=1, compiles=0)
         telemetry.record_analyze_step(dispatches=1, compiles=0)
@@ -733,7 +820,8 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, k_scale=None,
+                 v_scale=None) -> torch.Tensor:
     """One query token against a cache: q (B, 1, Hq, hd); k_cache /
     v_cache (B, C, Hkv, hd); pos (B,) int -- the current token's index.
     The masks of ``models/layers.attention_decode``:
@@ -749,9 +837,19 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
     slots being irrelevant to the softmax): the kernel never reads past
     the cache.
 
+    An int8 cache comes with ``k_scale`` / ``v_scale`` (B, C, Hkv, 1)
+    f32 and goes to the int8-reading decode (``flash_decode_q8``).
+
     Returns (B, 1, Hq, hd)."""
     live = torch.clamp(pos + 1, max=k_cache.shape[1])
     kv_valid = live.to(torch.int32).contiguous()
+    if k_scale is not None:
+        out = _flash_q8_kernel(q.transpose(1, 2), k_cache.transpose(1, 2),
+                               v_cache.transpose(1, 2),
+                               k_scale.transpose(1, 2),
+                               v_scale.transpose(1, 2), kv_valid,
+                               softcap=softcap, local_window=local_window)
+        return out.transpose(1, 2)
     return flash_attention(q, k_cache, v_cache, kv_valid, causal=False,
                            softcap=softcap, local_window=local_window)
 

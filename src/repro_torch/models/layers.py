@@ -31,16 +31,10 @@ import torch.nn.functional as F
 from repro_torch.core.routing import not_ported
 from repro_torch.kernels import ops
 
-_ITEM6 = "item 6.{} '{}'"
-
-
 def check_supported(cfg, long_mode: bool = False) -> None:
     """Raise ``not_ported`` for any part of ``cfg`` (or the reference's
     ``long_mode``) the port does not serve, naming its ROADMAP.md
     item."""
-    if cfg.kv_cache_dtype == "int8":
-        raise not_ported("kv_cache_dtype='int8'",
-                         _ITEM6.format(5, "the int8 KV cache"))
     if long_mode:
         raise not_ported("long_mode (long_mode_local_only serving)",
                          "item 12 'the rest'")
@@ -186,8 +180,24 @@ def cross_attention_decode(p, cfg, x, k_cross, v_cross):
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
+def quantize_kv(x, axis: int = -1):
+    """Symmetric int8 per-(token, head) quantization of K/V rows, the
+    reference's: ``scale = max|x| / 127 + 1e-8`` over ``axis``, ``q =
+    clip(round(x / scale), -127, 127)`` (half to even, as ``jnp.round``).
+    127 is divided by as a tensor: on CUDA a division by a Python number
+    becomes a multiply by its reciprocal, which can differ in the last
+    bit.  Returns (q int8, scale f32 with a size-1 axis in place of
+    ``axis``)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-8
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
-                     window: int = 0, local_window: int = 0):
+                     window: int = 0, local_window: int = 0,
+                     k_scale=None, v_scale=None):
     """Single-token decode against a KV cache, in the reference's modes.
 
     x: (B, 1, d); k_cache / v_cache: (B, C, Hkv, hd), written in place
@@ -198,6 +208,13 @@ def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
     and slots <= position are live, and ``local_window`` W keeps only
     the slots position - W < idx <= position (gemma2's local layers in
     their full cache).  Returns (out, k_cache, v_cache).
+
+    int8 cache: with ``k_scale`` / ``v_scale`` (B, C, Hkv, 1) f32 the
+    cache is int8 with per-(slot, head) scales; the new row is
+    quantized on write (``quantize_kv``), its scales written to the
+    same slot, and the decode kernel reads the int8 rows and their
+    scales (``ops.flash_decode``).  Returns (out, k_cache, v_cache,
+    k_scale, v_scale) then, as the reference.
 
     A row at position >= C in a full cache writes nothing and sees all
     C slots, as the reference's dropped out-of-bounds write and
@@ -213,20 +230,29 @@ def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
     q = apply_rope(q, pos2, cfg.rope_theta)
     k = apply_rope(k, pos2, cfg.rope_theta)
     rows = torch.arange(B, device=x.device)
+    int8 = k_scale is not None
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+        writes = ((k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs))
+    else:
+        writes = ((k_cache, k[:, 0]), (v_cache, v[:, 0]))
     if window:
         slot = positions % C
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        for cache, new in writes:
+            cache[rows, slot] = new.to(cache.dtype)
     else:
         inside = (positions < C)[:, None, None]
         slot = torch.where(positions < C, positions, 0)
-        for cache, new in ((k_cache, k), (v_cache, v)):
+        for cache, new in writes:
             cache[rows, slot] = torch.where(
-                inside, new[:, 0].to(cache.dtype), cache[rows, slot])
+                inside, new.to(cache.dtype), cache[rows, slot])
     out = ops.flash_decode(q, k_cache, v_cache, positions,
                            local_window=local_window,
-                           softcap=cfg.attn_softcap)
+                           softcap=cfg.attn_softcap, k_scale=k_scale,
+                           v_scale=v_scale)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+    if int8:
+        return out, k_cache, v_cache, k_scale, v_scale
     return out, k_cache, v_cache
 
 

@@ -24,7 +24,10 @@ hd), filled once by the prefill) and ``decode_step`` updates it in
 place.  On a
 uniform-window model (hymba, h2o-danube) the K/V cache is a ring of C =
 ``cache_len`` slots; gemma2's local layers mask their window inside a
-full-length cache.
+full-length cache.  ``kv_cache_dtype="int8"`` keeps the K/V in int8
+with f32 per-(slot, head) scales, (n_layers, B, C, Hkv, 1), quantized
+on write by the prefill and every decode step; the decode kernel reads
+them as int8 (``kernels/ops.flash_decode``).
 """
 from __future__ import annotations
 
@@ -312,17 +315,25 @@ def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
                enc_len: int = 0, device=None,
                dtype: Optional[str] = None) -> Params:
     """Zero decode cache (leading axis = n_layers) for ``ctx_len``
-    positions: ``cache_len`` K/V slots; an encoder-decoder's cross K/V
-    of ``enc_len`` encoder positions."""
+    positions: ``cache_len`` K/V slots (``kv_cache_dtype="int8"``: int8
+    K/V with f32 ``k_scale`` / ``v_scale`` of shape (nL, B, C, Hkv, 1),
+    the reference's layout); an encoder-decoder's cross K/V of
+    ``enc_len`` encoder positions, in the compute dtype either way."""
     L.check_supported(cfg)
     dt = getattr(torch, dtype or cfg.compute_dtype)
     nL, B = cfg.n_layers, batch_size
     cache: Params = {}
     if cfg.has_attention:
+        int8 = cfg.kv_cache_dtype == "int8"
         shape = (nL, B, cache_len(cfg, ctx_len), cfg.n_kv_heads,
                  cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+        kv_dt = torch.int8 if int8 else dt
+        cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        if int8:
+            for key in ("k_scale", "v_scale"):
+                cache[key] = torch.zeros(shape[:-1] + (1,),
+                                         dtype=torch.float32, device=device)
     if cfg.has_ssm:
         cache["ssd"] = torch.zeros((nL, B, cfg.ssm_heads, cfg.ssm_head_dim,
                                     cfg.ssm_state), dtype=torch.float32,
@@ -354,10 +365,12 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
         mix = None
         if cfg.has_attention:
             local = W if cfg.local_global_pattern and kind == 0 else 0
-            mix, _, _ = L.attention_decode(
+            scales = {key: cache[key][i] for key in ("k_scale", "v_scale")
+                      if key in cache}
+            mix = L.attention_decode(
                 p["attn"], cfg, h, cache["k"][i], cache["v"][i], pos,
                 window=cache["k"].shape[2] if ring else 0,
-                local_window=local)
+                local_window=local, **scales)[0]
         if cfg.has_ssm:
             ssm_out, h_new, conv_new = L.ssd_step(p["ssm"], cfg, h,
                                                   cache["ssd"][i],
@@ -386,8 +399,9 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
     the last position's logits are formed: the (B, L, V) matrix of
     ``forward_full`` is not needed here.  A prompt longer than a ring of
     C slots leaves its last C keys, rolled so that position p sits at
-    slot p % C.  An encoder-decoder's cross K/V are filled here once.
-    The reference's ``long_mode`` raises ``not_ported``."""
+    slot p % C (an int8 cache's scales with them).  An encoder-decoder's
+    cross K/V are filled here once.  The reference's ``long_mode``
+    raises ``not_ported``."""
     B, ctx = batch["tokens"].shape
     if cfg.frontend and not cfg.is_encdec:
         ctx += batch["frontend"].shape[1]
@@ -396,12 +410,17 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
     cache = init_cache(cfg, B, cap, enc_len=enc_len,
                        device=params["embed"].device)
     C = cache["k"].shape[2] if "k" in cache else 0
+    int8 = "k_scale" in cache
 
     def store(i, kv, cross_kv, ssd):
         for key, t in zip("kv", kv or ()):
-            if C < ctx:                          # the ring: slot = pos % C
-                t = torch.roll(t[:, -C:], ctx % C, dims=1)
-            cache[key][i, :, :t.shape[1]] = t.to(cache[key].dtype)
+            parts = {key: t}
+            if int8:                             # quantized on write
+                parts[key], parts[key + "_scale"] = L.quantize_kv(t)
+            for name, a in parts.items():
+                if C < ctx:                      # the ring: slot = pos % C
+                    a = torch.roll(a[:, -C:], ctx % C, dims=1)
+                cache[name][i, :, :a.shape[1]] = a.to(cache[name].dtype)
         for key, t in zip(("cross_k", "cross_v"), cross_kv or ()):
             cache[key][i] = t.to(cache[key].dtype)
         if ssd is not None:

@@ -7,21 +7,24 @@ port keeps its own copies, with plain ``threading.Lock`` locks):
 * ``metrics`` — fixed-memory counters / gauges / log histograms
 * ``export``  — Prometheus text exposition (+ /metrics endpoint)
 * ``slo``     — declarative SLO rules with burn-rate breach detection
-
-The reference's ``profile`` (XLA ``cost_analysis``) has no counterpart
-yet (ROADMAP.md, Queue 1, item 12).
+* ``profile`` — per-bucket FLOPs / bytes of the routing programs
+  (counted from the padded shapes: eager PyTorch has no compiled
+  program to read a cost analysis from) and a ``torch.profiler``
+  trace region
 """
 from .export import (MetricsServer, metrics_from_prom, parse_prom_text,
                      prometheus_text, serve_metrics, write_prom)
 from .metrics import Counter, Gauge, LogHistogram
+from .profile import DeviceCostProfiler, trace_capture
 from .slo import (SLOEvaluator, SLORule, Verdict, evaluate_rules,
                   parse_rule, parse_rules)
 from .trace import NOOP_SPAN, Span, Tracer
 
 __all__ = [
-    "Counter", "Gauge", "LogHistogram", "MetricsServer", "NOOP_SPAN",
-    "SLOEvaluator", "SLORule", "Span", "Tracer", "Verdict",
+    "Counter", "DeviceCostProfiler", "Gauge", "LogHistogram",
+    "MetricsServer", "NOOP_SPAN", "SLOEvaluator", "SLORule", "Span",
+    "Tracer", "Verdict",
     "evaluate_rules", "metrics_from_prom", "parse_prom_text",
     "parse_rule", "parse_rules", "prometheus_text", "serve_metrics",
-    "write_prom",
+    "trace_capture", "write_prom",
 ]

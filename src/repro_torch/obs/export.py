@@ -67,9 +67,13 @@ class _Writer:
         return "\n".join(self.lines) + "\n"
 
 
-def prometheus_text(telemetry, *, load=None, tracer=None) -> str:
-    """Render telemetry (and optional load/tracer state) in Prometheus
-    text exposition format."""
+def prometheus_text(telemetry, *, load=None, tracer=None,
+                    cost_profile=None) -> str:
+    """Render telemetry (and optional load/tracer/profiler state) in
+    Prometheus text exposition format.  ``cost_profile`` is
+    ``obs.profile.DeviceCostProfiler.profile()``: per bucket the FLOPs
+    and bytes its padded shapes need (``repro_route_step_flops`` /
+    ``repro_route_step_bytes``)."""
     s = telemetry.summary()
     w = _Writer()
 
@@ -186,6 +190,19 @@ def prometheus_text(telemetry, *, load=None, tracer=None) -> str:
         w.header("repro_trace_spans_retained", "gauge",
                  "Trace spans currently in the ring")
         w.sample("repro_trace_spans_retained", ts["spans_retained"])
+
+    if cost_profile:
+        w.header("repro_route_step_flops", "gauge",
+                 "FLOPs per route-step bucket (counted from its shapes)")
+        w.header("repro_route_step_bytes", "gauge",
+                 "Bytes accessed per bucket (counted from its shapes)")
+        for bucket, prof in sorted(cost_profile.items()):
+            lab = {"bucket": str(bucket)}
+            if prof.get("flops") is not None:
+                w.sample("repro_route_step_flops", prof["flops"], lab)
+            if prof.get("bytes_accessed") is not None:
+                w.sample("repro_route_step_bytes",
+                         prof["bytes_accessed"], lab)
 
     return w.text()
 

@@ -939,3 +939,107 @@ def test_ivf_route_step_on_card_matches_cpu(cuda, quant, N, nprobe):
                  for dev in (cuda, "cpu"))
     _assert_route_close(got, want)
     assert (want["stage"] > 0).any()
+
+
+# ----------------------------------------------------------------------
+# the int8 KV cache
+# ----------------------------------------------------------------------
+
+def _q8_cache(rng, B, C, Hkv, hd):
+    """An int8 cache in the model's (B, C, Hkv, hd) layout and its
+    scales, from seeded f32 rows through ``quantize_kv``."""
+    from repro_torch.models.layers import quantize_kv
+    k8, ks = quantize_kv(_rand(rng, B, C, Hkv, hd) * 2.0)
+    v8, vs = quantize_kv(_rand(rng, B, C, Hkv, hd))
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float32", 2e-4)])
+@pytest.mark.parametrize("hd,Hq,Hkv,C,softcap,local", [
+    (64, 32, 8, 536, 0.0, 0), (120, 32, 8, 300, 0.0, 0),
+    (128, 32, 8, 700, 0.0, 0), (288, 8, 4, 536, 50.0, 0),
+    (288, 8, 4, 536, 50.0, 200), (64, 25, 5, 130, 0.0, 0),
+    (32, 40, 1, 77, 0.0, 0)])
+def test_flash_decode_q8_matches_plain(cuda, dtype, tol, hd, Hq, Hkv, C,
+                                       softcap, local):
+    """The int8 decode on strided views of a (B, C, Hkv, hd) cache
+    against ``decode_q8_plain``: GQA groups up to 40, softcap, the
+    local window, kv_valid 0, partial and full; one launch a call."""
+    rng = np.random.default_rng(hd + C)
+    dt = getattr(torch, dtype)
+    B = 4
+    k8, v8, ks, vs = _q8_cache(rng, B, C, Hkv, hd)
+    q = _rand(rng, B, 1, Hq, hd).to(dt)
+    kv = torch.tensor([0, 1, C // 2, C], dtype=torch.int32)
+    view = lambda x: x.transpose(1, 2)
+    args = [view(x) for x in (q, k8, v8, ks, vs)]
+    kw = dict(softcap=softcap, local_window=local)
+    want = FA.decode_q8_plain(*args, kv, **kw)
+    before = FA.flash_decode_q8.launches
+    got = FA.flash_decode_q8(*[a.to(cuda) for a in args], kv.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_decode_q8.launches == before + 1
+    assert got.dtype == dt and not got.cpu()[0].any()
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_decode_q8_is_bit_stable_and_refuses_bad_operands(cuda):
+    rng = np.random.default_rng(9)
+    k8, v8, ks, vs = (x.to(cuda) for x in _q8_cache(rng, 2, 200, 4, 64))
+    q = _rand(rng, 2, 1, 16, 64).to(torch.bfloat16).to(cuda)
+    kv = torch.tensor([200, 77], dtype=torch.int32, device=cuda)
+    args = [x.transpose(1, 2) for x in (q, k8, v8, ks, vs)]
+    a = FA.flash_decode_q8(*args, kv)
+    b = FA.flash_decode_q8(*args, kv)
+    assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        FA.flash_decode_q8(args[0], args[1].float(), *args[2:], kv)
+    with pytest.raises(ValueError):
+        FA.flash_decode_q8(args[0], args[1], args[2], args[3][:, :, :9],
+                           args[4], kv)
+
+
+@pytest.mark.parametrize("hd,Hq,Hkv,C", [(64, 32, 8, 536),
+                                         (120, 32, 8, 4096)])
+def test_flash_decode_int8_ring_via_ops_matches_cpu(cuda, hd, Hq, Hkv, C):
+    """``ops.flash_decode`` with scales over a full cache and a ring
+    (rows before and after it fills), bf16, against the CPU."""
+    rng = np.random.default_rng(C + 1)
+    k8, v8, ks, vs = _q8_cache(rng, 4, C, Hkv, hd)
+    q = _rand(rng, 4, 1, Hq, hd).to(torch.bfloat16)
+    pos = torch.tensor([0, C // 3, C - 1, 3 * C + 7])
+    want = OPS.flash_decode(q, k8, v8, pos, k_scale=ks, v_scale=vs)
+    got = OPS.flash_decode(*(x.to(cuda) for x in (q, k8, v8, pos)),
+                           k_scale=ks.to(cuda), v_scale=vs.to(cuda))
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("name,L", [("llama3.2-1b", 40), ("gemma2-2b", 100),
+                                    ("h2o-danube-3-4b", 100),
+                                    ("hymba-1.5b", 100),
+                                    ("qwen3-moe-30b-a3b", 40)])
+def test_generate_int8_kv_on_card_matches_cpu(cuda, name, L):
+    """``kv_cache_dtype="int8"`` at ``SMOKE`` (f32 compute): prefill
+    logits within 1e-3, greedy tokens tie-aware, every decode layer
+    through the int8 kernel (one launch per attention layer per step)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke(name), kv_cache_dtype="int8")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, L)).astype(np.int32)
+    want = ModelRunner(cfg, params=params, device="cpu").generate(
+        toks, 5, keep_logits=True)
+    before = FA.flash_decode_q8.launches
+    got = ModelRunner(cfg, params=params, device=cuda).generate(toks, 5)
+    assert FA.flash_decode_q8.launches - before == cfg.n_layers * 4
+    np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=1e-3,
+                               atol=1e-3)
+    for b in range(toks.shape[0]):
+        for s in range(5):
+            top2 = np.sort(want.step_logits[b, s])[-2:]
+            if top2[1] - top2[0] < 1e-3:
+                break
+            assert got.tokens[b, s] == want.tokens[b, s], (b, s)

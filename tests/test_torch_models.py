@@ -107,10 +107,19 @@ def test_unported_families_raise_naming_their_item(name):
             call()
 
 
-def test_int8_kv_cache_raises_naming_its_item():
+def test_int8_kv_cache_init_matches_reference_layout():
+    """``kv_cache_dtype="int8"`` is served: int8 K/V and f32 per-(slot,
+    head) scales, the reference's keys, shapes and dtypes
+    (``tests/test_torch_kv_int8.py`` holds its decode)."""
+    jcfg = dataclasses.replace(jget_smoke("llama3.2-1b"),
+                               kv_cache_dtype="int8")
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+    got = TM.init_cache(cfg, 2, 8, device="cpu")
+    want = JM.init_cache(jcfg, 2, 8)
+    assert set(got) == set(want) == {"k", "v", "k_scale", "v_scale"}
+    for key, w in want.items():
+        assert tuple(got[key].shape) == w.shape
+        assert str(got[key].dtype)[6:] == str(w.dtype)
 
 
 # ----------------------------------------------------------------------
