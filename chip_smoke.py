@@ -60,7 +60,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      ``kernels`` line;
   3d. ``workloads``, on the same catalog, with the cost profiler and the
      recompile hook attached to the card's runs: the default
-     ``DriftScenario`` (model-degrade, 60 steps of 16; the degraded
+     ``DriftScenario`` cut to 30 steps of 16 (model-degrade; the degraded
      model step 0's accuracy-first majority) routed with LinUCB and
      observed, with an fp32 and an int8 catalog (recovery after the
      shift, the degraded model's share of choices, per-step p50);
@@ -169,7 +169,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      back), batch mode with 24 (one model, the CPU's route of the same
      aggregate signature), ``--async`` (windows of at most 8, the load
      tracker back at zero, three ``stream`` calls of 8 tokens) and
-     ``--soak 15`` (intake counters equal to the CPU run's, the flood
+     ``--soak 8`` (intake counters equal to the CPU run's, the flood
      rate-limited, the quiet tenants not shed at intake); the
      continuous batcher on llama3.2-1b, mamba2-1.3b and gemma2-2b at
      full width and depth (4 slots, ctx 128, 12 requests, one ticking
@@ -181,6 +181,31 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      batcher's B=4 decode over 128 slots, its B=1 prefill and scan)
      are rows of the ``kernels`` line with the launches of the
      batcher's run.
+  8. ``train_kernels``: each backward kernel (``flash_attention_bwd``,
+     ``ssd_scan_bwd``, ``moe_gating_bwd``) against its plain backward on
+     the card at the zoo's training shapes (B=8, L=1024: llama3.2-1b,
+     qwen3-moe-30b-a3b's hd 128, gemma2-2b's hd 288 with its softcap,
+     local and global, h2o-danube-3-4b's hd 120 window, seamless's
+     cross-attention; the scan at mamba2-1.3b's and hymba-1.5b's
+     shapes; the gate at qwen3-moe's 8,192 tokens), bf16 and f32, bit
+     stable, timed (CUDA graph) against its bound and, for attention
+     without a softcap, SDPA's backward;
+  9. ``train``: 2 warm-up and 8 timed train steps (AdamW, f32 master
+     params, bf16 compute, B=8, L=1024) of llama3.2-1b and mamba2-1.3b
+     at full width and depth and qwen3-moe-30b-a3b at full width on 2
+     of its 48 layers: ms a step, tokens/s, the card's busy share,
+     peak memory, launches a step (the counts set to 0 just before the
+     timed steps; every backward kernel must launch; the kernels line
+     takes their launches from here); then the ~100M example config
+     for 250 steps, its loss falling by over 30%;
+ 10. ``train_card_vs_cpu``: one train step of every config at full
+     width, 2 layers (llama4-maverick at ``SMOKE``), f32, B=2, on the
+     card and on the CPU from the same seeded params and batch: loss,
+     aux and gnorm within 1e-4 relative, every gradient leaf within
+     1e-3 of its max |g| (the CPU's MoE gates replaying the card's
+     choices, each apart only at a near-tie).
+  The serving phases launch no backward kernel (checked in
+  ``serve_loop``).
 
 Each windowed and frontend kernel shape is a row of the ``kernels``
 line, its launches those of its kind (``flash_kind``) on the phase that
@@ -3650,7 +3675,7 @@ def recovery_steps(chosen, wl):
 def workloads_phase(torch, dev, small: bool, shared):
     """Over the serving phase's catalog (100,000 entries), with the cost
     profiler and the recompile hook attached to the card's runs: (1) the
-    default ``DriftScenario`` (model-degrade, 60 steps of 16), its
+    default ``DriftScenario`` cut to 30 steps of 16 (model-degrade), its
     degraded model the one ``accuracy-first`` routes most of step 0 to
     (the reference's drift benchmark picks it so), served with an fp32
     and an int8 catalog: recovery after the shift and per-step p50;
@@ -3686,10 +3711,10 @@ def workloads_phase(torch, dev, small: bool, shared):
     t_phase = time.perf_counter()
     hooks = HookLog()
 
-    # -- (1) the drift episode
-    sc = DriftScenario()
-    if small:
-        sc = dataclasses.replace(sc, n_steps=12)
+    # -- (1) the drift episode, cut from the default 60 steps to 30 (the
+    # shift at 15) to keep the script inside its time limit with the
+    # training phases
+    sc = dataclasses.replace(DriftScenario(), n_steps=12 if small else 30)
     probe = NonStationaryWorkload(metas, sc)
     eng = RoutingEngine(mres, device=cpu)
     picked = [d.model for d in eng.route_many(
@@ -3845,7 +3870,7 @@ def reset_launches():
     from repro_torch.kernels import router_topk as RT
     from repro_torch.kernels import ssd_scan as SS
     for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating,
-              RT.router_topk, RT.router_topk_q8):
+              RT.router_topk, RT.router_topk_q8, *bwd_kernels().values()):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
 
@@ -3859,7 +3884,8 @@ def read_launches() -> dict:
             "flash_attention": FA.flash_attention.launches,
             "flash_attention_decode": FA.flash_attention.decode_launches,
             "ssd_scan": SS.ssd_scan.launches,
-            "moe_gating": MG.moe_gating.launches}
+            "moe_gating": MG.moe_gating.launches,
+            **{k: f.launches for k, f in bwd_kernels().items()}}
 
 
 def train_analyzers(torch, dev, small: bool, path: str):
@@ -3923,7 +3949,9 @@ def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
 
     base = ["--analyzer-ckpt", ckpt] + (["--device", "cpu"] if small else [])
     n_req, max_new = (12, 4) if small else (48, 16)
-    soak = "5" if small else "15"
+    # the soak's virtual seconds, cut from 15 to 8 to keep the script
+    # inside its time limit with the training phases
+    soak = "5" if small else "8"
     archs = serve.default_archs(dev)
     seen = {}
 
@@ -4330,6 +4358,8 @@ def serve_loop_phase(torch, dev, small: bool, kernels):
         if dev.type == "cuda":
             for k in ("router_topk", "flash_attention", "ssd_scan"):
                 check(seen[k] > 0, f"launcher: {k} never launched ({seen})")
+            for k in bwd_kernels():     # serving differentiates nothing
+                check(seen[k] == 0, f"launcher: {k} launched ({seen})")
         rows = batcher_kernel_rows(torch, dev, small)
         batcher_phase(torch, dev, small, kernels, rows)
         merging_phase(torch, dev, small, analyzer, tmp)
@@ -4337,11 +4367,554 @@ def serve_loop_phase(torch, dev, small: bool, kernels):
     log(f"[serve_loop] phase time {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# training: the backward kernels, train steps on the card, card vs CPU
+# ----------------------------------------------------------------------
+
+TRAIN_ARCHS = ["llama3.2-1b", "mamba2-1.3b", MOE_ARCH]
+
+
+def bwd_kernels():
+    """The three backward wrappers, by the name of their kernels line."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
+    from repro_torch.kernels import ssd_scan as SS
+    return {"flash_attention_bwd": FA.flash_attention_bwd,
+            "ssd_scan_bwd": SS.ssd_scan_bwd,
+            "moe_gating_bwd": MG.moe_gating_bwd}
+
+
+def grads_close(got, want, tol: float, what: str) -> float:
+    """Each of ``got`` within ``tol`` of its ``want``'s max |value|;
+    returns the worst error as that fraction."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = max(float(b.float().abs().max()), 1e-30)
+        err = float((a.float() - b.float()).abs().max()) / scale
+        check(err <= tol, f"{what}: gradient {i} off by {err:.3g} of its "
+                          f"max |g| > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def attn_live_pairs(B: int, L: int, Lk: int, causal: bool,
+                    window: int) -> int:
+    """(query, key) pairs a mask lets through, per head."""
+    if not causal:
+        return B * L * Lk
+    row = np.arange(L) + (Lk - L)
+    live = np.minimum(row + 1, window) if window else row + 1
+    return B * int(np.maximum(live, 0).sum())
+
+
+def fwd_lse_check(torch, FA, q, k, v, tol, what, **kw):
+    """The training forward (``return_lse``) against the plain version on
+    the same operands: o within ``tol`` * (1 + |want|), lse within 1e-5
+    * (1 + |want|) with +inf (no live key) on the same rows.  Returns the
+    kernel's (o, lse), the plain version's (o, lse) and the max abs
+    errors of o and of lse."""
+    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    o_p, lse_p = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    check(o.dtype == o_p.dtype and o.shape == o_p.shape
+          and lse.dtype == lse_p.dtype and lse.shape == lse_p.shape,
+          f"{what}: forward outputs {o.dtype} {tuple(o.shape)}, lse "
+          f"{lse.dtype} {tuple(lse.shape)}")
+    diff = (o.float() - o_p.float()).abs()
+    over = float((diff - tol * (1 + o_p.float().abs())).max())
+    check(over <= 0, f"{what}: forward o exceeds {tol} * (1 + |want|) by "
+                     f"{over}")
+    fin = torch.isfinite(lse_p)
+    check(torch.equal(torch.isfinite(lse), fin),
+          f"{what}: lse is +inf on other rows than the plain version's")
+    ldiff = (lse - lse_p).abs().where(fin, torch.zeros_like(lse))
+    lover = float((ldiff - 1e-5 * (1 + lse_p.abs().where(
+        fin, torch.zeros_like(lse)))).max())
+    check(lover <= 0, f"{what}: lse exceeds 1e-5 * (1 + |want|) by {lover}")
+    return (o, lse), (o_p, lse_p), float(diff.max()), float(ldiff.max())
+
+
+def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
+                 causal, window=0, softcap=0.0):
+    """The attention backward at one training shape.  First the training
+    forward (o and lse) against the plain forward on the same inputs
+    (o within 2e-2 * (1 + |want|) in bf16, 1e-4 in f32; lse within 1e-5
+    * (1 + |want|)); then the backward kernel, fed the kernel's o and lse,
+    against the plain backward, fed the plain forward's: bf16 within 2e-2
+    of each gradient's max (bf16 gradients), timed against its bound and
+    SDPA's backward (no softcap); f32 at a quarter of the length within
+    1e-4."""
+    import torch.nn.functional as F
+
+    def inputs(dt, L_, Lk_):
+        q = torch.randn(B, L_, Hq, hd, generator=g, device=dev).to(dt)
+        k = torch.randn(B, Lk_, Hkv, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Lk_, Hkv, hd, generator=g, device=dev).to(dt)
+        do = torch.randn(B, L_, Hq, hd, generator=g, device=dev).to(dt)
+        return [t.transpose(1, 2) for t in (q, k, v, do)]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    # f32, shorter
+    Lf, Lkf = max(L // 4, 2), (max(Lk // 4, 2) if causal else Lk)
+    q, k, v, do = inputs(torch.float32, Lf, Lkf)
+    (o, lse), (o_p, lse_p), _, _ = fwd_lse_check(
+        torch, FA, q, k, v, 1e-4, f"flash_attention {what} f32", **kw)
+    err32 = grads_close(FA.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                        FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p,
+                                                     do, **kw),
+                        1e-4, f"flash_attention_bwd {what} f32")
+    q, k, v, do = inputs(torch.bfloat16, L, Lk)
+    (o, lse), (o_p, lse_p), o_err, lse_err = fwd_lse_check(
+        torch, FA, q, k, v, 2e-2, f"flash_attention {what} bf16", **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+    del o_p, lse_p
+    err = grads_close(got, want, 2e-2, f"flash_attention_bwd {what} bf16")
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {what}: two launches differ")
+    del got, want, again
+    pairs = attn_live_pairs(B, L, Lk, causal, window) * Hq
+    nb = 2 * (3 * B * L * Hq * hd + 2 * B * Lk * Hkv * hd) + 4 * B * Hq * L \
+        + 2 * (B * L * Hq * hd + 2 * B * Lk * Hkv * hd)
+    bms, by = bound_ms(nb, 10.0 * hd * pairs, PEAK_BF16_S)
+    ms = time_graph_ms(torch, lambda: FA.flash_attention_bwd(
+        q, k, v, o, lse, do, **kw), dev, iters=3 if not small else 2)
+    plain = time_ms(torch, lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), dev, iters=2, warmup=1)
+    lib = None
+    if not softcap and dev.type == "cuda":
+        qs, ks, vs = (t.detach().contiguous().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if causal and window:
+            row = torch.arange(L, device=dev)[:, None] + (Lk - L)
+            col = torch.arange(Lk, device=dev)[None]
+            mask = (col <= row) & (col > row - window)
+        sk = dict(attn_mask=mask) if mask is not None else \
+            dict(is_causal=causal)
+        out = sdpa_call(torch, qs, ks, vs, **sk)()
+        dos = do.contiguous()
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), dos, retain_graph=True), dev, iters=3,
+            warmup=1)
+        del out, qs, ks, vs
+    log(f"[train_kernels] flash_attention_bwd {what}: B={B} L={L} Lk={Lk} "
+        f"{Hq}/{Hkv} heads of {hd}, causal={causal} window={window} "
+        f"softcap={softcap}: {ms:.3f} ms (plain {plain:.3f}, SDPA backward "
+        f"{'n/a' if lib is None else f'{lib:.3f}'}), bound {bms:.4f} by {by} "
+        f"({pairs / 1e9:.3f} G live pairs x heads); max err {err:.3g} of "
+        f"max |g| bf16 (tol 2e-2), {err32:.3g} f32 (tol 1e-4); forward "
+        f"against the plain one: o {o_err:.3g}, lse {lse_err:.3g} (abs)")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def ssd_bwd_ops(Bb, L, H, P, N) -> float:
+    """Operations the scan backward needs (multiply-adds x 2), counted as
+    ``ssd_ops`` counts the forward's, over chunks of 64 (c the chunk's
+    length, tri = c(c+1)/2 its causal pairs).  Per (batch, chunk): C B^T
+    over the causal pairs, 2 tri N, once for all heads.  Per (batch,
+    chunk, head): dy x^T and dx over the causal pairs, 2 tri P each, dB
+    and dC over them, 2 tri N each; with the state entering the chunk
+    (none in the first: no h0) dC's and C h_in's products, 2 c P N each,
+    and the reverse pass folding the chunk into dh, 2 c P N; with the
+    gradient of the state leaving it (none in the last: no final-state
+    gradient) dx's and dB's products, 2 c P N each, and the forward pass
+    folding the chunk into the state, 2 c P N."""
+    Q = 64
+    nb = -(-L // Q)
+    ops = 0.0
+    for i, c0 in enumerate(range(0, L, Q)):
+        c = min(Q, L - c0)
+        tri = c * (c + 1) / 2
+        per_head = 4.0 * tri * (P + N)
+        per_head += (int(i > 0) + int(i < nb - 1)) * 6.0 * c * P * N
+        ops += Bb * (2.0 * tri * N + H * per_head)
+    return ops
+
+
+def ssd_bwd_row(torch, SS, g, dev, what, Bb, L, H, P, N):
+    """The scan backward at a training shape: bf16 strided views as the
+    layer hands them over, against the plain backward (2e-2 of each
+    gradient's max: bf16 gradients), timed; f32 at a quarter of the
+    length (1e-4)."""
+    def inputs(dt_, L_):
+        xbc = torch.randn(Bb, L_, H * P + 2 * N, generator=g,
+                          device=dev).to(dt_)
+        x = xbc[..., :H * P].unflatten(-1, (H, P))
+        dt = torch.rand(Bb, L_, H, generator=g, device=dev) * 0.1
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        dy = torch.randn(Bb, L_, H, P, generator=g, device=dev)
+        return x, dt, A, xbc[..., H * P:H * P + N], xbc[..., H * P + N:], dy
+    args = inputs(torch.float32, max(L // 4, 2))
+    err32 = grads_close(SS.ssd_scan_bwd(*args), SS.ssd_scan_bwd_plain(*args),
+                        1e-4, f"ssd_scan_bwd {what} f32")
+    args = inputs(torch.bfloat16, L)
+    got, want = SS.ssd_scan_bwd(*args), SS.ssd_scan_bwd_plain(*args)
+    err = grads_close(got, want, 2e-2, f"ssd_scan_bwd {what} bf16")
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+    again = SS.ssd_scan_bwd(*args)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ssd_scan_bwd {what}: two launches differ")
+    del got, want, again
+    nb = 2 * (Bb * L * H * P + 2 * Bb * L * N) + 4 * (Bb * L * H + H) \
+        + 4 * Bb * L * H * P + 2 * (Bb * L * H * P + 2 * Bb * L * N) \
+        + 4 * (Bb * L * H + H)
+    ops = ssd_bwd_ops(Bb, L, H, P, N)
+    bms, by = bound_ms(nb, ops, PEAK_BF16_S)
+    ms = time_graph_ms(torch, lambda: SS.ssd_scan_bwd(*args), dev, iters=3)
+    plain = time_ms(torch, lambda: SS.ssd_scan_bwd_plain(*args), dev,
+                    iters=2, warmup=1)
+    parts = kernel_times(torch, dev, lambda: SS.ssd_scan_bwd(*args), iters=2)
+    log(f"[train_kernels] ssd_scan_bwd {what}: Bb={Bb} L={L} H={H} P={P} "
+        f"N={N}, bf16 views: {ms:.3f} ms (plain {plain:.3f}), bound "
+        f"{bms:.4f} by {by} ({ops / 1e9:.1f} GFLOP, {nb / 1e6:.0f} MB); "
+        f"max err {err:.3g} of max |g| bf16 (tol 2e-2), {err32:.3g} f32 "
+        f"(tol 1e-4); launches: {fmt_times(parts)}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def gate_bwd_row(torch, MG, g, dev, T, E, k):
+    """The gate backward at qwen3-moe-30b-a3b's training gate (bf16
+    logits as the router's product gives them), against the plain
+    backward (1e-5 of max |dlogits|: f32 arithmetic on both sides), with
+    tied rows; f32 logits too; timed against its bound and against
+    autograd through softmax + topk (the PyTorch yardstick)."""
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        lg = (torch.randn(T, E, generator=g, device=dev) * 2).to(dt)
+        lg[:4, :16] = 0.5                       # tied probabilities
+        vals, idx, aux, asum = MG.moe_gating(lg, k, return_asum=True)
+        _, _, _, asum2 = MG.moe_gating_plain(lg, k, True)
+        check(torch.equal(asum, asum2), "moe_gating: asum differs from the "
+                                        "plain version's")
+        dv = torch.randn(T, k, generator=g, device=dev)
+        da = torch.tensor(0.37, device=dev)
+        got = MG.moe_gating_bwd(lg, idx, dv, da, asum)
+        want = MG.moe_gating_bwd_plain(lg, idx, dv, da, asum)
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        worst = max(worst, grads_close([got], [want], tol,
+                                       f"moe_gating_bwd {str(dt)[6:]}"))
+        abs_err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, MG.moe_gating_bwd(lg, idx, dv, da, asum)),
+              "moe_gating_bwd: two launches differ")
+    nb = 2 * T * E + 4 * T * k * 2 + 4 * E + 4 + 2 * T * E
+    ops = 8.0 * T * E + 6.0 * T * k
+    bms, by = bound_ms(nb, ops, PEAK_FP32_S)
+    ms = time_graph_ms(torch, lambda: MG.moe_gating_bwd(lg, idx, dv, da,
+                                                        asum), dev)
+    plain = time_ms(torch, lambda: MG.moe_gating_bwd_plain(
+        lg, idx, dv, da, asum), dev)
+    lib = None
+    if dev.type == "cuda":
+        leaf = lg.detach().float().requires_grad_()
+        p = torch.softmax(leaf, dim=-1)
+        r = p.gather(1, idx.long())
+        out = r / (r.sum(-1, keepdim=True) + 1e-9)
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            out, leaf, dv, retain_graph=True), dev)
+        del out, leaf
+    log(f"[train_kernels] moe_gating_bwd T={T} E={E} k={k} bf16: {ms:.4f} "
+        f"ms (plain {plain:.4f}, autograd through softmax + gather "
+        f"{'n/a' if lib is None else f'{lib:.4f}'}), bound {bms:.5f} by "
+        f"{by}; max err {worst:.3g} of max |g| (tol 1e-5 f32, 1e-2 bf16); "
+        f"asum equal to the plain version's")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def train_kernel_phase(torch, dev, small: bool):
+    """Each backward kernel against its plain backward on the card at
+    the training shapes of the zoo, timed (CUDA graph, CUDA events)
+    against its bound; the attention rows beside SDPA's backward where
+    no softcap is involved."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gating as MG
+    from repro_torch.kernels import ssd_scan as SS
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, L = (2, 96) if small else (8, 1024)
+    rows = {}
+    rows["llama"] = attn_bwd_row(torch, FA, g, dev, small, "llama3.2-1b", B,
+                                 L, L, 32, 8, 64, True)
+    if not small:
+        attn_bwd_row(torch, FA, g, dev, small, "qwen3-moe-30b-a3b", B, L, L,
+                     32, 4, 128, True)
+        for win in (4096, 0):
+            attn_bwd_row(torch, FA, g, dev, small,
+                         f"gemma2-2b {'local' if win else 'global'}", B, L,
+                         L, 8, 4, 288, True, win, 50.0)
+        attn_bwd_row(torch, FA, g, dev, small, "h2o-danube-3-4b", B, L, L,
+                     32, 8, 120, True, 4096)
+    attn_bwd_row(torch, FA, g, dev, small, "seamless-m4t-medium cross", B,
+                 min(L, 512), 16, 16, 16, 64, False)
+    rows["mamba2"] = ssd_bwd_row(torch, SS, g, dev, "mamba2-1.3b", B, L,
+                                 *((8, 64, 16) if small else (64, 64, 128)))
+    ssd_bwd_row(torch, SS, g, dev, "hymba-1.5b branch", B, L,
+                *((5, 64, 16) if small else (50, 64, 16)))
+    gate = gate_bwd_row(torch, MG, g, dev, *((256, 128, 8) if small
+                                              else (B * L, 128, 8)))
+    src = "src/repro_torch/kernels/csrc/"
+    out = {}
+    for name, row, source, replaces in (
+            ("flash_attention_bwd", rows["llama"], "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:87"),
+            ("ssd_scan_bwd", rows["mamba2"], "ssd_scan_bwd.cuh",
+             "src/repro/kernels/ssd_scan.py:75"),
+            ("moe_gating_bwd", gate, "moe_gating_bwd.cuh",
+             "src/repro/kernels/moe_gating.py:58")):
+        out[name] = dict(name=name, route="cuda", source=src + source,
+                         replaces=replaces, launches=0, **row)
+    return out
+
+
+def train_configs(small: bool):
+    """(name, config, batch, seq) of the ``train`` phase: llama3.2-1b and
+    mamba2-1.3b at full width and depth, qwen3-moe-30b-a3b at full width
+    on 2 of its 48 layers (its f32 AdamW state would be ~490 GB whole),
+    B=8, L=1024, bf16 compute, f32 master params."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    out = []
+    for name in TRAIN_ARCHS:
+        cfg = get_smoke(name) if small else get_config(name)
+        if name == MOE_ARCH:
+            cfg = dataclasses.replace(cfg, n_layers=2)
+        out.append((name, cfg) + ((2, 64) if small else (8, 1024)))
+    return out
+
+
+def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
+              total: dict):
+    """``warm`` then ``steps`` timed train steps of ``cfg`` on the card
+    (seeded f32 params, the launcher's sampler); returns the losses.
+    Logs ms a step, tokens/s, the card's busy share of one step
+    (profiler, kernel events only), peak memory and each kernel's
+    launches a step (the kernels' counts set to 0 just before the timed
+    steps and read just after)."""
+    from repro_torch.launch.train import make_lm_sampler, to_device
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.steps import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, device=dev)
+    opt = init_opt_state(params)
+    sampler = make_lm_sampler(np.random.default_rng(0), cfg)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=10))
+    batches = [to_device(sampler(B, L), dev) for _ in range(warm + steps + 1)]
+    losses = []
+    for b in batches[:warm]:
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + steps]:
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(float(m["gnorm"])),
+              f"train {name}: loss {losses[-1]} gnorm {float(m['gnorm'])}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else float("nan")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    busy = "not measured"
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[-1])
+            torch.cuda.synchronize(dev)
+            w1 = time.perf_counter() - t1
+        ev = _busy(prof)
+        dev_us = sum(x[0] for x in ev)
+        if dev_us:
+            ours = {}
+            for us, n in ev:
+                lab = kernel_label(n).split("<")[0]
+                if lab in port_kernels():
+                    ours[lab] = ours.get(lab, 0.0) + us
+            busy = (f"{dev_us / 1e6 / w1:.1%} of a {w1 * 1e3:.1f} ms step "
+                    f"under the profiler; the port's kernels "
+                    + "; ".join(f"{k} {us / 1e3:.1f} ms"
+                                for k, us in sorted(ours.items())))
+    ms = wall * 1e3 / steps
+    log(f"[train] {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_params() / 1e9:.2f} B params, {cfg.compute_dtype} compute, "
+        f"f32 master params + AdamW, B={B} L={L}): {ms:.1f} ms a step, "
+        f"{B * L / ms * 1e3:.0f} tokens/s over {steps} steps after {warm}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak:.1f} GB; "
+        f"busy {busy}; launches a step: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in counts.items() if v))
+    del params, opt
+    return losses, counts
+
+
+def train_phase(torch, dev, small: bool, kernels: dict):
+    """Train steps on the card: each config of ``train_configs`` for 2
+    warm-up and 8 timed steps (finite loss and gnorm), then the ~100M
+    example config for its 250 steps with the reference's assertion of a
+    loss drop over 30%.  Every backward kernel must have launched; the
+    kernels line takes their launches from the timed steps."""
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    counts = {}
+    steps = 2 if small else 8
+    for name, cfg, B, L in train_configs(small):
+        train_run(torch, dev, name, cfg, B, L, 1 if small else 2, steps,
+                  counts)
+        release(torch, dev, f"after training {name}")
+    for k in bwd_kernels():
+        check(counts.get(k, 0) > 0 or dev.type != "cuda",
+              f"train: {k} never launched ({counts})")
+        kernels.setdefault(k, {})["launches"] = counts.get(k, 0)
+    log(f"[train] launches over the timed steps: {counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", "llama3.2-1b", "--steps", "250" if not small
+                else "30", "--batch", "8", "--seq", "128", "--lr", "3e-4",
+                "--warmup", "40", "--ckpt-dir", tmp, "--ckpt-every", "100",
+                "--log-every", "50", "--device", str(dev)]
+        argv += ["--smoke"] if small else [
+            "--d-model", "640", "--n-layers", "16", "--d-ff", "2560",
+            "--vocab", "16384"]
+        t0 = time.perf_counter()
+        first, last = train_main(argv)
+        dt = time.perf_counter() - t0
+    if not small:
+        check(last < 0.7 * first, f"train 100M: loss {first:.4f} -> "
+                                  f"{last:.4f}, not a drop of 30%")
+    log(f"[train] the ~100M example (d_model 640, 16 layers, vocab 16384, "
+        f"B=8, L=128): loss {first:.4f} -> {last:.4f} "
+        f"({1 - last / first:.1%} drop) in {dt:.1f} s")
+
+
+class GateReplay:
+    """Within the ``with``: every gate of a run through
+    ``ops._gate_kernel``; ``record`` keeps the experts each call chose,
+    ``replay`` makes each call take the recorded experts instead (the
+    probabilities, vals and aux its own), after checking that its own
+    choice differs from them only at a near-tie (the two experts'
+    probabilities within 1e-5)."""
+
+    def __init__(self, mode: str, calls=None):
+        from repro_torch.kernels import ops
+        self.ops, self.orig, self.mode = ops, ops._gate_kernel, mode
+        self.calls = [] if calls is None else calls
+        self.n, self.flips = 0, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.moe_gating import moe_gating_plain
+
+        def gate(logits, k, return_asum=False):
+            out = self.orig(logits, k, return_asum)
+            if self.mode == "record":
+                self.calls.append(out[1].cpu())
+                return out
+            idx = self.calls[self.n].to(logits.device)
+            self.n += 1
+            diff = idx != out[1]
+            if bool(diff.any()):
+                p = torch.softmax(logits.float(), dim=-1)
+                gap = float((p.gather(1, idx.long())
+                             - p.gather(1, out[1].long())).abs()[diff].max())
+                check(gap < 1e-5, f"gate {self.n}: the card chose other "
+                                  f"experts than the CPU (gap {gap:.3g})")
+                self.flips.append((self.n, int(diff.any(1).sum()), gap))
+            return moe_gating_plain(logits, k, return_asum, idx=idx)
+        self.ops._gate_kernel = gate
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._gate_kernel = self.orig
+
+
+def train_card_vs_cpu_phase(torch, dev, small: bool):
+    """One train step of every config of the zoo at full width, 2 layers
+    (llama4-maverick-400b-a17b at ``SMOKE``: it does not fit one card),
+    f32, B=2: the same seeded params and batch on the card (kernels,
+    forward and backward) and on the CPU (plain versions).  Loss and
+    aux within 1e-4 relative, gnorm within 1e-4 relative, every gradient
+    leaf within 1e-3 of its max |g|.  Windowed models train with windows
+    of 48 at L=72 (past one 64-key tile); seamless with 2 encoder layers
+    and llava with 64 frontend tokens, seeded normal embeddings, as the
+    card-vs-CPU serving phase.  The CPU's MoE gates take the card's
+    choices (``GateReplay``), each differing only at a near-tie."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
+    from repro_torch.launch.train import make_lm_sampler, to_device
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import global_norm, leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cpu = torch.device("cpu")
+    B = 2
+    for name in ARCH_NAMES:
+        t0 = time.perf_counter()
+        base = get_smoke(name) if small or name.startswith("llama4") \
+            else get_config(name)
+        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        L = 48 if small else 64
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=48)
+            L = 72
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, n_enc_layers=2)
+        elif cfg.frontend:
+            cfg = dataclasses.replace(cfg, frontend_tokens=min(
+                64, cfg.frontend_tokens))
+        batch = make_lm_sampler(np.random.default_rng(5), cfg)(B, L)
+        params = M.init_params(cfg, torch.Generator().manual_seed(3), cpu)
+        on_card = M.tree_map(lambda t: t.to(dev), params)
+        with GateReplay("record") as rec:
+            got = loss_and_grads(on_card, cfg, to_device(batch, dev))
+        with GateReplay("replay", rec.calls) as rep:
+            want = loss_and_grads(params, cfg, to_device(batch, cpu))
+        check(rep.n == len(rec.calls), f"{name}: gate calls {rep.n} vs "
+                                       f"{len(rec.calls)}")
+        for i, what in ((1, "loss"), (2, "aux"), (0, "total")):
+            a, b = float(got[i]), float(want[i])
+            check(abs(a - b) <= 1e-4 * max(abs(b), 1e-6),
+                  f"{name}: {what} {a} on the card vs {b} on the CPU")
+        gn_card = float(global_norm(got[3]))
+        gn_cpu = float(global_norm(want[3]))
+        check(abs(gn_card - gn_cpu) <= 1e-4 * gn_cpu,
+              f"{name}: gnorm {gn_card} vs {gn_cpu}")
+        gl, wl = leaves(got[3]), leaves(want[3])
+        worst = grads_close([x.cpu() for x in gl], wl, 1e-3,
+                            f"{name} gradients")
+        log(f"[train card vs cpu] {name} (d_model {cfg.d_model}, 2 layers, "
+            f"f32, B={B}, L={L}{', window 48' if cfg.sliding_window else ''}"
+            f"): loss {float(want[1]):.6f} card / CPU rel err "
+            f"{abs(float(got[1]) - float(want[1])) / float(want[1]):.2g}, "
+            f"gnorm {gn_cpu:.5g} rel err {abs(gn_card - gn_cpu) / gn_cpu:.2g}"
+            f", {len(wl)} gradient leaves, worst {worst:.3g} of its max |g| "
+            f"(tol 1e-3); gate choices taken from the card at a near-tie: "
+            f"{rep.flips or 'none'}; {time.perf_counter() - t0:.1f} s")
+        del params, on_card, got, want
+        release(torch, dev, f"after {name}")
+
+
 def port_kernels() -> set:
-    """The names of the kernels in the port's CUDA sources."""
+    """The names of the kernels in the port's CUDA sources and headers."""
     import re
     names = set()
-    for src in sorted((ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")):
+    for src in sorted((ROOT / "src/repro_torch/kernels/csrc").glob("*.cu*")):
         names.update(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s*)?(\w+)\s*\(",
             src.read_text()))
@@ -4385,9 +4958,11 @@ def main() -> int:
                          "frontend_kernels, kv_int8_kernels, generate, "
                          "moe_generate, generate_windowed, long_context, "
                          "generate_frontends, kv_int8_generation, "
-                         "card_vs_cpu, serve_loop; generate_frontends "
+                         "card_vs_cpu, serve_loop, train_kernels, train, "
+                         "train_card_vs_cpu; generate_frontends "
                          "needs frontend_kernels, kv_int8_generation "
-                         "kv_int8_kernels); prints no result, exits 4")
+                         "kv_int8_kernels, train train_kernels); prints "
+                         "no result, exits 4")
     args = ap.parse_args()
     try:
         import torch
@@ -4468,6 +5043,11 @@ def main() -> int:
                               window=48),
             card_vs_cpu_phase(torch, dev, small, FRONTEND_ARCHS)),
         "serve_loop": lambda: serve_loop_phase(torch, dev, small, kernels),
+        "train_kernels": lambda: kernels.update(
+            train_kernel_phase(torch, dev, small)),
+        "train": lambda: train_phase(torch, dev, small, kernels),
+        "train_card_vs_cpu": lambda: train_card_vs_cpu_phase(torch, dev,
+                                                             small),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = set(only) - set(phases)

@@ -173,9 +173,9 @@ class Telemetry:
         because its named axis was absent from the mesh.  The
         reference counts its model-sharding rules' fallbacks here; the
         port's catalog shards never replicate, and its model rules come
-        with LLM training (ROADMAP.md, Queue 1, item 13), so nothing
-        calls it yet; the counter keeps the reference's summary and
-        export keys."""
+        with several cards (ROADMAP.md, Queue 1, item 7: one card trains
+        a whole model unsharded), so nothing calls it yet; the counter
+        keeps the reference's summary and export keys."""
         with self._lock:
             self._sharding["silent_replications"] += \
                 int(silent_replications)

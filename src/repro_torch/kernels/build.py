@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<hash>.so`` at the repository
-root on first use (the hash is of the source, so an edited kernel
-never loads a stale library), then bound with ``ctypes``.  Nothing is
+root on first use (the hash is of the source and the headers of
+``csrc/``, so an edited kernel never loads a stale library), then bound
+with ``ctypes``.  Nothing is
 built or imported when this module is imported: the CPU tests import
 every module on a machine without ``nvcc``.
 """
@@ -43,7 +44,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 

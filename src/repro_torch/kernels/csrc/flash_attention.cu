@@ -183,7 +183,8 @@ __global__ void __launch_bounds__(Pre<HD>::NT)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kv_valid,
                T* __restrict__ out, int G, Mask mk, Strides qs, Strides ks,
-               Strides vs, Strides os, float scale, float softcap, int hd) {
+               Strides vs, Strides os, float scale, float softcap, int hd,
+               float* __restrict__ lse) {
   using C = Pre<HD>;
   constexpr int TPR = C::TPR, NC = C::NC, NT = C::NT, C4 = C::C4;
   constexpr int BK = C::BK;
@@ -300,6 +301,9 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (iq >= mk.lq) return;
+  if (lse != nullptr && part == 0)      // natural log; +inf: no live key
+    lse[((long long)b * gridDim.y + h) * mk.lq + iq] =
+        l > 0.f ? m + logf(l) : CUDART_INF_F;
   const float inv = l > 0.f ? 1.f / l : 0.f;
   T* orow = out + b * os.b + h * os.h + (long long)iq * os.l;
 #pragma unroll
@@ -589,12 +593,12 @@ struct Wg {
 // at qw in each column block of the Q tile; O's columns 64 cb0 .. 64 cb0
 // + ON - 1, ON / 2 accumulators a thread.  Walks the block's ntiles
 // K/V tiles from kbeg, releases each stage, and stores its part of O.
-template <int HD, int ON>
+template <int HD, int ON, bool LSE>
 __device__ __forceinline__ void wg_consume(
     const uint8_t* qw, const uint8_t* ks, const uint8_t* vs, uint64_t* qbar,
     uint64_t* full, uint64_t* empty, int ntiles, int kbeg, int rlo, int cb0,
     int live, Mask mk, __nv_bfloat16* ob, Strides os, float scale,
-    float softcap, int hd) {
+    float softcap, int hd, float* lse) {
   using C = Wg<HD>;
   if constexpr (!PAD<HD>) hd = HD;
   constexpr int BK = C::BK;
@@ -715,6 +719,15 @@ __device__ __forceinline__ void wg_consume(
   }
   const float iA = lA > 0.f ? 1.f / lA : 0.f;
   const float iB = lB > 0.f ? 1.f / lB : 0.f;
+  // the rows' log-sum-exp (natural log; +inf: no live key), from the
+  // log2-domain max and sum: ln 2 (m mul + log2 l)
+  if (LSE && cb0 == 0 && t4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    if (rA < mk.lq)
+      lse[rA] = lA > 0.f ? (mA * mul + log2f(lA)) * LN2 : CUDART_INF_F;
+    if (rB < mk.lq)
+      lse[rB] = lB > 0.f ? (mB * mul + log2f(lB)) * LN2 : CUDART_INF_F;
+  }
 #pragma unroll
   for (int c = 0; c < ON / 8; ++c) {
     if (64 * cb0 + 8 * c >= hd) break;    // TMA's zero columns (120, 288)
@@ -728,14 +741,15 @@ __device__ __forceinline__ void wg_consume(
   }
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(Wg<HD>::THREADS, Wg<HD>::MIN_BLOCKS)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, TmaAxes qa,
                      TmaAxes ka, const int* __restrict__ kv_valid,
                      __nv_bfloat16* __restrict__ out, int G, Mask mk,
-                     Strides os, float scale, float softcap, int hd) {
+                     Strides os, float scale, float softcap, int hd,
+                     float* __restrict__ lse) {
   using C = Wg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -796,18 +810,20 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // when the head dim is split between them)
   const int wg = warp >> 2;
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
+  float* lb = LSE ? lse + ((long long)b * gridDim.x + h) * mk.lq : nullptr;
   if constexpr (C::SPLIT) {
     if (wg == 0)
-      wg_consume<HD, C::ON0>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
-                             q0, 0, live, mk, ob, os, scale, softcap, hd);
+      wg_consume<HD, C::ON0, LSE>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
+                             q0, 0, live, mk, ob, os, scale, softcap, hd,
+                             lb);
     else
-      wg_consume<HD, C::ON1>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
+      wg_consume<HD, C::ON1, LSE>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
                              q0, C::ON0 / 64, live, mk, ob, os, scale,
-                             softcap, hd);
+                             softcap, hd, lb);
   } else {
-    wg_consume<HD, HD>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
+    wg_consume<HD, HD, LSE>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
                        kbeg, q0 + 64 * wg, 0, live, mk, ob, os, scale,
-                       softcap, hd);
+                       softcap, hd, lb);
   }
 }
 
@@ -1623,6 +1639,8 @@ bool tma_ok(const void* p, Strides st, int L, int H, int B) {
   return true;
 }
 
+#include "flash_attention_bwd.cuh"
+
 // A 4-D map (hd, then the l / h / b axes by increasing stride, axes of
 // length 1 last) over a bf16 operand: boxes of 64 columns (128 bytes,
 // the swizzle span) by `rows` positions along l; zeros past the ends.
@@ -1663,15 +1681,19 @@ cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD>
+// LSE: the instantiation that also writes the rows' log-sum-exp (the
+// training forward); the served one compiles without that store, so its
+// registers are those of the kernel before the backward existed.
+template <int HD, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int* kv_valid, void* out, int B, int Hq,
                          int Hkv, Mask mk, Strides qs, Strides ks,
                          Strides vs, Strides os, float scale, float softcap,
-                         int hd, cudaStream_t s) {
+                         int hd, float* lse, cudaStream_t s) {
   using C = Wg<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_wgmma_kernel<HD, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (attr != cudaSuccess) return attr;
   // maps over the true hd: a box's columns past it (120..127) are zeros
@@ -1685,9 +1707,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (va.l != ka.l || va.h != ka.h || va.b != ka.b)
     return cudaErrorInvalidValue;         // K and V share one coordinate map
   dim3 grid(Hq, B, (mk.lq + C::BQ - 1) / C::BQ);
-  prefill_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, s>>>(
+  prefill_wgmma_kernel<HD, LSE><<<grid, C::THREADS, C::SMEM, s>>>(
       tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
-      Hq / Hkv, mk, os, scale, softcap, hd);
+      Hq / Hkv, mk, os, scale, softcap, hd, lse);
   return cudaGetLastError();
 }
 
@@ -1697,7 +1719,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_valid, void* out, float* scratch, int B,
                    int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                    Strides vs, Strides os, float scale, float softcap,
-                   int n_split, int chunk, int hd, cudaStream_t s) {
+                   int n_split, int chunk, int hd, float* lse,
+                   cudaStream_t s) {
   const int G = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -1738,12 +1761,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
     if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
         tma_ok(v, vs, mk.lk, Hkv, B) && (hd * 2) % 16 == 0)
-      return launch_wgmma<HD>(q, k, v, kv_valid, out, B, Hq, Hkv, mk, qs, ks,
-                              vs, os, scale, softcap, hd, s);
+      return lse != nullptr
+                 ? launch_wgmma<HD, true>(q, k, v, kv_valid, out, B, Hq, Hkv,
+                                          mk, qs, ks, vs, os, scale, softcap,
+                                          hd, lse, s)
+                 : launch_wgmma<HD, false>(q, k, v, kv_valid, out, B, Hq,
+                                           Hkv, mk, qs, ks, vs, os, scale,
+                                           softcap, hd, lse, s);
   }
   dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
   prefill_kernel<T, HD><<<grid, Pre<HD>::NT, 0, s>>>(
-      qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap, hd);
+      qp, kp, vp, kv_valid, op, G, mk, qs, ks, vs, os, scale, softcap, hd,
+      lse);
   return cudaGetLastError();
 }
 
@@ -1752,10 +1781,10 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const int* kv_valid, void* out, float* scratch, int B,
                         int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                         Strides vs, Strides os, float scale, float softcap,
-                        int n_split, int chunk, cudaStream_t s) {
+                        int n_split, int chunk, float* lse, cudaStream_t s) {
 #define FA_LAUNCH(CAP)                                                     \
   launch<T, CAP>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk, qs, ks, \
-                 vs, os, scale, softcap, n_split, chunk, hd, s)
+                 vs, os, scale, softcap, n_split, chunk, hd, lse, s)
   switch (hd) {
     case 32:
       return FA_LAUNCH(32);
@@ -1848,10 +1877,10 @@ extern "C" int flash_attention_launch(
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, float scale,
     int causal, int window, float softcap, int local_window, void* scratch,
-    int n_split, int chunk, void* stream) {
+    int n_split, int chunk, float* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0 ||
-      (local_window && Lq != 1))
+      (local_window && Lq != 1) || (lse != nullptr && Lq == 1))
     return cudaErrorInvalidValue;
   const Mask mk{Lq, Lk, causal, window, local_window};
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
@@ -1861,11 +1890,11 @@ extern "C" int flash_attention_launch(
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, kv_valid, out, sc, B, Hq, Hkv, mk,
                               qs, ks, vs, os, scale, softcap, n_split, chunk,
-                              s);
+                              lse, s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_valid, out, sc, B, Hq,
                                       Hkv, mk, qs, ks, vs, os, scale,
-                                      softcap, n_split, chunk, s);
+                                      softcap, n_split, chunk, lse, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1906,5 +1935,40 @@ extern "C" int flash_decode_q8_launch(
                                       sc, B, Hq, Hkv, Lk, local_window, qs,
                                       ks, vs, kss, vss, os, scale, softcap,
                                       n_split, chunk, s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward (flash_attention_bwd.cuh): q, k, v, the forward's output o
+// and its log-sum-exp lse (B, Hq, Lq) f32 contiguous, the output's
+// gradient dout, all in `dtype` (0 = float32, 1 = bfloat16) through
+// their (batch, head, position) strides in elements with the head dim
+// contiguous; the mask of the forward (causal, window, softcap, kv_valid;
+// no decode-shape window).  Writes dq, dk, dv in `dtype` through their
+// strides; delta is (B, Hq, Lq) f32 scratch.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, const int* kv_valid, void* dq,
+    void* dk, void* dv, float* delta, int dtype, int B, int Hq, int Hkv,
+    int Lq, int Lk, int hd, const long long* st, float scale, int causal,
+    int window, float softcap, void* stream) {
+  if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Lk <= 0 || hd <= 0)
+    return cudaErrorInvalidValue;
+  const Mask mk{Lq, Lk, causal, window, 0};
+  // st: the (b, h, l) strides of q, k, v, o, dout, dq, dk, dv in turn
+  Strides S[8];
+  for (int i = 0; i < 8; ++i) S[i] = Strides{st[3 * i], st[3 * i + 1],
+                                             st[3 * i + 2]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return fa_bwd::launch<float>(q, k, v, o, dout, lse, kv_valid, dq, dk, dv,
+                                 delta, B, Hq, Hkv, mk, S[0], S[1], S[2],
+                                 S[3], S[4], S[5], S[6], S[7], scale, softcap,
+                                 hd, s);
+  if (dtype == 1)
+    return fa_bwd::launch<__nv_bfloat16>(q, k, v, o, dout, lse, kv_valid, dq,
+                                         dk, dv, delta, B, Hq, Hkv, mk, S[0],
+                                         S[1], S[2], S[3], S[4], S[5], S[6],
+                                         S[7], scale, softcap, hd, s);
   return cudaErrorInvalidValue;
 }

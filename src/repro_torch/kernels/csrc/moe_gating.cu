@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(MAXT)
 gate_kernel(const T* __restrict__ logits, long long row_stride, int n_tok,
             int E, int k, int vec, float scale, float* __restrict__ vals,
             int* __restrict__ idx, float* __restrict__ part,
-            float* __restrict__ aux) {
+            float* __restrict__ aux, float* __restrict__ asum) {
   constexpr int GPW = 32 / LPT;            // tokens a warp holds at once
   constexpr int EP = LPT * V;              // experts a group covers
   extern __shared__ __align__(16) unsigned char raw[];
@@ -311,6 +311,9 @@ gate_kernel(const T* __restrict__ logits, long long row_stride, int n_tok,
     }
   }
   __syncthreads();
+  if (asum != nullptr)                  // the assignment counts, for the
+    for (int c = threadIdx.x; c < E; c += blockDim.x)   // backward
+      asum[c] = red[EP + c];
   // aux = scale * sum_e psum_e asum_e, by threads, warps, then in order
   float d = 0.f;
   for (int c = threadIdx.x; c < E; c += blockDim.x) d += red[c] * red[EP + c];
@@ -331,22 +334,24 @@ gate_kernel(const T* __restrict__ logits, long long row_stride, int n_tok,
 template <typename T, int LPT, int V>
 cudaError_t launch_cfg(const T* logits, long long row_stride, int n_tok,
                        int E, int k, int vec, float scale, float* vals,
-                       int* idx, float* part, float* aux, int warps,
-                       int blocks, cudaStream_t s) {
+                       int* idx, float* part, float* aux, float* asum,
+                       int warps, int blocks, cudaStream_t s) {
   constexpr int MAXT = V <= 8 ? 1024 : 256;
   const int smem = smem_bytes(warps, 32 / LPT, LPT * V, k);
   if (warps < 1 || warps * 32 > MAXT || blocks < 1 || smem > SMEM_MAX ||
       (blocks > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   gate_kernel<T, LPT, V, MAXT><<<blocks, warps * 32, smem, s>>>(
-      logits, row_stride, n_tok, E, k, vec, scale, vals, idx, part, aux);
+      logits, row_stride, n_tok, E, k, vec, scale, vals, idx, part, aux,
+      asum);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* lg, long long row_stride, int n_tok, int E,
                    int k, float scale, float* vals, int* idx, float* part,
-                   float* aux, int warps, int blocks, cudaStream_t s) {
+                   float* aux, float* asum, int warps, int blocks,
+                   cudaStream_t s) {
   const T* logits = static_cast<const T*>(lg);
   constexpr int PER = 16 / sizeof(T);
   const int vec = reinterpret_cast<uintptr_t>(lg) % 16 == 0 &&
@@ -355,7 +360,7 @@ cudaError_t launch(const void* lg, long long row_stride, int n_tok, int E,
 #define GATE_CASE(EMAX, LPT, V)                                             \
   if (E <= EMAX)                                                            \
     return launch_cfg<T, LPT, V>(logits, row_stride, n_tok, E, k, vec,     \
-                                 scale, vals, idx, part, aux, warps,       \
+                                 scale, vals, idx, part, aux, asum, warps, \
                                  blocks, s);
   GATE_CASE(8, 1, 8)
   GATE_CASE(16, 2, 8)
@@ -369,27 +374,57 @@ cudaError_t launch(const void* lg, long long row_stride, int n_tok, int E,
   return cudaErrorInvalidValue;
 }
 
+#include "moe_gating_bwd.cuh"
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  logits row t starts at
 // t * row_stride elements; vals / idx (T, k) contiguous; aux one f32.
 // warps and blocks from the wrapper's plan; part: (blocks, 2, LPT V) f32
 // scratch when blocks > 1 (LPT V = E rounded up as in the dispatch
-// above), else null.  scale = E / T^2.  Returns cudaGetLastError().
+// above), else null.  scale = E / T^2.  asum (E,) f32, or null: the
+// per-expert assignment counts (what the backward reads).  Returns
+// cudaGetLastError().
 extern "C" int moe_gating_launch(const void* logits, int dtype, int n_tok,
                                  int E, int k, long long row_stride,
                                  float scale, float* vals, int* idx,
-                                 float* part, float* aux, int warps,
-                                 int blocks, void* stream) {
+                                 float* part, float* aux, float* asum,
+                                 int warps, int blocks, void* stream) {
   if (n_tok <= 0) return cudaSuccess;
   if (E <= 0 || E > MAX_E || k <= 0 || k > E || row_stride < E)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(logits, row_stride, n_tok, E, k, scale, vals, idx,
-                         part, aux, warps, blocks, s);
+                         part, aux, asum, warps, blocks, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(logits, row_stride, n_tok, E, k, scale,
-                                 vals, idx, part, aux, warps, blocks, s);
+                                 vals, idx, part, aux, asum, warps, blocks,
+                                 s);
+  return cudaErrorInvalidValue;
+}
+
+// The backward (moe_gating_bwd.cuh): logits as the forward's (row t at t *
+// row_stride elements, `dtype` 0 = float32 or 1 = bfloat16), the
+// forward's idx (T, k) int32 and asum (E,) f32, the gradients dvals (T,
+// k) f32 and daux (one f32 on the card); scale = E / T^2.  Writes
+// dlogits (T, E) contiguous in `dtype`.
+extern "C" int moe_gating_bwd_launch(const void* logits, int dtype, int n_tok,
+                                     int E, int k, long long row_stride,
+                                     const int* idx, const float* dvals,
+                                     const float* daux, const float* asum,
+                                     float scale, void* dlogits,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gate_bwd::launch<float>(static_cast<const float*>(logits),
+                                   row_stride, n_tok, E, k, idx, dvals, daux,
+                                   asum, scale, static_cast<float*>(dlogits),
+                                   s);
+  if (dtype == 1)
+    return gate_bwd::launch<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(logits), row_stride, n_tok, E, k,
+        idx, dvals, daux, asum, scale, static_cast<__nv_bfloat16*>(dlogits),
+        s);
   return cudaErrorInvalidValue;
 }

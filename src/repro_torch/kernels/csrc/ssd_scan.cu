@@ -923,6 +923,8 @@ cudaError_t scan(const Plane& xq, const Plane& bq, const Plane& cq,
   return cudaGetLastError();
 }
 
+#include "ssd_scan_bwd.cuh"
+
 }  // namespace
 
 // Shared memory the larger of the scan's blocks needs, in bytes (the
@@ -1013,4 +1015,40 @@ extern "C" int ssd_scan_launch(
   if (tl) SSD_SCAN(false, true)
   SSD_SCAN(false, false)
 #undef SSD_SCAN
+}
+
+// The backward (ssd_scan_bwd.cuh), for a scan without h0: x, B, C as the
+// forward's (dtype 0 = float32, 1 = bfloat16, the same strides), dt and
+// A f32; dy (Bb, L, H, P) f32 contiguous; dhf (Bb, H, P, N) f32 or null
+// (no gradient on the final state).  Writes dx (Bb, L, H, P) and dB / dC
+// (Bb, L, N) contiguous in `dtype`, ddt (Bb, L, H) and dA (H,) f32.
+// Scratch, f32: hs Bb (nb + 1) H P N, dhs Bb nb H P N, dlaq Bb H nb nz,
+// dbp and dcp Bb L H N, dap Bb nb H, with nb = ceil(L / 64) and nz =
+// ceil(P N / 8192).  Returns cudaGetLastError().
+extern "C" int ssd_scan_bwd_launch(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* dy, const float* dhf, void* dx, float* ddt,
+    float* dA, void* dB, void* dC, float* hs, float* dhs, float* dlaq,
+    float* dbp, float* dcp, float* dap, int dtype, int Bb, int L, int H,
+    int P, int N, long long xsb, long long xsl, long long dsb, long long dsl,
+    long long bsb, long long bsl, long long csb, long long csl,
+    void* stream) {
+  if (Bb <= 0 || H <= 0) return cudaSuccess;
+  if (P <= 0 || N <= 0 || L <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ssd_bwd::launch<float>(
+        static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
+        static_cast<const float*>(Cm), dy, dhf, static_cast<float*>(dx), ddt,
+        dA, static_cast<float*>(dB), static_cast<float*>(dC), hs, dhs, dlaq,
+        dbp, dcp, dap, Bb, L, H, P, N, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl,
+        s);
+  if (dtype == 1)
+    return ssd_bwd::launch<bf16>(
+        static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
+        static_cast<const bf16*>(Cm), dy, dhf, static_cast<bf16*>(dx), ddt,
+        dA, static_cast<bf16*>(dB), static_cast<bf16*>(dC), hs, dhs, dlaq,
+        dbp, dcp, dap, Bb, L, H, P, N, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl,
+        s);
+  return cudaErrorInvalidValue;
 }

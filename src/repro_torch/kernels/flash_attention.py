@@ -32,6 +32,12 @@ tensors launches the kernel (or raises); CPU tensors take the plain
 version.  The decode shape (Lq == 1) splits the cache into chunks
 chosen by ``decode_splits`` from the shapes alone; ``decode_split_plain``
 is its split-and-merge arithmetic in plain PyTorch.
+
+The backward (``flash_attention_bwd``, plain version
+``flash_attention_bwd_plain``) takes the forward's output and its
+per-row log-sum-exp, which the forward returns with ``return_lse``
+(the prefill shapes only), and recomputes the probabilities from them:
+FlashAttention-2's form, three launches (delta, dK/dV, dQ) on the card.
 """
 from __future__ import annotations
 
@@ -54,10 +60,13 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p], "flash_decode_q8_launch": [
+    ctypes.c_void_p, ctypes.c_void_p], "flash_decode_q8_launch": [
     ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 18 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "flash_attention_bwd_launch": [ctypes.c_void_p] * 11 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,28 +91,80 @@ def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
     return ok[:, None, None]
 
 
-def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
-                          window: int = 0, softcap: float = 0.0,
-                          local_window: int = 0):
-    """Plain PyTorch version: masked f32 scores -> softmax -> values,
-    the (m, l) guard of the kernel written out (no live key: 0)."""
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' working type: f32, or f64 for f64 operands
+    (the gradient checks)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def _scores(q, k, kv_valid, causal, window, softcap, local_window=0):
+    """Masked, softcapped scores (B, Hkv, G, Lq, Lk) in the working type,
+    the mask, and tanh(s / softcap) (None without a softcap)."""
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qf = q.float().reshape(B, Hkv, G, Lq, hd)
-    s = torch.einsum("bkgqd,bkmd->bkgqm", qf, k.float()) / math.sqrt(hd)
+    qf = _acc(q).reshape(B, Hkv, Hq // Hkv, Lq, hd)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qf, _acc(k)) / math.sqrt(hd)
+    th = None
     if softcap:
-        s = softcap * torch.tanh(s / softcap)
+        th = torch.tanh(s / softcap)
+        s = softcap * th
     ok = _live_mask(B, Lq, Lk, kv_valid, causal, window, q.device,
                     local_window)
-    s = torch.where(ok, s, NEG_INF)
+    return torch.where(ok, s, NEG_INF), ok, th
+
+
+def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
+                          window: int = 0, softcap: float = 0.0,
+                          local_window: int = 0, return_lse: bool = False):
+    """Plain PyTorch version: masked f32 scores -> softmax -> values,
+    the (m, l) guard of the kernel written out (no live key: 0).  With
+    ``return_lse`` also the rows' log-sum-exp (B, Hq, Lq) f32 (+inf on a
+    row with no live key), what the backward reads."""
+    B, Hq, Lq, hd = q.shape
+    s, ok, _ = _scores(q, k, kv_valid, causal, window, softcap,
+                       local_window)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m == NEG_INF, torch.zeros_like(m), m)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgqm,bkmd->bkgqd", p, v.float())
+    o = torch.einsum("bkgqm,bkmd->bkgqd", p, _acc(v))
     o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
-    return o.reshape(B, Hq, Lq, hd).to(q.dtype)
+    o = o.reshape(B, Hq, Lq, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                      float("inf"))
+    return o, lse.reshape(B, Hq, Lq).to(_acc(q).dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid=None, *,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0):
+    """The backward in plain PyTorch, the kernel's arithmetic: P =
+    exp(s - lse) recomputed from the scores and the forward's lse, dV =
+    P^T dO, dP = dO V^T, delta = rowsum(dO o), dS = P (dP - delta)
+    (times 1 - tanh^2 with a softcap) / sqrt(hd), dQ = dS K, dK = dS^T
+    Q; the G query heads of a group summed into their KV head.  Returns
+    (dq, dk, dv) in the operands' types."""
+    B, Hq, Lq, hd = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    s, ok, th = _scores(q, k, kv_valid, causal, window, softcap)
+    lse5 = _acc(lse).reshape(B, Hkv, G, Lq, 1)
+    p = torch.where(ok, torch.exp(s - lse5), 0.0)
+    dof = _acc(do).reshape(B, Hkv, G, Lq, hd)
+    dv = torch.einsum("bkgqm,bkgqd->bkmd", p, dof)
+    dp = torch.einsum("bkgqd,bkmd->bkgqm", dof, _acc(v))
+    delta = (dof * _acc(o).reshape(B, Hkv, G, Lq, hd)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if softcap:
+        ds = ds * (1 - th * th)
+    ds = ds / math.sqrt(hd)
+    dq = torch.einsum("bkgqm,bkmd->bkgqd", ds, _acc(k))
+    dk = torch.einsum("bkgqm,bkgqd->bkmd", ds,
+                      _acc(q).reshape(B, Hkv, G, Lq, hd))
+    return (dq.reshape(B, Hq, Lq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_splits(B: int, Hkv: int, Lk: int):
@@ -202,29 +263,37 @@ def _check(q, k, v, kv_valid):
 
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
-                    local_window: int = 0):
+                    local_window: int = 0, return_lse: bool = False):
     """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid (B,) int32 or
     None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the card the result
     is a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
     tensor, the model's layout.  Lq == 1 launches the decode shape:
     split-KV partials into f32 scratch, then their ordered merge; only
-    it takes ``local_window``."""
+    it takes ``local_window``.  ``return_lse`` (not the decode shape):
+    (out, the rows' log-sum-exp (B, Hq, Lq) f32), the same launch
+    writing both."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: tensors must be on cuda or "
                          f"cpu, not {q.device}")
     if local_window < 0 or (local_window and q.shape[2] != 1):
         raise ValueError(f"flash_attention: local_window {local_window} "
                          "needs one query row (the decode shape)")
+    if return_lse and q.shape[2] == 1:
+        raise ValueError("flash_attention: the decode shape (Lq == 1) "
+                         "keeps no log-sum-exp")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid, causal=causal,
                                      window=window, softcap=softcap,
-                                     local_window=local_window)
+                                     local_window=local_window,
+                                     return_lse=return_lse)
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     _check(q, k, v, kv_valid)
     lib = build.load("flash_attention", _SIG)
     out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     n_split, chunk, scratch = 0, 0, None
     if Lq == 1:                         # partials (acc, then m and l), f32
         n_split, chunk = decode_splits(B, Hkv, Lk)
@@ -240,17 +309,77 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
             *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
             int(window), float(softcap), int(local_window),
             None if scratch is None else scratch.data_ptr(), n_split, chunk,
-            stream)
+            None if lse is None else lse.data_ptr(), stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     if Lq == 1:
         flash_attention.decode_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # launches on the card: all of them, and those of the decode shape
 flash_attention.launches = 0
 flash_attention.decode_launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """The gradients (dq, dk, dv) of ``flash_attention`` (prefill shapes)
+    from its operands, its output ``o`` and log-sum-exp ``lse`` and the
+    output's gradient ``do`` (any strides, the head dim contiguous).  On
+    the card the gradients are ``transpose(1, 2)`` views of contiguous
+    (B, L, H, hd) tensors, the model's layout; CPU tensors take
+    ``flash_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid,
+                                         causal=causal, window=window,
+                                         softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: tensors must be on cuda "
+                         f"or cpu, not {q.device}")
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Lq == 1:
+        raise ValueError("flash_attention_bwd: the decode shape (Lq == 1) "
+                         "takes no gradient")
+    _check(q, k, v, kv_valid)
+    for t in (o, do):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or t.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd: o / do {tuple(t.shape)} "
+                             f"{t.dtype} must match q with a contiguous "
+                             "head dim")
+    lse = lse.contiguous()
+    if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be ({B}, {Hq}, "
+                         f"{Lq}) float32, got {tuple(lse.shape)} {lse.dtype}")
+    dev = q.device
+    lib = build.load("flash_attention", _SIG)
+    dq = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Lk, Hkv, hd), dtype=k.dtype, device=dev)
+    dv = torch.empty((B, Lk, Hkv, hd), dtype=v.dtype, device=dev)
+    dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
+    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=dev)
+    strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
+                            for s in t.stride()[:3]], dtype=torch.int64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            None if kv_valid is None else kv_valid.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd, strides.data_ptr(),
+            1.0 / math.sqrt(hd), int(bool(causal)), int(window),
+            float(softcap), stream)
+    build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# launches on the card
+flash_attention_bwd.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -16,6 +16,10 @@ a fixed order, so ``aux`` is the same bits on every run).  Its launch
 shape is ``gate_plan(T, E, k)``, a function of the shapes alone.  A
 wrapper given CUDA tensors launches the kernel (or raises); CPU tensors
 take the plain version.
+
+With ``return_asum`` the gate also gives the per-expert assignment
+counts (E,) f32 it reduces for aux; the backward (``moe_gating_bwd``,
+plain version ``moe_gating_bwd_plain``) reads them.
 """
 from __future__ import annotations
 
@@ -36,8 +40,12 @@ _LANES = ((8, 1, 8), (16, 2, 8), (32, 4, 8), (64, 8, 8), (128, 16, 8),
 _SIG = {"moe_gating_launch": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p],
+    "moe_gating_bwd_launch": [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -77,16 +85,50 @@ def _aux(psum: torch.Tensor, asum: torch.Tensor, T: int) -> torch.Tensor:
     return torch.dot(psum, asum) * (psum.shape[-1] / (T * T))
 
 
-def moe_gating_plain(logits: torch.Tensor, k: int):
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' working type: f32, or f64 for f64 operands
+    (the gradient checks)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def moe_gating_plain(logits: torch.Tensor, k: int,
+                     return_asum: bool = False, idx=None):
     """Plain PyTorch version: softmax, ``topk_stable`` (ties to the lower
-    index), renormalization and the aux loss, all in f32."""
+    index), renormalization and the aux loss, all in f32.  With
+    ``return_asum`` also the assignment counts (E,).  A given ``idx``
+    (T, k) stands in for the top-k's choice: the rest is computed for
+    those experts."""
     T, E = logits.shape
-    probs = torch.softmax(logits.float(), dim=-1)
-    vals, idx = topk_stable(probs, k)
+    probs = torch.softmax(_acc(logits), dim=-1)
+    if idx is None:
+        vals, idx = topk_stable(probs, k)
+    else:
+        idx = idx.long()
+        vals = probs.gather(1, idx)
     vals = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
-    assign = torch.zeros_like(probs).scatter_(1, idx, 1.0)
-    aux = _aux(probs.sum(dim=0), assign.sum(dim=0), T)
-    return vals, idx.to(torch.int32), aux
+    asum = torch.zeros_like(probs).scatter_(1, idx, 1.0).sum(dim=0)
+    aux = _aux(probs.sum(dim=0), asum, T)
+    out = vals, idx.to(torch.int32), aux
+    return out + (asum,) if return_asum else out
+
+
+def moe_gating_bwd_plain(logits, idx, dvals, daux, asum):
+    """The gate's backward in plain PyTorch, the kernel's arithmetic: p =
+    softmax(logits); with r = p[idx], S = sum r and vals = r / (S +
+    1e-9), dr = dvals / (S + 1e-9) - sum(dvals r) / (S + 1e-9)^2 into
+    dp at idx, plus daux E asum / T^2 on every expert; then dlogits = p
+    (dp - sum p dp).  Returns dlogits in logits' type."""
+    T, E = logits.shape
+    p = torch.softmax(_acc(logits), dim=-1)
+    ix = idx.long()
+    r = p.gather(1, ix)
+    den = r.sum(dim=-1, keepdim=True) + 1e-9
+    dv = _acc(dvals)
+    dr = dv / den - (dv * r).sum(dim=-1, keepdim=True) / (den * den)
+    dp = (_acc(daux) * (E / (T * T)) * _acc(asum)).expand(T, E).clone()
+    dp = dp.scatter_add(1, ix, dr)
+    d = (p * dp).sum(dim=-1, keepdim=True)
+    return (p * (dp - d)).to(logits.dtype)
 
 
 def _check(logits: torch.Tensor, k: int) -> None:
@@ -105,13 +147,15 @@ def _check(logits: torch.Tensor, k: int) -> None:
                          f"{MAX_EXPERTS}, got E={E}, k={k}")
 
 
-def moe_gating(logits: torch.Tensor, k: int):
-    """logits (T, E).  Returns (vals (T, k) f32, idx (T, k) int32, aux)."""
+def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False):
+    """logits (T, E).  Returns (vals (T, k) f32, idx (T, k) int32, aux),
+    and the assignment counts asum (E,) f32 with ``return_asum`` (the
+    same launch)."""
     if logits.device.type not in ("cuda", "cpu"):
         raise ValueError(f"moe_gating: tensors must be on cuda or cpu, not "
                          f"{logits.device}")
     if logits.device.type == "cpu":
-        return moe_gating_plain(logits, k)
+        return moe_gating_plain(logits, k, return_asum)
     _check(logits, k)
     T, E = logits.shape
     lanes, per = gate_lanes(E)
@@ -121,6 +165,8 @@ def moe_gating(logits: torch.Tensor, k: int):
     vals = torch.empty((T, k), dtype=torch.float32, device=dev)
     idx = torch.empty((T, k), dtype=torch.int32, device=dev)
     aux = torch.empty((), dtype=torch.float32, device=dev)
+    asum = torch.empty((E,), dtype=torch.float32, device=dev) \
+        if return_asum else None
     part = torch.empty((blocks, 2, lanes * per), dtype=torch.float32,
                        device=dev) if blocks > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -129,11 +175,52 @@ def moe_gating(logits: torch.Tensor, k: int):
             logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
             logits.stride(0) if T > 1 else E, E / (T * T), vals.data_ptr(),
             idx.data_ptr(), part.data_ptr() if part is not None else None,
-            aux.data_ptr(), warps, blocks, stream)
+            aux.data_ptr(), None if asum is None else asum.data_ptr(), warps,
+            blocks, stream)
     build.check(err, "moe_gating")
     moe_gating.launches += 1
-    return vals, idx, aux
+    return (vals, idx, aux, asum) if return_asum else (vals, idx, aux)
 
 
 # launches on the card
 moe_gating.launches = 0
+
+
+def moe_gating_bwd(logits, idx, dvals, daux, asum):
+    """dlogits (T, E), in logits' type (contiguous), from the forward's
+    logits, idx and asum and the gradients dvals (T, k) and daux (a
+    0-d tensor, read on the card).  CPU tensors take
+    ``moe_gating_bwd_plain``; CUDA tensors launch the kernel or raise."""
+    if logits.device.type == "cpu":
+        return moe_gating_bwd_plain(logits, idx, dvals, daux, asum)
+    if logits.device.type != "cuda":
+        raise ValueError(f"moe_gating_bwd: tensors must be on cuda or cpu, "
+                         f"not {logits.device}")
+    _check(logits, idx.shape[-1])
+    T, E = logits.shape
+    k = idx.shape[-1]
+    dev = logits.device
+    idx = idx.to(torch.int32).contiguous()
+    dvals = dvals.to(torch.float32).contiguous()
+    daux = daux.to(torch.float32).reshape(()).contiguous()
+    asum = asum.to(torch.float32).contiguous()
+    for t, shape in ((idx, (T, k)), (dvals, (T, k)), (asum, (E,))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"moe_gating_bwd: operand {tuple(t.shape)} on "
+                             f"{t.device} must be {shape} on {dev}")
+    lib = build.load("moe_gating", _SIG)
+    dlogits = torch.empty((T, E), dtype=logits.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.moe_gating_bwd_launch(
+            logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
+            logits.stride(0) if T > 1 else E, idx.data_ptr(),
+            dvals.data_ptr(), daux.data_ptr(), asum.data_ptr(), E / (T * T),
+            dlogits.data_ptr(), stream)
+    build.check(err, "moe_gating_bwd")
+    moe_gating_bwd.launches += 1
+    return dlogits
+
+
+# launches on the card
+moe_gating_bwd.launches = 0

@@ -31,7 +31,15 @@ at the end (``flash_attention``, ``flash_decode``, ``ssd_scan``,
 ``moe_gating``) take tensors and run
 where those tensors live: on the card their kernels, on the CPU the
 plain versions; ``flash_decode`` given an int8 cache's scales reads
-the int8 K/V through ``flash_attention.flash_decode_q8``.
+the int8 K/V through ``flash_attention.flash_decode_q8``.  Where autograd
+records (grad enabled and an operand requiring a gradient),
+``flash_attention`` (prefill shapes), ``ssd_scan`` and ``moe_gating``
+run as ``torch.autograd.Function``s whose backward is the kernel's
+backward (``flash_attention_bwd``, ``ssd_scan_bwd``, ``moe_gating_bwd``:
+hand-written kernels on the card, their plain versions on the CPU);
+otherwise (the served path, under ``torch.no_grad()``) they launch
+exactly the forward kernel, saving nothing.  The decode shapes take no
+gradient and raise if asked for one.
 """
 from __future__ import annotations
 
@@ -54,8 +62,12 @@ from repro_torch.kernels.bandit_update import bandit_update as _bandit_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
 from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd as _flash_bwd_kernel
+from repro_torch.kernels.flash_attention import \
     flash_decode_q8 as _flash_q8_kernel
 from repro_torch.kernels.moe_gating import moe_gating as _gate_kernel
+from repro_torch.kernels.moe_gating import \
+    moe_gating_bwd as _gate_bwd_kernel
 from repro_torch.kernels.route_step import (CatalogShard, quantize_rows,
                                             route_step_body,
                                             route_step_ivf_body,
@@ -64,6 +76,7 @@ from repro_torch.kernels.route_step import (CatalogShard, quantize_rows,
 from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
                                              router_topk_q8 as _topk_q8_kernel)
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd as _ssd_bwd_kernel
 from repro_torch.sharding.rules import CATALOG_AXIS, shard_bounds
 
 LANE = 128
@@ -803,6 +816,34 @@ def bandit_update(x_up, w, r, x_score, theta, ainv, alpha: float, *,
 # flash attention (the model zoo's attention, layer layout)
 # ----------------------------------------------------------------------
 
+def _records(*ts) -> bool:
+    """Whether autograd records a call on these operands."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The prefill-shape attention with its backward kernel.  Operands in
+    the kernel's (B, H, L, hd) layout; saves them, the output and its
+    log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal, window, softcap):
+        out, lse = _flash_kernel(q, k, v, kv_valid, causal=causal,
+                                 window=window, softcap=softcap,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_valid)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_valid = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_kernel(q, k, v, out, lse, do, kv_valid,
+                                       **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     local_window: int = 0) -> torch.Tensor:
@@ -811,11 +852,20 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     per-sequence live key count (decode mode).  The kernel reads the
     layer layout through its strides and takes the true head_dim, so
     the reference's 128-lane pad and ``scale_fix`` have no counterpart.
-    Returns (B, Lq, Hq, hd) in q's dtype."""
-    out = _flash_kernel(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), kv_valid, causal=causal,
-                        window=window, softcap=softcap,
-                        local_window=local_window)
+    Where autograd records, the prefill shapes go through
+    ``_FlashAttention`` (the decode shape raises).  Returns (B, Lq, Hq,
+    hd) in q's dtype."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _records(q, k, v):
+        if q.shape[1] == 1 or local_window:
+            raise ValueError("flash_attention: the decode shape takes no "
+                             "gradient")
+        out = _FlashAttention.apply(qt, kt, vt, kv_valid, causal, window,
+                                    softcap)
+    else:
+        out = _flash_kernel(qt, kt, vt, kv_valid, causal=causal,
+                            window=window, softcap=softcap,
+                            local_window=local_window)
     return out.transpose(1, 2)
 
 
@@ -844,6 +894,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
     live = torch.clamp(pos + 1, max=k_cache.shape[1])
     kv_valid = live.to(torch.int32).contiguous()
     if k_scale is not None:
+        if _records(q):
+            raise ValueError("flash_decode: the int8 decode takes no "
+                             "gradient")
         out = _flash_q8_kernel(q.transpose(1, 2), k_cache.transpose(1, 2),
                                v_cache.transpose(1, 2),
                                k_scale.transpose(1, 2),
@@ -858,9 +911,35 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
 # SSD scan
 # ----------------------------------------------------------------------
 
+class _SsdScan(torch.autograd.Function):
+    """The scan without h0, with its backward kernel (the final state's
+    gradient passed on where the caller used it)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        y, hf = _ssd_kernel(x, dt, A, B, C, None, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:      # y unused: f32 zeros (f64 in a gradient check)
+            dy = torch.zeros_like(
+                x, dtype=torch.promote_types(x.dtype, torch.float32))
+        return _ssd_bwd_kernel(x, dt, A, B, C, dy, dh) + (None,)
+
+
 def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 128):
     """Chunked SSD scan (``kernels/ssd_scan.py``): (y (Bb, L, H, P) f32,
-    h_final (Bb, H, P, N) f32)."""
+    h_final (Bb, H, P, N) f32).  Where autograd records, through
+    ``_SsdScan`` (an ``h0`` then raises: training starts from a zero
+    state)."""
+    if _records(x, dt, A, B, C, h0):
+        if h0 is not None:
+            raise ValueError("ssd_scan: the backward takes h0 = None")
+        return _SsdScan.apply(x, dt, A, B, C, chunk)
     return _ssd_kernel(x, dt, A, B, C, h0, chunk=chunk)
 
 
@@ -868,11 +947,31 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 128):
 # MoE gating
 # ----------------------------------------------------------------------
 
+class _MoeGating(torch.autograd.Function):
+    """The gate with its backward kernel: the forward keeps the
+    assignment counts it reduces for aux."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        vals, idx, aux, asum = _gate_kernel(logits, k, return_asum=True)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(logits, idx, asum)
+        return vals, idx, aux
+
+    @staticmethod
+    def backward(ctx, dvals, _didx, daux):
+        logits, idx, asum = ctx.saved_tensors
+        return _gate_bwd_kernel(logits, idx, dvals, daux, asum), None
+
+
 def moe_gating(logits, k: int):
     """Fused softmax top-k gate (``kernels/moe_gating.py``).  logits
     (..., E), flattened to (T, E).  Returns (vals (..., k) f32, idx
-    (..., k) int32, aux f32 scalar tensor)."""
+    (..., k) int32, aux f32 scalar tensor).  Where autograd records,
+    through ``_MoeGating``."""
     shape = logits.shape
-    vals, idx, aux = _gate_kernel(logits.reshape(-1, shape[-1]), k)
+    flat = logits.reshape(-1, shape[-1])
+    vals, idx, aux = (_MoeGating.apply(flat, k) if _records(logits)
+                      else _gate_kernel(flat, k))
     return (vals.reshape(shape[:-1] + (k,)),
             idx.reshape(shape[:-1] + (k,)), aux)

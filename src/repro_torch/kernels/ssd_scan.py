@@ -22,6 +22,12 @@ given CUDA tensors launches the kernel (C B^T per chunk, every chunk's
 state with the state passing, every chunk's outputs; a split of f32
 operands into bf16 planes first) or raises; CPU tensors take the plain
 version.
+
+The backward (``ssd_scan_bwd``, plain version ``ssd_scan_bwd_plain``)
+takes a scan without ``h0`` (training starts from a zero state) and
+the gradients of y and of the final state, and gives dx, ddt, dA, dB
+and dC, evaluated in chunks of ``BWD_CHUNK`` (any chunking computes the
+same function).
 """
 from __future__ import annotations
 
@@ -34,9 +40,14 @@ from repro_torch.kernels import build
 SMEM_LIMIT = 231_424                    # csrc/ssd_scan.cu SMEM_OPTIN
 
 TILE_P, TILE_N = 64, 128                # csrc/ssd_scan.cu PT, NT tiles
+BWD_CHUNK = 64                          # csrc/ssd_scan_bwd.cuh Q
+BWD_TILE = 256 * 32                     # csrc/ssd_scan_bwd.cuh TILE
+BWD_SMEM_MAX = 232_448
 _SIG = {"ssd_scan_launch": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p],
-        "ssd_scan_smem": [ctypes.c_int] * 2}
+        "ssd_scan_smem": [ctypes.c_int] * 2,
+        "ssd_scan_bwd_launch": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+        + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,12 +60,11 @@ def ssd_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int = 256):
       y_intra  = sum_{j <= i} (C_i . B_j) exp(la_i - la_j) dt_j x_j
       h        = exp(la_last) h + sum_j exp(la_last - la_j) dt_j x_j B_j^T
     """
-    x, dt, B, C = (t.float() for t in (x, dt, B, C))
-    A = A.float()
+    x, dt, B, C, A = (_acc(t) for t in (x, dt, B, C, A))
     Bb, L, H, P = x.shape
     N = B.shape[-1]
-    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float()
+    h = torch.zeros((Bb, H, P, N), dtype=x.dtype, device=x.device) \
+        if h0 is None else _acc(h0)
     ys = []
     for c0 in range(0, L, chunk):
         xc, dtc = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
@@ -77,6 +87,94 @@ def ssd_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int = 256):
         ys.append(y)
     y = torch.cat(ys, dim=1) if ys else x.new_zeros((Bb, 0, H, P))
     return y, h
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' working type: f32, or f64 for f64 operands
+    (the gradient checks)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dh=None, *,
+                       chunk: int = BWD_CHUNK):
+    """The backward of a scan without h0 in plain PyTorch, the kernel's
+    chunked arithmetic (``csrc/ssd_scan_bwd.cuh``): the state entering
+    each chunk (a forward pass), the gradient of the state leaving it
+    (a reverse pass from ``dh``, the final state's gradient, or zero),
+    then each chunk's products.  Returns (dx, ddt, dA, dB, dC) in the
+    types of x, dt, A, B and C."""
+    xf, dtf, Bf, Cf, Af, dyf = (_acc(t) for t in (x, dt, B, C, A, dy))
+    Bb, L, H, P = x.shape
+    N = B.shape[-1]
+    dev, f = x.device, xf.dtype
+    starts = list(range(0, L, chunk))
+
+    def piece(c0):
+        sl = slice(c0, c0 + chunk)
+        la = torch.cumsum(dtf[:, sl] * Af, dim=1)               # (Bb, c, H)
+        return sl, la, la[:, -1]
+    # the state entering each chunk, and the final state
+    h = torch.zeros((Bb, H, P, N), dtype=f, device=dev)
+    hin = []
+    for c0 in starts:
+        sl, la, lq = piece(c0)
+        hin.append(h)
+        w = torch.exp(lq[:, None] - la) * dtf[:, sl]
+        h = h * torch.exp(lq)[:, :, None, None] + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", w, xf[:, sl], Bf[:, sl])
+    hin.append(h)
+    # the gradient of the state leaving each chunk, last chunk first
+    g = torch.zeros_like(h) if dh is None else _acc(dh)
+    dho = [None] * len(starts)
+    dlaq = [None] * len(starts)
+    for i in reversed(range(len(starts))):
+        sl, la, lq = piece(starts[i])
+        dho[i] = g
+        dlaq[i] = (g * hin[i + 1]).sum(dim=(2, 3))              # (Bb, H)
+        g = g * torch.exp(lq)[:, :, None, None] + torch.einsum(
+            "bih,bihp,bin->bhpn", torch.exp(la), dyf[:, sl], Cf[:, sl])
+    dx, ddt, dB, dC = [], [], [], []
+    dA = torch.zeros((H,), dtype=f, device=dev)
+    for i, c0 in enumerate(starts):
+        sl, la, lq = piece(c0)
+        xc, dyc, bc, cc, dtc = xf[:, sl], dyf[:, sl], Bf[:, sl], Cf[:, sl], \
+            dtf[:, sl]
+        n = xc.shape[1]
+        causal = torch.ones((n, n), dtype=torch.bool,
+                            device=dev).tril()[None, :, :, None]
+        seg = la[:, :, None, :] - la[:, None, :, :]             # (Bb, i, j, H)
+        dec = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                          0.0)
+        s1 = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * dec
+        gg = torch.einsum("bihp,bjhp->bijh", dyc, xc)
+        w = dec * dtc[:, None] * gg                             # W
+        s3 = s1 * gg
+        col = s3.sum(dim=1)                                     # (Bb, j, H)
+        dla = (s3 * dtc[:, None]).sum(dim=2) - dtc * col
+        dxc = dtc[..., None] * torch.einsum("bijh,bihp->bjhp", s1, dyc)
+        dbc = torch.einsum("bijh,bin->bjhn", w, cc)
+        dcc = torch.einsum("bijh,bjn->bihn", w, bc)
+        hi, do = hin[i], dho[i]
+        ea, eq = torch.exp(la), torch.exp(lq[:, None] - la)     # (Bb, c, H)
+        dcc = dcc + ea[..., None] * torch.einsum("bihp,bhpn->bihn", dyc, hi)
+        dla = dla + ea * torch.einsum("bihp,bin,bhpn->bih", dyc, cc, hi)
+        db_ = torch.einsum("bjn,bhpn->bjhp", bc, do)            # dh_out B_j
+        v = eq * (xc * db_).sum(-1)
+        col = col + v
+        dla = dla - dtc * v
+        dxc = dxc + (eq * dtc)[..., None] * db_
+        dbc = dbc + (eq * dtc)[..., None] * torch.einsum(
+            "bjhp,bhpn->bjhn", xc, do)
+        dla[:, -1] = dla[:, -1] + dlaq[i]
+        R = torch.flip(torch.cumsum(torch.flip(dla, [1]), 1), [1])
+        ddt.append(col + Af * R)
+        dA = dA + (dtc * R).sum(dim=(0, 1))
+        dx.append(dxc)
+        dB.append(dbc.sum(dim=2))
+        dC.append(dcc.sum(dim=2))
+    return (torch.cat(dx, 1).to(x.dtype), torch.cat(ddt, 1).to(dt.dtype),
+            dA.to(A.dtype), torch.cat(dB, 1).to(B.dtype),
+            torch.cat(dC, 1).to(C.dtype))
 
 
 def _check(x, dt, A, B, C, h0, chunk):
@@ -174,3 +272,70 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 256):
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, dh=None):
+    """Gradients (dx, ddt, dA, dB, dC) of a scan without h0, given the
+    gradients of y (Bb, L, H, P) and of the final state (Bb, H, P, N) or
+    None (zero), in the types of x, dt, A, B and C.  CPU tensors take
+    ``ssd_scan_bwd_plain``; CUDA tensors launch the four backward
+    kernels or raise."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, B, C, dy, dh)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: tensors must be on cuda or cpu, "
+                         f"not {x.device}")
+    Bb, L, H, P = x.shape
+    N = B.shape[-1]
+    if L == 0:
+        raise ValueError("ssd_scan_bwd kernel: L must be >= 1")
+    _check(x, dt, A, B, C, None, 1)
+    dev, f32 = x.device, torch.float32
+    dy = dy.to(f32).contiguous()
+    if dy.shape != x.shape or dy.device != dev:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} must match x")
+    if dh is not None:
+        dh = dh.to(f32).contiguous()
+        if dh.shape != (Bb, H, P, N) or dh.device != dev:
+            raise ValueError(f"ssd_scan_bwd: dh {tuple(dh.shape)} must be "
+                             f"{(Bb, H, P, N)}")
+    smem = 4 * (4 * BWD_CHUNK * (P + 1) + 2 * BWD_CHUNK * (N + 1)
+                + P * (N + 1) + 3 * BWD_CHUNK * (BWD_CHUNK + 1)
+                + 4 * BWD_CHUNK)
+    if smem > BWD_SMEM_MAX:
+        raise ValueError(f"ssd_scan_bwd kernel: P={P}, N={N} need {smem} "
+                         f"bytes of shared memory per block, above "
+                         f"{BWD_SMEM_MAX}")
+    lib = build.load("ssd_scan", _SIG)
+    nb, nz = -(-L // BWD_CHUNK), -(-(P * N) // BWD_TILE)
+    dx = torch.empty((Bb, L, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bb, L, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((Bb, L, N), dtype=B.dtype, device=dev)
+    dC = torch.empty((Bb, L, N), dtype=C.dtype, device=dev)
+    # scratch: the states entering each chunk (and the final one), the
+    # gradients of the states leaving them, la_last's gradient per state
+    # tile, each head's share of dB and dC, dA per (batch, chunk, head)
+    hs = torch.empty((Bb, nb + 1, H, P, N), dtype=f32, device=dev)
+    dhs = torch.empty((Bb, nb, H, P, N), dtype=f32, device=dev)
+    dlaq = torch.empty((Bb, H, nb, nz), dtype=f32, device=dev)
+    dbp = torch.empty((Bb, L, H, N), dtype=f32, device=dev)
+    dcp = torch.empty((Bb, L, H, N), dtype=f32, device=dev)
+    dap = torch.empty((Bb, nb, H), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dh is None else dh.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            hs.data_ptr(), dhs.data_ptr(), dlaq.data_ptr(), dbp.data_ptr(),
+            dcp.data_ptr(), dap.data_ptr(), _DTYPE[x.dtype], Bb, L, H, P, N,
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream)
+    build.check(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0

@@ -11,13 +11,17 @@ as there:
 
   * ``forward_full`` -- full-sequence logits;
   * ``prefill``      -- the forward plus the decode cache;
-  * ``decode_step``  -- one token against the cache.
+  * ``decode_step``  -- one token against the cache;
+  * ``lm_loss`` / ``loss_fn`` -- the training loss (``training/steps``
+    differentiates it; with ``cfg.remat`` each layer's activations are
+    recomputed in the backward, as the reference's ``jax.checkpoint``).
 
 Parameters are nested dicts.  The reference stacks the per-layer
 parameters along a leading ``n_layers`` axis and scans over it; here
 ``params["layers"]`` (and an encoder's ``params["enc_layers"]``) is a
 list of per-layer dicts and the scan is a Python loop.
-``params_from_jax`` carries a JAX parameter tree across.
+``params_from_jax`` carries a JAX parameter tree across and
+``params_to_numpy`` back.
 The cache keeps the reference's stacked layout ((n_layers, B, C, Hkv,
 hd) for K/V, and the encoder-decoder's cross K/V (n_layers, B, S, Hkv,
 hd), filled once by the prefill) and ``decode_step`` updates it in
@@ -35,6 +39,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -127,6 +132,30 @@ def params_from_jax(tree, device="cpu") -> Params:
             out[k] = [nest(v, i) for i in range(n)]
         else:
             out[k] = nest(v)
+    return out
+
+
+def params_to_numpy(params: Params, cfg: ModelConfig = None) -> Dict:
+    """The inverse of ``params_from_jax``: the reference's tree, numpy
+    leaves (bf16 as f32: numpy has no bf16), the per-layer lists
+    stacked along a leading axis under ``"layers"`` / ``"enc_layers"``.
+    ``cfg`` is accepted for the reference's signature and unused."""
+    def host(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([lay[k] for lay in layers]) for k in first}
+        return np.stack([host(t) for t in layers])
+
+    out = {}
+    for k, v in params.items():
+        if k in STACKED:
+            out[k] = stack(v)
+        else:
+            out[k] = tree_map(host, v)
     return out
 
 
@@ -273,8 +302,8 @@ def _hidden(params, cfg: ModelConfig, batch, store=None,
     x, positions = _embed_inputs(params, cfg, batch)
     enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec \
         else None
-    aux = 0.0
-    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+
+    def layer(x, p, kind):
         mix, kv, ssd = _mix_full(p, cfg, x, positions, kind)
         x = x + mix
         cross_kv = None
@@ -284,9 +313,22 @@ def _hidden(params, cfg: ModelConfig, batch, store=None,
                 causal=False, kv_x=enc_out)
             x = x + cross
         x, aux_i = _ffn(p, cfg, x)
+        return x, aux_i, kv, cross_kv, ssd
+
+    # the reference's jax.checkpoint(body): a differentiated forward
+    # keeps each layer's input only and recomputes the layer in the
+    # backward
+    remat = cfg.remat and store is None and x.requires_grad
+    aux = 0.0
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+        if remat:
+            x, aux_i = checkpoint(lambda x, p, kind: layer(x, p, kind)[:2],
+                                  x, p, kind, use_reentrant=False)
+        else:
+            x, aux_i, kv, cross_kv, ssd = layer(x, p, kind)
+            if store is not None:
+                store(i, kv, cross_kv, ssd)
         aux = aux + aux_i
-        if store is not None:
-            store(i, kv, cross_kv, ssd)
     return params, x, aux
 
 
@@ -430,3 +472,34 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
     last = _logits(params, cfg, x[:, -1])
     new_pos = torch.full((B,), ctx, dtype=torch.int64, device=x.device)
     return last, cache, new_pos
+
+
+# ======================================================================
+# losses
+# ======================================================================
+
+def lm_loss(logits, labels):
+    """Cross-entropy with -1 = ignore, the reference's: logits (B, L, V)
+    f32, labels (B, L).  The gold logit is picked with ``gather`` (the
+    reference contracts a one-hot for GSPMD's vocab sharding, which one
+    card does not have)."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """(loss + 0.01 aux, (loss, aux)), the reference's: labels padded
+    with -1 in front of a frontend prefix."""
+    logits, aux, _ = forward_full(params, cfg, batch)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:      # frontend tokens first
+        pad = logits.shape[1] - labels.shape[1]
+        labels = torch.cat([torch.full((labels.shape[0], pad), -1,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    loss = lm_loss(logits, labels)
+    return loss + 0.01 * aux, (loss, aux)

@@ -5,8 +5,9 @@ the one axis the catalog (N) dimension shards over, and the column
 block each shard owns.  Every (.., N) operand of the sharded
 ``route_step`` splits its catalog axis into equal contiguous blocks, one
 per shard; per-query operands, the ladder counts and the scalar params
-are replicated.  (The model-sharding rules of the reference belong with
-LLM training.)
+are replicated.  (The model-sharding rules of the reference come with
+several cards, ROADMAP.md Queue 1 item 7: one card trains a whole model
+unsharded.)
 """
 from __future__ import annotations
 

@@ -12,8 +12,12 @@ route step bit-equal to the dense one on the card, ties included, and
 the IVF route step against its CPU run, probed cells equal; the
 frontend models' attention shapes: the non-causal encoder, the
 cross-attention with 12-17 keys, G = 1, the cross decode with every key
-live), and generation on the card against the same seeded model on the
-CPU, the two frontend models at full width and 2 layers included.  They
+live), generation on the card against the same seeded model on the
+CPU, the two frontend models at full width and 2 layers included, and
+training: the three backward kernels against their plain versions
+(each gradient within 1e-4 of its max |g| in f32, 2e-2 in bf16; the
+gate's 1e-5) and a train step's loss and gradients against the CPU's.
+They
 import neither JAX nor the JAX package, so they run on a machine with a
 card and no JAX:
 
@@ -1043,3 +1047,107 @@ def test_generate_int8_kv_on_card_matches_cpu(cuda, name, L):
             if top2[1] - top2[0] < 1e-3:
                 break
             assert got.tokens[b, s] == want.tokens[b, s], (b, s)
+
+
+# ----------------------------------------------------------------------
+# training: the backward kernels and the train step
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4),
+                                    (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Hq,Hkv,L,Lk,hd,causal,window,cap", [
+    (2, 4, 2, 200, 200, 64, True, 0, 0.0),
+    (1, 4, 1, 130, 130, 120, True, 50, 0.0),
+    (1, 2, 1, 100, 100, 288, True, 64, 50.0),
+    (1, 4, 2, 150, 150, 128, True, 0, 0.0),
+    (2, 4, 4, 300, 16, 64, False, 0, 0.0),
+    (1, 2, 2, 70, 70, 32, True, 0, 0.0)])
+def test_flash_attention_bwd_matches_plain(cuda, dt, tol, B, Hq, Hkv, L, Lk,
+                                           hd, causal, window, cap):
+    """The backward kernel against the plain backward (each gradient
+    within ``tol`` of its max |g|), the forward's o (``tol`` * (1 +
+    |want|)) and lse (1e-5 relative) against the plain ones, the same
+    bits on two launches."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(dt)
+    q, do = (rn(B, L, Hq, hd).transpose(1, 2) for _ in range(2))
+    k, v = (rn(B, Lk, Hkv, hd).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    o2, lse2 = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert torch.allclose(lse, lse2, rtol=1e-5, atol=1e-5)
+    assert bool(((o.float() - o2.float()).abs()
+                 <= tol * (1 + o2.float().abs())).all())
+    got = FA.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o2, lse2, do, **kw)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(
+            b.float().abs().max())
+    again = FA.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("Bb,L,H,P,N,dt,tol", [
+    (2, 130, 4, 64, 128, torch.float32, 1e-4),
+    (2, 300, 5, 64, 16, torch.bfloat16, 2e-2),
+    (1, 64, 2, 32, 8, torch.float32, 1e-4)])
+def test_ssd_scan_bwd_matches_plain(cuda, Bb, L, H, P, N, dt, tol):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xbc = torch.randn(Bb, L, H * P + 2 * N, generator=g, device=cuda).to(dt)
+    args = (xbc[..., :H * P].unflatten(-1, (H, P)),
+            torch.rand(Bb, L, H, generator=g, device=cuda) * 0.2,
+            -torch.linspace(1.0, 16.0, H, device=cuda),
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:],
+            torch.randn(Bb, L, H, P, generator=g, device=cuda))
+    got, want = SS.ssd_scan_bwd(*args), SS.ssd_scan_bwd_plain(*args)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(
+            b.float().abs().max())
+
+
+@pytest.mark.parametrize("T,E,k", [(100, 16, 2), (4096, 128, 8),
+                                   (33, 1024, 4)])
+def test_moe_gating_bwd_matches_plain(cuda, T, E, k):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lg = torch.randn(T, E, generator=g, device=cuda)
+    vals, idx, aux, asum = MG.moe_gating(lg, k, return_asum=True)
+    assert torch.equal(asum, MG.moe_gating_plain(lg, k, True)[3])
+    dv = torch.randn(T, k, generator=g, device=cuda)
+    da = torch.tensor(0.5, device=cuda)
+    got = MG.moe_gating_bwd(lg, idx, dv, da, asum)
+    want = MG.moe_gating_bwd_plain(lg, idx, dv, da, asum)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",
+                                  "hymba-1.5b", "gemma2-2b"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One ``loss_and_grads`` at ``SMOKE`` (f32, L=80: past the windows of
+    64): loss within 1e-5 relative, every gradient leaf within 1e-3 of
+    its max |g|, each backward kernel launched once a layer.  (The MoE
+    configs' gates may choose apart at a near-tie: ``chip_smoke.py``'s
+    ``train_card_vs_cpu`` holds them with the card's choices replayed.)"""
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = get_smoke(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 81))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    want = loss_and_grads(params, cfg, batch)
+    before = {f: f.launches for f in (FA.flash_attention_bwd,
+                                      SS.ssd_scan_bwd, MG.moe_gating_bwd)}
+    got = loss_and_grads(M.tree_map(lambda t: t.to(cuda), params), cfg,
+                         {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(float(got[1]) - float(want[1])) <= 1e-5 * float(want[1])
+    for a, b in zip(leaves(got[3]), leaves(want[3])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * max(
+            float(b.abs().max()), 1e-30)
+    ran = {f.__name__: f.launches - n for f, n in before.items()}
+    assert ran["flash_attention_bwd"] == (cfg.n_layers if cfg.has_attention
+                                          else 0)
+    assert ran["ssd_scan_bwd"] == (cfg.n_layers if cfg.has_ssm else 0)
+    assert ran["moe_gating_bwd"] == (cfg.n_layers if cfg.is_moe else 0)

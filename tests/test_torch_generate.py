@@ -46,7 +46,6 @@ from repro_torch.serving import runner as TRUN
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TServingEngine
 from repro_torch.serving.load import LoadTracker as TLoad
-from repro_torch.training import steps as TS
 
 SERVED = ["llama3.2-1b", "mamba2-1.3b", "qwen3-moe-30b-a3b",
           "llama4-maverick-400b-a17b"]
@@ -138,12 +137,14 @@ def test_catalog_of_all_ten_matches_reference(monkeypatch):
 
 
 def test_runner_parts_outside_the_slice_raise():
-    """The training step of the served models still raises; the
-    encoder-decoder, which raised before, generates (its tokens against
-    the reference's runner: ``tests/test_torch_frontends.py``)."""
+    """The reference's ``long_mode`` forward still raises (ROADMAP item
+    12); the encoder-decoder, which raised before, generates (its tokens
+    against the reference's runner: ``tests/test_torch_frontends.py``)."""
     tr = TRUN.ModelRunner(get_smoke("llama3.2-1b"), device="cpu", seed=0)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        TS.make_train_step(tr.cfg)
+        TM.forward_full(tr.params, tr.cfg,
+                        {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                        long_mode=True)
     sr = TRUN.ModelRunner(get_smoke("seamless-m4t-medium"), device="cpu",
                           seed=0)
     res = sr.generate(np.arange(12, dtype=np.int32).reshape(2, 6), 3)
