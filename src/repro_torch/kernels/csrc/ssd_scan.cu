@@ -1017,38 +1017,110 @@ extern "C" int ssd_scan_launch(
 #undef SSD_SCAN
 }
 
+// Shared memory, bytes, of the backward's larger block at head groups of
+// hg (the wrapper checks it against the card's limit before it
+// launches); -1 where N is wider than the backward's tiles (352).
+extern "C" long long ssd_scan_bwd_smem(int lo, int N, int hg) {
+  return ssd_bwd::smem(lo != 0, N, hg);
+}
+
+// bf16 terms of each split f32 operand and state of the backward: 3 for
+// f32 operands up to N = 128, else 2 (the scratch holds 2 x that many
+// planes of the states).
+extern "C" int ssd_scan_bwd_levels(int lo, int N) {
+  return ssd_bwd::levels(lo != 0, N);
+}
+
+namespace {
+
+template <typename T>
+int scan_bwd(const void* x, const float* dt, const float* A, const void* Bm,
+             const void* Cm, const float* dy, const float* dhf, void* dx,
+             float* ddt, float* dA, void* dB, void* dC, float* LA,
+             float* SR, void* hs, float* dlaq, float* dbp, float* dcp,
+             float* dap, int Bb, int L, int H, int P, int N, int hg,
+             long long xsb, long long xsl, long long dsb, long long dsl,
+             long long bsb, long long bsl, long long csb, long long csl,
+             cudaStream_t s) {
+  constexpr int E = 16 / sizeof(T);           // elements of 16 bytes
+  auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  ssd_bwd::Args<T> a;
+  a.x = static_cast<const T*>(x);
+  a.B = static_cast<const T*>(Bm);
+  a.C = static_cast<const T*>(Cm);
+  a.dt = dt;
+  a.A = A;
+  a.dy = dy;
+  a.dh = dhf;
+  a.L = L;
+  a.H = H;
+  a.P = P;
+  a.N = N;
+  a.N8 = up(N, 8);
+  a.nb = (L + ssd_bwd::Q - 1) / ssd_bwd::Q;
+  a.hg = hg;
+  a.ngrp = (H + hg - 1) / hg;
+  const long long PN8 = (long long)P * a.N8;
+  a.nz = (int)((PN8 + ssd_bwd::PASS_TILE - 1) / ssd_bwd::PASS_TILE);
+  a.plane = (long long)Bb * a.nb * H * PN8;
+  a.LA = LA;
+  a.S = SR;
+  a.R = SR + a.plane;
+  a.hs = static_cast<bf16*>(hs);
+  a.dlaq = dlaq;
+  a.dx = static_cast<T*>(dx);
+  a.ddt = ddt;
+  a.dbp = dbp;
+  a.dcp = dcp;
+  a.dap = dap;
+  a.xsb = xsb;
+  a.xsl = xsl;
+  a.dsb = dsb;
+  a.dsl = dsl;
+  a.bsb = bsb;
+  a.bsl = bsl;
+  a.csb = csb;
+  a.csl = csl;
+  a.vx = al(x) && xsb % E == 0 && xsl % E == 0 && P % E == 0;
+  a.vb = al(Bm) && bsb % E == 0 && bsl % E == 0;
+  a.vc = al(Cm) && csb % E == 0 && csl % E == 0;
+  a.vy = al(dy) && P % 4 == 0;
+  return ssd_bwd::launch<T>(a, Bb, static_cast<T*>(dB), static_cast<T*>(dC),
+                            dA, s);
+}
+
+}  // namespace
+
 // The backward (ssd_scan_bwd.cuh), for a scan without h0: x, B, C as the
 // forward's (dtype 0 = float32, 1 = bfloat16, the same strides), dt and
 // A f32; dy (Bb, L, H, P) f32 contiguous; dhf (Bb, H, P, N) f32 or null
 // (no gradient on the final state).  Writes dx (Bb, L, H, P) and dB / dC
 // (Bb, L, N) contiguous in `dtype`, ddt (Bb, L, H) and dA (H,) f32.
-// Scratch, f32: hs Bb (nb + 1) H P N, dhs Bb nb H P N, dlaq Bb H nb nz,
-// dbp and dcp Bb L H N, dap Bb nb H, with nb = ceil(L / 64) and nz =
-// ceil(P N / 8192).  Returns cudaGetLastError().
+// Heads go in groups of hg (1..8).  With nb = ceil(L / 64), N8 = N
+// rounded up to 8, G = ceil(H / hg), nz = ceil(P N8 / 1024) and LV =
+// ssd_scan_bwd_levels(dtype == 0, N), the scratch (from the caller): LA
+// f32 (Bb, H, L); SR f32 2 x (Bb, nb, H, P, N8); hs bf16 2 LV x (Bb, nb,
+// H, P, N8); dlaq f32 (Bb, H, nb, nz); dbp and dcp f32 (Bb, L, G, N);
+// dap f32 (Bb, nb, H).  Returns cudaGetLastError().
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* dy, const float* dhf, void* dx, float* ddt,
-    float* dA, void* dB, void* dC, float* hs, float* dhs, float* dlaq,
-    float* dbp, float* dcp, float* dap, int dtype, int Bb, int L, int H,
-    int P, int N, long long xsb, long long xsl, long long dsb, long long dsl,
-    long long bsb, long long bsl, long long csb, long long csl,
-    void* stream) {
+    float* dA, void* dB, void* dC, float* LA, float* SR, void* hs,
+    float* dlaq, float* dbp, float* dcp, float* dap, int dtype, int Bb,
+    int L, int H, int P, int N, int hg, long long xsb, long long xsl,
+    long long dsb, long long dsl, long long bsb, long long bsl,
+    long long csb, long long csl, void* stream) {
   if (Bb <= 0 || H <= 0) return cudaSuccess;
-  if (P <= 0 || N <= 0 || L <= 0) return cudaErrorInvalidValue;
+  if (P <= 0 || N <= 0 || L <= 0 || hg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return ssd_bwd::launch<float>(
-        static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-        static_cast<const float*>(Cm), dy, dhf, static_cast<float*>(dx), ddt,
-        dA, static_cast<float*>(dB), static_cast<float*>(dC), hs, dhs, dlaq,
-        dbp, dcp, dap, Bb, L, H, P, N, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl,
-        s);
-  if (dtype == 1)
-    return ssd_bwd::launch<bf16>(
-        static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
-        static_cast<const bf16*>(Cm), dy, dhf, static_cast<bf16*>(dx), ddt,
-        dA, static_cast<bf16*>(dB), static_cast<bf16*>(dC), hs, dhs, dlaq,
-        dbp, dcp, dap, Bb, L, H, P, N, xsb, xsl, dsb, dsl, bsb, bsl, csb, csl,
-        s);
+#define SSD_BWD(T_)                                                         \
+  return scan_bwd<T_>(x, dt, A, Bm, Cm, dy, dhf, dx, ddt, dA, dB, dC, LA,  \
+                      SR, hs, dlaq, dbp, dcp, dap, Bb, L, H, P, N, hg, xsb, \
+                      xsl, dsb, dsl, bsb, bsl, csb, csl, s);
+  if (dtype == 0) SSD_BWD(float)
+  if (dtype == 1) SSD_BWD(bf16)
+#undef SSD_BWD
   return cudaErrorInvalidValue;
 }

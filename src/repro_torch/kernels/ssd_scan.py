@@ -41,12 +41,14 @@ SMEM_LIMIT = 231_424                    # csrc/ssd_scan.cu SMEM_OPTIN
 
 TILE_P, TILE_N = 64, 128                # csrc/ssd_scan.cu PT, NT tiles
 BWD_CHUNK = 64                          # csrc/ssd_scan_bwd.cuh Q
-BWD_TILE = 256 * 32                     # csrc/ssd_scan_bwd.cuh TILE
-BWD_SMEM_MAX = 232_448
+BWD_TILE = 4 * 256                      # csrc/ssd_scan_bwd.cuh PASS_TILE
+BWD_HEADS = 8                           # csrc/ssd_scan_bwd.cuh HG
 _SIG = {"ssd_scan_launch": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p],
         "ssd_scan_smem": [ctypes.c_int] * 2,
-        "ssd_scan_bwd_launch": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+        "ssd_scan_bwd_smem": [ctypes.c_int] * 3,
+        "ssd_scan_bwd_levels": [ctypes.c_int] * 2,
+        "ssd_scan_bwd_launch": [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -285,6 +287,17 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh=None):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: tensors must be on cuda or cpu, "
                          f"not {x.device}")
+    lib = build.load("ssd_scan", _SIG)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        out = _bwd_launch(lib, stream, x, dt, A, B, C, dy, dh)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+def _bwd_launch(lib, stream, x, dt, A, B, C, dy, dh):
+    """Check the operands, allocate the outputs and the scratch, and
+    call ``ssd_scan_bwd_launch`` of ``lib`` on ``stream``."""
     Bb, L, H, P = x.shape
     N = B.shape[-1]
     if L == 0:
@@ -299,42 +312,49 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh=None):
         if dh.shape != (Bb, H, P, N) or dh.device != dev:
             raise ValueError(f"ssd_scan_bwd: dh {tuple(dh.shape)} must be "
                              f"{(Bb, H, P, N)}")
-    smem = 4 * (4 * BWD_CHUNK * (P + 1) + 2 * BWD_CHUNK * (N + 1)
-                + P * (N + 1) + 3 * BWD_CHUNK * (BWD_CHUNK + 1)
-                + 4 * BWD_CHUNK)
-    if smem > BWD_SMEM_MAX:
-        raise ValueError(f"ssd_scan_bwd kernel: P={P}, N={N} need {smem} "
-                         f"bytes of shared memory per block, above "
-                         f"{BWD_SMEM_MAX}")
-    lib = build.load("ssd_scan", _SIG)
-    nb, nz = -(-L // BWD_CHUNK), -(-(P * N) // BWD_TILE)
+    # heads a block: up to BWD_HEADS, fewer where their vectors would
+    # not fit beside the widest tiles
+    lib.ssd_scan_bwd_smem.restype = ctypes.c_longlong
+    hg = min(BWD_HEADS, H)
+    smem = lib.ssd_scan_bwd_smem(int(x.dtype == f32), N, hg)
+    while hg > 1 and smem > SMEM_LIMIT:
+        hg -= 1
+        smem = lib.ssd_scan_bwd_smem(int(x.dtype == f32), N, hg)
+    if smem < 0 or smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan_bwd kernel: N={N} needs "
+                         f"{'more than' if smem < 0 else smem} bytes of "
+                         f"shared memory per block, above {SMEM_LIMIT}")
+    nb, N8, ngrp = -(-L // BWD_CHUNK), -(-N // 8) * 8, -(-H // hg)
+    nz = -(-(P * N8) // BWD_TILE)
     dx = torch.empty((Bb, L, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((Bb, L, H), dtype=f32, device=dev)
     dA = torch.empty((H,), dtype=f32, device=dev)
     dB = torch.empty((Bb, L, N), dtype=B.dtype, device=dev)
     dC = torch.empty((Bb, L, N), dtype=C.dtype, device=dev)
-    # scratch: the states entering each chunk (and the final one), the
-    # gradients of the states leaving them, la_last's gradient per state
-    # tile, each head's share of dB and dC, dA per (batch, chunk, head)
-    hs = torch.empty((Bb, nb + 1, H, P, N), dtype=f32, device=dev)
-    dhs = torch.empty((Bb, nb, H, P, N), dtype=f32, device=dev)
+    # scratch: la per (batch, head); each chunk's own contributions to
+    # the state and to its gradient (f32); the state entering each chunk
+    # and the gradient of the state leaving it (2 or 3 bf16 planes each,
+    # the terms of a split f32 value); <dh_out, h_in> per 1,024 state
+    # elements; the head groups' dB and dC; dA per (batch, chunk, head)
+    la = torch.empty((Bb, H, L), dtype=f32, device=dev)
+    sr = torch.empty((2, Bb, nb, H, P, N8), dtype=f32, device=dev)
+    levels = lib.ssd_scan_bwd_levels(int(x.dtype == f32), N)
+    hs = torch.empty((2 * levels, Bb, nb, H, P, N8), dtype=torch.bfloat16,
+                     device=dev)
     dlaq = torch.empty((Bb, H, nb, nz), dtype=f32, device=dev)
-    dbp = torch.empty((Bb, L, H, N), dtype=f32, device=dev)
-    dcp = torch.empty((Bb, L, H, N), dtype=f32, device=dev)
+    dbp = torch.empty((Bb, L, ngrp, N), dtype=f32, device=dev)
+    dcp = torch.empty((Bb, L, ngrp, N), dtype=f32, device=dev)
     dap = torch.empty((Bb, nb, H), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(),
-            None if dh is None else dh.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            hs.data_ptr(), dhs.data_ptr(), dlaq.data_ptr(), dbp.data_ptr(),
-            dcp.data_ptr(), dap.data_ptr(), _DTYPE[x.dtype], Bb, L, H, P, N,
-            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-            B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream)
+    err = lib.ssd_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), la.data_ptr(), sr.data_ptr(), hs.data_ptr(),
+        dlaq.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(),
+        _DTYPE[x.dtype], Bb, L, H, P, N, hg, x.stride(0), x.stride(1),
+        dt.stride(0), dt.stride(1), B.stride(0), B.stride(1), C.stride(0),
+        C.stride(1), stream)
     build.check(err, "ssd_scan_bwd")
-    ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC
 
 

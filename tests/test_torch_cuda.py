@@ -1089,22 +1089,37 @@ def test_flash_attention_bwd_matches_plain(cuda, dt, tol, B, Hq, Hkv, L, Lk,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("Bb,L,H,P,N,dt,tol", [
-    (2, 130, 4, 64, 128, torch.float32, 1e-4),
-    (2, 300, 5, 64, 16, torch.bfloat16, 2e-2),
-    (1, 64, 2, 32, 8, torch.float32, 1e-4)])
-def test_ssd_scan_bwd_matches_plain(cuda, Bb, L, H, P, N, dt, tol):
+@pytest.mark.parametrize("Bb,L,H,P,N,dt,tol,with_dh", [
+    (2, 130, 4, 64, 128, torch.float32, 1e-4, False),
+    (2, 150, 4, 64, 128, torch.float32, 1e-4, True),    # mamba2's tile,
+    (2, 150, 4, 64, 128, torch.bfloat16, 2e-2, True),   # ragged, dh
+    (2, 300, 5, 64, 16, torch.bfloat16, 2e-2, False),
+    (1, 200, 50, 64, 16, torch.bfloat16, 2e-2, True),   # hymba's heads:
+    (1, 200, 50, 64, 16, torch.float32, 1e-4, False),   # 7 head groups
+    (1, 64, 2, 32, 8, torch.float32, 1e-4, False),      # under a tile
+    (1, 70, 2, 32, 8, torch.bfloat16, 2e-2, True),
+    (1, 100, 3, 96, 24, torch.float32, 1e-4, True),     # P in 2 slices
+    (1, 90, 2, 40, 200, torch.float32, 1e-4, True),     # the wide-N tile
+    (1, 90, 2, 12, 12, torch.bfloat16, 2e-2, True)])    # rows off 16 B
+def test_ssd_scan_bwd_matches_plain(cuda, Bb, L, H, P, N, dt, tol, with_dh):
+    """The backward kernel against the plain backward (each gradient
+    within ``tol`` of its max |g|) on bf16 / f32 strided views, and the
+    same bits on two launches."""
     g = torch.Generator(device=cuda).manual_seed(2)
     xbc = torch.randn(Bb, L, H * P + 2 * N, generator=g, device=cuda).to(dt)
     args = (xbc[..., :H * P].unflatten(-1, (H, P)),
             torch.rand(Bb, L, H, generator=g, device=cuda) * 0.2,
             -torch.linspace(1.0, 16.0, H, device=cuda),
             xbc[..., H * P:H * P + N], xbc[..., H * P + N:],
-            torch.randn(Bb, L, H, P, generator=g, device=cuda))
+            torch.randn(Bb, L, H, P, generator=g, device=cuda),
+            torch.randn(Bb, H, P, N, generator=g, device=cuda)
+            if with_dh else None)
     got, want = SS.ssd_scan_bwd(*args), SS.ssd_scan_bwd_plain(*args)
     for a, b in zip(got, want):
         assert float((a.float() - b.float()).abs().max()) <= tol * float(
             b.float().abs().max())
+    again = SS.ssd_scan_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("T,E,k", [(100, 16, 2), (4096, 128, 8),

@@ -123,6 +123,7 @@ SCAN = [  # Bb, L, H, P, N, dh
     (2, 70, 2, 8, 4, False),      # ragged last chunk (70 = 64 + 6)
     (1, 130, 3, 16, 12, True),    # three chunks, the final state's grad
     (2, 16, 2, 32, 16, False),    # shorter than one chunk
+    (1, 150, 2, 64, 128, True),   # mamba2's tile widths, ragged, dh
 ]
 
 
