@@ -189,7 +189,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      cross-attention; the scan at mamba2-1.3b's and hymba-1.5b's
      shapes; the gate at qwen3-moe's 8,192 tokens), bf16 and f32, bit
      stable, timed (CUDA graph) against its bound and, for attention
-     without a softcap, SDPA's backward;
+     without a softcap, SDPA's backward; the attention backward's body
+     (wgmma for llama, qwen3, h2o-danube and seamless, mma for gemma2,
+     f32 for the f32 runs) checked through its per-body launch counts,
+     and its three launches (delta, dK/dV, dQ) timed from a trace;
   9. ``train``: 2 warm-up and 8 timed train steps (AdamW, f32 master
      params, bf16 compute, B=8, L=1024) of llama3.2-1b and mamba2-1.3b
      at full width and depth and qwen3-moe-30b-a3b at full width on 2
@@ -3873,6 +3876,8 @@ def reset_launches():
               RT.router_topk, RT.router_topk_q8, *bwd_kernels().values()):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
+    for b in FA.flash_attention_bwd.launches_by_body:
+        FA.flash_attention_bwd.launches_by_body[b] = 0
 
 
 def read_launches() -> dict:
@@ -3885,7 +3890,9 @@ def read_launches() -> dict:
             "flash_attention_decode": FA.flash_attention.decode_launches,
             "ssd_scan": SS.ssd_scan.launches,
             "moe_gating": MG.moe_gating.launches,
-            **{k: f.launches for k, f in bwd_kernels().items()}}
+            **{k: f.launches for k, f in bwd_kernels().items()},
+            **{f"flash_attention_bwd[{b}]": n for b, n in
+               FA.flash_attention_bwd.launches_by_body.items()}}
 
 
 def train_analyzers(torch, dev, small: bool, path: str):
@@ -4434,15 +4441,17 @@ def fwd_lse_check(torch, FA, q, k, v, tol, what, **kw):
 
 
 def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
-                 causal, window=0, softcap=0.0):
+                 causal, window=0, softcap=0.0, body="wgmma"):
     """The attention backward at one training shape.  First the training
     forward (o and lse) against the plain forward on the same inputs
     (o within 2e-2 * (1 + |want|) in bf16, 1e-4 in f32; lse within 1e-5
     * (1 + |want|)); then the backward kernel, fed the kernel's o and lse,
     against the plain backward, fed the plain forward's: bf16 within 2e-2
     of each gradient's max (bf16 gradients), timed against its bound and
-    SDPA's backward (no softcap); f32 at a quarter of the length within
-    1e-4."""
+    SDPA's backward (no softcap), each of its three launches timed from a
+    profiler trace; f32 at a quarter of the length within 1e-4.  The bf16
+    run must take ``body`` (``FA.bwd_body``, and on the card the
+    wrapper's count of that body), the f32 run the f32 body."""
     import torch.nn.functional as F
 
     def inputs(dt, L_, Lk_):
@@ -4454,17 +4463,34 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
     kw = dict(causal=causal, window=window, softcap=softcap)
     # f32, shorter
     Lf, Lkf = max(L // 4, 2), (max(Lk // 4, 2) if causal else Lk)
+    by_body = FA.flash_attention_bwd.launches_by_body
+
+    def took(want, fn):
+        before = dict(by_body)
+        out = fn()
+        ran = [b for b, n in by_body.items() if n != before[b]]
+        check(dev.type != "cuda" or ran == [want],
+              f"flash_attention_bwd {what}: ran the {ran} body, want "
+              f"{want}")
+        return out
     q, k, v, do = inputs(torch.float32, Lf, Lkf)
+    check(FA.bwd_body(q, k, v, do) == "f32",
+          f"{what}: f32 operands name the {FA.bwd_body(q, k, v, do)} body")
     (o, lse), (o_p, lse_p), _, _ = fwd_lse_check(
         torch, FA, q, k, v, 1e-4, f"flash_attention {what} f32", **kw)
-    err32 = grads_close(FA.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+    err32 = grads_close(took("f32", lambda: FA.flash_attention_bwd(
+                            q, k, v, o, lse, do, **kw)),
                         FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p,
                                                      do, **kw),
                         1e-4, f"flash_attention_bwd {what} f32")
     q, k, v, do = inputs(torch.bfloat16, L, Lk)
+    check(FA.bwd_body(q, k, v, do) == body,
+          f"{what}: the rule names the {FA.bwd_body(q, k, v, do)} body, "
+          f"want {body}")
     (o, lse), (o_p, lse_p), o_err, lse_err = fwd_lse_check(
         torch, FA, q, k, v, 2e-2, f"flash_attention {what} bf16", **kw)
-    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    got = took(body, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw))
     want = FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
     del o_p, lse_p
     err = grads_close(got, want, 2e-2, f"flash_attention_bwd {what} bf16")
@@ -4480,6 +4506,9 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
     bms, by = bound_ms(nb, 10.0 * hd * pairs, PEAK_BF16_S)
     ms = time_graph_ms(torch, lambda: FA.flash_attention_bwd(
         q, k, v, o, lse, do, **kw), dev, iters=3 if not small else 2)
+    parts = kernel_times(torch, dev, lambda: FA.flash_attention_bwd(
+        q, k, v, o, lse, do, **kw), iters=2)
+    design, _ = bound_ms(nb, 14.0 * hd * pairs, PEAK_BF16_S)
     plain = time_ms(torch, lambda: FA.flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), dev, iters=2, warmup=1)
     lib = None
@@ -4495,19 +4524,24 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
             dict(is_causal=causal)
         out = sdpa_call(torch, qs, ks, vs, **sk)()
         dos = do.contiguous()
-        lib = time_ms(torch, lambda: torch.autograd.grad(
+        # eager (autograd's call is not captured): the least of three
+        # means of 3 calls, the host's noise kept out of the yardstick
+        lib = min(time_ms(torch, lambda: torch.autograd.grad(
             out, (qs, ks, vs), dos, retain_graph=True), dev, iters=3,
-            warmup=1)
+            warmup=1) for _ in range(3))
         del out, qs, ks, vs
     log(f"[train_kernels] flash_attention_bwd {what}: B={B} L={L} Lk={Lk} "
         f"{Hq}/{Hkv} heads of {hd}, causal={causal} window={window} "
-        f"softcap={softcap}: {ms:.3f} ms (plain {plain:.3f}, SDPA backward "
-        f"{'n/a' if lib is None else f'{lib:.3f}'}), bound {bms:.4f} by {by} "
-        f"({pairs / 1e9:.3f} G live pairs x heads); max err {err:.3g} of "
-        f"max |g| bf16 (tol 2e-2), {err32:.3g} f32 (tol 1e-4); forward "
-        f"against the plain one: o {o_err:.3g}, lse {lse_err:.3g} (abs)")
+        f"softcap={softcap}, {body} body: {ms:.3f} ms (plain {plain:.3f}, "
+        f"SDPA backward {'n/a' if lib is None else f'{lib:.3f}'}), bound "
+        f"{bms:.4f} by {by} ({pairs / 1e9:.3f} G live pairs x heads; the "
+        f"design's 14 hd a pair {design:.4f}); launches: {fmt_times(parts)}; "
+        f"max err {err:.3g} of max |g| bf16 (tol 2e-2), {err32:.3g} f32 "
+        f"(tol 1e-4); forward against the plain one: o {o_err:.3g}, lse "
+        f"{lse_err:.3g} (abs)")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, body=body,
+                launch_ms={k: round(v, 4) for k, v in parts.items()})
 
 
 def ssd_bwd_ops(Bb, L, H, P, N) -> float:
@@ -4646,7 +4680,7 @@ def train_kernel_phase(torch, dev, small: bool):
         for win in (4096, 0):
             attn_bwd_row(torch, FA, g, dev, small,
                          f"gemma2-2b {'local' if win else 'global'}", B, L,
-                         L, 8, 4, 288, True, win, 50.0)
+                         L, 8, 4, 288, True, win, 50.0, body="mma")
         attn_bwd_row(torch, FA, g, dev, small, "h2o-danube-3-4b", B, L, L,
                      32, 8, 120, True, 4096)
     attn_bwd_row(torch, FA, g, dev, small, "seamless-m4t-medium cross", B,
@@ -4782,6 +4816,10 @@ def train_phase(torch, dev, small: bool, kernels: dict):
         check(counts.get(k, 0) > 0 or dev.type != "cuda",
               f"train: {k} never launched ({counts})")
         kernels.setdefault(k, {})["launches"] = counts.get(k, 0)
+    # every trained config's attention is bf16 at hd 64 or 128
+    check(counts.get("flash_attention_bwd[wgmma]", 0) ==
+          counts.get("flash_attention_bwd", 0),
+          f"train: the attention backward left the wgmma body ({counts})")
     log(f"[train] launches over the timed steps: {counts}")
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--arch", "llama3.2-1b", "--steps", "250" if not small

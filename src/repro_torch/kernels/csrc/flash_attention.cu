@@ -373,20 +373,27 @@ struct TmaAxes {
   int l, h, b;
 };
 
-// One 4-D TMA box (64 head-dim columns x rows along l) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, TmaAxes ax, int d,
-                                         int row, int head, int batch) {
-  const int c1 = ax.l == 1 ? row : ax.h == 1 ? head : batch;
-  const int c2 = ax.l == 2 ? row : ax.h == 2 ? head : batch;
-  const int c3 = ax.l == 3 ? row : ax.h == 3 ? head : batch;
+// The 4-D TMA box of `map` at coordinates (c0, c1, c2, c3) into shared
+// memory, completing on `bar`.  The asm alone, so that the tests' CPU
+// emulation (tests/cuda_emu/prims.h) can stand in for it.
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// One box (64 head-dim columns x rows along l) into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, TmaAxes ax, int d,
+                                         int row, int head, int batch) {
+  tma_box4(dst, map, bar, d, ax.l == 1 ? row : ax.h == 1 ? head : batch,
+           ax.l == 2 ? row : ax.h == 2 ? head : batch,
+           ax.l == 3 ? row : ax.h == 3 ? head : batch);
 }
 
 // 16 bytes global -> shared; `full` false writes 16 zero bytes
@@ -426,6 +433,18 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// move registers between a block's warpgroups: the calling warpgroup's
+// warps take (inc) or give back (dec) registers down to N a thread
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // keep the compiler from moving accesses to accumulators across the
@@ -1639,8 +1658,6 @@ bool tma_ok(const void* p, Strides st, int L, int H, int B) {
   return true;
 }
 
-#include "flash_attention_bwd.cuh"
-
 // A 4-D map (hd, then the l / h / b axes by increasing stride, axes of
 // length 1 last) over a bf16 operand: boxes of 64 columns (128 bytes,
 // the swizzle span) by `rows` positions along l; zeros past the ends.
@@ -1680,6 +1697,8 @@ cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+#include "flash_attention_bwd.cuh"
 
 // LSE: the instantiation that also writes the rows' log-sum-exp (the
 // training forward); the served one compiles without that store, so its
@@ -1944,13 +1963,15 @@ extern "C" int flash_decode_q8_launch(
 // their (batch, head, position) strides in elements with the head dim
 // contiguous; the mask of the forward (causal, window, softcap, kv_valid;
 // no decode-shape window).  Writes dq, dk, dv in `dtype` through their
-// strides; delta is (B, Hq, Lq) f32 scratch.
+// strides; delta is (B, Hq, Lq) f32 scratch.  `body` (0 f32, 1 mma, 2
+// wgmma) is the caller's choice; one that does not take the operands
+// returns cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, const int* kv_valid, void* dq,
     void* dk, void* dv, float* delta, int dtype, int B, int Hq, int Hkv,
     int Lq, int Lk, int hd, const long long* st, float scale, int causal,
-    int window, float softcap, void* stream) {
+    int window, float softcap, int body, void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk <= 0 || hd <= 0)
     return cudaErrorInvalidValue;
@@ -1964,11 +1985,12 @@ extern "C" int flash_attention_bwd_launch(
     return fa_bwd::launch<float>(q, k, v, o, dout, lse, kv_valid, dq, dk, dv,
                                  delta, B, Hq, Hkv, mk, S[0], S[1], S[2],
                                  S[3], S[4], S[5], S[6], S[7], scale, softcap,
-                                 hd, s);
+                                 hd, body, s);
   if (dtype == 1)
     return fa_bwd::launch<__nv_bfloat16>(q, k, v, o, dout, lse, kv_valid, dq,
                                          dk, dv, delta, B, Hq, Hkv, mk, S[0],
                                          S[1], S[2], S[3], S[4], S[5], S[6],
-                                         S[7], scale, softcap, hd, s);
+                                         S[7], scale, softcap, hd, body,
+                                         s);
   return cudaErrorInvalidValue;
 }

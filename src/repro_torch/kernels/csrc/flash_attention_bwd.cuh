@@ -1,5 +1,6 @@
 // The backward of flash_attention (included by flash_attention.cu, inside
-// its namespace: Mask, Strides and live_keys are that file's).
+// its namespace after make_map: Mask, Strides, live_keys, the mbarrier,
+// TMA and wgmma helpers are that file's).
 //
 // The TPU package differentiates its attention with jax.grad; there is no
 // Pallas backward.  This is the FlashAttention-2 backward for the
@@ -13,38 +14,56 @@
 //   dQ = dS K,  dK = dS^T Q
 // in f32 from f32 or bf16 operands, each gradient written once in its
 // operand's type.  Three launches:
-//  * bwd_delta_kernel: delta, one thread a query row;
-//  * bwd_dkv_kernel, one block per (key tile, kv head, batch): its K and
+//  * bwd_delta_kernel: delta, 8 lanes a query row reading 16 bytes a
+//    load where the rows allow it, so a warp reads 4 whole rows;
+//  * a dK/dV kernel, one block per (key tile, kv head, batch): its K and
 //    V tiles and their dK / dV accumulators stay on the SM while the
 //    block walks the G query heads of the group and their query
 //    tiles (the ones the mask lets see the tile), so GQA needs no
 //    atomics;
-//  * bwd_dq_kernel, one block per (query tile, q head, batch), walking
+//  * a dQ kernel, one block per (query tile, q head, batch), walking
 //    the key tiles its rows see.
 // Both recompute P from Q, K and lse (and the softcap's tanh).  No
-// atomics: the same bits on every run.  The products run by operand
-// type:
-//  * f32 operands: every product a block_mm on CUDA cores in f32, the
-//    tiles f32 in shared memory;
-//  * bf16 operands: the tiles stay bf16 in shared memory and every
-//    product is block_mma, mma.sync m16n8k16 on tensor cores with f32
-//    accumulators; dK, dV and dQ accumulate in registers (each warp
-//    keeps the same strips of them across the loop), which leaves room
-//    for two blocks an SM up to hd 128.  P and dS enter their products
-//    rounded to bf16, as in FlashAttention-2; P, tanh and dS's
-//    arithmetic stay f32.
+// atomics: the same bits on every run.  P and dS enter their products
+// rounded to bf16, as in FlashAttention-2; P, tanh and dS's arithmetic
+// stay f32.  The caller names the body (flash_attention.py's bwd_body);
+// a body that does not take the operands returns an error, never
+// another body:
+//  * wgmma (bf16, hd 64, or 120 / 128 in the 128 capacity, q, k, v, dO
+//    on 16 bytes: bwd_dkv_wgmma_kernel, bwd_dq_wgmma_kernel): two
+//    consumer warpgroups of 64 rows and a producer warp that TMA-loads
+//    the block's resident tiles once (K and V of 128 keys; Q and dO of
+//    128 queries) and streams the other two operands in 64-row tiles
+//    through a 4-stage ring (a full and an empty mbarrier a stage; the
+//    dK/dV kernel's producer lanes also stage each tile's lse and
+//    delta); see Hop for the registers.  Each product is one wgmma
+//    chain of the forward's layouts: S^T = K Q^T and dP^T = V dO^T (ss,
+//    both K-major), then dV += P^T dO and dK += dS^T Q (rs: P^T, dS^T
+//    in registers, dO, Q read MN-major); the dQ kernel S = Q K^T, dP =
+//    dO V^T, dQ += dS K.  P, tanh and dS live in registers only; dK, dV
+//    (dQ) accumulate in registers and are written once.  Each kind of
+//    tile compiles on its own (p_ds, by_tile): tiles every pair of which
+//    is live run with no per-score test and no tanh; only edge tiles
+//    (diagonal, window, kv_valid, ragged Lq / Lk) test each score.
+//  * mma (bf16 otherwise: hd 32 and 288, rows off 16 bytes;
+//    bwd_dkv_kernel, bwd_dq_kernel): the tiles bf16 in shared memory,
+//    every product mma.sync m16n8k16 from plain loads, P and dS through
+//    shared memory, dK, dV, dQ accumulated in registers;
+//  * f32 (the same two kernels): every product a block_mm on CUDA cores,
+//    the tiles f32 in shared memory.
 //
 // What bounds it on an H100: operations.  Per live (query, key) pair and
-// head the backward does 5 hd multiply-adds of work (the recomputed
-// Q K^T, dV, dP, dQ, dK; 10 hd FLOP); at llama3.2-1b's training shape
-// (B=8, L=1024, 32 heads of 64, causal) that is 86 GFLOP a layer, 0.087
-// ms at the bf16 tensor-core rate, against 50 MB of operands.  This
-// kernel does 7 hd multiply-adds a pair (dQ's kernel recomputes Q K^T
-// and dO V^T), loads each mma.sync operand from shared memory with
-// plain loads (two 16-bit loads a register where the operand is read
-// across its rows), waits on a __syncthreads between products and on
-// each tile's global loads (no prefetch), so it sits well above that
-// bound: a wgmma / TMA body is later work.
+// head the backward needs 5 hd multiply-adds (Q K^T, dV, dP, dQ, dK; 10
+// hd FLOP); at llama3.2-1b's training shape (B=8, L=1024, 32 heads of 64,
+// causal) that is 86 GFLOP a layer, 0.087 ms at the bf16 tensor-core
+// rate, against 50 MB of operands.  Every body does 7 (the dQ kernel
+// recomputes Q K^T and dO V^T, 14 hd FLOP a pair): a deterministic dQ
+// without atomics costs that.  The wgmma body keeps the tensor cores fed
+// from TMA rings (no load waits in the loop, no shared-memory round
+// trips of P and dS); between its products a warpgroup runs the
+// elementwise work of its 64 x 64 tile (a few instructions a score on a
+// full tile), which the SM's other warpgroup overlaps with its own
+// products.  At llama's shape it takes about 4.7x the bound.
 #pragma once
 
 #include "block_mm.cuh"
@@ -343,19 +362,40 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s,
   }
 }
 
+// delta = rowsum(dO o) of each query row: 8 lanes a row, so a warp
+// reads 4 rows at once; with `vec` (every row on 16 bytes) each lane
+// loads 16 bytes of o and of dO a step.  The 8 partial sums meet by xor
+// shuffles: a fixed order, the same bits on every run.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                  float* __restrict__ delta, Strides os, Strides dos, int lq,
-                 int hd) {
-  const int iq = blockIdx.x * blockDim.x + threadIdx.x;
+                 int hd, int vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int sub = threadIdx.x & 7;
+  const int iq = blockIdx.x * (THREADS / 8) + (threadIdx.x >> 3);
   const int h = blockIdx.y, b = blockIdx.z;
-  if (iq >= lq) return;
-  const T* orow = o + b * os.b + h * os.h + (long long)iq * os.l;
-  const T* drow = dout + b * dos.b + h * dos.h + (long long)iq * dos.l;
   float s = 0.f;
-  for (int c = 0; c < hd; ++c) s = fmaf(ld_f32(drow[c]), ld_f32(orow[c]), s);
-  delta[((long long)b * gridDim.y + h) * lq + iq] = s;
+  if (iq < lq) {
+    const T* orow = o + b * os.b + h * os.h + (long long)iq * os.l;
+    const T* drow = dout + b * dos.b + h * dos.h + (long long)iq * dos.l;
+    if (vec) {
+      for (int c = sub * V; c < hd; c += 8 * V) {
+        float x[V], y[V];
+        unpack16(orow + c, x);
+        unpack16(drow + c, y);
+#pragma unroll
+        for (int e = 0; e < V; ++e) s = fmaf(y[e], x[e], s);
+      }
+    } else {
+      for (int c = sub; c < hd; c += 8)
+        s = fmaf(ld_f32(drow[c]), ld_f32(orow[c]), s);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (iq < lq && sub == 0)
+    delta[((long long)b * gridDim.y + h) * lq + iq] = s;
 }
 
 // blocks an SM the bf16 kernels ask registers for: two, unless a warp
@@ -560,6 +600,519 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 at hd 64 and 128 (120 in 128) on Hopper: TMA rings and wgmma
+// ---------------------------------------------------------------------
+
+// Resident tiles hold BR = 2 x 64 rows (one 64-row slice a consumer
+// warpgroup), streamed tiles BT = 64 rows; every tile is stored as the
+// forward's are, [128-byte column block][row][64 columns], swizzled.
+// Three warpgroups: two consumers and the producer's (one warp of it
+// loads).  A block alone on its SM: the ring is 4 stages deep, so three
+// tiles are in flight while the consumers compute (a step takes less
+// than a load's latency), and setmaxnreg moves the producer
+// warpgroup's registers to the consumers (40 and 232 a thread; dK, dV,
+// S^T and dP^T alone take 192 at hd 128).  The shared memory asked for
+// is at least 120 KB, so no second block shares the SM and its
+// register budget.
+template <int HD>
+struct Hop {
+  static constexpr int NB = HD / 64;               // column blocks
+  static constexpr int BR = 128;                   // resident rows
+  static constexpr int BT = 64;                    // streamed rows
+  static constexpr int STAGES = 4;
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int R_BYTES = BR * HD * 2;      // one resident operand
+  static constexpr int T_BYTES = BT * HD * 2;      // one streamed tile
+  static constexpr int USED = 1024 + 2 * R_BYTES + 2 * STAGES * T_BYTES +
+                              2 * STAGES * BT * 4 + 8 * (1 + 2 * STAGES);
+  static constexpr int SMEM = USED > 120 * 1024 ? USED : 120 * 1024;
+};
+
+// whether some / every (query, key) pair of the 64 queries from q0 and
+// the 64 keys from k0 is live (keys at or past `live` are not)
+__device__ __forceinline__ void pair_block(const Mask& mk, int live, int q0,
+                                           int k0, bool& some, bool& every) {
+  const int off = mk.lk - mk.lq;
+  some = q0 < mk.lq && k0 < live;
+  every = q0 + 64 <= mk.lq && k0 + 64 <= live;
+  if (mk.causal) {
+    some = some && k0 <= min(q0 + 63, mk.lq - 1) + off;
+    every = every && k0 + 63 <= q0 + off;
+    if (mk.window) {
+      some = some && min(k0 + 63, live - 1) > q0 + off - mk.window;
+      every = every && k0 > q0 + 63 + off - mk.window;
+    }
+  }
+}
+
+// Four of one thread's elements of a 64 x 64 accumulator pair (x: the raw
+// q . k of the scores, dp: dP), those of its 8-column block c, turned
+// into P and dS and packed into the A fragments of the products that
+// take them (lse2 already times log2(e)).  MASK: an edge tile, whose
+// scores are tested through ok(e) (e: the element's index in the
+// block); CAP: a softcap.  Each combination compiles on its own, so a
+// full tile without a softcap runs no test and no tanh.
+template <bool MASK, bool CAP, typename Ok>
+__device__ __forceinline__ void p_ds(const float (&x)[32],
+                                     const float (&dp)[32], int c,
+                                     const float (&lse2)[4],
+                                     const float (&del)[4], float scale,
+                                     float softcap, Ok ok,
+                                     uint32_t (&pa)[4][4],
+                                     uint32_t (&da)[4][4]) {
+  float p[4], d[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float t = 0.f, pe;
+    if constexpr (CAP) {
+      t = tanhf(x[4 * c + e] * scale / softcap);
+      pe = ex2(fmaf(softcap * t, LOG2E, -lse2[e]));
+    } else {
+      pe = ex2(fmaf(x[4 * c + e], scale * LOG2E, -lse2[e]));
+    }
+    if constexpr (MASK) {
+      if (!ok(e)) pe = 0.f;
+    }
+    float ds = pe * (dp[4 * c + e] - del[e]);
+    if constexpr (CAP) ds *= 1.f - t * t;
+    p[e] = pe;
+    d[e] = ds * scale;
+  }
+  // the accumulator's layout is the A fragment's (see wg_consume)
+  pa[c / 2][(c & 1) * 2] = pack_bf16(p[0], p[1]);
+  pa[c / 2][(c & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  da[c / 2][(c & 1) * 2] = pack_bf16(d[0], d[1]);
+  da[c / 2][(c & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+}
+
+// fn(MASK, CAP) with the flags as compile-time constants, each
+// combination a tile can need: a softcap always tests its scores (its
+// tiles are rare), full tiles without one never do
+template <typename Fn>
+__device__ __forceinline__ void by_tile(bool every, float softcap, Fn fn) {
+  if (softcap != 0.f)
+    fn(std::true_type(), std::true_type());
+  else if (every)
+    fn(std::false_type(), std::false_type());
+  else
+    fn(std::true_type(), std::false_type());
+}
+
+// D (64 x 64) = A B^T over the head dim for one warpgroup: A's 64 rows
+// at `a` (column blocks `la` bytes apart), B's 64 rows at `b` (`lb`
+// apart)
+template <int HD>
+__device__ __forceinline__ void wg_abt(float (&d)[32], const uint8_t* a,
+                                       int la, const uint8_t* b, int lb) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n64(d, sw128_desc(a + (kk / 4) * la + (kk % 4) * 32, 16, 1024),
+                 sw128_desc(b + (kk / 4) * lb + (kk % 4) * 32, 16, 1024),
+                 kk > 0);
+}
+
+// d (64 x HD) += A (64 x 64, fragments a) B (64 streamed rows x HD, read
+// MN-major)
+template <int HD>
+__device__ __forceinline__ void wg_ab(float (&d)[HD / 2],
+                                      const uint32_t (&a)[4][4],
+                                      const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<HD>(d, a[kk], sw128_desc(b + kk * 16 * 128, 64 * 128, 1024));
+}
+
+// one thread's rows (r, r + 8) of a 64 x HD accumulator to bf16 rows
+// of `out` (row pitch sl), rows at or past n and columns at or past hd
+// left out
+template <int HD>
+__device__ __forceinline__ void store_acc(const float (&acc)[HD / 2],
+                                          __nv_bfloat16* out, long long sl,
+                                          int r, int n, int hd) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int d = 8 * c + 2 * t4;
+    if (d >= hd) break;                   // TMA's zero columns (120)
+    if (r < n)
+      *reinterpret_cast<uint32_t*>(out + r * sl + d) =
+          pack_bf16(acc[4 * c], acc[4 * c + 1]);
+    if (r + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + (r + 8) * sl + d) =
+          pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+  }
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// dK and dV of 128 keys: K, V resident; the group's query tiles (Q, dO,
+// their lse and delta) through the ring.  Grid (Hkv, B, key tiles): the
+// causal key tiles that see the most queries come first.
+template <int HD>
+__global__ void __launch_bounds__(Hop<HD>::THREADS, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, TmaAxes qa,
+                     TmaAxes ka, TmaAxes va, TmaAxes doa,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ kv_valid,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int G, Mask mk,
+                     Strides dks, Strides dvs, float scale, float softcap,
+                     int hd) {
+  using C = Hop<HD>;
+  constexpr int BR = C::BR, BT = C::BT, S = C::STAGES;
+  if constexpr (!PAD<HD>) hd = HD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + C::R_BYTES;
+  uint8_t* qs = vs + C::R_BYTES;                  // [stage] Q tiles
+  uint8_t* dos = qs + S * C::T_BYTES;             // [stage] dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + S * C::T_BYTES);
+  float* del_s = lse_s + S * BT;                  // [stage][BT] each
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(del_s + S * BT);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BR;
+  const int Hq = G * gridDim.x;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  const int k1 = min(k0 + BR, live);    // the tile's keys a query may see
+  // query rows that see some key of the tile
+  int qlo = 0, qhi = k1 > k0 ? mk.lq : 0;
+  if (mk.causal && qhi > 0) {
+    qlo = max(0, k0 - off);
+    if (mk.window) qhi = min(qhi, k1 - 1 + mk.window - off);
+  }
+  const int nqt = qhi > qlo ? (qhi - qlo + BT - 1) / BT : 0;
+  const int steps = G * nqt;            // (head, query tile) in that order
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 32);            // the producer warp's lanes
+      mbar_init(empty + i, 8);            // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                        // producer: warp 8 loads
+    reg_dealloc<C::PRODUCER_REGS>();
+    if (warp > 8 || steps == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * C::R_BYTES);
+      for (int j = 0; j < C::NB; ++j)
+        for (int r = 0; r < BR; r += 64) {
+          tma_load(ks + (j * BR + r) * 128, &tk, kvbar, ka, 64 * j, k0 + r,
+                   kh, b);
+          tma_load(vs + (j * BR + r) * 128, &tv, kvbar, va, 64 * j, k0 + r,
+                   kh, b);
+        }
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % S;
+      if (i >= S) mbar_wait(empty + st, (i / S - 1) & 1);
+      const int h = kh * G + i / nqt, q0 = qlo + (i % nqt) * BT;
+      const long long row = ((long long)b * Hq + h) * mk.lq;
+      // rows past Lq: lse +inf, so P = 0
+      for (int r = lane; r < BT; r += 32) {
+        const bool in = q0 + r < mk.lq;
+        lse_s[st * BT + r] = in ? lse[row + q0 + r] * LOG2E : CUDART_INF_F;
+        del_s[st * BT + r] = in ? delta[row + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + st, 2 * C::T_BYTES);
+        for (int j = 0; j < C::NB; ++j) {
+          tma_load(qs + st * C::T_BYTES + j * BT * 128, &tq, full + st, qa,
+                   64 * j, q0, h, b);
+          tma_load(dos + st * C::T_BYTES + j * BT * 128, &tdo, full + st,
+                   doa, 64 * j, q0, h, b);
+        }
+      } else {
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg holds keys kw .. kw + 63
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const int kw = k0 + 64 * wg;
+  const int rA = kw + 16 * wl + g8;       // this thread's keys: rA, rA + 8
+  const uint8_t* kws = ks + wg * 64 * 128;
+  const uint8_t* vws = vs + wg * 64 * 128;
+  // the queries [qlo_k, qhi_k) that see each of this thread's keys
+  int qlo_k[2], qhi_k[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = rA + 8 * j;
+    qlo_k[j] = mk.causal ? key - off : 0;
+    qhi_k[j] = key >= live ? 0
+               : mk.causal && mk.window ? min(mk.lq, key - off + mk.window)
+                                        : mk.lq;
+  }
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  if (steps > 0) mbar_wait(kvbar, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % S, q0 = qlo + (i % nqt) * BT;
+    mbar_wait(full + st, (i / S) & 1);
+    bool some, every;
+    pair_block(mk, live, q0, kw, some, every);
+    if (some) {
+      const uint8_t* qt = qs + st * C::T_BYTES;
+      const uint8_t* dt = dos + st * C::T_BYTES;
+      float sc[32], dp[32];
+      wg_fence();
+      wg_abt<HD>(sc, kws, BR * 128, qt, BT * 128);    // S^T = K Q^T
+      wg_abt<HD>(dp, vws, BR * 128, dt, BT * 128);    // dP^T = V dO^T
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      uint32_t pa[4][4], da[4][4];
+      by_tile(every, softcap, [&](auto mask, auto cap) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int qc = 8 * c + 2 * t4;  // queries q0 + qc, + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(
+              lse_s + st * BT + qc);
+          const float2 de = *reinterpret_cast<const float2*>(
+              del_s + st * BT + qc);
+          const float lse2[4] = {l2.x, l2.y, l2.x, l2.y};
+          const float del[4] = {de.x, de.y, de.x, de.y};
+          p_ds<decltype(mask)::value, decltype(cap)::value>(
+              sc, dp, c, lse2, del, scale, softcap,
+              [&](int e) {
+                const int iq = q0 + qc + (e & 1);
+                return iq >= qlo_k[e >> 1] && iq < qhi_k[e >> 1];
+              },
+              pa, da);
+        }
+      });
+      wg_fence();
+      wg_ab<HD>(dva, pa, dt);         // dV += P^T dO
+      wg_ab<HD>(dka, da, qt);         // dK += dS^T Q
+      wg_commit();
+      wg_wait0();
+      reg_fence(dva);
+      reg_fence(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+  store_acc<HD>(dka, dk + b * dks.b + kh * dks.h, dks.l, rA, mk.lk, hd);
+  store_acc<HD>(dva, dv + b * dvs.b + kh * dvs.h, dvs.l, rA, mk.lk, hd);
+}
+
+// dQ of 128 query rows: Q, dO (and each row's lse, delta in registers)
+// resident; the key tiles the rows see through the ring.  Grid (Hq, B,
+// query tiles), the query-tile index reversed: causal tiles near the end
+// see the most keys and start first.
+template <int HD>
+__global__ void __launch_bounds__(Hop<HD>::THREADS, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, TmaAxes qa,
+                    TmaAxes ka, TmaAxes va, TmaAxes doa,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ kv_valid,
+                    __nv_bfloat16* __restrict__ dq, int G, Mask mk,
+                    Strides dqs, float scale, float softcap, int hd) {
+  using C = Hop<HD>;
+  constexpr int BR = C::BR, BT = C::BT, S = C::STAGES;
+  if constexpr (!PAD<HD>) hd = HD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + C::R_BYTES;
+  uint8_t* ks = dos + C::R_BYTES;                 // [stage] K tiles
+  uint8_t* vs = ks + S * C::T_BYTES;              // [stage] V tiles
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + S * C::T_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR, kh = h / G;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  // keys some row of the block sees
+  int kbeg = 0, kend = live;
+  if (mk.causal) {
+    kend = min(kend, min(q0 + BR, mk.lq) + off);
+    if (mk.window) kbeg = max(0, q0 + off - mk.window + 1);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BT - 1) / BT : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                        // producer: warp 8 loads
+    reg_dealloc<C::PRODUCER_REGS>();
+    if (warp == 8 && lane == 0 && ntiles > 0) {
+      mbar_expect_tx(qbar, 2 * C::R_BYTES);
+      for (int j = 0; j < C::NB; ++j)
+        for (int r = 0; r < BR; r += 64) {
+          tma_load(qs + (j * BR + r) * 128, &tq, qbar, qa, 64 * j, q0 + r,
+                   h, b);
+          tma_load(dos + (j * BR + r) * 128, &tdo, qbar, doa, 64 * j,
+                   q0 + r, h, b);
+        }
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % S, k0 = kbeg + i * BT;
+        if (i >= S) mbar_wait(empty + st, (i / S - 1) & 1);
+        mbar_expect_tx(full + st, 2 * C::T_BYTES);
+        for (int j = 0; j < C::NB; ++j) {
+          tma_load(ks + st * C::T_BYTES + j * BT * 128, &tk, full + st, ka,
+                   64 * j, k0, kh, b);
+          tma_load(vs + st * C::T_BYTES + j * BT * 128, &tv, full + st, va,
+                   64 * j, k0, kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg holds rows rlo .. rlo + 63
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const int rlo = q0 + 64 * wg;
+  const int rA = rlo + 16 * wl + g8;      // this thread's rows: rA, rA + 8
+  const long long row = ((long long)b * gridDim.x + h) * mk.lq;
+  float lse2[4], del[4];                  // by the element's e: rows A, B
+  int klo[2], khi[2];                     // the keys [klo, khi) a row sees
+#pragma unroll
+  for (int e = 0; e < 4; e += 2) {
+    const int r = rA + 4 * e;
+    const bool in = r < mk.lq;
+    lse2[e] = lse2[e + 1] = in ? lse[row + r] * LOG2E : CUDART_INF_F;
+    del[e] = del[e + 1] = in ? delta[row + r] : 0.f;
+    klo[e / 2] = mk.causal && mk.window ? r + off - mk.window + 1 : 0;
+    khi[e / 2] = !in ? 0 : mk.causal ? min(live, r + off + 1) : live;
+  }
+  const uint8_t* qws = qs + wg * 64 * 128;
+  const uint8_t* dows = dos + wg * 64 * 128;
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % S, k0 = kbeg + i * BT;
+    mbar_wait(full + st, (i / S) & 1);
+    bool some, every;
+    pair_block(mk, live, rlo, k0, some, every);
+    if (some) {
+      const uint8_t* kt = ks + st * C::T_BYTES;
+      const uint8_t* vt = vs + st * C::T_BYTES;
+      float sc[32], dp[32];
+      wg_fence();
+      wg_abt<HD>(sc, qws, BR * 128, kt, BT * 128);    // S = Q K^T
+      wg_abt<HD>(dp, dows, BR * 128, vt, BT * 128);   // dP = dO V^T
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      uint32_t pa[4][4], da[4][4];
+      by_tile(every, softcap, [&](auto mask, auto cap) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int kc = k0 + 8 * c + 2 * t4;         // keys kc, kc + 1
+          p_ds<decltype(mask)::value, decltype(cap)::value>(
+              sc, dp, c, lse2, del, scale, softcap,
+              [&](int e) {
+                const int key = kc + (e & 1);
+                return key >= klo[e >> 1] && key < khi[e >> 1];
+              },
+              pa, da);
+        }
+      });
+      wg_fence();
+      wg_ab<HD>(dqa, da, kt);         // dQ += dS K
+      wg_commit();
+      wg_wait0();
+      reg_fence(dqa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+  store_acc<HD>(dqa, dq + b * dqs.b + h * dqs.h, dqs.l, rA, mk.lq, hd);
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const int* kv_valid, void* dq, void* dk, void* dv,
+                         const float* delta, int B, int Hq, int Hkv, Mask mk,
+                         Strides qs, Strides ks, Strides vs, Strides dos,
+                         Strides dqs, Strides dks, Strides dvs, float scale,
+                         float softcap, int hd, cudaStream_t s) {
+  using C = Hop<HD>;
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      bwd_dkv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      bwd_dq_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (a1 != cudaSuccess) return a1;
+  if (a2 != cudaSuccess) return a2;
+  // maps over the true hd: a box's columns past it (120..127) are zeros
+  CUtensorMap tq, tk, tv, tdo;
+  TmaAxes qa, ka, va, doa;
+  cudaError_t e;
+  // boxes of 64 rows: a tile of more rows is several boxes
+  if ((e = make_map(&tq, &qa, q, hd, qs, mk.lq, Hq, B, 64)) ||
+      (e = make_map(&tdo, &doa, dout, hd, dos, mk.lq, Hq, B, 64)) ||
+      (e = make_map(&tk, &ka, k, hd, ks, mk.lk, Hkv, B, 64)) ||
+      (e = make_map(&tv, &va, v, hd, vs, mk.lk, Hkv, B, 64)))
+    return e;
+  const int G = Hq / Hkv;
+  bwd_dkv_wgmma_kernel<HD><<<dim3(Hkv, B, (mk.lk + C::BR - 1) / C::BR),
+                             C::THREADS, C::SMEM, s>>>(
+      tq, tk, tv, tdo, qa, ka, va, doa, lse, delta, kv_valid,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), G,
+      mk, dks, dvs, scale, softcap, hd);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dq_wgmma_kernel<HD><<<dim3(Hq, B, (mk.lq + C::BR - 1) / C::BR),
+                            C::THREADS, C::SMEM, s>>>(
+      tq, tk, tv, tdo, qa, ka, va, doa, lse, delta, kv_valid,
+      static_cast<__nv_bfloat16*>(dq), G, mk, dqs, scale, softcap, hd);
+  return cudaGetLastError();
+}
+
+// every row of an operand's (b, h, l) axes on 16 bytes, hd a whole
+// number of 16-byte loads
+template <typename T>
+bool rows16(const void* p, Strides st, int hd) {
+  const long long s[3] = {st.b, st.h, st.l};
+  for (long long x : s)
+    if ((x * (long long)sizeof(T)) % 16) return false;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (hd * (int)sizeof(T)) % 16 == 0;
+}
+
+// Bodies: 0 f32, 1 mma, 2 wgmma (flash_attention.py's BWD_BODIES).
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
@@ -567,24 +1120,54 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float* delta, int B, int Hq, int Hkv, Mask mk, Strides qs,
                    Strides ks, Strides vs, Strides os, Strides dos,
                    Strides dqs, Strides dks, Strides dvs, float scale,
-                   float softcap, int hd, cudaStream_t s) {
+                   float softcap, int hd, int body, cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   const Tiles tl = tiles<T>(hd);
   const int s_dkv = smem_dkv<T>(hd), s_dq = smem_dq<T>(hd);
   // the register strips a warp takes (one for f32 operands: unused)
-  const int ns = std::is_same<T, float>::value ? 1 : acc_strips(tl.bk, hd);
-  if (s_dkv > SMEM_MAX || s_dq > SMEM_MAX || mk.lk < 1 || hd % 8 != 0 ||
-      tl.bk != tl.bq || ns > 3)
+  const int ns = F32 ? 1 : acc_strips(tl.bk, hd);
+  const bool wg = body == 2;
+  if (body != (F32 ? 0 : wg ? 2 : 1) || mk.lk < 1 || hd % 8 != 0)
     return cudaErrorInvalidValue;
+  if (wg) {
+    // 4-byte stores of gradient pairs
+    const long long st[] = {dqs.b, dqs.h, dqs.l, dks.b, dks.h, dks.l,
+                            dvs.b, dvs.h, dvs.l};
+    for (long long x : st)
+      if (x % 2) return cudaErrorInvalidValue;
+    if ((hd != 64 && hd != 120 && hd != 128) ||
+        !tma_ok(q, qs, mk.lq, Hq, B) || !tma_ok(k, ks, mk.lk, Hkv, B) ||
+        !tma_ok(v, vs, mk.lk, Hkv, B) || !tma_ok(dout, dos, mk.lq, Hq, B) ||
+        (reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+         reinterpret_cast<uintptr_t>(dv)) % 4)
+      return cudaErrorInvalidValue;
+  } else if (s_dkv > SMEM_MAX || s_dq > SMEM_MAX || tl.bk != tl.bq ||
+             ns > 3) {
+    return cudaErrorInvalidValue;
+  }
   const int G = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
-  bwd_delta_kernel<T><<<dim3((mk.lq + THREADS - 1) / THREADS, Hq, B),
+  const int vec = rows16<T>(o, os, hd) && rows16<T>(dout, dos, hd);
+  bwd_delta_kernel<T><<<dim3((mk.lq + THREADS / 8 - 1) / (THREADS / 8), Hq,
+                             B),
                         THREADS, 0, s>>>(static_cast<const T*>(o), dop,
-                                         delta, os, dos, mk.lq, hd);
+                                         delta, os, dos, mk.lq, hd, vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if constexpr (!F32) {
+    if (wg)
+      return hd == 64
+                 ? launch_wgmma<64>(q, k, v, dout, lse, kv_valid, dq, dk, dv,
+                                    delta, B, Hq, Hkv, mk, qs, ks, vs, dos,
+                                    dqs, dks, dvs, scale, softcap, hd, s)
+                 : launch_wgmma<128>(q, k, v, dout, lse, kv_valid, dq, dk,
+                                     dv, delta, B, Hq, Hkv, mk, qs, ks, vs,
+                                     dos, dqs, dks, dvs, scale, softcap, hd,
+                                     s);
+  }
   auto run = [&](auto strips) -> cudaError_t {
     constexpr int S = decltype(strips)::value;
     static const cudaError_t a1 = cudaFuncSetAttribute(
@@ -608,7 +1191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                      dos, dqs, scale, softcap, hd);
     return cudaGetLastError();
   };
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (F32) {
     return run(std::integral_constant<int, 1>());
   } else {
     if (ns == 1) return run(std::integral_constant<int, 1>());

@@ -37,7 +37,11 @@ The backward (``flash_attention_bwd``, plain version
 ``flash_attention_bwd_plain``) takes the forward's output and its
 per-row log-sum-exp, which the forward returns with ``return_lse``
 (the prefill shapes only), and recomputes the probabilities from them:
-FlashAttention-2's form, three launches (delta, dK/dV, dQ) on the card.
+FlashAttention-2's form, three launches (delta, dK/dV, dQ) on the card,
+through the body ``bwd_body`` names: ``"wgmma"`` (TMA rings and wgmma)
+for bf16 at head dims 64, 120 and 128 with q, k, v and do on 16 bytes,
+``"mma"`` (mma.sync) for other bf16 operands, ``"f32"`` (CUDA cores)
+for f32 ones.
 """
 from __future__ import annotations
 
@@ -66,8 +70,11 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "flash_attention_bwd_launch": [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]}
+                             ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+BWD_BODIES = ("f32", "mma", "wgmma")    # the C launch's body codes
+WGMMA_BWD_HEAD_DIMS = (64, 120, 128)
 
 
 def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
@@ -322,14 +329,67 @@ flash_attention.launches = 0
 flash_attention.decode_launches = 0
 
 
+def _tma_ok(t) -> bool:
+    """Whether TMA can read ``t`` (B, H, L, hd) in bf16: a 16-byte
+    aligned base and every (batch, head, position) stride of an axis
+    longer than 1 a positive multiple of 16 bytes (``tma_ok`` in
+    ``csrc/flash_attention.cu``)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st > 0 and st * t.element_size() % 16 == 0
+        for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def bwd_body(q, k, v, do) -> str:
+    """The backward body that takes these operands: ``"f32"`` for f32
+    ones; ``"wgmma"`` for bf16 at head dims 64, 120 and 128 whose q, k,
+    v and do TMA can read (``_tma_ok``); ``"mma"`` for every other bf16
+    shape (hd 32 and 288, rows off 16 bytes).  Decided from dtypes,
+    shapes, strides and addresses alone."""
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.shape[3] in WGMMA_BWD_HEAD_DIMS and all(
+            _tma_ok(t) for t in (q, k, v, do)):
+        return "wgmma"
+    return "mma"
+
+
+def _bwd_launch(lib, stream, q, k, v, o, lse, do, kv_valid, causal, window,
+                softcap, body):
+    """One backward through ``lib`` (the card's library, or any ctypes
+    handle with its entry point) with ``body``; allocates dq, dk, dv as
+    ``transpose(1, 2)`` views of contiguous (B, L, H, hd) tensors on q's
+    device and delta's scratch, and raises on a non-zero return."""
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    dev = q.device
+    dq = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Lk, Hkv, hd), dtype=k.dtype, device=dev)
+    dv = torch.empty((B, Lk, Hkv, hd), dtype=v.dtype, device=dev)
+    dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
+    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=dev)
+    strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
+                            for s in t.stride()[:3]], dtype=torch.int64)
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        None if kv_valid is None else kv_valid.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd, strides.data_ptr(),
+        1.0 / math.sqrt(hd), int(bool(causal)), int(window),
+        float(softcap), BWD_BODIES.index(body), stream)
+    build.check(err, f"flash_attention_bwd ({body} body)")
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None, *,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0):
     """The gradients (dq, dk, dv) of ``flash_attention`` (prefill shapes)
     from its operands, its output ``o`` and log-sum-exp ``lse`` and the
     output's gradient ``do`` (any strides, the head dim contiguous).  On
-    the card the gradients are ``transpose(1, 2)`` views of contiguous
-    (B, L, H, hd) tensors, the model's layout; CPU tensors take
+    the card the body ``bwd_body`` names runs (or the call raises) and
+    the gradients are ``transpose(1, 2)`` views of contiguous (B, L, H,
+    hd) tensors, the model's layout; CPU tensors take
     ``flash_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid,
@@ -339,7 +399,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None, *,
         raise ValueError(f"flash_attention_bwd: tensors must be on cuda "
                          f"or cpu, not {q.device}")
     B, Hq, Lq, hd = q.shape
-    Hkv, Lk = k.shape[1], k.shape[2]
     if Lq == 1:
         raise ValueError("flash_attention_bwd: the decode shape (Lq == 1) "
                          "takes no gradient")
@@ -354,32 +413,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_valid=None, *,
     if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be ({B}, {Hq}, "
                          f"{Lq}) float32, got {tuple(lse.shape)} {lse.dtype}")
-    dev = q.device
+    body = bwd_body(q, k, v, do)
     lib = build.load("flash_attention", _SIG)
-    dq = torch.empty((B, Lq, Hq, hd), dtype=q.dtype, device=dev)
-    dk = torch.empty((B, Lk, Hkv, hd), dtype=k.dtype, device=dev)
-    dv = torch.empty((B, Lk, Hkv, hd), dtype=v.dtype, device=dev)
-    dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
-    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=dev)
-    strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
-                            for s in t.stride()[:3]], dtype=torch.int64)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd, strides.data_ptr(),
-            1.0 / math.sqrt(hd), int(bool(causal)), int(window),
-            float(softcap), stream)
-    build.check(err, "flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        out = _bwd_launch(lib, torch.cuda.current_stream(q.device).cuda_stream,
+                          q, k, v, o, lse, do, kv_valid, causal, window,
+                          softcap, body)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    flash_attention_bwd.launches_by_body[body] += 1
+    return out
 
 
-# launches on the card
+# launches on the card, and by body
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 
 
 # ----------------------------------------------------------------------

@@ -3,8 +3,9 @@
 There is no card and no nvcc on a CPU-only machine, so a kernel is
 otherwise first run on the card.  This compiles ``csrc/<name>.cu`` with
 g++ against ``emu.h`` (a CPU model of blocks, threads, warps and shared
-memory) and ``prims.h`` (cp.async, ldmatrix and mma.sync as warp
-collectives) into a shared library with the same C entry points, and
+memory) and ``prims.h`` (cp.async, ldmatrix, mma.sync and wgmma as
+warp collectives, mbarriers as fiber waits, TMA boxes as swizzled
+copies) into a shared library with the same C entry points, and
 loads it with ctypes.  The wrappers' launch helpers take any ctypes
 handle, so CPU tensors can go through the kernel's own code path, e.g.
 ``ssd_scan._bwd_launch(lib, None, x, dt, A, B, C, dy, dh)``
@@ -20,7 +21,14 @@ one another (a ticket that only orders them is fine) would hang.
 
 compares the scan's backward with its plain version (and both with an
 f64 run of the plain version) at that shape: each gradient's max error
-over its max |g|.  Small shapes: a block of 256 fibers is slow.
+over its max |g|;
+
+    python tests/_cuda_emu.py flash_attention_bwd --shape 1,4,2,150,150,128 \
+        --window 64
+
+does the same for the attention backward (the body ``bwd_body`` names:
+wgmma's TMA boxes, mbarriers and ``wgmma`` are emulated too).  Small
+shapes: a block of 256 fibers is slow.
 """
 from __future__ import annotations
 
@@ -37,7 +45,16 @@ ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent / "cuda_emu"
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "cuda_emu"
-PRIMS = ("cp16", "cp_commit", "cp_wait", "mma", "ldsm4", "ldsm4_t")
+# CUDA code reads registers through other types (bf16 pairs as words):
+# no strict aliasing
+GXX = ("g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-w", "-Wno-psabi",
+       "-fno-strict-aliasing")
+PRIMS = ("cp16", "cp_commit", "cp_wait", "mma", "ldsm4", "ldsm4_t",
+         "mma16816", "cp_async16", "cp_async_commit", "cp_async_wait1",
+         "ex2", "mbar_init", "mbar_expect_tx", "mbar_arrive", "global_ns",
+         "mbar_wait", "tma_box4", "wg_fence", "wg_commit", "wg_wait0",
+         "reg_fence", "reg_alloc", "reg_dealloc", "wgmma_ss_n64",
+         "wgmma_rs_n64", "wgmma_rs_n128", "wgmma_rs_n192")
 
 
 def _drop(src: str, name: str) -> str:
@@ -94,18 +111,28 @@ def _launches(src: str) -> str:
 
 def source(name: str) -> str:
     """``csrc/<name>.cu`` rewritten for the emulation."""
-    src = (CSRC / f"{name}.cu").read_text()
-    src = re.sub(r'#include "([^"]+)"',
-                 lambda m: (CSRC / m.group(1)).read_text(), src)
+    seen = set()
+
+    def inline(m):                      # each header once, nested too
+        if m.group(1) in seen:
+            return ""
+        seen.add(m.group(1))
+        return re.sub(r'#include "([^"]+)"', inline,
+                      (CSRC / m.group(1)).read_text())
+    src = re.sub(r'#include "([^"]+)"', inline,
+                 (CSRC / f"{name}.cu").read_text())
     src = src.replace("#include <cuda_bf16.h>", '#include "emu.h"')
-    src = src.replace("#include <cuda_runtime.h>", "")
+    for h in ("cuda_runtime.h", "cuda.h", "math_constants.h"):
+        src = src.replace(f"#include <{h}>", "")
     for fn in PRIMS:
         if re.search(r"__device__ __forceinline__ \w+ " + fn + r"\(", src):
             src = _drop(src, fn)
+    # the asm statements left in kernel bodies (fences, cp.async waits)
+    src = re.sub(r'asm volatile\("[^"]*"\s*:::\s*"memory"\);', "", src)
     first = src.index("__device__ __forceinline__")
     src = src[:first] + '#include "prims.h"\n' + src[first:]
-    src = re.sub(r"extern __shared__ __align__\(16\) uint8_t raw\[\];",
-                 "uint8_t* raw = emu::smem.data();", src)
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu::smem_base());", src)
     return _launches(src)
 
 
@@ -113,15 +140,14 @@ def build(name: str) -> Path:
     """Compile the emulation of ``csrc/<name>.cu`` (cached by content)."""
     src = source(name)
     extra = "".join((HERE / f).read_text() for f in ("emu.h", "prims.h"))
-    tag = hashlib.sha256((src + extra).encode()).hexdigest()[:12]
+    tag = hashlib.sha256((src + extra + " ".join(GXX)).encode()).hexdigest()[:12]
     lib = OUT / f"lib{name}-emu-{tag}.so"
     if not lib.exists():
         OUT.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cpp = tmp.with_suffix(".cpp")
         cpp.write_text(src)
-        subprocess.run(["g++", "-std=c++17", "-O2", "-fPIC", "-shared",
-                        "-w", f"-I{HERE}", "-o", str(tmp), str(cpp)],
+        subprocess.run([*GXX, f"-I{HERE}", "-o", str(tmp), str(cpp)],
                        check=True)
         cpp.unlink()
         os.replace(tmp, lib)
@@ -179,18 +205,89 @@ def check_ssd_scan_bwd(shape, dtype: str, with_dh: bool, seed: int):
         torch.equal(a, b) for a, b in zip(got, again)) else "DIFFER")
 
 
+def attn_inputs(B, Hq, Hkv, L, Lk, hd, dtype, layout: str, seed: int):
+    """q, k, v, do of the attention backward (B, H, L, hd): "blhd"
+    ``transpose(1, 2)`` views of the model's (B, L, H, hd) layout,
+    "bhld" contiguous tensors, "pad" views whose rows lie 8 bytes off
+    16."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def one(Lx, H):
+        if layout == "bhld":
+            return torch.randn(B, H, Lx, hd, generator=g).to(dtype)
+        w = H * hd + (4 if layout == "pad" else 0)
+        x = torch.randn(B, Lx, w, generator=g).to(dtype)
+        return x[..., :H * hd].unflatten(-1, (H, hd)).transpose(1, 2)
+    q, k, v, do = one(L, Hq), one(Lk, Hkv), one(Lk, Hkv), one(L, Hq)
+    return q, k, v, do
+
+
+def attn_bwd(lib, q, k, v, do, kv_valid, causal, window, softcap):
+    """The backward of ``csrc/flash_attention_bwd.cuh`` through ``lib``
+    (the body ``bwd_body`` names), fed the plain forward's o and lse;
+    returns (gradients, the plain backward's, the body)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention as FA
+
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = FA.flash_attention_plain(q, k, v, kv_valid, return_lse=True,
+                                      **kw)
+    body = FA.bwd_body(q, k, v, do)
+    got = FA._bwd_launch(lib, None, q, k, v, o, lse, do, kv_valid, causal,
+                         window, softcap, body)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid, **kw)
+    return got, want, body
+
+
+def check_flash_attention_bwd(shape, dtype: str, layout: str, causal: bool,
+                              window: int, softcap: float, seed: int):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention as FA
+
+    lib = load("flash_attention", FA._SIG)
+    dt_ = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    args = attn_inputs(*shape, dt_, layout, seed)
+    got, want, body = attn_bwd(lib, *args, None, causal, window, softcap)
+    again, _, _ = attn_bwd(lib, *args, None, causal, window, softcap)
+    print(f"{body} body")
+    for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+        m = float(b.float().abs().max())
+        print(f"{nm}: kernel {float((a.float() - b.float()).abs().max()) / m:.3g}"
+              f" of max |g| against the plain version")
+    print("two launches:", "the same bits" if all(
+        torch.equal(a, b) for a, b in zip(got, again)) else "DIFFER")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=["ssd_scan_bwd"])
-    ap.add_argument("--shape", default="2,150,4,64,128",
-                    help="Bb,L,H,P,N")
-    ap.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("kernel", choices=["ssd_scan_bwd", "flash_attention_bwd"])
+    ap.add_argument("--shape", default=None,
+                    help="Bb,L,H,P,N (ssd_scan_bwd, default 2,150,4,64,128)"
+                         " or B,Hq,Hkv,L,Lk,hd (flash_attention_bwd, "
+                         "default 1,4,2,150,150,64)")
+    ap.add_argument("--dtype", choices=["f32", "bf16"], default=None,
+                    help="default f32 for the scan, bf16 for attention")
     ap.add_argument("--dh", action="store_true",
-                    help="give the final state a gradient")
+                    help="give the final state a gradient (the scan)")
+    ap.add_argument("--layout", choices=["blhd", "bhld", "pad"],
+                    default="blhd", help="attention operands' layout")
+    ap.add_argument("--no-causal", action="store_true")
+    ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--softcap", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
-    check_ssd_scan_bwd(tuple(int(v) for v in a.shape.split(",")), a.dtype,
-                       a.dh, a.seed)
+    if a.kernel == "ssd_scan_bwd":
+        check_ssd_scan_bwd(tuple(int(v) for v in (
+            a.shape or "2,150,4,64,128").split(",")), a.dtype or "f32",
+            a.dh, a.seed)
+    else:
+        check_flash_attention_bwd(tuple(int(v) for v in (
+            a.shape or "1,4,2,150,150,64").split(",")), a.dtype or "bf16",
+            a.layout, not a.no_causal, a.window, a.softcap, a.seed)
     return 0
 
 

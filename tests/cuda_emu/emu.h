@@ -1,10 +1,12 @@
 // A CPU emulation of the CUDA execution model, enough to run this
 // repository's kernels on a machine without a card or nvcc (see
-// emulate.py).  Blocks run one at a time; each thread of a block is a
-// fiber (ucontext) that gives way at __syncthreads and at every warp
-// collective, so a block's threads interleave as they would on an SM at
-// those points.  Shared memory starts as 0xFF bytes (a NaN in bf16 and
-// f32): a read before a write shows.
+// tests/_cuda_emu.py).  Blocks run one at a time; each thread of a block
+// is a fiber (ucontext) that gives way at __syncthreads, at every warp
+// collective and while it waits on an mbarrier, so a block's threads
+// interleave as they would on an SM at those points.  Dynamic shared
+// memory starts as 0xFF bytes (a NaN in bf16 and f32): a read before a
+// write shows.  It is 1024-byte aligned, and a shared address
+// (__cvta_generic_to_shared) is the offset into it, as on the card.
 #pragma once
 #include <ucontext.h>
 
@@ -25,6 +27,9 @@
 #define __shared__ static          // one block at a time: static is shared
 #define __align__(n)
 #define __restrict__
+#define __grid_constant__
+#define CUDART_INF_F INFINITY
+#define CUDART_VERSION 12000
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -58,12 +63,16 @@ inline float bf2f(unsigned short h) {
   memcpy(&f, &u, 4);
   return f;
 }
-struct __nv_bfloat16 { unsigned short v; };
+struct __nv_bfloat16 {
+  unsigned short v;
+  __nv_bfloat16() = default;
+  explicit __nv_bfloat16(float f) : v(f2bf(f)) {}
+};
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
-inline __nv_bfloat16 __float2bfloat16_rn(float f) { return {f2bf(f)}; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __nv_bfloat16(f); }
 inline float __bfloat162float(__nv_bfloat16 h) { return bf2f(h.v); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
-  return {{f2bf(a)}, {f2bf(b)}};
+  return {__nv_bfloat16(a), __nv_bfloat16(b)};
 }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) {
   return {bf2f(h.x.v), bf2f(h.y.v)};
@@ -80,11 +89,10 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
   *p += v;
   return o;
 }
-inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorInvalidConfiguration = 9 };
+       cudaErrorInvalidConfiguration = 9, cudaErrorNotSupported = 801 };
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return 0; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -93,8 +101,9 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 
 namespace emu {
 
-// fiber states: running, at __syncthreads, at a warp collective, done
-enum { RUN, AT_BLOCK, AT_WARP, DONE };
+// fiber states: running, at __syncthreads, at a warp collective, done,
+// spinning on an mbarrier
+enum { RUN, AT_BLOCK, AT_WARP, DONE, SPIN };
 struct Fiber {
   ucontext_t ctx;
   std::vector<char> stack;
@@ -105,9 +114,17 @@ inline ucontext_t sched;
 inline int cur = -1;
 inline std::function<void()> body;
 inline std::vector<uint8_t> smem;
+inline uint8_t* smem_base() {          // dynamic shared memory, 1024-aligned
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem.data()) + 1023) & ~uintptr_t(1023));
+}
+// set when a fiber does something other than spin on an mbarrier that
+// has not completed: a scheduling pass without it is a deadlock
+inline bool progress;
 inline uint64_t xch[32][32][8];      // a warp's exchange slots, per lane
 
 inline void wait(int st) {
+  if (st != SPIN) progress = true;
   fibers[cur].state = st;
   swapcontext(&fibers[cur].ctx, &sched);
 }
@@ -130,9 +147,10 @@ inline void run_block(unsigned nthr) {
   }
   for (;;) {
     bool ran = false;
+    progress = false;
     for (unsigned i = 0; i < nthr; ++i) {
-      if (fibers[i].state != RUN) continue;
-      ran = true;
+      if (fibers[i].state != RUN && fibers[i].state != SPIN) continue;
+      ran = ran || fibers[i].state == RUN;
       cur = (int)i;
       threadIdx = dim3(i, 0, 0);
       swapcontext(&sched, &fibers[i].ctx);
@@ -158,7 +176,7 @@ inline void run_block(unsigned nthr) {
         if (f.state == AT_BLOCK) f.state = RUN;
       released = true;
     }
-    if (!ran && !released) {
+    if (!ran && !released && !progress) {
       fprintf(stderr, "emu: deadlock in block (%u, %u, %u)\n", blockIdx.x,
               blockIdx.y, blockIdx.z);
       abort();
@@ -174,7 +192,7 @@ inline void launch(dim3 g, dim3 b, long long bytes, F fn) {
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
         blockIdx = dim3(x, y, z);
-        smem.assign(std::max<long long>(bytes, 16), 0xFF);
+        smem.assign(std::max<long long>(bytes, 16) + 1024, 0xFF);
         body = fn;
         run_block(b.x * b.y * b.z);
       }
@@ -200,6 +218,11 @@ T shfl(T v, int src) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::wait(emu::AT_BLOCK); }
+inline void __syncwarp() { emu::warp_sync(); }
+inline void __trap() { abort(); }
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (size_t)((const uint8_t*)p - emu::smem_base());
+}
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   return emu::shfl(v, emu::lane() ^ m);
 }
@@ -210,4 +233,57 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
 inline float __shfl_down_sync(unsigned, float v, int d) {
   const int l = emu::lane();
   return emu::shfl(v, l + d < 32 ? l + d : l);
+}
+
+// Tensor maps: the host looks cuTensorMapEncodeTiled up
+// through cudaGetDriverEntryPoint; here it is a stub that records the
+// map (base, sizes, byte strides, box, swizzle) in the map's bytes, and
+// tma_box4 (prims.h) reads it back.
+typedef int CUresult;
+enum { CUDA_SUCCESS = 0 };
+typedef uint32_t cuuint32_t;
+typedef uint64_t cuuint64_t;
+typedef int CUtensorMapDataType, CUtensorMapInterleave, CUtensorMapSwizzle,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill;
+enum { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9, CU_TENSOR_MAP_INTERLEAVE_NONE = 0,
+       CU_TENSOR_MAP_SWIZZLE_128B = 3, CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2,
+       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+struct alignas(64) CUtensorMap {
+  const uint8_t* base;
+  uint64_t dims[4], strides[4];      // strides in bytes; dim 0's the element
+  uint32_t box[4];
+  int swizzle;
+};
+static_assert(sizeof(CUtensorMap) <= 128, "a CUtensorMap is 128 bytes");
+inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType dt,
+                                 cuuint32_t rank, void* base,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle sw,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill) {
+  if (dt != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank != 4 ||
+      (uintptr_t)base % 16 || box[0] * 2 > 128)
+    return 1;
+  m->base = (const uint8_t*)base;
+  m->strides[0] = 2;
+  for (int i = 0; i < 4; ++i) {
+    m->dims[i] = dims[i];
+    m->box[i] = box[i];
+    if (i > 0) {
+      if (strides[i - 1] % 16) return 1;
+      m->strides[i] = strides[i - 1];
+    }
+  }
+  m->swizzle = sw;
+  return CUDA_SUCCESS;
+}
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+inline cudaError_t cudaGetDriverEntryPoint(const char*, void** fn, int,
+                                           cudaDriverEntryPointQueryResult* r) {
+  *fn = (void*)&emu_encode_tiled;
+  *r = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
 }

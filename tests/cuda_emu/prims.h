@@ -1,6 +1,10 @@
-// The asm primitives of the kernels (cp.async, ldmatrix, mma.sync
-// m16n8k16 bf16 -> f32) as warp collectives of the emulation (emu.h).
-// Included by emulate.py in place of the asm definitions.
+// The asm primitives of the kernels as the emulation (emu.h) runs them:
+// cp.async as plain copies; ldmatrix, mma.sync m16n8k16 bf16 -> f32 and
+// wgmma's register operand as warp collectives; mbarriers as fiber waits;
+// TMA boxes as copies that apply the 128-byte swizzle and fill what lies
+// outside the tensor with zeros; wgmma m64nNk16 reading its shared
+// operands through their descriptors.  Included by tests/_cuda_emu.py in
+// place of the asm definitions.
 __device__ __forceinline__ void cp16(void* dst, const void* src,
                                      bool full) {
   if (full)
@@ -11,6 +15,13 @@ __device__ __forceinline__ void cp16(void* dst, const void* src,
 __device__ __forceinline__ void cp_commit() {}
 template <int N>
 __device__ __forceinline__ void cp_wait() {}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  cp16(dst, src, full);
+}
+__device__ __forceinline__ void cp_async_commit() {}
+__device__ __forceinline__ void cp_async_wait1() {}
+__device__ __forceinline__ float ex2(float x) { return exp2f(x); }
 
 static inline uint32_t emu_pack(unsigned short a, unsigned short b) {
   return (uint32_t)a | ((uint32_t)b << 16);
@@ -37,10 +48,10 @@ static inline void emu_ldsm(uint32_t (&r)[4], const void* p, bool trans) {
   }
   warp_sync();
 }
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
   emu_ldsm(r, p, false);
 }
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
   emu_ldsm(r, p, true);
 }
 
@@ -74,4 +85,180 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
     for (int k = 0; k < 16; ++k) acc += A[row][k] * B[k][col];
     d[e] = acc;
   }
+}
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  mma(d, a, b0, b1);
+}
+
+// mbarrier: expected arrivals (low 15 bits) and the phase (bit 15),
+// pending arrivals, pending transaction bytes.  A phase completes when
+// both reach 0; waiters on the phase of parity p pass once the phase bit
+// differs from p.
+struct EmuBar {
+  uint16_t expect, pending;
+  int32_t tx;
+};
+static_assert(sizeof(EmuBar) == 8, "an mbarrier is 8 bytes");
+static inline void emu_bar_step(uint64_t* bar, int arrivals, int bytes) {
+  EmuBar* b = reinterpret_cast<EmuBar*>(bar);
+  b->pending -= arrivals;
+  b->tx += bytes;
+  emu::progress = true;
+  if (b->pending == 0 && b->tx == 0) {
+    b->expect ^= 0x8000;
+    b->pending = b->expect & 0x7fff;
+  }
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  *reinterpret_cast<EmuBar*>(bar) = EmuBar{(uint16_t)count, (uint16_t)count,
+                                           0};
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  emu_bar_step(bar, 1, (int)bytes);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  emu_bar_step(bar, 1, 0);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const EmuBar* b = reinterpret_cast<const EmuBar*>(bar);
+  bool spun = false;
+  while (((b->expect >> 15) & 1u) == parity) {
+    emu::wait(emu::SPIN);
+    spun = true;
+  }
+  if (spun) emu::progress = true;
+}
+
+// the 128-byte swizzle of a shared address: its 16-byte chunk (bits 4-6)
+// xor its 128-byte row within 1024 bytes (bits 7-9)
+static inline uint32_t emu_sw128(uint32_t a) {
+  return a ^ (((a >> 7) & 7u) << 4);
+}
+
+// a 4-D box at (c0 .. c3): row-major in shared memory, 128-byte rows
+// swizzled, zeros where the box leaves the tensor; the bytes complete on
+// `bar`
+__device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  const CUtensorMap& m = *map;
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t d0 = (uint32_t)__cvta_generic_to_shared(dst);
+  const uint32_t row = m.box[0] * 2;
+  uint32_t n = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, n += 2) {
+          const long long x[4] = {c[0] + (long long)i0, c[1] + (long long)i1,
+                                  c[2] + (long long)i2, c[3] + (long long)i3};
+          unsigned short v = 0;
+          bool in = true;
+          long long off = 0;
+          for (int a = 0; a < 4; ++a) {
+            in = in && x[a] >= 0 && x[a] < (long long)m.dims[a];
+            off += x[a] * (long long)m.strides[a];
+          }
+          if (in) memcpy(&v, m.base + off, 2);
+          uint32_t a = d0 + n;
+          if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B) {
+            if (row != 128) abort();
+            a = emu_sw128(a);
+          }
+          memcpy(emu::smem_base() + a, &v, 2);
+        }
+  emu_bar_step(bar, 0, -(int)n);
+}
+
+// wgmma: asynchronous on the card, done at once here (fence, commit and
+// wait are no-ops; the kernels wait before they read the results).
+__device__ __forceinline__ void wg_fence() {}
+__device__ __forceinline__ void wg_commit() {}
+__device__ __forceinline__ void wg_wait0() {}
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&)[N]) {}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {}
+
+// element (r, k) of a K-major operand (r: its M or N index, k: the depth)
+// or (k, n) of an MN-major one, read through a 128-byte-swizzle
+// descriptor: start, leading byte offset (the next 64 columns of an
+// MN-major operand), stride byte offset (the next 8 rows, or 8 depths)
+static inline float emu_desc_at(uint64_t desc, int mn, int k, bool mn_major) {
+  if ((desc >> 62) != 1) abort();
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const uint32_t a =
+      mn_major ? start + (mn / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 +
+                     (mn % 64) * 2
+               : start + (mn / 8) * sbo + (mn % 8) * 128 + k * 2;
+  unsigned short v;
+  memcpy(&v, emu::smem_base() + emu_sw128(a), 2);
+  return bf2f(v);
+}
+
+// D (64 x N) += A (64 x 16) B (16 x N) for this thread's accumulators
+// (warp w of the warpgroup: rows 16 w + lane / 4, + 8; columns 8 c + 2
+// (lane % 4), + 1).  A from the descriptor `da` (K-major) or from the
+// warp's fragments `a`; B K-major or MN-major.
+template <int N>
+static inline void emu_wgmma(float* d, uint64_t da, const uint32_t* a,
+                             uint64_t db, bool b_mn, int scale_d) {
+  using namespace emu;
+  const int l = lane(), w = warp() & 3;
+  float A[2][16];
+  if (a != nullptr) {
+    for (int i = 0; i < 4; ++i) xch[warp()][l][i] = a[i];
+    warp_sync();
+    auto lo = [](uint64_t v) { return bf2f((unsigned short)(v & 0xffff)); };
+    auto hi = [](uint64_t v) { return bf2f((unsigned short)(v >> 16)); };
+    for (int t = 0; t < 4; ++t) {
+      const uint64_t* o = xch[warp()][4 * (l / 4) + t];
+      for (int h = 0; h < 2; ++h) {
+        A[h][2 * t] = lo(o[h]);
+        A[h][2 * t + 1] = hi(o[h]);
+        A[h][2 * t + 8] = lo(o[2 + h]);
+        A[h][2 * t + 9] = hi(o[2 + h]);
+      }
+    }
+    warp_sync();
+  } else {
+    for (int h = 0; h < 2; ++h)
+      for (int k = 0; k < 16; ++k)
+        A[h][k] = emu_desc_at(da, 16 * w + l / 4 + 8 * h, k, false);
+  }
+  for (int c = 0; c < N / 8; ++c)
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * c + 2 * (l % 4) + (e & 1);
+      float acc = scale_d ? d[4 * c + e] : 0.f;
+      for (int k = 0; k < 16; ++k)
+        acc += A[e >> 1][k] * (b_mn ? emu_desc_at(db, col, k, true)
+                                    : emu_desc_at(db, col, k, false));
+      d[4 * c + e] = acc;
+    }
+}
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  emu_wgmma<64>(d, da, nullptr, db, false, scale_d);
+}
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  emu_wgmma<64>(d, 0, a, db, true, 1);
+}
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  emu_wgmma<128>(d, 0, a, db, true, 1);
+}
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  emu_wgmma<192>(d, 0, a, db, true, 1);
 }

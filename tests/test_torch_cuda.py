@@ -16,7 +16,10 @@ live), generation on the card against the same seeded model on the
 CPU, the two frontend models at full width and 2 layers included, and
 training: the three backward kernels against their plain versions
 (each gradient within 1e-4 of its max |g| in f32, 2e-2 in bf16; the
-gate's 1e-5) and a train step's loss and gradients against the CPU's.
+gate's 1e-5; the attention backward's body checked through its
+per-body launch counts over ragged lengths, qwen3's G = 8, windows
+that skip whole tiles, kv_valid, Lk < 64, contiguous and misaligned
+layouts) and a train step's loss and gradients against the CPU's.
 They
 import neither JAX nor the JAX package, so they run on a machine with a
 card and no JAX:
@@ -1053,39 +1056,69 @@ def test_generate_int8_kv_on_card_matches_cpu(cuda, name, L):
 # training: the backward kernels and the train step
 # ----------------------------------------------------------------------
 
+def _attn_operand(g, cuda, dt, B, L, H, hd, layout):
+    """A (B, H, L, hd) operand in ``layout``: "blhd" a ``transpose(1,
+    2)`` view of the model's (B, L, H, hd), "bhld" a contiguous tensor,
+    "pad" a view whose rows lie 8 bytes off 16 (bf16: the mma body)."""
+    if layout == "bhld":
+        return torch.randn(B, H, L, hd, generator=g, device=cuda).to(dt)
+    w = H * hd + (4 if layout == "pad" else 0)
+    x = torch.randn(B, L, w, generator=g, device=cuda).to(dt)
+    return x[..., :H * hd].unflatten(-1, (H, hd)).transpose(1, 2)
+
+
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4),
                                     (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,Hq,Hkv,L,Lk,hd,causal,window,cap", [
-    (2, 4, 2, 200, 200, 64, True, 0, 0.0),
-    (1, 4, 1, 130, 130, 120, True, 50, 0.0),
-    (1, 2, 1, 100, 100, 288, True, 64, 50.0),
-    (1, 4, 2, 150, 150, 128, True, 0, 0.0),
-    (2, 4, 4, 300, 16, 64, False, 0, 0.0),
-    (1, 2, 2, 70, 70, 32, True, 0, 0.0)])
+@pytest.mark.parametrize("B,Hq,Hkv,L,Lk,hd,causal,window,cap,kvv,layout", [
+    (2, 4, 2, 200, 200, 64, True, 0, 0.0, None, "blhd"),
+    (1, 4, 1, 130, 130, 120, True, 50, 0.0, None, "blhd"),
+    (1, 2, 1, 100, 100, 288, True, 64, 50.0, None, "blhd"),
+    (1, 4, 2, 150, 150, 128, True, 0, 0.0, None, "blhd"),
+    (2, 4, 4, 300, 16, 64, False, 0, 0.0, None, "blhd"),
+    (1, 2, 2, 70, 70, 32, True, 0, 0.0, None, "blhd"),
+    (1, 8, 1, 190, 190, 128, True, 0, 0.0, None, "blhd"),  # qwen3's G = 8
+    (1, 4, 2, 300, 300, 64, True, 70, 0.0, None, "blhd"),  # tiles skipped
+    (2, 4, 2, 150, 150, 64, True, 0, 0.0, (150, 77), "blhd"),  # kv_valid
+    (2, 4, 2, 100, 150, 128, True, 0, 30.0, (120, 9), "blhd"),
+    (1, 4, 2, 100, 40, 128, False, 0, 0.0, None, "blhd"),  # Lk < 64
+    (1, 4, 2, 130, 130, 120, True, 0, 0.0, None, "bhld"),  # contiguous
+    (2, 4, 2, 200, 200, 64, True, 0, 0.0, None, "bhld"),
+    (1, 4, 2, 100, 100, 64, True, 0, 0.0, None, "pad")])  # rows off 16 B
 def test_flash_attention_bwd_matches_plain(cuda, dt, tol, B, Hq, Hkv, L, Lk,
-                                           hd, causal, window, cap):
+                                           hd, causal, window, cap, kvv,
+                                           layout):
     """The backward kernel against the plain backward (each gradient
     within ``tol`` of its max |g|), the forward's o (``tol`` * (1 +
     |want|)) and lse (1e-5 relative) against the plain ones, the same
-    bits on two launches."""
+    bits on two launches, and the body that ran: wgmma for bf16 at hd
+    64 / 120 / 128 on 16-byte rows, mma for other bf16 operands (hd 32,
+    288, rows off 16 bytes), f32 for f32 ones."""
     g = torch.Generator(device=cuda).manual_seed(1)
-
-    def rn(*s):
-        return torch.randn(*s, generator=g, device=cuda).to(dt)
-    q, do = (rn(B, L, Hq, hd).transpose(1, 2) for _ in range(2))
-    k, v = (rn(B, Lk, Hkv, hd).transpose(1, 2) for _ in range(2))
+    q, do = (_attn_operand(g, cuda, dt, B, L, Hq, hd, layout)
+             for _ in range(2))
+    k, v = (_attn_operand(g, cuda, dt, B, Lk, Hkv, hd, layout)
+            for _ in range(2))
+    kv = None if kvv is None else torch.tensor(kvv, dtype=torch.int32,
+                                               device=cuda)
     kw = dict(causal=causal, window=window, softcap=cap)
-    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
-    o2, lse2 = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    o, lse = FA.flash_attention(q, k, v, kv, return_lse=True, **kw)
+    o2, lse2 = FA.flash_attention_plain(q, k, v, kv, return_lse=True, **kw)
     assert torch.allclose(lse, lse2, rtol=1e-5, atol=1e-5)
     assert bool(((o.float() - o2.float()).abs()
                  <= tol * (1 + o2.float().abs())).all())
-    got = FA.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
-    want = FA.flash_attention_bwd_plain(q, k, v, o2, lse2, do, **kw)
+    body = "f32" if dt == torch.float32 else \
+        "wgmma" if hd in (64, 120, 128) and layout != "pad" else "mma"
+    assert FA.bwd_body(q, k, v, do) == body
+    before = dict(FA.flash_attention_bwd.launches_by_body)
+    got = FA.flash_attention_bwd(q, k, v, o2, lse2, do, kv, **kw)
+    ran = {b: n - before[b]
+           for b, n in FA.flash_attention_bwd.launches_by_body.items()}
+    assert ran == {b: int(b == body) for b in ran}
+    want = FA.flash_attention_bwd_plain(q, k, v, o2, lse2, do, kv, **kw)
     for a, b in zip(got, want):
         assert float((a.float() - b.float()).abs().max()) <= tol * float(
             b.float().abs().max())
-    again = FA.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o2, lse2, do, kv, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
