@@ -108,7 +108,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      50), h2o-danube-3-4b's full ring of 4,096 (B=4, hd 120) and
      llava-next-mistral-7b's 3,392 slots (hd 128) -- against
      ``decode_q8_plain``, timed beside the bf16 decode on the same
-     values, with both bounds; an f32 sweep (G 1-40, hd 32-288);
+     values, with both bounds, each on the tensor-core body
+     (``decode_mma_kernel<HD, true>``, at hd 288
+     ``decode_wide_q8_kernel``; checked through ``launches_by_body``)
+     and its two launches (body, merge) timed from a trace; an f32
+     sweep (G 1-40, hd 32-288) on ``decode_q8_kernel``, timed at
+     llama's shape, and a bf16 sweep over both bodies (G 16 and 20, hd
+     32, 120, 128 and 288, local windows, softcap);
   5. routed generation at full width and depth: a catalog of
      llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
      published config with seeded random bf16 weights on the card;
@@ -187,7 +193,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      qwen3-moe-30b-a3b's hd 128, gemma2-2b's hd 288 with its softcap,
      local and global, h2o-danube-3-4b's hd 120 window, seamless's
      cross-attention; the scan at mamba2-1.3b's and hymba-1.5b's
-     shapes; the gate at qwen3-moe's 8,192 tokens), bf16 and f32, bit
+     shapes; the gate at qwen3-moe's 8,192 tokens, warp-level rows, one
+     launch a call, and a sweep of E 8-1024, k 1-8), bf16 and f32, bit
      stable, timed (CUDA graph) against its bound and, for attention
      without a softcap, SDPA's backward; the attention backward's body
      (wgmma for llama, qwen3, h2o-danube and seamless, mma for gemma2,
@@ -342,12 +349,16 @@ def trace_kernels(torch, dev, fn, iters: int = 20) -> dict:
             fn()
         torch.cuda.synchronize(dev)
     out = {}
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    for e in events:
         us = getattr(e, "self_device_time_total", 0.0)
         if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
             ms, n = out.get(kernel_label(e.key), (0.0, 0.0))
             out[kernel_label(e.key)] = (ms + us / 1e3 / iters,
                                         n + e.count / iters)
+    if not out:                 # PERF.md section 7: late in a long run
+        log(f"[trace] no device time: {len(events)} event kinds, none "
+            f"on the device")
     return out
 
 
@@ -2652,6 +2663,8 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
               FA.flash_decode_q8):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
+    for b in FA.flash_decode_q8.launches_by_body:
+        FA.flash_decode_q8.launches_by_body[b] = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2664,6 +2677,8 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
                 "moe_gating": MG.moe_gating.launches}
     if kv_cache_dtype:
         launches["flash_decode_q8"] = FA.flash_decode_q8.launches
+        launches.update({f"flash_decode_q8[{b}]": n for b, n in
+                         FA.flash_decode_q8.launches_by_body.items()})
         rec.counts.update({"int8 " + k: v for k, v in rec8.counts.items()})
     log(f"[{tag}] launches on the main path: {launches}; flash_attention "
         f"calls by kind: {rec.counts}")
@@ -3074,11 +3089,15 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
     (B, C, Hkv, hd) layout with its f32 scales (``quantize_kv`` of
     seeded bf16 rows): the kernel against ``decode_q8_plain`` (|err| <=
     2e-2 (1 + |want|) and at most one bf16 ulp of max |want|: both
-    dequantize to the same bf16 values), one launch a call, two launches
-    bit-equal; then its device time, the plain version's, the bf16
-    decode's (``flash_attention``) on the same dequantized values in a
-    bf16 cache, and both bounds.  Returns rows keyed ("int8", kind) for
-    the served kinds, and logs every shape."""
+    dequantize to the same bf16 values), one launch a call on the
+    tensor-core body, two launches bit-equal; then its device time, the
+    plain version's, the bf16 decode's (``flash_attention``) on the same
+    dequantized values in a bf16 cache, both bounds, and the body's and
+    the merge's device times from a trace.  Then the CUDA-core body
+    (``decode_q8_kernel``): an f32 sweep and its time at llama's shape
+    with f32 queries, and a bf16 sweep that reaches both bodies.
+    Returns rows keyed ("int8", kind) for the served kinds, and logs
+    every shape."""
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.layers import quantize_kv
@@ -3108,10 +3127,19 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
         what = f"{kind} ({name}, B={B}, C={C}, live " + (
             f"{int(kv.min())}-{int(kv.max())})" if live_kind == "ragged"
             else "all)")
-        before = FA.flash_decode_q8.launches
+        body = FA.q8_body(q, args[0])
+        by_body = dict(FA.flash_decode_q8.launches_by_body)
         got = FA.flash_decode_q8(q, *args, kvt, **kw)
-        check(dev.type != "cuda" or FA.flash_decode_q8.launches == before + 1,
-              f"int8 decode {what}: not one launch")
+        check(dev.type != "cuda" or (
+            body == "mma" and FA.flash_decode_q8.launches_by_body["mma"]
+            == by_body["mma"] + 1 and sum(
+                FA.flash_decode_q8.launches_by_body.values())
+            == sum(by_body.values()) + 1),
+              f"int8 decode {what}: not one launch of the tensor-core "
+              f"body ({body})")
+        body_kernel = ("decode_wide_q8_kernel<288>" if hd == 288 else
+                       f"decode_mma_kernel<{128 if hd == 120 else hd}, "
+                       f"true>")
         want = FA.decode_q8_plain(q, *args, kvt, **kw)
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"int8 decode {what}: output {got.dtype} {tuple(got.shape)}")
@@ -3133,7 +3161,8 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
         vb = FA.dequantize_kv(args[1], args[3])
         iters = 20 if C < 1000 else 10
         row = dict(
-            name=f"flash_decode_q8 {what}", route="cuda", source=FLASH_SRC,
+            name=f"flash_decode_q8 {body_kernel} {what}", route="cuda",
+            source=FLASH_SRC,
             replaces=FLASH_TPU, max_abs_err=err, bound_ms=bms, bound_by=by,
             ms=time_graph_ms(torch, lambda: FA.flash_decode_q8(
                 q, *args, kvt, **kw), dev, iters=iters),
@@ -3146,8 +3175,8 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
         parts = fmt_times(kernel_times(torch, dev, lambda: FA.flash_decode_q8(
             q, *args, kvt, **kw), iters=3))
         log(f"[kv int8 kernels] {what}: {Hq}/{Hkv} heads of {hd}, softcap "
-            f"{cap:g}, local {local}, splits "
-            f"{FA.decode_splits_q8(B, Hkv, C)}: "
+            f"{cap:g}, local {local}, {body_kernel}, splits "
+            f"{FA.q8_splits(B, Hkv, C, hd, body)}: "
             f"{row['ms']:.4f} ms, bound {bms:.4f} by {by} "
             f"({row['ms'] / bms:.1f}x); the bf16 decode on the same values "
             f"{bf16_ms:.4f} ms (bound {b16:.4f}; int8 / bf16 "
@@ -3163,25 +3192,80 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
              ((2, 300, 8, 8, 64), [300, 150], 0, 0.0),
              ((3, 4100, 32, 8, 120), [1, 2000, 4100], 300, 0.0),
              ((2, 700, 8, 4, 288), [700, 513], 200, 50.0)]
-    worst = 0.0
-    for (b_, c_, hq, hk, d), kvl, loc, sc_ in cases:
+    def sweep_args(b_, c_, hq, hk, d, dt):
         k8, ks = quantize_kv(torch.randn(b_, c_, hk, d, generator=g,
                                          device=dev))
         v8, vs = quantize_kv(torch.randn(b_, c_, hk, d, generator=g,
                                          device=dev))
-        q = torch.randn(b_, 1, hq, d, generator=g, device=dev).transpose(1, 2)
-        args = [x.transpose(1, 2) for x in (k8, v8, ks, vs)]
+        q = torch.randn(b_, 1, hq, d, generator=g, device=dev).to(dt)
+        return [x.transpose(1, 2) for x in (q, k8, v8, ks, vs)]
+
+    worst = 0.0
+    cores = FA.flash_decode_q8.launches_by_body["cores"]
+    for (b_, c_, hq, hk, d), kvl, loc, sc_ in cases:
+        args = sweep_args(b_, c_, hq, hk, d, torch.float32)
         kvt = torch.tensor(kvl, dtype=torch.int32, device=dev)
         kw = dict(softcap=sc_, local_window=loc)
-        got = FA.flash_decode_q8(q, *args, kvt, **kw)
-        want = FA.decode_q8_plain(q, *args, kvt, **kw)
+        got = FA.flash_decode_q8(*args, kvt, **kw)
+        want = FA.decode_q8_plain(*args, kvt, **kw)
         e = float((got - want).abs().max())
         check(e <= 2e-4 * (1 + float(want.abs().max())),
               f"int8 decode f32 {(b_, c_, hq, hk, d)}: max err {e}")
         worst = max(worst, e)
+    check(dev.type != "cuda" or FA.flash_decode_q8.launches_by_body["cores"]
+          == cores + len(cases), "int8 decode f32 sweep: not every case on "
+                                 "the CUDA-core body")
+    # decode_q8_kernel at llama's served shape, f32 queries
+    cfg = get_smoke("llama3.2-1b") if small else get_config("llama3.2-1b")
+    B, C = (4, 150) if small else (16, 536)
+    args = sweep_args(B, C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      torch.float32)
+    kv = np.arange(B) % 16 + (C - 23)
+    kvt = torch.from_numpy(kv.astype(np.int32)).to(dev)
+    f32_ms = time_graph_ms(torch, lambda: FA.flash_decode_q8(*args, kvt),
+                           dev)
+    f32_parts = fmt_times(kernel_times(
+        torch, dev, lambda: FA.flash_decode_q8(*args, kvt), iters=3))
     log(f"[kv int8 kernels] f32 sweep ({len(cases)} cases: G 1-40, hd 32, "
-        f"64, 120 and 288, kv_valid 0 and 1, local windows, softcap): max "
-        f"err {worst:.3g} (tol 2e-4 (1 + max |want|))")
+        f"64, 120 and 288, kv_valid 0 and 1, local windows, softcap, all "
+        f"on decode_q8_kernel): max err {worst:.3g} (tol 2e-4 (1 + max "
+        f"|want|)); decode_q8_kernel at llama's shape (B={B}, C={C}, f32 "
+        f"queries): {f32_ms:.4f} ms; launches: {f32_parts}")
+    # bf16 queries on both bodies: G 20 and hd 32 stay on the CUDA cores,
+    # G 16, hd 120 with a window cutting chunks, hd 288 on the tensor cores
+    bcases = [((2, 300, 40, 2, 64), [300, 7], 0, 0.0, "cores"),
+              ((2, 200, 8, 8, 32), [200, 0], 0, 0.0, "cores"),
+              ((2, 700, 16, 1, 128), [700, 513], 0, 0.0, "mma"),
+              ((3, 4100, 32, 8, 120), [1, 2000, 4100], 300, 0.0, "mma"),
+              ((2, 700, 8, 4, 288), [700, 513], 200, 50.0, "mma"),
+              ((2, 77, 8, 1, 288), [77, 1], 0, 0.0, "mma")]
+    worst = 0.0
+    for (b_, c_, hq, hk, d), kvl, loc, sc_, body in bcases:
+        args = sweep_args(b_, c_, hq, hk, d, torch.bfloat16)
+        kvt = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        kw = dict(softcap=sc_, local_window=loc)
+        check(FA.q8_body(args[0], args[1]) == body,
+              f"int8 decode bf16 {(b_, c_, hq, hk, d)}: body "
+              f"{FA.q8_body(args[0], args[1])}, want {body}")
+        n = FA.flash_decode_q8.launches_by_body[body]
+        got = FA.flash_decode_q8(*args, kvt, **kw)
+        check(dev.type != "cuda" or
+              FA.flash_decode_q8.launches_by_body[body] == n + 1,
+              f"int8 decode bf16 {(b_, c_, hq, hk, d)}: not on {body}")
+        want = FA.decode_q8_plain(*args, kvt, **kw)
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= 2e-2 * (1 + want.float().abs())).all()),
+              f"int8 decode bf16 {(b_, c_, hq, hk, d)}: |err| above 2e-2 "
+              f"(1 + |want|)")
+        check(torch.equal(got, FA.flash_decode_q8(*args, kvt, **kw)),
+              f"int8 decode bf16 {(b_, c_, hq, hk, d)}: two launches "
+              f"differ")
+        worst = max(worst, float(diff.max()))
+    log(f"[kv int8 kernels] bf16 sweep ({len(bcases)} cases: G 4-20, hd "
+        f"32-288, kv_valid 0 and 1, local windows cutting chunks, softcap; "
+        f"G 20 and hd 32 on decode_q8_kernel, the rest on the tensor "
+        f"cores; two launches bit-equal): max err {worst:.3g} (tol 2e-2 "
+        f"(1 + |want|))")
     return rows
 
 
@@ -3198,7 +3282,9 @@ def kv_int8_generation_phase(torch, dev, small: bool, kernels, rows):
     preference profile, prompt 512, 16 new tokens: first with the
     configs' bf16 cache, then the same catalog, weights and requests
     with ``kv_cache_dtype="int8"``.  The int8 run: every decode step of
-    every layer one ``flash_decode_q8`` launch and no bf16 decode, the
+    every layer one ``flash_decode_q8`` launch on the tensor-core body
+    (``launches_by_body``, none on ``decode_q8_kernel``) and no bf16
+    decode, the
     prefill unchanged (one flash_attention launch a layer); prefill ms,
     ms per step, the card's busy share, the cache's bytes against bf16
     and the greedy tokens that agree with the bf16 run (reported, not
@@ -3218,16 +3304,19 @@ def kv_int8_generation_phase(torch, dev, small: bool, kernels, rows):
         cfgs = {n: mres.entry(n).runner.cfg for n in INT8_ARCHS}
         n_attn = sum(c.n_layers for c in cfgs.values())
         if kv_dt:
+            n8 = n_attn * (max_new - 1)
             want = {"flash_attention": n_attn,
                     "flash_attention_decode": 0, "ssd_scan": 0,
-                    "moe_gating": 0, "flash_decode_q8": n_attn * (max_new - 1)}
+                    "moe_gating": 0, "flash_decode_q8": n8,
+                    "flash_decode_q8[mma]": n8, "flash_decode_q8[cores]": 0}
             q8 = {k[5:]: v for k, v in kinds.items() if k.startswith("int8 ")}
-            check(sum(q8.values()) == n_attn * (max_new - 1),
-                  f"int8 decode calls {q8}, want {n_attn * (max_new - 1)}")
+            check(sum(q8.values()) == n8,
+                  f"int8 decode calls {q8}, want {n8}")
             if dev.type == "cuda":
                 check(launches == want, f"launch counts {launches}, want "
                                         f"{want} (prefill: flash_attention; "
-                                        f"every decode: flash_decode_q8)")
+                                        f"every decode: flash_decode_q8 on "
+                                        f"the tensor-core body)")
             for (_, kind), row in rows.items():
                 check(q8.get(kind, 0) > 0,
                       f"int8 decode {kind} never launched ({q8})")
@@ -3873,11 +3962,13 @@ def reset_launches():
     from repro_torch.kernels import router_topk as RT
     from repro_torch.kernels import ssd_scan as SS
     for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating,
-              RT.router_topk, RT.router_topk_q8, *bwd_kernels().values()):
+              RT.router_topk, RT.router_topk_q8, FA.flash_decode_q8,
+              *bwd_kernels().values()):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
-    for b in FA.flash_attention_bwd.launches_by_body:
-        FA.flash_attention_bwd.launches_by_body[b] = 0
+    for f in (FA.flash_attention_bwd, FA.flash_decode_q8):
+        for b in f.launches_by_body:
+            f.launches_by_body[b] = 0
 
 
 def read_launches() -> dict:
@@ -3890,9 +3981,11 @@ def read_launches() -> dict:
             "flash_attention_decode": FA.flash_attention.decode_launches,
             "ssd_scan": SS.ssd_scan.launches,
             "moe_gating": MG.moe_gating.launches,
+            "flash_decode_q8": FA.flash_decode_q8.launches,
             **{k: f.launches for k, f in bwd_kernels().items()},
-            **{f"flash_attention_bwd[{b}]": n for b, n in
-               FA.flash_attention_bwd.launches_by_body.items()}}
+            **{f"{f.__name__}[{b}]": n
+               for f in (FA.flash_attention_bwd, FA.flash_decode_q8)
+               for b, n in f.launches_by_body.items()}}
 
 
 def train_analyzers(torch, dev, small: bool, path: str):
@@ -4615,9 +4708,33 @@ def gate_bwd_row(torch, MG, g, dev, T, E, k):
     """The gate backward at qwen3-moe-30b-a3b's training gate (bf16
     logits as the router's product gives them), against the plain
     backward (1e-5 of max |dlogits|: f32 arithmetic on both sides), with
-    tied rows; f32 logits too; timed against its bound and against
-    autograd through softmax + topk (the PyTorch yardstick)."""
-    worst = 0.0
+    tied rows; f32 logits too; one ``gate_bwd_kernel`` launch a call (a
+    row to 16 lanes of a warp at E = 128); a sweep of E 8, 160 and 1024 at
+    k 1 and 8 (16 lanes, a warp, a warp); timed
+    against its bound and against autograd through softmax + topk (the
+    PyTorch yardstick)."""
+    errs = {}
+    for E_, k_, dt in ((8, 1, torch.float32), (160, 8, torch.bfloat16),
+                       (1024, 8, torch.float32), (1024, 1, torch.bfloat16)):
+        lg = torch.randn(333, E_, generator=g, device=dev).to(dt)
+        _, idx, _, asum = MG.moe_gating_plain(lg, k_, True)
+        dv = torch.randn(333, k_, generator=g, device=dev)
+        da = torch.tensor(0.37, device=dev)
+        got = MG.moe_gating_bwd(lg, idx, dv, da, asum)
+        want = MG.moe_gating_bwd_plain(lg, idx, dv, da, asum)
+        f64 = MG.moe_gating_bwd_plain(lg.double(), idx, dv.double(),
+                                      da.double(), asum.double())
+        # k = 1 cancels two nearly equal terms: held to f64 within twice
+        # the plain f32 version's own error there
+        m = float(want.float().abs().max())
+        own = float((want.double() - f64).abs().max())
+        err = float((got.double() - f64).abs().max())
+        lim = (max(1e-5 * m, 2 * own) if dt == torch.float32 else
+               1e-2 * m)
+        check(err <= lim, f"moe_gating_bwd E={E_} k={k_} {dt}: error "
+                          f"{err:.3g} against f64 above {lim:.3g}")
+        check(torch.equal(got, MG.moe_gating_bwd(lg, idx, dv, da, asum)),
+              f"moe_gating_bwd E={E_} k={k_}: two launches differ")
     for dt in (torch.float32, torch.bfloat16):
         lg = (torch.randn(T, E, generator=g, device=dev) * 2).to(dt)
         lg[:4, :16] = 0.5                       # tied probabilities
@@ -4630,8 +4747,8 @@ def gate_bwd_row(torch, MG, g, dev, T, E, k):
         got = MG.moe_gating_bwd(lg, idx, dv, da, asum)
         want = MG.moe_gating_bwd_plain(lg, idx, dv, da, asum)
         tol = 1e-5 if dt == torch.float32 else 1e-2
-        worst = max(worst, grads_close([got], [want], tol,
-                                       f"moe_gating_bwd {str(dt)[6:]}"))
+        errs[str(dt)[6:]] = grads_close([got], [want], tol,
+                                        f"moe_gating_bwd {str(dt)[6:]}")
         abs_err = float((got.float() - want.float()).abs().max())
         check(torch.equal(got, MG.moe_gating_bwd(lg, idx, dv, da, asum)),
               "moe_gating_bwd: two launches differ")
@@ -4642,6 +4759,8 @@ def gate_bwd_row(torch, MG, g, dev, T, E, k):
                                                         asum), dev)
     plain = time_ms(torch, lambda: MG.moe_gating_bwd_plain(
         lg, idx, dv, da, asum), dev)
+    launch = one_launch(torch, dev, lambda: MG.moe_gating_bwd(
+        lg, idx, dv, da, asum), ("gate_bwd_kernel",), "moe_gating_bwd")
     lib = None
     if dev.type == "cuda":
         leaf = lg.detach().float().requires_grad_()
@@ -4654,8 +4773,10 @@ def gate_bwd_row(torch, MG, g, dev, T, E, k):
     log(f"[train_kernels] moe_gating_bwd T={T} E={E} k={k} bf16: {ms:.4f} "
         f"ms (plain {plain:.4f}, autograd through softmax + gather "
         f"{'n/a' if lib is None else f'{lib:.4f}'}), bound {bms:.5f} by "
-        f"{by}; max err {worst:.3g} of max |g| (tol 1e-5 f32, 1e-2 bf16); "
-        f"asum equal to the plain version's")
+        f"{by}; max err of max |g|: f32 {errs['float32']:.3g} (tol 1e-5), "
+        f"bf16 {errs['bfloat16']:.3g} (tol 1e-2); "
+        f"asum equal to the plain version's; the sweep (E 8-1024, k 1 and "
+        f"8) held to f64; {launch}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
 
@@ -4968,19 +5089,30 @@ def kernel_label(name: str) -> str:
 
 def kernel_name(line: str) -> str:
     """'kernel name<args>' from ptxas's 'Compiling entry function' line
-    (a mangled name such as ...20prefill_wgmma_kernelILi64EEEv...)."""
+    (a mangled name such as ...20prefill_wgmma_kernelILi64EEEv...: each
+    name after its length, so digits inside one, as in
+    ``decode_q8_kernel``, are read too)."""
     import re
-    m = re.search(r"([a-z][a-z_]*_kernel)(I(.*?)EEv)?", line)
-    if m is None:
+    # a length prefix may follow other digits (...aea721decode_...): try
+    # each tail of a digit run as the length
+    found = [line[m.end():m.end() + int(m.group()[i:])]
+             for m in re.finditer(r"\d+(?=[A-Za-z_])", line)
+             for i in range(len(m.group()))]
+    names = [n for n in found if n.endswith("_kernel")
+             and re.fullmatch(r"[A-Za-z_]\w*", n)]
+    if not names:
         return line
-    args = m.group(3) or ""
+    name = names[0]
+    rest = line[line.index(name) + len(name):]
+    a = re.match(r"I(.*?)EEv", rest)
+    args = a.group(1) if a else ""
     dt = "bf16, " if "bfloat16" in args else "f32, " if args[:1] == "f" \
         else ""
     hd = re.findall(r"Li(\d+)E", args + "E")
     hd += ["true" if b == "1" else "false"
            for b in re.findall(r"Lb([01])E", args + "E")]
     targs = f"<{dt}{','.join(hd)}>" if args else ""
-    return f"kernel {m.group(1)}{targs}"
+    return f"kernel {name}{targs}"
 
 
 # ----------------------------------------------------------------------

@@ -74,24 +74,3 @@ __device__ __forceinline__ void block_mm(int M, int N, int K,
       }
   }
 }
-
-// The block's sum of one float a thread, in a fixed order: each warp's
-// 32 values in shared memory, summed by lane 0 of each warp in lane
-// order, then the warps' sums by thread 0 in warp order.  `red` holds
-// blockDim.x floats; every thread gets the sum.  Two __syncthreads.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  if ((t & 31) == 0) {
-    float s = 0.f;
-    const int hi = min(t + 32, (int)blockDim.x);
-    for (int u = t; u < hi; ++u) s += red[u];
-    red[t] = s;
-  }
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < (int)blockDim.x; w += 32) s += red[w];
-  __syncthreads();
-  return s;
-}

@@ -80,6 +80,19 @@
 //    key.  decode_combine_kernel, one block per (batch, query head),
 //    merges the splits in split order: no atomics, the same bits on
 //    every run.
+//  * decode against an int8 KV cache (flash_decode_q8_launch; the
+//    values are bf16(bf16(x) * bf16(scale)), the reference's): the bytes
+//    are half the bf16 cache's, but every value must be dequantized, and
+//    the int-to-float and float-to-bf16 conversions run at a quarter of
+//    the ALU rate or less.  bf16 queries, G <= 16: the same tensor-core
+//    body, decode_mma_kernel<HD, true> at hd 64/120/128 (each warp its
+//    own 2-stage cp.async ring of int8 rows, no block barrier in the
+//    loop), decode_wide_q8_kernel at hd 288 (O split by columns over
+//    the warps); the values are formed with byte permutes, an f32
+//    subtract and one bf16x2 fma a pair (deq8x8).  Otherwise (f32, hd
+//    32, G > 16) decode_q8_kernel on CUDA cores.  The caller names the
+//    body (flash_attention.q8_body); both merge through
+//    decode_combine_kernel.
 //  * masked scores never enter ex2: a masked score is -inf, and a row
 //    whose running max is still -inf subtracts 0 instead.
 #include <cuda.h>
@@ -401,6 +414,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 8 / 4 bytes global -> shared (through L1): int8 cache rows, whose
+// head offset may be a multiple of 8 bytes only (hd 120), and scales
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
 
@@ -1120,39 +1149,212 @@ __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
-template <int HD>
+// The reference's dequantized cache elements: bf16(bf16(x) * bf16(s)),
+// two at a time.  bf16 holds every int8 exactly and the f32 product of
+// two bf16 values is exact, so rounding it once to bf16 gives the same
+// bits as the reference's bf16 multiply.  `sb` is bf16(s) as a float.
+__device__ __forceinline__ uint32_t deq8x2(int8_t x0, int8_t x1, float sb) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn((float)x0 * sb,
+                                                 (float)x1 * sb);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The int8 cache's staging of the tensor-core decodes: a stage holds R
+// rows of K and of V (HD bytes a row, zeros past hd and past the live
+// keys) and their R + R f32 scales.  NT threads (a warp or the block;
+// `tid` is the caller's index among them) share a stage: q8_fetch puts
+// it in flight with 8-byte and 4-byte cp.async (an int8 row's head
+// offset is a multiple of 8 bytes only at hd 120); q8_dequant turns a
+// landed stage into R rows of the PITCH-padded bf16 tiles the ldmatrix
+// code reads, each value bf16(bf16(x) * bf16(s)) as dequantize_kv forms
+// it.
+template <int R, int HD>
+struct Q8Stage {
+  static constexpr int BYTES = 2 * R * HD + 2 * R * 4;
+};
+
+template <int R, int HD, int NT>
+__device__ __forceinline__ void q8_fetch(uint8_t* st, const int8_t* kb,
+                                         const int8_t* vb, const float* kscb,
+                                         const float* vscb, Strides ks,
+                                         Strides vs, Strides kss,
+                                         Strides vss, int k0, int lo, int hi,
+                                         int hd, int tid) {
+  constexpr int P8 = HD / 8;              // 8-byte pieces a row
+  int8_t* k8 = reinterpret_cast<int8_t*>(st);
+  int8_t* v8 = k8 + R * HD;
+  float* sk = reinterpret_cast<float*>(v8 + R * HD);
+  float* sv = sk + R;
+  static_assert(R * P8 % NT == 0 && R <= NT, "whole rounds of pieces");
+  const int p8 = hd / 8;
+#pragma unroll(NT == 32 ? R * P8 / NT : 1)  // a warp: all its rounds
+  for (int r = 0; r < R * P8 / NT; ++r) {
+    const int e = tid + r * NT, j = e / P8, c = e - j * P8;
+    const bool in = k0 + j < hi && (!PAD<HD> || c < p8);
+    const long long key = k0 + j < hi ? k0 + j : lo;
+    const int cs = PAD<HD> ? min(c, p8 - 1) : c;
+    cp_async8(k8 + j * HD + 8 * c, kb + key * ks.l + 8 * cs, in);
+    cp_async8(v8 + j * HD + 8 * c, vb + key * vs.l + 8 * cs, in);
+  }
+  if (tid < R) {
+    const bool in = k0 + tid < hi;
+    const long long key = in ? k0 + tid : lo;
+    cp_async4(sk + tid, kscb + key * kss.l, in);
+    cp_async4(sv + tid, vscb + key * vss.l, in);
+  }
+  cp_async_commit();
+}
+
+// a * b for two bf16 pairs, each product rounded once to bf16 (fma with
+// -0 added): the exact f32 product of two bf16 values rounded, as
+// deq8x2 forms it, at the full bf16x2 rate
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// Eight int8 values (two words) times the bf16 scale pair s2, as four
+// bf16 pairs, without the slow int-to-float and float-to-bf16
+// conversions: a byte offset by 128 (u = x ^ 0x80) is the low byte of
+// the f32 2^23 + u, and subtracting 2^23 + 128 leaves x exactly; an
+// integer of at most 8 bits has zero low 16 bits in f32, so the upper
+// half is its bf16; bmul2 then rounds each product once.
+__device__ __forceinline__ uint4 deq8x8(uint2 w, uint32_t s2) {
+  uint32_t h[4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint32_t u = (q ? w.y : w.x) ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+             8388736.f;
+    h[2 * q] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                           0x7632);
+    h[2 * q + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]),
+                               0x7632);
+  }
+  return make_uint4(bmul2(h[0], s2), bmul2(h[1], s2), bmul2(h[2], s2),
+                    bmul2(h[3], s2));
+}
+
+// bf16(s) twice, as a bf16 pair
+__device__ __forceinline__ uint32_t bf16_pair(float s) {
+  const uint32_t b = __float_as_uint(bf16_round(s)) >> 16;
+  return b | (b << 16);
+}
+
+// The stage's scales become bf16 pairs in place (one conversion a key,
+// then a barrier of the NT threads), then each 8-byte piece of a row
+// becomes 16 bytes of the tile.
+template <int R, int HD, int P, int NT>
+__device__ __forceinline__ void q8_dequant(uint8_t* st, __nv_bfloat16* kt,
+                                           __nv_bfloat16* vt, int tid) {
+  constexpr int P8 = HD / 8;
+  const int8_t* k8 = reinterpret_cast<const int8_t*>(st);
+  const int8_t* v8 = k8 + R * HD;
+  uint32_t* sk = reinterpret_cast<uint32_t*>(st + 2 * R * HD);
+  uint32_t* sv = sk + R;
+  if (tid < R) {
+    sk[tid] = bf16_pair(__uint_as_float(sk[tid]));
+    sv[tid] = bf16_pair(__uint_as_float(sv[tid]));
+  }
+  if constexpr (NT == 32) __syncwarp();
+  else __syncthreads();
+#pragma unroll(NT == 32 ? R * P8 / NT : 1)  // a warp: all its rounds
+  for (int r = 0; r < R * P8 / NT; ++r) {
+    const int e = tid + r * NT, j = e / P8, c = e - j * P8;
+    *reinterpret_cast<uint4*>(kt + j * P + 8 * c) =
+        deq8x8(*reinterpret_cast<const uint2*>(k8 + j * HD + 8 * c), sk[j]);
+    *reinterpret_cast<uint4*>(vt + j * P + 8 * c) =
+        deq8x8(*reinterpret_cast<const uint2*>(v8 + j * HD + 8 * c), sv[j]);
+  }
+}
+
+// Q fragments of the group's heads (the 16 rows of the A operand; rows
+// past G and columns past hd are zeros), KS k-steps of 16
+template <int HD, int KS>
+__device__ __forceinline__ void q_frags(uint32_t (&qa)[KS][4],
+                                        const __nv_bfloat16* qb, long long qh,
+                                        int G, int hd) {
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* p0 = qb + (long long)g8 * qh;
+  const __nv_bfloat16* p1 = qb + (long long)(g8 + 8) * qh;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int d = 16 * s + 2 * t4;
+    const bool lo8 = !PAD<HD> || d < hd, hi8 = !PAD<HD> || d + 8 < hd;
+    qa[s][0] = g8 < G && lo8 ? *reinterpret_cast<const uint32_t*>(p0 + d)
+                             : 0u;
+    qa[s][1] = g8 + 8 < G && lo8
+                   ? *reinterpret_cast<const uint32_t*>(p1 + d) : 0u;
+    qa[s][2] = g8 < G && hi8
+                   ? *reinterpret_cast<const uint32_t*>(p0 + d + 8) : 0u;
+    qa[s][3] = g8 + 8 < G && hi8
+                   ? *reinterpret_cast<const uint32_t*>(p1 + d + 8) : 0u;
+  }
+}
+
+template <int HD, bool Q8 = false>
 struct DecMma {
-  static constexpr int WK = HD == 128 ? 16 : 32;  // keys per warp and pass
+  // keys per warp and pass (an int8 cache: 16, so a warp's passes are
+  // short and its pipeline deep)
+  static constexpr int WK = HD == 128 || Q8 ? 16 : 32;
   static constexpr int TK = 4 * WK;               // keys per block pass
   static constexpr int PITCH = HD + 8;            // smem row, bf16: the 8
                                                   // rows of an ldmatrix
                                                   // hit distinct banks
+  static constexpr int KV_BYTES = 2 * TK * PITCH * 2;
+  static constexpr int MERGE_BYTES = 4 * 16 * (HD + 2) * 4;
+  static constexpr int SMEM =
+      KV_BYTES > MERGE_BYTES ? KV_BYTES : MERGE_BYTES;
+  // an int8 cache: the bf16 tiles, then each warp's 2-stage int8 ring
+  static constexpr int Q8_SMEM = KV_BYTES + 8 * Q8Stage<WK, HD>::BYTES;
 };
 
-// bf16, G <= 16: the same partials as decode_split_kernel, on the tensor
+// G <= 16: the same partials as decode_split_kernel, on the tensor
 // cores.  The G query heads of the group are the 16 rows of the A
 // operand (rows past G are zero); each of the 4 warps takes WK keys of
-// a pass of TK.  All K/V rows of a pass are in flight at once (16-byte
-// cp.async, PITCH-padded rows); S = Q K^T and O += P V are m16n8k16 MMAs
-// with B fragments from ldmatrix (.trans for V); each warp keeps its
-// own online softmax, and the 4 warps' states merge in warp order.
-template <int HD>
+// a pass of TK.  S = Q K^T and O += P V are m16n8k16 MMAs with B
+// fragments from ldmatrix (.trans for V) on PITCH-padded bf16 tiles;
+// each warp keeps its own online softmax, and the 4 warps' states merge
+// in warp order.  How K and V reach the tiles is the template's Q8:
+//  * false, a bf16 cache: all K/V rows of a pass are in flight at once
+//    (16-byte cp.async straight into the tiles);
+//  * true, an int8 cache with per-(slot, head) f32 scales (ksc / vsc
+//    through kss / vss): each warp touches only its own WK keys of a
+//    pass, so each runs its own pipeline with no block barrier: its
+//    int8 rows and scales land in its own 2-stage ring (q8_fetch: half
+//    the bf16 bytes), the next pass is put in flight as soon as one has
+//    landed, and it dequantizes the landed stage into its own rows of
+//    the tiles (q8_dequant), then runs the same products.
+// The decode launch's window that ends at the live count (mk.local,
+// gemma2's local layers) and the causal window both set the first key.
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(128)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+                  const typename std::conditional<Q8, int8_t,
+                                                  __nv_bfloat16>::type* k,
+                  const typename std::conditional<Q8, int8_t,
+                                                  __nv_bfloat16>::type* v,
+                  const float* __restrict__ ksc,
+                  const float* __restrict__ vsc,
                   const int* __restrict__ kv_valid, float* __restrict__ part,
                   float* __restrict__ ml, int G, Mask mk, Strides qs,
-                  Strides ks, Strides vs, float scale, float softcap,
-                  int chunk, int hd) {
-  using C = DecMma<HD>;
+                  Strides ks, Strides vs, Strides kss, Strides vss,
+                  float scale, float softcap, int chunk, int hd) {
+  using C = DecMma<HD, Q8>;
   if constexpr (!PAD<HD>) hd = HD;
   constexpr int WK = C::WK, TK = C::TK, P = C::PITCH;
   constexpr int KS = HD / 16, NT = HD / 8;
-  constexpr int KV_BYTES = 2 * TK * P * 2;
-  constexpr int MERGE_BYTES = 4 * 16 * (HD + 2) * 4;
-  __shared__ __align__(16)
-      uint8_t raw[KV_BYTES > MERGE_BYTES ? KV_BYTES : MERGE_BYTES];
+  constexpr int STAGE = Q8Stage<WK, HD>::BYTES;
+  extern __shared__ __align__(16) uint8_t raw[];
   __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(raw);
   __nv_bfloat16* vt = kt + TK * P;
 
@@ -1175,43 +1377,36 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     return;
   }
-  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+  const auto* kb = k + b * ks.b + kh * ks.h;
+  const auto* vb = v + b * vs.b + kh * vs.h;
+  const float* kscb = Q8 ? ksc + b * kss.b + kh * kss.h : nullptr;
+  const float* vscb = Q8 ? vsc + b * vss.b + kh * vss.h : nullptr;
   const int ch = hd / 8;                  // live 16-byte pieces of a row
+  // Q8: this warp's ring, and the stage of the pass at k0
+  uint8_t* ring = raw + C::KV_BYTES + w * 2 * STAGE;
+  auto stage = [&](int k0) { return ring + ((k0 - lo) / TK & 1) * STAGE; };
   auto load = [&](int k0) {
-    constexpr int CH = HD / 8;            // 16-byte pieces of a row
-    for (int e = t; e < TK * CH; e += 128) {
-      const int j = e / CH, c = e - j * CH;
-      const bool in = k0 + j < hi && (!PAD<HD> || c < ch);  // zeros past hd
-      const long long key = k0 + j < hi ? k0 + j : lo;
-      const int cs = PAD<HD> ? min(c, ch - 1) : c;
-      cp_async16(kt + j * P + 8 * c, kb + key * ks.l + 8 * cs, in);
-      cp_async16(vt + j * P + 8 * c, vb + key * vs.l + 8 * cs, in);
+    if constexpr (Q8) {
+      q8_fetch<WK, HD, 32>(stage(k0), kb, vb, kscb, vscb, ks, vs, kss, vss,
+                           k0 + w * WK, lo, hi, hd, lane);
+    } else {
+      constexpr int CH = HD / 8;          // 16-byte pieces of a row
+      for (int e = t; e < TK * CH; e += 128) {
+        const int j = e / CH, c = e - j * CH;
+        const bool in = k0 + j < hi && (!PAD<HD> || c < ch);  // zeros past hd
+        const long long key = k0 + j < hi ? k0 + j : lo;
+        const int cs = PAD<HD> ? min(c, ch - 1) : c;
+        cp_async16(kt + j * P + 8 * c, kb + key * ks.l + 8 * cs, in);
+        cp_async16(vt + j * P + 8 * c, vb + key * vs.l + 8 * cs, in);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
   };
   load(lo);
 
   // Q fragments (rows = the group's heads), once
   uint32_t qa[KS][4];
-  {
-    const __nv_bfloat16* qb = q + b * qs.b + (long long)kh * G * qs.h;
-    const __nv_bfloat16* p0 = qb + (long long)g8 * qs.h;
-    const __nv_bfloat16* p1 = qb + (long long)(g8 + 8) * qs.h;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const int d = 16 * s + 2 * t4;      // columns past hd are zeros
-      const bool lo8 = !PAD<HD> || d < hd, hi8 = !PAD<HD> || d + 8 < hd;
-      qa[s][0] = g8 < G && lo8 ? *reinterpret_cast<const uint32_t*>(p0 + d)
-                               : 0u;
-      qa[s][1] = g8 + 8 < G && lo8
-                     ? *reinterpret_cast<const uint32_t*>(p1 + d) : 0u;
-      qa[s][2] = g8 < G && hi8
-                     ? *reinterpret_cast<const uint32_t*>(p0 + d + 8) : 0u;
-      qa[s][3] = g8 + 8 < G && hi8
-                     ? *reinterpret_cast<const uint32_t*>(p1 + d + 8) : 0u;
-    }
-  }
+  q_frags<HD, KS>(qa, q + b * qs.b + (long long)kh * G * qs.h, qs.h, G, hd);
   const float mul = softcap != 0.f ? LOG2E : scale * LOG2E;
   float o[NT][4];
 #pragma unroll
@@ -1219,9 +1414,20 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
   for (int k0 = lo; k0 < hi; k0 += TK) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
     const int kw = k0 + w * WK;           // this warp's first key
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if constexpr (Q8) {
+      __syncwarp();
+      // the other stage was dequantized a pass ago: refill it now
+      if (k0 + TK < hi) load(k0 + TK);
+      if (kw < hi) {
+        q8_dequant<WK, HD, P, 32>(stage(k0), kt + w * WK * P,
+                                  vt + w * WK * P, lane);
+        __syncwarp();
+      }
+    } else {
+      __syncthreads();
+    }
     if (kw < hi) {
       float sc[WK / 8][4];
 #pragma unroll
@@ -1294,9 +1500,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    __syncthreads();
-    if (k0 + TK < hi) load(k0 + TK);
+    if constexpr (!Q8) {
+      __syncthreads();
+      if (k0 + TK < hi) load(k0 + TK);
+    }
   }
+  if constexpr (Q8) __syncthreads();      // the merge reuses the tiles
 
   // merge the 4 warps' states in warp order
 #pragma unroll
@@ -1343,6 +1552,215 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// hd 288 (gemma2-2b) on the tensor cores, an int8 cache, G <= 16.  A
+// warp's 16 x 288 f32 O would take 144 registers a thread beside Q's 72,
+// so the block splits the work two ways within each pass of TK keys:
+//  1. S = Q K^T: each of the 4 warps scores WK keys over all 18 k-steps;
+//  2. the pass's row maxima meet in shared memory, so every warp holds
+//     the same running max; each warp's P goes to shared memory as bf16
+//     (its row sums stay a partial of its own keys);
+//  3. O += P V: each warp owns NC = 72 of O's columns (9 n-tiles) over
+//     all TK keys of the pass, P's A fragments by ldmatrix.
+// Every warp rescales by the same factor, so the row sums add up across
+// warps at the end.  One int8 stage (the next pass is put in flight as
+// soon as the landed one is dequantized), so three blocks share an SM.
+template <int HD>
+struct DecWide {
+  static constexpr int TK = 32;           // keys a pass
+  static constexpr int WK = TK / 4;       // keys a warp scores
+  static constexpr int PITCH = HD + 8;    // bf16 tile row (conflict-free)
+  static constexpr int PP = TK + 8;       // P's row, bf16
+  static constexpr int NC = HD / 4;       // O columns a warp owns
+  static constexpr int KV_BYTES = 2 * TK * PITCH * 2;
+  static constexpr int P_BYTES = 16 * PP * 2;
+  static constexpr int SMEM =
+      KV_BYTES + Q8Stage<TK, HD>::BYTES + P_BYTES + 4 * 16 * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
+                      const int8_t* __restrict__ k,
+                      const int8_t* __restrict__ v,
+                      const float* __restrict__ ksc,
+                      const float* __restrict__ vsc,
+                      const int* __restrict__ kv_valid,
+                      float* __restrict__ part, float* __restrict__ ml,
+                      int G, Mask mk, Strides qs, Strides ks, Strides vs,
+                      Strides kss, Strides vss, float scale, float softcap,
+                      int chunk) {
+  using C = DecWide<HD>;
+  constexpr int TK = C::TK, WK = C::WK, P = C::PITCH, PP = C::PP;
+  constexpr int NC = C::NC, NTW = NC / 8, KS = HD / 16;
+  static_assert(KS % 2 == 0 && WK == 8 && TK % 16 == 0, "tiling");
+  extern __shared__ __align__(16) uint8_t raw[];
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(raw);
+  __nv_bfloat16* vt = kt + TK * P;
+  uint8_t* stage = raw + C::KV_BYTES;
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(
+      stage + Q8Stage<TK, HD>::BYTES);
+  float* red = reinterpret_cast<float*>(ps + 16 * PP);  // [warp][row]
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int Hq = G * gridDim.y;
+  const long long slot = ((long long)b * Hq + kh * G) * n_split + split;
+
+  int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
+  if (mk.local) lo = hi - mk.local;     // the window ends at the live count
+  if (mk.causal && mk.window) lo = max(lo, mk.lk - mk.window);
+  lo = max(lo, split * chunk);
+  hi = min(hi, split * chunk + chunk);
+  if (lo >= hi) {                         // no live key: an empty partial
+    if (t < G) {
+      ml[2 * (slot + (long long)t * n_split)] = -CUDART_INF_F;
+      ml[2 * (slot + (long long)t * n_split) + 1] = 0.f;
+    }
+    return;
+  }
+  const int8_t* kb = k + b * ks.b + kh * ks.h;
+  const int8_t* vb = v + b * vs.b + kh * vs.h;
+  const float* kscb = ksc + b * kss.b + kh * kss.h;
+  const float* vscb = vsc + b * vss.b + kh * vss.h;
+  q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss, lo, lo,
+                        hi, HD, t);
+
+  uint32_t qa[KS][4];
+  q_frags<HD, KS>(qa, q + b * qs.b + (long long)kh * G * qs.h, qs.h, G, HD);
+  const float mul = softcap != 0.f ? LOG2E : scale * LOG2E;
+  float o[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  for (int k0 = lo; k0 < hi; k0 += TK) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();                      // the last pass's P V is done
+    q8_dequant<TK, HD, P, 128>(stage, kt, vt, t);
+    __syncthreads();
+    if (k0 + TK < hi)
+      q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss,
+                            k0 + TK, lo, hi, HD, t);
+    // 1. this warp's WK keys: one n-tile of S over the 18 k-steps
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < KS; s += 2) {
+      uint32_t r[4];
+      ldsm4(r, kt + (w * WK + (lane & 7)) * P + 16 * s + 8 * (lane >> 3));
+      mma16816(sc, qa[s], r[0], r[1]);
+      mma16816(sc, qa[s + 1], r[2], r[3]);
+    }
+    float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[e];
+      if (softcap != 0.f) x = softcap * tanhf(x * scale / softcap);
+      if (k0 + w * WK + 2 * t4 + (e & 1) >= hi) x = -CUDART_INF_F;
+      sc[e] = x;
+      if (e < 2) x0 = fmaxf(x0, x);
+      else x1 = fmaxf(x1, x);
+    }
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, d));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, d));
+    }
+    if (t4 == 0) {
+      red[w * 16 + g8] = x0;
+      red[w * 16 + g8 + 8] = x1;
+    }
+    __syncthreads();
+    // 2. the pass's running max, the same in every warp; P to smem
+    float M0 = m0, M1 = m1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      M0 = fmaxf(M0, red[i * 16 + g8]);
+      M1 = fmaxf(M1, red[i * 16 + g8 + 8]);
+    }
+    const float u0 = M0 == -CUDART_INF_F ? 0.f : M0;
+    const float u1 = M1 == -CUDART_INF_F ? 0.f : M1;
+    const float a0 = ex2((m0 - u0) * mul), a1 = ex2((m1 - u1) * mul);
+    m0 = M0;
+    m1 = M1;
+    const float p0 = ex2((sc[0] - u0) * mul), p1 = ex2((sc[1] - u0) * mul);
+    const float p2 = ex2((sc[2] - u1) * mul), p3 = ex2((sc[3] - u1) * mul);
+    l0 = l0 * a0 + (p0 + p1);
+    l1 = l1 * a1 + (p2 + p3);
+    *reinterpret_cast<uint32_t*>(ps + g8 * PP + w * WK + 2 * t4) =
+        pack_bf16(p0, p1);
+    *reinterpret_cast<uint32_t*>(ps + (g8 + 8) * PP + w * WK + 2 * t4) =
+        pack_bf16(p2, p3);
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      o[n][0] *= a0; o[n][1] *= a0;
+      o[n][2] *= a1; o[n][3] *= a1;
+    }
+    __syncthreads();
+    // 3. O[:, NC w ..] += P V over the pass's TK keys
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t pa[4];
+      ldsm4(pa, ps + ((lane & 7) + 8 * ((lane >> 3) & 1)) * PP + 16 * kk +
+                    8 * (lane >> 4));
+      const int key = 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int n = 0; n < NTW; n += 2) {
+        // the odd last n-tile reads 8 columns it drops (the next warp's,
+        // or the tile's padding past HD)
+        uint32_t r[4];
+        ldsm4_t(r, vt + key * P + NC * w + 8 * n + 8 * (lane >> 4));
+        mma16816(o[n], pa, r[0], r[1]);
+        if (n + 1 < NTW) mma16816(o[n + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+  // the row sums: each warp's over its own keys, added in warp order
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  if (t4 == 0) {                          // red's last reader passed the
+    red[w * 16 + g8] = l0;                // pass's last __syncthreads
+    red[w * 16 + g8 + 8] = l1;
+  }
+  __syncthreads();
+  float L0 = 0.f, L1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    L0 += red[i * 16 + g8];
+    L1 += red[i * 16 + g8 + 8];
+  }
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int d = NC * w + 8 * n + 2 * t4;
+    if (g8 < G) {
+      float* pr = part + (slot + (long long)g8 * n_split) * HD + d;
+      pr[0] = o[n][0];
+      pr[1] = o[n][1];
+    }
+    if (g8 + 8 < G) {
+      float* pr = part + (slot + (long long)(g8 + 8) * n_split) * HD + d;
+      pr[0] = o[n][2];
+      pr[1] = o[n][3];
+    }
+  }
+  if (w == 0 && t4 == 0) {
+    if (g8 < G) {
+      ml[2 * (slot + (long long)g8 * n_split)] =
+          m0 == -CUDART_INF_F ? -CUDART_INF_F : m0 * mul;
+      ml[2 * (slot + (long long)g8 * n_split) + 1] = L0;
+    }
+    if (g8 + 8 < G) {
+      ml[2 * (slot + (long long)(g8 + 8) * n_split)] =
+          m1 == -CUDART_INF_F ? -CUDART_INF_F : m1 * mul;
+      ml[2 * (slot + (long long)(g8 + 8) * n_split) + 1] = L1;
+    }
+  }
+}
+
 // One block per (batch, query head): the n_split partials merged in
 // split order; a split with m = -inf holds no live key and is skipped.
 template <typename T, int HD>
@@ -1370,20 +1788,6 @@ decode_combine_kernel(const float* __restrict__ part,
 // ---------------------------------------------------------------------
 // decode (Lq = 1) against an int8 KV cache
 // ---------------------------------------------------------------------
-
-// The reference's dequantized cache elements: bf16(bf16(x) * bf16(s)),
-// two at a time.  bf16 holds every int8 exactly and the f32 product of
-// two bf16 values is exact, so rounding it once to bf16 gives the same
-// bits as the reference's bf16 multiply.  `sb` is bf16(s) as a float.
-__device__ __forceinline__ uint32_t deq8x2(int8_t x0, int8_t x1, float sb) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn((float)x0 * sb,
-                                                 (float)x1 * sb);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <int HD>
 struct DecQ8 {
@@ -1760,9 +2164,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if constexpr (std::is_same<T, __nv_bfloat16>::value && HD <= 128) {
       mma = G <= 16;
       if (mma)
-        decode_mma_kernel<HD><<<dim3(n_split, Hkv, B), 128, 0, s>>>(
-            qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
-            softcap, chunk, hd);
+        decode_mma_kernel<HD, false><<<dim3(n_split, Hkv, B), 128,
+                                       DecMma<HD>::SMEM, s>>>(
+            qp, kp, vp, nullptr, nullptr, kv_valid, scratch, ml, G, mk, qs,
+            ks, vs, Strides{}, Strides{}, scale, softcap, chunk, hd);
     }
     if (!mma) {
       const int ngrp = (G + Dec<T, HD>::GB - 1) / Dec<T, HD>::GB;
@@ -1820,7 +2225,12 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 #undef FA_LAUNCH
 }
 
-// The int8 decode: decode_q8_kernel's partials, then the shared merge.
+// The int8 decode: the partials of the body the caller names (0:
+// decode_q8_kernel on CUDA cores; 1: the tensor cores,
+// decode_mma_kernel<HD, true> at hd 64, 120 and 128 or
+// decode_wide_q8_kernel at hd 288, for bf16 queries, G <= 16 and q rows
+// on 4 bytes), then the shared merge.  A body that does not take the
+// operands returns cudaErrorInvalidValue: no fallback.
 template <typename T, int HD>
 cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
                       const float* ksc, const float* vsc,
@@ -1828,7 +2238,7 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
                       int Hq, int Hkv, int Lk, int local, Strides qs,
                       Strides ks, Strides vs, Strides kss, Strides vss,
                       Strides os, float scale, float softcap, int n_split,
-                      int chunk, int hd, cudaStream_t s) {
+                      int chunk, int hd, int body, cudaStream_t s) {
   // 8-byte copies of every int8 row; the splits cover all Lk keys
   const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
   for (long long x : st)
@@ -1840,11 +2250,46 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
     return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   float* ml = scratch + (long long)B * Hq * n_split * hd;
-  const int ngrp = (G + DecQ8<HD>::GB - 1) / DecQ8<HD>::GB;
-  decode_q8_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B), DEC_THREADS, 0,
-                            s>>>(static_cast<const T*>(q), k, v, ksc, vsc,
-                                 kv_valid, scratch, ml, G, Lk, local, qs, ks,
-                                 vs, kss, vss, scale, softcap, chunk, hd);
+  if (body == 1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
+      if (G > 16 || reinterpret_cast<uintptr_t>(q) % 4 || qs.b % 2 ||
+          qs.h % 2)
+        return cudaErrorInvalidValue;     // q read as bf16 pairs
+      const Mask mk{1, Lk, 0, 0, local};
+      const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
+      const dim3 grid(n_split, Hkv, B);
+      if constexpr (HD == 288) {
+        static const cudaError_t attr = cudaFuncSetAttribute(
+            decode_wide_q8_kernel<HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, DecWide<HD>::SMEM);
+        if (attr != cudaSuccess) return attr;
+        decode_wide_q8_kernel<HD><<<grid, 128, DecWide<HD>::SMEM, s>>>(
+            qp, k, v, ksc, vsc, kv_valid, scratch, ml, G, mk, qs, ks, vs,
+            kss, vss, scale, softcap, chunk);
+      } else {
+        static const cudaError_t attr = cudaFuncSetAttribute(
+            decode_mma_kernel<HD, true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            DecMma<HD, true>::Q8_SMEM);
+        if (attr != cudaSuccess) return attr;
+        decode_mma_kernel<HD, true><<<grid, 128, DecMma<HD, true>::Q8_SMEM,
+                                      s>>>(
+            qp, k, v, ksc, vsc, kv_valid, scratch, ml, G, mk, qs, ks, vs,
+            kss, vss, scale, softcap, chunk, hd);
+      }
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  } else if (body == 0) {
+    const int ngrp = (G + DecQ8<HD>::GB - 1) / DecQ8<HD>::GB;
+    decode_q8_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B), DEC_THREADS, 0,
+                              s>>>(static_cast<const T*>(q), k, v, ksc, vsc,
+                                   kv_valid, scratch, ml, G, Lk, local, qs,
+                                   ks, vs, kss, vss, scale, softcap, chunk,
+                                   hd);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_combine_kernel<T, HD><<<B * Hq, hd, 0, s>>>(
@@ -1859,11 +2304,11 @@ cudaError_t dispatch_q8(int hd, const void* q, const int8_t* k,
                         int B, int Hq, int Hkv, int Lk, int local,
                         Strides qs, Strides ks, Strides vs, Strides kss,
                         Strides vss, Strides os, float scale, float softcap,
-                        int n_split, int chunk, cudaStream_t s) {
+                        int n_split, int chunk, int body, cudaStream_t s) {
 #define Q8_LAUNCH(CAP)                                                      \
   launch_q8<T, CAP>(q, k, v, ksc, vsc, kv_valid, out, scratch, B, Hq, Hkv, \
                     Lk, local, qs, ks, vs, kss, vss, os, scale, softcap,   \
-                    n_split, chunk, hd, s)
+                    n_split, chunk, hd, body, s)
   switch (hd) {
     case 32:
       return Q8_LAUNCH(32);
@@ -1923,7 +2368,9 @@ extern "C" int flash_attention_launch(
 // (batch, head, position) strides in elements (int8 rows 8-byte
 // aligned); the output in q's dtype.  kv_valid and local_window as the
 // decode shape of flash_attention_launch; scratch holds B * Hq *
-// n_split * (hd + 2) floats.
+// n_split * (hd + 2) floats.  `body` (0 CUDA cores, 1 tensor cores) is
+// the caller's choice (flash_attention.q8_body); one that does not take
+// the operands returns cudaErrorInvalidValue.
 extern "C" int flash_decode_q8_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const int* kv_valid, void* out, int dtype, int B,
@@ -1933,7 +2380,7 @@ extern "C" int flash_decode_q8_launch(
     long long kssh, long long kssl, long long vssb, long long vssh,
     long long vssl, long long osb, long long osh, long long osl,
     float scale, float softcap, int local_window, void* scratch,
-    int n_split, int chunk, void* stream) {
+    int n_split, int chunk, int body, void* stream) {
   if (B <= 0 || Hq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0)
     return cudaErrorInvalidValue;
@@ -1948,12 +2395,12 @@ extern "C" int flash_decode_q8_launch(
   if (dtype == 0)
     return dispatch_q8<float>(hd, q, kp, vp, ksp, vsp, kv_valid, out, sc, B,
                               Hq, Hkv, Lk, local_window, qs, ks, vs, kss, vss,
-                              os, scale, softcap, n_split, chunk, s);
+                              os, scale, softcap, n_split, chunk, body, s);
   if (dtype == 1)
     return dispatch_q8<__nv_bfloat16>(hd, q, kp, vp, ksp, vsp, kv_valid, out,
                                       sc, B, Hq, Hkv, Lk, local_window, qs,
                                       ks, vs, kss, vss, os, scale, softcap,
-                                      n_split, chunk, s);
+                                      n_split, chunk, body, s);
   return cudaErrorInvalidValue;
 }
 

@@ -67,7 +67,7 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_void_p, ctypes.c_void_p], "flash_decode_q8_launch": [
     ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 18 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "flash_attention_bwd_launch": [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -174,19 +174,24 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid=None, *,
             dv.to(v.dtype))
 
 
-def decode_splits(B: int, Hkv: int, Lk: int):
-    """(n_split, chunk) of the decode launch: the Lk cache slots cut
-    into n_split chunks of ``chunk`` keys (a multiple of MIN_CHUNK), so that
-    the grid (n_split, Hkv, B) puts at least two blocks on each of the
-    card's SMs where the cache is long enough (chunks of at least
-    MIN_CHUNK keys).  Decided from the shapes alone: the live lengths
-    stay on the card, and a block whose chunk holds no live key writes
-    an empty partial."""
-    want = -(-2 * SM_COUNT // max(B * Hkv, 1))
-    n = max(1, min(want, -(-Lk // MIN_CHUNK)))
+def _split_plan(B: int, Hkv: int, Lk: int, per_sm: int, unit: int):
+    """(n_split, chunk): the Lk cache slots cut into n_split chunks of
+    ``chunk`` keys (a multiple of ``unit``), so that the grid (n_split,
+    Hkv, B) puts at least ``per_sm`` blocks on each of the card's SMs
+    where the cache is long enough (chunks of at least ``unit`` keys)."""
+    want = -(-per_sm * SM_COUNT // max(B * Hkv, 1))
+    n = max(1, min(want, -(-Lk // unit)))
     per = -(-Lk // n)
-    chunk = max(MIN_CHUNK, -(-per // MIN_CHUNK) * MIN_CHUNK)
+    chunk = max(unit, -(-per // unit) * unit)
     return max(1, -(-Lk // chunk)), chunk
+
+
+def decode_splits(B: int, Hkv: int, Lk: int):
+    """(n_split, chunk) of the decode launch: two blocks on each SM,
+    chunks a multiple of MIN_CHUNK keys (``_split_plan``).  Decided from
+    the shapes alone: the live lengths stay on the card, and a block
+    whose chunk holds no live key writes an empty partial."""
+    return _split_plan(B, Hkv, Lk, 2, MIN_CHUNK)
 
 
 def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
@@ -268,6 +273,38 @@ def _check(q, k, v, kv_valid):
                          f"({B},) int32 tensor on {dev}")
 
 
+def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
+                local_window, return_lse):
+    """One forward through ``lib`` (the card's library, or any ctypes
+    handle with its entry point) on checked operands: allocates the
+    output as a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
+    tensor, the lse and the decode shape's split plan and f32 scratch on
+    q's device, and raises on a non-zero return.  Returns out, or (out,
+    lse) with ``return_lse``."""
+    B, Hq, Lq, hd = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
+    n_split, chunk, scratch = 0, 0, None
+    if Lq == 1:                         # partials (acc, then m and l), f32
+        n_split, chunk = decode_splits(B, Hkv, Lk)
+        scratch = torch.empty(B * Hq * n_split * (hd + 2),
+                              dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kv_valid is None else kv_valid.data_ptr(),
+        out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
+        int(window), float(softcap), int(local_window),
+        None if scratch is None else scratch.data_ptr(), n_split, chunk,
+        None if lse is None else lse.data_ptr(), stream)
+    build.check(err, "flash_attention")
+    return (out, lse) if return_lse else out
+
+
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     local_window: int = 0, return_lse: bool = False):
@@ -293,35 +330,16 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                                      window=window, softcap=softcap,
                                      local_window=local_window,
                                      return_lse=return_lse)
-    B, Hq, Lq, hd = q.shape
-    Hkv, Lk = k.shape[1], k.shape[2]
     _check(q, k, v, kv_valid)
     lib = build.load("flash_attention", _SIG)
-    out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
-                      device=q.device) if return_lse else None
-    n_split, chunk, scratch = 0, 0, None
-    if Lq == 1:                         # partials (acc, then m and l), f32
-        n_split, chunk = decode_splits(B, Hkv, Lk)
-        scratch = torch.empty(B * Hq * n_split * (hd + 2),
-                              dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(),
-            out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lq, Lk, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
-            int(window), float(softcap), int(local_window),
-            None if scratch is None else scratch.data_ptr(), n_split, chunk,
-            None if lse is None else lse.data_ptr(), stream)
-    build.check(err, "flash_attention")
+        res = _fwd_launch(lib, torch.cuda.current_stream(q.device).cuda_stream,
+                          q, k, v, kv_valid, causal, window, softcap,
+                          local_window, return_lse)
     flash_attention.launches += 1
-    if Lq == 1:
+    if q.shape[2] == 1:
         flash_attention.decode_launches += 1
-    return (out, lse) if return_lse else out
+    return res
 
 
 # launches on the card: all of them, and those of the decode shape
@@ -434,19 +452,47 @@ flash_attention_bwd.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 # ----------------------------------------------------------------------
 
 Q8_CHUNK = 32                           # the int8 decode's chunk unit
+Q8_BODIES = ("cores", "mma")            # the C launch's body codes
+MMA_Q8_HEAD_DIMS = (64, 120, 128, 288)
+
+
+def q8_body(q, k8) -> str:
+    """The int8 decode body that takes these operands: ``"mma"`` (the
+    tensor cores: ``decode_mma_kernel<HD, true>``, at hd 288
+    ``decode_wide_q8_kernel``) for bf16 queries at head dims 64, 120,
+    128 and 288 with a GQA group of at most 16 and q's rows on 4 bytes
+    (read as bf16 pairs); ``"cores"`` (``decode_q8_kernel``) for the
+    rest: f32 queries, hd 32, G > 16.  Decided from dtypes, shapes,
+    strides and addresses alone."""
+    G = q.shape[1] // max(k8.shape[1], 1)
+    if q.dtype == torch.bfloat16 and q.shape[3] in MMA_Q8_HEAD_DIMS and \
+            G <= 16 and q.data_ptr() % 4 == 0 and \
+            all(st % 2 == 0 for st in q.stride()[:2]):
+        return "mma"
+    return "cores"
+
+
+def q8_splits(B: int, Hkv: int, Lk: int, hd: int, body: str):
+    """(n_split, chunk) of the int8 decode launch for ``body``: at hd 64,
+    120 and 128 the tensor-core body takes the bf16 decode's plan
+    (``decode_splits``: it is the same body with int8 tiles); at hd 288
+    ``decode_wide_q8_kernel`` three blocks an SM (what its shared memory
+    allows) in chunks of whole 32-key passes; the CUDA-core body
+    ``decode_splits_q8``."""
+    if body == "cores":
+        return decode_splits_q8(B, Hkv, Lk)
+    if hd == 288:
+        return _split_plan(B, Hkv, Lk, 3, 32)
+    return decode_splits(B, Hkv, Lk)
 
 
 def decode_splits_q8(B: int, Hkv: int, Lk: int):
-    """(n_split, chunk) of the int8 decode launch: as ``decode_splits``,
-    but for six blocks on each SM and chunks a multiple of ``Q8_CHUNK``
-    keys.  Its blocks dequantize and score their chunk one sub-tile at
-    a time, so more of them must be in flight to keep the card's memory
-    busy."""
-    want = -(-6 * SM_COUNT // max(B * Hkv, 1))
-    n = max(1, min(want, -(-Lk // Q8_CHUNK)))
-    per = -(-Lk // n)
-    chunk = max(Q8_CHUNK, -(-per // Q8_CHUNK) * Q8_CHUNK)
-    return max(1, -(-Lk // chunk)), chunk
+    """(n_split, chunk) of the CUDA-core int8 decode launch: as
+    ``decode_splits``, but for six blocks on each SM and chunks a
+    multiple of ``Q8_CHUNK`` keys.  Its blocks dequantize and score their
+    chunk one sub-tile at a time, so more of them must be in flight to
+    keep the card's memory busy."""
+    return _split_plan(B, Hkv, Lk, 6, Q8_CHUNK)
 
 
 def dequantize_kv(x8, scale):
@@ -511,6 +557,32 @@ def _check_q8(q, k8, v8, k_scale, v_scale, kv_valid):
                          f"({B},) int32 tensor on {dev}")
 
 
+def _q8_launch(lib, stream, q, k8, v8, k_scale, v_scale, kv_valid, softcap,
+               local_window, body):
+    """One int8 decode through ``lib`` (the card's library, or any ctypes
+    handle with its entry point) with ``body``, on checked operands:
+    allocates the output as a ``transpose(1, 2)`` view of a contiguous
+    (B, 1, Hq, hd) tensor and the split plan's f32 scratch on q's device,
+    and raises on a non-zero return."""
+    B, Hq, _, hd = q.shape
+    Hkv, Lk = k8.shape[1], k8.shape[2]
+    out = torch.empty((B, 1, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    n_split, chunk = q8_splits(B, Hkv, Lk, hd, body)
+    scratch = torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    err = lib.flash_decode_q8_launch(
+        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), None if kv_valid is None else kv_valid.data_ptr(),
+        out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lk, hd,
+        *q.stride()[:3], *k8.stride()[:3], *v8.stride()[:3],
+        *k_scale.stride()[:3], *v_scale.stride()[:3], *out.stride()[:3],
+        1.0 / math.sqrt(hd), float(softcap), int(local_window),
+        scratch.data_ptr(), n_split, chunk, Q8_BODIES.index(body), stream)
+    build.check(err, f"flash_decode_q8 ({body} body)")
+    return out
+
+
 def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
                     softcap: float = 0.0, local_window: int = 0):
     """One query row against an int8 KV cache: q (B, Hq, 1, hd) f32 or
@@ -519,7 +591,8 @@ def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
     (B,) int32 or None; ``local_window`` as ``flash_attention``'s.
     Returns (B, Hq, 1, hd) in q's dtype (on the card a ``transpose(1,
     2)`` view of a contiguous (B, 1, Hq, hd) tensor).  CPU tensors take
-    ``decode_q8_plain``; CUDA tensors launch the kernel or raise."""
+    ``decode_q8_plain``; CUDA tensors launch the body ``q8_body`` names
+    (or raise), counted in ``launches_by_body``."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_decode_q8: tensors must be on cuda or "
                          f"cpu, not {q.device}")
@@ -529,29 +602,17 @@ def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
         return decode_q8_plain(q, k8, v8, k_scale, v_scale, kv_valid,
                                softcap=softcap, local_window=local_window)
     _check_q8(q, k8, v8, k_scale, v_scale, kv_valid)
-    B, Hq, _, hd = q.shape
-    Hkv, Lk = k8.shape[1], k8.shape[2]
+    body = q8_body(q, k8)
     lib = build.load("flash_attention", _SIG)
-    out = torch.empty((B, 1, Hq, hd), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    n_split, chunk = decode_splits_q8(B, Hkv, Lk)
-    scratch = torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
-                          device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.flash_decode_q8_launch(
-            q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(),
-            out.data_ptr(), _DTYPE[q.dtype], B, Hq, Hkv, Lk, hd,
-            *q.stride()[:3], *k8.stride()[:3], *v8.stride()[:3],
-            *k_scale.stride()[:3], *v_scale.stride()[:3],
-            *out.stride()[:3], 1.0 / math.sqrt(hd), float(softcap),
-            int(local_window), scratch.data_ptr(), n_split, chunk, stream)
-    build.check(err, "flash_decode_q8")
+        out = _q8_launch(lib, torch.cuda.current_stream(q.device).cuda_stream,
+                         q, k8, v8, k_scale, v_scale, kv_valid, softcap,
+                         local_window, body)
     flash_decode_q8.launches += 1
+    flash_decode_q8.launches_by_body[body] += 1
     return out
 
 
-# launches on the card
+# launches on the card, and by body
 flash_decode_q8.launches = 0
+flash_decode_q8.launches_by_body = dict.fromkeys(Q8_BODIES, 0)

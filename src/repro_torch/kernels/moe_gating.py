@@ -186,6 +186,24 @@ def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False):
 moe_gating.launches = 0
 
 
+def _bwd_launch(lib, stream, logits, idx, dvals, daux, asum):
+    """One backward through ``lib`` (the card's library, or any ctypes
+    handle with its entry point) on checked operands: idx (T, k) int32,
+    dvals (T, k) f32, daux a 0-d f32 and asum (E,) f32, all contiguous;
+    allocates dlogits (T, E) in logits' type and raises on a non-zero
+    return."""
+    T, E = logits.shape
+    k = idx.shape[-1]
+    dlogits = torch.empty((T, E), dtype=logits.dtype, device=logits.device)
+    err = lib.moe_gating_bwd_launch(
+        logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
+        logits.stride(0) if T > 1 else E, idx.data_ptr(), dvals.data_ptr(),
+        daux.data_ptr(), asum.data_ptr(), E / (T * T), dlogits.data_ptr(),
+        stream)
+    build.check(err, "moe_gating_bwd")
+    return dlogits
+
+
 def moe_gating_bwd(logits, idx, dvals, daux, asum):
     """dlogits (T, E), in logits' type (contiguous), from the forward's
     logits, idx and asum and the gradients dvals (T, k) and daux (a
@@ -208,16 +226,10 @@ def moe_gating_bwd(logits, idx, dvals, daux, asum):
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"moe_gating_bwd: operand {tuple(t.shape)} on "
                              f"{t.device} must be {shape} on {dev}")
-    lib = build.load("moe_gating", _SIG)
-    dlogits = torch.empty((T, E), dtype=logits.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.moe_gating_bwd_launch(
-            logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
-            logits.stride(0) if T > 1 else E, idx.data_ptr(),
-            dvals.data_ptr(), daux.data_ptr(), asum.data_ptr(), E / (T * T),
-            dlogits.data_ptr(), stream)
-    build.check(err, "moe_gating_bwd")
+        dlogits = _bwd_launch(build.load("moe_gating", _SIG),
+                              torch.cuda.current_stream(dev).cuda_stream,
+                              logits, idx, dvals, daux, asum)
     moe_gating_bwd.launches += 1
     return dlogits
 

@@ -195,9 +195,11 @@ def layer_kinds(cfg: ModelConfig) -> list:
     return [0 if cfg.sliding_window > 0 else 1] * cfg.n_layers
 
 
-def cache_len(cfg: ModelConfig, ctx_len: int) -> int:
+def cache_len(cfg: ModelConfig, ctx_len: int, long_mode: bool = False) -> int:
     """K/V slots of the decode cache: a ring of at most the window on a
-    uniform-window model, else the context."""
+    uniform-window model, else the context.  The reference's
+    ``long_mode`` raises ``not_ported``."""
+    L.check_supported(cfg, long_mode)
     if not cfg.has_attention:
         return 0
     if cfg.sliding_window and not cfg.local_global_pattern:
@@ -354,14 +356,15 @@ def forward_full(params, cfg: ModelConfig, batch, *,
 # ======================================================================
 
 def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
-               enc_len: int = 0, device=None,
+               long_mode: bool = False, enc_len: int = 0, device=None,
                dtype: Optional[str] = None) -> Params:
     """Zero decode cache (leading axis = n_layers) for ``ctx_len``
     positions: ``cache_len`` K/V slots (``kv_cache_dtype="int8"``: int8
     K/V with f32 ``k_scale`` / ``v_scale`` of shape (nL, B, C, Hkv, 1),
     the reference's layout); an encoder-decoder's cross K/V of
-    ``enc_len`` encoder positions, in the compute dtype either way."""
-    L.check_supported(cfg)
+    ``enc_len`` encoder positions, in the compute dtype either way.  The
+    reference's ``long_mode`` raises ``not_ported``."""
+    L.check_supported(cfg, long_mode)
     dt = getattr(torch, dtype or cfg.compute_dtype)
     nL, B = cfg.n_layers, batch_size
     cache: Params = {}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             leaves, tree_map)
@@ -56,16 +57,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, max_len: int = 0):
+def make_prefill_step(cfg: ModelConfig, *, long_mode: bool = False,
+                      max_len: int = 0):
     """The prefill of ``batch``: its tokens and, where the family takes
     them, its ``src_embeds`` (encoder-decoder) or ``frontend`` (vision
-    prefix), passed through to ``M.prefill``."""
+    prefix), passed through to ``M.prefill``.  The reference's
+    ``long_mode`` raises ``not_ported``."""
+    L.check_supported(cfg, long_mode)
+
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch, max_len=max_len)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, long_mode: bool = False):
+    """One greedy decode step; the reference's ``long_mode`` raises
+    ``not_ported``."""
+    L.check_supported(cfg, long_mode)
+
     def serve_step(params, cache, batch):
         logits, cache = M.decode_step(params, cfg, cache, batch)
         # greedy next token

@@ -27,8 +27,17 @@ over its max |g|;
         --window 64
 
 does the same for the attention backward (the body ``bwd_body`` names:
-wgmma's TMA boxes, mbarriers and ``wgmma`` are emulated too).  Small
-shapes: a block of 256 fibers is slow.
+wgmma's TMA boxes, mbarriers and ``wgmma`` are emulated too);
+
+    python tests/_cuda_emu.py moe_gating_bwd --shape 19,160,8 --dtype bf16
+
+for the gate's backward (a warp a row), and
+
+    python tests/_cuda_emu.py flash_decode_q8 --shape 2,8,2,300,288 \
+        --kv 300,150 --softcap 50 --local 100
+
+for the int8 KV decode (the body ``q8_body`` names).  Small shapes: a
+block of 256 fibers is slow.
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ OUT = ROOT / "build" / "cuda_emu"
 GXX = ("g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-w", "-Wno-psabi",
        "-fno-strict-aliasing")
 PRIMS = ("cp16", "cp_commit", "cp_wait", "mma", "ldsm4", "ldsm4_t",
-         "mma16816", "cp_async16", "cp_async_commit", "cp_async_wait1",
+         "mma16816", "cp_async16", "cp_async8", "cp_async4",
+         "cp_async_commit", "cp_async_wait1", "bmul2",
          "ex2", "mbar_init", "mbar_expect_tx", "mbar_arrive", "global_ns",
          "mbar_wait", "tma_box4", "wg_fence", "wg_commit", "wg_wait0",
          "reg_fence", "reg_alloc", "reg_dealloc", "wgmma_ss_n64",
@@ -131,7 +141,8 @@ def source(name: str) -> str:
     src = re.sub(r'asm volatile\("[^"]*"\s*:::\s*"memory"\);', "", src)
     first = src.index("__device__ __forceinline__")
     src = src[:first] + '#include "prims.h"\n' + src[first:]
-    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+(?: \w+)?) "
+                 r"(\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu::smem_base());", src)
     return _launches(src)
 
@@ -262,13 +273,106 @@ def check_flash_attention_bwd(shape, dtype: str, layout: str, causal: bool,
         torch.equal(a, b) for a, b in zip(got, again)) else "DIFFER")
 
 
+def q8_inputs(B, Hq, Hkv, C, hd, dtype, seed: int):
+    """An int8 decode's operands as the model hands them over: q (B, Hq,
+    1, hd) in ``dtype`` and the int8 cache (B, C, Hkv, hd) with its f32
+    scales (``quantize_kv`` of seeded rows, K twice V's spread), all
+    ``transpose(1, 2)`` views."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models.layers import quantize_kv
+
+    g = torch.Generator().manual_seed(seed)
+    k8, ks = quantize_kv(torch.randn(B, C, Hkv, hd, generator=g) * 2)
+    v8, vs = quantize_kv(torch.randn(B, C, Hkv, hd, generator=g))
+    q = torch.randn(B, 1, Hq, hd, generator=g).to(dtype)
+    return [x.transpose(1, 2) for x in (q, k8, v8, ks, vs)]
+
+
+def q8_decode(lib, q, k8, v8, ks, vs, kv_valid, softcap, local_window):
+    """The int8 decode of ``csrc/flash_attention.cu`` through ``lib`` (the
+    body ``q8_body`` names); returns (output, the plain version's, the
+    body)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention as FA
+
+    body = FA.q8_body(q, k8)
+    got = FA._q8_launch(lib, None, q, k8, v8, ks, vs, kv_valid, softcap,
+                        local_window, body)
+    want = FA.decode_q8_plain(q, k8, v8, ks, vs, kv_valid, softcap=softcap,
+                              local_window=local_window)
+    return got, want, body
+
+
+def check_flash_decode_q8(shape, dtype: str, kv: str, softcap: float,
+                          local: int, seed: int):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention as FA
+
+    lib = load("flash_attention", FA._SIG)
+    B, Hq, Hkv, C, hd = shape
+    args = q8_inputs(B, Hq, Hkv, C, hd, {"f32": torch.float32,
+                                         "bf16": torch.bfloat16}[dtype], seed)
+    kvt = None if not kv else torch.tensor(
+        [int(x) for x in kv.split(",")], dtype=torch.int32)
+    got, want, body = q8_decode(lib, *args, kvt, softcap, local)
+    again, _, _ = q8_decode(lib, *args, kvt, softcap, local)
+    print(f"{body} body, splits {FA.q8_splits(B, Hkv, C, hd, body)}")
+    print(f"out: max err {float((got.float() - want.float()).abs().max()):.3g}"
+          f" (max |want| {float(want.float().abs().max()):.3g})")
+    print("two launches:", "the same bits" if torch.equal(got, again)
+          else "DIFFER")
+
+
+def gate_inputs(T: int, E: int, k: int, dtype, seed: int):
+    """The gate backward's operands as training hands them over: logits
+    (T, E) in ``dtype`` (two rows with 16 tied experts), the plain
+    forward's idx and asum, dvals and daux."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import moe_gating as MG
+
+    g = torch.Generator().manual_seed(seed)
+    lg = (torch.randn(T, E, generator=g) * 2).to(dtype)
+    lg[:2, :16] = 0.5
+    _, idx, _, asum = MG.moe_gating_plain(lg, k, True)
+    return (lg, idx, torch.randn(T, k, generator=g), torch.tensor(0.37),
+            asum)
+
+
+def check_moe_gating_bwd(T: int, E: int, k: int, dtype: str, seed: int):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import moe_gating as MG
+
+    lib = load("moe_gating", MG._SIG)
+    args = gate_inputs(T, E, k, {"f32": torch.float32,
+                                 "bf16": torch.bfloat16}[dtype], seed)
+    got = MG._bwd_launch(lib, None, *args)
+    want = MG.moe_gating_bwd_plain(*args)
+    m = float(want.float().abs().max())
+    print(f"dlogits: kernel {float((got.float() - want.float()).abs().max()) / m:.3g}"
+          f" of max |g| against the plain version")
+    print("two launches:", "the same bits" if torch.equal(
+        got, MG._bwd_launch(lib, None, *args)) else "DIFFER")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=["ssd_scan_bwd", "flash_attention_bwd"])
+    ap.add_argument("kernel", choices=["ssd_scan_bwd", "flash_attention_bwd",
+                                       "moe_gating_bwd", "flash_decode_q8"])
     ap.add_argument("--shape", default=None,
                     help="Bb,L,H,P,N (ssd_scan_bwd, default 2,150,4,64,128)"
                          " or B,Hq,Hkv,L,Lk,hd (flash_attention_bwd, "
-                         "default 1,4,2,150,150,64)")
+                         "default 1,4,2,150,150,64), T,E,k "
+                         "(moe_gating_bwd, default 19,128,8) or "
+                         "B,Hq,Hkv,C,hd (flash_decode_q8, default "
+                         "2,8,2,300,64)")
     ap.add_argument("--dtype", choices=["f32", "bf16"], default=None,
                     help="default f32 for the scan, bf16 for attention")
     ap.add_argument("--dh", action="store_true",
@@ -278,12 +382,23 @@ def main(argv=None) -> int:
     ap.add_argument("--no-causal", action="store_true")
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--softcap", type=float, default=0.0)
+    ap.add_argument("--local", type=int, default=0,
+                    help="the int8 decode's window ending at kv_valid")
+    ap.add_argument("--kv", default="",
+                    help="the int8 decode's kv_valid, comma-separated")
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
     if a.kernel == "ssd_scan_bwd":
         check_ssd_scan_bwd(tuple(int(v) for v in (
             a.shape or "2,150,4,64,128").split(",")), a.dtype or "f32",
             a.dh, a.seed)
+    elif a.kernel == "flash_decode_q8":
+        check_flash_decode_q8(tuple(int(v) for v in (
+            a.shape or "2,8,2,300,64").split(",")), a.dtype or "bf16", a.kv,
+            a.softcap, a.local, a.seed)
+    elif a.kernel == "moe_gating_bwd":
+        check_moe_gating_bwd(*(int(v) for v in (
+            a.shape or "19,128,8").split(",")), a.dtype or "f32", a.seed)
     else:
         check_flash_attention_bwd(tuple(int(v) for v in (
             a.shape or "1,4,2,150,150,64").split(",")), a.dtype or "bf16",

@@ -81,12 +81,36 @@ inline float2 __bfloat1622float2(__nv_bfloat162 h) {
 using std::max;
 using std::min;
 inline float __expf(float x) { return std::exp(x); }
+inline float __frcp_rn(float x) { return 1.0f / x; }
 inline float __ldcg(const float* p) { return *p; }
 inline float4 __ldcg(const float4* p) { return *p; }
 inline void __threadfence() {}
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   const unsigned o = *p;
   *p += v;
+  return o;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+// byte n of the result: byte (s >> 4n) & 7 of the 8 bytes {y: x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  const unsigned o = *p;
+  *p = v;
   return o;
 }
 
@@ -223,14 +247,21 @@ inline void __trap() { abort(); }
 inline size_t __cvta_generic_to_shared(const void* p) {
   return (size_t)((const uint8_t*)p - emu::smem_base());
 }
-inline float __shfl_xor_sync(unsigned, float v, int m) {
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return emu::shfl(v, (emu::lane() & ~(width - 1)) + (src & (width - 1)));
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int m) {
   return emu::shfl(v, emu::lane() ^ m);
 }
-inline float __shfl_up_sync(unsigned, float v, int d) {
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, int d) {
   const int l = emu::lane();
   return emu::shfl(v, l >= d ? l - d : l);
 }
-inline float __shfl_down_sync(unsigned, float v, int d) {
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, int d) {
   const int l = emu::lane();
   return emu::shfl(v, l + d < 32 ? l + d : l);
 }

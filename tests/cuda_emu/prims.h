@@ -19,9 +19,31 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   cp16(dst, src, full);
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool full) {
+  if (full)
+    memcpy(dst, src, 8);
+  else
+    memset(dst, 0, 8);
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  if (full)
+    memcpy(dst, src, 4);
+  else
+    memset(dst, 0, 4);
+}
 __device__ __forceinline__ void cp_async_commit() {}
 __device__ __forceinline__ void cp_async_wait1() {}
 __device__ __forceinline__ float ex2(float x) { return exp2f(x); }
+
+// fma.rn.bf16x2 a, b, -0: each product of two bf16 values (exact in
+// f32) rounded once to bf16
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  const float lo = bf2f(a & 0xffff) * bf2f(b & 0xffff);
+  const float hi = bf2f(a >> 16) * bf2f(b >> 16);
+  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
+}
 
 static inline uint32_t emu_pack(unsigned short a, unsigned short b) {
   return (uint32_t)a | ((uint32_t)b << 16);

@@ -966,12 +966,15 @@ def _q8_cache(rng, B, C, Hkv, hd):
     (64, 32, 8, 536, 0.0, 0), (120, 32, 8, 300, 0.0, 0),
     (128, 32, 8, 700, 0.0, 0), (288, 8, 4, 536, 50.0, 0),
     (288, 8, 4, 536, 50.0, 200), (64, 25, 5, 130, 0.0, 0),
-    (32, 40, 1, 77, 0.0, 0)])
+    (32, 40, 1, 77, 0.0, 0), (64, 40, 2, 300, 0.0, 0),
+    (288, 32, 2, 200, 0.0, 0)])
 def test_flash_decode_q8_matches_plain(cuda, dtype, tol, hd, Hq, Hkv, C,
                                        softcap, local):
     """The int8 decode on strided views of a (B, C, Hkv, hd) cache
     against ``decode_q8_plain``: GQA groups up to 40, softcap, the
-    local window, kv_valid 0, partial and full; one launch a call."""
+    local window, kv_valid 0, partial and full; one launch a call, on
+    the body ``q8_body`` names: the tensor cores for bf16 at hd 64-288
+    with G <= 16, ``decode_q8_kernel`` for f32, hd 32 and G > 16."""
     rng = np.random.default_rng(hd + C)
     dt = getattr(torch, dtype)
     B = 4
@@ -983,12 +986,20 @@ def test_flash_decode_q8_matches_plain(cuda, dtype, tol, hd, Hq, Hkv, C,
     kw = dict(softcap=softcap, local_window=local)
     want = FA.decode_q8_plain(*args, kv, **kw)
     before = FA.flash_decode_q8.launches
-    got = FA.flash_decode_q8(*[a.to(cuda) for a in args], kv.to(cuda), **kw)
+    on = [a.to(cuda) for a in args]
+    body = FA.q8_body(on[0], on[1])
+    assert body == ("mma" if dt == torch.bfloat16 and hd != 32 and
+                    Hq // Hkv <= 16 else "cores")
+    n = FA.flash_decode_q8.launches_by_body[body]
+    got = FA.flash_decode_q8(*on, kv.to(cuda), **kw)
     torch.cuda.synchronize()
     assert FA.flash_decode_q8.launches == before + 1
+    assert FA.flash_decode_q8.launches_by_body[body] == n + 1
     assert got.dtype == dt and not got.cpu()[0].any()
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
+    # one live key: its dequantized V row, bit for bit
+    assert torch.equal(got.cpu()[1], want[1])
 
 
 def test_flash_decode_q8_is_bit_stable_and_refuses_bad_operands(cuda):
@@ -1155,18 +1166,29 @@ def test_ssd_scan_bwd_matches_plain(cuda, Bb, L, H, P, N, dt, tol, with_dh):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("T,E,k", [(100, 16, 2), (4096, 128, 8),
-                                   (33, 1024, 4)])
-def test_moe_gating_bwd_matches_plain(cuda, T, E, k):
+@pytest.mark.parametrize("T,E,k,dtype", [
+    (100, 16, 2, "float32"), (4096, 128, 8, "float32"),
+    (33, 1024, 4, "float32"), (200, 1024, 8, "float32"),
+    (4096, 128, 8, "bfloat16"), (77, 160, 8, "bfloat16")])
+def test_moe_gating_bwd_matches_plain(cuda, T, E, k, dtype):
+    """The gate's backward (warp-level rows) against its plain version: f32
+    within 1e-5 of max |g|, bf16 within 1e-2 (dlogits rounded to bf16);
+    one launch, the same bits twice."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    lg = torch.randn(T, E, generator=g, device=cuda)
+    lg = torch.randn(T, E, generator=g, device=cuda).to(getattr(torch,
+                                                               dtype))
     vals, idx, aux, asum = MG.moe_gating(lg, k, return_asum=True)
     assert torch.equal(asum, MG.moe_gating_plain(lg, k, True)[3])
     dv = torch.randn(T, k, generator=g, device=cuda)
     da = torch.tensor(0.5, device=cuda)
+    before = MG.moe_gating_bwd.launches
     got = MG.moe_gating_bwd(lg, idx, dv, da, asum)
+    assert MG.moe_gating_bwd.launches == before + 1
     want = MG.moe_gating_bwd_plain(lg, idx, dv, da, asum)
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(
+        want.float().abs().max())
+    assert torch.equal(got, MG.moe_gating_bwd(lg, idx, dv, da, asum))
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",

@@ -1,4 +1,4 @@
-"""The backward kernels' CUDA sources run on the CPU through an emulation
+"""The kernels' CUDA sources run on the CPU through an emulation
 of the CUDA execution model (``tests/_cuda_emu.py``: g++, fibers for
 threads, warp collectives for ``ldmatrix``, ``mma.sync``, ``wgmma`` and
 shuffles, mbarriers as fiber waits, TMA boxes as swizzled copies with
@@ -19,7 +19,14 @@ Lk < 64 non-causal, kv_valid with a softcap and Lq != Lk, a contiguous
 layout), mma (hd 288
 with its softcap and window, and hd 64 rows off 16 bytes) within 2e-2
 of each gradient's max |g|, f32 within 1e-4.  Beside them, the body
-rule at the zoo's training shapes.  Skips where g++ is missing."""
+rule at the zoo's training shapes.
+
+The int8 KV decode (``csrc/flash_attention.cu``) on each body
+``flash_attention.q8_body`` names, and the bf16 decode on the body it
+shares, against their plain versions; the gate's backward
+(``csrc/moe_gating_bwd.cuh``) against its plain version.  Skips where
+g++ is missing."""
+import math
 import shutil
 
 import pytest
@@ -28,6 +35,7 @@ import torch
 import _cuda_emu
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import moe_gating as MG
 from repro_torch.kernels import ssd_scan as SS
 
 
@@ -131,3 +139,127 @@ def test_bwd_body_at_the_zoos_training_shapes(name, body):
     q, k, v, do = (view(n, n * hd + 4, torch.bfloat16)
                    for n in (H, Hkv, Hkv, H))
     assert FA.bwd_body(q, k, v, do) == "mma"
+
+
+@pytest.fixture(scope="module")
+def mg_lib():
+    if shutil.which("g++") is None:
+        pytest.skip("the emulation compiles the CUDA source with g++")
+    return _cuda_emu.load("moe_gating", MG._SIG)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("E", [8, 100, 128, 160, 1024])
+def test_moe_gating_bwd_source_matches_plain(mg_lib, E, k, dtype):
+    """The gate's backward (``csrc/moe_gating_bwd.cuh``: a row to 16
+    lanes of a warp up to E = 128, to a whole warp past it, 8 warps a
+    block; 19 rows leave the last block part empty; 16-byte runs of a row
+    a lane where E is a multiple of a lane's share, E = 100 the strided
+    layout) against its plain version,
+    two rows with 16 tied experts.  f32: within 1e-5 of
+    max |g|; at k = 1 dr is the difference of two nearly equal terms, and
+    the plain f32 version is itself up to ~1e-4 of max |g| from the f64
+    one, so there the kernel is held to the f64 result within 1e-5 or
+    twice the plain version's own error.  bf16 (dlogits rounded once):
+    each value within one bf16 ulp of |want| plus 1e-5 of max |g|.  The
+    same bits on two launches."""
+    args = _cuda_emu.gate_inputs(19, E, k, dtype, seed=E + k)
+    got = MG._bwd_launch(mg_lib, None, *args)
+    want = MG.moe_gating_bwd_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    m = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= 2.0 ** -8 * want.float().abs() + 1e-5 * m).all())
+    elif k > 1:
+        assert float(err.max()) <= 1e-5 * m
+    else:
+        f64 = MG.moe_gating_bwd_plain(*(a.double() if a.is_floating_point()
+                                        else a for a in args))
+        own = float((want.double() - f64).abs().max())
+        assert float((got.double() - f64).abs().max()) <= max(1e-5 * m,
+                                                              2 * own)
+    assert torch.equal(got, MG._bwd_launch(mg_lib, None, *args))
+
+
+def _ulp_close(got, want, tol: float):
+    """|err| <= tol (1 + |want|) everywhere and, for bf16 outputs, at most
+    one bf16 ulp of max |want| (both sides use the same dequantized bf16
+    values; the kernel rounds P to bf16 for the product)."""
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol * (1 + want.float().abs())).all())
+    if got.dtype == torch.bfloat16:
+        top = float(want.float().abs().max())
+        assert float(diff.max()) <= 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,hd,kv,cap,local,dtype,body", [
+    (2, 2, 2, 150, 64, (150, 77), 0.0, 0, torch.bfloat16, "mma"),
+    (3, 8, 2, 150, 64, (0, 150, 1), 0.0, 0, torch.bfloat16, "mma"),
+    (2, 16, 2, 150, 120, (150, 33), 0.0, 40, torch.bfloat16, "mma"),
+    (2, 8, 2, 200, 128, (199, 1), 30.0, 0, torch.bfloat16, "mma"),
+    (2, 4, 2, 140, 288, (140, 77), 50.0, 100, torch.bfloat16, "mma"),
+    (2, 16, 2, 100, 288, (100, 1), 0.0, 0, torch.bfloat16, "mma"),
+    (2, 8, 2, 150, 64, (150, 77), 0.0, 30, torch.float32, "cores"),
+    (2, 40, 2, 70, 64, (70, 9), 0.0, 0, torch.bfloat16, "cores"),
+    (2, 4, 1, 70, 32, (70, 9), 0.0, 0, torch.bfloat16, "cores")])
+def test_flash_decode_q8_source_matches_plain(fa_lib, B, Hq, Hkv, C, hd, kv,
+                                              cap, local, dtype, body):
+    """The int8 KV decode (``csrc/flash_attention.cu``) through the body
+    ``q8_body`` names: the tensor cores for bf16 queries at hd 64, 120,
+    128 (``decode_mma_kernel<HD, true>``) and 288
+    (``decode_wide_q8_kernel``), G 1-8, ragged and empty ``kv_valid``, a
+    local window, softcap; CUDA cores (``decode_q8_kernel``) for f32
+    queries, G > 16 and hd 32.  Against ``decode_q8_plain``: bf16 within
+    2e-2 (1 + |want|) and one bf16 ulp of max |want|, f32 within 2e-4
+    (1 + |want|); the same bits on two launches.  A sequence with one
+    live key gives that key's dequantized V row, bit for bit."""
+    args = _cuda_emu.q8_inputs(B, Hq, Hkv, C, hd, dtype, seed=hd + C)
+    kvt = torch.tensor(kv, dtype=torch.int32)
+    got, want, ran = _cuda_emu.q8_decode(fa_lib, *args, kvt, cap, local)
+    assert ran == body
+    assert got.dtype == dtype and got.shape == want.shape
+    _ulp_close(got, want, 2e-2 if dtype == torch.bfloat16 else 2e-4)
+    for b in (i for i, n in enumerate(kv) if n == 1):
+        assert torch.equal(got[b], want[b])
+    again, _, _ = _cuda_emu.q8_decode(fa_lib, *args, kvt, cap, local)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,hd,kv,local", [
+    (2, 8, 2, 150, 64, (150, 77), 0), (2, 16, 2, 150, 120, (150, 33), 40)])
+def test_bf16_decode_source_matches_plain(fa_lib, B, Hq, Hkv, C, hd, kv,
+                                          local):
+    """The bf16 cache's decode on the same tensor-core body
+    (``decode_mma_kernel<HD, false>``) against ``flash_attention_plain``,
+    as the int8 test above."""
+    g = torch.Generator().manual_seed(C)
+    q, k, v = (torch.randn(B, L, H, hd, generator=g).to(torch.bfloat16)
+               .transpose(1, 2) for L, H in ((1, Hq), (C, Hkv), (C, Hkv)))
+    kvt = torch.tensor(kv, dtype=torch.int32)
+    kw = dict(causal=False, window=0, softcap=0.0, local_window=local)
+    got = FA._fwd_launch(fa_lib, None, q, k, v, kvt, return_lse=False, **kw)
+    want = FA.flash_attention_plain(q, k, v, kvt, **kw)
+    _ulp_close(got, want, 2e-2)
+    assert torch.equal(got, FA._fwd_launch(fa_lib, None, q, k, v, kvt,
+                                           return_lse=False, **kw))
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma2-2b",
+                                  "h2o-danube-3-4b", "llava-next-mistral-7b",
+                                  "qwen3-moe-30b-a3b"])
+def test_q8_body_at_the_zoos_decode_shapes(name):
+    """The int8 decode's body rule at each config's heads in the model's
+    (B, 1, Hq, hd) layout seen through ``transpose(1, 2)``: bf16 queries
+    name the tensor cores (every zoo config has G <= 16 at hd 64-288), f32
+    queries the CUDA cores, and so does a query view off 4 bytes."""
+    cfg = get_config(name)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    k8 = torch.zeros(2, 8, Hkv, hd, dtype=torch.int8).transpose(1, 2)
+    for dt, want in ((torch.bfloat16, "mma"), (torch.float32, "cores")):
+        q = torch.zeros(2, 1, Hq, hd, dtype=dt).transpose(1, 2)
+        assert FA.q8_body(q, k8) == want
+    q = torch.zeros(2, 1, Hq * hd + 1, dtype=torch.bfloat16)[..., 1:]
+    assert FA.q8_body(q.unflatten(-1, (Hq, hd)).transpose(1, 2), k8) == \
+        "cores"

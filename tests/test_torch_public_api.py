@@ -286,3 +286,63 @@ def test_router_topk_weighted_call_does_not_reuse_the_unweighted():
                                        mask=jnp.asarray(mask)),
                       _cos(emb, q), what="plain")
     assert not np.array_equal(np.asarray(plain[1]), np.asarray(got[1]))
+
+
+# ----------------------------------------------------------------------
+# the reference's long_mode keyword on the cache and step factories
+# ----------------------------------------------------------------------
+
+def _long_mode_pairs():
+    from repro.models import model as JM
+    from repro.training import steps as JS
+    from repro_torch.models import model as TM
+    from repro_torch.training import steps as TS
+    return {"cache_len": (JM.cache_len, TM.cache_len),
+            "init_cache": (JM.init_cache, TM.init_cache),
+            "make_prefill_step": (JS.make_prefill_step, TS.make_prefill_step),
+            "make_decode_step": (JS.make_decode_step, TS.make_decode_step)}
+
+
+@pytest.mark.parametrize("name", ["cache_len", "init_cache",
+                                  "make_prefill_step", "make_decode_step"])
+def test_long_mode_signature_matches_reference(name):
+    """Each reference parameter is in the port's list, in the same order,
+    kind and default (the port may add its own, ``init_cache``'s
+    ``device``)."""
+    ref, port = _long_mode_pairs()[name]
+    want = list(inspect.signature(ref).parameters.values())
+    got = inspect.signature(port).parameters
+    assert "long_mode" in got
+    names = [p.name for p in want]
+    assert [n for n in got if n in names] == names
+    for p in want:
+        q = got[p.name]
+        assert (q.kind, q.default) == (p.kind, p.default), p.name
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "llama3.2-1b"])
+def test_long_mode_false_is_the_default_and_true_is_not_ported(arch):
+    from repro.configs import get_smoke as jget_smoke
+    from repro.models import model as JM
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as TM
+    from repro_torch.training import steps as TS
+    cfg = get_smoke(arch)
+    for ctx in (8, 100):
+        assert TM.cache_len(cfg, ctx, long_mode=False) == \
+            TM.cache_len(cfg, ctx) == JM.cache_len(jget_smoke(arch), ctx)
+    a = TM.init_cache(cfg, 2, 100, long_mode=False, device="cpu")
+    b = TM.init_cache(cfg, 2, 100, device="cpu")
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].dtype == b[key].dtype and torch.equal(a[key], b[key])
+    assert callable(TS.make_prefill_step(cfg, long_mode=False, max_len=8))
+    assert callable(TS.make_decode_step(cfg, long_mode=False))
+    for call in (lambda: TM.cache_len(cfg, 100, long_mode=True),
+                 lambda: TM.init_cache(cfg, 2, 100, long_mode=True,
+                                       device="cpu"),
+                 lambda: TS.make_prefill_step(cfg, long_mode=True),
+                 lambda: TS.make_decode_step(cfg, long_mode=True),
+                 lambda: TM.forward_full(None, cfg, None, long_mode=True)):
+        with pytest.raises(NotImplementedError, match="item 12 'the rest'"):
+            call()
