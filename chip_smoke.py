@@ -139,6 +139,20 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      through ``ModelRunner.generate`` at B=4, prompt 4,608, 16 new
      tokens (hymba's ring of 1,024 and h2o-danube's of 4,096 wrap);
      finite logits and exact launch counts;
+  5d'. ``long_mode`` (the reference's serving of the long_500k shape):
+     its kernel shapes against their plain versions and timed (gemma2-2b's
+     banded prefill on every layer, B=4, prompt 4,608; its ring decode
+     over a full ring of 4,096 in bf16 and int8; the long_500k decode at
+     B=1 of gemma2-2b and llama3.2-1b); gemma2-2b at full width and depth
+     through ``make_prefill_step(long_mode=True)`` and 16 steps of
+     ``make_decode_step(long_mode=True)``, bf16 then int8 cache (exactly
+     one attention launch per layer per prefill and step, every decode
+     on the full ring; prefill ms, ms a step, busy share, peak memory);
+     the long_500k step (B=1, pos 524,287, a seeded full cache) of
+     gemma2-2b, llama3.2-1b and mamba2-1.3b with its parameter and cache
+     bytes equal to ``launch/dryrun``'s; and the card against the CPU at
+     full width, 2 layers, f32, windows 48 (prompt 72, and the long_500k
+     step at pos 524,287);
   5e. ``generate_frontends``: routed generation on seamless-m4t-medium
      and llava-next-mistral-7b at full width and depth (about 15.6 GB
      of bf16), 32 requests by preference profile, prompt 512, 16 new
@@ -214,6 +228,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      aux and gnorm within 1e-4 relative, every gradient leaf within
      1e-3 of its max |g| (the CPU's MoE gates replaying the card's
      choices, each apart only at a near-tie).
+ 11. ``examples``: ``examples/quickstart_torch.py``,
+     ``serve_routed_torch.py`` and ``merge_models_torch.py`` through
+     their ``main`` on the card, small.
   The serving phases launch no backward kernel (checked in
   ``serve_loop``).
 
@@ -2307,12 +2324,14 @@ def flash_kind(hd: int, Lq: int, G: int, window: int, local: int,
 class FlashRecorder:
     """Within the ``with``: every ``ops.flash_attention`` call of a run
     (prefill, and decode through ``ops.flash_decode``), counted by its
-    ``flash_kind``, with the cache capacity each decode kind read."""
+    ``flash_kind``, with the cache capacity each decode kind read (and,
+    with ``keep_kv``, each decode's live counts)."""
 
-    def __init__(self):
+    def __init__(self, keep_kv: bool = False):
         from repro_torch.kernels import ops
         self.ops, self.orig = ops, ops.flash_attention
         self.counts, self.caps = {}, {}
+        self.keep_kv, self.kv = keep_kv, []
 
     def __enter__(self):
         def record(q, k, v, kv_valid=None, **kw):
@@ -2322,6 +2341,8 @@ class FlashRecorder:
                               k.shape[1], kv_valid is None)
             self.counts[kind] = self.counts.get(kind, 0) + 1
             self.caps[kind] = k.shape[1]
+            if self.keep_kv and kv_valid is not None:
+                self.kv.append(kv_valid.clone())     # stays on the device
             return self.orig(q, k, v, kv_valid, **kw)
         self.ops.flash_attention = record
         return self
@@ -2912,6 +2933,408 @@ def long_context_phase(torch, dev, small: bool, kernels, rows):
 
 
 # ----------------------------------------------------------------------
+# long_mode: gemma2-2b's rings on every layer, and the long_500k decode
+# ----------------------------------------------------------------------
+
+LONG_MODE_ARCH = "gemma2-2b"
+LONG_500K_ARCHS = ["gemma2-2b", "llama3.2-1b", "mamba2-1.3b"]
+LONG_POS = 524_287                     # the last position of long_500k
+
+
+def greedy_long_mode(torch, dev, cfg, params, toks, steps: int,
+                     keep_logits: bool = False) -> dict:
+    """``make_prefill_step(cfg, long_mode=True)`` over ``toks`` (B, L),
+    then ``steps`` greedy steps of ``make_decode_step(cfg,
+    long_mode=True)``.  Host-clock seconds of the prefill and of the
+    decode steps (each ending in a synchronize), the greedy tokens (B,
+    steps + 1), the prefill's logits and, with ``keep_logits``, every
+    step's."""
+    from repro_torch.training.steps import make_decode_step, make_prefill_step
+
+    B, Lp = toks.shape
+    prefill = make_prefill_step(cfg, long_mode=True, max_len=Lp + steps + 8)
+    decode = make_decode_step(cfg, long_mode=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        last, cache, pos = prefill(params, {"tokens": torch.as_tensor(
+            toks.astype(np.int64), device=dev)})
+        sync()
+        t1 = time.perf_counter()
+        tok = torch.argmax(last, dim=-1)[:, None]
+        out, logits = [tok], [last]
+        for _ in range(steps):
+            lg, tok, cache = decode(params, cache, {"token": tok, "pos": pos})
+            pos = pos + 1
+            out.append(tok)
+            if keep_logits:
+                logits.append(lg)
+        sync()
+        t2 = time.perf_counter()
+    return {"prefill_s": t1 - t0, "decode_s": t2 - t1, "cache": cache,
+            "tokens": torch.cat(out, dim=1).cpu().numpy(),
+            "logits": torch.stack(logits, dim=1).float().cpu().numpy()}
+
+
+def tokens_agree(ref, got, what: str, tol: float) -> int:
+    """Greedy tokens equal, row by row, until the reference's top two
+    logits lie within ``tol`` (a near-tie).  Returns the count compared."""
+    compared = 0
+    for b in range(ref["tokens"].shape[0]):
+        for s_ in range(ref["logits"].shape[1]):
+            top2 = np.sort(ref["logits"][b, s_])[-2:]
+            if top2[1] - top2[0] < tol:
+                break
+            check(got["tokens"][b, s_] == ref["tokens"][b, s_],
+                  f"{what}: row {b} step {s_} token {got['tokens'][b, s_]} "
+                  f"vs {ref['tokens'][b, s_]}")
+            compared += 1
+    return compared
+
+
+def long_mode_rows(torch, dev, small: bool):
+    """The kernel shapes long_mode adds, each against its plain version
+    and timed beside its bound: gemma2-2b's banded prefill on every
+    layer (hd 288, window 4,096, softcap 50, B = 4, prompt 4,608), its
+    ring decode over a full ring of 4,096 in bf16 and in int8 (B = 4),
+    and the long_500k decode at B = 1 of gemma2-2b (ring of 4,096 in
+    long_mode) and llama3.2-1b (its long_serving_config ring).  Returns
+    rows keyed (run, kind)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import shapes
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    B, Lp, steps = (2, 150, 4) if small else (4, 4608, 16)
+    cfg = get_smoke(LONG_MODE_ARCH) if small else get_config(LONG_MODE_ARCH)
+    W, cap, hd = cfg.sliding_window, cfg.attn_softcap, cfg.head_dim
+    G = cfg.n_heads // cfg.n_kv_heads
+    C = M.cache_len(cfg, Lp + steps + 8, long_mode=True)
+    check(C == W < Lp, f"long_mode: ring of {C} slots at prompt {Lp}")
+    rows = {}
+    kind = flash_kind(hd, Lp, G, W, 0, cap)
+    rows[("gen", kind)] = window_attn_row(
+        torch, FA, g, dev, cfg, B, Lp, Lp, None,
+        dict(causal=True, window=W, softcap=cap),
+        f"long_mode {kind} (gemma2-2b, every layer, B={B}, L={Lp})",
+        iters=4, tag="long_mode")
+    kind = flash_kind(hd, 1, G, 0, 0, cap)
+    rows[("gen", kind)] = window_attn_row(
+        torch, FA, g, dev, cfg, B, 1, C, [C] * B,
+        dict(causal=False, local_window=0, softcap=cap),
+        f"long_mode {kind} (gemma2-2b, B={B}, a full ring of {C})",
+        iters=10, tag="long_mode")
+    kind, row, _ = q8_row(torch, g, dev, "gemma2-2b long_mode", cfg, B, C,
+                          np.full(B, C), 0, "long_mode")
+    rows[("int8", kind)] = dict(row, name=row["name"].replace(
+        "flash_decode_q8", "flash_decode_q8 long_mode", 1))
+    for name in LONG_500K_ARCHS:
+        spec = shapes.input_specs(get_smoke(name) if small
+                                  else get_config(name), "long_500k")
+        c = spec["cfg"]
+        if not c.has_attention:
+            continue
+        Ck = spec["cache"]["k"].shape[2]
+        kind = flash_kind(c.head_dim, 1, c.n_heads // c.n_kv_heads, 0, 0,
+                          c.attn_softcap)
+        rows[(name, kind)] = window_attn_row(
+            torch, FA, g, dev, c, 1, 1, Ck, [Ck],
+            dict(causal=False, local_window=0, softcap=c.attn_softcap),
+            f"long_500k {kind} ({name}, B=1, a full ring of {Ck}, pos "
+            f"{LONG_POS})", iters=20, tag="long_mode")
+    return rows
+
+
+def long_mode_generation(torch, dev, small: bool):
+    """gemma2-2b at full width and depth (seeded bf16 weights drawn on
+    the card) through ``make_prefill_step(long_mode=True)`` at B = 4,
+    prompt 4,608 (every layer's ring of 4,096 wraps), then 16 steps of
+    ``make_decode_step(long_mode=True)``; again with the int8 cache.
+    Finite logits, exactly one attention launch per layer per prefill
+    and per decode step, every decode on the ring (each row's live count
+    = C); prefill ms, ms a step, busy share and peak memory.  Returns
+    the flash_attention kinds' and the int8 decode's calls."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.serving.runner import ModelRunner
+
+    B, Lp, steps = (2, 150, 4) if small else (4, 4608, 16)
+    cfg = get_smoke(LONG_MODE_ARCH) if small else get_config(LONG_MODE_ARCH)
+    nL, C = cfg.n_layers, cfg.sliding_window
+    runner = ModelRunner(cfg, seed=61, device=dev)
+    toks = np.random.default_rng(62).integers(0, cfg.vocab_size, (B, Lp))
+    greedy_long_mode(torch, dev, cfg, runner.params, toks[:, :64], 2)
+    counts, runs = {}, {}
+    for kv_dt in ("", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv_dt)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with FlashRecorder(keep_kv=True) as rec, Q8Recorder() as q8:
+            res = greedy_long_mode(torch, dev, c, runner.params, toks, steps)
+        got = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+            else 0
+        n_dec = nL * steps
+        want = {"flash_attention": nL * (1 if kv_dt else 1 + steps),
+                "flash_attention_decode": 0 if kv_dt else n_dec,
+                "flash_decode_q8": n_dec if kv_dt else 0}
+        if dev.type == "cuda":
+            check({k: got[k] for k in want} == want,
+                  f"long_mode {kv_dt or 'bf16'}: launches {got}, want "
+                  f"{want}")
+            if kv_dt:
+                check(got["flash_decode_q8[mma]"] == n_dec,
+                      f"long_mode int8: decode bodies {got}")
+        calls = dict(rec.counts)
+        for kind, n in q8.counts.items():
+            calls["int8 " + kind] = n
+        check(sum(calls.values()) == nL * (1 + steps),
+              f"long_mode {kv_dt or 'bf16'}: attention calls {calls}")
+        check(all("window" in k for k in rec.counts if "prefill" in k),
+              f"long_mode: a prefill layer without the band: {rec.counts}")
+        check(not any("local" in k for k in calls),
+              f"long_mode: a local window inside the ring: {calls}")
+        check(all(cap == C for k, cap in rec.caps.items() if "decode" in k),
+              f"long_mode: decode caches {rec.caps}, want the ring of {C}")
+        live = torch.cat(rec.kv) if rec.kv else None
+        check(live is None or bool((live == C).all()),
+              f"long_mode: a decode row off the full ring (live counts "
+              f"{None if live is None else live.unique().tolist()})")
+        check(bool(np.isfinite(res["logits"]).all()),
+              f"long_mode {kv_dt or 'bf16'}: non-finite logits")
+        for kind, n in calls.items():
+            counts[kind] = counts.get(kind, 0) + n
+        runs[kv_dt] = res
+        log(f"[long_mode] gemma2-2b {kv_dt or 'bf16'} cache, every layer a "
+            f"ring of {C} (B={B}, prompt {Lp}, wrapped {Lp // C} times, roll "
+            f"shift {Lp % C}): prefill {res['prefill_s'] * 1e3:.2f} ms, "
+            f"decode {res['decode_s'] / steps * 1e3:.3f} ms per step over "
+            f"{steps} steps; peak memory {peak / 1e9:.2f} GB; launches "
+            f"{ {k: got[k] for k in want} }; calls by kind {calls}")
+        if kv_dt == "":
+            decode_profile(torch, dev, runner, "gemma2-2b long_mode", B, Lp,
+                           long_mode=True)
+    same = runs[""]["tokens"] == runs["int8"]["tokens"]
+    log(f"[long_mode] gemma2-2b: greedy tokens of the int8 cache equal to "
+        f"the bf16 cache's: {int(same.sum())} of {same.size} (reported)")
+    del runner, runs
+    release(torch, dev, "after the long_mode generation")
+    return counts
+
+
+def long_500k_steps(torch, dev, small: bool):
+    """One long_500k decode step of gemma2-2b (long_mode), llama3.2-1b
+    (its long_serving_config ring of 4,096) and mamba2-1.3b (state
+    only) at full width and depth, B = 1, pos 524,287, against a seeded
+    full cache: the parameter bytes (f32, the configs' param_dtype) and
+    cache bytes allocated equal ``launch/dryrun``'s figures for the pair
+    exactly; finite logits; one attention launch per layer.  Returns
+    {arch: flash_attention calls by kind}."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.models import model as M
+    from repro_torch.training.steps import make_decode_step
+
+    out = {}
+    for i, name in enumerate(LONG_500K_ARCHS):
+        full = get_smoke(name) if small else get_config(name)
+        spec = shapes.input_specs(full, "long_500k")
+        cfg, lm = spec["cfg"], spec["long_mode"]
+        seq = shapes.SHAPES["long_500k"]["seq_len"]
+        want = dryrun.pair_report(name, "long_500k",
+                                  device=dev if dev.type == "cuda"
+                                  else "meta") if not small else None
+        gen = torch.Generator(device=dev).manual_seed(71 + i)
+        a0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        params = M.init_params(cfg, gen, device=dev)
+        a1 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        cache = M.init_cache(cfg, 1, seq, long_mode=lm, device=dev)
+        a2 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        pb, cb = dryrun.tree_bytes(params), dryrun.tree_bytes(cache)
+        if want is not None:
+            check((pb, cb) == (want["bytes"]["params"],
+                               want["bytes"]["cache"]),
+                  f"long_500k {name}: params {pb} and cache {cb} bytes, the "
+                  f"dry run's {want['bytes']}")
+        for key, t in cache.items():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                    * (1.0 if key in ("k", "v") else 0.1))
+        params = M.cast_params(params, cfg)
+        step = make_decode_step(cfg, long_mode=lm)
+        tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        pos = torch.full((1,), LONG_POS, dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            step(params, cache, {"token": tok, "pos": pos - 1})   # warm-up
+            reset_launches()
+            with FlashRecorder(keep_kv=True) as rec:
+                t0 = time.perf_counter()
+                logits, nxt, cache = step(params, cache,
+                                          {"token": tok, "pos": pos})
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches()
+        n_attn = cfg.n_layers if cfg.has_attention else 0
+        check(sum(rec.counts.values()) == n_attn,
+              f"long_500k {name}: attention calls {rec.counts}")
+        if dev.type == "cuda":
+            check(got["flash_attention_decode"] == n_attn,
+                  f"long_500k {name}: launches {got}")
+        C = cache["k"].shape[2] if "k" in cache else 0
+        check(not rec.kv or bool((torch.cat(rec.kv) == C).all()),
+              f"long_500k {name}: a decode off the full ring of {C}")
+        check(bool(torch.isfinite(logits).all()),
+              f"long_500k {name}: non-finite logits")
+        out[name] = dict(rec.counts)
+        dry = "" if want is None else (f", equal to the dry run's (fits "
+                                       f"the card: {want['fits']})")
+        log(f"[long_mode] long_500k {name} ({'long_mode, ' if lm else ''}"
+            f"{f'a ring of {C}' if C else 'state only'}), B=1 at pos "
+            f"{LONG_POS}: one step {ms:.3f} ms (host clock, synchronized); "
+            f"params {pb / 1e9:.3f} GB f32, cache {cb / 1e6:.3f} MB{dry}; "
+            f"allocator {(a1 - a0) / 1e9:.3f} GB + {(a2 - a1) / 1e6:.3f} MB; "
+            f"calls {rec.counts}")
+        del params, cache, logits
+        release(torch, dev, f"after the long_500k step of {name}")
+    return out
+
+
+def long_mode_card_vs_cpu(torch, dev, small: bool):
+    """Full width, 2 layers, f32, windows set to 48, the same seeded
+    weights on the card and the CPU: gemma2-2b in long_mode at prompt 72
+    (prefill logits within 1e-3 of max |logit|, 4 greedy tokens
+    tie-aware), then the long_500k step at pos 524,287 of gemma2-2b,
+    llama3.2-1b (its long_serving ring, 48 slots) and mamba2-1.3b from
+    one seeded cache (logits within 1e-3 of max |logit|).  Logs the
+    RoPE inverse frequencies that differ between the devices."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.training.steps import make_decode_step
+
+    cpu = torch.device("cpu")
+    for name in LONG_500K_ARCHS:
+        base = get_smoke(name) if small else get_config(name)
+        cfg = dataclasses.replace(base, n_layers=2, compute_dtype="float32")
+        if cfg.long_serving_window:
+            cfg = dataclasses.replace(cfg, long_serving_window=48)
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=48)
+        lm = cfg.long_mode_local_only
+        cfg = cfg.long_serving_config()
+        params = M.init_params(cfg, torch.Generator().manual_seed(11), cpu)
+        on_dev = M.tree_map(lambda t: t.to(dev), params)
+        if name == LONG_MODE_ARCH:
+            toks = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                                      (4, 72))
+            ref = greedy_long_mode(torch, cpu, cfg, params, toks, 4, True)
+            got = greedy_long_mode(torch, dev, cfg, on_dev, toks, 4, True)
+            scale = float(np.abs(ref["logits"][:, 0]).max())
+            err = float(np.abs(got["logits"][:, 0]
+                               - ref["logits"][:, 0]).max())
+            check(err <= 1e-3 * scale, f"long_mode {name}: prefill logits "
+                                       f"off by {err} (max {scale})")
+            n = tokens_agree(ref, got, f"long_mode {name}", 1e-3 * scale)
+            log(f"[long_mode card vs cpu] {name} long_mode (2 layers, f32, "
+                f"window 48: rings of 48 rolled by 24 on both layers), B=4, "
+                f"prompt 72: prefill logits max err {err:.3g} (max |logit| "
+                f"{scale:.3g}, tol {1e-3 * scale:.3g}); {n} of "
+                f"{ref['tokens'].size} greedy tokens compared, all equal")
+        cache = M.init_cache(cfg, 1, LONG_POS + 1, long_mode=lm, device=cpu)
+        gen = torch.Generator().manual_seed(13)
+        for key, t in cache.items():
+            t.copy_(torch.randn(t.shape, generator=gen)
+                    * (1.0 if key in ("k", "v") else 0.1))
+        cache_d = {k: t.to(dev, copy=True) for k, t in cache.items()}
+        batch = {"token": torch.tensor([[7]]),
+                 "pos": torch.tensor([LONG_POS])}
+        step = make_decode_step(cfg, long_mode=lm)
+        with torch.no_grad():
+            want = step(params, cache, batch)[0].numpy()
+            got = step(on_dev, cache_d, {k: v.to(dev) for k, v in
+                                         batch.items()})[0].cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        rope = ""
+        if cfg.has_attention:
+            # the model's frequencies are the host's on every device
+            # (``rope_freqs``); the card's own pow, for the record
+            hd, th = cfg.head_dim, cfg.rope_theta
+            fc = L.rope_freqs(hd, th)
+            fd = (1.0 / (th ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                             device=dev) / hd))).cpu()
+            ulps = (fc.view(torch.int32) - fd.view(torch.int32)).abs()
+            check(torch.equal(L.rope_freqs(hd, th, dev).cpu(), fc),
+                  f"long_500k {name}: the card's RoPE frequencies are not "
+                  f"the host's")
+            rope = (f"; the card's own pow would differ in "
+                    f"{int((ulps > 0).sum())} of {ulps.numel()} RoPE "
+                    f"inverse frequencies (max {int(ulps.max())} ulp), the "
+                    f"model takes the host's")
+        log(f"[long_mode card vs cpu] long_500k {name} (2 layers, f32"
+            f"{', long_mode' if lm else ''}, cache of "
+            f"{cache['k'].shape[2] if 'k' in cache else 0} slots), pos "
+            f"{LONG_POS}: logits max err {err:.3g} (max |logit| "
+            f"{scale:.3g}, tol {1e-3 * scale:.3g}){rope}")
+        check(err <= 1e-3 * scale, f"long_500k {name}: card vs CPU logits "
+                                   f"off by {err} (max {scale})")
+        del params, on_dev, cache, cache_d
+
+
+def long_mode_phase(torch, dev, small: bool, kernels):
+    """``long_mode`` on the card: the new kernel shapes (rows of the
+    ``kernels`` line), gemma2-2b's long_mode generation at full width and
+    depth with the bf16 and the int8 cache, the long_500k decode step of
+    three configs, and the card against the CPU at 2 layers.  Every row
+    takes its launches from this phase's runs."""
+    rows = long_mode_rows(torch, dev, small)
+    calls = long_mode_generation(torch, dev, small)
+    for name, kinds in long_500k_steps(torch, dev, small).items():
+        for kind, n in kinds.items():
+            calls[(name, kind)] = n
+    for (run, kind), row in rows.items():
+        key = {"gen": kind, "int8": "int8 " + kind}.get(run, (run, kind))
+        check(calls.get(key, 0) > 0,
+              f"long_mode: kernel {row['name']} never launched ({calls})")
+        kernels[row["name"]] = dict(
+            {k: v for k, v in row.items() if k != "bf16_ms"},
+            launches=calls[key])
+    long_mode_card_vs_cpu(torch, dev, small)
+
+
+def examples_phase(torch, dev, small: bool):
+    """The three torch examples on the card, each through its own
+    ``main`` at a small size: quickstart_torch (the 10-config catalog,
+    120 analyzer steps, 3 routed queries), serve_routed_torch (8
+    requests on five reduced runners) and merge_models_torch (two 40-step
+    checkpoints and their soup)."""
+    import importlib.util
+
+    dev_args = ["--device", "cpu"] if dev.type != "cuda" else []
+    runs = (("quickstart_torch", []),
+            ("serve_routed_torch", ["--requests", "8"]),
+            ("merge_models_torch", []))
+    for name, argv in runs:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main(argv + dev_args + (["--steps", "20"] if small else []))
+        log(f"[examples] {name} ran on {dev} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------------
 # the frontend models: seamless-m4t-medium and llava-next-mistral-7b
 # ----------------------------------------------------------------------
 
@@ -3083,6 +3506,92 @@ def q8_bound(B, Hq, Hkv, hd, live: float, int8: bool):
                     4.0 * Hq * hd * live, PEAK_BF16_S)
 
 
+def q8_row(torch, g, dev, name, cfg, B, C, kv, local, tag):
+    """One served int8 decode shape of ``cfg`` (B rows over C slots,
+    live counts ``kv``, ``local`` window): the kernel against
+    ``decode_q8_plain``, on the tensor-core body, two launches bit-equal,
+    timed beside the bf16 decode on the same values and both bounds.
+    Returns (kind, kernels-line row, the bf16 decode's ms)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.layers import quantize_kv
+
+    Hq, Hkv, hd, cap = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.attn_softcap)
+    G = Hq // Hkv
+    kvt = torch.from_numpy(kv.astype(np.int32)).to(dev)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+    k8, ks = quantize_kv(rn(B, C, Hkv, hd))
+    v8, vs = quantize_kv(rn(B, C, Hkv, hd))
+    q = rn(B, 1, Hq, hd).transpose(1, 2)
+    args = [x.transpose(1, 2) for x in (k8, v8, ks, vs)]
+    kw = dict(softcap=cap, local_window=local)
+    kind = flash_kind(hd, 1, G, 0, local, cap)
+    what = f"{kind} ({name}, B={B}, C={C}, live " + (
+        f"{int(kv.min())}-{int(kv.max())})" if kv.min() < kv.max()
+        else "all)")
+    body = FA.q8_body(q, args[0])
+    by_body = dict(FA.flash_decode_q8.launches_by_body)
+    got = FA.flash_decode_q8(q, *args, kvt, **kw)
+    check(dev.type != "cuda" or (
+        body == "mma" and FA.flash_decode_q8.launches_by_body["mma"]
+        == by_body["mma"] + 1 and sum(
+            FA.flash_decode_q8.launches_by_body.values())
+        == sum(by_body.values()) + 1),
+          f"int8 decode {what}: not one launch of the tensor-core "
+          f"body ({body})")
+    body_kernel = ("decode_wide_q8_kernel<288>" if hd == 288 else
+                   f"decode_mma_kernel<{128 if hd == 120 else hd}, "
+                   f"true>")
+    want = FA.decode_q8_plain(q, *args, kvt, **kw)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"int8 decode {what}: output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    over = float((diff - 2e-2 * (1 + want.float().abs())).max())
+    check(over <= 0, f"int8 decode {what}: |err| exceeds 2e-2 (1 + "
+                     f"|want|) by {over}")
+    err = float(diff.max())
+    top = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    check(err <= ulp, f"int8 decode {what}: max err {err} above one "
+                      f"bf16 ulp ({ulp}) of max |want| {top:.3g}")
+    check(torch.equal(got, FA.flash_decode_q8(q, *args, kvt, **kw)),
+          f"int8 decode {what}: two launches differ")
+    live = float(np.minimum(kv, local).sum() if local else kv.sum())
+    bms, by = q8_bound(B, Hq, Hkv, hd, live, True)
+    b16, _ = q8_bound(B, Hq, Hkv, hd, live, False)
+    kb = FA.dequantize_kv(args[0], args[2])
+    vb = FA.dequantize_kv(args[1], args[3])
+    iters = 20 if C < 1000 else 10
+    row = dict(
+        name=f"flash_decode_q8 {body_kernel} {what}", route="cuda",
+        source=FLASH_SRC,
+        replaces=FLASH_TPU, max_abs_err=err, bound_ms=bms, bound_by=by,
+        ms=time_graph_ms(torch, lambda: FA.flash_decode_q8(
+            q, *args, kvt, **kw), dev, iters=iters),
+        plain_ms=time_ms(torch, lambda: FA.decode_q8_plain(
+            q, *args, kvt, **kw), dev, iters=max(2, iters // 4),
+            warmup=1),
+        library_ms=None)
+    bf16_ms = time_graph_ms(torch, lambda: FA.flash_attention(
+        q, kb, vb, kvt, causal=False, **kw), dev, iters=iters)
+    parts = fmt_times(kernel_times(torch, dev, lambda: FA.flash_decode_q8(
+        q, *args, kvt, **kw), iters=3))
+    log(f"[{tag}] {what}: {Hq}/{Hkv} heads of {hd}, softcap "
+        f"{cap:g}, local {local}, {body_kernel}, splits "
+        f"{FA.q8_splits(B, Hkv, C, hd, body)}: "
+        f"{row['ms']:.4f} ms, bound {bms:.4f} by {by} "
+        f"({row['ms'] / bms:.1f}x); the bf16 decode on the same values "
+        f"{bf16_ms:.4f} ms (bound {b16:.4f}; int8 / bf16 "
+        f"{row['ms'] / bf16_ms:.2f}); plain {row['plain_ms']:.4f}; "
+        f"library: none, no PyTorch call reads int8 K/V; max err "
+        f"{err:.3g} (one bf16 ulp of max |want| {top:.3g}: {ulp:.3g}); "
+        f"launches: {parts}")
+    return kind, row, bf16_ms
+
+
 def kv_int8_kernel_phase(torch, dev, small: bool):
     """The int8 decode (``flash_decode_q8``) at the served decode shapes
     of ``Q8_SHAPES``, bf16 queries against an int8 cache in the model's
@@ -3108,82 +3617,10 @@ def kv_int8_kernel_phase(torch, dev, small: bool):
         cfg = get_smoke(name) if small else get_config(name)
         if small:
             B, C, local = min(B, 4), min(C, 150), min(local, 64)
-        Hq, Hkv, hd, cap = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                            cfg.attn_softcap)
-        G = Hq // Hkv
         kv = (np.arange(B) % 16 + (C - 23)) if live_kind == "ragged" \
             else np.full(B, C)
-        kvt = torch.from_numpy(kv.astype(np.int32)).to(dev)
-
-        def rn(*shape):
-            return torch.randn(*shape, generator=g, device=dev).to(
-                torch.bfloat16)
-        k8, ks = quantize_kv(rn(B, C, Hkv, hd))
-        v8, vs = quantize_kv(rn(B, C, Hkv, hd))
-        q = rn(B, 1, Hq, hd).transpose(1, 2)
-        args = [x.transpose(1, 2) for x in (k8, v8, ks, vs)]
-        kw = dict(softcap=cap, local_window=local)
-        kind = flash_kind(hd, 1, G, 0, local, cap)
-        what = f"{kind} ({name}, B={B}, C={C}, live " + (
-            f"{int(kv.min())}-{int(kv.max())})" if live_kind == "ragged"
-            else "all)")
-        body = FA.q8_body(q, args[0])
-        by_body = dict(FA.flash_decode_q8.launches_by_body)
-        got = FA.flash_decode_q8(q, *args, kvt, **kw)
-        check(dev.type != "cuda" or (
-            body == "mma" and FA.flash_decode_q8.launches_by_body["mma"]
-            == by_body["mma"] + 1 and sum(
-                FA.flash_decode_q8.launches_by_body.values())
-            == sum(by_body.values()) + 1),
-              f"int8 decode {what}: not one launch of the tensor-core "
-              f"body ({body})")
-        body_kernel = ("decode_wide_q8_kernel<288>" if hd == 288 else
-                       f"decode_mma_kernel<{128 if hd == 120 else hd}, "
-                       f"true>")
-        want = FA.decode_q8_plain(q, *args, kvt, **kw)
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"int8 decode {what}: output {got.dtype} {tuple(got.shape)}")
-        diff = (got.float() - want.float()).abs()
-        over = float((diff - 2e-2 * (1 + want.float().abs())).max())
-        check(over <= 0, f"int8 decode {what}: |err| exceeds 2e-2 (1 + "
-                         f"|want|) by {over}")
-        err = float(diff.max())
-        top = float(want.abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-        check(err <= ulp, f"int8 decode {what}: max err {err} above one "
-                          f"bf16 ulp ({ulp}) of max |want| {top:.3g}")
-        check(torch.equal(got, FA.flash_decode_q8(q, *args, kvt, **kw)),
-              f"int8 decode {what}: two launches differ")
-        live = float(np.minimum(kv, local).sum() if local else kv.sum())
-        bms, by = q8_bound(B, Hq, Hkv, hd, live, True)
-        b16, _ = q8_bound(B, Hq, Hkv, hd, live, False)
-        kb = FA.dequantize_kv(args[0], args[2])
-        vb = FA.dequantize_kv(args[1], args[3])
-        iters = 20 if C < 1000 else 10
-        row = dict(
-            name=f"flash_decode_q8 {body_kernel} {what}", route="cuda",
-            source=FLASH_SRC,
-            replaces=FLASH_TPU, max_abs_err=err, bound_ms=bms, bound_by=by,
-            ms=time_graph_ms(torch, lambda: FA.flash_decode_q8(
-                q, *args, kvt, **kw), dev, iters=iters),
-            plain_ms=time_ms(torch, lambda: FA.decode_q8_plain(
-                q, *args, kvt, **kw), dev, iters=max(2, iters // 4),
-                warmup=1),
-            library_ms=None)
-        bf16_ms = time_graph_ms(torch, lambda: FA.flash_attention(
-            q, kb, vb, kvt, causal=False, **kw), dev, iters=iters)
-        parts = fmt_times(kernel_times(torch, dev, lambda: FA.flash_decode_q8(
-            q, *args, kvt, **kw), iters=3))
-        log(f"[kv int8 kernels] {what}: {Hq}/{Hkv} heads of {hd}, softcap "
-            f"{cap:g}, local {local}, {body_kernel}, splits "
-            f"{FA.q8_splits(B, Hkv, C, hd, body)}: "
-            f"{row['ms']:.4f} ms, bound {bms:.4f} by {by} "
-            f"({row['ms'] / bms:.1f}x); the bf16 decode on the same values "
-            f"{bf16_ms:.4f} ms (bound {b16:.4f}; int8 / bf16 "
-            f"{row['ms'] / bf16_ms:.2f}); plain {row['plain_ms']:.4f}; "
-            f"library: none, no PyTorch call reads int8 K/V; max err "
-            f"{err:.3g} (one bf16 ulp of max |want| {top:.3g}: {ulp:.3g}); "
-            f"launches: {parts}")
+        kind, row, bf16_ms = q8_row(torch, g, dev, name, cfg, B, C,
+                                    kv, local, "kv int8 kernels")
         if name in INT8_ARCHS:
             rows[("int8", kind)] = dict(row, bf16_ms=bf16_ms)
     # f32 queries and odd shapes: G 1 and 40, kv_valid 0 and 1, a local
@@ -3373,7 +3810,7 @@ def _busy(prof) -> list:
 
 
 def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
-                   steps: int = 3):
+                   steps: int = 3, long_mode: bool = False):
     """Device busy share of one prefill and of ``steps`` decode steps:
     the kernel time a ``torch.profiler`` trace attributes to them over
     their wall time (host clock, ending in a synchronize), with the
@@ -3387,7 +3824,8 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
     batch = runner._batch(np.ones((B, prompt_len), np.int64))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
-        prefill = make_prefill_step(runner.cfg, max_len=prompt_len + steps + 2)
+        prefill = make_prefill_step(runner.cfg, long_mode=long_mode,
+                                    max_len=prompt_len + steps + 2)
         prefill(runner.params, batch)
         torch.cuda.synchronize(dev)
         with profile(activities=acts) as pprof:
@@ -3395,7 +3833,7 @@ def decode_profile(torch, dev, runner, name: str, B: int, prompt_len: int,
             last, cache, pos = prefill(runner.params, batch)
             torch.cuda.synchronize(dev)
             pwall = time.perf_counter() - t0
-        step = make_decode_step(runner.cfg)
+        step = make_decode_step(runner.cfg, long_mode=long_mode)
         tok = torch.argmax(last, dim=-1)[:, None]
         _, tok, cache = step(runner.params, cache, {"token": tok, "pos": pos})
         pos = pos + 1
@@ -5115,6 +5553,14 @@ def kernel_name(line: str) -> str:
     return f"kernel {name}{targs}"
 
 
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 # ----------------------------------------------------------------------
 
 def main() -> int:
@@ -5127,9 +5573,10 @@ def main() -> int:
                          "model_kernels, moe_kernels, window_kernels, "
                          "frontend_kernels, kv_int8_kernels, generate, "
                          "moe_generate, generate_windowed, long_context, "
-                         "generate_frontends, kv_int8_generation, "
-                         "card_vs_cpu, serve_loop, train_kernels, train, "
-                         "train_card_vs_cpu; generate_frontends "
+                         "long_mode, generate_frontends, "
+                         "kv_int8_generation, card_vs_cpu, serve_loop, "
+                         "train_kernels, train, train_card_vs_cpu, "
+                         "examples; generate_frontends "
                          "needs frontend_kernels, kv_int8_generation "
                          "kv_int8_kernels, train train_kernels); prints "
                          "no result, exits 4")
@@ -5161,6 +5608,8 @@ def main() -> int:
                     log(f"[build {name}] {line.strip()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {dev}")
+    if dev.type == "cuda":
+        log(f"[env] card: {card_name()}")
     rng = np.random.default_rng(0)
     small = args.rehearse
     kernels = {}
@@ -5200,6 +5649,7 @@ def main() -> int:
             release(torch, dev, "after the windowed generation phase")),
         "long_context": lambda: long_context_phase(torch, dev, small,
                                                    kernels, window_rows),
+        "long_mode": lambda: long_mode_phase(torch, dev, small, kernels),
         "generate_frontends": lambda: (
             frontend_generation_phase(torch, dev, small, kernels,
                                       frontend_rows),
@@ -5218,6 +5668,7 @@ def main() -> int:
         "train": lambda: train_phase(torch, dev, small, kernels),
         "train_card_vs_cpu": lambda: train_card_vs_cpu_phase(torch, dev,
                                                              small),
+        "examples": lambda: examples_phase(torch, dev, small),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = set(only) - set(phases)
@@ -5240,11 +5691,7 @@ def main() -> int:
     if args.only:
         log(f"[only] phases {only} passed; no result printed")
         return 4
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_name())
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

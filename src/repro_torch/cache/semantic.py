@@ -30,7 +30,6 @@ the other).
 """
 from __future__ import annotations
 
-import threading
 import time
 import zlib
 from dataclasses import dataclass
@@ -38,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.core.preferences import N_METRICS, TaskSignature, resolve
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -119,7 +119,7 @@ class SemanticCache:
         # near the threshold by the ~1e-2 rounding bound of 8-bit rows
         self.quantize = bool(quantize)
         self._time = time_fn
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.semantic")
         C = self.capacity
         self.vecs = np.zeros((C, self.dim), np.float32)
         self.fps = np.zeros(C, np.int64)

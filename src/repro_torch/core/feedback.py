@@ -13,12 +13,12 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import threading
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.core.preferences import DOMAINS, TASK_TYPES, TaskSignature
 
 Cluster = Tuple[str, str, int]
@@ -44,7 +44,7 @@ class FeedbackStore:
         self._log: List[FeedbackEvent] = []
         self._version = 0
         self._tables: Dict[Tuple, np.ndarray] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("core.feedback")
 
     def record(self, sig: TaskSignature, model: str, thumbs_up: bool) -> float:
         """EMA update; returns the new bias (always within [-1, 1])."""

@@ -9,12 +9,12 @@ the embeddings the Routing Engine searches.
 """
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.core.preferences import DOMAINS, METRICS, N_METRICS, TASK_TYPES
 
 # Layout of the fused routing matrix (see MRES docstring): normalized
@@ -168,7 +168,7 @@ class MRES:
         self._name_list: List[str] = []
         self._ivf: Optional[IVFIndex] = None
         self._dirty = True
-        self._lock = threading.Lock()
+        self._lock = make_lock("core.mres")
 
     # ---------------- registry ----------------
     def register(self, entry: ModelEntry) -> None:

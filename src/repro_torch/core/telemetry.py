@@ -28,6 +28,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, Optional
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.obs.metrics import LogHistogram
 
 # latency histograms cover 10us .. 100s at ~0.54% relative resolution;
@@ -89,7 +90,7 @@ class Telemetry:
         self._sharding: Dict[str, int] = {"silent_replications": 0}
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("core.telemetry")
 
     # ------------------------------------------------------------------
     def record(self, event: RouteEvent) -> None:

@@ -374,7 +374,9 @@ def route_step_ivf_body(e2, e2s, masks_table, counts_table, orig, cent, T,
     fsel = torch.where(has_primary, ci, fi)
     fstage = torch.where(has_primary, 1, stage_f).to(torch.int32)
     need = ~has_knn
-    n_escape = int(need.sum())          # the batch's one host read
+    # lint: ignore[torch-host-sync] -- the batch's one host read: the
+    # escape's full-catalog pass runs only for rows that need it
+    n_escape = int(need.sum())
     if n_escape:
         blend = _q8_blend(w8, ws, e8e, ese) if quant else _dot_cols(W, emb)
         extras = _extras_matrix(T, fb, theta, ainv_flat, lpen, params, B,

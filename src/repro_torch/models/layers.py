@@ -22,22 +22,14 @@ bf16, one f32 tensor at a time.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.routing import not_ported
 from repro_torch.kernels import ops
-
-def check_supported(cfg, long_mode: bool = False) -> None:
-    """Raise ``not_ported`` for any part of ``cfg`` (or the reference's
-    ``long_mode``) the port does not serve, naming its ROADMAP.md
-    item."""
-    if long_mode:
-        raise not_ported("long_mode (long_mode_local_only serving)",
-                         "item 12 'the rest'")
 
 
 # ----------------------------------------------------------------------
@@ -77,9 +69,23 @@ def softcap(x, cap: float):
 # RoPE
 # ----------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: str) -> torch.Tensor:
+    return rope_freqs(head_dim, theta).to(device)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """The inverse frequencies, the reference's f32 arithmetic, always
+    formed by the host's ``pow`` and moved to ``device`` (once per
+    device, cached): CUDA's ``powf`` rounds some of them an ulp apart,
+    and at the long_500k positions (~5e5) an ulp of a frequency is up
+    to 0.03 rad of angle, which moved gemma2-2b's logits at pos 524,287
+    by 6.8e-3 of max |logit| between the card and the CPU.  A cached
+    tensor is shared by every caller: read it, never write it."""
+    if device is not None and torch.device(device).type != "cpu":
+        return _rope_freqs_on(head_dim, theta, str(torch.device(device)))
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
 
 
 def apply_rope(x, positions, theta: float):

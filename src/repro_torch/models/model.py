@@ -5,9 +5,8 @@ hybrid (hymba: attention and SSM in every layer), encoder-decoder
 cross-attention in every decoder layer) and vision-language (llava:
 projected frontend tokens before the text) families.
 
-Port of the JAX package's ``models/model.py`` (``layers.check_supported``
-names the ROADMAP item of every option it leaves out).  Entry points,
-as there:
+Port of the JAX package's ``models/model.py``.  Entry points, as
+there:
 
   * ``forward_full`` -- full-sequence logits;
   * ``prefill``      -- the forward plus the decode cache;
@@ -28,10 +27,16 @@ hd), filled once by the prefill) and ``decode_step`` updates it in
 place.  On a
 uniform-window model (hymba, h2o-danube) the K/V cache is a ring of C =
 ``cache_len`` slots; gemma2's local layers mask their window inside a
-full-length cache.  ``kv_cache_dtype="int8"`` keeps the K/V in int8
-with f32 per-(slot, head) scales, (n_layers, B, C, Hkv, 1), quantized
-on write by the prefill and every decode step; the decode kernel reads
-them as int8 (``kernels/ops.flash_decode``).
+full-length cache.  ``long_mode`` (the reference's serving of the
+long_500k shape) turns every layer of a windowed model into that ring,
+global layers included: the rule ``ring = sliding_window and (not
+local_global_pattern or long_mode)`` is read by ``cache_len``, the
+prefill's per-layer window, ``decode_step`` and the prefill's roll, as
+there; a config without a window or without gemma2's alternation
+computes the same with either flag.  ``kv_cache_dtype="int8"`` keeps
+the K/V in int8 with f32 per-(slot, head) scales, (n_layers, B, C, Hkv,
+1), quantized on write by the prefill and every decode step; the decode
+kernel reads them as int8 (``kernels/ops.flash_decode``).
 """
 from __future__ import annotations
 
@@ -88,7 +93,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None,
     ``jax.random``).  Each tensor is drawn in f32 and rounded at once:
     the same values as ``cast_params`` of the ``param_dtype`` draw,
     without ever holding the whole model in f32."""
-    L.check_supported(cfg)
     dt = getattr(torch, dtype or cfg.param_dtype)
     embed = L.dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, scale=0.02,
                          device=device)
@@ -195,14 +199,19 @@ def layer_kinds(cfg: ModelConfig) -> list:
     return [0 if cfg.sliding_window > 0 else 1] * cfg.n_layers
 
 
+def ring_cache(cfg: ModelConfig, long_mode: bool = False) -> bool:
+    """Whether every attention layer keeps a ring of the last W keys:
+    a uniform window, or any window in ``long_mode``."""
+    return bool(cfg.sliding_window) and (not cfg.local_global_pattern
+                                         or long_mode)
+
+
 def cache_len(cfg: ModelConfig, ctx_len: int, long_mode: bool = False) -> int:
-    """K/V slots of the decode cache: a ring of at most the window on a
-    uniform-window model, else the context.  The reference's
-    ``long_mode`` raises ``not_ported``."""
-    L.check_supported(cfg, long_mode)
+    """K/V slots of the decode cache: a ring of at most the window where
+    ``ring_cache``, else the context."""
     if not cfg.has_attention:
         return 0
-    if cfg.sliding_window and not cfg.local_global_pattern:
+    if ring_cache(cfg, long_mode):
         return min(cfg.sliding_window, ctx_len)
     return ctx_len
 
@@ -218,14 +227,15 @@ def _fuse(p, attn_out, ssm_out):
 # full-sequence forward (prefill)
 # ======================================================================
 
-def _mix_full(p, cfg: ModelConfig, x, positions, kind: int):
+def _mix_full(p, cfg: ModelConfig, x, positions, kind: int,
+              long_mode: bool = False):
     """Sequence mixer over a full sequence: attention (with the layer's
-    window: ``kind`` 0 is local), the SSM, or both fused.  Returns
-    (out, kv, ssd)."""
+    window: ``kind`` 0 is local, and in ``long_mode`` every layer is),
+    the SSM, or both fused.  Returns (out, kv, ssd)."""
     h = L.rms_norm(x, p["ln_mix"])
     attn_out = kv = None
     if cfg.has_attention:
-        window = cfg.sliding_window if kind == 0 else 0
+        window = cfg.sliding_window if kind == 0 or long_mode else 0
         attn_out, kv = L.attention_prefill(p["attn"], cfg, h, positions,
                                            window=window)
         if not cfg.has_ssm:
@@ -299,14 +309,13 @@ def _hidden(params, cfg: ModelConfig, batch, store=None,
     prefill writes them straight into its cache, never holding every
     layer's K/V twice).  Returns (params in the compute dtype, x,
     aux)."""
-    L.check_supported(cfg, long_mode)
     params = cast_params(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec \
         else None
 
     def layer(x, p, kind):
-        mix, kv, ssd = _mix_full(p, cfg, x, positions, kind)
+        mix, kv, ssd = _mix_full(p, cfg, x, positions, kind, long_mode)
         x = x + mix
         cross_kv = None
         if enc_out is not None:
@@ -341,8 +350,8 @@ def forward_full(params, cfg: ModelConfig, batch, *,
     frontend_dim) for a vision-language model.  Returns (logits (B,
     Ltot, vocab_padded) f32 -- Ltot = F + L with a frontend prefix --,
     aux_loss -- the MoE load-balance losses summed over the layers, 0.0
-    without experts -- and per-layer caches or Nones).  The reference's
-    ``long_mode`` raises ``not_ported``."""
+    without experts -- and per-layer caches or Nones).  ``long_mode``:
+    every layer of a windowed model attends within its window."""
     caches = [None] * cfg.n_layers
     params, x, aux = _hidden(
         params, cfg, batch,
@@ -362,15 +371,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, ctx_len: int, *,
     positions: ``cache_len`` K/V slots (``kv_cache_dtype="int8"``: int8
     K/V with f32 ``k_scale`` / ``v_scale`` of shape (nL, B, C, Hkv, 1),
     the reference's layout); an encoder-decoder's cross K/V of
-    ``enc_len`` encoder positions, in the compute dtype either way.  The
-    reference's ``long_mode`` raises ``not_ported``."""
-    L.check_supported(cfg, long_mode)
+    ``enc_len`` encoder positions, in the compute dtype either way.
+    ``device="meta"`` builds the shapes without allocating."""
     dt = getattr(torch, dtype or cfg.compute_dtype)
     nL, B = cfg.n_layers, batch_size
     cache: Params = {}
     if cfg.has_attention:
         int8 = cfg.kv_cache_dtype == "int8"
-        shape = (nL, B, cache_len(cfg, ctx_len), cfg.n_kv_heads,
+        shape = (nL, B, cache_len(cfg, ctx_len, long_mode), cfg.n_kv_heads,
                  cfg.head_dim)
         kv_dt = torch.int8 if int8 else dt
         cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
@@ -397,19 +405,20 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
                 long_mode: bool = False):
     """One decode step.  batch: {"token": (B, 1) int, "pos": (B,) int}.
     Returns (logits (B, vocab_padded) f32, cache) -- the cache updated
-    in place.  The reference's ``long_mode`` raises ``not_ported``."""
-    L.check_supported(cfg, long_mode)
+    in place.  Where ``ring_cache`` (every layer in ``long_mode``) the
+    cache is a ring and no layer masks a local window inside it."""
     params = cast_params(params, cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     x = params["embed"][batch["token"].long()].to(cdt)
     pos = batch["pos"].long()
     W = cfg.sliding_window
-    ring = bool(W) and not cfg.local_global_pattern
+    ring = ring_cache(cfg, long_mode)
     for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         h = L.rms_norm(x, p["ln_mix"])
         mix = None
         if cfg.has_attention:
-            local = W if cfg.local_global_pattern and kind == 0 else 0
+            local = W if not ring and cfg.local_global_pattern \
+                and kind == 0 else 0
             scales = {key: cache[key][i] for key in ("k_scale", "v_scale")
                       if key in cache}
             mix = L.attention_decode(
@@ -444,15 +453,15 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
     the last position's logits are formed: the (B, L, V) matrix of
     ``forward_full`` is not needed here.  A prompt longer than a ring of
     C slots leaves its last C keys, rolled so that position p sits at
-    slot p % C (an int8 cache's scales with them).  An encoder-decoder's
-    cross K/V are filled here once.  The reference's ``long_mode``
-    raises ``not_ported``."""
+    slot p % C (an int8 cache's scales with them): on every layer in
+    ``long_mode``.  An encoder-decoder's cross K/V are filled here
+    once."""
     B, ctx = batch["tokens"].shape
     if cfg.frontend and not cfg.is_encdec:
         ctx += batch["frontend"].shape[1]
     cap = max(max_len, ctx) if max_len else ctx + 64
     enc_len = batch["src_embeds"].shape[1] if cfg.is_encdec else 0
-    cache = init_cache(cfg, B, cap, enc_len=enc_len,
+    cache = init_cache(cfg, B, cap, long_mode=long_mode, enc_len=enc_len,
                        device=params["embed"].device)
     C = cache["k"].shape[2] if "k" in cache else 0
     int8 = "k_scale" in cache

@@ -1,7 +1,8 @@
 """Observability layer: tracing, bounded metrics, export, SLOs.
 
 Port of the JAX package's ``obs`` (which imports nothing of JAX; the
-port keeps its own copies, with plain ``threading.Lock`` locks):
+port keeps its own copies, their locks from the port's
+``analysis.sanitize.make_lock``):
 
 * ``trace``   — nestable span tracer threaded through the serving path
 * ``metrics`` — fixed-memory counters / gauges / log histograms

@@ -18,10 +18,11 @@ drifting outside the data range at the edges.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, Iterable, Tuple
 
 import numpy as np
+
+from repro_torch.analysis.sanitize import make_lock
 
 
 class Counter:
@@ -32,7 +33,7 @@ class Counter:
         self.name = name
         self.help = help
         self._vals: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.metrics.counter")
 
     def inc(self, amount: float = 1.0, label: str = "") -> None:
         assert amount >= 0, amount
@@ -56,7 +57,7 @@ class Gauge:
         self.name = name
         self.help = help
         self._vals: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.metrics.gauge")
 
     def set(self, value: float, label: str = "") -> None:
         with self._lock:

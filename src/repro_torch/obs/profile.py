@@ -39,8 +39,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 from typing import Any, Dict, Optional
+
+from repro_torch.analysis.sanitize import make_lock
 
 Costs = Dict[str, Optional[float]]
 
@@ -138,7 +139,7 @@ class DeviceCostProfiler:
     """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.profiler")
         self._by_bucket: Dict[Any, Costs] = {}
         self.captures = 0
         self.errors = 0

@@ -31,10 +31,11 @@ from __future__ import annotations
 import contextvars
 import itertools
 import json
-import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
+
+from repro_torch.analysis.sanitize import make_lock
 
 # the implicit parent of the next span opened on this thread/context
 _CURRENT: contextvars.ContextVar[Optional["Span"]] = \
@@ -147,7 +148,7 @@ class Tracer:
         self.enabled = bool(enabled)
         self.max_spans = int(max_spans)
         self._spans: deque = deque(maxlen=self.max_spans)
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.tracer")
         self._ids = itertools.count(1)
         self.spans_total = 0            # monotonic; ring evicts, this doesn't
 

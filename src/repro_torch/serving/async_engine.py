@@ -38,12 +38,12 @@ aggregation logic production uses, and unit tests are deterministic.
 from __future__ import annotations
 
 import asyncio
-import threading
 from collections import deque
 from dataclasses import dataclass
 from typing import (Any, AsyncIterator, Deque, Dict, List, Optional,
                     Sequence, Tuple)
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.serving.engine import Request, Response, ServingEngine
 
 __all__ = ["TokenBucket", "TenantPolicy", "MicroBatcher",
@@ -143,7 +143,7 @@ class MicroBatcher:
         self._deficit: Dict[str, float] = {}
         self._buckets: Dict[str, Optional[TokenBucket]] = {}
         self._pending = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.microbatcher")
         # intake accounting per tenant: offered / queued / rate-limited
         # / backlog-shed (the async engine exports these as gauges)
         self.stats: Dict[str, Dict[str, int]] = {}

@@ -36,10 +36,11 @@ while the router snapshots them per batch.
 """
 from __future__ import annotations
 
-import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.analysis.sanitize import make_lock
 
 # admission outcomes (telemetry funnel keys), in severity order:
 # admitted/rerouted/shed are decided at admission time (plan_admission);
@@ -57,7 +58,7 @@ class LoadTracker:
         self.default_service_s = float(default_service_s)
         self.tau_s = float(tau_s)
         self._default_capacity = float(capacity)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.load")
         self.n_models = 0
         self.queue = np.zeros(0, np.int64)
         self.inflight = np.zeros(0, np.int64)

@@ -13,7 +13,6 @@ position past the cache writes nothing (``layers.attention_decode``).
 from __future__ import annotations
 
 import collections
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
@@ -21,6 +20,7 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import make_lock
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -73,7 +73,7 @@ class ContinuousBatcher:
         # guards queue/active membership so submit() from request
         # threads, queue_depth() from the router's scoring path and the
         # tick driver all see one consistent outstanding-work count
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.scheduler")
         if load is not None:
             load.ensure(model_idx + 1)
             load.set_capacity(model_idx, float(slots))

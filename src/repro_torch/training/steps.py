@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             leaves, tree_map)
@@ -61,22 +60,20 @@ def make_prefill_step(cfg: ModelConfig, *, long_mode: bool = False,
                       max_len: int = 0):
     """The prefill of ``batch``: its tokens and, where the family takes
     them, its ``src_embeds`` (encoder-decoder) or ``frontend`` (vision
-    prefix), passed through to ``M.prefill``.  The reference's
-    ``long_mode`` raises ``not_ported``."""
-    L.check_supported(cfg, long_mode)
-
+    prefix), passed through to ``M.prefill`` with ``long_mode`` and
+    ``max_len``."""
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, batch, max_len=max_len)
+        return M.prefill(params, cfg, batch, long_mode=long_mode,
+                         max_len=max_len)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, long_mode: bool = False):
-    """One greedy decode step; the reference's ``long_mode`` raises
-    ``not_ported``."""
-    L.check_supported(cfg, long_mode)
-
+    """One greedy decode step (``long_mode`` passed to
+    ``M.decode_step``)."""
     def serve_step(params, cache, batch):
-        logits, cache = M.decode_step(params, cfg, cache, batch)
+        logits, cache = M.decode_step(params, cfg, cache, batch,
+                                      long_mode=long_mode)
         # greedy next token
         next_tok = torch.argmax(logits, dim=-1)[:, None]
         return logits, next_tok, cache

@@ -1221,3 +1221,20 @@ def test_train_step_on_card_matches_cpu(cuda, name):
                                           else 0)
     assert ran["ssd_scan_bwd"] == (cfg.n_layers if cfg.has_ssm else 0)
     assert ran["moe_gating_bwd"] == (cfg.n_layers if cfg.is_moe else 0)
+
+
+@pytest.mark.parametrize("hd,theta", [(288, 1e4), (64, 5e5), (120, 1e4)])
+def test_rope_freqs_on_the_card_are_the_hosts(cuda, hd, theta):
+    """The RoPE inverse frequencies on the card are the host's bits (the
+    card's own ``powf`` may round some an ulp apart: at the long_500k
+    positions that is up to 0.03 rad of angle), and a rotation at pos
+    524,287 agrees with the CPU's within f32 rounding of sin/cos."""
+    from repro_torch.models import layers as L
+    host = L.rope_freqs(hd, theta)
+    assert torch.equal(L.rope_freqs(hd, theta, cuda).cpu(), host)
+    g = torch.Generator().manual_seed(hd)
+    x = torch.randn(1, 64, 2, hd, generator=g)
+    pos = torch.arange(524_287 - 63, 524_288)[None]
+    want = L.apply_rope(x, pos, theta)
+    got = L.apply_rope(x.to(cuda), pos.to(cuda), theta).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -137,14 +137,25 @@ def test_catalog_of_all_ten_matches_reference(monkeypatch):
 
 
 def test_runner_parts_outside_the_slice_raise():
-    """The reference's ``long_mode`` forward still raises (ROADMAP item
-    12); the encoder-decoder, which raised before, generates (its tokens
-    against the reference's runner: ``tests/test_torch_frontends.py``)."""
-    tr = TRUN.ModelRunner(get_smoke("llama3.2-1b"), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        TM.forward_full(tr.params, tr.cfg,
-                        {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                        long_mode=True)
+    """Nothing of the runner's model raises any more: the reference's
+    ``long_mode`` forward, which raised before, computes the reference's
+    logits on the runner's parameters (within 1e-4; a config without a
+    window, where the flag changes nothing); the encoder-decoder, which
+    raised before that, generates (its tokens against the reference's
+    runner: ``tests/test_torch_frontends.py``)."""
+    jr = JRUN.ModelRunner(jget_smoke("llama3.2-1b"), seed=0)
+    tr = TRUN.ModelRunner(get_smoke("llama3.2-1b"), device="cpu",
+                          params=TM.params_from_jax(
+                              jax.tree_util.tree_map(np.asarray, jr.params)))
+    toks = np.arange(2 * 9, dtype=np.int32).reshape(2, 9)
+    want = JM.forward_full(jr.params, jr.cfg, {"tokens": jnp.asarray(toks)},
+                           long_mode=True)[0]
+    with torch.no_grad():
+        got = TM.forward_full(tr.params, tr.cfg,
+                              {"tokens": torch.from_numpy(toks)},
+                              long_mode=True)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
     sr = TRUN.ModelRunner(get_smoke("seamless-m4t-medium"), device="cpu",
                           seed=0)
     res = sr.generate(np.arange(12, dtype=np.int32).reshape(2, 6), 3)

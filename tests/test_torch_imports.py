@@ -16,7 +16,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
-                    for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+                    for p in PORT.rglob("*.py")) + ["chip_smoke.py"] + \
+    sorted(p.relative_to(ROOT).as_posix()
+           for p in (ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -58,6 +60,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.async_engine\n"
         "import repro_torch.training.optimizer\n"
         "import repro_torch.sharding.rules, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.shapes, repro_torch.launch.dryrun\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.hazards\n"
+        "import repro_torch.analysis.kernel_oracle\n"
+        "import repro_torch.analysis.locks, repro_torch.analysis.sanitize\n"
         "from repro_torch.serving import AsyncServingEngine, MicroBatcher\n"
         "from repro_torch.configs import ARCH_NAMES, get_config\n"
         "assert len([get_config(n) for n in ARCH_NAMES]) == 10\n"

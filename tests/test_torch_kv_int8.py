@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as jget_smoke
+from repro.kernels import ref as R
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.serving import runner as JRUN
@@ -240,6 +241,39 @@ def test_batcher_int8_tick_matches_single_generate(name):
 # ----------------------------------------------------------------------
 # the plain version of the int8 decode
 # ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd,G,softcap", [(64, 4, 0.0), (288, 2, 50.0)])
+def test_decode_q8_plain_against_reference_oracle(hd, G, softcap):
+    """``decode_q8_plain`` (and the wrapper on CPU tensors) against the
+    JAX package's oracle ``ref.mha_attention`` over the same dequantized
+    (bf16-rounded) K/V, each sequence's live prefix of ``kv_valid``
+    keys: one query row at the end sees them all.  Within 1e-5 of max
+    |out| (f32 both, another summation order)."""
+    rng = np.random.default_rng(hd * 7 + G)
+    B, Hkv, C = 3, 2, 130
+    k8, ks = TL.quantize_kv(torch.from_numpy(
+        rng.standard_normal((B, Hkv, C, hd)).astype(np.float32)))
+    v8, vs = TL.quantize_kv(torch.from_numpy(
+        rng.standard_normal((B, Hkv, C, hd)).astype(np.float32)))
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, 1, hd)).astype(
+        np.float32))
+    lens = [C, 77, 1]
+    kv_valid = torch.tensor(lens, dtype=torch.int32)
+    got = FA.decode_q8_plain(q, k8, v8, ks, vs, kv_valid, softcap=softcap)
+    wrapped = FA.flash_decode_q8(q, k8, v8, ks, vs, kv_valid,
+                                 softcap=softcap)
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+    kb = FA.dequantize_kv(k8, ks).float().transpose(1, 2).numpy()
+    vb = FA.dequantize_kv(v8, vs).float().transpose(1, 2).numpy()
+    qn = q.transpose(1, 2).numpy()
+    for b, n in enumerate(lens):
+        want = np.asarray(R.mha_attention(
+            jnp.asarray(qn[b:b + 1]), jnp.asarray(kb[b:b + 1, :n]),
+            jnp.asarray(vb[b:b + 1, :n]), softcap=softcap))
+        out = got[b:b + 1].transpose(1, 2).numpy()
+        np.testing.assert_allclose(out, want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
+
 
 @pytest.mark.parametrize("hd,G,softcap,local", [(64, 4, 0.0, 0),
                                                 (120, 4, 0.0, 0),

@@ -93,18 +93,31 @@ def test_config_catalog_matches_reference(name):
 
 @pytest.mark.parametrize("name", FRONTENDS)
 def test_unported_families_raise_naming_their_item(name):
-    """Every family is ported; what still raises is the reference's
-    ``long_mode`` (ROADMAP item 12), here on the two frontend configs
-    whose ``prefill`` and ``decode_step`` take it."""
+    """Every family is ported, and the reference's ``long_mode``, which
+    raised before, computes: on the two frontend configs ``prefill``
+    and one ``decode_step`` with ``long_mode=True`` give the reference's
+    logits (1e-4) and cache (1e-4)."""
     assert set(J_ARCHS) <= set(RUNS)
-    cfg = get_smoke(name)
-    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    _, tb = inputs(cfg, np.zeros((1, 4), np.int32))
-    for call in (lambda: TM.prefill(tp, cfg, tb, long_mode=True),
-                 lambda: TM.decode_step(tp, cfg, {}, {}, long_mode=True)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md, Queue 1: item 12"):
-            call()
+    jcfg, cfg, jp, tp = _params(name, seed=2)
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    jb, tb = inputs(cfg, toks, seed=2)
+    jl, jc, jpos = JM.prefill(jp, jcfg, jb, long_mode=True)
+    tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
+    jl2, jc = JM.decode_step(jp, jcfg, jc, {"token": jnp.asarray(tok),
+                                            "pos": jpos}, long_mode=True)
+    with torch.no_grad():
+        tl, tc, tpos = TM.prefill(tp, cfg, tb, long_mode=True)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
+        tl2, tc = TM.decode_step(tp, cfg, tc, {"token": torch.from_numpy(tok),
+                                               "pos": tpos}, long_mode=True)
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), rtol=1e-4,
+                               atol=1e-4)
+    assert set(tc) == set(jc)
+    for key in jc:
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
 
 
 def test_int8_kv_cache_init_matches_reference_layout():

@@ -322,8 +322,16 @@ def test_long_mode_signature_matches_reference(name):
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "llama3.2-1b"])
 def test_long_mode_false_is_the_default_and_true_is_not_ported(arch):
+    """``long_mode=False`` is the default of the four functions; ``True``,
+    which raised before, computes the reference's result: ``cache_len``,
+    the cache's shapes and dtypes, and the prefill and one decode step
+    of the two step factories (logits within 1e-4) at a prompt of 72
+    past gemma2's window of 64."""
+    import jax
+    import jax.numpy as jnp
     from repro.configs import get_smoke as jget_smoke
     from repro.models import model as JM
+    from repro.training import steps as JS
     from repro_torch.configs import get_smoke
     from repro_torch.models import model as TM
     from repro_torch.training import steps as TS
@@ -338,11 +346,29 @@ def test_long_mode_false_is_the_default_and_true_is_not_ported(arch):
         assert a[key].dtype == b[key].dtype and torch.equal(a[key], b[key])
     assert callable(TS.make_prefill_step(cfg, long_mode=False, max_len=8))
     assert callable(TS.make_decode_step(cfg, long_mode=False))
-    for call in (lambda: TM.cache_len(cfg, 100, long_mode=True),
-                 lambda: TM.init_cache(cfg, 2, 100, long_mode=True,
-                                       device="cpu"),
-                 lambda: TS.make_prefill_step(cfg, long_mode=True),
-                 lambda: TS.make_decode_step(cfg, long_mode=True),
-                 lambda: TM.forward_full(None, cfg, None, long_mode=True)):
-        with pytest.raises(NotImplementedError, match="item 12 'the rest'"):
-            call()
+    jcfg = jget_smoke(arch)
+    for ctx in (8, 100):
+        assert TM.cache_len(cfg, ctx, long_mode=True) == \
+            JM.cache_len(jcfg, ctx, long_mode=True)
+    want = JM.init_cache(jcfg, 2, 100, long_mode=True)
+    got = TM.init_cache(cfg, 2, 100, long_mode=True, device="cpu")
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in got.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in want.items()}
+    jp = JM.init_params(jax.random.PRNGKey(6), jcfg)
+    tp = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 72)).astype(np.int32)
+    jl, jc, jpos = JS.make_prefill_step(jcfg, long_mode=True, max_len=80)(
+        jp, {"tokens": jnp.asarray(toks)})
+    tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
+    jl2 = JS.make_decode_step(jcfg, long_mode=True)(
+        jp, jc, {"token": jnp.asarray(tok), "pos": jpos})[0]
+    with torch.no_grad():
+        tl, tc, tpos = TS.make_prefill_step(cfg, long_mode=True, max_len=80)(
+            tp, {"tokens": torch.from_numpy(toks)})
+        tl2 = TS.make_decode_step(cfg, long_mode=True)(
+            tp, tc, {"token": torch.from_numpy(tok), "pos": tpos})[0]
+    for a, b in ((tl, jl), (tl2, jl2)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)

@@ -315,10 +315,25 @@ def test_runner_generates_past_the_window_like_reference(name):
 
 
 def test_long_mode_raises_naming_its_item():
-    cfg = get_smoke("gemma2-2b")
-    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    for call in (lambda: TM.forward_full(tp, cfg, toks, long_mode=True),
-                 lambda: TM.prefill(tp, cfg, toks, long_mode=True)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-            call()
+    """``long_mode``, which raised before, computes the reference's
+    result on gemma2-2b past its window: ``forward_full`` (2e-4) and the
+    prefill's last logits and cache (1e-4), where every layer is a ring
+    of 64 slots rolled by 100 % 64 (``tests/test_torch_long_mode.py``
+    holds the decode)."""
+    jcfg, tcfg = _configs("gemma2-2b")
+    jp, tp = _params(jcfg, 4)
+    toks = _tokens(jcfg, 2, PROMPT, seed=4)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    want = JM.forward_full(jp, jcfg, jb, long_mode=True)[0]
+    jl, jc, _ = JM.prefill(jp, jcfg, jb, long_mode=True, max_len=CAP)
+    with torch.no_grad():
+        got = TM.forward_full(tp, tcfg, tb, long_mode=True)[0]
+        tl, tc, _ = TM.prefill(tp, tcfg, tb, long_mode=True, max_len=CAP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    assert tc["k"].shape[2] == jcfg.sliding_window
+    for key in jc:
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
