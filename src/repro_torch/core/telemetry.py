@@ -171,12 +171,11 @@ class Telemetry:
     def record_sharding(self, *, silent_replications: int = 0) -> None:
         """Count partition-spec fallbacks: ``silent_replications`` is
         how many times a sharded layout quietly replicated a tensor
-        because its named axis was absent from the mesh.  The
-        reference counts its model-sharding rules' fallbacks here; the
-        port's catalog shards never replicate, and its model rules come
-        with several cards (ROADMAP.md, Queue 1, item 7: one card trains
-        a whole model unsharded), so nothing calls it yet; the counter
-        keeps the reference's summary and export keys."""
+        because its named axis did not divide the dim.  The
+        production-mesh dry run (``launch/dryrun``) records here the
+        fallbacks of ``sharding/rules.maybe`` counted around each pair's
+        spec construction, as the reference's does; the summary and
+        export keys are the reference's."""
         with self._lock:
             self._sharding["silent_replications"] += \
                 int(silent_replications)

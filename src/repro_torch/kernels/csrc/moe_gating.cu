@@ -311,9 +311,11 @@ gate_kernel(const T* __restrict__ logits, long long row_stride, int n_tok,
     }
   }
   __syncthreads();
-  if (asum != nullptr)                  // the assignment counts, for the
-    for (int c = threadIdx.x; c < E; c += blockDim.x)   // backward
-      asum[c] = red[EP + c];
+  if (asum != nullptr)                  // the assignment counts (the
+    for (int c = threadIdx.x; c < E; c += blockDim.x) {  // backward's)
+      asum[c] = red[EP + c];              // and the probability sums (a
+      asum[E + c] = red[c];               // token-sharded gate's aux)
+    }
   // aux = scale * sum_e psum_e asum_e, by threads, warps, then in order
   float d = 0.f;
   for (int c = threadIdx.x; c < E; c += blockDim.x) d += red[c] * red[EP + c];
@@ -382,8 +384,9 @@ cudaError_t launch(const void* lg, long long row_stride, int n_tok, int E,
 // t * row_stride elements; vals / idx (T, k) contiguous; aux one f32.
 // warps and blocks from the wrapper's plan; part: (blocks, 2, LPT V) f32
 // scratch when blocks > 1 (LPT V = E rounded up as in the dispatch
-// above), else null.  scale = E / T^2.  asum (E,) f32, or null: the
-// per-expert assignment counts (what the backward reads).  Returns
+// above), else null.  scale = E / T^2.  asum (2, E) f32, or null: the
+// per-expert assignment counts (what the backward reads), then the
+// per-expert probability sums over the T tokens.  Returns
 // cudaGetLastError().
 extern "C" int moe_gating_launch(const void* logits, int dtype, int n_tok,
                                  int E, int k, long long row_stride,

@@ -19,7 +19,10 @@ take the plain version.
 
 With ``return_asum`` the gate also gives the per-expert assignment
 counts (E,) f32 it reduces for aux; the backward (``moe_gating_bwd``,
-plain version ``moe_gating_bwd_plain``) reads them.
+plain version ``moe_gating_bwd_plain``) reads them.  With
+``return_psum`` also the per-expert probability sums (E,) f32, the
+other factor of aux, from the same launch: a gate whose tokens are
+split over ranks forms the global aux from both sums.
 """
 from __future__ import annotations
 
@@ -92,10 +95,12 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def moe_gating_plain(logits: torch.Tensor, k: int,
-                     return_asum: bool = False, idx=None):
+                     return_asum: bool = False, idx=None,
+                     return_psum: bool = False):
     """Plain PyTorch version: softmax, ``topk_stable`` (ties to the lower
     index), renormalization and the aux loss, all in f32.  With
-    ``return_asum`` also the assignment counts (E,).  A given ``idx``
+    ``return_asum`` also the assignment counts (E,), with
+    ``return_psum`` then the probability sums (E,).  A given ``idx``
     (T, k) stands in for the top-k's choice: the rest is computed for
     those experts."""
     T, E = logits.shape
@@ -107,9 +112,12 @@ def moe_gating_plain(logits: torch.Tensor, k: int,
         vals = probs.gather(1, idx)
     vals = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
     asum = torch.zeros_like(probs).scatter_(1, idx, 1.0).sum(dim=0)
-    aux = _aux(probs.sum(dim=0), asum, T)
+    psum = probs.sum(dim=0)
+    aux = _aux(psum, asum, T)
     out = vals, idx.to(torch.int32), aux
-    return out + (asum,) if return_asum else out
+    if return_asum:
+        out += (asum,)
+    return out + (psum,) if return_psum else out
 
 
 def moe_gating_bwd_plain(logits, idx, dvals, daux, asum):
@@ -147,15 +155,18 @@ def _check(logits: torch.Tensor, k: int) -> None:
                          f"{MAX_EXPERTS}, got E={E}, k={k}")
 
 
-def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False):
+def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False,
+               return_psum: bool = False):
     """logits (T, E).  Returns (vals (T, k) f32, idx (T, k) int32, aux),
-    and the assignment counts asum (E,) f32 with ``return_asum`` (the
-    same launch)."""
+    then the assignment counts asum (E,) f32 with ``return_asum`` and
+    the probability sums psum (E,) f32 with ``return_psum`` (the same
+    launch)."""
     if logits.device.type not in ("cuda", "cpu"):
         raise ValueError(f"moe_gating: tensors must be on cuda or cpu, not "
                          f"{logits.device}")
     if logits.device.type == "cpu":
-        return moe_gating_plain(logits, k, return_asum)
+        return moe_gating_plain(logits, k, return_asum,
+                                return_psum=return_psum)
     _check(logits, k)
     T, E = logits.shape
     lanes, per = gate_lanes(E)
@@ -165,8 +176,8 @@ def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False):
     vals = torch.empty((T, k), dtype=torch.float32, device=dev)
     idx = torch.empty((T, k), dtype=torch.int32, device=dev)
     aux = torch.empty((), dtype=torch.float32, device=dev)
-    asum = torch.empty((E,), dtype=torch.float32, device=dev) \
-        if return_asum else None
+    sums = torch.empty((2, E), dtype=torch.float32, device=dev) \
+        if return_asum or return_psum else None
     part = torch.empty((blocks, 2, lanes * per), dtype=torch.float32,
                        device=dev) if blocks > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -175,11 +186,14 @@ def moe_gating(logits: torch.Tensor, k: int, return_asum: bool = False):
             logits.data_ptr(), _DTYPE[logits.dtype], T, E, k,
             logits.stride(0) if T > 1 else E, E / (T * T), vals.data_ptr(),
             idx.data_ptr(), part.data_ptr() if part is not None else None,
-            aux.data_ptr(), None if asum is None else asum.data_ptr(), warps,
+            aux.data_ptr(), None if sums is None else sums.data_ptr(), warps,
             blocks, stream)
     build.check(err, "moe_gating")
     moe_gating.launches += 1
-    return (vals, idx, aux, asum) if return_asum else (vals, idx, aux)
+    out = vals, idx, aux
+    if return_asum:
+        out += (sums[0],)
+    return out + (sums[1],) if return_psum else out
 
 
 # launches on the card

@@ -77,7 +77,9 @@ from repro_torch.kernels.router_topk import (router_topk as _topk_kernel,
                                              router_topk_q8 as _topk_q8_kernel)
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd as _ssd_bwd_kernel
-from repro_torch.sharding.rules import CATALOG_AXIS, shard_bounds
+from repro_torch.sharding import place as _place
+from repro_torch.sharding.rules import (CATALOG_AXIS, P, axis_size, data_axes,
+                                        shard_bounds)
 
 LANE = 128
 
@@ -824,6 +826,48 @@ def bandit_update(x_up, w, r, x_score, theta, ainv, alpha: float, *,
 # flash attention (the model zoo's attention, layer layout)
 # ----------------------------------------------------------------------
 
+def _dmesh(*ts):
+    """The mesh of the first DTensor among ``ts``, or None."""
+    for t in ts:
+        if _place.is_dtensor(t):
+            return t.device_mesh
+    return None
+
+
+def _attention_sharded(mesh, q, kvs, kv_valid, call):
+    """Attention on DTensor operands: ``call(q, kv_valid, *kvs)`` on each
+    rank's block -- its batch rows over the data axes and its query
+    heads over ``model``, each where it divides.  q (B, Lq, Hq, hd);
+    kvs (B, Lk, Hkv, .) (keys, values, an int8 cache's scales).
+
+    The kv heads shard with the query heads where ``model`` divides Hkv
+    too.  Otherwise (GQA with fewer kv heads than ``model`` ranks) each
+    rank reads the keys and values whole and takes the one kv head its
+    block of Hq / M query heads reads: the blocks are contiguous, so
+    that needs the group size G to be a multiple of Hq / M, and the
+    query heads stay whole where it is not.  The kv gradients of such a
+    call are partial sums over ``model``."""
+    B, _, Hq, _ = q.shape
+    Hkv = kvs[0].shape[2]
+    G, M = Hq // Hkv, axis_size(mesh, "model")
+    b = _place.fit(mesh, B, data_axes(mesh))
+    hq = Hq // M
+    h = "model" if Hq % M == 0 and (Hkv % M == 0 or G % hq == 0) else None
+    kv_h = h if Hkv % M == 0 else None
+    r = mesh.get_local_rank("model") if h and not kv_h else 0
+
+    def local(q, kv_valid, *kvs):
+        if h and not kv_h:
+            j = r * hq // G
+            kvs = [t[:, :, j:j + 1] for t in kvs]
+        return call(q, kv_valid, *kvs)
+    q_spec = P(b, None, h, None)
+    return _place.run_local(
+        local, mesh, (q, kv_valid) + tuple(kvs),
+        (q_spec, P(b)) + (P(b, None, kv_h, None),) * len(kvs),
+        (_place.placements(q_spec, mesh),), split=_place.split_axes(b, h))
+
+
 def _records(*ts) -> bool:
     """Whether autograd records a call on these operands."""
     return torch.is_grad_enabled() and any(
@@ -862,7 +906,14 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     the reference's 128-lane pad and ``scale_fix`` have no counterpart.
     Where autograd records, the prefill shapes go through
     ``_FlashAttention`` (the decode shape raises).  Returns (B, Lq, Hq,
-    hd) in q's dtype."""
+    hd) in q's dtype.  DTensor operands: ``_attention_sharded``."""
+    mesh = _dmesh(q, k, v)
+    if mesh is not None:
+        return _attention_sharded(
+            mesh, q, (k, v), kv_valid,
+            lambda q, kv_valid, k, v: flash_attention(
+                q, k, v, kv_valid, causal=causal, window=window,
+                softcap=softcap, local_window=local_window))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _records(q, k, v):
         if q.shape[1] == 1 or local_window:
@@ -905,6 +956,15 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
         if _records(q):
             raise ValueError("flash_decode: the int8 decode takes no "
                              "gradient")
+        mesh = _dmesh(q, k_cache)
+        if mesh is not None:
+            return _attention_sharded(
+                mesh, q, (k_cache, v_cache, k_scale, v_scale), kv_valid,
+                lambda q, kv_valid, k, v, ks, vs: _flash_q8_kernel(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    ks.transpose(1, 2), vs.transpose(1, 2), kv_valid,
+                    softcap=softcap,
+                    local_window=local_window).transpose(1, 2))
         out = _flash_q8_kernel(q.transpose(1, 2), k_cache.transpose(1, 2),
                                v_cache.transpose(1, 2),
                                k_scale.transpose(1, 2),
@@ -943,7 +1003,21 @@ def ssd_scan(x, dt, A, B, C, h0=None, *, chunk: int = 128):
     """Chunked SSD scan (``kernels/ssd_scan.py``): (y (Bb, L, H, P) f32,
     h_final (Bb, H, P, N) f32).  Where autograd records, through
     ``_SsdScan`` (an ``h0`` then raises: training starts from a zero
-    state)."""
+    state).  DTensor operands: each rank scans its batch rows (over the
+    data axes) and its heads (over ``model``), where they divide."""
+    mesh = _dmesh(x, dt, A, B, C, h0)
+    if mesh is not None:
+        Bb, _, H, _ = x.shape
+        b = _place.fit(mesh, Bb, data_axes(mesh))
+        h = _place.fit(mesh, H, "model")
+        return _place.run_local(
+            lambda *a: ssd_scan(*a, chunk=chunk), mesh,
+            (x, dt, A, B, C, h0),
+            (P(b, None, h, None), P(b, None, h), P(h), P(b, None, None),
+             P(b, None, None), P(b, h, None, None)),
+            (_place.placements(P(b, None, h, None), mesh),
+             _place.placements(P(b, h, None, None), mesh)),
+            split=_place.split_axes(b, h))
     if _records(x, dt, A, B, C, h0):
         if h0 is not None:
             raise ValueError("ssd_scan: the backward takes h0 = None")
@@ -972,14 +1046,67 @@ class _MoeGating(torch.autograd.Function):
         return _gate_bwd_kernel(logits, idx, dvals, daux, asum), None
 
 
+class _MoeGatingSplit(torch.autograd.Function):
+    """The gate over one rank's tokens of a token-split batch: the
+    kernel's vals and idx are per token, and aux is the whole batch's,
+    formed from the assignment counts and probability sums the launch
+    gives, summed over ``groups`` (the data axes' process groups).  The
+    backward kernel takes the summed counts, scaled so that its E / T^2
+    (of the rank's T) is the batch's."""
+
+    @staticmethod
+    def forward(ctx, logits, k, groups, T):
+        import torch.distributed as dist
+        vals, idx, _, asum, psum = _gate_kernel(logits, k, return_asum=True,
+                                                return_psum=True)
+        sums = torch.stack([asum, psum])
+        for g in groups:
+            dist.all_reduce(sums, group=g)
+        E, t = logits.shape[1], logits.shape[0]
+        aux = torch.dot(sums[1], sums[0]) * (E / (T * T))
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(logits, idx, sums[0] * (t * t / (T * T)))
+        return vals, idx, aux
+
+    @staticmethod
+    def backward(ctx, dvals, _didx, daux):
+        logits, idx, asum = ctx.saved_tensors
+        return (_gate_bwd_kernel(logits, idx, dvals, daux, asum), None,
+                None, None)
+
+
+def _gate_sharded(mesh, flat, k: int):
+    """The gate on DTensor logits (T, E): each rank gates its tokens
+    (over the data axes, where they divide T) against all E experts
+    (the logits' expert columns gathered first).  With one data rank
+    the kernel's own aux is the batch's."""
+    T = flat.shape[0]
+    b = _place.fit(mesh, T, data_axes(mesh))
+    groups = [mesh.get_group(a) for a in _place.split_axes(b)
+              if axis_size(mesh, a) > 1]
+
+    def local(lg):
+        if not groups:
+            return moe_gating(lg, k)
+        return _MoeGatingSplit.apply(lg, k, groups, T)
+    rows = _place.placements(P(b, None), mesh)
+    return _place.run_local(local, mesh, (flat,), (P(b, None),),
+                            (rows, rows, _place.placements(P(), mesh)),
+                            split=_place.split_axes(b))
+
+
 def moe_gating(logits, k: int):
     """Fused softmax top-k gate (``kernels/moe_gating.py``).  logits
     (..., E), flattened to (T, E).  Returns (vals (..., k) f32, idx
     (..., k) int32, aux f32 scalar tensor).  Where autograd records,
-    through ``_MoeGating``."""
+    through ``_MoeGating``.  DTensor logits: ``_gate_sharded``."""
     shape = logits.shape
     flat = logits.reshape(-1, shape[-1])
-    vals, idx, aux = (_MoeGating.apply(flat, k) if _records(logits)
-                      else _gate_kernel(flat, k))
+    mesh = _dmesh(logits)
+    if mesh is not None:
+        vals, idx, aux = _gate_sharded(mesh, flat, k)
+    else:
+        vals, idx, aux = (_MoeGating.apply(flat, k) if _records(logits)
+                          else _gate_kernel(flat, k))
     return (vals.reshape(shape[:-1] + (k,)),
             idx.reshape(shape[:-1] + (k,)), aux)

@@ -1,24 +1,40 @@
-"""One-card dry run: what each (arch x shape) pair holds and computes.
+"""Dry run: what each (arch x shape) pair holds and computes, on one
+card or per device of the production mesh.
 
 Port of the JAX package's ``launch/dryrun.py``.  The reference lowers
 each pair on its production TPU mesh and reads XLA's memory and cost
-analyses and the HLO's collective bytes.  The port has no HLO and one
-card, so for each pair it builds the step's inputs on the ``meta``
-device -- the parameters through ``init_params``, AdamW's state through
+analyses and the HLO's collective bytes.  The port has no HLO.  For
+each pair it builds the step's inputs on the ``meta`` device -- the
+parameters through ``init_params``, AdamW's state through
 ``init_opt_state``, the cache through ``init_cache``, the batch through
 ``launch/shapes`` -- and reports, per pair:
 
   * ``status``: ``ok``, ``n/a`` (``shapes.applicable``'s reason) or
-    ``error`` (the traceback's tail); ``devices``: 1;
-  * ``bytes``: ``params``, ``opt_state`` (train), ``grads`` (train: one
-    per parameter, in its dtype), ``cache`` (decode), ``batch``, and
-    ``resident``, their sum (activations and kernel scratch are not
-    counted);
+    ``error`` (the traceback's tail); ``devices``: 1, or the mesh's
+    256 / 512;
+  * ``bytes`` (per device): ``params``, ``opt_state`` (train),
+    ``grads`` (train: one per parameter, in its dtype and layout),
+    ``cache`` (decode), ``batch``, and ``resident``, their sum
+    (activations and kernel scratch are not counted);
   * ``n_params`` and ``n_active_params``;
-  * ``flops`` of one step and their terms (``flop_terms``);
-  * ``collective_bytes``: null (several cards: ROADMAP Queue 1 item 7);
+  * ``flops`` of one step (the whole step, all devices) and their terms
+    (``flop_terms``);
+  * ``collective_bytes``: null.  The reference reads them from the
+    compiled HLO; the port has no program to read them from, and
+    counting them through a fake-tensor run of the step under
+    ``CommDebugMode`` is queued (ROADMAP.md Queue 1 item 7);
   * ``fits``: on the card, whether ``resident`` fits its
     ``total_memory``; null on ``device="meta"``.
+
+The production mesh (``--production-mesh``: (16, 16), 256 devices;
+``--multi-pod``: (2, 16, 16), 512) runs in one process under a fake
+process group of that many ranks: ``launch/mesh.make_production_mesh``
+builds the mesh, ``sharding/rules`` the specs -- with
+``silent_replications``, the ``maybe`` fallbacks counted around their
+construction, warned about as the reference does and recorded into a
+``Telemetry`` (``record_sharding``) -- and ``sharding/place.shard_tree``
+lays the meta tensors out, so each byte count is one rank's local
+shards.
 
 Nothing here runs a step: meta tensors never reach a kernel wrapper.
 The FLOPs are counted from the config and the specs' shapes.
@@ -51,6 +67,8 @@ FLOP convention (what ``flops`` counts):
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta \\
+      --multi-pod                            # per device of 512
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
       --shape long_500k                      # on the card (fits)
 Results are cached as JSON under results/dryrun_torch/ (skip with
@@ -69,12 +87,18 @@ from typing import Dict, Optional
 
 import torch
 
+import contextlib
+import warnings
+
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.routing import not_ported
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.device import resolve_device
 from repro_torch.launch import shapes as S
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.sharding import place
+from repro_torch.sharding import rules as R
 from repro_torch.training.optimizer import init_opt_state, leaves
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / \
@@ -82,9 +106,14 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / \
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of every tensor of a tree (dicts and lists)."""
-    return sum(t.numel() * t.element_size() for t in leaves(tree)
-               if isinstance(t, torch.Tensor))
+    """Bytes of every tensor of a tree (dicts and lists): of a DTensor,
+    its local shard's (what one rank holds)."""
+    total = 0
+    for t in leaves(tree):
+        if isinstance(t, torch.Tensor):
+            t = t.to_local() if place.is_dtensor(t) else t
+            total += t.numel() * t.element_size()
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -233,11 +262,33 @@ def step_flops(cfg: ModelConfig, spec: Dict) -> Dict[str, int]:
 # one pair
 # ----------------------------------------------------------------------
 
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A fake process group of ``n`` ranks in this process (rank 0):
+    collectives return at once and move nothing, so a mesh of ``n``
+    devices lays out ``meta`` tensors without any device."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("dryrun: the production-mesh dry run makes its "
+                           "own fake process group; one is already up")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def pair_report(arch: str, shape_name: str, *, device=None,
-                overrides: Optional[dict] = None) -> Dict:
+                overrides: Optional[dict] = None, mesh=None,
+                telemetry: Optional[Telemetry] = None) -> Dict:
     """The dry run of one (arch, shape).  ``device``: ``None`` (the
     card: ``fits`` against its memory) or ``"meta"`` (``fits`` null).
-    Every tensor is built on ``meta``."""
+    Every tensor is built on ``meta``.  ``mesh``: a production mesh
+    (under ``fake_world``): every count is per device, of the step's
+    inputs laid out by ``sharding/rules``; the silent replications of
+    their specs are warned about and recorded into ``telemetry``."""
     on_card = device is None or torch.device(device).type == "cuda"
     dev = resolve_device(device) if on_card else None
     if not on_card and torch.device(device).type != "meta":
@@ -253,33 +304,67 @@ def pair_report(arch: str, shape_name: str, *, device=None,
     spec = S.input_specs(cfg, shape_name)
     spec["seq_len"] = S.SHAPES[shape_name]["seq_len"]
     params = M.init_params(cfg, torch.Generator(), device="meta")
-    nbytes = {"params": tree_bytes(params), "batch": tree_bytes(spec["batch"])}
+    batch, cache = spec["batch"], spec.get("cache")
+    repl = 0
+    if mesh is not None:
+        repl0 = R.silent_replication_count()
+        specs = {"params": R.param_specs(cfg, mesh, params)}
+        if spec["kind"] == "decode":
+            cfg_eff = spec["cfg"]
+            specs["batch"] = R.decode_batch_spec(cfg_eff, mesh, batch)
+            specs["cache"] = R.cache_specs(cfg_eff, mesh, cache)
+        else:
+            specs["batch"] = R.batch_spec(cfg, mesh, batch)
+        repl = R.silent_replication_count() - repl0
+        if repl:
+            warnings.warn(
+                f"[{arch}/{shape_name}] sharding.rules.maybe() silently "
+                f"replicated {repl} spec axis(es): a tensor the rules "
+                f"name as sharded has no matching mesh axis and is stored "
+                f"as {mesh.size()} full copies", stacklevel=2)
+        if telemetry is not None:
+            telemetry.record_sharding(silent_replications=repl)
+        params = place.shard_tree(params, specs["params"], mesh)
+        batch = place.shard_tree(batch, specs["batch"], mesh)
+        if cache is not None:
+            cache = place.shard_tree(cache, specs["cache"], mesh)
+    nbytes = {"params": tree_bytes(params),
+              "batch": tree_bytes(batch)}
     if spec["kind"] == "train":
         nbytes["grads"] = nbytes["params"]
         nbytes["opt_state"] = tree_bytes(init_opt_state(params))
     if spec["kind"] == "decode":
-        nbytes["cache"] = tree_bytes(spec["cache"])
+        nbytes["cache"] = tree_bytes(cache)
     nbytes["resident"] = sum(nbytes.values())
     terms = step_flops(cfg, spec)
     fits = None
     if dev is not None:
         total = torch.cuda.get_device_properties(dev).total_memory
         fits = nbytes["resident"] <= total
-    return {"arch": arch, "shape": shape_name, "status": "ok",
-            "kind": spec["kind"], "devices": 1,
-            "long_mode": bool(spec.get("long_mode", False)),
-            "bytes": nbytes, "n_params": cfg.n_params(),
-            "n_active_params": cfg.n_active_params(),
-            "flops": sum(terms.values()), "flop_terms": terms,
-            "collective_bytes": None, "fits": fits}
+    out = {"arch": arch, "shape": shape_name, "status": "ok",
+           "kind": spec["kind"],
+           "devices": 1 if mesh is None else mesh.size(),
+           "long_mode": bool(spec.get("long_mode", False)),
+           "bytes": nbytes, "n_params": cfg.n_params(),
+           "n_active_params": cfg.n_active_params(),
+           "flops": sum(terms.values()), "flop_terms": terms,
+           "collective_bytes": None, "fits": fits}
+    if mesh is not None:
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        out["silent_replications"] = repl
+    return out
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append", default=None)
     ap.add_argument("--shape", action="append", default=None)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="per device of the reference's (16, 16) mesh "
+                         "(256 ranks of a fake process group)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's 2-pod mesh (several cards)")
+                    help="per device of the reference's (2, 16, 16) "
+                         "mesh (512 ranks)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out-dir", default=None,
                     help="write results here instead of "
@@ -289,8 +374,6 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or meta")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise not_ported("The multi-pod dry run", "item 7 (several cards)")
 
     overrides = {}
     for kv in args.override:
@@ -306,6 +389,28 @@ def main(argv=None) -> list:
     out_dir = pathlib.Path(args.out_dir) if args.out_dir else RESULTS
     out_dir.mkdir(parents=True, exist_ok=True)
     where = "meta" if args.device == "meta" else "card"
+    mesh = None
+    world = contextlib.nullcontext()
+    if args.multi_pod or args.production_mesh:
+        where = f"{'pod2' if args.multi_pod else 'pod1'}__{where}"
+        world = fake_world(512 if args.multi_pod else 256)
+    tel = Telemetry()
+    with world:
+        if args.multi_pod or args.production_mesh:
+            mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                        device="cpu")
+        results, failures = _run_pairs(args, overrides, out_dir, where,
+                                       mesh, tel)
+    if mesh is not None:
+        print(f"[sharding] {tel.sharding_stats()}")
+    if failures:
+        print(f"\nFAILED pairs: {failures}")
+        sys.exit(1)
+    print("\nAll dry-run pairs OK.")
+    return results
+
+
+def _run_pairs(args, overrides, out_dir, where, mesh, tel):
     results, failures = [], []
     for arch in args.arch or ARCH_NAMES:
         for shape_name in args.shape or list(S.SHAPES):
@@ -317,10 +422,12 @@ def main(argv=None) -> list:
             else:
                 try:
                     res = pair_report(arch, shape_name, device=args.device,
-                                      overrides=overrides or None)
+                                      overrides=overrides or None,
+                                      mesh=mesh, telemetry=tel)
                 except Exception as e:  # noqa: BLE001 -- record, go on
                     res = {"arch": arch, "shape": shape_name,
-                           "status": "error", "devices": 1,
+                           "status": "error",
+                           "devices": 1 if mesh is None else mesh.size(),
                            "error": f"{type(e).__name__}: {e}",
                            "trace": traceback.format_exc()[-2000:]}
                 out.write_text(json.dumps(res, indent=2))
@@ -335,11 +442,7 @@ def main(argv=None) -> list:
             if res["status"] == "error":
                 failures.append(tag)
             results.append(res)
-    if failures:
-        print(f"\nFAILED pairs: {failures}")
-        sys.exit(1)
-    print("\nAll dry-run pairs OK.")
-    return results
+    return results, failures
 
 
 if __name__ == "__main__":

@@ -12,9 +12,19 @@ gate go forward and backward through their hand-written kernels;
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --steps 30
 
-One card holds the whole model: there is no mesh to shard over, and
-``--production-mesh`` raises (several cards: ROADMAP.md, Queue 1, item
-7).
+``--production-mesh`` trains on the reference's (16, 16) ("data",
+"model") mesh: under ``torchrun`` with 256 ranks (a world of another
+size raises, naming 256; nothing shrinks the mesh),
+``launch/mesh.make_production_mesh`` builds it, the parameters, AdamW's
+state and each batch are laid out by ``sharding/rules`` as DTensors
+(``sharding/place.shard_tree``: every rank draws the same parameters and
+batch from the seed, rank 0's are scattered), and the step runs the
+kernels on each rank's blocks.  Checkpoints of a sharded run are
+gathered (``place.gather_tree``) and written by rank 0 in the
+reference's layout.
+
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \\
+      --production-mesh --arch llama3.2-1b
 """
 from __future__ import annotations
 
@@ -27,9 +37,11 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
-from repro_torch.core.routing import not_ported
 from repro_torch.device import resolve_device, set_fp32_precision
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.sharding import place
+from repro_torch.sharding import rules as R
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 from repro_torch.training.steps import make_train_step
 
@@ -107,22 +119,30 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's 16x16 TPU mesh (not on one card)")
+                    help="the reference's (16, 16) mesh: 256 ranks "
+                         "under torchrun")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise not_ported("Model sharding over a production mesh",
-                         "item 7 (several cards)")
 
     dev = resolve_device(args.device)
+    mesh = make_production_mesh(device=dev) if args.production_mesh \
+        else None
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     set_fp32_precision()
     cfg = build_config(args)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    print(f"[train] {cfg.name}: {cfg.n_params()/1e6:.1f}M params "
-          f"({cfg.n_active_params()/1e6:.1f}M active), "
-          f"{n_dev} device(s)")
+    n_dev = mesh.size() if mesh is not None else \
+        torch.cuda.device_count() if dev.type == "cuda" else 1
+    lead = mesh is None or mesh.get_rank() == 0
+    if lead:
+        print(f"[train] {cfg.name}: {cfg.n_params()/1e6:.1f}M params "
+              f"({cfg.n_active_params()/1e6:.1f}M active), "
+              f"{n_dev} device(s)")
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
+    if mesh is not None:
+        params = place.shard_tree(params, R.param_specs(cfg, mesh, params),
+                                  mesh)
     opt = init_opt_state(params)
     sampler = make_lm_sampler(rng, cfg)
     step = make_train_step(cfg, AdamWConfig(lr=args.lr,
@@ -132,22 +152,28 @@ def main(argv=None):
     t0 = time.time()
     for i in range(args.steps):
         batch = to_device(sampler(args.batch, args.seq), dev)
+        if mesh is not None:
+            batch = place.shard_tree(batch, R.batch_spec(cfg, mesh, batch),
+                                     mesh)
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if lead and (i % args.log_every == 0 or i == args.steps - 1):
             dt = time.time() - t0
             tput = (i + 1) * args.batch * args.seq / dt
             print(f"[train] step {i:>5} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['gnorm']):.3f} "
                   f"({tput:.0f} tok/s)", flush=True)
         if cm and (i + 1) % args.ckpt_every == 0:
-            cm.save(i + 1, M.params_to_numpy(params, cfg),
-                    {"loss": losses[-1]})
+            whole = place.gather_tree(params)        # every rank gathers
+            if lead:
+                cm.save(i + 1, M.params_to_numpy(whole, cfg),
+                        {"loss": losses[-1]})
 
     first = float(np.mean(losses[:10]))
     last = float(np.mean(losses[-10:]))
-    print(f"[train] done: loss {first:.4f} -> {last:.4f} "
-          f"({(1 - last / first):.1%} drop)")
+    if lead:
+        print(f"[train] done: loss {first:.4f} -> {last:.4f} "
+              f"({(1 - last / first):.1%} drop)")
     return first, last
 
 

@@ -19,6 +19,15 @@ Every ``init_*`` takes ``dtype`` (a name, as in the config; default
 ``cfg.param_dtype``) and rounds each tensor to it as soon as it is
 drawn, so a model bigger than the card in f32 can be drawn on it in
 bf16, one f32 tensor at a time.
+
+Every layer also takes DTensor parameters and activations
+(``sharding/rules``): the products and element-wise work run as DTensor
+operations, the kernels on each rank's local blocks (``kernels/ops``).
+Three places know the layout: the head split, which keeps a feature dim
+sharded over ``model`` only where the heads divide it; the decode
+step's cache write, which each rank does into its own block of the
+cache; and the MoE experts, where each ``model`` rank runs its own
+experts on its tokens and the layer output is their partial sum.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import place
+from repro_torch.sharding.rules import P, axis_size, data_axes
 
 
 # ----------------------------------------------------------------------
@@ -122,6 +133,8 @@ def init_attention(gen, cfg, device=None, dtype=None, cross: bool = False):
 
 
 def _split_heads(x, n_heads: int, head_dim: int):
+    if place.is_dtensor(x):       # a sharded feature dim: whole heads
+        x = place.shardable(x, -1, n_heads)
     return x.reshape(x.shape[:-1] + (n_heads, head_dim))
 
 
@@ -186,6 +199,61 @@ def cross_attention_decode(p, cfg, x, k_cross, v_cross):
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
+def _write_rows(cache, new, positions, ring: bool, C: int, lo: int = 0):
+    """Row b of ``new`` (B, Hkv, .) into slot ``positions[b] % C`` of a
+    ring, or slot ``positions[b]`` of a full cache while it is < C
+    (else its old value back), of a cache holding slots [lo, lo +
+    cache.shape[1]) of C."""
+    B, n = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    slot = positions % C if ring else torch.where(positions < C, positions,
+                                                  C)
+    mine = (slot >= lo) & (slot < lo + n)
+    if ring and not lo and n == C:
+        cache[rows, slot] = new.to(cache.dtype)
+        return
+    at = torch.where(mine, slot - lo, 0)
+    cache[rows, at] = torch.where(mine[:, None, None], new.to(cache.dtype),
+                                  cache[rows, at])
+
+
+def write_slot(cache, new, positions, *, ring: bool):
+    """The decode step's write of one K/V row per sequence (B, Hkv, .)
+    into ``cache`` (B, C, Hkv, .), in place: slot ``positions % C`` of
+    a ring, slot ``positions`` of a full cache (none past C).  A
+    DTensor cache (batch over the data axes, slots over ``model``, as
+    ``cache_specs`` lay it out) is written by each rank into its own
+    block."""
+    C = cache.shape[1]
+    if not place.is_dtensor(cache):
+        _write_rows(cache, new, positions, ring, C)
+        return
+    mesh = cache.device_mesh
+    spec = P(*[_axis_of(cache, d) for d in range(cache.ndim)])
+    n = C // axis_size(mesh, spec[1])
+    lo = mesh.get_local_rank(spec[1]) * n if spec[1] else 0
+    if spec[2] is not None or isinstance(spec[1], tuple):
+        raise ValueError(f"write_slot: a decode cache sharded as {spec} "
+                         f"(the batch-1 layout) is not written here")
+
+    def local(c, new, pos):
+        _write_rows(c, new, pos, ring, C, lo)
+        return c
+    place.run_local(local, mesh, (cache, new, positions),
+                    (spec, P(spec[0], None, None), P(spec[0])),
+                    (place.placements(spec, mesh),))
+
+
+def _axis_of(t, dim: int):
+    """The mesh axis (or tuple of axes) that splits dim ``dim`` of a
+    DTensor, or None."""
+    from torch.distributed.tensor import Shard
+    names = t.device_mesh.mesh_dim_names
+    axes = tuple(names[i] for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
 def quantize_kv(x, axis: int = -1):
     """Symmetric int8 per-(token, head) quantization of K/V rows, the
     reference's: ``scale = max|x| / 127 + 1e-8`` over ``axis``, ``q =
@@ -235,23 +303,14 @@ def attention_decode(p, cfg, x, k_cache, v_cache, positions, *,
     pos2 = positions[:, None]
     q = apply_rope(q, pos2, cfg.rope_theta)
     k = apply_rope(k, pos2, cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
     int8 = k_scale is not None
     if int8:
         (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
         writes = ((k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs))
     else:
         writes = ((k_cache, k[:, 0]), (v_cache, v[:, 0]))
-    if window:
-        slot = positions % C
-        for cache, new in writes:
-            cache[rows, slot] = new.to(cache.dtype)
-    else:
-        inside = (positions < C)[:, None, None]
-        slot = torch.where(positions < C, positions, 0)
-        for cache, new in writes:
-            cache[rows, slot] = torch.where(
-                inside, new.to(cache.dtype), cache[rows, slot])
+    for cache, new in writes:
+        write_slot(cache, new, positions, ring=bool(window))
     out = ops.flash_decode(q, k_cache, v_cache, positions,
                            local_window=local_window,
                            softcap=cfg.attn_softcap, k_scale=k_scale,
@@ -329,7 +388,14 @@ def moe_block(p, cfg, x):
     slots here: each slot holds at most one token, so the dispatch is
     exact, and the combine weights are rounded to x's dtype before the
     product as there.  The expert FFN over (E, G * C, d) is three
-    batched products.  x: (B, L, d) -> (y, aux)."""
+    batched products (``_experts``).  x: (B, L, d) -> (y, aux).
+
+    DTensor x and parameters: the router's logits are a DTensor
+    product and the gate runs on each rank's tokens (``ops.moe_gating``);
+    then each rank dispatches its tokens (over the data axes) to its
+    experts (over ``model``), with the f columns of their weights
+    gathered, and the layer output is the sum of the ``model`` ranks'
+    partial outputs."""
     B, Lx, d = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     g = min(cfg.moe_group, Lx)
@@ -340,10 +406,48 @@ def moe_block(p, cfg, x):
         return torch.cat([y_h, y_t], dim=1), aux_h + aux_t
     C = max(1, math.ceil(g * K / E * cfg.moe_capacity_factor))
     G = B * ng
-    dev = x.device
     xg = x.reshape(G * g, d)
     logits = (xg @ p["router"]).reshape(G, g, E)
     vals, idx, aux = ops.moe_gating(logits, K)               # (G, g, K)
+    if place.is_dtensor(xg):
+        y = _experts_sharded(p, xg, vals, idx, C, E)
+    else:
+        y = _experts(xg, vals, idx, p["wi"], p["wg"], p["wo"], C, E)
+    y = y.reshape(B, Lx, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+    return y, aux
+
+
+def _experts_sharded(p, xg, vals, idx, C: int, E: int):
+    """``_experts`` on each rank's tokens (over the data axes, where
+    they divide the groups) and experts (over ``model``, where it
+    divides E); the output's partial sums over ``model`` are left to
+    the caller's next operation to reduce."""
+    mesh = xg.device_mesh
+    G = vals.shape[0]
+    b = place.fit(mesh, G, data_axes(mesh))
+    e = place.fit(mesh, E, "model")
+    e_lo = mesh.get_local_rank("model") * (E // axis_size(mesh, "model")) \
+        if e else 0
+    w = P(e, None, None)
+    return place.run_local(
+        lambda x, v, i, wi, wg, wo: _experts(x, v, i, wi, wg, wo, C, E, e_lo),
+        mesh, (xg, vals, idx, p["wi"], p["wg"], p["wo"]),
+        (P(b, None), P(b, None, None), P(b, None, None), w, w, w),
+        (place.placements(P(b, None), mesh, partial=place.split_axes(e)),),
+        split=place.split_axes(b, e))
+
+
+def _experts(xg, vals, idx, wi, wg, wo, C: int, E: int, e_lo: int = 0):
+    """The dispatch, the expert FFN and the combine of ``moe_block``
+    over experts [e_lo, e_lo + wi.shape[0]) of E: xg (G g, d) tokens,
+    vals / idx (G, g, K) the gate's, C the capacity.  A token's picks of
+    other experts add nothing here.  Returns (G g, d)."""
+    G, g, K = vals.shape
+    d = xg.shape[1]
+    dev = xg.device
+    El = wi.shape[0]
 
     # pairs of a group in k-major, then token order; a pair's position
     # is its rank among the pairs to its expert (a stable sort keeps
@@ -355,32 +459,31 @@ def moe_block(p, cfg, x):
     rank = torch.arange(n_pair, device=dev) - torch.searchsorted(run, run)
     pos = torch.empty_like(order).scatter_(1, order, rank)
     keep = pos < C
+    if El != E:                              # this rank's experts only
+        keep = keep & (expert >= e_lo) & (expert < e_lo + El)
+        expert = expert - e_lo
     grp = torch.arange(G, device=dev)[:, None]
     tok = grp * g + torch.arange(n_pair, device=dev)[None, :] % g
-    slot = torch.where(keep, (expert * G + grp) * C + pos, 0)   # (E, G, C)
+    slot = torch.where(keep, (expert * G + grp) * C + pos, 0)   # (El, G, C)
 
     # dispatch: the token row of each slot, or the zero row G * g;
-    # dropped pairs write the spare entry E * G * C, never read
-    n_slot = E * G * C
+    # dropped pairs write the spare entry El * G * C, never read
+    n_slot = El * G * C
     src = torch.full((n_slot + 1,), G * g, dtype=torch.int64, device=dev)
     src.index_copy_(0, torch.where(keep, slot, n_slot).reshape(-1),
                     tok.reshape(-1))
     xin = torch.cat([xg, xg.new_zeros((1, d))])[src[:n_slot]]
-    xin = xin.view(E, G * C, d)
-    h = F.silu(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wi"])
-    out = torch.bmm(h, p["wo"]).reshape(n_slot, d)
+    xin = xin.view(El, G * C, d)
+    h = F.silu(torch.bmm(xin, wg)) * torch.bmm(xin, wi)
+    out = torch.bmm(h, wo).reshape(n_slot, d)
 
     # combine: per token, its k kept outputs weighted by their gates in
     # x's dtype, summed by one (1, k) x (k, d) product per token
     def per_token(t):                        # (G, K g) -> (G g, K)
         return t.view(G, K, g).transpose(1, 2).reshape(G * g, K)
     w = torch.where(keep, vals.transpose(1, 2).reshape(G, n_pair), 0.0)
-    y = torch.bmm(per_token(w).to(x.dtype)[:, None, :],
-                  out[per_token(slot)])
-    y = y.reshape(B, Lx, d)
-    if "shared" in p:
-        y = y + mlp(p["shared"], x)
-    return y, aux
+    return torch.bmm(per_token(w).to(xg.dtype)[:, None, :],
+                     out[per_token(slot)]).reshape(G * g, d)
 
 
 # ----------------------------------------------------------------------

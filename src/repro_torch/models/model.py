@@ -37,6 +37,18 @@ computes the same with either flag.  ``kv_cache_dtype="int8"`` keeps
 the K/V in int8 with f32 per-(slot, head) scales, (n_layers, B, C, Hkv,
 1), quantized on write by the prefill and every decode step; the decode
 kernel reads them as int8 (``kernels/ops.flash_decode``).
+
+Sharded: every entry point also takes parameters, batches and caches
+laid out as DTensors over a ``torch.distributed`` ``DeviceMesh`` by
+``sharding/rules`` (``sharding/place.shard_tree``) -- PyTorch's
+counterpart of the reference's ``jit(in_shardings=...)``.  The
+computation runs as DTensor operations (the kernels on local blocks,
+``kernels/ops``), with the reference's activation constraints
+(``_act_constraint``) after every encoder and decoder layer and on the
+logits; the prefill's cache is born sharded by ``cache_specs``.  The
+decode takes a batch-sharded cache; the batch-1 layout, with the
+cache's length split over the data axes, needs the decode's partial
+softmax merged across ranks and is not run here.
 """
 from __future__ import annotations
 
@@ -48,8 +60,59 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import place
+from repro_torch.sharding.rules import (P, axis_names, axis_size,
+                                        cache_specs, data_axes)
 
 Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------
+# activation sharding constraints
+# ----------------------------------------------------------------------
+
+def _act_constraint(x, *, vocab_axis: bool = False):
+    """Pin a DTensor activation to (batch over the data axes, ..., vocab
+    over 'model'), each where it divides, the reference's constraint:
+    without it the weights' layouts propagate into the activations
+    (the LM head would gather the whole batch of f32 logits).  Partial
+    sums are reduced here.  A plain tensor is returned as it is."""
+    if not place.is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    if "data" not in axis_names(mesh):
+        return x
+    spec = [place.fit(mesh, x.shape[0], data_axes(mesh))] + \
+        [None] * (x.ndim - 1)
+    if vocab_axis and x.shape[-1] % axis_size(mesh, "model") == 0:
+        spec[-1] = "model"
+    return place.constrain(x, P(*spec))
+
+
+def _embed(table, tokens):
+    """Rows of the embedding.  A DTensor table with its vocab over
+    'model': each rank looks up the tokens in its vocab rows (zero
+    rows for the others' tokens), and the rows are summed over 'model'
+    at once."""
+    if not place.is_dtensor(table):
+        return table[tokens]
+    mesh = table.device_mesh
+    V = table.shape[0]
+    v = place.fit(mesh, V, "model")
+    b = place.fit(mesh, tokens.shape[0], data_axes(mesh))
+    lo = mesh.get_local_rank("model") * (V // axis_size(mesh, "model")) \
+        if v else 0
+
+    def local(t, tok):
+        inside = (tok >= lo) & (tok < lo + t.shape[0])
+        rows = t[torch.where(inside, tok - lo, 0)]
+        return torch.where(inside[..., None], rows, 0.0)
+    rows = place.run_local(
+        local, mesh, (table, tokens), (P(v, None), P(b, None)),
+        (place.placements(P(b, None, None), mesh,
+                          partial=place.split_axes(v)),),
+        split=place.split_axes(b, v))
+    return _act_constraint(rows)
 
 
 # ======================================================================
@@ -278,6 +341,7 @@ def encode(params, cfg: ModelConfig, src_embeds):
                                      causal=False)
         x = x + out
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln_mlp"]))
+        x = _act_constraint(x)
     return L.rms_norm(x, params["ln_enc"])
 
 
@@ -287,7 +351,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     d), positions 0..Ltot-1)."""
     cdt = getattr(torch, cfg.compute_dtype)
     tokens = batch["tokens"].long()
-    x = params["embed"][tokens].to(cdt)
+    x = _embed(params["embed"], tokens).to(cdt)
     if cfg.frontend and not cfg.is_encdec:
         front = _project_frontend(params, cfg, batch["frontend"]).to(cdt)
         x = torch.cat([front, x], dim=1)
@@ -299,6 +363,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
 def _logits(params, cfg: ModelConfig, x):
     x = L.rms_norm(x, params["ln_f"])
     logits = x @ params["embed"].T.to(x.dtype)
+    logits = _act_constraint(logits, vocab_axis=True)
     return L.softcap(logits.float(), cfg.final_softcap)
 
 
@@ -339,6 +404,7 @@ def _hidden(params, cfg: ModelConfig, batch, store=None,
             x, aux_i, kv, cross_kv, ssd = layer(x, p, kind)
             if store is not None:
                 store(i, kv, cross_kv, ssd)
+        x = _act_constraint(x)
         aux = aux + aux_i
     return params, x, aux
 
@@ -353,11 +419,12 @@ def forward_full(params, cfg: ModelConfig, batch, *,
     without experts -- and per-layer caches or Nones).  ``long_mode``:
     every layer of a windowed model attends within its window."""
     caches = [None] * cfg.n_layers
-    params, x, aux = _hidden(
-        params, cfg, batch,
-        (lambda i, *parts: caches.__setitem__(i, parts)) if collect_cache
-        else None, long_mode)
-    return _logits(params, cfg, x), aux, caches
+    with place.spmd(params, batch):
+        params, x, aux = _hidden(
+            params, cfg, batch,
+            (lambda i, *parts: caches.__setitem__(i, parts)) if collect_cache
+            else None, long_mode)
+        return _logits(params, cfg, x), aux, caches
 
 
 # ======================================================================
@@ -407,9 +474,15 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
     Returns (logits (B, vocab_padded) f32, cache) -- the cache updated
     in place.  Where ``ring_cache`` (every layer in ``long_mode``) the
     cache is a ring and no layer masks a local window inside it."""
+    with place.spmd(params, cache, batch):
+        return _decode_step(params, cfg, cache, batch, long_mode)
+
+
+def _decode_step(params, cfg: ModelConfig, cache: Params, batch,
+                 long_mode: bool):
     params = cast_params(params, cfg)
     cdt = getattr(torch, cfg.compute_dtype)
-    x = params["embed"][batch["token"].long()].to(cdt)
+    x = _embed(params["embed"], batch["token"].long()).to(cdt)
     pos = batch["pos"].long()
     W = cfg.sliding_window
     ring = ring_cache(cfg, long_mode)
@@ -429,8 +502,8 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
             ssm_out, h_new, conv_new = L.ssd_step(p["ssm"], cfg, h,
                                                   cache["ssd"][i],
                                                   cache["conv"][i])
-            cache["ssd"][i] = h_new
-            cache["conv"][i] = conv_new
+            _set_layer(cache["ssd"], i, h_new)
+            _set_layer(cache["conv"], i, conv_new)
             mix = ssm_out if mix is None else _fuse(p, mix, ssm_out)
         x = x + mix
         if cfg.is_encdec:
@@ -438,7 +511,22 @@ def decode_step(params, cfg: ModelConfig, cache: Params, batch, *,
                 p["cross"], cfg, L.rms_norm(x, p["ln_cross"]),
                 cache["cross_k"][i], cache["cross_v"][i])
         x, _ = _ffn(p, cfg, x)
+        x = _act_constraint(x)
     return _logits(params, cfg, x[:, 0]), cache
+
+
+def _set_layer(buf, i: int, value) -> None:
+    """``buf[i] = value`` for a stacked cache buffer (n_layers, ...); a
+    DTensor buffer takes ``value`` laid out as its layer i (its own
+    placements, one dim down) into its local block."""
+    if not place.is_dtensor(buf):
+        buf[i] = value
+        return
+    from torch.distributed.tensor import Shard
+    layer = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+             for p in buf.placements]
+    value = place.as_dtensor(value.to(buf.dtype), buf.device_mesh)
+    buf.to_local()[i] = value.redistribute(placements=layer).to_local()
 
 
 def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
@@ -455,14 +543,29 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
     C slots leaves its last C keys, rolled so that position p sits at
     slot p % C (an int8 cache's scales with them): on every layer in
     ``long_mode``.  An encoder-decoder's cross K/V are filled here
-    once."""
+    once.  DTensor parameters: the cache is born laid out by
+    ``cache_specs`` on their mesh."""
+    with place.spmd(params, batch):
+        return _prefill(params, cfg, batch, long_mode, max_len)
+
+
+def _prefill(params, cfg: ModelConfig, batch, long_mode: bool,
+             max_len: int):
     B, ctx = batch["tokens"].shape
     if cfg.frontend and not cfg.is_encdec:
         ctx += batch["frontend"].shape[1]
     cap = max(max_len, ctx) if max_len else ctx + 64
     enc_len = batch["src_embeds"].shape[1] if cfg.is_encdec else 0
-    cache = init_cache(cfg, B, cap, long_mode=long_mode, enc_len=enc_len,
-                       device=params["embed"].device)
+    embed = params["embed"]
+    if place.is_dtensor(embed):
+        shapes = init_cache(cfg, B, cap, long_mode=long_mode,
+                            enc_len=enc_len, device="meta")
+        cache = place.zeros_tree(
+            shapes, cache_specs(cfg, embed.device_mesh, shapes),
+            embed.device_mesh)
+    else:
+        cache = init_cache(cfg, B, cap, long_mode=long_mode,
+                           enc_len=enc_len, device=embed.device)
     C = cache["k"].shape[2] if "k" in cache else 0
     int8 = "k_scale" in cache
 
@@ -474,12 +577,17 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
             for name, a in parts.items():
                 if C < ctx:                      # the ring: slot = pos % C
                     a = torch.roll(a[:, -C:], ctx % C, dims=1)
-                cache[name][i, :, :a.shape[1]] = a.to(cache[name].dtype)
+                if place.is_dtensor(cache[name]):
+                    pad = a.new_zeros((a.shape[0], C - a.shape[1])
+                                      + tuple(a.shape[2:]))
+                    _set_layer(cache[name], i, torch.cat([a, pad], dim=1))
+                else:
+                    cache[name][i, :, :a.shape[1]] = a.to(cache[name].dtype)
         for key, t in zip(("cross_k", "cross_v"), cross_kv or ()):
-            cache[key][i] = t.to(cache[key].dtype)
+            _set_layer(cache[key], i, t)
         if ssd is not None:
-            cache["ssd"][i] = ssd[0]
-            cache["conv"][i] = ssd[1].to(cache["conv"].dtype)
+            _set_layer(cache["ssd"], i, ssd[0])
+            _set_layer(cache["conv"], i, ssd[1])
     params, x, _ = _hidden(params, cfg, batch, store, long_mode)
     last = _logits(params, cfg, x[:, -1])
     new_pos = torch.full((B,), ctx, dtype=torch.int64, device=x.device)
@@ -492,13 +600,18 @@ def prefill(params, cfg: ModelConfig, batch, *, long_mode: bool = False,
 
 def lm_loss(logits, labels):
     """Cross-entropy with -1 = ignore, the reference's: logits (B, L, V)
-    f32, labels (B, L).  The gold logit is picked with ``gather`` (the
-    reference contracts a one-hot for GSPMD's vocab sharding, which one
-    card does not have)."""
+    f32, labels (B, L).  The gold logit is picked with ``gather`` on one
+    card; vocab-sharded DTensor logits contract a one-hot, as the
+    reference does for GSPMD, so each rank reduces its vocab columns and
+    only (B, L) partial sums cross ranks."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
+    if place.is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
@@ -506,6 +619,11 @@ def lm_loss(logits, labels):
 def loss_fn(params, cfg: ModelConfig, batch):
     """(loss + 0.01 aux, (loss, aux)), the reference's: labels padded
     with -1 in front of a frontend prefix."""
+    with place.spmd(params, batch):
+        return _loss_fn(params, cfg, batch)
+
+
+def _loss_fn(params, cfg: ModelConfig, batch):
     logits, aux, _ = forward_full(params, cfg, batch)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:      # frontend tokens first

@@ -15,12 +15,22 @@ of at most ``GROUP`` values -- the reference's operations in its order,
 a few launches a group instead of some twenty a leaf (a step of a
 ~100M model is otherwise launch-bound), and the temporaries of one
 group at a time.
+
+DTensor parameters (a sharded train step): each gradient is first laid
+out as its parameter (a gradient comes back as partial sums, or sharded
+otherwise), the global norm sums every rank's blocks once (a block held
+by r ranks counts 1/r on each), summed over the mesh, and the
+update, element-wise, runs on each rank's local blocks.  The moments
+take the parameters' layouts; ``step`` is a plain count on every rank,
+the reference's replicated scalar.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.sharding import place
 
 Tree = Any
 GROUP = 1 << 26                         # values a multi-tensor group holds
@@ -57,10 +67,12 @@ def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
 
 
 def init_opt_state(params: Tree) -> Dict:
-    """Zero f32 moments beside ``params`` and a step count of 0."""
+    """Zero f32 moments beside ``params`` (DTensor parameters: laid out
+    as they are) and a step count of 0."""
     def zeros():
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        return tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format),
+            params)
     return {"mu": zeros(), "nu": zeros(), "step": 0}
 
 
@@ -74,26 +86,56 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _sharded_norm(gs: List[torch.Tensor]) -> torch.Tensor:
+    """The global norm of DTensor gradients laid out as their
+    parameters: each rank's local sums of squares, a block held by r
+    ranks weighted 1/r, summed over the mesh."""
+    import torch.distributed as dist
+    mesh = gs[0].device_mesh
+    total = None
+    for g in gs:
+        s = torch.sum(torch.square(g.to_local().float()))
+        copies = 1
+        for i, p in enumerate(g.placements):
+            if not p.is_shard():
+                copies *= mesh.size(i)
+        s = s / copies if copies > 1 else s
+        total = s if total is None else total + s
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
+
+
 @torch.no_grad()
 def adamw_update(grads: Tree, opt_state: Dict, params: Tree,
                  cfg: AdamWConfig) -> Tuple[Tree, Dict, torch.Tensor]:
     """One AdamW step with linear warmup and gradient clipping.
     Returns (new params, the state -- its moments updated in place --,
-    the gradients' global norm)."""
+    the gradients' global norm, a plain tensor)."""
     step = opt_state["step"] + 1
     f32 = torch.float32
-    dev = leaves(params)[0].device
+    ps, gs = leaves(params), leaves(grads)
+    ms, vs = leaves(opt_state["mu"]), leaves(opt_state["nu"])
+    sharded = place.is_dtensor(ps[0])
+    if sharded:
+        gs = [place.as_dtensor(g, p.device_mesh).redistribute(
+            placements=p.placements) for g, p in zip(gs, ps)]
+        gnorm = _sharded_norm(gs)
+        outer = ps
+        ps, gs, ms, vs = ([t.to_local() for t in ts]
+                          for ts in (ps, gs, ms, vs))
+    else:
+        gnorm = global_norm(gs)
+    dev = ps[0].device
     stepf = torch.tensor(step, dtype=f32, device=dev)
     warm = torch.clamp(stepf / max(cfg.warmup_steps, 1), max=1.0)
     lr = cfg.lr * warm
 
-    gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=f32, device=dev), stepf)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=f32, device=dev), stepf)
 
-    ps, gs = leaves(params), leaves(grads)
-    ms, vs = leaves(opt_state["mu"]), leaves(opt_state["nu"])
     out = []
     for lo, hi in _groups(ps):
         p = [x.float() for x in ps[lo:hi]]
@@ -110,6 +152,12 @@ def adamw_update(grads: Tree, opt_state: Dict, params: Tree,
                                 torch._foreach_mul(p, cfg.weight_decay))
         new = torch._foreach_sub(p, torch._foreach_mul(delta, lr))
         out += [x.to(q.dtype) for x, q in zip(new, ps[lo:hi])]
+    if sharded:
+        from torch.distributed.tensor import DTensor
+        out = [DTensor.from_local(x, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
+               for x, p in zip(out, outer)]
     new = iter(out)
     return tree_map(lambda _: next(new), params), {
         "mu": opt_state["mu"], "nu": opt_state["nu"], "step": step}, gnorm

@@ -7,6 +7,14 @@ programs to compile.  The training step differentiates ``M.loss_fn``
 with autograd: on the card the attention, the SSD scan and the MoE
 gate go forward and backward through their hand-written kernels
 (``kernels/ops``), then AdamW updates the f32 master params.
+
+Each step also takes DTensor parameters (``sharding/rules.param_specs``
+laid out by ``sharding/place.shard_tree``), batches laid out by
+``batch_spec`` / ``decode_batch_spec`` and a decode cache by
+``cache_specs`` (batch-sharded): the counterpart of the reference's
+``jit(in_shardings=...)``.  The kernels then run on each rank's local
+blocks, and the train step's metrics come back as plain tensors, the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.sharding import place
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             leaves, tree_map)
 
@@ -27,18 +36,24 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
         return t.detach().requires_grad_(True) if t.is_floating_point() \
             else t
     live = tree_map(track, params)
-    total, (loss, aux) = M.loss_fn(live, cfg, batch)
-    flat = [t for t in leaves(live) if t.requires_grad]
-    # a leaf the config leaves unused (mamba2's ln_mlp) gets zeros, as
-    # jax.grad gives it
-    grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
+    with place.spmd(params, batch):          # the backward too
+        total, (loss, aux) = M.loss_fn(live, cfg, batch)
+        flat = [t for t in leaves(live) if t.requires_grad]
+        # a leaf the config leaves unused (mamba2's ln_mlp) gets zeros,
+        # as jax.grad gives it
+        grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
 
     def grad_of(t):
         g = next(grads) if t.requires_grad else None
         return torch.zeros_like(t) if g is None else g
     grads = tree_map(grad_of, live)
-    return total.detach(), loss.detach(), torch.as_tensor(aux).detach(), \
-        grads
+    return _whole(total), _whole(loss), _whole(torch.as_tensor(aux)), grads
+
+
+def _whole(t):
+    """A metric as a plain tensor (a DTensor's full value)."""
+    t = t.detach()
+    return t.full_tensor() if place.is_dtensor(t) else t
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):
@@ -75,6 +90,7 @@ def make_decode_step(cfg: ModelConfig, *, long_mode: bool = False):
         logits, cache = M.decode_step(params, cfg, cache, batch,
                                       long_mode=long_mode)
         # greedy next token
-        next_tok = torch.argmax(logits, dim=-1)[:, None]
+        with place.spmd(logits):
+            next_tok = torch.argmax(logits, dim=-1)[:, None]
         return logits, next_tok, cache
     return serve_step

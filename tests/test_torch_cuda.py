@@ -1191,6 +1191,72 @@ def test_moe_gating_bwd_matches_plain(cuda, T, E, k, dtype):
     assert torch.equal(got, MG.moe_gating_bwd(lg, idx, dv, da, asum))
 
 
+@pytest.mark.parametrize("T,E,k,dtype", [
+    (100, 16, 2, "float32"), (4096, 128, 8, "bfloat16"),
+    (200, 1024, 8, "float32")])
+def test_moe_gating_sums_match_plain(cuda, T, E, k, dtype):
+    """The gate's assignment counts and probability sums (what a
+    token-split gate all-reduces) from the same launch: the counts equal
+    to the plain version's, the sums within 1e-5 relative, and aux the
+    product of the two."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lg = torch.randn(T, E, generator=g, device=cuda).to(getattr(torch,
+                                                               dtype))
+    before = MG.moe_gating.launches
+    vals, idx, aux, asum, psum = MG.moe_gating(lg, k, return_asum=True,
+                                               return_psum=True)
+    assert MG.moe_gating.launches == before + 1
+    want = MG.moe_gating_plain(lg, k, True, return_psum=True)
+    assert torch.equal(asum, want[3])
+    assert float((psum - want[4]).abs().max()) <= 1e-5 * float(
+        want[4].abs().max())
+    prod = float(torch.dot(psum, asum)) * E / (T * T)
+    assert abs(float(aux) - prod) <= 1e-5 * abs(prod)
+
+
+def test_sharded_train_step_on_the_host_mesh(cuda):
+    """Two train steps of llama3.2-1b and qwen3-moe-30b-a3b at SMOKE on
+    DTensor parameters over ``make_host_mesh()`` (a world-size-1 NCCL
+    group) equal the unsharded steps', the kernels launched from the
+    sharded steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import place
+    from repro_torch.sharding import rules as R
+    from repro_torch.training.optimizer import init_opt_state, leaves
+    from repro_torch.training.steps import make_train_step
+    mesh = make_host_mesh()
+    try:
+        for name in ("llama3.2-1b", "qwen3-moe-30b-a3b"):
+            cfg = get_smoke(name)
+            gen = torch.Generator(device=cuda).manual_seed(0)
+            params = M.init_params(cfg, gen, device=cuda)
+            toks = torch.randint(0, cfg.vocab_size, (2, 2, 33),
+                                 generator=gen, device=cuda)
+            step = make_train_step(cfg)
+            p0, o0 = params, init_opt_state(params)
+            sp = place.shard_tree(params, R.param_specs(cfg, mesh, params),
+                                  mesh)
+            so = init_opt_state(sp)
+            before = MG.moe_gating_bwd.launches, \
+                FA.flash_attention_bwd.launches
+            for t in toks:
+                b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+                p0, o0, m0 = step(p0, o0, b)
+                sp, so, m1 = step(sp, so, place.shard_tree(
+                    b, R.batch_spec(cfg, mesh, b), mesh))
+                for key in ("loss", "gnorm", "aux"):
+                    assert abs(float(m0[key]) - float(m1[key])) <= 1e-5 * \
+                        max(abs(float(m0[key])), 1.0), (name, key)
+            for a, b in zip(leaves(p0), leaves(place.gather_tree(sp))):
+                assert float((a - b).abs().max()) <= 1e-5
+            assert FA.flash_attention_bwd.launches > before[1]
+            if cfg.is_moe:
+                assert MG.moe_gating_bwd.launches > before[0]
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("name", ["llama3.2-1b", "mamba2-1.3b",
                                   "hymba-1.5b", "gemma2-2b"])
 def test_train_step_on_card_matches_cpu(cuda, name):

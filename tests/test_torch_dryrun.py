@@ -130,7 +130,9 @@ def test_cli_writes_and_caches_results(tmp_path, capsys):
     assert json.loads(out.read_text()) == res[0]
     assert D.main(args) == res                  # served from the cache
     assert "[skip]" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        D.main(args + ["--multi-pod"])
+    pod = D.main(args + ["--multi-pod"])        # per device of 512
+    assert [r["devices"] for r in pod] == [512]
+    assert 0 < pod[0]["bytes"]["params"] < res[0]["bytes"]["params"]
+    assert (tmp_path / "mamba2-1.3b__long_500k__pod2__meta.json").exists()
     with pytest.raises(ValueError, match="meta"):
         D.pair_report("mamba2-1.3b", "long_500k", device="cpu")

@@ -3,7 +3,7 @@ draws the reference sampler's batches bit for bit and its loss falls;
 checkpoints cross between the two packages' ``CheckpointManager``s;
 ``lm_loss`` against the reference's (-1 labels, a frontend prefix);
 ``remat`` on and off give the same gradients; the launcher refuses a
-missing card and the production mesh."""
+missing card and a production mesh without its world of 256 ranks."""
 import dataclasses
 
 import jax
@@ -98,7 +98,7 @@ def test_checkpoints_cross_between_packages(tmp_path):
 
 
 def test_launcher_refusals():
-    with pytest.raises(NotImplementedError, match=r"Queue 1: item 7"):
+    with pytest.raises(RuntimeError, match="world of 256 ranks"):
         TT.main(["--device", "cpu", "--smoke", "--production-mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
