@@ -60,7 +60,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      ``kernels`` line;
   3d. ``workloads``, on the same catalog, with the cost profiler and the
      recompile hook attached to the card's runs: the default
-     ``DriftScenario`` cut to 30 steps of 16 (model-degrade; the degraded
+     ``DriftScenario`` cut to 20 steps of 16 (model-degrade; the degraded
      model step 0's accuracy-first majority) routed with LinUCB and
      observed, with an fp32 and an int8 catalog (recovery after the
      shift, the degraded model's share of choices, per-step p50);
@@ -189,7 +189,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      back), batch mode with 24 (one model, the CPU's route of the same
      aggregate signature), ``--async`` (windows of at most 8, the load
      tracker back at zero, three ``stream`` calls of 8 tokens) and
-     ``--soak 5`` (intake counters equal to the CPU run's, the flood
+     ``--soak 3`` (intake counters equal to the CPU run's, the flood
      rate-limited, the quiet tenants not shed at intake); the
      continuous batcher on llama3.2-1b, mamba2-1.3b and gemma2-2b at
      full width and depth (4 slots, ctx 128, 12 requests, one ticking
@@ -220,8 +220,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      of its 48 layers: ms a step, tokens/s, the card's busy share,
      peak memory, launches a step (the counts set to 0 just before the
      timed steps; every backward kernel must launch; the kernels line
-     takes their launches from here); then the ~100M example config
-     for 120 of its 250 steps, its loss falling by over 30%;
+     takes their launches from here); each step's peak above its
+     inputs held to the dry run's traced peak of the same step (0.9 to
+     1.25 times it); then the ~100M example config for 80 of its 250
+     steps, its loss falling by over 30%;
   9b. ``sharding``: under a world-size-1 NCCL group and
      ``make_host_mesh()``, 2 warm-up and 3 timed train steps of
      llama3.2-1b (full width and depth), mamba2-1.3b and
@@ -243,6 +245,26 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
  11. ``examples``: ``examples/quickstart_torch.py``,
      ``serve_routed_torch.py`` and ``merge_models_torch.py`` through
      their ``main`` on the card, small.
+ 12. ``ctx_decode``: each decode body (llama3.2-1b's and gemma2-2b's
+     rings of 4,096 in bf16, int8 and f32, gemma2-2b's local window in a
+     full cache of 8,192) on a B=1 cache cut into 16 slot blocks (the
+     long_500k layout of (16, 16)): each block's decode with lse
+     against its plain partial, ``decode_merge`` of the 16 against its
+     plain version and against the unsharded launch; each body timed
+     with and without lse beside its bound (the local window's also
+     with each mask apart), and the merge; rows without launches;
+ 13. ``multirank``: four ranks of this script on the one card
+     (``--multirank-rank``; gloo, (2, 2) ("data", "model")) against one
+     unsharded process: llama3.2-1b and gemma2-2b at full width, 2
+     layers, f32, prompt 512 and 8 decode steps at batch 1 (the cache
+     split by length), gemma2-2b's local window in a seeded full cache
+     (data block 0 first cut by the window's edge, then wholly below
+     it: an empty partial), gemma2-2b in ``long_mode`` at pos 524,287,
+     and a batch-sharded B=4 prefill, 3 decode steps and a train step;
+     each rank checks every decode partial and merge it launches
+     against the plain version on its own tensors; each batch-1 run's
+     two kernels get rows at the ranks' shapes, timed here on rank 0's
+     operands.
   The serving phases launch no backward kernel (checked in
   ``serve_loop``).
 
@@ -336,8 +358,8 @@ def time_graph_ms(torch, fn, dev, iters: int = 20, reps: int = 3) -> float:
 def time_ms(torch, fn, dev, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms of ``fn()`` called eagerly, host work included (CUDA
     events over ``iters`` calls after ``warmup``), or host wall time on
-    the CPU.  For what a CUDA graph cannot capture: the plain top-k's
-    ``nonzero`` waits for the device."""
+    the CPU.  For the plain versions, whose host work the reading
+    keeps, and for what a CUDA graph cannot capture."""
     for _ in range(warmup):
         fn()
     if dev.type == "cuda":
@@ -3162,7 +3184,8 @@ def long_500k_steps(torch, dev, small: bool):
         seq = shapes.SHAPES["long_500k"]["seq_len"]
         want = dryrun.pair_report(name, "long_500k",
                                   device=dev if dev.type == "cuda"
-                                  else "meta") if not small else None
+                                  else "meta", trace=False) \
+            if not small else None
         gen = torch.Generator(device=dev).manual_seed(71 + i)
         a0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         params = M.init_params(cfg, gen, device=dev)
@@ -4217,7 +4240,7 @@ def recovery_steps(chosen, wl):
 def workloads_phase(torch, dev, small: bool, shared):
     """Over the serving phase's catalog (100,000 entries), with the cost
     profiler and the recompile hook attached to the card's runs: (1) the
-    default ``DriftScenario`` cut to 30 steps of 16 (model-degrade), its
+    default ``DriftScenario`` cut to 20 steps of 16 (model-degrade), its
     degraded model the one ``accuracy-first`` routes most of step 0 to
     (the reference's drift benchmark picks it so), served with an fp32
     and an int8 catalog: recovery after the shift and per-step p50;
@@ -4253,10 +4276,10 @@ def workloads_phase(torch, dev, small: bool, shared):
     t_phase = time.perf_counter()
     hooks = HookLog()
 
-    # -- (1) the drift episode, cut from the default 60 steps to 30 (the
-    # shift at 15) to keep the script inside its time limit with the
-    # training phases
-    sc = dataclasses.replace(DriftScenario(), n_steps=12 if small else 30)
+    # -- (1) the drift episode, cut from the default 60 steps to 30 and
+    # then 20 to keep the script inside its time limit with the training,
+    # sharding and multirank phases
+    sc = dataclasses.replace(DriftScenario(), n_steps=12 if small else 20)
     probe = NonStationaryWorkload(metas, sc)
     eng = RoutingEngine(mres, device=cpu)
     picked = [d.model for d in eng.route_many(
@@ -4413,7 +4436,7 @@ def reset_launches():
     from repro_torch.kernels import ssd_scan as SS
     for f in (FA.flash_attention, SS.ssd_scan, MG.moe_gating,
               RT.router_topk, RT.router_topk_q8, FA.flash_decode_q8,
-              *bwd_kernels().values()):
+              FA.decode_merge, *bwd_kernels().values()):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
     for f in (FA.flash_attention_bwd, FA.flash_decode_q8):
@@ -4432,6 +4455,7 @@ def read_launches() -> dict:
             "ssd_scan": SS.ssd_scan.launches,
             "moe_gating": MG.moe_gating.launches,
             "flash_decode_q8": FA.flash_decode_q8.launches,
+            "decode_merge": FA.decode_merge.launches,
             **{k: f.launches for k, f in bwd_kernels().items()},
             **{f"{f.__name__}[{b}]": n
                for f in (FA.flash_attention_bwd, FA.flash_decode_q8)
@@ -4499,10 +4523,10 @@ def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
 
     base = ["--analyzer-ckpt", ckpt] + (["--device", "cpu"] if small else [])
     n_req, max_new = (12, 4) if small else (48, 16)
-    # the soak's virtual seconds, cut from 15 to 8 and then 5 to keep
-    # the script inside its time limit with the training and sharding
-    # phases
-    soak = "5"
+    # the soak's virtual seconds, cut from 15 to 8, 5 and then 3 to keep
+    # the script inside its time limit with the training, sharding and
+    # multirank phases
+    soak = "3"
     archs = serve.default_archs(dev)
     seen = {}
 
@@ -5294,6 +5318,18 @@ def train_configs(small: bool):
     return out
 
 
+def traced_step_peak(torch, cfg, batch) -> int:
+    """The dry run's traced peak of a train step of ``cfg`` on ``batch``'s
+    shapes on one card (``dryrun.trace_step`` on fake tensors): the
+    bytes the step makes alive at once beyond its inputs."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, torch.Generator(), device="meta")
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+    return D.trace_step(cfg, {"kind": "train"}, params, meta).peak
+
+
 def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
               total: dict):
     """``warm`` then ``steps`` timed train steps of ``cfg`` on the card
@@ -5301,7 +5337,9 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
     Logs ms a step, tokens/s, the card's busy share of one step
     (profiler, kernel events only), peak memory and each kernel's
     launches a step (the kernels' counts set to 0 just before the timed
-    steps and read just after)."""
+    steps and read just after).  On the card the timed steps' peak
+    above their inputs is held to the dry run's traced peak of the same
+    step (``traced_step_peak``): from 0.9 to 1.25 times it."""
     from repro_torch.launch.train import make_lm_sampler, to_device
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
@@ -5320,6 +5358,7 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
     reset_launches()
     t0 = time.perf_counter()
     for b in batches[warm:warm + steps]:
@@ -5356,12 +5395,28 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
                     f"under the profiler; the port's kernels "
                     + "; ".join(f"{k} {us / 1e3:.1f} ms"
                                 for k, us in sorted(ours.items())))
+    # after the profiled step: the trace's garbage stays off its clock
+    traced = traced_step_peak(torch, cfg, batches[0])
+    held = "not measured"
+    if dev.type == "cuda":
+        # the dry run's traced peak against the allocator's: what a step
+        # made alive at once beyond its inputs (its new parameters and
+        # AdamW state, gradients, activations); the card adds only the
+        # kernels' scratch and the allocator's rounding
+        made = peak * 1e9 - base
+        check(0.9 <= made / traced <= 1.25,
+              f"train {name}: the step's peak above its inputs "
+              f"{made / 1e9:.3f} GB on the card, {traced / 1e9:.3f} GB "
+              f"traced by the dry run")
+        held = f"{made / 1e9:.3f} GB ({made / traced:.4f}x the traced)"
     ms = wall * 1e3 / steps
     log(f"[train] {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_params() / 1e9:.2f} B params, {cfg.compute_dtype} compute, "
         f"f32 master params + AdamW, B={B} L={L}): {ms:.1f} ms a step, "
         f"{B * L / ms * 1e3:.0f} tokens/s over {steps} steps after {warm}; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak:.1f} GB; "
+        f"made by a step {held}, the dry run's trace "
+        f"{traced / 1e9:.3f} GB; "
         f"busy {busy}; launches a step: "
         + ", ".join(f"{k} {v / steps:g}" for k, v in counts.items() if v))
     del params, opt
@@ -5371,7 +5426,7 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
 def train_phase(torch, dev, small: bool, kernels: dict):
     """Train steps on the card: each config of ``train_configs`` for 2
     warm-up and 8 timed steps (finite loss and gnorm), then the ~100M
-    example config for 120 of its 250 steps with the reference's
+    example config for 80 of its 250 steps with the reference's
     assertion of a loss drop over 30%.  Every backward kernel must have launched; the
     kernels line takes their launches from the timed steps."""
     import tempfile
@@ -5394,9 +5449,9 @@ def train_phase(torch, dev, small: bool, kernels: dict):
           f"train: the attention backward left the wgmma body ({counts})")
     log(f"[train] launches over the timed steps: {counts}")
     with tempfile.TemporaryDirectory() as tmp:
-        # 120 of the example's 250 steps (the script's time limit; the
+        # 80 of the example's 250 steps (the script's time limit; the
         # loss has fallen past the 30% the reference asserts by step 50)
-        argv = ["--arch", "llama3.2-1b", "--steps", "120" if not small
+        argv = ["--arch", "llama3.2-1b", "--steps", "80" if not small
                 else "30", "--batch", "8", "--seq", "128", "--lr", "3e-4",
                 "--warmup", "40", "--ckpt-dir", tmp, "--ckpt-every", "100",
                 "--log-every", "50", "--device", str(dev)]
@@ -5596,7 +5651,7 @@ def sharding_phase(torch, dev, small: bool, kernels: dict):
             for arch in ("llama4-maverick-400b-a17b", "qwen3-moe-30b-a3b"):
                 r = D.pair_report(arch, "train_4k",
                                   device=dev if dev.type == "cuda"
-                                  else "meta", mesh=pm)
+                                  else "meta", mesh=pm, trace=False)
                 log(f"[sharding] dry run {arch} train_4k on "
                     f"{r['mesh']} ({r['devices']} devices): resident "
                     f"{r['bytes']['resident'] / 1e9:.3f} GB a device "
@@ -5714,6 +5769,802 @@ def train_card_vs_cpu_phase(torch, dev, small: bool):
         release(torch, dev, f"after {name}")
 
 
+# ----------------------------------------------------------------------
+# the batch-1 decode on a cache sharded by length (ctx_decode, multirank)
+# ----------------------------------------------------------------------
+
+CTX_R = 16                      # slot blocks: the data ranks of (16, 16)
+MULTIRANK_WORLD = 4             # gloo ranks sharing the one card
+
+
+def ctx_cases(small: bool):
+    """Each decode body at a long_500k shape, B = 1, the cache cut into
+    CTX_R slot blocks: (what, Hq, Hkv, hd, dtype name, int8, C, live,
+    local window, softcap).  gemma2-2b's local window sits in a full
+    cache of 2 W slots with its first live slot inside block 3 (blocks
+    0-2 wholly below it, the blocks past the live count empty)."""
+    from repro_torch.configs import get_config, get_smoke
+    llama = (get_smoke if small else get_config)("llama3.2-1b")
+    gemma = (get_smoke if small else get_config)("gemma2-2b")
+    C = 256 if small else 4096
+    W = gemma.sliding_window
+    n = 2 * W // CTX_R
+    first = 3 * n + n // 2 - 1
+    lh = (llama.n_heads, llama.n_kv_heads, llama.head_dim)
+    gh = (gemma.n_heads, gemma.n_kv_heads, gemma.head_dim)
+    cap = gemma.attn_softcap
+    return [
+        ("decode_mma_kernel<64> llama3.2-1b ring", *lh, "bf16", False, C,
+         C, 0, 0.0),
+        ("decode_split_kernel<bf16, 288> gemma2-2b long_mode ring", *gh,
+         "bf16", False, C, C, 0, cap),
+        ("decode_split_kernel<bf16, 288> gemma2-2b local window in a full "
+         "cache", *gh, "bf16", False, 2 * W, first + W, W, cap),
+        ("decode_mma_kernel<64, true> llama3.2-1b int8 ring", *lh, "bf16",
+         True, C, C, 0, 0.0),
+        ("decode_wide_q8_kernel<288> gemma2-2b int8 ring", *gh, "bf16", True,
+         C, C, 0, cap),
+        ("decode_split_kernel<f32, 64> llama3.2-1b f32 ring", *lh, "f32",
+         False, C, C, 0, 0.0),
+        ("decode_split_kernel<f32, 288> gemma2-2b f32 ring", *gh, "f32",
+         False, C, C, 0, cap)]
+
+
+def ctx_row(torch, FA, g, dev, what, Hq, Hkv, hd, dtn, q8, C, live, local,
+            cap):
+    """One decode body with ``return_lse`` on each of CTX_R slot blocks
+    of a B = 1 cache, each block's (o, lse) against its plain partial
+    (lse within 1e-5, +inf where the block holds no live key; o within
+    2e-2 of max |o| in bf16, 1e-5 in f32), the partials merged by
+    ``decode_merge`` (against ``decode_merge_plain``, and against the
+    unsharded launch within one bf16 ulp of max |o|, f32 1e-6).  Timed:
+    the unsharded body without and with lse, its plain version, SDPA
+    where it computes the same function, and ``decode_merge`` of the
+    CTX_R parts.  Returns (the body's row, the merge's row)."""
+    from repro_torch.models.layers import quantize_kv
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtn]
+    q = torch.randn(1, 1, Hq, hd, generator=g, device=dev).to(
+        dt).transpose(1, 2)
+    kf, vf = (torch.randn(1, C, Hkv, hd, generator=g, device=dev)
+              for _ in range(2))
+    if q8:
+        (k8, ks), (v8, vs) = quantize_kv(kf), quantize_kv(vf)
+        kv = [t.transpose(1, 2) for t in (k8, v8, ks, vs)]
+    else:
+        kv = [t.to(dt).transpose(1, 2) for t in (kf, vf)]
+    del kf, vf
+    kvt = torch.tensor([live], dtype=torch.int32, device=dev)
+
+    def decode(blocks, kv_valid, first=None, lse=False, loc=local):
+        if q8:
+            return FA.flash_decode_q8(q, *blocks, kv_valid, softcap=cap,
+                                      local_window=loc, return_lse=lse,
+                                      kv_first=first)
+        return FA.flash_attention(q, *blocks, kv_valid, causal=False,
+                                  softcap=cap, local_window=loc,
+                                  return_lse=lse, kv_first=first)
+
+    def plain(blocks, kv_valid, first=None, lse=True, loc=0):
+        if q8:
+            return FA.decode_q8_plain(q, *blocks, kv_valid, softcap=cap,
+                                      local_window=loc, return_lse=lse,
+                                      kv_first=first)
+        qq, kk, vv = (q.float(), blocks[0].float(), blocks[1].float()) \
+            if lse else (q, *blocks)
+        return FA.flash_attention_plain(qq, kk, vv, kv_valid, causal=False,
+                                        softcap=cap, local_window=loc,
+                                        return_lse=lse, kv_first=first)
+    whole = decode(kv, kvt)
+    n = C // CTX_R
+    o_err = o_abs = lse_err = 0.0
+    o_parts, lse_parts, empty = [], [], 0
+    for r in range(CTX_R):
+        lo = r * n
+        blocks = [t[:, :, lo:lo + n] for t in kv]
+        kvl = (kvt - lo).clamp(0, n).to(torch.int32)
+        first = (kvt - local - lo).clamp(0, n).to(torch.int32) \
+            if local else None
+        o, lse = decode(blocks, kvl, first, lse=True, loc=0)
+        wo, wl = plain(blocks, kvl, first)
+        check(o.dtype == torch.float32 and tuple(lse.shape) == (1, Hq, 1),
+              f"ctx_decode {what}: partial {o.dtype} {tuple(lse.shape)}")
+        check(bool((torch.isinf(lse) == torch.isinf(wl)).all()),
+              f"ctx_decode {what}: block {r}'s empty rows differ")
+        fin = torch.isfinite(wl)
+        if bool(fin.any()):
+            lse_err = max(lse_err, float((lse[fin] - wl[fin]).abs().max()))
+            d = float((o - wo).abs().max())
+            o_abs = max(o_abs, d)
+            o_err = max(o_err, d / max(float(wo.abs().max()), 1e-30))
+        empty += int(bool(torch.isinf(lse).all()))
+        o_parts.append(o)
+        lse_parts.append(lse)
+    check(lse_err <= 1e-5, f"ctx_decode {what}: lse err {lse_err}")
+    otol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    check(o_err <= otol, f"ctx_decode {what}: partial o err {o_err} of max")
+    if local:
+        check(empty >= 3 + (CTX_R - (live + n - 1) // n),
+              f"ctx_decode {what}: {empty} empty blocks")
+    O, L = torch.stack(o_parts), torch.stack(lse_parts)
+    merged = FA.decode_merge(O, L, dt)
+    mplain = FA.decode_merge_plain(O, L, dt)
+    top = float(whole.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    tol = ulp if dt == torch.bfloat16 else 1e-6 * top
+    m_err = float((merged.float() - mplain.float()).abs().max())
+    err = float((merged.float() - whole.float()).abs().max())
+    check(m_err <= tol, f"ctx_decode {what}: merge vs its plain version "
+                        f"{m_err} > {tol}")
+    check(err <= tol, f"ctx_decode {what}: merged vs unsharded {err} > "
+                      f"{tol}")
+    fst = (kvt - local).clamp(0, C).to(torch.int32) if local else None
+    ms = time_graph_ms(torch, lambda: decode(kv, kvt), dev)
+    ms_lse = time_graph_ms(torch, lambda: decode(kv, kvt, fst, lse=True,
+                                                 loc=0), dev)
+    split = ""
+    if local:
+        # the lse's cost apart from the mask's: each mask with and
+        # without lse on the same cache, timed twice in mirrored order
+        o, lse = decode(kv, kvt, lse=True)
+        wo, wl = plain(kv, kvt, loc=local)
+        d = float((lse - wl).abs().max())
+        check(d <= 1e-5, f"ctx_decode {what}: local_window with lse: lse "
+                         f"err {d}")
+        runs = {"window": lambda: decode(kv, kvt),
+                "window+lse": lambda: decode(kv, kvt, lse=True),
+                "first": lambda: decode(kv, kvt, fst, loc=0),
+                "first+lse": lambda: decode(kv, kvt, fst, lse=True, loc=0)}
+        t = dict.fromkeys(runs, 0.0)
+        for k in list(runs) + list(runs)[::-1]:
+            t[k] += time_graph_ms(torch, runs[k], dev) / 2
+        split = (f"; local_window without / with lse {t['window']:.4f} / "
+                 f"{t['window+lse']:.4f} ms "
+                 f"({t['window+lse'] / t['window']:.3f}x), kv_first "
+                 f"without / with lse {t['first']:.4f} / "
+                 f"{t['first+lse']:.4f} ms "
+                 f"({t['first+lse'] / t['first']:.3f}x), kv_first / "
+                 f"local_window without lse "
+                 f"{t['first'] / t['window']:.3f}x")
+    plain_ms = time_ms(torch, lambda: plain(kv, kvt, lse=False, loc=local),
+                       dev, iters=5, warmup=1)
+    merge_ms = time_graph_ms(torch, lambda: FA.decode_merge(O, L, dt), dev)
+    esz = 1 if q8 else q.element_size()
+    keys = live - (live - local if local else 0)
+    row_bytes = keys * Hkv * 2 * (hd * esz + (4 if q8 else 0))
+    bms, by = bound_ms(row_bytes + Hq * hd * (q.element_size() + 4) + Hq * 4,
+                       4.0 * Hq * hd * keys,
+                       PEAK_FP32_S if dt == torch.float32 else PEAK_BF16_S)
+    lib_ms = None
+    if not cap and not q8:
+        mask = (torch.arange(C, device=dev) < live)[None, None, None]
+        lib = sdpa_call(torch, q.contiguous(), kv[0].contiguous(),
+                        kv[1].contiguous(), attn_mask=mask)
+        lib_ms = time_graph_ms(torch, lib, dev)
+    mb, mby = bound_ms(CTX_R * Hq * (hd + 1) * 4 + Hq * hd * q.element_size(),
+                       3.0 * CTX_R * Hq * hd, PEAK_FP32_S)
+    log(f"[ctx_decode] {what}: {Hq}/{Hkv} heads of {hd}, C {C}, live "
+        f"{live}, local {local}, softcap {cap:g}, {CTX_R} blocks of {n} "
+        f"({empty} empty): unsharded {ms:.4f} ms, with lse {ms_lse:.4f} "
+        f"({ms_lse / ms:.3f}x), plain {plain_ms:.4f}, SDPA "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bms:.4f} "
+        f"by {by}; partial o err {o_err:.3g} of max, lse err {lse_err:.3g}; "
+        f"merge {merge_ms:.4f} ms (bound {mb:.5f} by {mby}), merged vs "
+        f"unsharded {err:.3g} (tol {tol:.3g}), vs plain merge {m_err:.3g}"
+        f"{split}")
+    body = dict(name=f"flash_attention ctx_decode {what}, B=1, {CTX_R} "
+                     f"blocks, with lse", route="cuda", source=FLASH_SRC,
+                replaces=FLASH_TPU, max_abs_err=max(lse_err, o_abs),
+                ms=ms_lse, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    merge = dict(name=f"decode_merge ctx_decode {what}, R={CTX_R}",
+                 route="cuda", source=FLASH_SRC, replaces=FLASH_TPU,
+                 max_abs_err=err, ms=merge_ms,
+                 plain_ms=time_ms(torch, lambda: FA.decode_merge_plain(
+                     O, L, dt), dev, iters=5, warmup=1),
+                 bound_ms=mb, bound_by=mby, library_ms=None)
+    return body, merge
+
+
+def ctx_decode_phase(torch, dev, small: bool, kernels: dict):
+    """Every decode body with ``return_lse`` over CTX_R slot blocks of a
+    batch-1 cache, merged by ``decode_merge`` (``ctx_row``).  Checked
+    and timed only: no main path runs these shapes, so their rows carry
+    no launches (``multirank``'s rows carry the path's)."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(91)
+    for case in ctx_cases(small):
+        body, merge = ctx_row(torch, FA, g, dev, *case)
+        kernels[body["name"]] = dict(body, launches=0)
+        kernels[merge["name"]] = dict(merge, launches=0)
+
+
+def _lay_out(tree, specs, mesh):
+    """``tree``'s tensors as DTensors laid out by ``specs``: each rank
+    holds the same full values (drawn from one seed) and keeps its own
+    block, so nothing moves."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding import place
+    if isinstance(tree, dict):
+        return {k: _lay_out(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_lay_out(v, specs[i], mesh) for i, v in enumerate(tree)]
+    return distribute_tensor(tree, mesh, place.placements(specs, mesh),
+                             src_data_rank=None)
+
+
+def _whole(t):
+    from repro_torch.sharding import place
+    return t.full_tensor() if place.is_dtensor(t) else t
+
+
+def multirank_cfgs(small: bool):
+    """The configs at full width (``SMOKE`` when small), 2 layers, f32:
+    the card against the card, sharded and not, to the CPU's limits."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke
+    out = {}
+    for name in ("llama3.2-1b", "gemma2-2b"):
+        cfg = (get_smoke if small else get_config)(name)
+        out[name] = dataclasses.replace(cfg, n_layers=2,
+                                        param_dtype="float32",
+                                        compute_dtype="float32")
+    return out
+
+
+def full_cache_steps(W: int, steps: int):
+    """gemma2-2b's local window in a full cache on two data ranks: the
+    cache's 2 W + 16 slots, the first decode position, and how many of
+    the ``steps`` have data block 0 ([0, W + 8)) wholly below the
+    window (pos >= 2 W + 7: its partial is empty); in the steps before
+    them the window's edge lies inside block 0."""
+    C, inside = 2 * W + 16, steps // 3 + 1
+    return C, C - 9 - inside, steps - inside
+
+
+def multirank_runs(torch, dev, small: bool, mesh=None, checks=None) -> dict:
+    """The runs of the multirank phase, unsharded (``mesh`` None) or on
+    ``mesh`` ((2, 2) ("data", "model")) with every input laid out by the
+    reference's rules (``_lay_out``):
+
+      * batch 1: llama3.2-1b and gemma2-2b, prompt 512, 8 greedy decode
+        steps (the cache in ``cache_specs``' batch-1 layout: slots over
+        ``data``); gemma2-2b's local window in a seeded full cache
+        (``full_cache_steps``: 8 steps, data block 0 first cut by the
+        window's edge, then wholly below it); gemma2-2b in ``long_mode``
+        one step at the long_500k position on its seeded full ring of
+        4,096;
+      * batch-sharded, B = 4: llama3.2-1b's prefill (prompt 64) and 3
+        decode steps, and one train step (L = 64).
+
+    The launch counts are read around each batch-1 run's decode steps
+    alone; ``checks`` (``RankChecks``) is told which run is on.
+    Returns numpy-ready lists."""
+    from repro_torch.launch import shapes
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules as R
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.steps import (make_decode_step,
+                                            make_prefill_step,
+                                            make_train_step)
+
+    def lay(tree, specs_fn):
+        return tree if mesh is None else _lay_out(tree, specs_fn(tree), mesh)
+
+    def decode(name, cfg, p, cache, toks, pos, dec):
+        """Greedy decode steps fed ``toks`` from ``pos``: the run's
+        logits, tokens, launches and local slot count."""
+        logits, tokens = [], []
+        if checks is not None:
+            checks.run = name
+        reset_launches()
+        for s_ in range(toks.shape[1]):
+            db = lay({"token": toks[:, s_:s_ + 1], "pos": pos},
+                     lambda t: R.decode_batch_spec(cfg, mesh, t))
+            lg, nxt, cache = dec(p, cache, db)
+            logits.append(_whole(lg)[0])
+            tokens.append(int(_whole(nxt)[0, 0]))
+            pos = pos + 1
+        counts[name] = read_launches()
+        if checks is not None:
+            checks.run = None
+        k = cache["k"]
+        out[name] = {"logits": torch.stack(logits).cpu().tolist(),
+                     "tokens": tokens,
+                     "local_c": int((k.to_local() if mesh is not None
+                                     else k).shape[2])}
+
+    def seeded(name, seed, seq, pos0, steps, long_mode=False):
+        """gemma2-2b's decode on a seeded full cache of ``seq``."""
+        cfg = cfgs["gemma2-2b"]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = M.init_params(cfg, gen, device=dev)
+        cache = M.init_cache(cfg, 1, seq, long_mode=long_mode, device=dev)
+        for t in cache.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        toks = torch.randint(0, cfg.vocab_size, (1, steps), generator=gen,
+                             device=dev)
+        decode(name, cfg, lay(params, lambda t: R.param_specs(cfg, mesh, t)),
+               lay(cache, lambda t: R.cache_specs(cfg, mesh, t)), toks,
+               torch.full((1,), pos0, dtype=torch.int64, device=dev),
+               make_decode_step(cfg, long_mode=long_mode))
+    cfgs = multirank_cfgs(small)
+    Lp, steps = (20, 3) if small else (512, 8)
+    out, counts = {}, {}
+    with torch.no_grad():
+        for i, (name, cfg) in enumerate(cfgs.items()):
+            gen = torch.Generator(device=dev).manual_seed(101 + i)
+            params = M.init_params(cfg, gen, device=dev)
+            toks = torch.randint(0, cfg.vocab_size, (1, Lp + steps),
+                                 generator=gen, device=dev)
+            p = lay(params, lambda t: R.param_specs(cfg, mesh, t))
+            b = lay({"tokens": toks[:, :Lp]},
+                    lambda t: R.batch_spec(cfg, mesh, t))
+            pre = make_prefill_step(cfg, max_len=Lp + 16)   # C even
+            lg, cache, pos = pre(p, b)
+            decode(name, cfg, p, cache, toks[:, Lp:], _whole(pos),
+                   make_decode_step(cfg))
+            out[name]["logits"].insert(0, _whole(lg)[0].cpu().tolist())
+            del params, p, cache
+        seeded("gemma2-2b full cache", 131,
+               *full_cache_steps(cfgs["gemma2-2b"].sliding_window,
+                                 steps)[:2], steps)
+        seq = 4096 if small else shapes.SHAPES["long_500k"]["seq_len"]
+        seeded("gemma2-2b long_mode", 111, seq, seq - 1, 1, long_mode=True)
+        # batch-sharded, B = 4: prefill, 3 decode steps, one train step
+        cfg = cfgs["llama3.2-1b"]
+        gen = torch.Generator(device=dev).manual_seed(121)
+        params = M.init_params(cfg, gen, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (4, 67), generator=gen,
+                             device=dev)
+        p = lay(params, lambda t: R.param_specs(cfg, mesh, t))
+        b = lay({"tokens": toks[:, :64]},
+                lambda t: R.batch_spec(cfg, mesh, t))
+        lg, cache, pos = make_prefill_step(cfg, max_len=80)(p, b)
+        dec = make_decode_step(cfg)
+        logits = [_whole(lg)]
+        for s_ in range(3):                 # fed the seeded tokens
+            db = lay({"token": toks[:, 64 + s_:65 + s_],
+                      "pos": _whole(pos)},
+                     lambda t: R.decode_batch_spec(cfg, mesh, t))
+            lg, _, cache = dec(p, cache, db)
+            logits.append(_whole(lg))
+            pos = _whole(pos) + 1
+        out["batch4"] = {"logits": torch.stack(logits).cpu().tolist()}
+        del cache
+    batch = lay({"tokens": toks[:, :64], "labels": toks[:, 1:65]},
+                lambda t: R.batch_spec(cfg, mesh, t))
+    p2, _, m = make_train_step(cfg, AdamWConfig())(p, init_opt_state(p),
+                                                   batch)
+    layer = p2["layers"][1]
+    out["batch4"].update(
+        loss=float(_whole(m["loss"])), gnorm=float(_whole(m["gnorm"])),
+        params=[_whole(t).float().cpu().reshape(-1).tolist()
+                for t in (layer["ln_mix"], layer["attn"]["wq"][:64],
+                          layer["mlp"]["wo"][:64])])
+    out["counts"] = counts
+    return out
+
+
+def gloo_probe(torch, dev) -> dict:
+    """Which collectives the gloo group takes on ``dev``'s tensors: each
+    of all-gather, all-reduce, reduce-scatter and all-to-all once on a
+    small tensor, "ok" or the error's first line."""
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    x = torch.arange(4 * n, dtype=torch.float32, device=dev)
+    calls = {
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * n * n, device=dev), x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x)}
+    out = {}
+    for name, call in calls.items():
+        print(f"[multirank] probe {name}", file=sys.stderr, flush=True)
+        try:
+            call()
+            out[name] = "ok"
+        except RuntimeError as e:               # the group refuses it
+            out[name] = str(e).splitlines()[0][:160]
+    return out
+
+
+_SYNC_FUNCOL = []               # the Library holding the kernels below
+
+
+def sync_functional_collectives(torch) -> None:
+    """CUDA kernels for the functional collectives (what DTensor's
+    redistributions call) that run c10d's synchronous collectives of the
+    same group.  On this card's PyTorch (2.11) gloo crashes -- a SIGSEGV
+    in its worker thread -- when a functional collective runs
+    asynchronously on CUDA tensors, while the synchronous all-gather,
+    all-reduce, reduce-scatter and all-to-all of the same tensors and
+    groups work (``gloo_probe``).  The ranks of ``multirank`` register
+    these; the port's code is unchanged."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def reduce_(t, op, name):
+        pg = _resolve_process_group(name)
+        op = op.lower()
+        dist.all_reduce(t, ops["sum" if op == "avg" else op], group=pg)
+        return t.div_(dist.get_world_size(pg)) if op == "avg" else t
+
+    def gather(t, n, name):
+        out = t.new_empty((t.shape[0] * n,) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(),
+                                    group=_resolve_process_group(name))
+        return out
+
+    def scatter(t, op, n, name):
+        op = op.lower()
+        out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t.contiguous(),
+                                   ops["sum" if op == "avg" else op],
+                                   group=_resolve_process_group(name))
+        return out.div_(n) if op == "avg" else out
+
+    def all_to_all(t, out_splits, in_splits, name):
+        n = sum(out_splits) if out_splits else t.shape[0]
+        out = t.new_empty((n,) + tuple(t.shape[1:]))
+        dist.all_to_all_single(out, t.contiguous(), out_splits or None,
+                               in_splits or None,
+                               group=_resolve_process_group(name))
+        return out
+
+    def broadcast(t, src, name):
+        out = t.clone()
+        dist.broadcast(out, group=_resolve_process_group(name),
+                       group_src=src)
+        return out
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (
+            ("all_gather_into_tensor", gather),
+            ("all_gather_into_tensor_coalesced",
+             lambda ts, n, g: [gather(t, n, g) for t in ts]),
+            ("all_reduce", lambda t, op, g: reduce_(t.clone(), op, g)),
+            ("all_reduce_", reduce_),
+            ("all_reduce_coalesced",
+             lambda ts, op, g: [reduce_(t.clone(), op, g) for t in ts]),
+            ("reduce_scatter_tensor", scatter),
+            ("reduce_scatter_tensor_coalesced",
+             lambda ts, op, n, g: [scatter(t, op, n, g) for t in ts]),
+            ("all_to_all_single", all_to_all),
+            ("broadcast", broadcast)):
+        lib.impl(name, fn, "CUDA")
+    _SYNC_FUNCOL.append(lib)
+
+
+class RankChecks:
+    """A rank's own check of the kernels its batch-1 decode launches, on
+    the rank's own local tensors: each decode partial (``return_lse``)
+    against ``flash_attention_plain(return_lse=True)`` with the same
+    ``kv_valid``, ``kv_first`` and softcap, and each ``decode_merge``
+    against ``decode_merge_plain`` of the same parts, at ``ctx_row``'s
+    limits.  Within, it stands in for ``kernels/ops``' names of the two
+    kernels (the port's code is unchanged); the plain versions launch
+    nothing, so the launch counts stay the path's own.  By run
+    (``run``, which ``multirank_runs`` sets): the calls, the worst
+    errors, the partials whose block held no live key, the shapes, and
+    -- where ``keep`` -- the last call's operands, for the timing."""
+
+    LIMITS = {"lse": 1e-5, "o": 1e-5, "merge": 1e-6}   # f32; o, merge of max
+
+    def __init__(self, keep: bool):
+        self.keep, self.run = keep, None
+        self.runs, self.operands = {}, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved = (ops._flash_kernel, ops._merge_kernel)
+        ops._flash_kernel, ops._merge_kernel = self.flash, self.merge
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops._flash_kernel, ops._merge_kernel = self.saved
+
+    def _rec(self) -> dict:
+        return self.runs.setdefault(self.run, dict(
+            partials=0, empty=0, empty_differ=0, lse_err=0.0, o_err=0.0,
+            o_abs=0.0, merges=0, merge_err=0.0, merge_abs=0.0))
+
+    def flash(self, q, k, v, kv_valid=None, **kw):
+        out = self.saved[0](q, k, v, kv_valid, **kw)
+        if self.run is None or not kw.get("return_lse") or q.shape[2] != 1:
+            return out
+        import torch
+        from repro_torch.kernels import flash_attention as FA
+        o, lse = out
+        wo, wl = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          kv_valid, **kw)
+        r = self._rec()
+        r["partials"] += 1
+        r["empty_differ"] += int(not bool(
+            (torch.isinf(lse) == torch.isinf(wl)).all()))
+        r["empty"] += int(bool(torch.isinf(lse).all()))
+        fin = torch.isfinite(wl)
+        if bool(fin.any()):
+            r["lse_err"] = max(r["lse_err"],
+                               float((lse[fin] - wl[fin]).abs().max()))
+            d = float((o - wo).abs().max())
+            r["o_abs"] = max(r["o_abs"], d)
+            r["o_err"] = max(r["o_err"],
+                             d / max(float(wo.abs().max()), 1e-30))
+        B, Hq, _, hd = q.shape
+        r["shape"] = [B, Hq, k.shape[1], k.shape[2], hd]
+        if self.keep:
+            self.operands.setdefault(self.run, {})["decode"] = dict(
+                q=q.clone(), k=_same_strides(k), v=_same_strides(v),
+                kv_valid=kv_valid, kw={n: (t.clone() if hasattr(t, "clone")
+                                           else t) for n, t in kw.items()})
+        return out
+
+    def merge(self, o_parts, lse_parts, dtype):
+        out = self.saved[1](o_parts, lse_parts, dtype)
+        if self.run is None:
+            return out
+        from repro_torch.kernels import flash_attention as FA
+        want = FA.decode_merge_plain(o_parts, lse_parts, dtype)
+        d = float((out.float() - want.float()).abs().max())
+        r = self._rec()
+        r["merges"] += 1
+        r["merge_abs"] = max(r["merge_abs"], d)
+        r["merge_err"] = max(r["merge_err"], d / max(
+            float(want.float().abs().max()), 1e-30))
+        r["merge_shape"] = list(o_parts.shape)
+        if self.keep:
+            self.operands.setdefault(self.run, {})["merge"] = dict(
+                o_parts=o_parts.clone(), lse_parts=lse_parts.clone(),
+                dtype=dtype)
+        return out
+
+
+def _same_strides(t):
+    """A copy of ``t`` with its strides (a cache block's layer view)."""
+    import torch
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def multirank_worker(rank: int, path: str, small: bool) -> int:
+    """One of MULTIRANK_WORLD ranks on the one card: a gloo group (NCCL
+    refuses two ranks on one card) whose functional collectives run
+    synchronously (``sync_functional_collectives``), a (2, 2) ("data",
+    "model") mesh, ``multirank_runs`` under ``RankChecks``; writes
+    ``rank<r>.json`` under ``path`` (rank 0 also its checked kernels'
+    last operands, ``operands.pt``)."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    faulthandler.enable()                 # a crash in a collective: where
+    dev = torch.device("cpu") if small else torch.device("cuda", 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(path) / "store"), MULTIRANK_WORLD), rank=rank,
+        world_size=MULTIRANK_WORLD)
+    try:
+        probe = gloo_probe(torch, dev)
+        if dev.type == "cuda":
+            sync_functional_collectives(torch)
+        mesh = init_device_mesh(dev.type, (2, 2),
+                                mesh_dim_names=("data", "model"))
+        with RankChecks(keep=rank == 0) as checks:
+            out = multirank_runs(torch, dev, small, mesh, checks)
+        out["gloo"], out["checks"] = probe, checks.runs
+        if checks.keep:
+            torch.save(checks.operands, Path(path) / "operands.pt")
+        (Path(path) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multirank_phase(torch, dev, small: bool, kernels: dict):
+    """MULTIRANK_WORLD processes on the one card (``multirank_worker``:
+    this script with ``--multirank-rank``), each against this process's
+    unsharded run of the same seeded inputs on the card, every step fed
+    the same seeded token: batch-1 logits within 1e-3 of max |logit|,
+    and the same greedy tokens where the unsharded run's top two lie
+    more than 1e-3 of max apart; every rank holds C / 2 slots; the
+    batch-sharded logits, loss, gnorm and parameters after the train
+    step within 1e-5 (f32; the limits of the sharded steps' CPU
+    tests).  Every rank's batch-1 decode launched the decode with lse
+    on every attention layer of every step and ``decode_merge`` as
+    often, each launch held by the rank to its plain version on its own
+    tensors (``RankChecks``);
+    gemma2-2b's full cache gave data rank 0 an empty partial on its
+    local layers once the window lay wholly above its block.  Each
+    run's kernels get rows of their own shapes (``multirank_rows``)."""
+    import tempfile
+    from repro_torch.models import model as M
+    tmp = tempfile.mkdtemp(prefix="multirank")
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--multirank-rank"]
+    procs = [subprocess.Popen(cmd + [str(r), tmp] +
+                              (["--rehearse"] if small else []),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(MULTIRANK_WORLD)]
+    logs = []
+    try:
+        want = multirank_runs(torch, dev, small)
+        for pr in procs:
+            logs.append(pr.communicate(timeout=600)[0].decode()[-4000:])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, text) in enumerate(zip(procs, logs)):
+        check(pr.returncode == 0, f"multirank: rank {r} exited "
+                                  f"{pr.returncode}:\n{text}")
+    got = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+           for r in range(MULTIRANK_WORLD)]
+    cfgs = multirank_cfgs(small)
+    steps = 3 if small else 8
+    gemma = cfgs["gemma2-2b"]
+    below = full_cache_steps(gemma.sliding_window, steps)[2]
+    n_local = M.layer_kinds(gemma).count(0)
+    runs = {"llama3.2-1b": (cfgs["llama3.2-1b"], steps),
+            "gemma2-2b": (gemma, steps),
+            "gemma2-2b full cache": (gemma, steps),
+            "gemma2-2b long_mode": (gemma, 1)}
+    worst = {}
+    for r, g in enumerate(got):
+        for name, (cfg, n_steps) in runs.items():
+            w, o = np.array(want[name]["logits"]), np.array(g[name]["logits"])
+            w2, o2 = w.reshape(-1, w.shape[-1]), o.reshape(-1, o.shape[-1])
+            top = float(np.abs(w2).max())
+            for s_ in range(w2.shape[0]):
+                d = float(np.abs(o2[s_] - w2[s_]).max())
+                check(d <= 1e-3 * top, f"multirank {name} rank {r} step "
+                                       f"{s_}: logits {d} of max {top}")
+                worst[name] = max(worst.get(name, 0.0), d / top)
+            toks_w, toks_g = want[name]["tokens"], g[name]["tokens"]
+            for s_, (a, b, lg) in enumerate(zip(toks_w, toks_g,
+                                                w2[-len(toks_w):])):
+                top2 = np.sort(lg)[-2:]
+                check(a == b or top2[1] - top2[0] <= 1e-3 * top,
+                      f"multirank {name} rank {r} step {s_}: token {b} "
+                      f"vs {a}")
+            check(g[name]["local_c"] * 2 == want[name]["local_c"],
+                  f"multirank {name} rank {r}: {g[name]['local_c']} of "
+                  f"{want[name]['local_c']} slots")
+            c, k = g["counts"][name], g["checks"].get(name, {})
+            n = cfg.n_layers * n_steps
+            check(k.get("partials") == k.get("merges") == n,
+                  f"multirank {name} rank {r}: {k.get('partials')} partials "
+                  f"and {k.get('merges')} merges checked, want {n}")
+            if dev.type == "cuda":
+                check(c["flash_attention_decode"] == c["decode_merge"] == n,
+                      f"multirank {name} rank {r}: decode launches "
+                      f"{c['flash_attention_decode']}, merges "
+                      f"{c['decode_merge']}, want {n}")
+            for key, lim in RankChecks.LIMITS.items():
+                err = k[f"{key}_err"]
+                check(err <= lim, f"multirank {name} rank {r}: {key} "
+                                  f"{err:.3g} against its plain version")
+            check(k["empty_differ"] == 0, f"multirank {name} rank {r}: "
+                                          f"{k['empty_differ']} partials' "
+                                          f"empty rows differ from plain")
+            empty = below * n_local if name == "gemma2-2b full cache" and \
+                r // 2 == 0 else 0          # data rank 0 of (2, 2)
+            check(k["empty"] == empty, f"multirank {name} rank {r}: "
+                                       f"{k['empty']} empty partials, want "
+                                       f"{empty}")
+        wb, gb = want["batch4"], g["batch4"]
+        w, o = np.array(wb["logits"]), np.array(gb["logits"])
+        d = float(np.abs(w - o).max())
+        check(d <= 1e-5 * max(float(np.abs(w).max()), 1.0),
+              f"multirank batch4 rank {r}: logits {d}")
+        worst["batch4"] = max(worst.get("batch4", 0.0), d / max(
+            float(np.abs(w).max()), 1.0))
+        worst["loss"] = max(worst.get("loss", 0.0),
+                            abs(wb["loss"] - gb["loss"]))
+        for k in ("loss", "gnorm"):
+            check(abs(wb[k] - gb[k]) <= 1e-5 * max(abs(wb[k]), 1.0),
+                  f"multirank batch4 rank {r}: {k} {gb[k]} vs {wb[k]}")
+        for a, b in zip(wb["params"], gb["params"]):
+            a, b = np.array(a), np.array(b)
+            check(float(np.abs(a - b).max()) <= 1e-5 * max(
+                float(np.abs(a).max()), 1.0),
+                  f"multirank batch4 rank {r}: parameters after the step")
+    log(f"[multirank] {MULTIRANK_WORLD} ranks on one card (gloo, (2, 2)): "
+        f"batch-1 llama3.2-1b and gemma2-2b ({steps} steps), gemma2-2b's "
+        f"local window in a full cache ({steps} steps, data block 0 "
+        f"wholly below the window in {below}), gemma2-2b long_mode at "
+        f"pos {'4095' if small else LONG_POS}, batch-sharded B=4 prefill, "
+        f"decode and train step: all within limits (worst logits of max "
+        f"and loss: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"); gloo on {dev.type} tensors: {got[0]['gloo']}; each rank's "
+        f"partials and merges against their plain versions: " + "; ".join(
+            f"{nm} lse {max(g['checks'][nm]['lse_err'] for g in got):.3g}, "
+            f"o {max(g['checks'][nm]['o_err'] for g in got):.3g} of max, "
+            f"merge {max(g['checks'][nm]['merge_err'] for g in got):.3g} "
+            f"of max, empty partials "
+            f"{[g['checks'][nm]['empty'] for g in got]}" for nm in runs))
+    operands = torch.load(Path(tmp) / "operands.pt", map_location=dev,
+                          weights_only=False)
+    for nm in runs:
+        rows = multirank_rows(torch, dev, nm, got, operands[nm])
+        for row in rows:
+            kernels[row["name"]] = row
+            if dev.type == "cuda":
+                check(row["launches"] > 0, f"multirank: {row['name']} "
+                                           f"never launched")
+
+
+def multirank_rows(torch, dev, run: str, got: list, ops_: dict):
+    """The rows of one batch-1 run's two kernels at the ranks' own
+    shapes: the launches summed over the ranks, the worst error of the
+    ranks' checks against their plain versions, and the times of rank
+    0's last call of each on its own operands, here after the ranks
+    have exited (the card is then this process's alone)."""
+    from repro_torch.kernels import flash_attention as FA
+    counts = [g["counts"][run] for g in got]
+    chk = [g["checks"][run] for g in got]
+    d = ops_["decode"]
+    q, k, v, live, kw = d["q"], d["k"], d["v"], d["kv_valid"], d["kw"]
+    B, Hq, Hkv, n, hd = chk[0]["shape"]
+    first = kw.get("kv_first")
+    keys = int((live - (0 if first is None else first)).clamp(min=0).sum())
+    ms = time_graph_ms(torch, lambda: FA.flash_attention(q, k, v, live,
+                                                         **kw), dev)
+    plain_ms = time_ms(torch, lambda: FA.flash_attention_plain(
+        q, k, v, live, **kw), dev, iters=5, warmup=1)
+    lib_ms = None
+    if not kw.get("softcap"):
+        idx = torch.arange(n, device=dev)
+        lo = torch.zeros_like(live) if first is None else first
+        mask = ((idx >= lo[:, None]) & (idx < live[:, None]))[:, None, None]
+        lib_ms = time_graph_ms(torch, sdpa_call(
+            torch, q.contiguous(), k.contiguous(), v.contiguous(),
+            attn_mask=mask), dev)
+    bms, by = bound_ms(keys * Hkv * 2 * hd * 4 + B * Hq * hd * 8 + B * Hq * 4,
+                       4.0 * Hq * hd * keys, PEAK_FP32_S)
+    body = dict(name=f"flash_attention multirank {run}: B={B}, {Hq}/{Hkv} "
+                     f"local heads of {hd}, a {n}-slot block (data 2), f32, "
+                     f"with lse", route="cuda", source=FLASH_SRC,
+                replaces=FLASH_TPU,
+                launches=sum(c["flash_attention_decode"] for c in counts),
+                max_abs_err=max(max(c["lse_err"], c["o_abs"]) for c in chk),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+    m = ops_["merge"]
+    O, L, dt = m["o_parts"], m["lse_parts"], m["dtype"]
+    R = O.shape[0]
+    esz = torch.empty((), dtype=dt).element_size()
+    mb, mby = bound_ms(R * B * Hq * (hd + 1) * 4 + B * Hq * hd * esz,
+                       3.0 * R * B * Hq * hd, PEAK_FP32_S)
+    merge = dict(name=f"decode_merge multirank {run}: R={R}, B={B}, {Hq} "
+                      f"local heads of {hd}, f32", route="cuda",
+                 source=FLASH_SRC, replaces=FLASH_TPU,
+                 launches=sum(c["decode_merge"] for c in counts),
+                 max_abs_err=max(c["merge_abs"] for c in chk),
+                 ms=time_graph_ms(torch, lambda: FA.decode_merge(O, L, dt),
+                                  dev),
+                 plain_ms=time_ms(torch, lambda: FA.decode_merge_plain(
+                     O, L, dt), dev, iters=5, warmup=1),
+                 bound_ms=mb, bound_by=mby, library_ms=None)
+    log(f"[multirank] {run}: decode with lse on a {n}-slot block, "
+        f"{Hq}/{Hkv} heads of {hd}, {keys} live keys: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, SDPA "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bms:.5f} "
+        f"by {by}), {body['launches']} launches; merge R={R}: "
+        f"{merge['ms']:.4f} ms (plain {merge['plain_ms']:.4f}, bound "
+        f"{mb:.5f} by {mby}), {merge['launches']} launches")
+    return body, merge
+
+
 def port_kernels() -> set:
     """The names of the kernels in the port's CUDA sources and headers."""
     import re
@@ -5783,11 +6634,17 @@ def main() -> int:
                          "long_mode, generate_frontends, "
                          "kv_int8_generation, card_vs_cpu, serve_loop, "
                          "train_kernels, train, sharding, "
-                         "train_card_vs_cpu, examples; generate_frontends "
+                         "train_card_vs_cpu, examples, ctx_decode, "
+                         "multirank; generate_frontends "
                          "needs frontend_kernels, kv_int8_generation "
-                         "kv_int8_kernels, train train_kernels); prints "
-                         "no result, exits 4")
+                         "kv_int8_kernels, train train_kernels); prints no "
+                         "result, exits 4")
+    ap.add_argument("--multirank-rank", nargs=2, metavar=("RANK", "DIR"),
+                    default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.multirank_rank is not None:        # one rank of multirank
+        return multirank_worker(int(args.multirank_rank[0]),
+                                args.multirank_rank[1], args.rehearse)
     try:
         import torch
         import repro_torch                                  # noqa: F401
@@ -5877,6 +6734,8 @@ def main() -> int:
         "train_card_vs_cpu": lambda: train_card_vs_cpu_phase(torch, dev,
                                                              small),
         "examples": lambda: examples_phase(torch, dev, small),
+        "ctx_decode": lambda: ctx_decode_phase(torch, dev, small, kernels),
+        "multirank": lambda: multirank_phase(torch, dev, small, kernels),
     }
     only = args.only.split(",") if args.only else list(phases)
     unknown = set(only) - set(phases)

@@ -31,7 +31,8 @@ from repro_torch.analysis.findings import Finding
 
 PLAIN_ALIASES = {"flash_decode_q8": "decode_q8_plain"}
 ORACLE_ALIASES = {"flash_attention": "mha_attention",
-                  "flash_decode": "mha_attention"}
+                  "flash_decode": "mha_attention",
+                  "decode_merge": "mha_attention"}
 _TAGS = re.compile(r"(_bwd|_q\d+)+$")
 
 

@@ -18,7 +18,9 @@
 // never stored.  The decode launch also takes a window that ends at each
 // sequence's live count (kv_valid[b] - local <= ik < kv_valid[b]): the
 // local layers of gemma2-2b, whose cache is full length and whose
-// sequences sit at different positions.
+// sequences sit at different positions -- and a per-row first live slot
+// (kv_first[b] <= ik): one rank's block of a cache sharded by length,
+// whose live range may start inside the block or past its end.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //  * prefill, llama3.2-1b at B=16, L=512, 32/8 heads of 64, bf16,
@@ -79,7 +81,12 @@
 //    288).  A chunk wholly below a window is a chunk with no live
 //    key.  decode_combine_kernel, one block per (batch, query head),
 //    merges the splits in split order: no atomics, the same bits on
-//    every run.
+//    every run.  Asked for the rows' log-sum-exp it writes it beside an
+//    f32 output: a partial over one rank's keys.  The same body merges
+//    R such partials (flash_decode_merge_launch), each (o, lse) read as
+//    one split, so a cache sharded by length over R ranks decodes as
+//    R local decodes, one gather of B * Hq * (hd + 1) floats a rank,
+//    and one merge.
 //  * decode against an int8 KV cache (flash_decode_q8_launch; the
 //    values are bf16(bf16(x) * bf16(scale)), the reference's): the bytes
 //    are half the bf16 cache's, but every value must be dequantized, and
@@ -124,9 +131,11 @@ __device__ __forceinline__ int live_keys(const int* kv_valid, int b,
 }
 
 // The prefill mask; `local` is the decode launch's window anchored at
-// the live count (only Lq = 1 takes it: see the decode kernels' `lo`).
+// the live count and `first` (B,) its per-row first live slot (only
+// Lq = 1 takes them: see the decode kernels' `lo`).
 struct Mask {
   int lq, lk, causal, window, local;
+  const int* first;
   __device__ __forceinline__ bool ok(int iq, int ik, int live) const {
     if (iq >= lq || ik >= lk || ik >= live) return false;
     if (causal) {
@@ -975,6 +984,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     hi = min(hi, mk.lk);
     if (mk.window) lo = max(lo, mk.lk - mk.window);
   }
+  if (mk.first != nullptr) lo = max(lo, mk.first[b]);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
   if (lo >= hi) {                       // no live key: an empty partial
@@ -1335,7 +1345,8 @@ struct DecMma {
 //    landed, and it dequantizes the landed stage into its own rows of
 //    the tiles (q8_dequant), then runs the same products.
 // The decode launch's window that ends at the live count (mk.local,
-// gemma2's local layers) and the causal window both set the first key.
+// gemma2's local layers), the causal window and the per-row first live
+// slot (mk.first, a cache block of one rank) all set the first key.
 template <int HD, bool Q8>
 __global__ void __launch_bounds__(128)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1368,6 +1379,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
   if (mk.local) lo = hi - mk.local;     // the window ends at the live count
   if (mk.causal && mk.window) lo = max(lo, mk.lk - mk.window);
+  if (mk.first != nullptr) lo = max(lo, mk.first[b]);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
   if (lo >= hi) {                         // no live key: an empty partial
@@ -1611,6 +1623,7 @@ decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
   int lo = 0, hi = live_keys(kv_valid, b, mk.lk);
   if (mk.local) lo = hi - mk.local;     // the window ends at the live count
   if (mk.causal && mk.window) lo = max(lo, mk.lk - mk.window);
+  if (mk.first != nullptr) lo = max(lo, mk.first[b]);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
   if (lo >= hi) {                         // no live key: an empty partial
@@ -1761,28 +1774,58 @@ decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// One block per (batch, query head): the n_split partials merged in
-// split order; a split with m = -inf holds no live key and is skipped.
-template <typename T, int HD>
+// One block per (batch, query head): n partials (acc, m, l) merged in
+// part order; a part with m = -inf holds no live key and is skipped.
+// The parts are either
+//  * FROM_LSE false, the n_split splits of one decode launch: acc at
+//    part[(bh n + s) hd], (m, l) at ml[2 (bh n + s)], m in the log2
+//    domain;
+//  * FROM_LSE true, R ranks' finished (o, lse) (decode_merge): o (R, BH,
+//    hd) f32 as acc, lse (R, BH) as m in the natural domain with l = 1,
+//    since o = acc / l and lse = m + log l; lse = +inf marks a part with
+//    no live key.  A part's weight is exp(lse - max lse), the difference
+//    taken before the scale to log2, so the only rounding in a weight
+//    beyond the lse's own is that of one product.
+// No atomics: the same bits on every run.  lse_out (optional): the
+// merged rows' log-sum-exp, (M + log2 L) ln 2, and +inf for a row with
+// no live key, as flash_attention_plain(return_lse=True) gives it (the
+// merge skips such a part).  TO is the output's type.
+template <typename TO, int HD, bool FROM_LSE>
 __global__ void __launch_bounds__(HD)
 decode_combine_kernel(const float* __restrict__ part,
-                      const float* __restrict__ ml, T* __restrict__ out,
-                      int Hq, int n_split, Strides os, int hd) {
+                      const float* __restrict__ ml, TO* __restrict__ out,
+                      int Hq, int n, Strides os, int hd,
+                      float* __restrict__ lse_out, int BH) {
   if constexpr (!PAD<HD>) hd = HD;
   const int bh = blockIdx.x, b = bh / Hq, h = bh - b * Hq;
   const int d = threadIdx.x;
-  const float* mp = ml + 2LL * bh * n_split;
+  constexpr float MUL = FROM_LSE ? LOG2E : 1.f;   // m's domain to log2
+  auto at = [&](int s) -> long long {
+    return FROM_LSE ? (long long)s * BH + bh : (long long)bh * n + s;
+  };
+  auto m_of = [&](int s) -> float {
+    if constexpr (FROM_LSE) {
+      const float x = ml[at(s)];
+      return x == CUDART_INF_F ? -CUDART_INF_F : x;
+    } else {
+      return ml[2 * at(s)];
+    }
+  };
   float M = -CUDART_INF_F;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, mp[2 * s]);
+  for (int s = 0; s < n; ++s) M = fmaxf(M, m_of(s));
   float L = 0.f, A = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float m = mp[2 * s];
+  for (int s = 0; s < n; ++s) {
+    const float m = m_of(s);
     if (m == -CUDART_INF_F) continue;
-    const float f = ex2(m - M);
-    L += mp[2 * s + 1] * f;
-    A += part[((long long)bh * n_split + s) * hd + d] * f;
+    const float f = ex2((m - M) * MUL);
+    L += (FROM_LSE ? 1.f : ml[2 * at(s) + 1]) * f;
+    A += part[at(s) * hd + d] * f;
   }
   store(out + b * os.b + h * os.h + d, L > 0.f ? A / L : 0.f);
+  if (lse_out != nullptr && d == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    lse_out[bh] = L > 0.f ? (M * MUL + log2f(L)) * LN2 : CUDART_INF_F;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1819,9 +1862,9 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                  const float* __restrict__ vsc,
                  const int* __restrict__ kv_valid, float* __restrict__ part,
                  float* __restrict__ ml, int G, int lk, int local,
-                 Strides qs, Strides ks, Strides vs, Strides kss,
-                 Strides vss, float scale, float softcap, int chunk,
-                 int hd) {
+                 const int* __restrict__ first, Strides qs, Strides ks,
+                 Strides vs, Strides kss, Strides vss, float scale,
+                 float softcap, int chunk, int hd) {
   using C = DecQ8<HD>;
   if constexpr (!PAD<HD>) hd = HD;
   constexpr int TK = C::TK, LPR = C::LPR, KPW = C::KPW, CH = C::CH;
@@ -1844,6 +1887,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 
   int lo = 0, hi = live_keys(kv_valid, b, lk);
   if (local) lo = hi - local;           // the window ends at the live count
+  if (first != nullptr) lo = max(lo, first[b]);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
   if (lo >= hi) {                       // no live key: an empty partial
@@ -2136,6 +2180,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The decode's merge of its n_split partials: into `out` in T, or, with
+// `lse`, into an f32 `out` beside the rows' log-sum-exp (a partial over
+// one rank's block of the cache, for flash_decode_merge_launch).
+template <typename T, int HD>
+cudaError_t launch_combine(const float* scratch, const float* ml, void* out,
+                           int B, int Hq, int n_split, Strides os, int hd,
+                           float* lse, cudaStream_t s) {
+  if (lse != nullptr)
+    decode_combine_kernel<float, HD, false><<<B * Hq, hd, 0, s>>>(
+        scratch, ml, static_cast<float*>(out), Hq, n_split, os, hd, lse,
+        B * Hq);
+  else
+    decode_combine_kernel<T, HD, false><<<B * Hq, hd, 0, s>>>(
+        scratch, ml, static_cast<T*>(out), Hq, n_split, os, hd, nullptr,
+        B * Hq);
+  return cudaGetLastError();
+}
+
 // HD is the capacity the head dim `hd` runs in (120 runs in 128).
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -2178,9 +2240,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    decode_combine_kernel<T, HD><<<B * Hq, hd, 0, s>>>(scratch, ml, op, Hq,
-                                                       n_split, os, hd);
-    return cudaGetLastError();
+    return launch_combine<T, HD>(scratch, ml, out, B, Hq, n_split, os, hd,
+                                 lse, s);
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
     if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
@@ -2235,10 +2296,11 @@ template <typename T, int HD>
 cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
                       const float* ksc, const float* vsc,
                       const int* kv_valid, void* out, float* scratch, int B,
-                      int Hq, int Hkv, int Lk, int local, Strides qs,
-                      Strides ks, Strides vs, Strides kss, Strides vss,
-                      Strides os, float scale, float softcap, int n_split,
-                      int chunk, int hd, int body, cudaStream_t s) {
+                      int Hq, int Hkv, int Lk, int local, const int* first,
+                      Strides qs, Strides ks, Strides vs, Strides kss,
+                      Strides vss, Strides os, float scale, float softcap,
+                      int n_split, int chunk, int hd, int body, float* lse,
+                      cudaStream_t s) {
   // 8-byte copies of every int8 row; the splits cover all Lk keys
   const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
   for (long long x : st)
@@ -2255,7 +2317,7 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
       if (G > 16 || reinterpret_cast<uintptr_t>(q) % 4 || qs.b % 2 ||
           qs.h % 2)
         return cudaErrorInvalidValue;     // q read as bf16 pairs
-      const Mask mk{1, Lk, 0, 0, local};
+      const Mask mk{1, Lk, 0, 0, local, first};
       const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
       const dim3 grid(n_split, Hkv, B);
       if constexpr (HD == 288) {
@@ -2284,17 +2346,16 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
     const int ngrp = (G + DecQ8<HD>::GB - 1) / DecQ8<HD>::GB;
     decode_q8_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B), DEC_THREADS, 0,
                               s>>>(static_cast<const T*>(q), k, v, ksc, vsc,
-                                   kv_valid, scratch, ml, G, Lk, local, qs,
-                                   ks, vs, kss, vss, scale, softcap, chunk,
-                                   hd);
+                                   kv_valid, scratch, ml, G, Lk, local,
+                                   first, qs, ks, vs, kss, vss, scale,
+                                   softcap, chunk, hd);
   } else {
     return cudaErrorInvalidValue;
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T, HD><<<B * Hq, hd, 0, s>>>(
-      scratch, ml, static_cast<T*>(out), Hq, n_split, os, hd);
-  return cudaGetLastError();
+  return launch_combine<T, HD>(scratch, ml, out, B, Hq, n_split, os, hd, lse,
+                               s);
 }
 
 template <typename T>
@@ -2302,13 +2363,14 @@ cudaError_t dispatch_q8(int hd, const void* q, const int8_t* k,
                         const int8_t* v, const float* ksc, const float* vsc,
                         const int* kv_valid, void* out, float* scratch,
                         int B, int Hq, int Hkv, int Lk, int local,
-                        Strides qs, Strides ks, Strides vs, Strides kss,
-                        Strides vss, Strides os, float scale, float softcap,
-                        int n_split, int chunk, int body, cudaStream_t s) {
+                        const int* first, Strides qs, Strides ks, Strides vs,
+                        Strides kss, Strides vss, Strides os, float scale,
+                        float softcap, int n_split, int chunk, int body,
+                        float* lse, cudaStream_t s) {
 #define Q8_LAUNCH(CAP)                                                      \
   launch_q8<T, CAP>(q, k, v, ksc, vsc, kv_valid, out, scratch, B, Hq, Hkv, \
-                    Lk, local, qs, ks, vs, kss, vss, os, scale, softcap,   \
-                    n_split, chunk, hd, body, s)
+                    Lk, local, first, qs, ks, vs, kss, vss, os, scale,     \
+                    softcap, n_split, chunk, hd, body, lse, s)
   switch (hd) {
     case 32:
       return Q8_LAUNCH(32);
@@ -2325,6 +2387,36 @@ cudaError_t dispatch_q8(int hd, const void* q, const int8_t* k,
 #undef Q8_LAUNCH
 }
 
+// decode_merge: R ranks' (o, lse) through the combine body, one block
+// per (batch, query head) of BH.
+template <typename T>
+cudaError_t launch_merge(const float* o, const float* lse, void* out, int R,
+                         int BH, int Hq, int hd, Strides os, cudaStream_t s) {
+  T* op = static_cast<T*>(out);
+  switch (hd) {
+    case 32:
+      decode_combine_kernel<T, 32, true><<<BH, hd, 0, s>>>(
+          o, lse, op, Hq, R, os, hd, nullptr, BH);
+      break;
+    case 64:
+      decode_combine_kernel<T, 64, true><<<BH, hd, 0, s>>>(
+          o, lse, op, Hq, R, os, hd, nullptr, BH);
+      break;
+    case 120:                             // h2o-danube-3-4b, in 128
+    case 128:
+      decode_combine_kernel<T, 128, true><<<BH, hd, 0, s>>>(
+          o, lse, op, Hq, R, os, hd, nullptr, BH);
+      break;
+    case 288:                             // gemma2-2b
+      decode_combine_kernel<T, 288, true><<<BH, hd, 0, s>>>(
+          o, lse, op, Hq, R, os, hd, nullptr, BH);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
@@ -2333,20 +2425,25 @@ cudaError_t dispatch_q8(int hd, const void* q, const int8_t* k,
 // n_split chunks of `chunk` keys covering Lk; prefill ignores the three.
 // local_window > 0 (decode only) keeps the keys kv_valid[b] - local_window
 // <= ik < kv_valid[b]: a window that ends at each sequence's own live
-// count, where causal/window end it at Lk.
+// count, where causal/window end it at Lk.  kv_first (decode only, (B,)
+// int32 or null) keeps the keys ik >= kv_first[b] besides: a rank's block
+// of a cache sharded by length, whose live range starts inside it or past
+// it.  lse (B, Hq, Lq) f32 or null: the rows' log-sum-exp; in the decode
+// shape the output is then f32 (a partial for flash_decode_merge_launch).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_valid,
     void* out, int dtype, int B, int Hq, int Hkv, int Lq, int Lk, int hd,
     long long qsb, long long qsh, long long qsl, long long ksb,
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, float scale,
-    int causal, int window, float softcap, int local_window, void* scratch,
-    int n_split, int chunk, float* lse, void* stream) {
+    int causal, int window, float softcap, int local_window,
+    const int* kv_first, void* scratch, int n_split, int chunk, float* lse,
+    void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0 ||
-      (local_window && Lq != 1) || (lse != nullptr && Lq == 1))
+      ((local_window || kv_first != nullptr) && Lq != 1))
     return cudaErrorInvalidValue;
-  const Mask mk{Lq, Lk, causal, window, local_window};
+  const Mask mk{Lq, Lk, causal, window, local_window, kv_first};
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
       os{osb, osh, osl};
   float* sc = static_cast<float*>(scratch);
@@ -2366,11 +2463,12 @@ extern "C" int flash_attention_launch(
 // (0 = float32, 1 = bfloat16); k / v (B, Hkv, Lk, hd) int8 and their
 // scales k_scale / v_scale (B, Hkv, Lk, 1) float32, all through their
 // (batch, head, position) strides in elements (int8 rows 8-byte
-// aligned); the output in q's dtype.  kv_valid and local_window as the
-// decode shape of flash_attention_launch; scratch holds B * Hq *
-// n_split * (hd + 2) floats.  `body` (0 CUDA cores, 1 tensor cores) is
-// the caller's choice (flash_attention.q8_body); one that does not take
-// the operands returns cudaErrorInvalidValue.
+// aligned); the output in q's dtype.  kv_valid, local_window, kv_first
+// and lse as the decode shape of flash_attention_launch (with lse the
+// output is f32); scratch holds B * Hq * n_split * (hd + 2) floats.
+// `body` (0 CUDA cores, 1 tensor cores) is the caller's choice
+// (flash_attention.q8_body); one that does not take the operands
+// returns cudaErrorInvalidValue.
 extern "C" int flash_decode_q8_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const int* kv_valid, void* out, int dtype, int B,
@@ -2379,8 +2477,9 @@ extern "C" int flash_decode_q8_launch(
     long long vsb, long long vsh, long long vsl, long long kssb,
     long long kssh, long long kssl, long long vssb, long long vssh,
     long long vssl, long long osb, long long osh, long long osl,
-    float scale, float softcap, int local_window, void* scratch,
-    int n_split, int chunk, int body, void* stream) {
+    float scale, float softcap, int local_window, const int* kv_first,
+    void* scratch, int n_split, int chunk, int body, float* lse,
+    void* stream) {
   if (B <= 0 || Hq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0)
     return cudaErrorInvalidValue;
@@ -2394,14 +2493,37 @@ extern "C" int flash_decode_q8_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_q8<float>(hd, q, kp, vp, ksp, vsp, kv_valid, out, sc, B,
-                              Hq, Hkv, Lk, local_window, qs, ks, vs, kss, vss,
-                              os, scale, softcap, n_split, chunk, body, s);
+                              Hq, Hkv, Lk, local_window, kv_first, qs, ks, vs,
+                              kss, vss, os, scale, softcap, n_split, chunk,
+                              body, lse, s);
   if (dtype == 1)
     return dispatch_q8<__nv_bfloat16>(hd, q, kp, vp, ksp, vsp, kv_valid, out,
-                                      sc, B, Hq, Hkv, Lk, local_window, qs,
-                                      ks, vs, kss, vss, os, scale, softcap,
-                                      n_split, chunk, body, s);
+                                      sc, B, Hq, Hkv, Lk, local_window,
+                                      kv_first, qs, ks, vs, kss, vss, os,
+                                      scale, softcap, n_split, chunk, body,
+                                      lse, s);
   return cudaErrorInvalidValue;
+}
+
+// R ranks' decode partials merged (decode_merge): o_parts (R, B, Hq, hd)
+// and lse_parts (R, B, Hq), both f32 and contiguous, each rank's o over
+// its own keys and their log-sum-exp (+inf: no live key), merged in rank
+// order by decode_combine_kernel; the output in `dtype` (0 = float32, 1 =
+// bfloat16) through its (batch, head) strides in elements.
+extern "C" int flash_decode_merge_launch(const float* o_parts,
+                                         const float* lse_parts, void* out,
+                                         int dtype, int R, int B, int Hq,
+                                         int hd, long long osb,
+                                         long long osh, void* stream) {
+  if (B <= 0 || Hq <= 0) return cudaSuccess;
+  if (R < 1 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  const Strides os{osb, osh, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_merge<float>(o_parts, lse_parts, out, R, B * Hq, Hq, hd,
+                               os, s);
+  return launch_merge<__nv_bfloat16>(o_parts, lse_parts, out, R, B * Hq, Hq,
+                                     hd, os, s);
 }
 
 // The backward (flash_attention_bwd.cuh): q, k, v, the forward's output o

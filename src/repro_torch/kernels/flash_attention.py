@@ -15,9 +15,11 @@ shape (Lq == 1) also takes ``local_window`` W: only the keys
 ``kv_valid[b] - W <= ik < kv_valid[b]`` are live, a window that ends
 at each sequence's own position (gemma2's local layers, whose cache is
 full length), where ``causal``/``window`` end it at Lk for the whole
-batch.  Head dims 32, 64, 120, 128 and 288: 120 (h2o-danube-3-4b)
-runs in the 128 instantiations with zero columns past it, 288
-(gemma2-2b) has its own.
+batch; and ``kv_first`` (B,) int32, each row's first live slot
+(``ik >= kv_first[b]``): one rank's block of a cache sharded by length,
+whose live range may start inside the block or past it.  Head dims 32,
+64, 120, 128 and 288: 120 (h2o-danube-3-4b) runs in the 128
+instantiations with zero columns past it, 288 (gemma2-2b) has its own.
 
 An int8 KV cache decodes through ``flash_decode_q8``: int8 K/V (B,
 Hkv, Lk, hd) with f32 per-(slot, head) scales (B, Hkv, Lk, 1), each
@@ -33,10 +35,16 @@ version.  The decode shape (Lq == 1) splits the cache into chunks
 chosen by ``decode_splits`` from the shapes alone; ``decode_split_plain``
 is its split-and-merge arithmetic in plain PyTorch.
 
+The decode shape with ``return_lse`` gives a partial: (o in f32, the
+rows' log-sum-exp), the same launch writing both (the combine's lse
+output).  ``decode_merge`` merges R such partials -- the ranks' blocks
+of a cache sharded by length -- in rank order, through the same
+combine body (``decode_merge_plain`` is its plain version).
+
 The backward (``flash_attention_bwd``, plain version
 ``flash_attention_bwd_plain``) takes the forward's output and its
-per-row log-sum-exp, which the forward returns with ``return_lse``
-(the prefill shapes only), and recomputes the probabilities from them:
+per-row log-sum-exp, which the forward returns with ``return_lse``,
+and recomputes the probabilities from them:
 FlashAttention-2's form, three launches (delta, dK/dV, dQ) on the card,
 through the body ``bwd_body`` names: ``"wgmma"`` (TMA rings and wgmma)
 for bf16 at head dims 64, 120 and 128 with q, k, v and do on 16 bytes,
@@ -63,11 +71,15 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p], "flash_decode_q8_launch": [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "flash_decode_q8_launch": [
     ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 18 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p],
+    "flash_decode_merge_launch": [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
     "flash_attention_bwd_launch": [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -78,7 +90,8 @@ WGMMA_BWD_HEAD_DIMS = (64, 120, 128)
 
 
 def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
-               window: int, device, local_window: int = 0) -> torch.Tensor:
+               window: int, device, local_window: int = 0,
+               kv_first=None) -> torch.Tensor:
     """(B, 1, 1, Lq, Lk) bool: the keys each query row may see."""
     iq = torch.arange(Lq, device=device)[:, None]
     ik = torch.arange(Lk, device=device)[None, :]
@@ -95,6 +108,8 @@ def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
         ok = ok & (ik[None] < live)
         if local_window:
             ok = ok & (ik[None] >= live - local_window)
+    if kv_first is not None:
+        ok = ok & (ik[None] >= kv_first.to(device).reshape(B, 1, 1))
     return ok[:, None, None]
 
 
@@ -104,7 +119,8 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
     return t.double() if t.dtype == torch.float64 else t.float()
 
 
-def _scores(q, k, kv_valid, causal, window, softcap, local_window=0):
+def _scores(q, k, kv_valid, causal, window, softcap, local_window=0,
+            kv_first=None):
     """Masked, softcapped scores (B, Hkv, G, Lq, Lk) in the working type,
     the mask, and tanh(s / softcap) (None without a softcap)."""
     B, Hq, Lq, hd = q.shape
@@ -116,20 +132,22 @@ def _scores(q, k, kv_valid, causal, window, softcap, local_window=0):
         th = torch.tanh(s / softcap)
         s = softcap * th
     ok = _live_mask(B, Lq, Lk, kv_valid, causal, window, q.device,
-                    local_window)
+                    local_window, kv_first)
     return torch.where(ok, s, NEG_INF), ok, th
 
 
 def flash_attention_plain(q, k, v, kv_valid=None, *, causal: bool = True,
                           window: int = 0, softcap: float = 0.0,
-                          local_window: int = 0, return_lse: bool = False):
+                          local_window: int = 0, return_lse: bool = False,
+                          kv_first=None):
     """Plain PyTorch version: masked f32 scores -> softmax -> values,
     the (m, l) guard of the kernel written out (no live key: 0).  With
     ``return_lse`` also the rows' log-sum-exp (B, Hq, Lq) f32 (+inf on a
-    row with no live key), what the backward reads."""
+    row with no live key), what the backward and ``decode_merge``
+    read."""
     B, Hq, Lq, hd = q.shape
     s, ok, _ = _scores(q, k, kv_valid, causal, window, softcap,
-                       local_window)
+                       local_window, kv_first)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m == NEG_INF, torch.zeros_like(m), m)
     p = torch.where(ok, torch.exp(s - m), 0.0)
@@ -238,7 +256,16 @@ def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
     return o.reshape(B, Hq, 1, hd).to(q.dtype)
 
 
-def _check(q, k, v, kv_valid):
+def _check_rows(name, t, B, dev):
+    """``kv_valid`` / ``kv_first``: None or a contiguous (B,) int32
+    tensor on ``dev``."""
+    if t is not None and (t.device != dev or t.dtype != torch.int32 or
+                          tuple(t.shape) != (B,) or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous ({B},) int32 tensor "
+                         f"on {dev}")
+
+
+def _check(q, k, v, kv_valid, kv_first=None):
     dev = q.device
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -266,24 +293,23 @@ def _check(q, k, v, kv_valid):
                        for s in t.stride()[:3]):
         raise ValueError(f"flash_attention decode: K/V strides "
                          f"{k.stride()} / {v.stride()} need 16-byte rows")
-    if kv_valid is not None and (
-            kv_valid.device != dev or kv_valid.dtype != torch.int32 or
-            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous()):
-        raise ValueError("flash_attention: kv_valid must be a contiguous "
-                         f"({B},) int32 tensor on {dev}")
+    _check_rows("flash_attention: kv_valid", kv_valid, B, dev)
+    _check_rows("flash_attention: kv_first", kv_first, B, dev)
 
 
 def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
-                local_window, return_lse):
+                local_window, return_lse, kv_first=None):
     """One forward through ``lib`` (the card's library, or any ctypes
     handle with its entry point) on checked operands: allocates the
     output as a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
-    tensor, the lse and the decode shape's split plan and f32 scratch on
-    q's device, and raises on a non-zero return.  Returns out, or (out,
-    lse) with ``return_lse``."""
+    tensor (f32 for the decode shape's partial, ``return_lse``), the lse
+    and the decode shape's split plan and f32 scratch on q's device, and
+    raises on a non-zero return.  Returns out, or (out, lse) with
+    ``return_lse``."""
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    out = torch.empty((B, Lq, Hq, hd), dtype=q.dtype,
+    odt = torch.float32 if return_lse and Lq == 1 else q.dtype
+    out = torch.empty((B, Lq, Hq, hd), dtype=odt,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
                       device=q.device) if return_lse else None
@@ -299,6 +325,7 @@ def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
         int(window), float(softcap), int(local_window),
+        None if kv_first is None else kv_first.data_ptr(),
         None if scratch is None else scratch.data_ptr(), n_split, chunk,
         None if lse is None else lse.data_ptr(), stream)
     build.check(err, "flash_attention")
@@ -307,35 +334,39 @@ def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
 
 def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
-                    local_window: int = 0, return_lse: bool = False):
-    """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid (B,) int32 or
-    None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the card the result
-    is a ``transpose(1, 2)`` view of a contiguous (B, Lq, Hq, hd)
-    tensor, the model's layout.  Lq == 1 launches the decode shape:
-    split-KV partials into f32 scratch, then their ordered merge; only
-    it takes ``local_window``.  ``return_lse`` (not the decode shape):
-    (out, the rows' log-sum-exp (B, Hq, Lq) f32), the same launch
-    writing both."""
+                    local_window: int = 0, return_lse: bool = False,
+                    kv_first=None):
+    """q (B, Hq, Lq, hd); k, v (B, Hkv, Lk, hd); kv_valid and kv_first
+    (B,) int32 or None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the
+    card the result is a ``transpose(1, 2)`` view of a contiguous (B,
+    Lq, Hq, hd) tensor, the model's layout.  Lq == 1 launches the decode
+    shape: split-KV partials into f32 scratch, then their ordered merge;
+    only it takes ``local_window`` and ``kv_first``.  ``return_lse``:
+    (out, the rows' log-sum-exp (B, Hq, Lq) f32, +inf where no key is
+    live), the same launch writing both; on the decode shape out is then
+    f32, a partial for ``decode_merge``."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: tensors must be on cuda or "
                          f"cpu, not {q.device}")
-    if local_window < 0 or (local_window and q.shape[2] != 1):
+    if local_window < 0 or ((local_window or kv_first is not None)
+                            and q.shape[2] != 1):
         raise ValueError(f"flash_attention: local_window {local_window} "
-                         "needs one query row (the decode shape)")
-    if return_lse and q.shape[2] == 1:
-        raise ValueError("flash_attention: the decode shape (Lq == 1) "
-                         "keeps no log-sum-exp")
+                         "and kv_first need one query row (the decode "
+                         "shape)")
     if q.device.type == "cpu":
+        if return_lse and q.shape[2] == 1:      # the partial: o in f32
+            q, k, v = _acc(q), _acc(k), _acc(v)
         return flash_attention_plain(q, k, v, kv_valid, causal=causal,
                                      window=window, softcap=softcap,
                                      local_window=local_window,
-                                     return_lse=return_lse)
-    _check(q, k, v, kv_valid)
+                                     return_lse=return_lse,
+                                     kv_first=kv_first)
+    _check(q, k, v, kv_valid, kv_first)
     lib = build.load("flash_attention", _SIG)
     with torch.cuda.device(q.device):
         res = _fwd_launch(lib, torch.cuda.current_stream(q.device).cuda_stream,
                           q, k, v, kv_valid, causal, window, softcap,
-                          local_window, return_lse)
+                          local_window, return_lse, kv_first)
     flash_attention.launches += 1
     if q.shape[2] == 1:
         flash_attention.decode_launches += 1
@@ -506,18 +537,22 @@ def dequantize_kv(x8, scale):
 
 
 def decode_q8_plain(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
-                    softcap: float = 0.0, local_window: int = 0):
+                    softcap: float = 0.0, local_window: int = 0,
+                    return_lse: bool = False, kv_first=None):
     """Plain version of ``flash_decode_q8``: the K/V dequantized as the
     reference does (``dequantize_kv``), then the plain decode
     (``flash_attention_plain``, no causal mask: one query row against
-    its ``kv_valid`` live keys)."""
-    return flash_attention_plain(q, dequantize_kv(k8, k_scale),
-                                 dequantize_kv(v8, v_scale), kv_valid,
-                                 causal=False, softcap=softcap,
-                                 local_window=local_window)
+    its ``kv_valid`` live keys from ``kv_first``).  ``return_lse``: the
+    partial (o in f32, lse), as ``flash_attention``'s decode shape."""
+    k, v = dequantize_kv(k8, k_scale), dequantize_kv(v8, v_scale)
+    if return_lse:
+        q, k, v = _acc(q), _acc(k), _acc(v)
+    return flash_attention_plain(q, k, v, kv_valid, causal=False,
+                                 softcap=softcap, local_window=local_window,
+                                 return_lse=return_lse, kv_first=kv_first)
 
 
-def _check_q8(q, k8, v8, k_scale, v_scale, kv_valid):
+def _check_q8(q, k8, v8, k_scale, v_scale, kv_valid, kv_first=None):
     dev = q.device
     B, Hq, Lq, hd = q.shape
     Hkv, Lk = k8.shape[1], k8.shape[2]
@@ -550,24 +585,25 @@ def _check_q8(q, k8, v8, k_scale, v_scale, kv_valid):
             k8.data_ptr() % 8 or v8.data_ptr() % 8:
         raise ValueError(f"flash_decode_q8: K/V strides {k8.stride()} / "
                          f"{v8.stride()} need 8-byte aligned rows")
-    if kv_valid is not None and (
-            kv_valid.device != dev or kv_valid.dtype != torch.int32 or
-            tuple(kv_valid.shape) != (B,) or not kv_valid.is_contiguous()):
-        raise ValueError("flash_decode_q8: kv_valid must be a contiguous "
-                         f"({B},) int32 tensor on {dev}")
+    _check_rows("flash_decode_q8: kv_valid", kv_valid, B, dev)
+    _check_rows("flash_decode_q8: kv_first", kv_first, B, dev)
 
 
 def _q8_launch(lib, stream, q, k8, v8, k_scale, v_scale, kv_valid, softcap,
-               local_window, body):
+               local_window, body, kv_first=None, return_lse=False):
     """One int8 decode through ``lib`` (the card's library, or any ctypes
     handle with its entry point) with ``body``, on checked operands:
     allocates the output as a ``transpose(1, 2)`` view of a contiguous
-    (B, 1, Hq, hd) tensor and the split plan's f32 scratch on q's device,
-    and raises on a non-zero return."""
+    (B, 1, Hq, hd) tensor (f32 with ``return_lse``, then the lse too)
+    and the split plan's f32 scratch on q's device, and raises on a
+    non-zero return."""
     B, Hq, _, hd = q.shape
     Hkv, Lk = k8.shape[1], k8.shape[2]
-    out = torch.empty((B, 1, Hq, hd), dtype=q.dtype,
+    out = torch.empty((B, 1, Hq, hd),
+                      dtype=torch.float32 if return_lse else q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((B, Hq, 1), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     n_split, chunk = q8_splits(B, Hkv, Lk, hd, body)
     scratch = torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
                           device=q.device)
@@ -578,21 +614,26 @@ def _q8_launch(lib, stream, q, k8, v8, k_scale, v_scale, kv_valid, softcap,
         *q.stride()[:3], *k8.stride()[:3], *v8.stride()[:3],
         *k_scale.stride()[:3], *v_scale.stride()[:3], *out.stride()[:3],
         1.0 / math.sqrt(hd), float(softcap), int(local_window),
-        scratch.data_ptr(), n_split, chunk, Q8_BODIES.index(body), stream)
+        None if kv_first is None else kv_first.data_ptr(),
+        scratch.data_ptr(), n_split, chunk, Q8_BODIES.index(body),
+        None if lse is None else lse.data_ptr(), stream)
     build.check(err, f"flash_decode_q8 ({body} body)")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
-                    softcap: float = 0.0, local_window: int = 0):
+                    softcap: float = 0.0, local_window: int = 0,
+                    return_lse: bool = False, kv_first=None):
     """One query row against an int8 KV cache: q (B, Hq, 1, hd) f32 or
     bf16; k8 / v8 (B, Hkv, Lk, hd) int8 and k_scale / v_scale (B, Hkv,
     Lk, 1) f32, possibly strided views of the model's cache; kv_valid
-    (B,) int32 or None; ``local_window`` as ``flash_attention``'s.
-    Returns (B, Hq, 1, hd) in q's dtype (on the card a ``transpose(1,
-    2)`` view of a contiguous (B, 1, Hq, hd) tensor).  CPU tensors take
-    ``decode_q8_plain``; CUDA tensors launch the body ``q8_body`` names
-    (or raise), counted in ``launches_by_body``."""
+    and kv_first (B,) int32 or None; ``local_window``, ``kv_first`` and
+    ``return_lse`` as ``flash_attention``'s decode shape.  Returns (B,
+    Hq, 1, hd) in q's dtype (on the card a ``transpose(1, 2)`` view of a
+    contiguous (B, 1, Hq, hd) tensor), or the partial (o f32, lse (B,
+    Hq, 1) f32).  CPU tensors take ``decode_q8_plain``; CUDA tensors
+    launch the body ``q8_body`` names (or raise), counted in
+    ``launches_by_body``."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_decode_q8: tensors must be on cuda or "
                          f"cpu, not {q.device}")
@@ -600,14 +641,15 @@ def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
         raise ValueError(f"flash_decode_q8: local_window {local_window}")
     if q.device.type == "cpu":
         return decode_q8_plain(q, k8, v8, k_scale, v_scale, kv_valid,
-                               softcap=softcap, local_window=local_window)
-    _check_q8(q, k8, v8, k_scale, v_scale, kv_valid)
+                               softcap=softcap, local_window=local_window,
+                               return_lse=return_lse, kv_first=kv_first)
+    _check_q8(q, k8, v8, k_scale, v_scale, kv_valid, kv_first)
     body = q8_body(q, k8)
     lib = build.load("flash_attention", _SIG)
     with torch.cuda.device(q.device):
         out = _q8_launch(lib, torch.cuda.current_stream(q.device).cuda_stream,
                          q, k8, v8, k_scale, v_scale, kv_valid, softcap,
-                         local_window, body)
+                         local_window, body, kv_first, return_lse)
     flash_decode_q8.launches += 1
     flash_decode_q8.launches_by_body[body] += 1
     return out
@@ -616,3 +658,85 @@ def flash_decode_q8(q, k8, v8, k_scale, v_scale, kv_valid=None, *,
 # launches on the card, and by body
 flash_decode_q8.launches = 0
 flash_decode_q8.launches_by_body = dict.fromkeys(Q8_BODIES, 0)
+
+
+# ----------------------------------------------------------------------
+# the merge of a decode's partials across ranks
+# ----------------------------------------------------------------------
+
+def decode_merge_plain(o_parts, lse_parts, dtype=torch.float32):
+    """Plain version of ``decode_merge``, the combine's arithmetic: each
+    part (o, lse) read as a split with acc = o and l = 1, weighted by
+    exp2((lse - max lse) log2(e)), merged in part order; a part with lse
+    = +inf (no live key) is skipped, and a row with none live gives 0."""
+    m = torch.where(lse_parts == float("inf"), NEG_INF, lse_parts.float())
+    M = m.amax(dim=0)
+    M = torch.where(M == NEG_INF, torch.zeros_like(M), M)
+    L = torch.zeros_like(M)
+    A = torch.zeros(o_parts.shape[1:], dtype=torch.float32,
+                    device=o_parts.device)
+    for r in range(o_parts.shape[0]):             # part order
+        f = torch.where(m[r] == NEG_INF, torch.zeros_like(M),
+                        torch.exp2((m[r] - M) * LOG2E))
+        L = L + f
+        A = A + o_parts[r].float() * f[..., None]
+    o = torch.where(L[..., None] > 0, A / torch.where(L > 0, L, 1.0)[
+        ..., None], 0.0)
+    return o.to(dtype)
+
+
+def decode_merge(o_parts, lse_parts, dtype=torch.float32):
+    """R ranks' decode partials merged into one decode: o_parts (R, B,
+    Hq, 1, hd) f32 and lse_parts (R, B, Hq, 1) f32, rank r's
+    ``flash_attention``/``flash_decode_q8`` with ``return_lse`` over its
+    block of the cache's slots.  Returns (B, Hq, 1, hd) in ``dtype`` (on
+    the card a ``transpose(1, 2)`` view of a contiguous (B, 1, Hq, hd)
+    tensor): the decode over the union of the blocks.  On the card one
+    launch of the decode's combine body with each part as a split, in
+    rank order, no atomics: the same bits on every run; CPU tensors take
+    ``decode_merge_plain``."""
+    R = o_parts.shape[0]
+    if o_parts.ndim != 5 or o_parts.shape[3] != 1 or R < 1 or \
+            tuple(lse_parts.shape) != tuple(o_parts.shape[:4]):
+        raise ValueError(f"decode_merge: o_parts {tuple(o_parts.shape)} "
+                         f"and lse_parts {tuple(lse_parts.shape)} are not "
+                         "(R, B, Hq, 1, hd) and (R, B, Hq, 1)")
+    if o_parts.device.type == "cpu":
+        return decode_merge_plain(o_parts, lse_parts, dtype)
+    if o_parts.device.type != "cuda" or lse_parts.device != o_parts.device:
+        raise ValueError(f"decode_merge: tensors must be on cuda or cpu, "
+                         f"not {o_parts.device} / {lse_parts.device}")
+    if o_parts.dtype != torch.float32 or lse_parts.dtype != torch.float32 \
+            or dtype not in _DTYPE:
+        raise TypeError(f"decode_merge: f32 parts into f32 or bf16, got "
+                        f"{o_parts.dtype} / {lse_parts.dtype} into {dtype}")
+    _, B, Hq, _, hd = o_parts.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_merge takes head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    lib = build.load("flash_attention", _SIG)
+    with torch.cuda.device(o_parts.device):
+        out = _merge_launch(lib, torch.cuda.current_stream(
+            o_parts.device).cuda_stream, o_parts, lse_parts, dtype)
+    decode_merge.launches += 1
+    return out
+
+
+def _merge_launch(lib, stream, o_parts, lse_parts, dtype):
+    """One merge through ``lib`` (the card's library, or any ctypes handle
+    with its entry point): the parts made contiguous, the output
+    allocated as a ``transpose(1, 2)`` view of a contiguous (B, 1, Hq,
+    hd) tensor; raises on a non-zero return."""
+    R, B, Hq, _, hd = o_parts.shape
+    o_parts, lse_parts = o_parts.contiguous(), lse_parts.contiguous()
+    out = torch.empty((B, 1, Hq, hd), dtype=dtype,
+                      device=o_parts.device).transpose(1, 2)
+    err = lib.flash_decode_merge_launch(
+        o_parts.data_ptr(), lse_parts.data_ptr(), out.data_ptr(),
+        _DTYPE[dtype], R, B, Hq, hd, out.stride(0), out.stride(1), stream)
+    build.check(err, "decode_merge")
+    return out
+
+
+# launches on the card
+decode_merge.launches = 0

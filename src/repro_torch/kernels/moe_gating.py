@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.router_topk import topk_stable
+from repro_torch.kernels.router_topk import topk_stable  # noqa: F401
 
 MAX_EXPERTS = 1024                       # csrc/moe_gating.cu MAX_E
 SM_COUNT = 132                           # H100 SXM
@@ -97,8 +97,11 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 def moe_gating_plain(logits: torch.Tensor, k: int,
                      return_asum: bool = False, idx=None,
                      return_psum: bool = False):
-    """Plain PyTorch version: softmax, ``topk_stable`` (ties to the lower
-    index), renormalization and the aux loss, all in f32.  With
+    """Plain PyTorch version: softmax, the first k of a stable
+    descending sort (ties to the lower index, ``topk_stable``'s order; a
+    sort of E <= 1024 experts, whose shapes follow from the operands'
+    alone, as the dry run's fake tensors need), renormalization and the
+    aux loss, all in f32.  With
     ``return_asum`` also the assignment counts (E,), with
     ``return_psum`` then the probability sums (E,).  A given ``idx``
     (T, k) stands in for the top-k's choice: the rest is computed for
@@ -106,7 +109,8 @@ def moe_gating_plain(logits: torch.Tensor, k: int,
     T, E = logits.shape
     probs = torch.softmax(_acc(logits), dim=-1)
     if idx is None:
-        vals, idx = topk_stable(probs, k)
+        vals, idx = torch.sort(probs, dim=1, descending=True, stable=True)
+        vals, idx = vals[:, :k], idx[:, :k]
     else:
         idx = idx.long()
         vals = probs.gather(1, idx)

@@ -31,8 +31,13 @@ at the end (``flash_attention``, ``flash_decode``, ``ssd_scan``,
 ``moe_gating``) take tensors and run
 where those tensors live: on the card their kernels, on the CPU the
 plain versions; ``flash_decode`` given an int8 cache's scales reads
-the int8 K/V through ``flash_attention.flash_decode_q8``.  Where autograd
-records (grad enabled and an operand requiring a gradient),
+the int8 K/V through ``flash_attention.flash_decode_q8``.  On DTensor
+operands the model-zoo ops run their kernels on each rank's local
+blocks; a decode cache split by length (``cache_specs``' batch-1
+layout) is read in place, each rank's (o, lse) partial then merged
+across ranks by ``flash_attention.decode_merge`` (``_decode_by_length``).
+Where autograd records (grad enabled and an operand requiring a
+gradient),
 ``flash_attention`` (prefill shapes), ``ssd_scan`` and ``moe_gating``
 run as ``torch.autograd.Function``s whose backward is the kernel's
 backward (``flash_attention_bwd``, ``ssd_scan_bwd``, ``moe_gating_bwd``:
@@ -63,6 +68,7 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as _flash_bwd_kernel
+from repro_torch.kernels.flash_attention import decode_merge as _merge_kernel
 from repro_torch.kernels.flash_attention import \
     flash_decode_q8 as _flash_q8_kernel
 from repro_torch.kernels.moe_gating import moe_gating as _gate_kernel
@@ -834,11 +840,29 @@ def _dmesh(*ts):
     return None
 
 
-def _attention_sharded(mesh, q, kvs, kv_valid, call):
+def _head_blocks(mesh, Hq: int, Hkv: int):
+    """(h, kv_h, j): the axis that splits the query heads (``model``
+    where it divides Hq and the kv heads follow), the one that splits
+    the kv heads, and -- where the query heads split but the kv heads
+    do not -- the one kv head this rank's block of query heads reads
+    (else None)."""
+    G, M = Hq // Hkv, axis_size(mesh, "model")
+    hq = Hq // M
+    h = "model" if Hq % M == 0 and (Hkv % M == 0 or G % hq == 0) else None
+    kv_h = h if Hkv % M == 0 else None
+    j = mesh.get_local_rank("model") * hq // G if h and not kv_h else None
+    return h, kv_h, j
+
+
+def _attention_sharded(mesh, q, kvs, kv_valid, call, *, softcap=0.0,
+                       local_window: int = 0):
     """Attention on DTensor operands: ``call(q, kv_valid, *kvs)`` on each
     rank's block -- its batch rows over the data axes and its query
     heads over ``model``, each where it divides.  q (B, Lq, Hq, hd);
-    kvs (B, Lk, Hkv, .) (keys, values, an int8 cache's scales).
+    kvs (B, Lk, Hkv, .) (keys, values, an int8 cache's scales).  Keys
+    and values split by length (a batch-1 decode cache,
+    ``cache_specs``): ``_decode_by_length`` (one query row; ``softcap``
+    and ``local_window`` are the decode's).
 
     The kv heads shard with the query heads where ``model`` divides Hkv
     too.  Otherwise (GQA with fewer kv heads than ``model`` ranks) each
@@ -848,17 +872,15 @@ def _attention_sharded(mesh, q, kvs, kv_valid, call):
     query heads stay whole where it is not.  The kv gradients of such a
     call are partial sums over ``model``."""
     B, _, Hq, _ = q.shape
-    Hkv = kvs[0].shape[2]
-    G, M = Hq // Hkv, axis_size(mesh, "model")
+    if q.shape[1] == 1 and _place.is_dtensor(kvs[0]) and \
+            _place.axis_of(kvs[0], 1) is not None:
+        return _decode_by_length(mesh, q, kvs, kv_valid, softcap,
+                                 local_window)
     b = _place.fit(mesh, B, data_axes(mesh))
-    hq = Hq // M
-    h = "model" if Hq % M == 0 and (Hkv % M == 0 or G % hq == 0) else None
-    kv_h = h if Hkv % M == 0 else None
-    r = mesh.get_local_rank("model") if h and not kv_h else 0
+    h, kv_h, j = _head_blocks(mesh, Hq, kvs[0].shape[2])
 
     def local(q, kv_valid, *kvs):
-        if h and not kv_h:
-            j = r * hq // G
+        if j is not None:
             kvs = [t[:, :, j:j + 1] for t in kvs]
         return call(q, kv_valid, *kvs)
     q_spec = P(b, None, h, None)
@@ -866,6 +888,83 @@ def _attention_sharded(mesh, q, kvs, kv_valid, call):
         local, mesh, (q, kv_valid) + tuple(kvs),
         (q_spec, P(b)) + (P(b, None, kv_h, None),) * len(kvs),
         (_place.placements(q_spec, mesh),), split=_place.split_axes(b, h))
+
+
+def _decode_by_length(mesh, q, kvs, kv_valid, softcap, local_window):
+    """One query row against keys and values split by length -- the
+    batch-1 decode cache (slots over the data axes, kv heads over
+    ``model``), a batch-sharded cache whose slots ``model`` splits, or
+    seamless's cross K/V over its encoder frames -- without gathering
+    them.  q (B, 1, Hq, hd); kvs (B, C, Hkv, .); kv_valid (B,) the live
+    count min(pos + 1, C), or None (every slot live).
+
+    The rank holding slots [lo, lo + n) decodes against its own block
+    with the local live count ``clamp(kv_valid - lo, 0, n)`` and first
+    live slot ``clamp(kv_valid - W - lo, 0, n)`` for a local window W
+    (gemma2's local layers in a full cache; the slots pos - W < idx <=
+    pos), both formed on the device from ``kv_valid``: no host read, so
+    no decode step waits on the host.  A block wholly below the window
+    or past the live count holds no live key and gives an empty
+    partial.  A ring (a sliding-window layer, every layer in
+    ``long_mode``) and a row past the cache (llava) need nothing beyond
+    the clamp: every slot of a full ring is live, and the order of a
+    ring's slots does not matter to the softmax.
+
+    Each rank's (o, lse) partial -- o in f32, the kernel's ``return_lse``
+    -- goes through one all-gather over the length axes, B_local *
+    Hq_local * (hd + 1) floats a rank, then ``decode_merge`` in rank
+    (block) order, the same on every rank of the group.  The batch keeps
+    the cache's split, the query heads follow the kv heads over
+    ``model`` (``_head_blocks``) unless ``model`` splits the slots.
+    Returns (B, 1, Hq, hd) in q's dtype."""
+    B, _, Hq, _ = q.shape
+    C, Hkv = kvs[0].shape[1], kvs[0].shape[2]
+    b, ax = _place.axis_of(kvs[0], 0), _place.axis_of(kvs[0], 1)
+    n = C // axis_size(mesh, ax)
+    lo = _place.block_index(mesh, ax) * n
+    h, kv_h, j = (None, None, None) if "model" in _place.split_axes(ax) \
+        else _head_blocks(mesh, Hq, Hkv)
+    live = torch.full((B,), C, dtype=torch.int32, device=q.device) \
+        if kv_valid is None else kv_valid
+
+    def local(q, live, *kvs):
+        if j is not None:
+            kvs = [t[:, :, j:j + 1] for t in kvs]
+        first = (live - local_window - lo).clamp(0, n).to(torch.int32) \
+            if local_window else None
+        o, lse = _decode_partial(q, (live - lo).clamp(0, n).to(torch.int32),
+                                 first, *kvs, softcap=softcap)
+        return o.transpose(1, 2)[None], lse[None]
+    o_parts, lse_parts = _place.run_local(
+        local, mesh, (q, live) + tuple(kvs),
+        (P(b, None, h, None), P(b)) + (P(b, ax, kv_h, None),) * len(kvs),
+        (_place.placements(P(ax, b, h, None, None), mesh),
+         _place.placements(P(ax, b, h, None), mesh)))
+    o_parts = _place.constrain(o_parts, P(None, b, h, None, None))
+    lse_parts = _place.constrain(lse_parts, P(None, b, h, None))
+    return _place.run_local(
+        lambda o, lse: _merge_kernel(o, lse, q.dtype).transpose(1, 2), mesh,
+        (o_parts, lse_parts), (P(None, b, h, None, None),
+                               P(None, b, h, None)),
+        (_place.placements(P(b, None, h, None), mesh),))
+
+
+def _decode_partial(q, kv_valid, kv_first, k, v, k_scale=None, v_scale=None,
+                    *, softcap):
+    """One rank's decode partial over its block of the cache, layer
+    layout in and out: (o (B, 1, Hq, hd) f32, lse (B, Hq, 1) f32); an
+    int8 block comes with its scales."""
+    kw = dict(softcap=softcap, return_lse=True, kv_first=kv_first)
+    if k_scale is None:
+        o, lse = _flash_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), kv_valid, causal=False,
+                               **kw)
+    else:
+        o, lse = _flash_q8_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  k_scale.transpose(1, 2),
+                                  v_scale.transpose(1, 2), kv_valid, **kw)
+    return o.transpose(1, 2), lse
 
 
 def _records(*ts) -> bool:
@@ -913,7 +1012,8 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
             mesh, q, (k, v), kv_valid,
             lambda q, kv_valid, k, v: flash_attention(
                 q, k, v, kv_valid, causal=causal, window=window,
-                softcap=softcap, local_window=local_window))
+                softcap=softcap, local_window=local_window),
+            softcap=softcap, local_window=local_window)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _records(q, k, v):
         if q.shape[1] == 1 or local_window:
@@ -947,7 +1047,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
     the cache.
 
     An int8 cache comes with ``k_scale`` / ``v_scale`` (B, C, Hkv, 1)
-    f32 and goes to the int8-reading decode (``flash_decode_q8``).
+    f32 and goes to the int8-reading decode (``flash_decode_q8``).  A
+    DTensor cache split by length is read where it lies
+    (``_decode_by_length``).
 
     Returns (B, 1, Hq, hd)."""
     live = torch.clamp(pos + 1, max=k_cache.shape[1])
@@ -964,7 +1066,8 @@ def flash_decode(q, k_cache, v_cache, pos, *, local_window: int = 0,
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     ks.transpose(1, 2), vs.transpose(1, 2), kv_valid,
                     softcap=softcap,
-                    local_window=local_window).transpose(1, 2))
+                    local_window=local_window).transpose(1, 2),
+                softcap=softcap, local_window=local_window)
         out = _flash_q8_kernel(q.transpose(1, 2), k_cache.transpose(1, 2),
                                v_cache.transpose(1, 2),
                                k_scale.transpose(1, 2),

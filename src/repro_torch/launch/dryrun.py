@@ -7,7 +7,11 @@ analyses and the HLO's collective bytes.  The port has no HLO.  For
 each pair it builds the step's inputs on the ``meta`` device -- the
 parameters through ``init_params``, AdamW's state through
 ``init_opt_state``, the cache through ``init_cache``, the batch through
-``launch/shapes`` -- and reports, per pair:
+``launch/shapes`` -- and then runs the pair's step once on fake tensors
+(``trace_step``): the train step, the prefill step or the decode step
+(long_500k: the batch-1 cache sharded by length, with the reference's
+degraded config), on the inputs laid out as the bytes count them.
+Per pair it reports:
 
   * ``status``: ``ok``, ``n/a`` (``shapes.applicable``'s reason) or
     ``error`` (the traceback's tail); ``devices``: 1, or the mesh's
@@ -19,12 +23,30 @@ parameters through ``init_params``, AdamW's state through
   * ``n_params`` and ``n_active_params``;
   * ``flops`` of one step (the whole step, all devices) and their terms
     (``flop_terms``);
-  * ``collective_bytes``: null.  The reference reads them from the
-    compiled HLO; the port has no program to read them from, and
-    counting them through a fake-tensor run of the step under
-    ``CommDebugMode`` is queued (ROADMAP.md Queue 1 item 7);
+  * ``collective_bytes``: by kind (``all-gather``, ``all-reduce``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``,
+    ``broadcast``), the summed output bytes of every collective the
+    traced step issues on one rank -- the reference's convention; ``{}``
+    on one card;
+  * ``temp``: the traced step's peak of live bytes on one rank beyond
+    its inputs, less the gradients (counted in ``resident``):
+    activations, the autograd graph's saved tensors, the collectives'
+    buffers, the new parameters of a train step.  A kernel counts as
+    its outputs alone (its plain version's intermediates, which the
+    card's kernel never allocates, are not counted, nor is a kernel's
+    scratch).  It stands where the reference reports XLA's
+    ``temp_size_in_bytes`` but does not compare with it: the port runs
+    the step eagerly, without XLA's fusion, rematerialization and
+    buffer reuse.  What holds it: four gloo ranks' real train step
+    made and moved what its trace does, to the byte
+    (``tests/test_torch_sharded_steps.py``), and a real train step on
+    the card reaches 0.9-1.25x the traced peak in its allocator
+    (``chip_smoke.py``'s ``train``);
   * ``fits``: on the card, whether ``resident`` fits its
     ``total_memory``; null on ``device="meta"``.
+
+A pair whose traced step raises is ``error`` with the traceback's tail,
+never ``ok`` with nulls.
 
 The production mesh (``--production-mesh``: (16, 16), 256 devices;
 ``--multi-pod``: (2, 16, 16), 512) runs in one process under a fake
@@ -36,8 +58,15 @@ construction, warned about as the reference does and recorded into a
 lays the meta tensors out, so each byte count is one rank's local
 shards.
 
-Nothing here runs a step: meta tensors never reach a kernel wrapper.
-The FLOPs are counted from the config and the specs' shapes.
+The traced step (``trace_step``) runs under
+``torch._subclasses.FakeTensorMode``: its tensors are fake CPU tensors,
+which carry shapes and no data, so every kernel wrapper takes its plain
+branch for shapes only and no CUDA tensor ever reaches a plain version.
+A dispatch mode of this module (``StepMeter``) sits above it: it reads
+each collective's output shape (DTensor's redistributions desugar into
+``_c10d_functional`` ops before it sees them) and follows the storages
+the step makes, each freed when its last tensor dies.  The FLOPs are
+counted from the config and the specs' shapes.
 
 FLOP convention (what ``flops`` counts):
 
@@ -77,29 +106,36 @@ Results are cached as JSON under results/dryrun_torch/ (skip with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import pathlib
 import sys
+import time
 import traceback
+import warnings
+import weakref
 from typing import Dict, Optional
 
 import torch
-
-import contextlib
-import warnings
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.launch import shapes as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.sharding import place
 from repro_torch.sharding import rules as R
 from repro_torch.training.optimizer import init_opt_state, leaves
+from repro_torch.training.steps import (make_decode_step, make_prefill_step,
+                                        make_train_step)
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" / \
     "dryrun_torch"
@@ -259,6 +295,280 @@ def step_flops(cfg: ModelConfig, spec: Dict) -> Dict[str, int]:
 
 
 # ----------------------------------------------------------------------
+# the traced step: collective and temp bytes
+# ----------------------------------------------------------------------
+
+# (name fragment without underscores, the reference's HLO kind)
+_COLLECTIVES = (("allgather", "all-gather"), ("reducescatter",
+                                              "reduce-scatter"),
+                ("allreduce", "all-reduce"), ("alltoall", "all-to-all"),
+                ("broadcast", "broadcast"), ("send", "collective-permute"),
+                ("recv", "collective-permute"))
+_COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd", "c10d")
+# the kernel wrappers of kernels/ops: each counts as its outputs alone
+_KERNELS = ("_flash_kernel", "_flash_bwd_kernel", "_flash_q8_kernel",
+            "_merge_kernel", "_gate_kernel", "_gate_bwd_kernel",
+            "_ssd_kernel", "_ssd_bwd_kernel")
+
+
+def _storage(t) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _real_index_work(func, args, kwargs) -> bool:
+    """Whether an operation runs on real tensors, outside the fake mode:
+    one whose tensor operands are all real (the mesh's rank grid, and
+    what DTensor derives from the next case), or an ``arange`` that
+    DTensor's own code makes to learn a strided shard's indices, which
+    it then reads on the host (a fake tensor has no values to read).
+    Both are small index tensors."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    ts = [t for t in tree_leaves((args, kwargs))
+          if isinstance(t, torch.Tensor)]
+    if ts:
+        return not any(isinstance(t, FakeTensor) for t in ts)
+    if func._overloadpacket is not torch.ops.aten.arange:
+        return False
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if "/torch/distributed/tensor/" in name:
+            return True
+        if "/torch/" not in name:
+            return False
+        f = f.f_back
+    return False
+
+
+def _in_propagation() -> bool:
+    """Whether DTensor's sharding propagation is on the call stack."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith("_sharding_prop.py"):
+            return True
+        f = f.f_back
+    return False
+
+
+def _collective_kind(func) -> Optional[str]:
+    ns, _, name = func._schema.name.partition("::")
+    if ns not in _COLLECTIVE_NS or name == "wait_tensor":
+        return None
+    flat = name.replace("_", "")
+    for frag, kind in _COLLECTIVES:
+        if frag in flat:
+            return kind
+    return None
+
+
+class StepMeter(TorchDispatchMode):
+    """One rank's collective bytes and peak of live bytes over a step.
+
+    Above ``FakeTensorMode``: an operation on DTensors is handed back
+    (``NotImplemented``) so that DTensor runs it, and its local
+    operations and redistributions -- ``_c10d_functional`` collectives
+    -- come through here.  ``collective_bytes``: the output bytes of
+    each collective by kind.  ``peak``: the most bytes of storages that
+    the step made alive at once, a storage freed when its last tensor
+    dies; the storages of ``resident`` (the step's inputs) are not
+    counted, nor are those made while ``quiet`` (a kernel's plain
+    version: ``kernels_as_outputs``), nor the fake tensors of global
+    shapes on which DTensor's sharding propagation runs an operation
+    once more to learn its output's shape (no rank holds them).  It
+    also counts a step on real tensors; ``fake``: above a
+    ``FakeTensorMode``, whose index work it runs for real
+    (``_real_index_work``) and counts as a real step's."""
+
+    def __init__(self, resident=(), fake: bool = False):
+        super().__init__()
+        self.fake = fake
+        self.collective_bytes: Dict[str, int] = {}
+        self.live = self.peak = self.quiet = 0
+        self._skip = {_storage(t) for t in resident}
+        self._refs: Dict[int, list] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if self.quiet or isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if self.fake and _real_index_work(func, args, kwargs):
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            with unset_fake_temporarily():
+                out = func(*args, **(kwargs or {}))
+        else:
+            out = func(*args, **(kwargs or {}))
+        if _in_propagation():
+            return out
+        kind = _collective_kind(func)
+        if kind is not None:
+            n = sum(t.numel() * t.element_size() for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor))
+            self.collective_bytes[kind] = \
+                self.collective_bytes.get(kind, 0) + n
+        self.track(out)
+        return out
+
+    def track(self, out) -> None:
+        """Count the storages of the tensors of ``out`` the step made."""
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor) or \
+                    type(t).__name__ == "DTensor":
+                continue
+            key = _storage(t)
+            if key in self._skip:
+                continue
+            if key not in self._refs:
+                n = t.untyped_storage().nbytes()
+                self._refs[key] = [n, 0]
+                self.live += n
+                self.peak = max(self.peak, self.live)
+            self._refs[key][1] += 1
+            weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key: int) -> None:
+        ref = self._refs.get(key)
+        if ref is None:
+            return
+        ref[1] -= 1
+        if ref[1] == 0:
+            self.live -= ref[0]
+            del self._refs[key]
+
+
+def _sig(x):
+    """A call's operands by shape: tensors as (shape, stride, dtype)."""
+    if isinstance(x, torch.Tensor):
+        return ("T", tuple(x.shape), tuple(x.stride()), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_sig(v) for v in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _sig(v)) for k, v in x.items()))
+    return repr(x)
+
+
+@contextlib.contextmanager
+def kernels_as_outputs(meter: StepMeter):
+    """Within: each kernel wrapper of ``kernels/ops`` runs with ``meter``
+    quiet and then counts its outputs -- what the card's kernel
+    allocates, where the plain version it takes on fake CPU tensors
+    would add its intermediates (an attention's score matrix).  A call
+    on fake tensors whose operands have the shapes of an earlier one
+    (the next layer's) gets empty outputs of the shapes that call gave,
+    without running the plain version again: its outputs' shapes follow
+    from its operands' alone, and a plain scan on fake tensors costs
+    seconds.  A call on real tensors always runs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    saved = {n: getattr(ops, n) for n in _KERNELS}
+    seen: Dict = {}
+
+    def quiet(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            key = (name, _sig(args), _sig(kwargs))
+            if key in seen and isinstance(args[0], FakeTensor):
+                metas, spec = seen[key]
+                out = tree_unflatten([_empty(m) for m in metas], spec)
+            else:
+                meter.quiet += 1
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    meter.quiet -= 1
+                leaves_, spec = tree_flatten(out)
+                seen[key] = ([_meta(t) for t in leaves_], spec)
+            meter.track(out)
+            return out
+        return call
+    for n, fn in saved.items():
+        setattr(ops, n, quiet(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+class _TensorMeta(tuple):
+    """(shape, stride, dtype) of a kernel output seen before."""
+
+
+def _meta(t):
+    if isinstance(t, torch.Tensor):
+        return _TensorMeta((tuple(t.shape), tuple(t.stride()), t.dtype))
+    return t
+
+
+def _empty(m):
+    if isinstance(m, _TensorMeta):
+        return torch.empty_strided(m[0], m[1], dtype=m[2], device="cpu")
+    return m
+
+
+def _local(t):
+    """A DTensor's local tensor, read without dispatching an operation
+    (a meta one must not meet ``FakeTensorMode``); a tensor itself."""
+    return t._local_tensor if place.is_dtensor(t) else t
+
+
+def _fake_tree(tree):
+    """Fake CPU tensors (the ambient ``FakeTensorMode``) of a tree's
+    ``meta`` tensors, DTensors keeping their mesh, placements and local
+    shapes."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        loc = _local(t)
+        f = torch.empty(tuple(loc.shape), dtype=loc.dtype, device="cpu")
+        if not place.is_dtensor(t):
+            return f
+        return DTensor.from_local(f, t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return one(node)
+    return walk(tree)
+
+
+def trace_step(cfg: ModelConfig, spec: Dict, params, batch, cache=None):
+    """One step of ``shapes.input_specs``' ``spec`` on fake tensors of
+    ``params``, ``batch`` and ``cache`` (``meta`` tensors or DTensors
+    over them, as ``pair_report`` lays them out; AdamW's state made
+    from the parameters for a train step).  Returns the ``StepMeter``
+    that watched it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    # real index tensors (_real_index_work) may meet fake operands
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        p, b = _fake_tree(params), _fake_tree(batch)
+        c = None if cache is None else _fake_tree(cache)
+        opt = init_opt_state(p) if spec["kind"] == "train" else None
+        resident = [_local(t) for t in leaves([p, b, c, opt])
+                    if isinstance(t, torch.Tensor)]
+        meter = StepMeter(resident, fake=True)
+        del resident
+        with kernels_as_outputs(meter), meter:
+            if spec["kind"] == "train":
+                out = make_train_step(cfg)(p, opt, b)
+            elif spec["kind"] == "prefill":
+                with torch.no_grad():
+                    out = make_prefill_step(cfg)(p, b)
+            else:
+                with torch.no_grad():
+                    out = make_decode_step(
+                        spec["cfg"], long_mode=spec["long_mode"])(p, c, b)
+        del out
+    return meter
+
+
+# ----------------------------------------------------------------------
 # one pair
 # ----------------------------------------------------------------------
 
@@ -282,13 +592,17 @@ def fake_world(n: int):
 
 def pair_report(arch: str, shape_name: str, *, device=None,
                 overrides: Optional[dict] = None, mesh=None,
-                telemetry: Optional[Telemetry] = None) -> Dict:
+                telemetry: Optional[Telemetry] = None,
+                trace: bool = True) -> Dict:
     """The dry run of one (arch, shape).  ``device``: ``None`` (the
     card: ``fits`` against its memory) or ``"meta"`` (``fits`` null).
     Every tensor is built on ``meta``.  ``mesh``: a production mesh
     (under ``fake_world``): every count is per device, of the step's
     inputs laid out by ``sharding/rules``; the silent replications of
-    their specs are warned about and recorded into ``telemetry``."""
+    their specs are warned about and recorded into ``telemetry``.
+    ``trace=False``: the inputs' bytes and the FLOPs alone, without the
+    traced step (no ``collective_bytes`` or ``temp`` keys): what a
+    check of the bytes alone needs, at a fraction of the time."""
     on_card = device is None or torch.device(device).type == "cuda"
     dev = resolve_device(device) if on_card else None
     if not on_card and torch.device(device).type != "meta":
@@ -336,6 +650,21 @@ def pair_report(arch: str, shape_name: str, *, device=None,
     if spec["kind"] == "decode":
         nbytes["cache"] = tree_bytes(cache)
     nbytes["resident"] = sum(nbytes.values())
+    traced = {}
+    if trace:
+        try:
+            meter = trace_step(cfg, spec, params, batch, cache)
+            temp = meter.peak - nbytes.get("grads", 0)
+            if temp < 0:        # the gradients are made within the step
+                raise RuntimeError(
+                    f"the traced peak {meter.peak} is below the gradients' "
+                    f"{nbytes['grads']} bytes")
+        except Exception as e:  # noqa: BLE001 -- the pair's record
+            return {"arch": arch, "shape": shape_name, "status": "error",
+                    "devices": 1 if mesh is None else mesh.size(),
+                    "error": f"traced step: {type(e).__name__}: {e}",
+                    "trace": traceback.format_exc()[-2000:]}
+        traced = {"collective_bytes": meter.collective_bytes, "temp": temp}
     terms = step_flops(cfg, spec)
     fits = None
     if dev is not None:
@@ -348,7 +677,7 @@ def pair_report(arch: str, shape_name: str, *, device=None,
            "bytes": nbytes, "n_params": cfg.n_params(),
            "n_active_params": cfg.n_active_params(),
            "flops": sum(terms.values()), "flop_terms": terms,
-           "collective_bytes": None, "fits": fits}
+           **traced, "fits": fits}
     if mesh is not None:
         out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
         out["silent_replications"] = repl
@@ -420,6 +749,7 @@ def _run_pairs(args, overrides, out_dir, where, mesh, tel):
                 res = json.loads(out.read_text())
                 print(f"[skip] {tag}: cached ({res['status']})")
             else:
+                t0 = time.perf_counter()
                 try:
                     res = pair_report(arch, shape_name, device=args.device,
                                       overrides=overrides or None,
@@ -430,15 +760,20 @@ def _run_pairs(args, overrides, out_dir, where, mesh, tel):
                            "devices": 1 if mesh is None else mesh.size(),
                            "error": f"{type(e).__name__}: {e}",
                            "trace": traceback.format_exc()[-2000:]}
+                res["seconds"] = round(time.perf_counter() - t0, 1)
                 out.write_text(json.dumps(res, indent=2))
                 extra = ""
                 if res["status"] == "ok":
                     extra = (f" flops={res['flops']:.3e}"
                              f" resident={res['bytes']['resident']/1e9:.2f}GB"
                              f" fits={res['fits']}")
+                    moved = sum(res["collective_bytes"].values())
+                    extra += (f" temp={res['temp'] / 1e9:.3f}GB "
+                              f"collective={moved / 1e9:.3f}GB")
                 elif res["status"] == "error":
                     extra = " " + res["error"][:200]
-                print(f"[done] {tag}: {res['status']}{extra}", flush=True)
+                print(f"[done] {tag}: {res['status']}{extra} "
+                      f"({res['seconds']} s)", flush=True)
             if res["status"] == "error":
                 failures.append(tag)
             results.append(res)

@@ -138,6 +138,33 @@ def _split_heads(x, n_heads: int, head_dim: int):
     return x.reshape(x.shape[:-1] + (n_heads, head_dim))
 
 
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose gradient is laid out with its last dim split
+    only over mesh axes that divide ``n`` heads (``place.shardable``):
+    the backward of a merge of heads views that gradient back into
+    heads, which a rank can do only on whole heads (gemma2-2b's 8 heads
+    of 288 on a ``model`` axis of 16 would split one)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return place.shardable(g, -1, ctx.n), None
+
+
+def merge_heads(x):
+    """(..., H, hd) -> (..., H * hd); a DTensor's gradient comes back
+    in whole heads (``_WholeHeadsGrad``)."""
+    H = x.shape[-2]
+    y = x.reshape(x.shape[:-2] + (H * x.shape[-1],))
+    if place.is_dtensor(y) and y.requires_grad:
+        y = _WholeHeadsGrad.apply(y, H)
+    return y
+
+
 def qkv(p, cfg, x, kv_x=None):
     """The q/k/v projections, split into heads: (B, L, H, hd) each; the
     keys and values from ``kv_x`` where it is given (cross-attention)."""
@@ -175,7 +202,6 @@ def attention_prefill(p, cfg, x, positions, window: int = 0, *,
 
     Returns (out (B, L, d), (k, v)) -- the self-attention's k post-RoPE
     (the prefill cache), or the cross cache."""
-    B, L, _ = x.shape
     q, k, v = qkv(p, cfg, x, kv_x)
     if kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -183,7 +209,7 @@ def attention_prefill(p, cfg, x, positions, window: int = 0, *,
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_softcap if kv_x is None
                               else 0.0)
-    out = out.reshape(B, L, cfg.q_dim) @ p["wo"]
+    out = merge_heads(out) @ p["wo"]
     return out, (k, v)
 
 
@@ -192,7 +218,10 @@ def cross_attention_decode(p, cfg, x, k_cross, v_cross):
     values, un-roped): x (B, 1, d); k_cross / v_cross (B, S, Hkv, hd),
     every key live -- the decode kernel with ``kv_valid`` None.  The
     reference's ``attention_decode(..., rope=False, update_cache=False,
-    full_valid=True)``.  Returns (B, 1, d)."""
+    full_valid=True)``.  At batch 1 on a mesh the cross cache lies split
+    over the data axes along the encoder frames; each rank decodes its
+    frames and the partials merge (``ops.flash_attention``).  Returns
+    (B, 1, d)."""
     B = x.shape[0]
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     out = ops.flash_attention(q, k_cross, v_cross, causal=False)
@@ -221,37 +250,27 @@ def write_slot(cache, new, positions, *, ring: bool):
     """The decode step's write of one K/V row per sequence (B, Hkv, .)
     into ``cache`` (B, C, Hkv, .), in place: slot ``positions % C`` of
     a ring, slot ``positions`` of a full cache (none past C).  A
-    DTensor cache (batch over the data axes, slots over ``model``, as
-    ``cache_specs`` lay it out) is written by each rank into its own
-    block."""
+    DTensor cache is written by each rank into its own block, in either
+    of ``cache_specs``' layouts: batch over the data axes (slots over
+    ``model`` where it divides C), or, at batch 1, slots over the data
+    axes and kv heads over ``model``.  A rank holding slots [lo, lo + n)
+    writes the heads it holds into its slot when the slot is its own
+    and its old value back otherwise, masked on the device."""
     C = cache.shape[1]
     if not place.is_dtensor(cache):
         _write_rows(cache, new, positions, ring, C)
         return
     mesh = cache.device_mesh
-    spec = P(*[_axis_of(cache, d) for d in range(cache.ndim)])
+    spec = P(*[place.axis_of(cache, d) for d in range(cache.ndim)])
     n = C // axis_size(mesh, spec[1])
-    lo = mesh.get_local_rank(spec[1]) * n if spec[1] else 0
-    if spec[2] is not None or isinstance(spec[1], tuple):
-        raise ValueError(f"write_slot: a decode cache sharded as {spec} "
-                         f"(the batch-1 layout) is not written here")
+    lo = place.block_index(mesh, spec[1]) * n
 
     def local(c, new, pos):
         _write_rows(c, new, pos, ring, C, lo)
         return c
     place.run_local(local, mesh, (cache, new, positions),
-                    (spec, P(spec[0], None, None), P(spec[0])),
+                    (spec, P(spec[0], spec[2], None), P(spec[0])),
                     (place.placements(spec, mesh),))
-
-
-def _axis_of(t, dim: int):
-    """The mesh axis (or tuple of axes) that splits dim ``dim`` of a
-    DTensor, or None."""
-    from torch.distributed.tensor import Shard
-    names = t.device_mesh.mesh_dim_names
-    axes = tuple(names[i] for i, p in enumerate(t.placements)
-                 if isinstance(p, Shard) and p.dim == dim)
-    return None if not axes else axes[0] if len(axes) == 1 else axes
 
 
 def quantize_kv(x, axis: int = -1):
@@ -541,7 +560,6 @@ def ssd_chunked(p, cfg, u, h0=None, conv_state=None):
     ``out_proj``.  u: (B, L, d).  Returns (y (B, L, d), final state
     (B, H, P, N) f32, conv_state)."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    Bb, L, _ = u.shape
     z, xBC, dt = _ssm_split(p, cfg, u)
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], conv_state)
     x = xBC[..., :di].unflatten(-1, (H, P))                 # strided view
@@ -550,7 +568,7 @@ def ssd_chunked(p, cfg, u, h0=None, conv_state=None):
     A = -torch.exp(p["A_log"].float())
     y, h_final = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=cfg.ssm_chunk)
     y = y + x.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(Bb, L, di).to(u.dtype)
+    y = merge_heads(y).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     return y @ p["out_proj"], h_final, conv_state
 

@@ -576,7 +576,9 @@ def _prefill(params, cfg: ModelConfig, batch, long_mode: bool,
                 parts[key], parts[key + "_scale"] = L.quantize_kv(t)
             for name, a in parts.items():
                 if C < ctx:                      # the ring: slot = pos % C
-                    a = torch.roll(a[:, -C:], ctx % C, dims=1)
+                    sh = ctx % C                 # a roll by sh, of slices
+                    a = torch.cat([a[:, ctx - sh:], a[:, ctx - C:ctx - sh]],
+                                  dim=1)
                 if place.is_dtensor(cache[name]):
                     pad = a.new_zeros((a.shape[0], C - a.shape[1])
                                       + tuple(a.shape[2:]))

@@ -60,6 +60,29 @@ def fit(mesh, n: int, axis):
     return axis
 
 
+def axis_of(t, dim: int):
+    """The mesh axis (or tuple of axes, in mesh-dim order) that splits
+    dim ``dim`` of a DTensor, or None: the entry of its spec."""
+    from torch.distributed.tensor import Shard
+    names = t.device_mesh.mesh_dim_names
+    axes = tuple(names[i] for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim % t.ndim == dim % t.ndim)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def block_index(mesh, entry) -> int:
+    """Which block of a dim split over ``entry`` (a name or a tuple of
+    names) this rank holds: its coordinates on those axes folded in
+    order, the first axis major -- DTensor's order, and the reference's
+    for ``("pod", "data")``."""
+    if entry is None:
+        return 0
+    idx = 0
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        idx = idx * axis_size(mesh, a) + mesh.get_local_rank(a)
+    return idx
+
+
 def split_axes(*entries) -> tuple:
     """The mesh axes named by spec entries (None, a name or a tuple)."""
     out = []

@@ -11,10 +11,12 @@ gate go forward and backward through their hand-written kernels
 Each step also takes DTensor parameters (``sharding/rules.param_specs``
 laid out by ``sharding/place.shard_tree``), batches laid out by
 ``batch_spec`` / ``decode_batch_spec`` and a decode cache by
-``cache_specs`` (batch-sharded): the counterpart of the reference's
-``jit(in_shardings=...)``.  The kernels then run on each rank's local
-blocks, and the train step's metrics come back as plain tensors, the
-same on every rank.
+``cache_specs`` -- batch-sharded, or at batch 1 split by length over
+the data axes, which the decode reads in place (``ops.flash_decode``:
+per-rank (o, lse) partials merged across ranks): the counterpart of the
+reference's ``jit(in_shardings=...)``.  The kernels then run on each
+rank's local blocks, and the train step's metrics come back as plain
+tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.sharding import place
+from repro_torch.sharding.rules import P, axis_size
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             leaves, tree_map)
 
@@ -85,12 +88,36 @@ def make_prefill_step(cfg: ModelConfig, *, long_mode: bool = False,
 
 def make_decode_step(cfg: ModelConfig, *, long_mode: bool = False):
     """One greedy decode step (``long_mode`` passed to
-    ``M.decode_step``)."""
+    ``M.decode_step``; the next token by ``greedy``)."""
     def serve_step(params, cache, batch):
         logits, cache = M.decode_step(params, cfg, cache, batch,
                                       long_mode=long_mode)
-        # greedy next token
-        with place.spmd(logits):
-            next_tok = torch.argmax(logits, dim=-1)[:, None]
-        return logits, next_tok, cache
+        return logits, greedy(logits), cache
     return serve_step
+
+
+def greedy(logits):
+    """The greedy next token (B, 1) of logits (B, V): the first index of
+    each row's max, as ``torch.argmax``.  DTensor logits split by vocab
+    (``model``): each rank takes the first max of its block, the
+    blocks' (value, index) pairs are gathered, and the first block
+    holding the row's max wins -- B floats and ints a rank, where
+    DTensor's own argmax would gather the logits."""
+    if not place.is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)[:, None]
+    mesh = logits.device_mesh
+    b, v = place.axis_of(logits, 0), place.axis_of(logits, 1)
+    lo = place.block_index(mesh, v) * (logits.shape[1] // axis_size(mesh, v))
+
+    def local(x):
+        i = torch.argmax(x, dim=1)
+        return x.gather(1, i[:, None])[:, 0][None], (i + lo)[None]
+
+    def pick(val, idx):
+        return idx.gather(0, torch.argmax(val, dim=0)[None])[0][:, None]
+    val, idx = place.run_local(local, mesh, (logits,), (P(b, v),),
+                               (place.placements(P(v, b), mesh),) * 2)
+    val, idx = place.constrain(val, P(None, b)), place.constrain(idx,
+                                                                 P(None, b))
+    return place.run_local(pick, mesh, (val, idx), (P(None, b),) * 2,
+                           (place.placements(P(b, None), mesh),))

@@ -8,7 +8,9 @@ it saw to ``DIR/rank<RANK>.json``.
 On a (2, 2) ("data", "model") mesh, for each config: two train steps
 of the port unsharded and of the port on DTensor parameters laid out
 by ``param_specs`` (batches by ``batch_spec``), with the collectives of
-the sharded step counted by ``CommDebugMode``; each rank's local
+the first sharded step counted by ``CommDebugMode`` and the second
+metered as the dry run's trace meters it (``dryrun.StepMeter``: its
+collective bytes by kind and its peak of live bytes); each rank's local
 shapes against the specs; a prefill and three decode steps unsharded
 and sharded (cache by ``cache_specs``, batch-sharded).  Then llama on a
 (1, 4) mesh (one kv head, four ``model`` ranks), and the block of a
@@ -69,9 +71,11 @@ def _tensors(batch):
 
 def train_case(cfg, params, batches, mesh) -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.dryrun import StepMeter, kernels_as_outputs
     from repro_torch.sharding import place
     from repro_torch.sharding import rules as R
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                leaves)
     from repro_torch.training.steps import make_train_step
     step = make_train_step(cfg, AdamWConfig())
     p0, o0 = params, init_opt_state(params)
@@ -84,9 +88,16 @@ def train_case(cfg, params, batches, mesh) -> dict:
         b = _tensors(b)
         p0, o0, m0 = step(p0, o0, b)
         sb = place.shard_tree(b, R.batch_spec(cfg, mesh, b), mesh)
-        with CommDebugMode() as cm:
-            sp, so, m1 = step(sp, so, sb)
-        if i == 0:
+        if i == 1:              # what the dry run's trace would count
+            meter = StepMeter([t.to_local() for t in leaves([sp, so, sb])
+                               if isinstance(t, torch.Tensor)])
+            with kernels_as_outputs(meter), meter:
+                sp, so, m1 = step(sp, so, sb)
+            out["metered"] = {"collective_bytes": meter.collective_bytes,
+                              "peak": meter.peak}
+        else:
+            with CommDebugMode() as cm:
+                sp, so, m1 = step(sp, so, sb)
             out["comms"] = _comm_counts(cm)
         out["loss"].append(float(m0["loss"]))
         out["loss_sharded"].append(float(m1["loss"]))

@@ -317,8 +317,8 @@ def test_kernel_wrappers_of_the_port():
         found |= {name for name, _, _ in kernel_wrappers(src)}
     assert found == {"router_topk", "router_topk_q8", "bandit_update",
                      "flash_attention", "flash_attention_bwd",
-                     "flash_decode_q8", "ssd_scan", "ssd_scan_bwd",
-                     "moe_gating", "moe_gating_bwd"}
+                     "flash_decode_q8", "decode_merge", "ssd_scan",
+                     "ssd_scan_bwd", "moe_gating", "moe_gating_bwd"}
 
 
 # ---------------------------------------------------------------------

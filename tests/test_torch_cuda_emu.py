@@ -23,9 +23,11 @@ rule at the zoo's training shapes.
 
 The int8 KV decode (``csrc/flash_attention.cu``) on each body
 ``flash_attention.q8_body`` names, and the bf16 decode on the body it
-shares, against their plain versions; the gate's backward
-(``csrc/moe_gating_bwd.cuh``) against its plain version.  Skips where
-g++ is missing."""
+shares, against their plain versions; every decode body's partial (o,
+lse) over a block of the cache with a per-row first live slot, and
+their merge across blocks (``flash_decode_merge_launch``); the gate's
+backward (``csrc/moe_gating_bwd.cuh``) against its plain version.
+Skips where g++ is missing."""
 import math
 import shutil
 
@@ -37,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import moe_gating as MG
 from repro_torch.kernels import ssd_scan as SS
+from repro_torch.models import layers as TL
 
 
 @pytest.fixture(scope="module")
@@ -263,3 +266,82 @@ def test_q8_body_at_the_zoos_decode_shapes(name):
     q = torch.zeros(2, 1, Hq * hd + 1, dtype=torch.bfloat16)[..., 1:]
     assert FA.q8_body(q.unflatten(-1, (Hq, hd)).transpose(1, 2), k8) == \
         "cores"
+
+
+@pytest.mark.parametrize("dtype,Hq,Hkv,hd,cap,local,q8", [
+    (torch.bfloat16, 8, 2, 64, 0.0, 0, False),      # decode_mma_kernel
+    (torch.bfloat16, 4, 2, 288, 50.0, 40, False),   # decode_split_kernel
+    (torch.float32, 4, 2, 64, 0.0, 40, False),      # decode_split_kernel f32
+    (torch.bfloat16, 8, 2, 64, 0.0, 40, True),      # decode_mma_kernel int8
+    (torch.bfloat16, 4, 2, 288, 50.0, 0, True),     # decode_wide_q8_kernel
+    (torch.float32, 4, 2, 64, 0.0, 0, True)])       # decode_q8_kernel
+def test_decode_partials_and_merge_source(fa_lib, dtype, Hq, Hkv, hd, cap,
+                                          local, q8):
+    """A cache cut into R = 2 slot blocks, as a batch-1 cache sharded by
+    length: each block's decode with ``return_lse`` and its per-row
+    first live slot (``kv_first``) through the body the launch names,
+    its f32 o within 2e-2 of max |o| of the plain partial (1e-5 in f32)
+    and its lse within 1e-5 (+inf where the block holds no live key);
+    the partials merged by ``flash_decode_merge_launch`` within 1e-6 of
+    max |o| of ``decode_merge_plain`` on the same partials, and against
+    the unsharded launch within one bf16 ulp of max |o| (f32: 1e-5)."""
+    B, C, R = 2, 96, 2
+    n = C // R
+    g = torch.Generator().manual_seed(hd + Hq)
+    q = torch.randn(B, 1, Hq, hd, generator=g).to(dtype).transpose(1, 2)
+    kf, vf = (torch.randn(B, C, Hkv, hd, generator=g) for _ in range(2))
+    live = torch.tensor([90, 30], dtype=torch.int32)
+    if q8:
+        (k8, ks), (v8, vs) = TL.quantize_kv(kf), TL.quantize_kv(vf)
+        kv = [t.transpose(1, 2) for t in (k8, v8, ks, vs)]
+    else:
+        kv = [t.to(dtype).transpose(1, 2) for t in (kf, vf)]
+
+    def decode(blocks, kv_valid, first, lse):
+        if q8:
+            return FA._q8_launch(fa_lib, None, q, *blocks, kv_valid, cap, 0,
+                                 FA.q8_body(q, blocks[0]), first, lse)
+        return FA._fwd_launch(fa_lib, None, q, *blocks, kv_valid, False, 0,
+                              cap, 0, lse, first)
+
+    def plain(blocks, kv_valid, first):
+        if q8:
+            return FA.decode_q8_plain(q, *blocks, kv_valid, softcap=cap,
+                                      return_lse=True, kv_first=first)
+        return FA.flash_attention(q, *blocks, kv_valid, causal=False,
+                                  softcap=cap, return_lse=True,
+                                  kv_first=first)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    parts = []
+    for r in range(R):
+        lo = r * n
+        blocks = [t[:, :, lo:lo + n] for t in kv]
+        kvl = (live - lo).clamp(0, n).to(torch.int32)
+        first = (live - local - lo).clamp(0, n).to(torch.int32) \
+            if local else None
+        o, lse = decode(blocks, kvl, first, True)
+        wo, wl = plain(blocks, kvl, first)
+        assert o.dtype == torch.float32 and lse.shape == (B, Hq, 1)
+        assert float((o - wo).abs().max()) <= tol * float(wo.abs().max())
+        assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+        fin = torch.isfinite(wl)
+        assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+        parts.append((o, lse))
+    assert torch.isinf(parts[1][1][1]).all()     # row 1 lives in block 0
+    o_parts = torch.stack([p[0] for p in parts])
+    lse_parts = torch.stack([p[1] for p in parts])
+    got = FA._merge_launch(fa_lib, None, o_parts, lse_parts, dtype)
+    want = FA.decode_merge_plain(o_parts, lse_parts, dtype)
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= \
+        max(1e-6 * top, 2.0 ** (math.floor(math.log2(top)) - 7)
+            if dtype == torch.bfloat16 else 0.0)
+    assert torch.equal(got, FA._merge_launch(fa_lib, None, o_parts,
+                                             lse_parts, dtype))
+    first = (live - local).clamp(0, C).to(torch.int32) if local else None
+    whole = decode(kv, live, first, False)
+    diff = float((got.float() - whole.float()).abs().max())
+    if dtype == torch.bfloat16:
+        assert diff <= 2.0 ** (math.floor(math.log2(top)) - 7), diff
+    else:
+        assert diff <= 1e-5 * top, diff

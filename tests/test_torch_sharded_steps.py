@@ -136,6 +136,36 @@ def test_steps_ran_sharded(ranks, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_dry_run_trace_matches_the_ranks_step(ranks, arch):
+    """The dry run's traced step (``dryrun.trace_step``: fake tensors on
+    a fake group of four) against what each rank's real second train
+    step did on the same (2, 2) mesh, metered the same way: the same
+    collective output bytes by kind, and the same peak of live bytes.
+    The fake mode's own work (DTensor's propagation, its index tensors,
+    the kernels' outputs seen before) adds and drops nothing."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import place
+    from repro_torch.sharding import rules as R
+    cfg = get_smoke(arch)
+    with D.fake_world(WORLD):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        params = TM.init_params(cfg, torch.Generator(), device="meta")
+        batch = {k: torch.empty((B, L), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        params = place.shard_tree(params, R.param_specs(cfg, mesh, params),
+                                  mesh)
+        batch = place.shard_tree(batch, R.batch_spec(cfg, mesh, batch), mesh)
+        meter = D.trace_step(cfg, {"kind": "train"}, params, batch)
+    for o in ranks[0]:
+        real = o[arch]["train"]["metered"]
+        assert meter.collective_bytes == real["collective_bytes"]
+        assert meter.peak == real["peak"], (meter.peak, real["peak"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_unsharded(ranks, arch):
     """The sharded prefill and three batch-sharded decode steps: logits
     within ``tests/test_torch_generate.py``'s 1e-4 of the unsharded
@@ -178,11 +208,13 @@ def test_compound_axis_block_order(ranks):
 def test_entry_points_no_longer_not_ported(tmp_path):
     """``launch.train --production-mesh`` asks for its world of 256
     ranks (it never shrinks the mesh); ``launch.dryrun --multi-pod
-    --device meta`` runs a pair per device of 512."""
+    --device meta`` runs a pair per device of 512, its step traced (the
+    long_500k decode: the parameters' bytes are every shape's)."""
     with pytest.raises(RuntimeError, match="256"):
         TT.main(["--device", "cpu", "--smoke", "--production-mesh"])
     res = D.main(["--device", "meta", "--multi-pod", "--arch",
-                  "qwen3-moe-30b-a3b", "--shape", "train_4k", "--out-dir",
+                  "qwen3-moe-30b-a3b", "--shape", "long_500k", "--out-dir",
                   str(tmp_path)])
     assert [r["devices"] for r in res] == [512]
+    assert res[0]["temp"] > 0 and sum(res[0]["collective_bytes"].values())
     assert round(res[0]["bytes"]["params"] / 1e9, 3) == 0.309
