@@ -91,7 +91,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      window bites, gemma2's local decode anchored at each row's own
      position), and hymba's scan (H=50, P=64, N=16) at both, each
      against its plain version and timed beside SDPA (none with a
-     softcap) and its bound; f32 and bf16 sweeps at hd 120 and 288;
+     softcap) and its bound; each row named by the CUDA kernel it runs
+     (gemma2-2b's ``prefill_wide_kernel`` and ``decode_wide_kernel``)
+     and every decode checked on the body ``decode_body`` names
+     (``flash_attention.decode_launches_by_body``); f32 and bf16 sweeps
+     at hd 120 and 288;
   4d. the frontend models' kernel shapes (``frontend_kernels``): flash
      attention of seamless-m4t-medium (16 heads of 64, G 1: the
      encoder's non-causal 16 x 16, the causal prefill at L=512, the
@@ -110,7 +114,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      ``decode_q8_plain``, timed beside the bf16 decode on the same
      values, with both bounds, each on the tensor-core body
      (``decode_mma_kernel<HD, true>``, at hd 288
-     ``decode_wide_q8_kernel``; checked through ``launches_by_body``)
+     ``decode_wide_kernel<288, true>``; checked through
+     ``launches_by_body``)
      and its two launches (body, merge) timed from a trace; an f32
      sweep (G 1-40, hd 32-288) on ``decode_q8_kernel``, timed at
      llama's shape, and a bf16 sweep over both bodies (G 16 and 20, hd
@@ -2333,6 +2338,48 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:87"
 
 
+def flash_kernel(FA, q, k, int8: bool = False) -> str:
+    """The CUDA kernel a ``flash_attention`` (``flash_decode_q8`` with
+    ``int8``) call on these operands runs, as the wrappers pick it: the
+    decode shape's body (``decode_body``, ``q8_body``), else the wgmma
+    prefill where TMA reads bf16 operands (``prefill_wide_kernel`` at
+    hd 288) and the CUDA-core one otherwise."""
+    hd, dt = q.shape[3], "bf16" if q.dtype.is_floating_point and \
+        q.element_size() == 2 else "f32"
+    cap = 128 if hd == 120 else hd
+    if int8:
+        return ({"mma": f"decode_mma_kernel<{cap}, true>",
+                 "cores": f"decode_q8_kernel<{dt}, {cap}>"}
+                if hd != 288 else
+                {"mma": "decode_wide_kernel<288, true>",
+                 "cores": f"decode_q8_kernel<{dt}, 288>"})[FA.q8_body(q, k)]
+    if q.shape[2] == 1:
+        return {"mma": f"decode_mma_kernel<{cap}>",
+                "wide": "decode_wide_kernel<288>",
+                "cores": f"decode_split_kernel<{dt}, {cap}>"}[
+                    FA.decode_body(q, k)]
+    if dt == "bf16" and hd != 32 and all(FA._tma_ok(t) for t in (q, k)):
+        return ("prefill_wide_kernel" if hd == 288 else
+                f"prefill_wgmma_kernel<{cap}>")
+    return f"prefill_kernel<{dt}, {cap}>"
+
+
+def decode_on_body(torch, FA, q, k, fn, what: str):
+    """Run ``fn()`` (one ``flash_attention`` call of the decode shape on
+    the card) and check that it launched once, on the body
+    ``decode_body`` names (``decode_launches_by_body``); returns fn's
+    result."""
+    by = dict(FA.flash_attention.decode_launches_by_body)
+    body = FA.decode_body(q, k)
+    out = fn()
+    if q.device.type == "cuda":
+        now = FA.flash_attention.decode_launches_by_body
+        check(now[body] == by[body] + 1 and
+              sum(now.values()) == sum(by.values()) + 1,
+              f"{what}: not one launch of the {body} decode body ({now})")
+    return out
+
+
 def flash_kind(hd: int, Lq: int, G: int, window: int, local: int,
                softcap: float, causal: bool = True, Lk: int = 0,
                all_live: bool = False) -> str:
@@ -2425,9 +2472,11 @@ def plain_in_pieces(torch, FA, q, k, v, kvt, **kw):
 def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
                     iters: int, tag: str = "window kernels"):
     """One bf16 flash_attention shape of a served model in the layer
-    layout: the kernel against its plain version (|err| <= 2e-2 (1 +
-    |want|), and at most one bf16 ulp of max |want|; the plain version
-    over slices of the batch, ``plain_in_pieces``), then the kernel's
+    layout, named by the CUDA kernel it runs (``flash_kernel``; a decode
+    checked on its body): the kernel against its plain version (|err|
+    <= 2e-2 (1 + |want|), and at most one bf16 ulp of max |want|; the
+    plain version over slices of the batch, ``plain_in_pieces``) and two
+    launches bit-equal, then the kernel's
     device time, the plain version's, SDPA's with the same mask where
     SDPA computes the same function (no softcap), and the bound: q, o
     and the K/V rows some query sees, once each; 4 hd operations per
@@ -2441,7 +2490,15 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
     v = rn(B, Lk, Hkv, hd).transpose(1, 2)
     kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32,
                                                device=dev)
-    got = FA.flash_attention(q, k, v, kvt, **kw)
+    kernel = flash_kernel(FA, q, k)
+    what = f"{kernel} {what}"
+    if Lq == 1:
+        got = decode_on_body(torch, FA, q, k, lambda: FA.flash_attention(
+            q, k, v, kvt, **kw), what)
+        check(hd != 288 or kernel == "decode_wide_kernel<288>",
+              f"{what}: gemma2-2b's bf16 decode off the wide body")
+    else:
+        got = FA.flash_attention(q, k, v, kvt, **kw)
     want = plain_in_pieces(torch, FA, q, k, v, kvt, **kw)
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{what}: output {got.dtype} {tuple(got.shape)}")
@@ -2450,6 +2507,8 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
     check(over <= 0, f"{what}: |err| exceeds 2e-2 * (1 + |want|) by {over}")
     err = float(diff.max())
     top = float(want.abs().max())
+    check(torch.equal(got, FA.flash_attention(q, k, v, kvt, **kw)),
+          f"{what}: two launches differ")
     del got, want, diff
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
     check(err <= ulp, f"{what}: max err {err} above one bf16 ulp ({ulp}) "
@@ -2718,8 +2777,10 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
               FA.flash_decode_q8):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
-    for b in FA.flash_decode_q8.launches_by_body:
-        FA.flash_decode_q8.launches_by_body[b] = 0
+    for by in (FA.flash_decode_q8.launches_by_body,
+               FA.flash_attention.decode_launches_by_body):
+        for b in by:
+            by[b] = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2870,6 +2931,19 @@ def record_window_launches(kernels: dict, rows: dict, phase: str,
         kernels[row["name"]] = dict(row, launches=kinds[kind])
 
 
+def check_decode_bodies(kinds: dict, n_dec: int, what: str) -> None:
+    """The bf16 decodes of a run on the bodies ``decode_body`` names:
+    gemma2-2b's hd-288 kinds on ``"wide"``, the rest on ``"mma"``, none
+    on the CUDA cores (``decode_launches_by_body``, counted since the
+    run's reset)."""
+    from repro_torch.kernels import flash_attention as FA
+    wide = sum(n for k, n in kinds.items()
+               if k.startswith("hd288") and " decode" in k)
+    want = {"cores": 0, "mma": n_dec - wide, "wide": wide}
+    by = dict(FA.flash_attention.decode_launches_by_body)
+    check(by == want, f"{what}: decode launches by body {by}, want {want}")
+
+
 def windowed_generation_phase(torch, dev, small: bool, kernels, rows):
     """Routed generation on hymba-1.5b, h2o-danube-3-4b and gemma2-2b at
     full width and depth (seeded bf16 weights drawn on the card): 48
@@ -2891,6 +2965,8 @@ def windowed_generation_phase(torch, dev, small: bool, kernels, rows):
     if dev.type == "cuda":
         check(launches == want, f"launch counts {launches}, want {want} "
                                 "(one per layer per prefill and decode step)")
+        check_decode_bodies(kinds, want["flash_attention_decode"],
+                            "generate windowed")
     record_window_launches(kernels, rows, "routed", kinds)
     kernels[rows[("routed", "ssd_scan")]["name"]] = dict(
         rows[("routed", "ssd_scan")], launches=launches["ssd_scan"])
@@ -2925,6 +3001,8 @@ def long_context_phase(torch, dev, small: bool, kernels, rows):
         for f in (FA.flash_attention, SS.ssd_scan):
             f.launches = 0
         FA.flash_attention.decode_launches = 0
+        by = FA.flash_attention.decode_launches_by_body
+        by.update(dict.fromkeys(by, 0))
         with FlashRecorder() as rec:
             res = runner.generate(toks, max_new)
         got = {"flash_attention": FA.flash_attention.launches,
@@ -2935,6 +3013,8 @@ def long_context_phase(torch, dev, small: bool, kernels, rows):
                 "ssd_scan": cfg.n_layers if cfg.has_ssm else 0}
         if dev.type == "cuda":
             check(got == want, f"{name}: launch counts {got}, want {want}")
+            check_decode_bodies(rec.counts, want["flash_attention_decode"],
+                                f"long context {name}")
         check(sum(rec.counts.values()) == cfg.n_layers * max_new,
               f"{name}: flash_attention calls {rec.counts}")
         check(bool(np.isfinite(res.logits_last).all()),
@@ -3126,6 +3206,8 @@ def long_mode_generation(torch, dev, small: bool):
             if kv_dt:
                 check(got["flash_decode_q8[mma]"] == n_dec,
                       f"long_mode int8: decode bodies {got}")
+            else:
+                check_decode_bodies(rec.counts, n_dec, "long_mode bf16")
         calls = dict(rec.counts)
         for kind, n in q8.counts.items():
             calls["int8 " + kind] = n
@@ -3222,6 +3304,7 @@ def long_500k_steps(torch, dev, small: bool):
         if dev.type == "cuda":
             check(got["flash_attention_decode"] == n_attn,
                   f"long_500k {name}: launches {got}")
+            check_decode_bodies(rec.counts, n_attn, f"long_500k {name}")
         C = cache["k"].shape[2] if "k" in cache else 0
         check(not rec.kv or bool((torch.cat(rec.kv) == C).all()),
               f"long_500k {name}: a decode off the full ring of {C}")
@@ -3577,7 +3660,7 @@ def q8_row(torch, g, dev, name, cfg, B, C, kv, local, tag):
         == sum(by_body.values()) + 1),
           f"int8 decode {what}: not one launch of the tensor-core "
           f"body ({body})")
-    body_kernel = ("decode_wide_q8_kernel<288>" if hd == 288 else
+    body_kernel = ("decode_wide_kernel<288, true>" if hd == 288 else
                    f"decode_mma_kernel<{128 if hd == 120 else hd}, "
                    f"true>")
     want = FA.decode_q8_plain(q, *args, kvt, **kw)
@@ -4439,9 +4522,11 @@ def reset_launches():
               FA.decode_merge, *bwd_kernels().values()):
         f.launches = 0
     FA.flash_attention.decode_launches = 0
-    for f in (FA.flash_attention_bwd, FA.flash_decode_q8):
-        for b in f.launches_by_body:
-            f.launches_by_body[b] = 0
+    for by in (FA.flash_attention_bwd.launches_by_body,
+               FA.flash_decode_q8.launches_by_body,
+               FA.flash_attention.decode_launches_by_body):
+        for b in by:
+            by[b] = 0
 
 
 def read_launches() -> dict:
@@ -4459,7 +4544,9 @@ def read_launches() -> dict:
             **{k: f.launches for k, f in bwd_kernels().items()},
             **{f"{f.__name__}[{b}]": n
                for f in (FA.flash_attention_bwd, FA.flash_decode_q8)
-               for b, n in f.launches_by_body.items()}}
+               for b, n in f.launches_by_body.items()},
+            **{f"flash_attention_decode[{b}]": n for b, n in
+               FA.flash_attention.decode_launches_by_body.items()}}
 
 
 def train_analyzers(torch, dev, small: bool, path: str):
@@ -5793,20 +5880,23 @@ def ctx_cases(small: bool):
     lh = (llama.n_heads, llama.n_kv_heads, llama.head_dim)
     gh = (gemma.n_heads, gemma.n_kv_heads, gemma.head_dim)
     cap = gemma.attn_softcap
+    ghd = gemma.head_dim                # 288; 64 at the rehearsal's size
+    wide = ("decode_wide_kernel<288>" if ghd == 288 else
+            f"decode_mma_kernel<{ghd}>")
     return [
         ("decode_mma_kernel<64> llama3.2-1b ring", *lh, "bf16", False, C,
          C, 0, 0.0),
-        ("decode_split_kernel<bf16, 288> gemma2-2b long_mode ring", *gh,
-         "bf16", False, C, C, 0, cap),
-        ("decode_split_kernel<bf16, 288> gemma2-2b local window in a full "
-         "cache", *gh, "bf16", False, 2 * W, first + W, W, cap),
+        (f"{wide} gemma2-2b long_mode ring", *gh, "bf16", False, C, C, 0,
+         cap),
+        (f"{wide} gemma2-2b local window in a full cache", *gh, "bf16",
+         False, 2 * W, first + W, W, cap),
         ("decode_mma_kernel<64, true> llama3.2-1b int8 ring", *lh, "bf16",
          True, C, C, 0, 0.0),
-        ("decode_wide_q8_kernel<288> gemma2-2b int8 ring", *gh, "bf16", True,
-         C, C, 0, cap),
+        (f"{wide[:-1]}, true> gemma2-2b int8 ring", *gh, "bf16", True, C,
+         C, 0, cap),
         ("decode_split_kernel<f32, 64> llama3.2-1b f32 ring", *lh, "f32",
          False, C, C, 0, 0.0),
-        ("decode_split_kernel<f32, 288> gemma2-2b f32 ring", *gh, "f32",
+        (f"decode_split_kernel<f32, {ghd}> gemma2-2b f32 ring", *gh, "f32",
          False, C, C, 0, cap)]
 
 
@@ -5855,7 +5945,11 @@ def ctx_row(torch, FA, g, dev, what, Hq, Hkv, hd, dtn, q8, C, live, local,
         return FA.flash_attention_plain(qq, kk, vv, kv_valid, causal=False,
                                         softcap=cap, local_window=loc,
                                         return_lse=lse, kv_first=first)
-    whole = decode(kv, kvt)
+    kernel = flash_kernel(FA, q, kv[0], int8=q8)
+    check(what.startswith(kernel), f"ctx_decode {what}: runs {kernel}")
+    whole = decode_on_body(torch, FA, q, kv[0], lambda: decode(kv, kvt),
+                           f"ctx_decode {what}") if not q8 else \
+        decode(kv, kvt)
     n = C // CTX_R
     o_err = o_abs = lse_err = 0.0
     o_parts, lse_parts, empty = [], [], 0

@@ -35,12 +35,11 @@
 //    reads themselves.
 //
 // Design:
-//  * prefill, bf16, hd 64/120/128/288, 16-byte aligned strides
+//  * prefill, bf16, hd 64/120/128, 16-byte aligned strides
 //    (prefill_wgmma_kernel): grid (Hq, B, ceil(Lq / BQ)) with the
 //    query-tile index reversed, so the longest causal blocks start
 //    first.  288 threads: two consumer warpgroups of 64 query rows and
-//    one producer warp (at hd 288 the two share 64 rows and split O's
-//    columns: see Wg); at hd 64 two blocks share an SM (96 registers),
+//    one producer warp; at hd 64 two blocks share an SM (96 registers),
 //    which the kernel needs: a block alone leaves the SM waiting on
 //    its products and its softmax in turn.  The producer issues TMA
 //    loads -- 4-D tensor maps over hd and the (l, h, b) axes in the
@@ -58,6 +57,11 @@
 //    only the edge tiles (diagonal, window, kv_valid, ragged Lk) test
 //    each score.  TMA fills rows past Lq / Lk with zeros; those are
 //    masked or not stored.
+//  * prefill, bf16, hd 288 (gemma2-2b; prefill_wide_kernel): the same
+//    grid, 384 threads, each consumer warpgroup its own 64 rows with O
+//    (144 f32 a thread) in registers given by setmaxnreg; 32-column
+//    blocks under TMA's 64-byte swizzle, K and V stages filled and
+//    emptied apart, the softmax beside the products: see WgWide.
 //  * prefill otherwise (f32, hd 32, unaligned strides): prefill_kernel
 //    on CUDA cores.  Each row is held by 1, 2, 4 or 8 threads in
 //    registers (8 at hd 288: 9 float4 chunks each); key tiles stream
@@ -65,8 +69,9 @@
 //    keys.
 //  * decode (Lq = 1), split-KV: grid (n_split, Hkv, B).  The wrapper
 //    picks n_split and the chunk from B, Hkv and the cache capacity
-//    alone (decode_splits in flash_attention.py), never from kv_valid,
-//    so no device value is read on the host.  A block takes one chunk
+//    alone (decode_splits, wide_splits in flash_attention.py), never
+//    from kv_valid, so no device value is read on the host, and names
+//    the body (decode_body).  A block takes one chunk
 //    of keys of one (batch, KV head) for the group's query heads, so
 //    each K/V row is read once per group, and writes the chunk's
 //    (m, l, acc) in f32 to scratch; a chunk with no live key writes
@@ -75,7 +80,10 @@
 //    128-key pass are in flight at once (16-byte cp.async into padded
 //    rows), B fragments come by ldmatrix (.trans for V), each of 4
 //    warps keeps an online softmax over its 32 keys, and the warps
-//    merge in order.  Otherwise (f32, G > 16, hd 288)
+//    merge in order.  bf16, hd 288, G <= 16 (decode_wide_kernel: a
+//    warp's O would not fit in its registers): S by key quarters, P
+//    through shared memory, O by column quarters, the rows streamed
+//    through a 2-stage ring.  Otherwise (f32, G > 16)
 //    decode_split_kernel on CUDA cores: a 2-stage cp.async ring, 16
 //    bytes of a key row per lane (two or three pieces a lane at hd
 //    288).  A chunk wholly below a window is a chunk with no live
@@ -94,9 +102,9 @@
 //    the ALU rate or less.  bf16 queries, G <= 16: the same tensor-core
 //    body, decode_mma_kernel<HD, true> at hd 64/120/128 (each warp its
 //    own 2-stage cp.async ring of int8 rows, no block barrier in the
-//    loop), decode_wide_q8_kernel at hd 288 (O split by columns over
-//    the warps); the values are formed with byte permutes, an f32
-//    subtract and one bf16x2 fma a pair (deq8x8).  Otherwise (f32, hd
+//    loop), decode_wide_kernel<288, true> at hd 288 (the bf16 cache's
+//    body with an int8 stage); the values are formed with byte
+//    permutes, an f32 subtract and one bf16x2 fma a pair (deq8x8).  Otherwise (f32, hd
 //    32, G > 16) decode_q8_kernel on CUDA cores.  The caller names the
 //    body (flash_attention.q8_body); both merge through
 //    decode_combine_kernel.
@@ -461,6 +469,15 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same for a 64-byte-swizzled operand (layout type 2): 64-byte rows,
+// 8-row groups 512 bytes apart, buffers 512-byte aligned.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -471,6 +488,18 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// all but the most recent committed group of products done
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// 1 / x on the special-function unit (+inf gives 0)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // move registers between a block's warpgroups: the calling warpgroup's
@@ -571,19 +600,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -594,17 +620,7 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -613,8 +629,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n192(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  else wgmma_rs_n128(d, a, db);
 }
 
 // ---------------------------------------------------------------------
@@ -622,38 +638,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 // ---------------------------------------------------------------------
 
 // HD 64 and 128 (120 in 128): the two consumer warpgroups take 64 query
-// rows each and each holds its rows of O (64 x HD) in registers.  HD
-// 288: O's 144 floats a thread would not fit beside the S tile, so the
-// head dim is padded to 320 columns in shared memory (TMA's zero fill)
-// and the two warpgroups share the block's 64 rows: each forms the same
-// S = Q K^T and softmax state (the same bits) and keeps its own columns
-// of O, 0..191 (warpgroup 0) or 192..319 (warpgroup 1).  Q K^T is done
-// twice, on the tensor cores; K and V are loaded once per block.
+// rows each and each holds its rows of O (64 x HD) in registers (hd 288
+// has its own kernel, prefill_wide_kernel).
 template <int HD>
 struct Wg {
-  static constexpr bool SPLIT = HD > 128;         // O's columns split
-  static constexpr int HDP = SPLIT ? 320 : HD;    // columns in smem
-  static constexpr int BQ = SPLIT ? 64 : 128;     // query rows per block
+  static constexpr int BQ = 128;                  // query rows per block
   static constexpr int BK = 64;                   // keys per tile
   static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;   // per SM
-  static constexpr int NB = HDP / 64;             // 128-byte column blocks
+  static constexpr int NB = HD / 64;              // 128-byte column blocks
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 288;             // 2 warpgroups + 1 warp
-  static constexpr int Q_BYTES = BQ * HDP * 2;
-  static constexpr int T_BYTES = BK * HDP * 2;    // one K or V tile
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int T_BYTES = BK * HD * 2;     // one K or V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * T_BYTES + 64;
-  static constexpr int ON0 = SPLIT ? 192 : HD;    // O columns: warpgroup 0
-  static constexpr int ON1 = SPLIT ? HDP - 192 : HD;   // and warpgroup 1
 };
 
 // One consumer warpgroup: query rows rlo .. rlo + 63, whose Q rows start
-// at qw in each column block of the Q tile; O's columns 64 cb0 .. 64 cb0
-// + ON - 1, ON / 2 accumulators a thread.  Walks the block's ntiles
-// K/V tiles from kbeg, releases each stage, and stores its part of O.
-template <int HD, int ON, bool LSE>
+// at qw in each column block of the Q tile; O (64 x HD) HD / 2
+// accumulators a thread.  Walks the block's ntiles K/V tiles from kbeg,
+// releases each stage, and stores its rows of O.
+template <int HD, bool LSE>
 __device__ __forceinline__ void wg_consume(
     const uint8_t* qw, const uint8_t* ks, const uint8_t* vs, uint64_t* qbar,
-    uint64_t* full, uint64_t* empty, int ntiles, int kbeg, int rlo, int cb0,
+    uint64_t* full, uint64_t* empty, int ntiles, int kbeg, int rlo,
     int live, Mask mk, __nv_bfloat16* ob, Strides os, float scale,
     float softcap, int hd, float* lse) {
   using C = Wg<HD>;
@@ -679,9 +686,9 @@ __device__ __forceinline__ void wg_consume(
     }
   }
   const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
-  float o[ON / 2];
+  float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < ON / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
 
   if (ntiles > 0) mbar_wait(qbar, 0);
@@ -691,11 +698,11 @@ __device__ __forceinline__ void wg_consume(
     mbar_wait(full + s, (i / C::STAGES) & 1);
     if (k0 < see_end && k0 + BK > see_beg) {
       const uint8_t* kt = ks + s * C::T_BYTES;
-      const uint8_t* vt = vs + s * C::T_BYTES + cb0 * BK * 128;
+      const uint8_t* vt = vs + s * C::T_BYTES;
       float sc[BK / 2];
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < C::HDP / 16; ++kk)
+      for (int kk = 0; kk < HD / 16; ++kk)
         wgmma_ss_n64(sc,
                      sw128_desc(qw + (kk / 4) * C::BQ * 128 + (kk % 4) * 32,
                                 16, 1024),
@@ -748,7 +755,7 @@ __device__ __forceinline__ void wg_consume(
       lA = lA * aA + pA;               // per-thread partial sums of the row
       lB = lB * aB + pB;
 #pragma unroll
-      for (int e = 0; e < ON / 2; ++e) o[e] *= (e & 2) ? aB : aA;
+      for (int e = 0; e < HD / 2; ++e) o[e] *= (e & 2) ? aB : aA;
       // the S accumulator's layout is the A fragment of O += P V
       uint32_t pa[BK / 16][4];
 #pragma unroll
@@ -759,7 +766,7 @@ __device__ __forceinline__ void wg_consume(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<ON>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
+        wgmma_rs<HD>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
                                            1024));
       wg_commit();
       wg_wait0();
@@ -778,7 +785,7 @@ __device__ __forceinline__ void wg_consume(
   const float iB = lB > 0.f ? 1.f / lB : 0.f;
   // the rows' log-sum-exp (natural log; +inf: no live key), from the
   // log2-domain max and sum: ln 2 (m mul + log2 l)
-  if (LSE && cb0 == 0 && t4 == 0) {
+  if (LSE && t4 == 0) {
     constexpr float LN2 = 0.6931471805599453f;
     if (rA < mk.lq)
       lse[rA] = lA > 0.f ? (mA * mul + log2f(lA)) * LN2 : CUDART_INF_F;
@@ -786,9 +793,9 @@ __device__ __forceinline__ void wg_consume(
       lse[rB] = lB > 0.f ? (mB * mul + log2f(lB)) * LN2 : CUDART_INF_F;
   }
 #pragma unroll
-  for (int c = 0; c < ON / 8; ++c) {
-    if (64 * cb0 + 8 * c >= hd) break;    // TMA's zero columns (120, 288)
-    const int d = 64 * cb0 + 8 * c + 2 * t4;
+  for (int c = 0; c < HD / 8; ++c) {
+    if (8 * c >= hd) break;               // TMA's zero columns (120)
+    const int d = 8 * c + 2 * t4;
     if (rA < mk.lq)
       *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
           pack_bf16(o[4 * c] * iA, o[4 * c + 1] * iA);
@@ -863,25 +870,327 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup wg takes rows q0 + 64 wg .. (both take q0 ..
-  // when the head dim is split between them)
+  // consumers: warpgroup wg takes rows q0 + 64 wg ..
   const int wg = warp >> 2;
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
   float* lb = LSE ? lse + ((long long)b * gridDim.x + h) * mk.lq : nullptr;
-  if constexpr (C::SPLIT) {
-    if (wg == 0)
-      wg_consume<HD, C::ON0, LSE>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
-                             q0, 0, live, mk, ob, os, scale, softcap, hd,
-                             lb);
-    else
-      wg_consume<HD, C::ON1, LSE>(qs, ks, vs, qbar, full, empty, ntiles, kbeg,
-                             q0, C::ON0 / 64, live, mk, ob, os, scale,
-                             softcap, hd, lb);
-  } else {
-    wg_consume<HD, HD, LSE>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
-                       kbeg, q0 + 64 * wg, 0, live, mk, ob, os, scale,
-                       softcap, hd, lb);
+  wg_consume<HD, LSE>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
+                      kbeg, q0 + 64 * wg, live, mk, ob, os, scale, softcap,
+                      hd, lb);
+}
+
+// hd 288 (gemma2-2b): each consumer warpgroup owns 64 query rows of a
+// 128-row block and holds their O (64 x 288, 144 f32 a thread) in
+// registers beside one S tile (32) and its P (16 bf16 pairs); 384
+// threads, the producer warpgroup's registers moved to the two
+// consumers by setmaxnreg (24 and 240 a thread), so Q K^T, the softcap
+// and the softmax run once per score.  Shared memory binds: at 288
+// columns Q is 72 KB and a 64-key K or V tile 36 KB, two stages, 217 KB
+// (one block an SM).  No padding to 320: every operand is stored as 9
+// column blocks of 32 (64-byte rows, TMA's 64-byte swizzle, read by the
+// wgmma descriptors of layout type 2), so O's 288 columns are three
+// m64n96 products.  The softmax overlaps the products: tile j's Q K^T
+// and tile j-1's P V go out together, the scores of j are softcapped
+// and exponentiated while P V runs (wgmma.wait_group 1), and O is
+// rescaled once that group is done.  The K and V rings fill and empty
+// apart (producer warps 8 and 9): K's stage is free once the scores
+// are, an iteration before V's, so the next K tiles load through the
+// softmax and P V (one barrier for both left the products waiting on
+// the loads: 1.08 against 0.78 ms at B=4, L=4,608 on an H100 80GB HBM3
+// at 700 W, tools/hd288_times.py).  The softcap is
+// tanh(y) = 1 - 2 / (2^(2y log2 e) + 1) on the SFU (ex2, rcp: within
+// about 1e-6 of tanhf), in the log2 domain.
+struct WgWide {
+  static constexpr int HD = 288;
+  static constexpr int BQ = 128;                  // query rows per block
+  static constexpr int BK = 64;                   // keys per tile
+  static constexpr int NB = HD / 32;              // 64-byte column blocks
+  static constexpr int ON = 96;                   // O columns a product
+  static constexpr int NO = HD / ON;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;             // 3 warpgroups
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int T_BYTES = BK * HD * 2;     // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * T_BYTES + 128;
+};
+
+// O (three 64 x 96 accumulators) += P (64 x BK, fragments pa) V, V's
+// BK rows at vt in 32-column blocks; issued, not waited for
+template <int BK>
+__device__ __forceinline__ void wide_pv(float (&o)[WgWide::NO][WgWide::ON / 2],
+                                        const uint32_t (&pa)[BK / 16][4],
+                                        const uint8_t* vt) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < WgWide::NO; ++n)
+      wgmma_rs<WgWide::ON>(o[n], pa[kk],
+                           sw64_desc(vt + (3 * n * BK + 16 * kk) * 64,
+                                     BK * 64, 512));
+}
+
+// S (64 x BK) = Q K^T over the 288 columns: the warpgroup's 64 Q rows
+// at qw and the tile's BK K rows at kt, both in 32-column blocks
+template <int BK>
+__device__ __forceinline__ void wide_qk(float (&sc)[BK / 2],
+                                        const uint8_t* qw,
+                                        const uint8_t* kt) {
+#pragma unroll
+  for (int kk = 0; kk < WgWide::HD / 16; ++kk)
+    wgmma_ss_n64(sc,
+                 sw64_desc(qw + (kk / 2) * WgWide::BQ * 64 + (kk % 2) * 32,
+                           16, 512),
+                 sw64_desc(kt + (kk / 2) * BK * 64 + (kk % 2) * 32, 16, 512),
+                 kk > 0);
+}
+
+// wait for every product, then mark O's registers as written here
+__device__ __forceinline__ void wide_wait_o(
+    float (&o)[WgWide::NO][WgWide::ON / 2]) {
+  wg_wait0();
+#pragma unroll
+  for (int n = 0; n < WgWide::NO; ++n) reg_fence(o[n]);
+}
+
+// one arrival of the calling warp on a stage's empty barrier
+__device__ __forceinline__ void release_stage(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+}
+
+template <bool LSE>
+__global__ void __launch_bounds__(WgWide::THREADS, 1)
+prefill_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, TmaAxes qa,
+                    TmaAxes ka, const int* __restrict__ kv_valid,
+                    __nv_bfloat16* __restrict__ out, int G, Mask mk,
+                    Strides os, float scale, float softcap,
+                    float* __restrict__ lse) {
+  using C = WgWide;
+  constexpr int BK = C::BK, S = C::STAGES, NO = C::NO;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + C::Q_BYTES;          // [stage][column block][BK][32]
+  uint8_t* vs = ks + S * C::T_BYTES;
+  // K and V stages fill and empty apart: K's when the scores are done,
+  // V's when P V is, an iteration later
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + S * C::T_BYTES);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* kempty = kfull + S;
+  uint64_t* vfull = kempty + S;
+  uint64_t* vempty = vfull + S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;   // longest first
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / G;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  // keys any row of this block can see
+  int kbeg = 0, kend = live;
+  if (mk.causal) {
+    kend = min(kend, min(q0 + C::BQ, mk.lq) + off);
+    if (mk.window) kbeg = max(0, q0 + off - mk.window + 1);
   }
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(kfull + i, 1);
+      mbar_init(kempty + i, 256);         // every consumer thread arrives
+      mbar_init(vfull + i, 1);
+      mbar_init(vempty + i, 8);           // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                        // producers: warp 8 Q and K,
+    reg_dealloc<C::PRODUCER_REGS>();      // warp 9 V
+    if (warp < 10 && lane == 0 && ntiles > 0) {
+      const bool kp = warp == 8;
+      uint8_t* dst = kp ? ks : vs;
+      uint64_t* fb = kp ? kfull : vfull;
+      uint64_t* eb = kp ? kempty : vempty;
+      if (kp) {
+        mbar_expect_tx(qbar, C::Q_BYTES);
+        for (int j = 0; j < C::NB; ++j)
+          tma_load(qs + j * C::BQ * 64, &tq, qbar, qa, 32 * j, q0, h, b);
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % S, k0 = kbeg + i * BK;
+        if (i >= S) mbar_wait(eb + s, (i / S - 1) & 1);
+        mbar_expect_tx(fb + s, C::T_BYTES);
+        for (int j = 0; j < C::NB; ++j) {
+          uint8_t* box = dst + s * C::T_BYTES + j * BK * 64;
+          if (kp) tma_load(box, &tk, fb + s, ka, 32 * j, k0, kh, b);
+          else tma_load(box, &tv, fb + s, ka, 32 * j, k0, kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg holds rows q0 + 64 wg .. + 63.  Both walk
+  // all ntiles tiles (a row that sees none of a tile masks it whole),
+  // and every branch taken while a product is in flight is uniform over
+  // the block, so no wgmma is serialized.
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const int rA = q0 + 64 * wg + 16 * wl + g8, rB = rA + 8;   // this thread's rows
+  const uint8_t* qw = qs + wg * 64 * 64;
+  // keys every row of the block sees, from the block's index and the
+  // mask alone (a kv_valid makes every tile an edge tile)
+  int all_beg = 0, all_end = kv_valid == nullptr ? mk.lk : 0;
+  if (mk.causal) {
+    all_end = min(all_end, q0 + off + 1);
+    if (mk.window)
+      all_beg = max(0, min(q0 + C::BQ, mk.lq) - 1 + off - mk.window + 1);
+  }
+  // with a softcap the scores go to the log2 domain as they are capped:
+  // softcap tanh(y) log2 e = c1 - c2 / (2^(x k2) + 1), y = x scale /
+  // softcap; without one, scale log2 e is folded into the exponent's fma
+  const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
+  const float k2 = softcap != 0.f ? 2.f * scale * LOG2E / softcap : 0.f;
+  const float c1 = softcap * LOG2E, c2 = 2.f * softcap * LOG2E;
+  float o[NO][C::ON / 2];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < C::ON / 2; ++i) o[n][i] = 0.f;
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;
+  uint32_t pa[BK / 16][4];                // P of the last tile
+  // tile i's scores to P (pa), the running max and sums updated; returns
+  // O's rescale factors in aA, aB
+  auto softmax = [&](float (&sc)[BK / 2], int k0, float& aA, float& aB) {
+    if (softcap != 0.f) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        sc[e] = c1 - c2 * rcp(ex2(sc[e] * k2) + 1.f);
+    }
+    if (!(k0 >= all_beg && k0 + BK <= all_end)) {      // an edge tile
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+        if (!mk.ok((e & 2) ? rB : rA, key, live)) sc[e] = -CUDART_INF_F;
+      }
+    }
+    float xA = mA, xB = mB;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      if (e & 2) xB = fmaxf(xB, sc[e]);
+      else xA = fmaxf(xA, sc[e]);
+    }
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, d));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, d));
+    }
+    // a row with no live key so far subtracts 0: 2^-inf = 0
+    const float uA = xA == -CUDART_INF_F ? 0.f : xA;
+    const float uB = xB == -CUDART_INF_F ? 0.f : xB;
+    aA = ex2((mA - uA) * mul);
+    aB = ex2((mB - uB) * mul);
+    const float nA = -uA * mul, nB = -uB * mul;
+    mA = xA;
+    mB = xB;
+    float pA = 0.f, pB = 0.f;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const float p = ex2(fmaf(sc[e], mul, (e & 2) ? nB : nA));
+      sc[e] = p;
+      if (e & 2) pB += p;
+      else pA += p;
+    }
+    lA = lA * aA + pA;                    // per-thread partial sums of the row
+    lB = lB * aB + pB;
+  };
+  // the S accumulator's layout is the A fragment of O += P V
+  auto pack = [&](const float (&sc)[BK / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  if (ntiles > 0) {
+    float sc[BK / 2], aA, aB;
+    mbar_wait(qbar, 0);
+    mbar_wait(kfull, 0);
+    wg_fence();
+    wide_qk<BK>(sc, qw, ks);
+    wg_commit();
+    wg_wait0();
+    reg_fence(sc);
+    mbar_arrive(kempty);
+    softmax(sc, kbeg, aA, aB);
+    pack(sc);
+    for (int i = 1; i < ntiles; ++i) {
+      // tile i's Q K^T and tile i - 1's P V go out together; the
+      // softmax of i runs while P V does
+      const int s = i % S, sp = (i - 1) % S;
+      mbar_wait(kfull + s, (i / S) & 1);
+      mbar_wait(vfull + sp, ((i - 1) / S) & 1);
+      wg_fence();
+      wide_qk<BK>(sc, qw, ks + s * C::T_BYTES);
+      wg_commit();
+      wide_pv<BK>(o, pa, vs + sp * C::T_BYTES);
+      wg_commit();
+      wg_wait1();
+      reg_fence(sc);
+      mbar_arrive(kempty + s);            // the scores are done with K
+      softmax(sc, kbeg + i * BK, aA, aB);
+      wide_wait_o(o);                     // O holds tile i - 1's P V
+      release_stage(vempty + sp);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < C::ON / 2; ++e) o[n][e] *= (e & 2) ? aB : aA;
+      pack(sc);
+    }
+    const int sl = (ntiles - 1) % S;
+    mbar_wait(vfull + sl, ((ntiles - 1) / S) & 1);
+    wg_fence();
+    wide_pv<BK>(o, pa, vs + sl * C::T_BYTES);
+    wg_commit();
+    wide_wait_o(o);
+    release_stage(vempty + sl);
+  }
+
+#pragma unroll
+  for (int d = 1; d < 4; d <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, d);
+    lB += __shfl_xor_sync(0xffffffffu, lB, d);
+  }
+  const float iA = lA > 0.f ? 1.f / lA : 0.f;
+  const float iB = lB > 0.f ? 1.f / lB : 0.f;
+  // the rows' log-sum-exp (natural log; +inf: no live key), from the
+  // log2-domain max and sum: ln 2 (m mul + log2 l)
+  if (LSE && t4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lb = lse + ((long long)b * gridDim.x + h) * mk.lq;
+    if (rA < mk.lq)
+      lb[rA] = lA > 0.f ? (mA * mul + log2f(lA)) * LN2 : CUDART_INF_F;
+    if (rB < mk.lq)
+      lb[rB] = lB > 0.f ? (mB * mul + log2f(lB)) * LN2 : CUDART_INF_F;
+  }
+  __nv_bfloat16* ob = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < C::ON / 8; ++c) {
+      const int d = C::ON * n + 8 * c + 2 * t4;
+      if (rA < mk.lq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
+            pack_bf16(o[n][4 * c] * iA, o[n][4 * c + 1] * iA);
+      if (rB < mk.lq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)rB * os.l + d) =
+            pack_bf16(o[n][4 * c + 2] * iB, o[n][4 * c + 3] * iB);
+    }
 }
 
 // ---------------------------------------------------------------------
@@ -1564,9 +1873,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// hd 288 (gemma2-2b) on the tensor cores, an int8 cache, G <= 16.  A
-// warp's 16 x 288 f32 O would take 144 registers a thread beside Q's 72,
-// so the block splits the work two ways within each pass of TK keys:
+// hd 288 (gemma2-2b) on the tensor cores, G <= 16, a bf16 or an int8
+// cache (Q8).  A warp's 16 x 288 f32 O would take 144 registers a
+// thread beside Q's 72, so the block splits the work two ways within
+// each pass of TK keys:
 //  1. S = Q K^T: each of the 4 warps scores WK keys over all 18 k-steps;
 //  2. the pass's row maxima meet in shared memory, so every warp holds
 //     the same running max; each warp's P goes to shared memory as bf16
@@ -1574,43 +1884,59 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 //  3. O += P V: each warp owns NC = 72 of O's columns (9 n-tiles) over
 //     all TK keys of the pass, P's A fragments by ldmatrix.
 // Every warp rescales by the same factor, so the row sums add up across
-// warps at the end.  One int8 stage (the next pass is put in flight as
-// soon as the landed one is dequantized), so three blocks share an SM.
-template <int HD>
+// warps at the end.  How K and V reach the tiles:
+//  * Q8, an int8 cache: one int8 stage, dequantized (q8_dequant) into
+//    PITCH-padded bf16 tiles; the next pass is put in flight as soon as
+//    the landed one is dequantized.  56.8 KB: three blocks an SM.
+//  * a bf16 cache: a 576-byte row is twice the int8 one, so the rows
+//    land straight in a 2-stage ring of bf16 tiles (16-byte cp.async),
+//    the next pass in flight through the whole of this one.  Rows are
+//    unpadded (73.5 KB: still three blocks an SM, 220 KB, with a pass in
+//    flight in each, 110 KB) and each 16-byte piece c of row j sits at
+//    piece c ^ ((j / 2) & 3) of its row: a row is 4.5 bank rows, so the
+//    8 rows an ldmatrix reads fall on 8 distinct 16-byte bank groups.
+template <int HD, bool Q8>
 struct DecWide {
   static constexpr int TK = 32;           // keys a pass
   static constexpr int WK = TK / 4;       // keys a warp scores
-  static constexpr int PITCH = HD + 8;    // bf16 tile row (conflict-free)
+  static constexpr int PITCH = Q8 ? HD + 8 : HD;  // bf16 tile row
   static constexpr int PP = TK + 8;       // P's row, bf16
   static constexpr int NC = HD / 4;       // O columns a warp owns
-  static constexpr int KV_BYTES = 2 * TK * PITCH * 2;
+  static constexpr int TILE = TK * PITCH * 2;     // one K or V tile
+  static constexpr int KV_BYTES = (Q8 ? 2 : 4) * TILE;
   static constexpr int P_BYTES = 16 * PP * 2;
-  static constexpr int SMEM =
-      KV_BYTES + Q8Stage<TK, HD>::BYTES + P_BYTES + 4 * 16 * 4;
+  static constexpr int SMEM = KV_BYTES + (Q8 ? Q8Stage<TK, HD>::BYTES : 0) +
+                              P_BYTES + 4 * 16 * 4;
 };
 
-template <int HD>
+// Element offset of 16-byte piece c of row j in a decode_wide tile.
+template <int HD, bool Q8>
+__device__ __forceinline__ int wide_at(int j, int c) {
+  return j * DecWide<HD, Q8>::PITCH + 8 * (Q8 ? c : c ^ ((j >> 1) & 3));
+}
+
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(128)
-decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
-                      const int8_t* __restrict__ k,
-                      const int8_t* __restrict__ v,
-                      const float* __restrict__ ksc,
-                      const float* __restrict__ vsc,
-                      const int* __restrict__ kv_valid,
-                      float* __restrict__ part, float* __restrict__ ml,
-                      int G, Mask mk, Strides qs, Strides ks, Strides vs,
-                      Strides kss, Strides vss, float scale, float softcap,
-                      int chunk) {
-  using C = DecWide<HD>;
-  constexpr int TK = C::TK, WK = C::WK, P = C::PITCH, PP = C::PP;
-  constexpr int NC = C::NC, NTW = NC / 8, KS = HD / 16;
+decode_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                   const typename std::conditional<Q8, int8_t,
+                                                   __nv_bfloat16>::type* k,
+                   const typename std::conditional<Q8, int8_t,
+                                                   __nv_bfloat16>::type* v,
+                   const float* __restrict__ ksc,
+                   const float* __restrict__ vsc,
+                   const int* __restrict__ kv_valid,
+                   float* __restrict__ part, float* __restrict__ ml, int G,
+                   Mask mk, Strides qs, Strides ks, Strides vs, Strides kss,
+                   Strides vss, float scale, float softcap, int chunk) {
+  using C = DecWide<HD, Q8>;
+  constexpr int TK = C::TK, WK = C::WK, PP = C::PP;
+  constexpr int NC = C::NC, NTW = NC / 8, KS = HD / 16, CH = HD / 8;
   static_assert(KS % 2 == 0 && WK == 8 && TK % 16 == 0, "tiling");
   extern __shared__ __align__(16) uint8_t raw[];
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(raw);
-  __nv_bfloat16* vt = kt + TK * P;
+  // Q8: the tiles, then the int8 stage; bf16: [stage][K, V] tiles
   uint8_t* stage = raw + C::KV_BYTES;
   __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(
-      stage + Q8Stage<TK, HD>::BYTES);
+      stage + (Q8 ? Q8Stage<TK, HD>::BYTES : 0));
   float* red = reinterpret_cast<float*>(ps + 16 * PP);  // [warp][row]
 
   const int t = threadIdx.x, w = t >> 5, lane = t & 31;
@@ -1633,12 +1959,29 @@ decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
     }
     return;
   }
-  const int8_t* kb = k + b * ks.b + kh * ks.h;
-  const int8_t* vb = v + b * vs.b + kh * vs.h;
-  const float* kscb = ksc + b * kss.b + kh * kss.h;
-  const float* vscb = vsc + b * vss.b + kh * vss.h;
-  q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss, lo, lo,
-                        hi, HD, t);
+  const auto* kb = k + b * ks.b + kh * ks.h;
+  const auto* vb = v + b * vs.b + kh * vs.h;
+  const float* kscb = Q8 ? ksc + b * kss.b + kh * kss.h : nullptr;
+  const float* vscb = Q8 ? vsc + b * vss.b + kh * vss.h : nullptr;
+  // a bf16 cache: pass `it`'s rows k0 .. k0 + TK - 1 into stage it & 1
+  auto load = [&](int it, int k0) {
+    __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(
+        raw + (it & 1) * 2 * C::TILE);
+    __nv_bfloat16* vt = kt + TK * C::PITCH;
+    for (int e = t; e < TK * CH; e += 128) {
+      const int j = e / CH, c = e - j * CH;
+      const bool in = k0 + j < hi;        // zeros past the live keys
+      const long long key = in ? k0 + j : lo;
+      cp_async16(kt + wide_at<HD, Q8>(j, c), kb + key * ks.l + 8 * c, in);
+      cp_async16(vt + wide_at<HD, Q8>(j, c), vb + key * vs.l + 8 * c, in);
+    }
+    cp_async_commit();
+  };
+  if constexpr (Q8)
+    q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss, lo,
+                          lo, hi, HD, t);
+  else
+    load(0, lo);
 
   uint32_t qa[KS][4];
   q_frags<HD, KS>(qa, q + b * qs.b + (long long)kh * G * qs.h, qs.h, G, HD);
@@ -1648,20 +1991,27 @@ decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < NTW; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = lo; k0 < hi; k0 += TK) {
+  for (int k0 = lo, it = 0; k0 < hi; k0 += TK, ++it) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();                      // the last pass's P V is done
-    q8_dequant<TK, HD, P, 128>(stage, kt, vt, t);
-    __syncthreads();
-    if (k0 + TK < hi)
-      q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss,
-                            k0 + TK, lo, hi, HD, t);
+    __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(
+        raw + (Q8 ? 0 : (it & 1) * 2 * C::TILE));
+    __nv_bfloat16* vt = kt + TK * C::PITCH;
+    if constexpr (Q8) {
+      q8_dequant<TK, HD, C::PITCH, 128>(stage, kt, vt, t);
+      __syncthreads();
+      if (k0 + TK < hi)
+        q8_fetch<TK, HD, 128>(stage, kb, vb, kscb, vscb, ks, vs, kss, vss,
+                              k0 + TK, lo, hi, HD, t);
+    } else {
+      if (k0 + TK < hi) load(it + 1, k0 + TK);  // the stage read a pass ago
+    }
     // 1. this warp's WK keys: one n-tile of S over the 18 k-steps
     float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int s = 0; s < KS; s += 2) {
       uint32_t r[4];
-      ldsm4(r, kt + (w * WK + (lane & 7)) * P + 16 * s + 8 * (lane >> 3));
+      ldsm4(r, kt + wide_at<HD, Q8>(w * WK + (lane & 7), 2 * s + (lane >> 3)));
       mma16816(sc, qa[s], r[0], r[1]);
       mma16816(sc, qa[s + 1], r[2], r[3]);
     }
@@ -1720,10 +2070,11 @@ decode_wide_q8_kernel(const __nv_bfloat16* __restrict__ q,
       const int key = 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
       for (int n = 0; n < NTW; n += 2) {
-        // the odd last n-tile reads 8 columns it drops (the next warp's,
-        // or the tile's padding past HD)
+        // the odd last n-tile reads its own 8 columns twice, dropping
+        // the second
         uint32_t r[4];
-        ldsm4_t(r, vt + key * P + NC * w + 8 * n + 8 * (lane >> 4));
+        ldsm4_t(r, vt + wide_at<HD, Q8>(
+                        key, NTW * w + n + (n + 1 < NTW ? lane >> 4 : 0)));
         mma16816(o[n], pa, r[0], r[1]);
         if (n + 1 < NTW) mma16816(o[n + 1], pa, r[2], r[3]);
       }
@@ -2107,10 +2458,12 @@ bool tma_ok(const void* p, Strides st, int L, int H, int B) {
 }
 
 // A 4-D map (hd, then the l / h / b axes by increasing stride, axes of
-// length 1 last) over a bf16 operand: boxes of 64 columns (128 bytes,
-// the swizzle span) by `rows` positions along l; zeros past the ends.
+// length 1 last) over a bf16 operand: boxes of `cols` columns, 64 (128
+// bytes, the 128-byte swizzle's span) or 32 (the 64-byte swizzle's), by
+// `rows` positions along l; zeros past the ends.
 cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
-                     Strides st, int L, int H, int B, int rows) {
+                     Strides st, int L, int H, int B, int rows,
+                     int cols = 64) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   struct Axis {
@@ -2127,7 +2480,7 @@ cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
   });
   cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   int slot[3];
   for (int i = 0; i < 3; ++i) {
@@ -2140,7 +2493,8 @@ cudaError_t make_map(CUtensorMap* map, TmaAxes* ax, const void* p, int hd,
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(p), dims, strides, box, estr,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -2180,6 +2534,34 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// hd 288: prefill_wide_kernel over 32-column boxes
+template <bool LSE>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const int* kv_valid, void* out, int B, int Hq,
+                        int Hkv, Mask mk, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale, float softcap, float* lse,
+                        cudaStream_t s) {
+  using C = WgWide;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_wide_kernel<LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  TmaAxes qa, ka, va;
+  cudaError_t e;
+  if ((e = make_map(&tq, &qa, q, C::HD, qs, mk.lq, Hq, B, C::BQ, 32)) ||
+      (e = make_map(&tk, &ka, k, C::HD, ks, mk.lk, Hkv, B, C::BK, 32)) ||
+      (e = make_map(&tv, &va, v, C::HD, vs, mk.lk, Hkv, B, C::BK, 32)))
+    return e;
+  if (va.l != ka.l || va.h != ka.h || va.b != ka.b)
+    return cudaErrorInvalidValue;         // K and V share one coordinate map
+  dim3 grid(Hq, B, (mk.lq + C::BQ - 1) / C::BQ);
+  prefill_wide_kernel<LSE><<<grid, C::THREADS, C::SMEM, s>>>(
+      tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
+      Hq / Hkv, mk, os, scale, softcap, lse);
+  return cudaGetLastError();
+}
+
 // The decode's merge of its n_split partials: into `out` in T, or, with
 // `lse`, into an f32 `out` beside the rows' log-sum-exp (a partial over
 // one rank's block of the cache, for flash_decode_merge_launch).
@@ -2204,7 +2586,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_valid, void* out, float* scratch, int B,
                    int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                    Strides vs, Strides os, float scale, float softcap,
-                   int n_split, int chunk, int hd, float* lse,
+                   int n_split, int chunk, int hd, int body, float* lse,
                    cudaStream_t s) {
   const int G = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
@@ -2222,21 +2604,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         chunk < 1 || (long long)n_split * chunk < mk.lk)
       return cudaErrorInvalidValue;
     float* ml = scratch + (long long)B * Hq * n_split * hd;
-    bool mma = false;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD <= 128) {
-      mma = G <= 16;
-      if (mma)
-        decode_mma_kernel<HD, false><<<dim3(n_split, Hkv, B), 128,
-                                       DecMma<HD>::SMEM, s>>>(
+    const dim3 grid(n_split, Hkv, B);
+    if (body == 1 || body == 2) {           // the tensor cores
+      constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+      if (!BF16 || (body == 1) != (HD <= 128) || (body == 2) != (HD == 288) ||
+          G > 16 || reinterpret_cast<uintptr_t>(q) % 4 || qs.b % 2 ||
+          qs.h % 2)
+        return cudaErrorInvalidValue;     // q read as bf16 pairs
+      if constexpr (BF16 && HD <= 128) {
+        decode_mma_kernel<HD, false><<<grid, 128, DecMma<HD>::SMEM, s>>>(
             qp, kp, vp, nullptr, nullptr, kv_valid, scratch, ml, G, mk, qs,
             ks, vs, Strides{}, Strides{}, scale, softcap, chunk, hd);
-    }
-    if (!mma) {
+      } else if constexpr (BF16 && HD == 288) {
+        static const cudaError_t attr = cudaFuncSetAttribute(
+            decode_wide_kernel<HD, false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            DecWide<HD, false>::SMEM);
+        if (attr != cudaSuccess) return attr;
+        decode_wide_kernel<HD, false><<<grid, 128, DecWide<HD, false>::SMEM,
+                                        s>>>(
+            qp, kp, vp, nullptr, nullptr, kv_valid, scratch, ml, G, mk, qs,
+            ks, vs, Strides{}, Strides{}, scale, softcap, chunk);
+      }
+    } else if (body == 0) {
       const int ngrp = (G + Dec<T, HD>::GB - 1) / Dec<T, HD>::GB;
       decode_split_kernel<T, HD><<<dim3(n_split, Hkv * ngrp, B),
                                    DEC_THREADS, 0, s>>>(
           qp, kp, vp, kv_valid, scratch, ml, G, mk, qs, ks, vs, scale,
           softcap, chunk, hd);
+    } else {
+      return cudaErrorInvalidValue;
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -2245,14 +2642,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
     if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
-        tma_ok(v, vs, mk.lk, Hkv, B) && (hd * 2) % 16 == 0)
-      return lse != nullptr
-                 ? launch_wgmma<HD, true>(q, k, v, kv_valid, out, B, Hq, Hkv,
-                                          mk, qs, ks, vs, os, scale, softcap,
-                                          hd, lse, s)
-                 : launch_wgmma<HD, false>(q, k, v, kv_valid, out, B, Hq,
-                                           Hkv, mk, qs, ks, vs, os, scale,
-                                           softcap, hd, lse, s);
+        tma_ok(v, vs, mk.lk, Hkv, B) && (hd * 2) % 16 == 0) {
+      if constexpr (HD == 288)
+        return lse != nullptr
+                   ? launch_wide<true>(q, k, v, kv_valid, out, B, Hq, Hkv, mk,
+                                       qs, ks, vs, os, scale, softcap, lse, s)
+                   : launch_wide<false>(q, k, v, kv_valid, out, B, Hq, Hkv,
+                                        mk, qs, ks, vs, os, scale, softcap,
+                                        lse, s);
+      else
+        return lse != nullptr
+                   ? launch_wgmma<HD, true>(q, k, v, kv_valid, out, B, Hq,
+                                            Hkv, mk, qs, ks, vs, os, scale,
+                                            softcap, hd, lse, s)
+                   : launch_wgmma<HD, false>(q, k, v, kv_valid, out, B, Hq,
+                                             Hkv, mk, qs, ks, vs, os, scale,
+                                             softcap, hd, lse, s);
+    }
   }
   dim3 grid((mk.lq + BQ - 1) / BQ, Hq, B);
   prefill_kernel<T, HD><<<grid, Pre<HD>::NT, 0, s>>>(
@@ -2266,10 +2672,11 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const int* kv_valid, void* out, float* scratch, int B,
                         int Hq, int Hkv, Mask mk, Strides qs, Strides ks,
                         Strides vs, Strides os, float scale, float softcap,
-                        int n_split, int chunk, float* lse, cudaStream_t s) {
+                        int n_split, int chunk, int body, float* lse,
+                        cudaStream_t s) {
 #define FA_LAUNCH(CAP)                                                     \
   launch<T, CAP>(q, k, v, kv_valid, out, scratch, B, Hq, Hkv, mk, qs, ks, \
-                 vs, os, scale, softcap, n_split, chunk, hd, lse, s)
+                 vs, os, scale, softcap, n_split, chunk, hd, body, lse, s)
   switch (hd) {
     case 32:
       return FA_LAUNCH(32);
@@ -2289,7 +2696,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // The int8 decode: the partials of the body the caller names (0:
 // decode_q8_kernel on CUDA cores; 1: the tensor cores,
 // decode_mma_kernel<HD, true> at hd 64, 120 and 128 or
-// decode_wide_q8_kernel at hd 288, for bf16 queries, G <= 16 and q rows
+// decode_wide_kernel<288, true> at hd 288, for bf16 queries, G <= 16 and q rows
 // on 4 bytes), then the shared merge.  A body that does not take the
 // operands returns cudaErrorInvalidValue: no fallback.
 template <typename T, int HD>
@@ -2322,10 +2729,12 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
       const dim3 grid(n_split, Hkv, B);
       if constexpr (HD == 288) {
         static const cudaError_t attr = cudaFuncSetAttribute(
-            decode_wide_q8_kernel<HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, DecWide<HD>::SMEM);
+            decode_wide_kernel<HD, true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            DecWide<HD, true>::SMEM);
         if (attr != cudaSuccess) return attr;
-        decode_wide_q8_kernel<HD><<<grid, 128, DecWide<HD>::SMEM, s>>>(
+        decode_wide_kernel<HD, true><<<grid, 128, DecWide<HD, true>::SMEM,
+                                       s>>>(
             qp, k, v, ksc, vsc, kv_valid, scratch, ml, G, mk, qs, ks, vs,
             kss, vss, scale, softcap, chunk);
       } else {
@@ -2422,10 +2831,15 @@ cudaError_t launch_merge(const float* o, const float* lse, void* out, int R,
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
 // (batch, head, position) axes; the head dim is contiguous.  Decode
 // (Lq = 1) takes `scratch`, B * Hq * n_split * (hd + 2) floats, and
-// n_split chunks of `chunk` keys covering Lk; prefill ignores the three.
-// local_window > 0 (decode only) keeps the keys kv_valid[b] - local_window
-// <= ik < kv_valid[b]: a window that ends at each sequence's own live
-// count, where causal/window end it at Lk.  kv_first (decode only, (B,)
+// n_split chunks of `chunk` keys covering Lk, and `body`, the decode body
+// the caller names (flash_attention.decode_body: 0 decode_split_kernel on
+// CUDA cores, 1 decode_mma_kernel at hd <= 128, 2 decode_wide_kernel at
+// hd 288; the tensor cores take bf16, G <= 16 and q rows on 4 bytes): one
+// that does not take the operands returns cudaErrorInvalidValue, no
+// fallback; prefill ignores the four.  local_window > 0 (decode only)
+// keeps the keys kv_valid[b] - local_window <= ik < kv_valid[b]: a
+// window that ends at each sequence's own live count, where
+// causal/window end it at Lk.  kv_first (decode only, (B,)
 // int32 or null) keeps the keys ik >= kv_first[b] besides: a rank's block
 // of a cache sharded by length, whose live range starts inside it or past
 // it.  lse (B, Hq, Lq) f32 or null: the rows' log-sum-exp; in the decode
@@ -2437,8 +2851,8 @@ extern "C" int flash_attention_launch(
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long osb, long long osh, long long osl, float scale,
     int causal, int window, float softcap, int local_window,
-    const int* kv_first, void* scratch, int n_split, int chunk, float* lse,
-    void* stream) {
+    const int* kv_first, void* scratch, int n_split, int chunk, int body,
+    float* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Lq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || Lk < 0 || local_window < 0 ||
       ((local_window || kv_first != nullptr) && Lq != 1))
@@ -2451,11 +2865,11 @@ extern "C" int flash_attention_launch(
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, kv_valid, out, sc, B, Hq, Hkv, mk,
                               qs, ks, vs, os, scale, softcap, n_split, chunk,
-                              lse, s);
+                              body, lse, s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, kv_valid, out, sc, B, Hq,
                                       Hkv, mk, qs, ks, vs, os, scale,
-                                      softcap, n_split, chunk, lse, s);
+                                      softcap, n_split, chunk, body, lse, s);
   return cudaErrorInvalidValue;
 }
 

@@ -31,9 +31,11 @@ The tensors may be strided views (the head dim contiguous): the
 model's (B, L, H, hd) activations and its KV cache go in as
 ``transpose(1, 2)`` views, without a copy.  A wrapper given CUDA
 tensors launches the kernel (or raises); CPU tensors take the plain
-version.  The decode shape (Lq == 1) splits the cache into chunks
-chosen by ``decode_splits`` from the shapes alone; ``decode_split_plain``
-is its split-and-merge arithmetic in plain PyTorch.
+version.  The decode shape (Lq == 1) runs the body ``decode_body``
+names (counted in ``flash_attention.decode_launches_by_body``) and
+splits the cache into chunks chosen from the shapes alone
+(``decode_splits``, ``wide_splits``); ``decode_split_plain`` is the
+split-and-merge arithmetic in plain PyTorch.
 
 The decode shape with ``return_lse`` gives a partial: (o in f32, the
 rows' log-sum-exp), the same launch writing both (the combine's lse
@@ -72,7 +74,7 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 12 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     "flash_decode_q8_launch": [
     ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 18 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -87,6 +89,7 @@ _SIG = {"flash_attention_launch": [
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 BWD_BODIES = ("f32", "mma", "wgmma")    # the C launch's body codes
 WGMMA_BWD_HEAD_DIMS = (64, 120, 128)
+DECODE_BODIES = ("cores", "mma", "wide")  # the decode launch's body codes
 
 
 def _live_mask(B: int, Lq: int, Lk: int, kv_valid, causal: bool,
@@ -205,11 +208,39 @@ def _split_plan(B: int, Hkv: int, Lk: int, per_sm: int, unit: int):
 
 
 def decode_splits(B: int, Hkv: int, Lk: int):
-    """(n_split, chunk) of the decode launch: two blocks on each SM,
-    chunks a multiple of MIN_CHUNK keys (``_split_plan``).  Decided from
-    the shapes alone: the live lengths stay on the card, and a block
-    whose chunk holds no live key writes an empty partial."""
+    """(n_split, chunk) of the decode launch on the ``"mma"`` and
+    ``"cores"`` bodies: two blocks on each SM, chunks a multiple of
+    MIN_CHUNK keys (``_split_plan``).  Decided from the shapes alone:
+    the live lengths stay on the card, and a block whose chunk holds no
+    live key writes an empty partial."""
     return _split_plan(B, Hkv, Lk, 2, MIN_CHUNK)
+
+
+def wide_splits(B: int, Hkv: int, Lk: int):
+    """(n_split, chunk) of the hd-288 tensor-core decode
+    (``decode_wide_kernel``, bf16 or int8 cache): three blocks on each
+    SM, what its shared memory allows (73.5 KB with the bf16 cache's
+    2-stage ring, 56.8 KB with the int8 stage), in chunks of whole
+    32-key passes."""
+    return _split_plan(B, Hkv, Lk, 3, 32)
+
+
+def decode_body(q, k) -> str:
+    """The decode body that takes these operands (q (B, Hq, 1, hd), k
+    (B, Hkv, Lk, hd)): the tensor cores for bf16 with a GQA group of at
+    most 16 and q's rows on 4 bytes (read as bf16 pairs) -- ``"mma"``
+    (``decode_mma_kernel``) at head dims up to 128, ``"wide"``
+    (``decode_wide_kernel``) at 288 -- and ``"cores"``
+    (``decode_split_kernel``) for the rest: f32, G > 16.  Decided from
+    dtypes, shapes, strides and addresses alone."""
+    G = q.shape[1] // max(k.shape[1], 1)
+    if q.dtype == torch.bfloat16 and G <= 16 and q.data_ptr() % 4 == 0 \
+            and all(st % 2 == 0 for st in q.stride()[:2]):
+        if q.shape[3] <= 128:
+            return "mma"
+        if q.shape[3] == 288:
+            return "wide"
+    return "cores"
 
 
 def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
@@ -313,9 +344,11 @@ def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32,
                       device=q.device) if return_lse else None
-    n_split, chunk, scratch = 0, 0, None
+    n_split, chunk, scratch, body = 0, 0, None, "cores"
     if Lq == 1:                         # partials (acc, then m and l), f32
-        n_split, chunk = decode_splits(B, Hkv, Lk)
+        body = decode_body(q, k)
+        n_split, chunk = (wide_splits if body == "wide" else
+                          decode_splits)(B, Hkv, Lk)
         scratch = torch.empty(B * Hq * n_split * (hd + 2),
                               dtype=torch.float32, device=q.device)
     err = lib.flash_attention_launch(
@@ -327,8 +360,10 @@ def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
         int(window), float(softcap), int(local_window),
         None if kv_first is None else kv_first.data_ptr(),
         None if scratch is None else scratch.data_ptr(), n_split, chunk,
-        None if lse is None else lse.data_ptr(), stream)
-    build.check(err, "flash_attention")
+        DECODE_BODIES.index(body), None if lse is None else lse.data_ptr(),
+        stream)
+    build.check(err, f"flash_attention ({body} body)" if Lq == 1 else
+                "flash_attention")
     return (out, lse) if return_lse else out
 
 
@@ -340,11 +375,12 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     (B,) int32 or None.  Returns (B, Hq, Lq, hd) in q's dtype.  On the
     card the result is a ``transpose(1, 2)`` view of a contiguous (B,
     Lq, Hq, hd) tensor, the model's layout.  Lq == 1 launches the decode
-    shape: split-KV partials into f32 scratch, then their ordered merge;
-    only it takes ``local_window`` and ``kv_first``.  ``return_lse``:
-    (out, the rows' log-sum-exp (B, Hq, Lq) f32, +inf where no key is
-    live), the same launch writing both; on the decode shape out is then
-    f32, a partial for ``decode_merge``."""
+    shape on the body ``decode_body`` names: split-KV partials into f32
+    scratch, then their ordered merge; only it takes ``local_window``
+    and ``kv_first``.  ``return_lse``: (out, the rows' log-sum-exp (B,
+    Hq, Lq) f32, +inf where no key is live), the same launch writing
+    both; on the decode shape out is then f32, a partial for
+    ``decode_merge``."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: tensors must be on cuda or "
                          f"cpu, not {q.device}")
@@ -370,12 +406,15 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     flash_attention.launches += 1
     if q.shape[2] == 1:
         flash_attention.decode_launches += 1
+        flash_attention.decode_launches_by_body[decode_body(q, k)] += 1
     return res
 
 
-# launches on the card: all of them, and those of the decode shape
+# launches on the card: all of them, those of the decode shape, and those
+# by decode body
 flash_attention.launches = 0
 flash_attention.decode_launches = 0
+flash_attention.decode_launches_by_body = dict.fromkeys(DECODE_BODIES, 0)
 
 
 def _tma_ok(t) -> bool:
@@ -490,8 +529,8 @@ MMA_Q8_HEAD_DIMS = (64, 120, 128, 288)
 def q8_body(q, k8) -> str:
     """The int8 decode body that takes these operands: ``"mma"`` (the
     tensor cores: ``decode_mma_kernel<HD, true>``, at hd 288
-    ``decode_wide_q8_kernel``) for bf16 queries at head dims 64, 120,
-    128 and 288 with a GQA group of at most 16 and q's rows on 4 bytes
+    ``decode_wide_kernel<288, true>``) for bf16 queries at head dims 64,
+    120, 128 and 288 with a GQA group of at most 16 and q's rows on 4 bytes
     (read as bf16 pairs); ``"cores"`` (``decode_q8_kernel``) for the
     rest: f32 queries, hd 32, G > 16.  Decided from dtypes, shapes,
     strides and addresses alone."""
@@ -504,16 +543,14 @@ def q8_body(q, k8) -> str:
 
 
 def q8_splits(B: int, Hkv: int, Lk: int, hd: int, body: str):
-    """(n_split, chunk) of the int8 decode launch for ``body``: at hd 64,
-    120 and 128 the tensor-core body takes the bf16 decode's plan
-    (``decode_splits``: it is the same body with int8 tiles); at hd 288
-    ``decode_wide_q8_kernel`` three blocks an SM (what its shared memory
-    allows) in chunks of whole 32-key passes; the CUDA-core body
-    ``decode_splits_q8``."""
+    """(n_split, chunk) of the int8 decode launch for ``body``: the
+    tensor-core body takes the bf16 decode's plan (it is the same body
+    with int8 tiles): ``decode_splits`` at hd 64, 120 and 128,
+    ``wide_splits`` at 288; the CUDA-core body ``decode_splits_q8``."""
     if body == "cores":
         return decode_splits_q8(B, Hkv, Lk)
     if hd == 288:
-        return _split_plan(B, Hkv, Lk, 3, 32)
+        return wide_splits(B, Hkv, Lk)
     return decode_splits(B, Hkv, Lk)
 
 

@@ -277,7 +277,8 @@ typedef uint64_t cuuint64_t;
 typedef int CUtensorMapDataType, CUtensorMapInterleave, CUtensorMapSwizzle,
     CUtensorMapL2promotion, CUtensorMapFloatOOBfill;
 enum { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9, CU_TENSOR_MAP_INTERLEAVE_NONE = 0,
-       CU_TENSOR_MAP_SWIZZLE_128B = 3, CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2,
+       CU_TENSOR_MAP_SWIZZLE_64B = 2, CU_TENSOR_MAP_SWIZZLE_128B = 3,
+       CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2,
        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
 struct alignas(64) CUtensorMap {
   const uint8_t* base;

@@ -1,10 +1,10 @@
 // The asm primitives of the kernels as the emulation (emu.h) runs them:
 // cp.async as plain copies; ldmatrix, mma.sync m16n8k16 bf16 -> f32 and
 // wgmma's register operand as warp collectives; mbarriers as fiber waits;
-// TMA boxes as copies that apply the 128-byte swizzle and fill what lies
-// outside the tensor with zeros; wgmma m64nNk16 reading its shared
-// operands through their descriptors.  Included by tests/_cuda_emu.py in
-// place of the asm definitions.
+// TMA boxes as copies that apply the 128- or 64-byte swizzle and fill
+// what lies outside the tensor with zeros; wgmma m64nNk16 reading its
+// shared operands through their descriptors (either swizzle).  Included
+// by tests/_cuda_emu.py in place of the asm definitions.
 __device__ __forceinline__ void cp16(void* dst, const void* src,
                                      bool full) {
   if (full)
@@ -36,6 +36,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {}
 __device__ __forceinline__ void cp_async_wait1() {}
 __device__ __forceinline__ float ex2(float x) { return exp2f(x); }
+__device__ __forceinline__ float rcp(float x) { return 1.0f / x; }
 
 // fma.rn.bf16x2 a, b, -0: each product of two bf16 values (exact in
 // f32) rounded once to bf16
@@ -155,9 +156,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // the 128-byte swizzle of a shared address: its 16-byte chunk (bits 4-6)
-// xor its 128-byte row within 1024 bytes (bits 7-9)
+// xor its 128-byte row within 1024 bytes (bits 7-9); the 64-byte one:
+// bits 4-5 xor bits 7-8
 static inline uint32_t emu_sw128(uint32_t a) {
   return a ^ (((a >> 7) & 7u) << 4);
+}
+static inline uint32_t emu_sw64(uint32_t a) {
+  return a ^ (((a >> 7) & 3u) << 4);
 }
 
 // a 4-D box at (c0 .. c3): row-major in shared memory, 128-byte rows
@@ -189,6 +194,9 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map,
           if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B) {
             if (row != 128) abort();
             a = emu_sw128(a);
+          } else if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_64B) {
+            if (row != 64) abort();
+            a = emu_sw64(a);
           }
           memcpy(emu::smem_base() + a, &v, 2);
         }
@@ -200,6 +208,7 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void wg_fence() {}
 __device__ __forceinline__ void wg_commit() {}
 __device__ __forceinline__ void wg_wait0() {}
+__device__ __forceinline__ void wg_wait1() {}
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&)[N]) {}
 template <int N>
@@ -208,20 +217,23 @@ template <int N>
 __device__ __forceinline__ void reg_dealloc() {}
 
 // element (r, k) of a K-major operand (r: its M or N index, k: the depth)
-// or (k, n) of an MN-major one, read through a 128-byte-swizzle
-// descriptor: start, leading byte offset (the next 64 columns of an
-// MN-major operand), stride byte offset (the next 8 rows, or 8 depths)
+// or (k, n) of an MN-major one, read through a swizzled descriptor
+// (layout type 1: W = 128-byte rows, type 2: 64-byte rows): start,
+// leading byte offset (the next W / 2 columns of an MN-major operand),
+// stride byte offset (the next 8 rows, or 8 depths)
 static inline float emu_desc_at(uint64_t desc, int mn, int k, bool mn_major) {
-  if ((desc >> 62) != 1) abort();
+  const int type = (int)(desc >> 62);
+  if (type != 1 && type != 2) abort();
+  const uint32_t w = type == 1 ? 128 : 64, cols = w / 2;
   const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
   const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
   const uint32_t a =
-      mn_major ? start + (mn / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 +
-                     (mn % 64) * 2
-               : start + (mn / 8) * sbo + (mn % 8) * 128 + k * 2;
+      mn_major ? start + (mn / cols) * lbo + (k / 8) * sbo + (k % 8) * w +
+                     (mn % cols) * 2
+               : start + (mn / 8) * sbo + (mn % 8) * w + k * 2;
   unsigned short v;
-  memcpy(&v, emu::smem_base() + emu_sw128(a), 2);
+  memcpy(&v, emu::smem_base() + (type == 1 ? emu_sw128(a) : emu_sw64(a)), 2);
   return bf2f(v);
 }
 
@@ -279,8 +291,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               uint64_t db) {
   emu_wgmma<128>(d, 0, a, db, true, 1);
 }
-__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  emu_wgmma<192>(d, 0, a, db, true, 1);
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  emu_wgmma<96>(d, 0, a, db, true, 1);
 }

@@ -3,7 +3,11 @@ version on the same inputs (flash attention's wgmma prefill and split
 decode over ragged lengths, GQA groups, window, softcap, kv_valid and
 cache capacities; head dims 120 and 288, the decode window anchored at
 each row's live count, the ring decode and hymba's group of 5; two
-decode launches bit-equal; the scan at hymba's H = 50, N = 16, past one
+decode launches bit-equal; gemma2-2b's hd-288 bodies, the tensor-core
+decode ``decode_wide_kernel`` (checked on its body through
+``decode_launches_by_body``) and ``prefill_wide_kernel`` with its lse,
+at the served shapes and the sweep's edges, two launches bit-equal;
+the scan at hymba's H = 50, N = 16, past one
 64 x 128 tile and past 65,535 batches x chunks; the one-launch MoE gate
 over T, E and k; both top-k kernels bit-equal over N, D, k, bias,
 min_score and catalog order; the staged kNN's filter-row launch against
@@ -227,7 +231,8 @@ def test_flash_attention_head_dims_120_288_match_plain(cuda, dtype, tol, hd,
                                                        contiguous, kw):
     """h2o-danube-3-4b's head dim 120 (the 128 instantiations, zero
     columns past 120: the wgmma prefill in bf16) and gemma2-2b's 288
-    (its own: the CUDA-core prefill and split decode), prefill and
+    (its own: ``prefill_wide_kernel`` and ``decode_wide_kernel`` in
+    bf16, the CUDA-core prefill and split decode in f32), prefill and
     decode, causal and windowed, with and without softcap, in the
     layer's strided layout and as contiguous operands.  Tolerances
     2e-2 (bf16) and 1e-5 (f32) of (1 + |want|)."""
@@ -265,6 +270,118 @@ def test_flash_attention_local_window_decode_matches_plain(cuda, dtype, tol,
     assert torch.equal(a, b) and got.shape[-1] == hd
     with pytest.raises(ValueError, match="local_window"):
         FA.flash_attention(q.expand(5, Hq, 2, hd), k, v, local_window=300)
+
+
+def _one_ulp(got, want):
+    """|err| <= 2e-2 (1 + |want|) and at most one bf16 ulp of max
+    |want|; returns the max error."""
+    diff = (got.cpu().float() - want.float()).abs()
+    assert bool((diff <= 2e-2 * (1 + want.float().abs())).all())
+    top = float(want.float().abs().max())
+    assert float(diff.max()) <= 2.0 ** (np.floor(np.log2(top)) - 7)
+    return float(diff.max())
+
+
+@pytest.mark.parametrize("Hq,Hkv,C,kv,local,softcap", [
+    (8, 4, 536, list(range(513, 529)), 0, 50.0),    # gemma2's served rows
+    (8, 4, 536, list(range(513, 529)), 512, 50.0),  # its local layers
+    (2, 2, 300, [0, 1, 150, 300], 0, 0.0),          # G 1, an empty row
+    (8, 2, 4100, [1, 299, 300, 2000, 4100], 300, 50.0),  # windows cut chunks
+    (16, 4, 4096, [4096, 4096, 4000, 17], 0, 50.0),  # the ring, G 4
+    (32, 2, 700, [700, 333, 64, 65], 100, 0.0)])    # G 16
+def test_wide_decode_matches_plain(cuda, Hq, Hkv, C, kv, local, softcap):
+    """The bf16 cache's decode at hd 288 on the tensor cores
+    (``decode_wide_kernel``; ``decode_body`` names it ``"wide"`` and it
+    is counted there): gemma2-2b's served shape (B=16, 8/4 heads,
+    536 slots, live 513-528, softcap 50, global and local) and the
+    sweep's edges (GQA groups 1, 2, 4, 16, ragged live counts with an
+    empty row, local windows that leave whole chunks below them, the
+    full ring of 4,096), within one bf16 ulp of max |want|; two launches
+    give the same bits."""
+    rng = np.random.default_rng(C + Hq + local)
+    B, bf = len(kv), torch.bfloat16
+    q = _rand(rng, B, 1, Hq, 288).to(bf).transpose(1, 2)
+    k = _rand(rng, B, C, Hkv, 288).to(bf).transpose(1, 2)
+    v = _rand(rng, B, C, Hkv, 288).to(bf).transpose(1, 2)
+    kvt = torch.tensor(kv, dtype=torch.int32)
+    kw = dict(causal=False, local_window=local, softcap=softcap)
+    want = FA.flash_attention_plain(q, k, v, kvt, **kw)
+    on = [x.to(cuda) for x in (q, k, v, kvt)]
+    assert FA.decode_body(on[0], on[1]) == "wide"
+    before = dict(FA.flash_attention.decode_launches_by_body)
+    got = FA.flash_attention(*on, **kw)
+    torch.cuda.synchronize()
+    after = FA.flash_attention.decode_launches_by_body
+    assert after["wide"] == before["wide"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    _one_ulp(got, want)
+    assert torch.equal(got, FA.flash_attention(*on, **kw))
+
+
+def test_wide_decode_partial_with_first_slot(cuda):
+    """The wide body's partial (o f32, lse) over a block of the cache
+    with a per-row first live slot, as a rank of a cache sharded by
+    length reads it: lse within 1e-5 (+inf where no key is live), o
+    within 2e-2 of max |o| (P meets V in bf16)."""
+    rng = np.random.default_rng(5)
+    bf = torch.bfloat16
+    q = _rand(rng, 3, 1, 8, 288).to(bf).transpose(1, 2)
+    k = _rand(rng, 3, 512, 4, 288).to(bf).transpose(1, 2)
+    v = _rand(rng, 3, 512, 4, 288).to(bf).transpose(1, 2)
+    kvt = torch.tensor([512, 300, 40], dtype=torch.int32)
+    first = torch.tensor([100, 299, 40], dtype=torch.int32)
+    wo, wl = FA.flash_attention(q.float(), k.float(), v.float(), kvt,
+                                causal=False, softcap=50.0, return_lse=True,
+                                kv_first=first)
+    o, lse = FA.flash_attention(*(x.to(cuda) for x in (q, k, v, kvt)),
+                                causal=False, softcap=50.0, return_lse=True,
+                                kv_first=first.to(cuda))
+    o, lse = o.cpu(), lse.cpu()
+    assert o.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    fin = torch.isfinite(wl)
+    assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+    assert float((o - wo).abs().max()) <= 2e-2 * float(wo.abs().max())
+
+
+@pytest.mark.parametrize("B,L,Lk,Hq,Hkv,kv,kw", [
+    (16, 512, 512, 8, 4, None, dict(causal=True, window=4096,
+                                     softcap=50.0)),     # gemma2 local
+    (16, 512, 512, 8, 4, None, dict(causal=True, softcap=50.0)),
+    (2, 150, 150, 2, 2, None, dict(causal=True, softcap=50.0)),   # G 1
+    (2, 70, 70, 4, 2, [70, 33], dict(causal=True, window=32,
+                                     softcap=50.0)),
+    (2, 300, 300, 8, 2, [0, 300], dict(causal=True, window=100)),
+    (2, 70, 200, 8, 2, None, dict(causal=True, softcap=30.0)),   # Lq != Lk
+    (2, 90, 12, 4, 2, None, dict(causal=False)),
+    (1, 1000, 1000, 32, 2, None, dict(causal=True, window=129,
+                                      softcap=50.0))])   # G 16
+def test_wide_prefill_matches_plain(cuda, B, L, Lk, Hq, Hkv, kv, kw):
+    """The hd-288 prefill (``prefill_wide_kernel``: 128 query rows a
+    block, each consumer warpgroup its own 64) at gemma2-2b's served
+    shape (B=16, L=512, 8/4 heads, softcap 50, local and global) and
+    at ragged lengths, windows that skip whole tiles, kv_valid with an
+    empty row, Lq != Lk and non-causal, GQA 1-16: within one bf16 ulp of
+    max |want|, its lse (the training forward) within 1e-5, and the same
+    bits on two launches."""
+    rng = np.random.default_rng(L + Lk + Hq)
+    bf = torch.bfloat16
+    q = _rand(rng, B, L, Hq, 288).to(bf).transpose(1, 2)
+    k = _rand(rng, B, Lk, Hkv, 288).to(bf).transpose(1, 2)
+    v = _rand(rng, B, Lk, Hkv, 288).to(bf).transpose(1, 2)
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32)
+    want, wl = FA.flash_attention_plain(q, k, v, kvt, return_lse=True, **kw)
+    on = [x.to(cuda) for x in (q, k, v)] + [
+        None if kvt is None else kvt.to(cuda)]
+    got = FA.flash_attention(*on, **kw)
+    _one_ulp(got, want)
+    o2, lse = FA.flash_attention(*on, return_lse=True, **kw)
+    assert torch.equal(got, o2)
+    lse = lse.cpu()
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    fin = torch.isfinite(wl)
+    assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+    assert torch.equal(got, FA.flash_attention(*on, **kw))
 
 
 @pytest.mark.parametrize("hd,Hq,Hkv,C", [(64, 25, 5, 1024),

@@ -22,12 +22,16 @@ of each gradient's max |g|, f32 within 1e-4.  Beside them, the body
 rule at the zoo's training shapes.
 
 The int8 KV decode (``csrc/flash_attention.cu``) on each body
-``flash_attention.q8_body`` names, and the bf16 decode on the body it
-shares, against their plain versions; every decode body's partial (o,
-lse) over a block of the cache with a per-row first live slot, and
-their merge across blocks (``flash_decode_merge_launch``); the gate's
-backward (``csrc/moe_gating_bwd.cuh``) against its plain version.
-Skips where g++ is missing."""
+``flash_attention.q8_body`` names, and the bf16 decode on each body
+``flash_attention.decode_body`` names (the tensor cores' ``"mma"`` and,
+at hd 288, ``"wide"``, the CUDA cores' ``"cores"``), against their plain
+versions; the hd-288 prefill (``prefill_wide_kernel``) with and without
+its lse; every decode body's partial (o, lse) over a block of the cache
+with a per-row first live slot, and their merge across blocks
+(``flash_decode_merge_launch``); the gate's backward
+(``csrc/moe_gating_bwd.cuh``) against its plain version.  Beside them,
+the bf16 decode's body rule at the zoo's decode heads.  Skips where g++
+is missing."""
 import math
 import shutil
 
@@ -35,7 +39,7 @@ import pytest
 import torch
 
 import _cuda_emu
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import moe_gating as MG
 from repro_torch.kernels import ssd_scan as SS
@@ -212,8 +216,8 @@ def test_flash_decode_q8_source_matches_plain(fa_lib, B, Hq, Hkv, C, hd, kv,
     """The int8 KV decode (``csrc/flash_attention.cu``) through the body
     ``q8_body`` names: the tensor cores for bf16 queries at hd 64, 120,
     128 (``decode_mma_kernel<HD, true>``) and 288
-    (``decode_wide_q8_kernel``), G 1-8, ragged and empty ``kv_valid``, a
-    local window, softcap; CUDA cores (``decode_q8_kernel``) for f32
+    (``decode_wide_kernel<288, true>``), G 1-8, ragged and empty
+    ``kv_valid``, a local window, softcap; CUDA cores (``decode_q8_kernel``) for f32
     queries, G > 16 and hd 32.  Against ``decode_q8_plain``: bf16 within
     2e-2 (1 + |want|) and one bf16 ulp of max |want|, f32 within 2e-4
     (1 + |want|); the same bits on two launches.  A sequence with one
@@ -270,10 +274,11 @@ def test_q8_body_at_the_zoos_decode_shapes(name):
 
 @pytest.mark.parametrize("dtype,Hq,Hkv,hd,cap,local,q8", [
     (torch.bfloat16, 8, 2, 64, 0.0, 0, False),      # decode_mma_kernel
-    (torch.bfloat16, 4, 2, 288, 50.0, 40, False),   # decode_split_kernel
+    (torch.bfloat16, 4, 2, 288, 50.0, 40, False),   # decode_wide_kernel
+    (torch.bfloat16, 40, 2, 288, 50.0, 40, False),  # decode_split_kernel
     (torch.float32, 4, 2, 64, 0.0, 40, False),      # decode_split_kernel f32
     (torch.bfloat16, 8, 2, 64, 0.0, 40, True),      # decode_mma_kernel int8
-    (torch.bfloat16, 4, 2, 288, 50.0, 0, True),     # decode_wide_q8_kernel
+    (torch.bfloat16, 4, 2, 288, 50.0, 0, True),     # decode_wide_kernel int8
     (torch.float32, 4, 2, 64, 0.0, 0, True)])       # decode_q8_kernel
 def test_decode_partials_and_merge_source(fa_lib, dtype, Hq, Hkv, hd, cap,
                                           local, q8):
@@ -345,3 +350,105 @@ def test_decode_partials_and_merge_source(fa_lib, dtype, Hq, Hkv, hd, cap,
         assert diff <= 2.0 ** (math.floor(math.log2(top)) - 7), diff
     else:
         assert diff <= 1e-5 * top, diff
+
+
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
+                                  if get_config(n).has_attention])
+def test_decode_body_at_the_zoos_decode_shapes(name):
+    """The bf16 decode's body rule at each config's decode heads in the
+    model's (B, 1, Hq, hd) layout seen through ``transpose(1, 2)``: bf16
+    names the tensor cores (``"mma"`` at hd 64-128, ``"wide"`` at 288:
+    every zoo config has G <= 16), f32 the CUDA cores, and so does a
+    query view off 4 bytes; a group of 20 at hd 288 the CUDA cores."""
+    cfg = get_config(name)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want = "wide" if hd == 288 else "mma"
+    k = torch.zeros(2, 8, Hkv, hd, dtype=torch.bfloat16).transpose(1, 2)
+    for dt, body in ((torch.bfloat16, want), (torch.float32, "cores")):
+        q = torch.zeros(2, 1, Hq, hd, dtype=dt).transpose(1, 2)
+        assert FA.decode_body(q, k.to(dt)) == body
+    q = torch.zeros(2, 1, Hq * hd + 1, dtype=torch.bfloat16)[..., 1:]
+    assert FA.decode_body(q.unflatten(-1, (Hq, hd)).transpose(1, 2), k) == \
+        "cores"
+    q = torch.zeros(2, 1, 20 * Hkv, 288, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, Hkv, 288, dtype=torch.bfloat16)
+    assert FA.decode_body(q.transpose(1, 2), k.transpose(1, 2)) == "cores"
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,kv,cap,local,first,body", [
+    (3, 8, 4, 150, (150, 77, 0), 50.0, 0, None, "wide"),
+    (2, 4, 2, 300, (300, 150), 50.0, 100, None, "wide"),     # window cuts
+    (3, 2, 2, 100, (100, 1, 33), 0.0, 0, None, "wide"),      # G 1
+    (2, 32, 2, 70, (70, 9), 0.0, 0, None, "wide"),           # G 16
+    (2, 8, 4, 200, (200, 120), 50.0, 0, (37, 119), "wide"),  # a first slot
+    (2, 40, 2, 70, (70, 9), 50.0, 0, None, "cores")])        # G 20
+def test_wide_decode_source_matches_plain(fa_lib, B, Hq, Hkv, C, kv, cap,
+                                          local, first, body):
+    """The bf16 cache's decode at hd 288 on the body ``decode_body``
+    names -- ``decode_wide_kernel`` (the tensor cores, G <= 16) or
+    ``decode_split_kernel`` (G 20) -- against ``flash_attention_plain``:
+    softcap 50, ragged live counts with an empty row, a local window
+    that leaves whole chunks below it, GQA groups 1-16, within one bf16
+    ulp of max |o| and the same bits on two launches; with a per-row
+    first live slot also the partial (o f32, lse): lse within 1e-5,
+    +inf where no key is live, o within 2e-2 of max |o| (P meets V in
+    bf16)."""
+    g = torch.Generator().manual_seed(C + Hq)
+    q, k, v = (torch.randn(B, L, H, 288, generator=g).to(torch.bfloat16)
+               .transpose(1, 2) for L, H in ((1, Hq), (C, Hkv), (C, Hkv)))
+    kvt = torch.tensor(kv, dtype=torch.int32)
+    fst = None if first is None else torch.tensor(first, dtype=torch.int32)
+    assert FA.decode_body(q, k) == body
+    kw = dict(causal=False, window=0, softcap=cap, local_window=local)
+    got = FA._fwd_launch(fa_lib, None, q, k, v, kvt, return_lse=False,
+                         kv_first=fst, **kw)
+    want = FA.flash_attention_plain(q, k, v, kvt, kv_first=fst, **kw)
+    _ulp_close(got, want, 2e-2)
+    assert torch.equal(got, FA._fwd_launch(fa_lib, None, q, k, v, kvt,
+                                           return_lse=False, kv_first=fst,
+                                           **kw))
+    if fst is None:
+        return
+    o, lse = FA._fwd_launch(fa_lib, None, q, k, v, kvt, return_lse=True,
+                            kv_first=fst, **kw)
+    wo, wl = FA.flash_attention_plain(q.float(), k.float(), v.float(), kvt,
+                                      return_lse=True, kv_first=fst, **kw)
+    assert o.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    fin = torch.isfinite(wl)
+    assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+    assert float((o - wo).abs().max()) <= 2e-2 * float(wo.abs().max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,Lk,kv,kw", [
+    (1, 2, 1, 70, 70, None, dict(causal=True, softcap=50.0)),
+    (1, 2, 1, 150, 150, None, dict(causal=True, window=32, softcap=50.0)),
+    (2, 4, 2, 150, 150, (150, 77), dict(causal=True, softcap=50.0)),
+    (2, 4, 2, 130, 130, (0, 100), dict(causal=True, window=37)),
+    (1, 4, 2, 70, 130, None, dict(causal=True, softcap=30.0)),
+    (1, 2, 2, 90, 12, None, dict(causal=False)),
+    (1, 2, 1, 300, 300, None, dict(causal=True, window=64, softcap=50.0))])
+def test_wide_prefill_source_matches_plain(fa_lib, B, Hq, Hkv, L, Lk, kv, kw):
+    """The hd-288 prefill (``prefill_wide_kernel``: 128-row blocks, each
+    consumer warpgroup its own 64 rows, TMA's 64-byte swizzle, one Q K^T
+    a score, the softmax beside the products) through ``_fwd_launch``:
+    causal, windows that skip and cut tiles, softcap 50 and 30, ragged L
+    (70, 150, 300), kv_valid with an empty row, G 1 and 2, Lq != Lk and
+    non-causal, each against ``flash_attention_plain`` within one bf16
+    ulp of max |o|, its lse within 1e-5 (+inf where no key is live), and
+    the same bits on two launches."""
+    g = torch.Generator().manual_seed(L + Lk + Hq)
+    q, k, v = (torch.randn(B, n, H, 288, generator=g).to(torch.bfloat16)
+               .transpose(1, 2) for n, H in ((L, Hq), (Lk, Hkv), (Lk, Hkv)))
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32)
+    args = (kw["causal"], kw.get("window", 0), kw.get("softcap", 0.0), 0)
+    got = FA._fwd_launch(fa_lib, None, q, k, v, kvt, *args, False)
+    o, lse = FA._fwd_launch(fa_lib, None, q, k, v, kvt, *args, True)
+    want, wl = FA.flash_attention_plain(q, k, v, kvt, return_lse=True, **kw)
+    _ulp_close(got, want, 2e-2)
+    assert torch.equal(got, o)
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    fin = torch.isfinite(wl)
+    assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+    assert torch.equal(got, FA._fwd_launch(fa_lib, None, q, k, v, kvt,
+                                           *args, False))
