@@ -121,14 +121,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      llama's shape, and a bf16 sweep over both bodies (G 16 and 20, hd
      32, 120, 128 and 288, local windows, softcap);
   5. routed generation at full width and depth: a catalog of
-     llama3.2-1b and mamba2-1.3b, each entry a ``ModelRunner`` at its
-     published config with seeded random bf16 weights on the card;
-     32 requests (16 per model, by preference profile) through
+     llama3.2-1b, mamba2-1.3b and qwen2-1.5b (28 layers, 12/2 heads of
+     128, QKV bias), each entry a ``ModelRunner`` at its published
+     config with seeded random bf16 weights on the card; 48 requests
+     (16 per model, by preference: ``gen_profiles``) through
      ``ServingEngine(prompt_len=512).submit`` with ``max_new=16``; no
      response may fail or be shed, every one carries 16 tokens, the
      prefill logits are finite, and the kernels' launch counts are
-     exactly one per layer per prefill and one per llama layer per
-     decode step;
+     exactly one per layer per prefill and one per attention layer per
+     decode step, every decode on the tensor-core body; qwen2-1.5b's
+     prefill (``prefill_wgmma_kernel<128>``, G 6) and decode are rows
+     of the ``kernels`` line with its launches (``gen_kernel_rows``,
+     checked and timed in ``model_kernels``);
   5b. the same on a catalog of qwen3-moe-30b-a3b (all 48 layers, 59.5
      GB of bf16 weights drawn on the card, after the earlier phases'
      memory is released) and llama3.2-1b, 16 requests per model (a
@@ -140,9 +144,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      hymba-1.5b or h2o-danube-3-4b beside gemma2-2b), one
      ``flash_attention`` launch per attention layer per prefill and
      decode step and one ``ssd_scan`` per hymba layer per prefill;
-  5d. long context: each windowed model alone at full width and depth
-     through ``ModelRunner.generate`` at B=4, prompt 4,608, 16 new
-     tokens (hymba's ring of 1,024 and h2o-danube's of 4,096 wrap);
+  5d. long context: each windowed model alone at full width and half
+     its depth through ``ModelRunner.generate`` at B=4, prompt 4,608,
+     16 new tokens (hymba's ring of 1,024 and h2o-danube's of 4,096 wrap);
      finite logits and exact launch counts;
   5d'. ``long_mode`` (the reference's serving of the long_500k shape):
      its kernel shapes against their plain versions and timed (gemma2-2b's
@@ -175,7 +179,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      the bf16 run (reported); then both with an int8 cache on the card
      against the CPU at full width, 2 layers (the first decode step's
      logits held too);
-  6. card against CPU: the eight configs at full width, 2 layers, f32
+  6. card against CPU: the nine configs at full width, 2 layers, f32
      compute, the same seeded weights on both devices: prefill logits
      within 1e-3 of max |logit|, greedy tokens equal (tie-aware); for
      the MoE also the experts of every gate, tie-aware, with tokens
@@ -186,9 +190,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      fed seeded standard-normal embeddings;
   7. ``serve_loop``, the service loop of ``repro_torch.launch.serve``:
      ``TaskAnalyzer.train`` (250 steps) on the card and on the CPU from
-     one seeded init (first 20 losses within 1e-3 relative, accuracies
-     within 0.02, complexity MAE within 0.01; saved in the reference's
-     layout and loaded back bit-equal); the launcher's ``main`` at full
+     one seeded init, the CPU's run a child process beside the phase's
+     card work (first 20 losses within 1e-3 relative, accuracies within
+     0.02, complexity MAE within 0.01; the card's saved in the
+     reference's layout and loaded back bit-equal); the launcher's
+     ``main`` at full
      width on the eight default configs in its four modes -- 48 requests
      with 16 new tokens (none failed or shed, Prometheus text parsing
      back), batch mode with 24 (one model, the CPU's route of the same
@@ -305,7 +311,7 @@ PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 PEAK_INT8_S = 1979e12           # int8 tensor-core dense TOP/s
 PEAK_BF16_S = 989e12            # bf16 tensor-core dense FLOP/s
-GEN_ARCHS = ["llama3.2-1b", "mamba2-1.3b"]
+GEN_ARCHS = ["llama3.2-1b", "mamba2-1.3b", "qwen2-1.5b"]
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_GEN_ARCHS = [MOE_ARCH, "llama3.2-1b"]
 NEG_INF = float("-inf")
@@ -330,34 +336,14 @@ def log(*a) -> None:
 # ----------------------------------------------------------------------
 
 def time_graph_ms(torch, fn, dev, iters: int = 20, reps: int = 3) -> float:
-    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
-    graph, the mean over ``reps`` replays timed with CUDA events.  The
-    replay launches the recorded kernels back to back, so the wrapper's
-    host work (operand checks, scratch allocation, the ctypes call) is
-    not in the reading.  Host wall time on the CPU."""
+    """Device time of one ``fn()`` (``repro_torch.obs.profile.graph_ms``:
+    a CUDA graph of ``iters`` calls, the mean over ``reps`` replays, the
+    wrapper's host work not in the reading).  Host wall time on the
+    CPU."""
     if dev.type != "cuda":
         return time_ms(torch, fn, dev, iters)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize(dev)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        graph.replay()
-    t1.record()
-    torch.cuda.synchronize(dev)
-    del graph
-    return t0.elapsed_time(t1) / (iters * reps)
+    from repro_torch.obs.profile import graph_ms
+    return graph_ms(fn, iters, reps, dev)
 
 
 def time_ms(torch, fn, dev, iters: int = 20, warmup: int = 3) -> float:
@@ -391,30 +377,18 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 def trace_kernels(torch, dev, fn, iters: int = 20) -> dict:
     """{kernel name: (device ms, launches) per ``fn()``} from a
     ``torch.profiler`` trace of ``iters`` calls after three warm-ups
-    (empty where the trace holds no device time)."""
+    (``repro_torch.obs.profile.kernel_trace``; empty where the trace
+    holds no device time)."""
     if dev.type != "cuda":
         return {}
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.profile import kernel_trace
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize(dev)
     out = {}
-    events = prof.key_averages()
-    for e in events:
-        us = getattr(e, "self_device_time_total", 0.0)
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
-            ms, n = out.get(kernel_label(e.key), (0.0, 0.0))
-            out[kernel_label(e.key)] = (ms + us / 1e3 / iters,
-                                        n + e.count / iters)
+    for key, (ms, n) in kernel_trace(fn, iters, 3, dev).items():
+        ms0, n0 = out.get(kernel_label(key), (0.0, 0.0))
+        out[kernel_label(key)] = (ms0 + ms, n0 + n)
     if not out:                 # PERF.md section 7: late in a long run
-        log(f"[trace] no device time: {len(events)} event kinds, none "
-            f"on the device")
+        log("[trace] no device time: no event on the device")
     return out
 
 
@@ -2156,6 +2130,33 @@ def model_kernel_phase(torch, dev, small: bool):
     return results
 
 
+GEN_ROW_ARCHS = ["qwen2-1.5b"]   # GEN_ARCHS with rows of their own
+
+
+def gen_kernel_rows(torch, dev, small: bool):
+    """qwen2-1.5b's flash_attention shapes as ``generate`` serves them
+    (B=16, prompt 512, 16 new tokens): the prefill (hd 128, G 6, causal,
+    ``prefill_wgmma_kernel<128>``) and the decode over 536 slots at live
+    513-528 (``decode_mma_kernel<128>`` + combine), each against its
+    plain version and timed beside SDPA (``window_attn_row``).  Returns
+    rows keyed ("generate", kind); ``generation_phase`` gives them their
+    launches."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    B, L, max_new = (2, 64, 4) if small else (16, 512, 16)
+    rows = {}
+    for name in GEN_ROW_ARCHS:
+        cfg = get_smoke(name) if small else get_config(name)
+        for kind, Lq, Lk, kv, kw in windowed_shapes(cfg, B, L, max_new):
+            rows[("generate", kind)] = window_attn_row(
+                torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw,
+                f"{kind} ({name}, B={B}, Lq={Lq}, Lk={Lk})", iters=20,
+                tag="kernels")
+    return rows
+
+
 def gate_compare(torch, got, want, logits, what: str):
     """The kernel's gate (vals, idx, aux) against the plain version's on
     the same logits.  Expert indices equal in rows 0 and 1 (``gate_logits``
@@ -2542,8 +2543,17 @@ def window_attn_row(torch, FA, g, dev, cfg, B, Lq, Lk, kv, kw, what,
         lib = sdpa_call(torch, q.contiguous(), k.contiguous(),
                         v.contiguous(), **mask)
         row["library_ms"] = time_graph_ms(torch, lib, dev, iters=iters)
-    kernels = fmt_times(kernel_times(torch, dev, lambda: FA.flash_attention(
-        q, k, v, kvt, **kw), iters=3))
+    times = kernel_times(torch, dev, lambda: FA.flash_attention(
+        q, k, v, kvt, **kw), iters=3)
+    if Lq == 1 and times:       # one split on the mma body: no combine
+        body = FA.decode_body(q, k)
+        n_split = (FA.wide_splits if body == "wide" else
+                   FA.decode_splits)(B, Hkv, Lk)[0]
+        one = FA.one_launch(n_split, False, body, hd)
+        check(one == (not any(n.startswith("decode_combine_kernel")
+                              for n in times)),
+              f"{what}: launches {list(times)}, one launch {one}")
+    kernels = fmt_times(times)
     lib = ("none: SDPA has no softcap" if row["library_ms"] is None else
            f"{row['library_ms']:.4f} (kernel / SDPA "
            f"{row['ms'] / row['library_ms']:.2f})")
@@ -2682,14 +2692,25 @@ MOE_PROFILES = ["accuracy-first", "cost-effective", "balanced",
                 "cost-effective"]
 
 
+def gen_profiles():
+    """Preferences that spread requests over ``GEN_ARCHS``: accuracy-first
+    routes to qwen2-1.5b (accuracy 0.68), cost-effective to llama3.2-1b,
+    and accuracy and speed weighted alike to mamba2-1.3b, second on both
+    (blended score margin 0.25 over the other two: no near-tie), so each
+    model serves a third of the requests on every run."""
+    from repro_torch.core.preferences import METRICS
+    return ["accuracy-first", "cost-effective",
+            {m: float(m in ("accuracy", "speed")) for m in METRICS}]
+
+
 def generation_requests(n: int, max_new: int, seed: int,
                         profiles=GEN_PROFILES, task_types=None):
     """n workload texts (only those of ``task_types``, where given),
     ``profiles`` in turn, and each request's task type in the workload.
     Beside llama3.2-1b, accuracy-first and balanced route to
-    mamba2-1.3b, and to qwen3-moe-30b-a3b (accuracy 0.86 against
-    llama's 0.58); cost-effective and latency-first go to llama (beside
-    mamba2).  Between the two frontend models, accuracy-first and
+    qwen3-moe-30b-a3b (accuracy 0.86 against llama's 0.58);
+    cost-effective and latency-first go to llama.  Between the two
+    frontend models, accuracy-first and
     balanced go to llava-next-mistral-7b (accuracy 0.76 against 0.74),
     cost-effective and latency-first to seamless-m4t-medium (a tenth of
     its active parameters)."""
@@ -2837,22 +2858,39 @@ def routed_generation(torch, dev, small: bool, archs, seed: int, tag: str,
     return mres, results, launches, prompt_len, max_new, rec.counts
 
 
-def generation_phase(torch, dev, small: bool, kernels):
-    mres, results, launches, prompt_len, max_new, _ = routed_generation(
-        torch, dev, small, GEN_ARCHS, seed=7, tag="generate")
-    n_llama = mres.entry("llama3.2-1b").runner.cfg.n_layers
+def generation_phase(torch, dev, small: bool, kernels, rows):
+    """Routed generation on llama3.2-1b, mamba2-1.3b and qwen2-1.5b at
+    full width and depth: 48 requests, 16 per model (``gen_profiles``);
+    one flash_attention launch per attention layer per prefill and decode
+    step, one ssd_scan per mamba2 layer per prefill.  The
+    ``flash_attention`` row (llama3.2-1b's shapes) takes llama's
+    launches, qwen2-1.5b's rows (``gen_kernel_rows``) theirs."""
+    mres, results, launches, prompt_len, max_new, kinds = routed_generation(
+        torch, dev, small, GEN_ARCHS, seed=7, tag="generate",
+        profiles=gen_profiles(), n_req=48)
+    n_attn = sum(mres.entry(n).runner.cfg.n_layers for n in GEN_ARCHS
+                 if mres.entry(n).runner.cfg.has_attention)
     n_mamba = mres.entry("mamba2-1.3b").runner.cfg.n_layers
-    want = {"flash_attention": n_llama * max_new,
-            "flash_attention_decode": n_llama * (max_new - 1),
+    want = {"flash_attention": n_attn * max_new,
+            "flash_attention_decode": n_attn * (max_new - 1),
             "ssd_scan": n_mamba, "moe_gating": 0}
+    check(sum(kinds.values()) == n_attn * max_new,
+          f"flash_attention calls {kinds}, want {n_attn * max_new}")
     if dev.type == "cuda":
         check(launches == want, f"launch counts {launches}, want {want} "
                                 "(one per layer per prefill and decode step)")
+        check_decode_bodies(kinds, want["flash_attention_decode"],
+                            "generate")
     for name in GEN_ARCHS:
         decode_profile(torch, dev, mres.entry(name).runner, name,
                        results[name].tokens.shape[0], prompt_len)
-    for k in ("flash_attention", "ssd_scan"):
-        kernels.setdefault(k, {})["launches"] = launches[k]
+    llama = mres.entry("llama3.2-1b").runner.cfg
+    G = llama.n_heads // llama.n_kv_heads
+    kernels.setdefault("flash_attention", {})["launches"] = sum(
+        kinds.get(flash_kind(llama.head_dim, lq, G, 0, 0, 0.0), 0)
+        for lq in (prompt_len, 1))
+    kernels.setdefault("ssd_scan", {})["launches"] = launches["ssd_scan"]
+    record_window_launches(kernels, rows, "generate", kinds)
 
 
 def release(torch, dev, what: str) -> None:
@@ -2976,7 +3014,8 @@ def windowed_generation_phase(torch, dev, small: bool, kernels, rows):
 
 
 def long_context_phase(torch, dev, small: bool, kernels, rows):
-    """Each windowed model alone at full width and depth through
+    """Each windowed model alone at full width and half its depth (for
+    the script's time limit) through
     ``ModelRunner.generate``: B = 4, a prompt of 4,608 tokens (past every
     window: hymba's ring of 1,024 and h2o-danube's of 4,096 wrap,
     gemma2's local layers mask inside its full cache), 16 new tokens.
@@ -2987,10 +3026,13 @@ def long_context_phase(torch, dev, small: bool, kernels, rows):
     from repro_torch.models import model as M
     from repro_torch.serving.runner import ModelRunner
 
+    import dataclasses
+
     B, Lp, max_new = (2, 150, 4) if small else (4, 4608, 16)
     total = {}
     for i, name in enumerate(WINDOWED_ARCHS):
         cfg = get_smoke(name) if small else get_config(name)
+        cfg = dataclasses.replace(cfg, n_layers=max(2, cfg.n_layers // 2))
         t0 = time.perf_counter()
         runner = ModelRunner(cfg, seed=31 + i, device=dev)
         toks = np.random.default_rng(32 + i).integers(
@@ -4549,33 +4591,93 @@ def read_launches() -> dict:
                FA.flash_attention.decode_launches_by_body.items()}}
 
 
+ANALYZER_STEPS = 250              # load_analyzer's training run
+
+
+def analyzer_kw(small: bool) -> dict:
+    """``TaskAnalyzer.train``'s arguments for the card and the CPU run."""
+    return (dict(steps=60, n_samples=1024) if small else
+            dict(steps=ANALYZER_STEPS))
+
+
+def cpu_analyzer_worker(out: str, small: bool) -> int:
+    """The CPU's run of ``train_analyzers``' comparison (this script with
+    ``--cpu-analyzer``): ``TaskAnalyzer.train`` from the same seeded init
+    on half the host's cores, its losses, metrics and times written to
+    ``out`` as JSON."""
+    import os
+
+    import torch
+    from repro_torch.core.analyzer import AnalyzerConfig, TaskAnalyzer
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    an = TaskAnalyzer(AnalyzerConfig(), seed=0, device=torch.device("cpu"))
+    t0 = time.perf_counter()
+    metrics = an.train(**analyzer_kw(small))
+    Path(out).write_text(json.dumps({
+        "losses": an.train_losses, "metrics": metrics,
+        "train_s": an.train_s, "wall": time.perf_counter() - t0,
+        "threads": torch.get_num_threads()}))
+    return 0
+
+
+def start_cpu_analyzer(small: bool, tmp: str):
+    """``cpu_analyzer_worker`` started beside the card's serve_loop work
+    (the CPU's 250 steps take about a minute); returns (process, path of
+    its JSON) for ``train_analyzers``' comparison."""
+    out = f"{tmp}/cpu_analyzer.json"
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--cpu-analyzer",
+           out] + (["--rehearse"] if small else [])
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), out
+
+
 def train_analyzers(torch, dev, small: bool, path: str):
     """``TaskAnalyzer.train`` with ``load_analyzer``'s 250 steps on the
-    card and on the CPU from the same seeded init: the first 20 losses
-    within 1e-3 relative, the accuracies within 0.02 and the complexity
-    MAE within 0.01 (CUDA's embedding backward sums in another order:
-    tolerances, not bits).  The card's analyzer is saved at ``path`` in
-    the reference's layout and must load back bit-equal."""
+    card; the card's analyzer is saved at ``path`` in the reference's
+    layout and must load back bit-equal.  Returns (analyzer, its
+    metrics) for ``compare_analyzers``."""
     from repro_torch.checkpoint import save
     from repro_torch.core.analyzer import (AnalyzerConfig, TaskAnalyzer,
                                            params_to_tree)
     from repro_torch.launch.serve import load_analyzer
 
-    kw = dict(steps=60, n_samples=1024) if small else dict(steps=250)
-    runs = {}
-    for where in (dev, torch.device("cpu")):
-        an = TaskAnalyzer(AnalyzerConfig(), seed=0, device=where)
-        t0 = time.perf_counter()
-        metrics = an.train(**kw)
-        wall = time.perf_counter() - t0
-        runs[where.type] = (an, metrics)
-        log(f"[serve_loop] analyzer trained on {where}: {kw['steps']} steps "
-            f"of batch 128 in {an.train_s:.2f} s ("
-            f"{kw['steps'] / an.train_s:.1f} steps/s; train() {wall:.2f} s "
-            f"with data and evaluate), final loss "
-            f"{an.train_losses[-1]:.4f}, {metrics}")
-    (an, mc), (cpu_an, mh) = runs[dev.type], runs["cpu"]
-    a, b = np.array(an.train_losses[:20]), np.array(cpu_an.train_losses[:20])
+    kw = analyzer_kw(small)
+    an = TaskAnalyzer(AnalyzerConfig(), seed=0, device=dev)
+    t0 = time.perf_counter()
+    metrics = an.train(**kw)
+    wall = time.perf_counter() - t0
+    log(f"[serve_loop] analyzer trained on {dev}: {kw['steps']} steps "
+        f"of batch 128 in {an.train_s:.2f} s ("
+        f"{kw['steps'] / an.train_s:.1f} steps/s; train() {wall:.2f} s "
+        f"with data and evaluate), final loss "
+        f"{an.train_losses[-1]:.4f}, {metrics}")
+    save(path, params_to_tree(an.state), {"metrics": metrics})
+    back = load_analyzer(path, device=dev)
+    check(all(np.array_equal(back.state[k], v) for k, v in an.state.items()),
+          "analyzer checkpoint did not load back bit-equal")
+    log("[serve_loop] analyzer saved in the reference's layout and loaded "
+        "back bit-equal")
+    return an, metrics
+
+
+def compare_analyzers(card, mc: dict, proc, out: str, steps: int):
+    """The card's analyzer against the CPU's run of the same training
+    (``start_cpu_analyzer``), from the same seeded init: the first 20
+    losses within 1e-3 relative, the accuracies within 0.02 and the
+    complexity MAE within 0.01 (CUDA's embedding backward sums in
+    another order: tolerances, not bits)."""
+    text = proc.communicate(timeout=600)[0].decode()[-4000:]
+    check(proc.returncode == 0, f"the CPU's analyzer run exited "
+                                f"{proc.returncode}:\n{text}")
+    cpu = json.loads(Path(out).read_text())
+    mh = cpu["metrics"]
+    log(f"[serve_loop] analyzer trained on cpu ({cpu['threads']} threads, "
+        f"beside the card's work): {steps} steps of batch 128 in "
+        f"{cpu['train_s']:.2f} s ({steps / cpu['train_s']:.1f} steps/s; "
+        f"train() {cpu['wall']:.2f} s with data and evaluate), final loss "
+        f"{cpu['losses'][-1]:.4f}, {mh}")
+    a = np.array(card.train_losses[:20])
+    b = np.array(cpu["losses"][:20])
     rel = float(np.max(np.abs(a - b) / np.abs(b)))
     check(rel <= 1e-3, f"analyzer losses of the first 20 steps differ by "
                        f"{rel:.3g} relative (> 1e-3)")
@@ -4583,14 +4685,8 @@ def train_analyzers(torch, dev, small: bool, path: str):
                    ("complexity_mae", 0.01)):
         check(abs(mc[k] - mh[k]) <= tol,
               f"analyzer {k}: card {mc[k]} vs CPU {mh[k]} (tol {tol})")
-    save(path, params_to_tree(an.state), {"metrics": mc})
-    back = load_analyzer(path, device=dev)
-    check(all(np.array_equal(back.state[k], v) for k, v in an.state.items()),
-          "analyzer checkpoint did not load back bit-equal")
     log(f"[serve_loop] analyzer card vs CPU: first 20 losses within "
-        f"{rel:.3g} relative; saved in the reference's layout and loaded "
-        f"back bit-equal")
-    return an
+        f"{rel:.3g} relative, metrics within their limits")
 
 
 def launcher_runs(torch, dev, small: bool, ckpt: str, tmp: str):
@@ -5015,16 +5111,25 @@ def serve_loop_phase(torch, dev, small: bool, kernels):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/analyzer.npz"
-        analyzer = train_analyzers(torch, dev, small, ckpt)
-        seen = launcher_runs(torch, dev, small, ckpt, tmp)
-        if dev.type == "cuda":
-            for k in ("router_topk", "flash_attention", "ssd_scan"):
-                check(seen[k] > 0, f"launcher: {k} never launched ({seen})")
-            for k in bwd_kernels():     # serving differentiates nothing
-                check(seen[k] == 0, f"launcher: {k} launched ({seen})")
-        rows = batcher_kernel_rows(torch, dev, small)
-        batcher_phase(torch, dev, small, kernels, rows)
-        merging_phase(torch, dev, small, analyzer, tmp)
+        proc, out = start_cpu_analyzer(small, tmp)
+        try:
+            analyzer, metrics = train_analyzers(torch, dev, small, ckpt)
+            seen = launcher_runs(torch, dev, small, ckpt, tmp)
+            if dev.type == "cuda":
+                for k in ("router_topk", "flash_attention", "ssd_scan"):
+                    check(seen[k] > 0,
+                          f"launcher: {k} never launched ({seen})")
+                for k in bwd_kernels():     # serving differentiates nothing
+                    check(seen[k] == 0, f"launcher: {k} launched ({seen})")
+            rows = batcher_kernel_rows(torch, dev, small)
+            batcher_phase(torch, dev, small, kernels, rows)
+            merging_phase(torch, dev, small, analyzer, tmp)
+            compare_analyzers(analyzer, metrics, proc, out,
+                              analyzer_kw(small)["steps"])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     release(torch, dev, "after the serve_loop phase")
     log(f"[serve_loop] phase time {time.perf_counter() - t0:.1f} s")
 
@@ -5584,7 +5689,7 @@ def kernel_families() -> dict:
         fam = src.stem.replace("_bwd", "")
         way = "bwd" if src.stem.endswith("_bwd") else "fwd"
         for n in re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s*)?(\w+)\s*\(",
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                 src.read_text()):
             out[n] = (fam, way)
     return out
@@ -6665,7 +6770,7 @@ def port_kernels() -> set:
     names = set()
     for src in sorted((ROOT / "src/repro_torch/kernels/csrc").glob("*.cu*")):
         names.update(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s*)?(\w+)\s*\(",
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
             src.read_text()))
     return names
 
@@ -6735,7 +6840,11 @@ def main() -> int:
                          "result, exits 4")
     ap.add_argument("--multirank-rank", nargs=2, metavar=("RANK", "DIR"),
                     default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-analyzer", metavar="JSON", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cpu_analyzer is not None:          # serve_loop's CPU analyzer
+        return cpu_analyzer_worker(args.cpu_analyzer, args.rehearse)
     if args.multirank_rank is not None:        # one rank of multirank
         return multirank_worker(int(args.multirank_rank[0]),
                                 args.multirank_rank[1], args.rehearse)
@@ -6771,6 +6880,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     small = args.rehearse
     kernels = {}
+    gen_rows = {}
     window_rows = {}
     frontend_rows = {}
     int8_rows = {}
@@ -6785,8 +6895,9 @@ def main() -> int:
         "mega_catalog": lambda: mega_catalog_phase(torch, dev, small,
                                                    kernels, shared),
         "workloads": lambda: workloads_phase(torch, dev, small, shared),
-        "model_kernels": lambda: kernels.update(
-            model_kernel_phase(torch, dev, small)),
+        "model_kernels": lambda: (
+            kernels.update(model_kernel_phase(torch, dev, small)),
+            gen_rows.update(gen_kernel_rows(torch, dev, small))),
         "moe_kernels": lambda: kernels.update(
             moe_kernel_phase(torch, dev, small)),
         "window_kernels": lambda: window_rows.update(
@@ -6796,7 +6907,7 @@ def main() -> int:
         "kv_int8_kernels": lambda: int8_rows.update(
             kv_int8_kernel_phase(torch, dev, small)),
         "generate": lambda: (
-            generation_phase(torch, dev, small, kernels),
+            generation_phase(torch, dev, small, kernels, gen_rows),
             release(torch, dev, "after the routing and generation phases")),
         "moe_generate": lambda: (
             moe_generation_phase(torch, dev, small, kernels),

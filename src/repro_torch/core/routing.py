@@ -42,14 +42,6 @@ _DM_ANY = len(DOMAINS)
 FALLBACK_LADDER = ("", "widened-knn", "task-type-only", "generalist", "any")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a configuration this slice of the port leaves out,
-    naming its ROADMAP.md item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, "
-        f"Queue 1: {item})")
-
-
 def cosine_sim(emb: np.ndarray, t: np.ndarray) -> np.ndarray:
     """Cosine similarity of each row of emb against task vector t."""
     en = np.linalg.norm(emb, axis=1) + 1e-9

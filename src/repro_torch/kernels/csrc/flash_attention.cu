@@ -36,27 +36,36 @@
 //
 // Design:
 //  * prefill, bf16, hd 64/120/128, 16-byte aligned strides
-//    (prefill_wgmma_kernel): grid (Hq, B, ceil(Lq / BQ)) with the
-//    query-tile index reversed, so the longest causal blocks start
-//    first.  288 threads: two consumer warpgroups of 64 query rows and
-//    one producer warp; at hd 64 two blocks share an SM (96 registers),
-//    which the kernel needs: a block alone leaves the SM waiting on
-//    its products and its softmax in turn.  The producer issues TMA
-//    loads -- 4-D tensor maps over hd and the (l, h, b) axes in the
-//    operands' own strides, 128-byte swizzle -- of Q once and of 64-key
-//    K/V tiles into a 2-stage ring in dynamic shared memory, a full and
-//    an empty mbarrier per stage, so the next tile is in flight while
-//    the consumers compute.  S = Q K^T is wgmma m64n64k16 with Q and K
-//    from shared memory (K-major); O += P V is wgmma m64nHDk16 with P
+//    (prefill_wgmma_kernel).  The producer issues TMA loads -- 4-D
+//    tensor maps over hd and the (l, h, b) axes in the operands' own
+//    strides, 128-byte swizzle -- into rings in dynamic shared memory
+//    with a full and an empty mbarrier per stage.  S = Q K^T is wgmma
+//    with Q and K from shared memory (K-major); O += P V is wgmma with P
 //    in registers (the S accumulator's layout is the A operand's; P is
-//    rounded to bf16 there only) and V read MN-major from shared memory
-//    through the transpose bit.  Softmax in the log2 domain on the SFU
-//    (ex2, with scale*log2(e) folded into one fma per score); tanh only
-//    when softcap != 0.  Tiles no row of a warpgroup sees are skipped,
-//    tiles all its rows see in full run with no per-score mask, and
-//    only the edge tiles (diagonal, window, kv_valid, ragged Lk) test
-//    each score.  TMA fills rows past Lq / Lk with zeros; those are
-//    masked or not stored.
+//    rounded to bf16 there only) and V read MN-major through the
+//    transpose bit.  Softmax in the log2 domain on the SFU (ex2, with
+//    scale*log2(e) folded into one fma per score); tanh only when
+//    softcap != 0.  Tiles no row sees are skipped, tiles all rows see
+//    in full run with no per-score mask, and only the edge tiles
+//    (diagonal, window, kv_valid, ragged Lk) test each score.  TMA
+//    fills rows past Lq / Lk with zeros.  Two bodies:
+//    - hd 120/128 (prefill_turns): persistent, one 384-thread block an
+//      SM walking the (query tile, head, batch) items longest first;
+//      two consumer warpgroups of 64 rows take the producer
+//      warpgroup's registers by setmaxnreg; 128-key tiles (Q K^T
+//      m64n128); Q double-buffered, K and V in rings of their own.
+//      The tensor cores run through the softmax: tile i's Q K^T goes
+//      out with tile i - 1's P V and its scores are exponentiated while
+//      P V runs, and the two warpgroups issue their products in turns
+//      set by named barriers, one's softmax in the other's products.
+//      O goes out through shared memory by TMA stores, which clip rows
+//      past Lq and columns past hd.
+//    - hd 64 (prefill_pair): grid (Hq, B, ceil(Lq / 128)), the
+//      query-tile index reversed so the longest causal blocks start
+//      first; two 288-thread blocks an SM (two consumer warpgroups of
+//      64 rows and a producer warp), 64-key tiles in a 2-stage ring;
+//      at hd 64 the softmax's ex2 keeps pace with the products, and the
+//      second block fills the gaps better than turns.
 //  * prefill, bf16, hd 288 (gemma2-2b; prefill_wide_kernel): the same
 //    grid, 384 threads, each consumer warpgroup its own 64 rows with O
 //    (144 f32 a thread) in registers given by setmaxnreg; 32-column
@@ -89,8 +98,11 @@
 //    288).  A chunk wholly below a window is a chunk with no live
 //    key.  decode_combine_kernel, one block per (batch, query head),
 //    merges the splits in split order: no atomics, the same bits on
-//    every run.  Asked for the rows' log-sum-exp it writes it beside an
-//    f32 output: a partial over one rank's keys.  The same body merges
+//    every run.  With one split (a short cache: seamless's 16 cross
+//    keys) and no lse, decode_mma_kernel divides by the row sum itself
+//    and writes the output: one launch, no scratch (one_launch).  Asked
+//    for the rows' log-sum-exp the combine writes it beside an f32
+//    output: a partial over one rank's keys.  The same body merges
 //    R such partials (flash_decode_merge_launch), each (o, lse) read as
 //    one split, so a cache sharded by length over R ranks decodes as
 //    R local decodes, one gather of B * Hq * (hd + 1) floats a rank,
@@ -426,6 +438,50 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
            ax.l == 3 ? row : ax.h == 3 ? head : batch);
 }
 
+// The 4-D TMA box of `map` at (c0, c1, c2, c3) from shared memory to
+// the tensor; what falls outside the tensor is not written.
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_u32(src))
+      : "memory");
+}
+
+// One box from shared memory to the tensor, addressed as tma_load's.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, TmaAxes ax, int d,
+                                          int row, int head, int batch) {
+  tma_store4(map, src, d, ax.l == 1 ? row : ax.h == 1 ? head : batch,
+             ax.l == 2 ? row : ax.h == 2 ? head : batch,
+             ax.l == 3 ? row : ax.h == 3 ? head : batch);
+}
+
+// the calling thread's TMA stores so far, as one bulk group
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the calling thread's committed TMA stores have read their shared
+// memory (it may be written again, or the block exit)
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over n threads, a
+// multiple of 32: bar_sync waits until n threads have reached it,
+// bar_arrive counts the caller and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // 16 bytes global -> shared; `full` false writes 16 zero bytes
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
@@ -552,6 +608,33 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -637,15 +720,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 // prefill, bf16 on Hopper: TMA ring + wgmma
 // ---------------------------------------------------------------------
 
-// HD 64 and 128 (120 in 128): the two consumer warpgroups take 64 query
-// rows each and each holds its rows of O (64 x HD) in registers (hd 288
-// has its own kernel, prefill_wide_kernel).
-template <int HD>
-struct Wg {
+// one arrival of the calling warp on a stage's empty barrier
+__device__ __forceinline__ void release_stage(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+}
+
+// HD 64: two blocks an SM (prefill_pair).  At hd 64 the softmax's ex2
+// (16 a clock an SM) keeps pace with the tensor cores' products (about
+// 17 scores a clock), so warpgroups taking turns leave little to hide;
+// two 288-thread blocks (96 registers), each two consumer warpgroups of
+// 64 rows walking 64-key tiles from a 2-stage TMA ring and one producer
+// warp, fill the SM's gaps better: the turns body below, built at hd
+// 64, measured slower at every served hd-64 shape.  Each warpgroup
+// skips the tiles none of its rows sees, and its rows of O leave in
+// 4-byte stores.
+struct WgPair {
+  static constexpr int HD = 64;
   static constexpr int BQ = 128;                  // query rows per block
   static constexpr int BK = 64;                   // keys per tile
-  static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;   // per SM
-  static constexpr int NB = HD / 64;              // 128-byte column blocks
+  static constexpr int NB = 1;                    // 128-byte column blocks
   static constexpr int STAGES = 2;
   static constexpr int THREADS = 288;             // 2 warpgroups + 1 warp
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -654,18 +748,17 @@ struct Wg {
 };
 
 // One consumer warpgroup: query rows rlo .. rlo + 63, whose Q rows start
-// at qw in each column block of the Q tile; O (64 x HD) HD / 2
-// accumulators a thread.  Walks the block's ntiles K/V tiles from kbeg,
-// releases each stage, and stores its rows of O.
-template <int HD, bool LSE>
-__device__ __forceinline__ void wg_consume(
+// at qw in the Q tile; O (64 x 64) 32 accumulators a thread.  Walks the
+// block's ntiles K/V tiles from kbeg, releases each stage, and stores
+// its rows of O.
+template <bool LSE>
+__device__ __forceinline__ void pair_consume(
     const uint8_t* qw, const uint8_t* ks, const uint8_t* vs, uint64_t* qbar,
     uint64_t* full, uint64_t* empty, int ntiles, int kbeg, int rlo,
     int live, Mask mk, __nv_bfloat16* ob, Strides os, float scale,
-    float softcap, int hd, float* lse) {
-  using C = Wg<HD>;
-  if constexpr (!PAD<HD>) hd = HD;
-  constexpr int BK = C::BK;
+    float softcap, float* lse) {
+  using C = WgPair;
+  constexpr int HD = C::HD, BK = C::BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wl = warp & 3;
   const int g8 = lane >> 2, t4 = lane & 3;
@@ -766,7 +859,7 @@ __device__ __forceinline__ void wg_consume(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<HD>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
+        wgmma_rs_n64(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128,
                                            1024));
       wg_commit();
       wg_wait0();
@@ -794,7 +887,6 @@ __device__ __forceinline__ void wg_consume(
   }
 #pragma unroll
   for (int c = 0; c < HD / 8; ++c) {
-    if (8 * c >= hd) break;               // TMA's zero columns (120)
     const int d = 8 * c + 2 * t4;
     if (rA < mk.lq)
       *reinterpret_cast<uint32_t*>(ob + (long long)rA * os.l + d) =
@@ -805,16 +897,13 @@ __device__ __forceinline__ void wg_consume(
   }
 }
 
-template <int HD, bool LSE>
-__global__ void __launch_bounds__(Wg<HD>::THREADS, Wg<HD>::MIN_BLOCKS)
-prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, TmaAxes qa,
-                     TmaAxes ka, const int* __restrict__ kv_valid,
-                     __nv_bfloat16* __restrict__ out, int G, Mask mk,
-                     Strides os, float scale, float softcap, int hd,
-                     float* __restrict__ lse) {
-  using C = Wg<HD>;
+template <bool LSE>
+__device__ __forceinline__ void prefill_pair(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    TmaAxes qa, TmaAxes ka, const int* __restrict__ kv_valid,
+    __nv_bfloat16* __restrict__ out, int G, Mask mk, Strides os,
+    float scale, float softcap, float* __restrict__ lse) {
+  using C = WgPair;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   // swizzled TMA boxes and wgmma descriptors want 1024-byte alignment
@@ -874,9 +963,433 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp >> 2;
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
   float* lb = LSE ? lse + ((long long)b * gridDim.x + h) * mk.lq : nullptr;
-  wg_consume<HD, LSE>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
-                      kbeg, q0 + 64 * wg, live, mk, ob, os, scale, softcap,
-                      hd, lb);
+  pair_consume<LSE>(qs + wg * 64 * 128, ks, vs, qbar, full, empty, ntiles,
+                    kbeg, q0 + 64 * wg, live, mk, ob, os, scale, softcap, lb);
+}
+
+// HD 128 (120 in 128; prefill_turns).  Persistent: one block an SM walks
+// the (query tile, head, batch) items, longest first (item t of the
+// grid's stride), so one item's epilogue and the next one's loads
+// overlap.  A query tile is 64 rows for each of NWG = 2 consumer
+// warpgroups, each holding its rows of O (64 x HD, HD / 2 f32 a thread)
+// in registers beside one S tile (64 x 128: 64 f32) and the last tile's
+// P (32 bf16 pairs); a producer warpgroup keeps TMA loads in flight,
+// and setmaxnreg moves its registers to the consumers (24 and 240 a
+// thread).  Keys come in 128-key tiles, so Q K^T is m64n128 with both
+// operands in shared memory and P V takes 8 k-steps.  Q is
+// double-buffered (the next item's loads while this one computes); K
+// and V fill separate rings that continue across items and empty apart
+// (K's stage frees once the scores are done, V's once P V is, an
+// iteration later): 3 K stages and 2 V stages beside the two Q buffers.
+// The tensor cores run through the softmax two ways:
+//  * within a warpgroup, tile i's Q K^T and tile i - 1's P V go out
+//    together and the scores of i are exponentiated while P V runs
+//    (wgmma.wait_group 1);
+//  * across warpgroups, named barriers make them issue their products
+//    in turn: each waits on its own barrier (SCHED_BAR + w) before it
+//    issues and counts itself on the next one's once its products are
+//    out, so one's softmax falls in the other's products.
+// Every consumer walks all its item's tiles (a row that sees none of a
+// tile masks it whole), so every branch taken while a product is in
+// flight is uniform over the block, and no accumulator is read while
+// its product may be in flight: ptxas serializes the products otherwise
+// (C7514 / C7515 in the build log).  O leaves through shared memory:
+// each warpgroup writes its rows into its own rows of the item's Q
+// buffer (its Q K^T are done; the other reads only its own) in the TMA
+// box layout, and one TMA store per 64-column block writes what lies
+// inside the output (rows past Lq and columns past hd are clipped); the
+// stores are waited for, and the buffer handed back to the producer,
+// only as the next item starts.  Each of these measured faster than its
+// alternative at the served hd-128 shapes (one Q buffer with a fourth K
+// stage, a block an item, no turns; an item's last P V issued with the
+// next item's first Q K^T made ptxas serialize the products).
+template <int HD>
+struct Wg {
+  static constexpr int NWG = 2;                   // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;             // query rows per item
+  static constexpr int BK = 128;                  // keys per tile
+  static constexpr int NB = HD / 64;              // 128-byte column blocks
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int QBUFS = 2;                 // Q buffers
+  static constexpr int Q_BYTES = BQ * HD * 2;     // one Q buffer
+  static constexpr int T_BYTES = BK * HD * 2;     // one K or V tile
+  static constexpr int BAR_BYTES = 256;
+  // V stages, and as many K stages as fit beside them and the Q buffers
+  // in 227 KB: K is needed a tile ahead of V (tile i's Q K^T goes out
+  // with tile i - 1's P V)
+  static constexpr int VSTAGES = 2;
+  static constexpr int KSTAGES =
+      (232448 - 1024 - QBUFS * Q_BYTES - VSTAGES * T_BYTES - BAR_BYTES) /
+      T_BYTES;
+  static constexpr int SMEM = 1024 + QBUFS * Q_BYTES +
+                              (KSTAGES + VSTAGES) * T_BYTES + BAR_BYTES;
+  static_assert(KSTAGES >= 2 &&
+                8 * (2 * QBUFS + 2 * KSTAGES + 2 * VSTAGES) <= BAR_BYTES,
+                "ring");
+};
+
+// The prefill consumers' named barriers: warpgroup w waits on
+// SCHED_BAR + w for its turn to issue products, and on EPI_BAR + w for
+// its rows of O in shared memory.
+constexpr int SCHED_BAR = 1, EPI_BAR = 4;
+
+template <int HD, bool LSE>
+__device__ __forceinline__ void prefill_turns(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& to, TmaAxes qa, TmaAxes ka, TmaAxes oa,
+    const int* __restrict__ kv_valid, int B, int Hq, int G, Mask mk,
+    float scale, float softcap, float* __restrict__ lse) {
+  using C = Wg<HD>;
+  constexpr int BK = C::BK, SK = C::KSTAGES, SV = C::VSTAGES;
+  constexpr int NWG = C::NWG, QB = C::QBUFS;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled TMA boxes and wgmma descriptors want 1024-byte alignment
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + QB * C::Q_BYTES;     // [stage][column block][BK][64]
+  uint8_t* vs = ks + SK * C::T_BYTES;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vs + SV * C::T_BYTES);
+  uint64_t* qempty = qfull + QB;
+  uint64_t* kfull = qempty + QB;
+  uint64_t* kempty = kfull + SK;
+  uint64_t* vfull = kempty + SK;
+  uint64_t* vempty = vfull + SV;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (mk.lq + C::BQ - 1) / C::BQ;
+  const int n_items = nq * Hq * B;
+  const int off = mk.lk - mk.lq;
+  // item t: query tile nq - 1 - t / (Hq B) (the longest first: the last
+  // items are the shortest), then head and batch; the keys any of its
+  // rows can see, as 128-key tiles from kbeg (the same numbers in every
+  // thread of the block)
+  int q0, h, b, live, kbeg, ntiles;
+  auto item = [&](int t) {
+    const int per = Hq * B, r = t / per, hb = t - r * per;
+    q0 = (nq - 1 - r) * C::BQ;
+    h = hb % Hq;
+    b = hb / Hq;
+    live = live_keys(kv_valid, b, mk.lk);
+    kbeg = 0;
+    int kend = live;
+    if (mk.causal) {
+      kend = min(kend, min(q0 + C::BQ, mk.lq) + off);
+      if (mk.window) kbeg = max(0, q0 + off - mk.window + 1);
+    }
+    ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(qfull + i, 1);
+      mbar_init(qempty + i, NWG);         // each warpgroup's storing thread
+    }
+    for (int i = 0; i < SK; ++i) {        // one arrival per consumer warp
+      mbar_init(kfull + i, 1);
+      mbar_init(kempty + i, 4 * NWG);
+    }
+    for (int i = 0; i < SV; ++i) {
+      mbar_init(vfull + i, 1);
+      mbar_init(vempty + i, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {                  // producers: the first warp Q
+    reg_dealloc<C::PRODUCER_REGS>();      // and K, the second V
+    const int pw = warp - 4 * NWG;
+    if (pw < 2 && lane == 0) {
+      const bool kp = pw == 0;
+      const int S = kp ? SK : SV;
+      uint8_t* dst = kp ? ks : vs;
+      uint64_t* fb = kp ? kfull : vfull;
+      uint64_t* eb = kp ? kempty : vempty;
+      int it = 0;                         // tiles loaded so far
+      for (int t = blockIdx.x, j = 0; t < n_items; t += gridDim.x, ++j) {
+        item(t);
+        if (kp) {                         // the item's Q, into buffer j % QB
+          const int qb = j % QB;
+          if (j >= QB) mbar_wait(qempty + qb, (j / QB - 1) & 1);
+          if (ntiles > 0) {
+            mbar_expect_tx(qfull + qb, C::Q_BYTES);
+            for (int c = 0; c < C::NB; ++c)
+              tma_load(qs + qb * C::Q_BYTES + c * C::BQ * 128, &tq,
+                       qfull + qb, qa, 64 * c, q0, h, b);
+          } else {
+            mbar_arrive(qfull + qb);      // nothing to load: the phase ends
+          }
+        }
+        for (int i = 0; i < ntiles; ++i, ++it) {
+          const int s = it % S, k0 = kbeg + i * BK;
+          if (it >= S) mbar_wait(eb + s, (it / S - 1) & 1);
+          mbar_expect_tx(fb + s, C::T_BYTES);
+          for (int c = 0; c < C::NB; ++c) {
+            uint8_t* box = dst + s * C::T_BYTES + c * BK * 128;
+            if (kp) tma_load(box, &tk, fb + s, ka, 64 * c, k0, h / G, b);
+            else tma_load(box, &tv, fb + s, ka, 64 * c, k0, h / G, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg holds rows q0 + 64 wg .. + 63 of each item
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  // with a softcap the scores go to the log2 domain as they are capped;
+  // without one, scale*log2(e) is folded into the exponent's fma
+  const float mul = softcap != 0.f ? 1.f : scale * LOG2E;
+  float o[HD / 2];
+  float mA, mB, lA, lB;
+  int rA, rB, all_beg, all_end;
+  const uint8_t* qw;
+  uint32_t pa[BK / 16][4];                // P of the last tile
+  // tile i's scores to probabilities, the running max and sums updated;
+  // returns O's rescale factors in aA, aB
+  auto softmax = [&](float (&sc)[BK / 2], int k0, float& aA, float& aB) {
+    if (softcap != 0.f) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        sc[e] = softcap * tanhf(sc[e] * scale / softcap) * LOG2E;
+    }
+    if (!(k0 >= all_beg && k0 + BK <= all_end)) {      // an edge tile
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+        if (!mk.ok((e & 2) ? rB : rA, key, live)) sc[e] = -CUDART_INF_F;
+      }
+    }
+    float xA = mA, xB = mB;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      if (e & 2) xB = fmaxf(xB, sc[e]);
+      else xA = fmaxf(xA, sc[e]);
+    }
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, d));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, d));
+    }
+    // a row with no live key so far subtracts 0: 2^-inf = 0
+    const float uA = xA == -CUDART_INF_F ? 0.f : xA;
+    const float uB = xB == -CUDART_INF_F ? 0.f : xB;
+    aA = ex2((mA - uA) * mul);
+    aB = ex2((mB - uB) * mul);
+    const float nA = -uA * mul, nB = -uB * mul;
+    mA = xA;
+    mB = xB;
+    float pA = 0.f, pB = 0.f;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const float p = ex2(fmaf(sc[e], mul, (e & 2) ? nB : nA));
+      sc[e] = p;
+      if (e & 2) pB += p;
+      else pA += p;
+    }
+    lA = lA * aA + pA;                    // per-thread partial sums of the row
+    lB = lB * aB + pB;
+  };
+  // the S accumulator's layout is the A fragment of O += P V
+  auto pack = [&](const float (&sc)[BK / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+  // O to the max of the tile whose P goes out next
+  auto rescale = [&](float aA, float aB) {
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) o[e] *= (e & 2) ? aB : aA;
+  };
+  // S (64 x BK) = Q K^T: Q and K K-major in 64-column blocks; issued,
+  // not waited for
+  auto qk = [&](float (&sc)[BK / 2], const uint8_t* kt) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n128(sc,
+                    sw128_desc(qw + (kk / 4) * C::BQ * 128 + (kk % 4) * 32,
+                               16, 1024),
+                    sw128_desc(kt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                               1024),
+                    kk > 0);
+  };
+  // O += P V, V read MN-major; issued, not waited for
+  auto pv = [&](const uint8_t* vt) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<HD>(o, pa[kk], sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+  };
+  // the warpgroups' turns: each round waits on its own barrier, issues,
+  // then counts itself on the next one's; warpgroup 0 goes first
+  const int mine = SCHED_BAR + wg, next = SCHED_BAR + (wg + 1) % NWG;
+  if (wg == NWG - 1) bar_arrive(SCHED_BAR, 256);
+
+  // item j's Q buffer back to the producer once the O stores from it
+  // have read it (at the start of item j + 1, by each warpgroup's first
+  // thread: the stores run beside the next item's first products)
+  auto hand_back = [&](int j) {
+    if ((threadIdx.x & 127) == 0) {
+      tma_store_drain();
+      mbar_arrive(qempty + j % QB);
+    }
+  };
+  int it = 0;                             // tiles consumed so far
+  for (int t = blockIdx.x, j = 0; t < n_items; t += gridDim.x, ++j) {
+    item(t);
+    if (j > 0) hand_back(j - 1);
+    const int qb = j % QB;
+    uint8_t* qbuf = qs + qb * C::Q_BYTES;
+    qw = qbuf + wg * 64 * 128;
+    rA = q0 + 64 * wg + 16 * wl + g8;     // this thread's rows
+    rB = rA + 8;
+    // keys every row of the item sees, from its index and the mask alone
+    // (a kv_valid makes every tile an edge tile)
+    all_beg = 0;
+    all_end = kv_valid == nullptr ? mk.lk : 0;
+    if (mk.causal) {
+      all_end = min(all_end, q0 + off + 1);
+      if (mk.window)
+        all_beg = max(0, min(q0 + C::BQ, mk.lq) - 1 + off - mk.window + 1);
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    mA = mB = -CUDART_INF_F;
+    lA = lB = 0.f;
+    mbar_wait(qfull + qb, (j / QB) & 1);
+    if (ntiles > 0) {
+      float sc[BK / 2], aA, aB;
+      int sk = it % SK, sv = 0;           // the tile's K and V stages
+      mbar_wait(kfull + sk, (it / SK) & 1);
+      bar_sync(mine, 256);
+      wg_fence();
+      qk(sc, ks + sk * C::T_BYTES);
+      wg_commit();
+      bar_arrive(next, 256);
+      wg_wait0();
+      reg_fence(sc);
+      release_stage(kempty + sk);
+      softmax(sc, kbeg, aA, aB);
+      pack(sc);
+      for (int i = 1; i < ntiles; ++i) {
+        // tile i's Q K^T and tile i - 1's P V go out together (O
+        // rescaled to tile i - 1's max between them); the softmax of i
+        // runs while P V does
+        sk = (it + i) % SK;
+        sv = (it + i - 1) % SV;
+        mbar_wait(kfull + sk, ((it + i) / SK) & 1);
+        mbar_wait(vfull + sv, ((it + i - 1) / SV) & 1);
+        bar_sync(mine, 256);
+        wg_fence();
+        qk(sc, ks + sk * C::T_BYTES);
+        wg_commit();
+        rescale(aA, aB);
+        wg_fence();
+        pv(vs + sv * C::T_BYTES);
+        wg_commit();
+        bar_arrive(next, 256);
+        wg_wait1();
+        reg_fence(sc);
+        release_stage(kempty + sk);       // the scores are done with K
+        softmax(sc, kbeg + i * BK, aA, aB);
+        wg_wait0();                       // O holds tile i - 1's P V
+        reg_fence(o);
+        release_stage(vempty + sv);
+        pack(sc);
+      }
+      sv = (it + ntiles - 1) % SV;
+      mbar_wait(vfull + sv, ((it + ntiles - 1) / SV) & 1);
+      bar_sync(mine, 256);
+      rescale(aA, aB);
+      wg_fence();
+      pv(vs + sv * C::T_BYTES);
+      wg_commit();
+      bar_arrive(next, 256);
+      wg_wait0();
+      reg_fence(o);
+      release_stage(vempty + sv);
+      it += ntiles;
+    }
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      lA += __shfl_xor_sync(0xffffffffu, lA, d);
+      lB += __shfl_xor_sync(0xffffffffu, lB, d);
+    }
+    const float iA = lA > 0.f ? 1.f / lA : 0.f;
+    const float iB = lB > 0.f ? 1.f / lB : 0.f;
+    // the rows' log-sum-exp (natural log; +inf: no live key), from the
+    // log2-domain max and sum: ln 2 (m mul + log2 l)
+    if (LSE && t4 == 0) {
+      constexpr float LN2 = 0.6931471805599453f;
+      float* lb = lse + ((long long)b * Hq + h) * mk.lq;
+      if (rA < mk.lq)
+        lb[rA] = lA > 0.f ? (mA * mul + log2f(lA)) * LN2 : CUDART_INF_F;
+      if (rB < mk.lq)
+        lb[rB] = lB > 0.f ? (mB * mul + log2f(lB)) * LN2 : CUDART_INF_F;
+    }
+    // O into this warpgroup's rows of the Q buffer (its Q K^T are done;
+    // the other warpgroup reads only its own) in the box layout of the
+    // 128-byte swizzle (16-byte chunk c of row r at c ^ (r & 7)), then
+    // one thread stores the 64 rows
+    uint8_t* ow = qbuf + wg * 64 * 128;
+    const int ra = 16 * wl + g8;          // rows ra and ra + 8 of ow
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      uint8_t* row = ow + (c / 8) * C::BQ * 128 + ra * 128 + 4 * t4;
+      const int ch = ((c & 7) ^ g8) << 4;
+      *reinterpret_cast<uint32_t*>(row + ch) =
+          pack_bf16(o[4 * c] * iA, o[4 * c + 1] * iA);
+      *reinterpret_cast<uint32_t*>(row + 8 * 128 + ch) =
+          pack_bf16(o[4 * c + 2] * iB, o[4 * c + 3] * iB);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(EPI_BAR + wg, 128);
+    if ((threadIdx.x & 127) == 0 && q0 + 64 * wg < mk.lq) {
+      for (int c = 0; c < C::NB; ++c)
+        tma_store(&to, ow + c * C::BQ * 128, oa, 64 * c, q0 + 64 * wg, h, b);
+      tma_store_commit();
+    }
+  }
+  if (blockIdx.x < n_items) hand_back((n_items - 1 - blockIdx.x) /
+                                      gridDim.x);
+  if (wg == 0) bar_sync(SCHED_BAR, 256);  // the last warpgroup's last turn
+}
+
+// The launch shape of prefill_wgmma_kernel<HD>: the body and its block.
+template <int HD>
+struct PrefillCfg {
+  static constexpr bool PAIR = HD == 64;
+  static constexpr int THREADS = PAIR ? WgPair::THREADS : Wg<HD>::THREADS;
+  static constexpr int MIN_BLOCKS = PAIR ? 2 : 1;   // per SM
+  static constexpr int SMEM = PAIR ? WgPair::SMEM : Wg<HD>::SMEM;
+  static constexpr int BQ = PAIR ? WgPair::BQ : Wg<HD>::BQ;
+  static constexpr int BK = PAIR ? WgPair::BK : Wg<HD>::BK;
+};
+
+// bf16 prefill on wgmma: prefill_pair at hd 64, prefill_turns at 120
+// and 128 (`to`, `oa` and B serve the latter; `out` and `os` the
+// former, whose grid is (Hq, B, query tiles))
+template <int HD, bool LSE>
+__global__ void __launch_bounds__(PrefillCfg<HD>::THREADS,
+                                  PrefillCfg<HD>::MIN_BLOCKS)
+prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap to, TmaAxes qa,
+                     TmaAxes ka, TmaAxes oa,
+                     const int* __restrict__ kv_valid,
+                     __nv_bfloat16* __restrict__ out, Strides os, int B,
+                     int Hq, int G, Mask mk, float scale, float softcap,
+                     float* __restrict__ lse) {
+  if constexpr (PrefillCfg<HD>::PAIR)
+    prefill_pair<LSE>(tq, tk, tv, qa, ka, kv_valid, out, G, mk, os, scale,
+                      softcap, lse);
+  else
+    prefill_turns<HD, LSE>(tq, tk, tv, to, qa, ka, oa, kv_valid, B, Hq, G,
+                           mk, scale, softcap, lse);
 }
 
 // hd 288 (gemma2-2b): each consumer warpgroup owns 64 query rows of a
@@ -897,7 +1410,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // are, an iteration before V's, so the next K tiles load through the
 // softmax and P V (one barrier for both left the products waiting on
 // the loads: 1.08 against 0.78 ms at B=4, L=4,608 on an H100 80GB HBM3
-// at 700 W, tools/hd288_times.py).  The softcap is
+// at 700 W, tools/prefill_times.py --rows hd288).  The softcap is
 // tanh(y) = 1 - 2 / (2^(2y log2 e) + 1) on the SFU (ex2, rcp: within
 // about 1e-6 of tanhf), in the log2 domain.
 struct WgWide {
@@ -951,12 +1464,6 @@ __device__ __forceinline__ void wide_wait_o(
   wg_wait0();
 #pragma unroll
   for (int n = 0; n < WgWide::NO; ++n) reg_fence(o[n]);
-}
-
-// one arrival of the calling warp on a stage's empty barrier
-__device__ __forceinline__ void release_stage(uint64_t* empty) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
 }
 
 template <bool LSE>
@@ -1668,7 +2175,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_valid, float* __restrict__ part,
                   float* __restrict__ ml, int G, Mask mk, Strides qs,
                   Strides ks, Strides vs, Strides kss, Strides vss,
-                  float scale, float softcap, int chunk, int hd) {
+                  float scale, float softcap, int chunk, int hd,
+                  __nv_bfloat16* __restrict__ out, Strides os) {
   using C = DecMma<HD, Q8>;
   if constexpr (!PAD<HD>) hd = HD;
   constexpr int WK = C::WK, TK = C::TK, P = C::PITCH;
@@ -1691,8 +2199,14 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (mk.first != nullptr) lo = max(lo, mk.first[b]);
   lo = max(lo, split * chunk);
   hi = min(hi, split * chunk + chunk);
+  // one split: the rows go straight to `out`, normalized
+  __nv_bfloat16* ob = out != nullptr ? out + b * os.b + kh * G * os.h
+                                     : nullptr;
   if (lo >= hi) {                         // no live key: an empty partial
-    if (t < G) {
+    if (ob != nullptr) {                  // (one split: rows of zeros)
+      for (int e = t; e < G * hd; e += 128)
+        store(ob + (e / hd) * os.h + e % hd, 0.f);
+    } else if (t < G) {
       ml[2 * (slot + (long long)t * n_split)] = -CUDART_INF_F;
       ml[2 * (slot + (long long)t * n_split) + 1] = 0.f;
     }
@@ -1862,6 +2376,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const float f = ex2((mm[2 * (i * 16 + g)] - use) * mul);
       L += mm[2 * (i * 16 + g) + 1] * f;
       A += mo[(i * 16 + g) * HD + d] * f;
+    }
+    if (ob != nullptr) {                  // the combine's A / L of one split
+      store(ob + g * os.h + d, L > 0.f ? A / L : 0.f);
+      continue;
     }
     part[(slot + (long long)g * n_split) * hd + d] = A;
     if (d == 0) {
@@ -2511,26 +3029,41 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int Hkv, Mask mk, Strides qs, Strides ks,
                          Strides vs, Strides os, float scale, float softcap,
                          int hd, float* lse, cudaStream_t s) {
-  using C = Wg<HD>;
+  using C = PrefillCfg<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       prefill_wgmma_kernel<HD, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (attr != cudaSuccess) return attr;
-  // maps over the true hd: a box's columns past it (120..127) are zeros
-  CUtensorMap tq, tk, tv;
-  TmaAxes qa, ka, va;
+  // maps over the true hd: a box's columns past it (120..127) load as
+  // zeros and are not stored; at 120 and 128 O leaves by TMA stores,
+  // boxes of a warpgroup's 64 rows
+  CUtensorMap tq, tk, tv, to{};
+  TmaAxes qa, ka, va, oa{};
   cudaError_t e;
   if ((e = make_map(&tq, &qa, q, hd, qs, mk.lq, Hq, B, C::BQ)) ||
       (e = make_map(&tk, &ka, k, hd, ks, mk.lk, Hkv, B, C::BK)) ||
-      (e = make_map(&tv, &va, v, hd, vs, mk.lk, Hkv, B, C::BK)))
+      (e = make_map(&tv, &va, v, hd, vs, mk.lk, Hkv, B, C::BK)) ||
+      (!C::PAIR && (e = make_map(&to, &oa, out, hd, os, mk.lq, Hq, B, 64))))
     return e;
   if (va.l != ka.l || va.h != ka.h || va.b != ka.b)
     return cudaErrorInvalidValue;         // K and V share one coordinate map
-  dim3 grid(Hq, B, (mk.lq + C::BQ - 1) / C::BQ);
+  const int nq = (mk.lq + C::BQ - 1) / C::BQ;
+  dim3 grid(Hq, B, nq);
+  if constexpr (!C::PAIR) {
+    // persistent: a block an SM, or one an item where there are fewer
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)))
+      return e;
+    const long long items = (long long)nq * Hq * B;
+    grid = dim3((int)std::min<long long>(items, sms));
+  }
   prefill_wgmma_kernel<HD, LSE><<<grid, C::THREADS, C::SMEM, s>>>(
-      tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
-      Hq / Hkv, mk, os, scale, softcap, hd, lse);
+      tq, tk, tv, to, qa, ka, oa, kv_valid,
+      static_cast<__nv_bfloat16*>(out), os, B, Hq, Hq / Hkv, mk, scale,
+      softcap, lse);
   return cudaGetLastError();
 }
 
@@ -2560,6 +3093,17 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
       tq, tk, tv, qa, ka, kv_valid, static_cast<__nv_bfloat16*>(out),
       Hq / Hkv, mk, os, scale, softcap, lse);
   return cudaGetLastError();
+}
+
+// Whether a decode is its body's launch alone: one split on the
+// tensor cores' body 1 below hd 288 (decode_mma_kernel; the int8
+// launch's body 1 at hd 288 is decode_wide_kernel, which does not) with
+// no lse asked for writes its rows normalized in the output's type --
+// the combine's A / L of one split -- with no scratch and no combine
+// launch.  The wrapper asks flash_decode_one_launch whether to allocate
+// the scratch.
+bool one_launch(int n_split, bool lse, int body, int hd) {
+  return n_split == 1 && !lse && body == 1 && hd != 288;
 }
 
 // The decode's merge of its n_split partials: into `out` in T, or, with
@@ -2598,12 +3142,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
     for (long long x : st)
       if ((x * (long long)sizeof(T)) % 16) return cudaErrorInvalidValue;
+    // one split on decode_mma_kernel: its rows go straight to out
+    const bool direct = one_launch(n_split, lse != nullptr, body, hd);
     if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
             16 ||
-        (hd * (int)sizeof(T)) % 16 || scratch == nullptr || n_split < 1 ||
-        chunk < 1 || (long long)n_split * chunk < mk.lk)
+        (hd * (int)sizeof(T)) % 16 || (scratch == nullptr && !direct) ||
+        n_split < 1 || chunk < 1 || (long long)n_split * chunk < mk.lk)
       return cudaErrorInvalidValue;
-    float* ml = scratch + (long long)B * Hq * n_split * hd;
+    float* ml = direct ? nullptr : scratch + (long long)B * Hq * n_split * hd;
     const dim3 grid(n_split, Hkv, B);
     if (body == 1 || body == 2) {           // the tensor cores
       constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
@@ -2614,7 +3160,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       if constexpr (BF16 && HD <= 128) {
         decode_mma_kernel<HD, false><<<grid, 128, DecMma<HD>::SMEM, s>>>(
             qp, kp, vp, nullptr, nullptr, kv_valid, scratch, ml, G, mk, qs,
-            ks, vs, Strides{}, Strides{}, scale, softcap, chunk, hd);
+            ks, vs, Strides{}, Strides{}, scale, softcap, chunk, hd,
+            direct ? reinterpret_cast<__nv_bfloat16*>(op) : nullptr, os);
       } else if constexpr (BF16 && HD == 288) {
         static const cudaError_t attr = cudaFuncSetAttribute(
             decode_wide_kernel<HD, false>,
@@ -2636,13 +3183,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
     }
     const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess || direct) return e;
     return launch_combine<T, HD>(scratch, ml, out, B, Hq, n_split, os, hd,
                                  lse, s);
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
+    // prefill_turns (hd 120, 128) stores O by TMA too
+    constexpr bool TMA_OUT = HD == 128;
     if (tma_ok(q, qs, mk.lq, Hq, B) && tma_ok(k, ks, mk.lk, Hkv, B) &&
-        tma_ok(v, vs, mk.lk, Hkv, B) && (hd * 2) % 16 == 0) {
+        tma_ok(v, vs, mk.lk, Hkv, B) &&
+        (!TMA_OUT || tma_ok(out, os, mk.lq, Hq, B)) && (hd * 2) % 16 == 0) {
       if constexpr (HD == 288)
         return lse != nullptr
                    ? launch_wide<true>(q, k, v, kv_valid, out, B, Hq, Hkv, mk,
@@ -2709,16 +3259,18 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
                       int n_split, int chunk, int hd, int body, float* lse,
                       cudaStream_t s) {
   // 8-byte copies of every int8 row; the splits cover all Lk keys
+  // one split on decode_mma_kernel<HD, true>: its rows go straight to out
+  const bool direct = one_launch(n_split, lse != nullptr, body, hd);
   const long long st[] = {ks.b, ks.h, ks.l, vs.b, vs.h, vs.l};
   for (long long x : st)
     if (x % 8) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
           8 ||
-      hd % 8 || scratch == nullptr || n_split < 1 || chunk < 1 ||
-      (long long)n_split * chunk < Lk)
+      hd % 8 || (scratch == nullptr && !direct) || n_split < 1 ||
+      chunk < 1 || (long long)n_split * chunk < Lk)
     return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  float* ml = scratch + (long long)B * Hq * n_split * hd;
+  float* ml = direct ? nullptr : scratch + (long long)B * Hq * n_split * hd;
   if (body == 1) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value && HD != 32) {
       if (G > 16 || reinterpret_cast<uintptr_t>(q) % 4 || qs.b % 2 ||
@@ -2746,7 +3298,8 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
         decode_mma_kernel<HD, true><<<grid, 128, DecMma<HD, true>::Q8_SMEM,
                                       s>>>(
             qp, k, v, ksc, vsc, kv_valid, scratch, ml, G, mk, qs, ks, vs,
-            kss, vss, scale, softcap, chunk, hd);
+            kss, vss, scale, softcap, chunk, hd,
+            direct ? static_cast<__nv_bfloat16*>(out) : nullptr, os);
       }
     } else {
       return cudaErrorInvalidValue;
@@ -2762,7 +3315,7 @@ cudaError_t launch_q8(const void* q, const int8_t* k, const int8_t* v,
     return cudaErrorInvalidValue;
   }
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || direct) return e;
   return launch_combine<T, HD>(scratch, ml, out, B, Hq, n_split, os, hd, lse,
                                s);
 }
@@ -2828,9 +3381,18 @@ cudaError_t launch_merge(const float* o, const float* lse, void* out, int R,
 
 }  // namespace
 
+// 1 where a decode of n_split splits on `body` (either launch's code) at
+// head dim hd, with or without lse, is its body alone and takes no
+// scratch (one_launch), else 0.
+extern "C" int flash_decode_one_launch(int n_split, int lse, int body,
+                                       int hd) {
+  return one_launch(n_split, lse != 0, body, hd);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
 // (batch, head, position) axes; the head dim is contiguous.  Decode
-// (Lq = 1) takes `scratch`, B * Hq * n_split * (hd + 2) floats, and
+// (Lq = 1) takes `scratch`, B * Hq * n_split * (hd + 2) floats (null
+// where flash_decode_one_launch says so), and
 // n_split chunks of `chunk` keys covering Lk, and `body`, the decode body
 // the caller names (flash_attention.decode_body: 0 decode_split_kernel on
 // CUDA cores, 1 decode_mma_kernel at hd <= 128, 2 decode_wide_kernel at
@@ -2879,7 +3441,8 @@ extern "C" int flash_attention_launch(
 // (batch, head, position) strides in elements (int8 rows 8-byte
 // aligned); the output in q's dtype.  kv_valid, local_window, kv_first
 // and lse as the decode shape of flash_attention_launch (with lse the
-// output is f32); scratch holds B * Hq * n_split * (hd + 2) floats.
+// output is f32); scratch holds B * Hq * n_split * (hd + 2) floats (null
+// where flash_decode_one_launch says so).
 // `body` (0 CUDA cores, 1 tensor cores) is the caller's choice
 // (flash_attention.q8_body); one that does not take the operands
 // returns cudaErrorInvalidValue.

@@ -35,7 +35,8 @@ version.  The decode shape (Lq == 1) runs the body ``decode_body``
 names (counted in ``flash_attention.decode_launches_by_body``) and
 splits the cache into chunks chosen from the shapes alone
 (``decode_splits``, ``wide_splits``); ``decode_split_plain`` is the
-split-and-merge arithmetic in plain PyTorch.
+split-and-merge arithmetic in plain PyTorch.  A decode of one split on
+``decode_mma_kernel`` is one launch (``one_launch``).
 
 The decode shape with ``return_lse`` gives a partial: (o in f32, the
 rows' log-sum-exp), the same launch writing both (the combine's lse
@@ -80,6 +81,7 @@ _SIG = {"flash_attention_launch": [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p],
+    "flash_decode_one_launch": [ctypes.c_int] * 4,
     "flash_decode_merge_launch": [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
     "flash_attention_bwd_launch": [ctypes.c_void_p] * 11 + [
@@ -243,6 +245,19 @@ def decode_body(q, k) -> str:
     return "cores"
 
 
+def one_launch(n_split: int, return_lse: bool, body: str, hd: int,
+               lib=None) -> bool:
+    """Whether a decode launch is its body alone, as ``lib`` (the card's
+    library by default) rules (``flash_decode_one_launch``): then it
+    writes its rows normalized in the output's type with no f32 scratch
+    and no ``decode_combine_kernel`` launch.  ``body`` is a name of
+    ``DECODE_BODIES`` or ``Q8_BODIES``."""
+    if lib is None:
+        lib = build.load("flash_attention", _SIG)
+    return bool(lib.flash_decode_one_launch(
+        n_split, int(bool(return_lse)), DECODE_BODIES.index(body), hd))
+
+
 def decode_split_plain(q, k, v, kv_valid=None, *, causal: bool = False,
                        window: int = 0, softcap: float = 0.0,
                        local_window: int = 0, splits=None):
@@ -349,8 +364,9 @@ def _fwd_launch(lib, stream, q, k, v, kv_valid, causal, window, softcap,
         body = decode_body(q, k)
         n_split, chunk = (wide_splits if body == "wide" else
                           decode_splits)(B, Hkv, Lk)
-        scratch = torch.empty(B * Hq * n_split * (hd + 2),
-                              dtype=torch.float32, device=q.device)
+        if not one_launch(n_split, return_lse, body, hd, lib):
+            scratch = torch.empty(B * Hq * n_split * (hd + 2),
+                                  dtype=torch.float32, device=q.device)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kv_valid is None else kv_valid.data_ptr(),
@@ -376,7 +392,8 @@ def flash_attention(q, k, v, kv_valid=None, *, causal: bool = True,
     card the result is a ``transpose(1, 2)`` view of a contiguous (B,
     Lq, Hq, hd) tensor, the model's layout.  Lq == 1 launches the decode
     shape on the body ``decode_body`` names: split-KV partials into f32
-    scratch, then their ordered merge; only it takes ``local_window``
+    scratch, then their ordered merge (one split on the ``"mma"`` body
+    without lse: the body alone, ``one_launch``); only it takes ``local_window``
     and ``kv_first``.  ``return_lse``: (out, the rows' log-sum-exp (B,
     Hq, Lq) f32, +inf where no key is live), the same launch writing
     both; on the decode shape out is then f32, a partial for
@@ -642,8 +659,9 @@ def _q8_launch(lib, stream, q, k8, v8, k_scale, v_scale, kv_valid, softcap,
     lse = torch.empty((B, Hq, 1), dtype=torch.float32,
                       device=q.device) if return_lse else None
     n_split, chunk = q8_splits(B, Hkv, Lk, hd, body)
-    scratch = torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
-                          device=q.device)
+    scratch = None if one_launch(n_split, return_lse, body, hd, lib) else \
+        torch.empty(B * Hq * n_split * (hd + 2), dtype=torch.float32,
+                    device=q.device)
     err = lib.flash_decode_q8_launch(
         q.data_ptr(), k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), None if kv_valid is None else kv_valid.data_ptr(),
@@ -652,7 +670,8 @@ def _q8_launch(lib, stream, q, k8, v8, k_scale, v_scale, kv_valid, softcap,
         *k_scale.stride()[:3], *v_scale.stride()[:3], *out.stride()[:3],
         1.0 / math.sqrt(hd), float(softcap), int(local_window),
         None if kv_first is None else kv_first.data_ptr(),
-        scratch.data_ptr(), n_split, chunk, Q8_BODIES.index(body),
+        None if scratch is None else scratch.data_ptr(), n_split, chunk,
+        Q8_BODIES.index(body),
         None if lse is None else lse.data_ptr(), stream)
     build.check(err, f"flash_decode_q8 ({body} body)")
     return (out, lse) if return_lse else out

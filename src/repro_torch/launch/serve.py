@@ -48,7 +48,8 @@ CARD_ARCHS = ("llama3.2-1b", "qwen2-1.5b", "mamba2-1.3b", "hymba-1.5b",
 LEFT_OUT = {
     "qwen3-moe-30b-a3b": "59.5 GB of bf16 weights alone; serve it with "
                          "--archs qwen3-moe-30b-a3b llama3.2-1b",
-    "llama4-maverick-400b-a17b": "does not fit one card (ROADMAP item 6.1)",
+    "llama4-maverick-400b-a17b": "does not fit one card (ROADMAP.md, "
+                                 "Queue 1 item 7: several cards)",
 }
 
 

@@ -10,8 +10,10 @@ port keeps its own copies, their locks from the port's
 * ``slo``     — declarative SLO rules with burn-rate breach detection
 * ``profile`` — per-bucket FLOPs / bytes of the routing programs
   (counted from the padded shapes: eager PyTorch has no compiled
-  program to read a cost analysis from) and a ``torch.profiler``
-  trace region
+  program to read a cost analysis from), a ``torch.profiler``
+  trace region, and the card's readings the tools share: a CUDA
+  graph's device time a call (``graph_ms``) and the kernels a call
+  launches (``kernel_trace``)
 """
 from .export import (MetricsServer, metrics_from_prom, parse_prom_text,
                      prometheus_text, serve_metrics, write_prom)

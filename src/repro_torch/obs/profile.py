@@ -1,4 +1,5 @@
-"""Per-bucket cost profiles of the routing programs, and a trace region.
+"""Per-bucket cost profiles of the routing programs, a trace region, and
+the card's timing readings.
 
 Port of the JAX package's ``obs/profile.py``.  ``DeviceCostProfiler``
 hooks into ``kernels.ops`` (``ops.set_cost_profiler``): every
@@ -34,6 +35,11 @@ element 4 bytes, or 1 in an int8 catalog):
   pair; the load penalty reads N values;
 * the sharded program does the same work split over its shards, the
   IVF program scores its probed ``cap`` slots (its bucket's N).
+
+``graph_ms`` (a CUDA graph's device time a call) and ``kernel_trace``
+(the kernels a call launches, from a ``torch.profiler`` trace) are the
+card's readings that ``chip_smoke.py``, ``tools/prefill_times.py`` and
+the card's tests share; they need a CUDA card.
 """
 from __future__ import annotations
 
@@ -186,3 +192,60 @@ def trace_capture(trace_dir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 3, device=None) -> float:
+    """Device ms of one ``fn()`` on the card: ``iters`` calls captured in
+    one CUDA graph, the mean over ``reps`` replays timed with CUDA
+    events.  The replay launches the recorded kernels back to back, so
+    the caller's host work (operand checks, allocation, a ctypes call)
+    is not in the reading."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize(device)
+    del graph
+    return t0.elapsed_time(t1) / (iters * reps)
+
+
+def kernel_trace(fn, calls: int = 20, warmup: int = 3,
+                 device=None) -> Dict[str, Any]:
+    """{kernel name as the trace gives it: (device ms, launches) a
+    ``fn()``} from a ``torch.profiler`` trace of ``calls`` calls on the
+    card after ``warmup`` ones; empty where the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    out: Dict[str, Any] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+            ms, n = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + us / 1e3 / calls, n + e.count / calls)
+    return out

@@ -122,6 +122,17 @@ inline cudaError_t cudaGetLastError() { return 0; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// an emulated card of 3 SMs: a persistent grid's blocks each take
+// several items
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return 0;
+}
 
 namespace emu {
 
@@ -146,6 +157,9 @@ inline uint8_t* smem_base() {          // dynamic shared memory, 1024-aligned
 // has not completed: a scheduling pass without it is a deadlock
 inline bool progress;
 inline uint64_t xch[32][32][8];      // a warp's exchange slots, per lane
+// named barriers 0..15 (bar.sync / bar.arrive): threads counted in the
+// current generation, and the generation
+inline int nbar_count[16], nbar_gen[16];
 
 inline void wait(int st) {
   if (st != SPIN) progress = true;
@@ -160,6 +174,7 @@ inline void entry() {
 
 inline void run_block(unsigned nthr) {
   fibers.assign(nthr, Fiber());
+  for (int i = 0; i < 16; ++i) nbar_count[i] = nbar_gen[i] = 0;
   for (unsigned i = 0; i < nthr; ++i) {
     Fiber& f = fibers[i];
     f.stack.resize(512 * 1024);
@@ -184,7 +199,16 @@ inline void run_block(unsigned nthr) {
       done += f.state == DONE;
       at_block += f.state == AT_BLOCK;
     }
-    if (done == (int)nthr) return;
+    if (done == (int)nthr) {
+      for (int i = 0; i < 16; ++i)
+        if (nbar_count[i] != 0) {     // arrivals no thread waited for
+          fprintf(stderr, "emu: named barrier %d left with %d arrivals in "
+                  "block (%u, %u, %u)\n", i, nbar_count[i], blockIdx.x,
+                  blockIdx.y, blockIdx.z);
+          abort();
+        }
+      return;
+    }
     bool released = false;
     for (unsigned w = 0; w * 32 < nthr; ++w) {
       int n = 0;

@@ -2,9 +2,12 @@
 // cp.async as plain copies; ldmatrix, mma.sync m16n8k16 bf16 -> f32 and
 // wgmma's register operand as warp collectives; mbarriers as fiber waits;
 // TMA boxes as copies that apply the 128- or 64-byte swizzle and fill
-// what lies outside the tensor with zeros; wgmma m64nNk16 reading its
-// shared operands through their descriptors (either swizzle).  Included
-// by tests/_cuda_emu.py in place of the asm definitions.
+// what lies outside the tensor with zeros, and TMA stores back to the
+// tensor; wgmma m64nNk16 reading its shared operands through their
+// descriptors (either swizzle); named barriers (bar.sync, bar.arrive) as
+// counted fiber waits.  setmaxnreg and wgmma.wait_group are no-ops: the
+// products are done when issued.  Included by tests/_cuda_emu.py in
+// place of the asm definitions.
 __device__ __forceinline__ void cp16(void* dst, const void* src,
                                      bool full) {
   if (full)
@@ -203,6 +206,65 @@ __device__ __forceinline__ void tma_box4(void* dst, const CUtensorMap* map,
   emu_bar_step(bar, 0, -(int)n);
 }
 
+// a 4-D box from shared memory (the layout tma_box4 writes) to the
+// tensor: only the elements inside the tensor are written
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2, int c3) {
+  const CUtensorMap& m = *map;
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(src);
+  const uint32_t row = m.box[0] * 2;
+  uint32_t n = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, n += 2) {
+          const long long x[4] = {c[0] + (long long)i0, c[1] + (long long)i1,
+                                  c[2] + (long long)i2, c[3] + (long long)i3};
+          bool in = true;
+          long long off = 0;
+          for (int a = 0; a < 4; ++a) {
+            in = in && x[a] >= 0 && x[a] < (long long)m.dims[a];
+            off += x[a] * (long long)m.strides[a];
+          }
+          if (!in) continue;
+          uint32_t a = s0 + n;
+          if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B) {
+            if (row != 128) abort();
+            a = emu_sw128(a);
+          } else if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_64B) {
+            if (row != 64) abort();
+            a = emu_sw64(a);
+          }
+          memcpy(const_cast<uint8_t*>(m.base) + off, emu::smem_base() + a, 2);
+        }
+}
+
+// named barriers: bar.sync waits (a fiber spin) until n threads of the
+// block have reached barrier id in its current generation, by bar.sync
+// or bar.arrive; bar.arrive counts the caller and goes on.  Which of two
+// warpgroups issues its products first cannot show here (the products
+// are done at once): only that the turns neither deadlock nor leave an
+// arrival behind (emu.h checks each block's barriers at its end).
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  emu::progress = true;
+  if (++emu::nbar_count[id] == n) {
+    emu::nbar_count[id] = 0;
+    ++emu::nbar_gen[id];
+  }
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  const int gen = emu::nbar_gen[id];
+  bar_arrive(id, n);
+  bool spun = false;
+  while (emu::nbar_gen[id] == gen) {
+    emu::wait(emu::SPIN);
+    spun = true;
+  }
+  if (spun) emu::progress = true;
+}
+
 // wgmma: asynchronous on the card, done at once here (fence, commit and
 // wait are no-ops; the kernels wait before they read the results).
 __device__ __forceinline__ void wg_fence() {}
@@ -280,6 +342,10 @@ static inline void emu_wgmma(float* d, uint64_t da, const uint32_t* a,
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
   emu_wgmma<64>(d, da, nullptr, db, false, scale_d);
+}
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  emu_wgmma<128>(d, da, nullptr, db, false, scale_d);
 }
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],

@@ -30,8 +30,22 @@ its lse; every decode body's partial (o, lse) over a block of the cache
 with a per-row first live slot, and their merge across blocks
 (``flash_decode_merge_launch``); the gate's backward
 (``csrc/moe_gating_bwd.cuh``) against its plain version.  Beside them,
-the bf16 decode's body rule at the zoo's decode heads.  Skips where g++
-is missing."""
+the bf16 decode's body rule at the zoo's decode heads.
+
+The hd 64/120/128 prefill (``prefill_wgmma_kernel``; at hd 120/128 a
+persistent grid -- the emulated card has 3 SMs, so each block walks
+several items, an empty one among them -- 128-key tiles, consumer
+warpgroups taking turns on named barriers, an item's last P V and
+epilogue beside the next item's first Q K^T, O out by TMA stores; at hd
+64 two blocks an SM) over causal masks, windows, ``kv_valid``, ragged
+and unequal lengths and GQA groups 1-16, with and without its lse; and
+the decode of
+one split on ``decode_mma_kernel`` (one launch: the body writes the
+output), bf16 and int8.  The emulation's named barriers count and wait,
+but its ``wgmma`` is done when issued (``wgmma.wait_group 1`` and
+``setmaxnreg`` are no-ops): the order in which the warpgroups' products
+and softmaxes overlap is checked only on the card.  Skips where g++ is
+missing."""
 import math
 import shutil
 
@@ -452,3 +466,106 @@ def test_wide_prefill_source_matches_plain(fa_lib, B, Hq, Hkv, L, Lk, kv, kw):
     assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
     assert torch.equal(got, FA._fwd_launch(fa_lib, None, q, k, v, kvt,
                                            *args, False))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,Lk,hd,kv,kw", [
+    (1, 2, 2, 200, 200, 64, None, dict(causal=True)),              # G 1
+    (1, 4, 1, 150, 150, 128, None, dict(causal=True)),             # G 4
+    (1, 6, 1, 130, 130, 128, None, dict(causal=True)),             # G 6
+    (1, 16, 1, 70, 70, 64, None, dict(causal=True)),               # G 16
+    (1, 2, 2, 300, 300, 120, None, dict(causal=True, window=40)),  # skips
+    (1, 2, 1, 260, 260, 128, None, dict(causal=True, window=100)),  # cuts
+    (2, 4, 2, 130, 130, 64, (0, 100), dict(causal=True, window=37)),
+    (2, 4, 2, 80, 210, 128, (200, 7), dict(causal=True)),
+    (1, 6, 1, 200, 200, 120, (150,), dict(causal=True)),
+    (1, 2, 2, 90, 12, 64, None, dict(causal=False)),
+    (1, 4, 4, 16, 16, 128, None, dict(causal=False)),
+    (1, 4, 2, 70, 300, 128, None, dict(causal=True, softcap=30.0))])
+def test_wgmma_prefill_source_matches_plain(fa_lib, B, Hq, Hkv, L, Lk, hd,
+                                            kv, kw):
+    """The hd 64/120/128 prefill (``prefill_wgmma_kernel``: its
+    ``prefill_turns`` body at hd 120/128, ``prefill_pair`` at 64) through
+    ``_fwd_launch``: GQA groups 1, 4, 6 and 16; causal; a window that
+    skips whole 128-key tiles (300 rows, window 40) and one that cuts
+    them; ``kv_valid`` with an empty row; ragged L (70-300 rows, past
+    one and two 128-row blocks), Lq != Lk, non-causal cross and encoder
+    shapes, a softcap.  Against ``flash_attention_plain`` within one
+    bf16 ulp of max |o|; with its lse the same output and the lse within
+    1e-5 (+inf where no key is live); the same bits on two launches."""
+    g = torch.Generator().manual_seed(L + Lk + Hq + hd)
+    q, k, v = (torch.randn(B, n, H, hd, generator=g).to(torch.bfloat16)
+               .transpose(1, 2) for n, H in ((L, Hq), (Lk, Hkv), (Lk, Hkv)))
+    kvt = None if kv is None else torch.tensor(kv, dtype=torch.int32)
+    assert all(FA._tma_ok(t) for t in (q, k, v))
+    args = (kw["causal"], kw.get("window", 0), kw.get("softcap", 0.0), 0)
+    got = FA._fwd_launch(fa_lib, None, q, k, v, kvt, *args, False)
+    o, lse = FA._fwd_launch(fa_lib, None, q, k, v, kvt, *args, True)
+    want, wl = FA.flash_attention_plain(q, k, v, kvt, return_lse=True, **kw)
+    _ulp_close(got, want, 2e-2)
+    assert torch.equal(got, o)
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    fin = torch.isfinite(wl)
+    assert float((lse[fin] - wl[fin]).abs().max()) <= 1e-5
+    if kv is not None and 0 in kv:
+        assert not got[kv.index(0)].any()
+    assert torch.equal(got, FA._fwd_launch(fa_lib, None, q, k, v, kvt,
+                                           *args, False))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,hd,kv,q8", [
+    (2, 2, 2, 16, 64, (16, 0), False),
+    (3, 12, 3, 16, 128, (16, 1, 9), False),
+    (2, 4, 2, 16, 64, (1, 16), True),
+    (3, 6, 3, 16, 128, (16, 0, 9), True),
+    (2, 264, 132, 100, 128, (100, 1), False),
+    (2, 264, 132, 100, 64, (0, 77), True)])
+def test_one_split_decode_source(fa_lib, B, Hq, Hkv, C, hd, kv, q8):
+    """A decode whose split plan has one split (16 keys, as seamless's
+    cross decode; 100 keys over B x Hkv = 264 blocks) on
+    ``decode_mma_kernel``, bf16 and int8 caches: ``one_launch`` holds,
+    so the body writes the output itself.  Within one bf16 ulp of max
+    |o| of the plain version, an empty row 0 and a one-key row that
+    key's V row; the same bits on two launches and as the two-launch
+    path (the body's partial merged by ``decode_combine_kernel`` into
+    f32 with the lse, rounded to bf16: A / L of one split either way)."""
+    g = torch.Generator().manual_seed(C + hd + Hq)
+    q = torch.randn(B, 1, Hq, hd, generator=g).to(torch.bfloat16) \
+        .transpose(1, 2)
+    kf, vf = (torch.randn(B, C, Hkv, hd, generator=g) for _ in range(2))
+    kvt = torch.tensor(kv, dtype=torch.int32)
+    if q8:
+        (k8, ks), (v8, vs) = TL.quantize_kv(kf), TL.quantize_kv(vf)
+        ops = [t.transpose(1, 2) for t in (k8, v8, ks, vs)]
+        body = FA.q8_body(q, ops[0])
+        n_split, _ = FA.q8_splits(B, Hkv, C, hd, body)
+
+        def launch(lse):
+            return FA._q8_launch(fa_lib, None, q, *ops, kvt, 0.0, 0, body,
+                                 None, lse)
+        want = FA.decode_q8_plain(q, *ops, kvt)
+        vrow = FA.dequantize_kv(ops[1], ops[3])
+    else:
+        k, vv = (t.to(torch.bfloat16).transpose(1, 2) for t in (kf, vf))
+        body = FA.decode_body(q, k)
+        n_split, _ = FA.decode_splits(B, Hkv, C)
+
+        def launch(lse):
+            return FA._fwd_launch(fa_lib, None, q, k, vv, kvt, False, 0,
+                                  0.0, 0, lse)
+        want = FA.flash_attention_plain(q, k, vv, kvt, causal=False)
+        vrow = vv
+    assert body == "mma" and FA.one_launch(n_split, False, body, hd, fa_lib)
+    assert not FA.one_launch(n_split, True, body, hd, fa_lib)
+    got = launch(False)
+    assert got.dtype == torch.bfloat16
+    _ulp_close(got, want, 2e-2)
+    G = Hq // Hkv
+    for b, n in enumerate(kv):
+        if n == 0:
+            assert not got[b].any()
+        if n == 1:                      # softmax over one key: its V row
+            assert torch.equal(got[b, :, 0], vrow[b, :, 0].repeat_interleave(
+                G, dim=0).to(torch.bfloat16))
+    assert torch.equal(got, launch(False))
+    o, _ = launch(True)
+    assert torch.equal(got, o.to(torch.bfloat16))
