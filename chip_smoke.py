@@ -222,19 +222,31 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
      launch a call, and a sweep of E 8-1024, k 1-8), bf16 and f32, bit
      stable, timed (CUDA graph) against its bound and, for attention
      without a softcap, SDPA's backward; the attention backward's body
-     (wgmma for llama, qwen3, h2o-danube and seamless, mma for gemma2,
-     f32 for the f32 runs) checked through its per-body launch counts,
-     and its three launches (delta, dK/dV, dQ) timed from a trace;
-  9. ``train``: 2 warm-up and 8 timed train steps (AdamW, f32 master
-     params, bf16 compute, B=8, L=1024) of llama3.2-1b and mamba2-1.3b
-     at full width and depth and qwen3-moe-30b-a3b at full width on 2
-     of its 48 layers: ms a step, tokens/s, the card's busy share,
-     peak memory, launches a step (the counts set to 0 just before the
-     timed steps; every backward kernel must launch; the kernels line
-     takes their launches from here); each step's peak above its
-     inputs held to the dry run's traced peak of the same step (0.9 to
-     1.25 times it); then the ~100M example config for 80 of its 250
-     steps, its loss falling by over 30%;
+     (wgmma for every row: at gemma2's hd 288 the wide kernels
+     ``bwd_dkv_wide_kernel`` / ``bwd_dq_wide_kernel``, with the
+     ``mma.sync`` body launched on the same inputs, checked and timed
+     beside them; f32 for the f32 runs) checked through its per-body launch
+     counts, and its three launches (delta, dK/dV, dQ) timed from a
+     trace; one bf16 train step of gemma2-2b at full width, 2 layers,
+     B=2, L=1024, its gradients within 2e-2 of each leaf's max |g| of
+     the same step with ``flash_attention_bwd_plain`` as its attention
+     backward;
+  9. ``train``: train steps (AdamW, f32 master params, bf16 compute,
+     L=1024): 2 warm-up and 8 timed of llama3.2-1b and mamba2-1.3b at
+     full width and depth and qwen3-moe-30b-a3b at full width on 2 of
+     its 48 layers (B=8); then 1 warm-up and 3 timed at full width and
+     depth of gemma2-2b at B=4 (a batch cut: its B=8 step needs 88.7 GB
+     by the dry run; its 26 attention backwards a step all on the wgmma
+     body), seamless-m4t-medium, hymba-1.5b, h2o-danube-3-4b and
+     qwen2-1.5b (B=8): ms a step, tokens/s, the card's busy share, peak
+     memory, launches a step (the counts set to 0 just before the
+     timed steps; every backward kernel must launch, every attention
+     backward on the wgmma body; the kernels line takes their launches
+     from here); each step's peak above its inputs held to the dry
+     run's traced peak of the same step (0.9 to 1.25 times it; the
+     traces run in a child process beside the card's steps); then the
+     ~100M example config for 80 of its 250 steps, its loss falling by
+     over 30%;
   9b. ``sharding``: under a world-size-1 NCCL group and
      ``make_host_mesh()``, 2 warm-up and 3 timed train steps of
      llama3.2-1b (full width and depth), mamba2-1.3b and
@@ -305,6 +317,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()   # the whole run's clock
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
@@ -4625,10 +4638,16 @@ def start_cpu_analyzer(small: bool, tmp: str):
     (the CPU's 250 steps take about a minute); returns (process, path of
     its JSON) for ``train_analyzers``' comparison."""
     out = f"{tmp}/cpu_analyzer.json"
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--cpu-analyzer",
-           out] + (["--rehearse"] if small else [])
+    return spawn_self("--cpu-analyzer", out, small), out
+
+
+def spawn_self(flag: str, arg: str, small: bool):
+    """This script again as a helper process (``flag arg``, and
+    ``--rehearse`` with ``small``), its output piped."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), flag, arg] + (
+        ["--rehearse"] if small else [])
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT), out
+                            stderr=subprocess.STDOUT)
 
 
 def train_analyzers(torch, dev, small: bool, path: str):
@@ -5139,6 +5158,12 @@ def serve_loop_phase(torch, dev, small: bool, kernels):
 # ----------------------------------------------------------------------
 
 TRAIN_ARCHS = ["llama3.2-1b", "mamba2-1.3b", MOE_ARCH]
+# (config, batch) trained whole after TRAIN_ARCHS, at L=1024 for 1
+# warm-up and 3 timed steps: gemma2-2b at B=4 (B=8's step needs 88.7 GB
+# by the dry run: 31.9 GB of f32 params and AdamW state, 56.8 traced)
+TRAIN_WHOLE = [("gemma2-2b", 4), ("seamless-m4t-medium", 8),
+               ("hymba-1.5b", 8), ("h2o-danube-3-4b", 8),
+               ("qwen2-1.5b", 8)]
 
 
 def bwd_kernels():
@@ -5201,7 +5226,7 @@ def fwd_lse_check(torch, FA, q, k, v, tol, what, **kw):
 
 
 def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
-                 causal, window=0, softcap=0.0, body="wgmma"):
+                 causal, window=0, softcap=0.0, body="wgmma", beside=None):
     """The attention backward at one training shape.  First the training
     forward (o and lse) against the plain forward on the same inputs
     (o within 2e-2 * (1 + |want|) in bf16, 1e-4 in f32; lse within 1e-5
@@ -5211,7 +5236,11 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
     SDPA's backward (no softcap), each of its three launches timed from a
     profiler trace; f32 at a quarter of the length within 1e-4.  The bf16
     run must take ``body`` (``FA.bwd_body``, and on the card the
-    wrapper's count of that body), the f32 run the f32 body."""
+    wrapper's count of that body), the f32 run the f32 body.  ``beside``:
+    another body that takes the same bf16 operands (the hd-288 ``"mma"``
+    body), launched through the C entry point on the same inputs, held
+    to the plain backward as well and timed in the same way (its launches
+    are not counted)."""
     import torch.nn.functional as F
 
     def inputs(dt, L_, Lk_):
@@ -5259,6 +5288,19 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
     again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {what}: two launches differ")
+    other = None
+    if beside is not None and dev.type == "cuda":
+        from repro_torch.kernels import build
+
+        clib = build.load("flash_attention", FA._SIG)
+
+        def launch_beside():
+            return FA._bwd_launch(
+                clib, torch.cuda.current_stream(dev).cuda_stream, q, k, v, o,
+                lse, do, None, causal, window, softcap, beside)
+        err_b = grads_close(launch_beside(), want, 2e-2,
+                            f"flash_attention_bwd {what} bf16 {beside} body")
+        other = (time_graph_ms(torch, launch_beside, dev, iters=3), err_b)
     del got, want, again
     pairs = attn_live_pairs(B, L, Lk, causal, window) * Hq
     nb = 2 * (3 * B * L * Hq * hd + 2 * B * Lk * Hkv * hd) + 4 * B * Hq * L \
@@ -5292,7 +5334,11 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
         del out, qs, ks, vs
     log(f"[train_kernels] flash_attention_bwd {what}: B={B} L={L} Lk={Lk} "
         f"{Hq}/{Hkv} heads of {hd}, causal={causal} window={window} "
-        f"softcap={softcap}, {body} body: {ms:.3f} ms (plain {plain:.3f}, "
+        f"softcap={softcap}, {body} body: {ms:.3f} ms ("
+        + ("" if other is None else
+           f"the {beside} body beside it {other[0]:.3f} ms, max err "
+           f"{other[1]:.3g} of max |g|; ")
+        + f"plain {plain:.3f}, "
         f"SDPA backward {'n/a' if lib is None else f'{lib:.3f}'}), bound "
         f"{bms:.4f} by {by} ({pairs / 1e9:.3f} G live pairs x heads; the "
         f"design's 14 hd a pair {design:.4f}); launches: {fmt_times(parts)}; "
@@ -5301,7 +5347,8 @@ def attn_bwd_row(torch, FA, g, dev, small, what, B, L, Lk, Hq, Hkv, hd,
         f"{lse_err:.3g} (abs)")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, body=body,
-                launch_ms={k: round(v, 4) for k, v in parts.items()})
+                launch_ms={k: round(v, 4) for k, v in parts.items()},
+                **({} if other is None else {f"{beside}_ms": other[0]}))
 
 
 def ssd_bwd_ops(Bb, L, H, P, N) -> float:
@@ -5448,6 +5495,61 @@ def gate_bwd_row(torch, MG, g, dev, T, E, k):
                 bound_by=by, library_ms=lib)
 
 
+def bf16_step_vs_plain(torch, dev, small: bool):
+    """One bf16 train step's gradients of gemma2-2b (full width, 2
+    layers, B=2, L=1024; f32 master params) with the attention backward
+    on the card's kernel against the same step, same params and batch,
+    with ``flash_attention_bwd_plain`` as its backward: every gradient
+    leaf within 2e-2 of its max |g| (the attention's gradients are bf16
+    on both sides; they differ in rounding), loss equal.  The kernel
+    step's attention backward launches are one a layer, all on the
+    wgmma body."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_lm_sampler, to_device
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    name = "gemma2-2b"
+    cfg = dataclasses.replace(get_smoke(name) if small else
+                              get_config(name), n_layers=2)
+    B, L = (2, 64) if small else (2, 1024)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                           device=dev)
+    batch = to_device(make_lm_sampler(np.random.default_rng(5), cfg)(B, L),
+                      dev)
+    by = FA.flash_attention_bwd.launches_by_body
+    before = dict(by)
+    got = loss_and_grads(params, cfg, batch)
+    ran = {b: n - before[b] for b, n in by.items()}
+    check(dev.type != "cuda" or ran == {b: cfg.n_layers * (b == "wgmma")
+                                        for b in ran},
+          f"{name} bf16 step: attention backward launches by body {ran}, "
+          f"want {cfg.n_layers} on wgmma")
+    kernel = ops._flash_bwd_kernel
+    ops._flash_bwd_kernel = FA.flash_attention_bwd_plain
+    try:
+        want = loss_and_grads(params, cfg, batch)
+    finally:
+        ops._flash_bwd_kernel = kernel
+    check(abs(float(got[1]) - float(want[1])) <= 1e-6 * abs(float(want[1])),
+          f"{name} bf16 step: loss {float(got[1])} vs {float(want[1])} "
+          "with the plain backward (the same forward)")
+    gl, wl = leaves(got[3]), leaves(want[3])
+    worst = grads_close(gl, wl, 2e-2, f"{name} bf16 step gradients")
+    log(f"[train_kernels] {name} bf16 train step (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, B={B}, L={L}) against the same step with "
+        f"flash_attention_bwd_plain: {len(gl)} gradient leaves, worst "
+        f"{worst:.3g} of its max |g| (tol 2e-2); attention backward "
+        f"launches {ran}; {time.perf_counter() - t0:.1f} s")
+    del params, got, want
+
+
 def train_kernel_phase(torch, dev, small: bool):
     """Each backward kernel against its plain backward on the card at
     the training shapes of the zoo, timed (CUDA graph, CUDA events)
@@ -5468,7 +5570,7 @@ def train_kernel_phase(torch, dev, small: bool):
         for win in (4096, 0):
             attn_bwd_row(torch, FA, g, dev, small,
                          f"gemma2-2b {'local' if win else 'global'}", B, L,
-                         L, 8, 4, 288, True, win, 50.0, body="mma")
+                         L, 8, 4, 288, True, win, 50.0, beside="mma")
         attn_bwd_row(torch, FA, g, dev, small, "h2o-danube-3-4b", B, L, L,
                      32, 8, 120, True, 4096)
     attn_bwd_row(torch, FA, g, dev, small, "seamless-m4t-medium cross", B,
@@ -5479,6 +5581,7 @@ def train_kernel_phase(torch, dev, small: bool):
                 *((5, 64, 16) if small else (50, 64, 16)))
     gate = gate_bwd_row(torch, MG, g, dev, *((256, 128, 8) if small
                                               else (B * L, 128, 8)))
+    bf16_step_vs_plain(torch, dev, small)
     src = "src/repro_torch/kernels/csrc/"
     out = {}
     for name, row, source, replaces in (
@@ -5494,19 +5597,24 @@ def train_kernel_phase(torch, dev, small: bool):
 
 
 def train_configs(small: bool):
-    """(name, config, batch, seq) of the ``train`` phase: llama3.2-1b and
-    mamba2-1.3b at full width and depth, qwen3-moe-30b-a3b at full width
-    on 2 of its 48 layers (its f32 AdamW state would be ~490 GB whole),
-    B=8, L=1024, bf16 compute, f32 master params."""
+    """(name, config, batch, seq, warm-up steps, timed steps) of the
+    ``train`` phase, bf16 compute, f32 master params, L=1024:
+    llama3.2-1b and mamba2-1.3b at full width and depth, qwen3-moe-30b-a3b
+    at full width on 2 of its 48 layers (its f32 AdamW state would be
+    ~490 GB whole), B=8, 2 warm-up and 8 timed steps; then each of
+    ``TRAIN_WHOLE`` at full width and depth, 1 warm-up and 3 timed
+    steps."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke
     out = []
-    for name in TRAIN_ARCHS:
+    for name, B, warm, steps in ([(n, 8, 2, 8) for n in TRAIN_ARCHS] +
+                                 [(n, B, 1, 3) for n, B in TRAIN_WHOLE]):
         cfg = get_smoke(name) if small else get_config(name)
         if name == MOE_ARCH:
             cfg = dataclasses.replace(cfg, n_layers=2)
-        out.append((name, cfg) + ((2, 64) if small else (8, 1024)))
+        out.append((name, cfg) + ((2, 64, 1, 2) if small else
+                                  (B, 1024, warm, steps)))
     return out
 
 
@@ -5522,16 +5630,73 @@ def traced_step_peak(torch, cfg, batch) -> int:
     return D.trace_step(cfg, {"kind": "train"}, params, meta).peak
 
 
+def trace_peaks_worker(out: str, small: bool) -> int:
+    """``traced_step_peak`` of each config of ``train_configs`` in turn on
+    the host (this script with ``--trace-peaks``, beside the card's
+    train steps), each written to ``out``/<name>.json as it is done."""
+    import torch
+
+    from repro_torch.launch.train import make_lm_sampler, to_device
+    cpu = torch.device("cpu")
+    for name, cfg, B, L, _, _ in train_configs(small):
+        t0 = time.perf_counter()
+        batch = to_device(make_lm_sampler(np.random.default_rng(0), cfg)(
+            B, L), cpu)
+        peak = traced_step_peak(torch, cfg, batch)
+        tmp = Path(out) / f"{name}.tmp"
+        tmp.write_text(json.dumps({"peak": peak,
+                                   "s": time.perf_counter() - t0}))
+        tmp.replace(Path(out) / f"{name}.json")
+    return 0
+
+
+class TracedPeaks:
+    """``trace_peaks_worker`` in a child process started at once (the
+    host's traces, 5-17 s each, run beside the kernels' build and the
+    first phases, off the card's critical path); ``get(name)`` waits for
+    a config's traced peak.  The child is stopped at exit."""
+
+    def __init__(self, small: bool):
+        import atexit
+        import tempfile
+        self.tmp = tempfile.TemporaryDirectory()
+        self.proc = spawn_self("--trace-peaks", self.tmp.name, small)
+        atexit.register(self.close)
+
+    def get(self, name: str):
+        """(traced peak in bytes, the trace's host seconds)."""
+        path = Path(self.tmp.name) / f"{name}.json"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                text = self.proc.communicate()[0].decode()[-4000:]
+                raise SmokeFailure(f"the dry-run traces exited "
+                                   f"{self.proc.returncode} before "
+                                   f"{name}:\n{text}")
+            check(time.perf_counter() - t0 < 900,
+                  f"the dry run's trace of {name} took over 900 s")
+            time.sleep(0.1)
+        got = json.loads(path.read_text())
+        return got["peak"], got["s"]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+        self.tmp.cleanup()
+
+
 def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
-              total: dict):
+              total: dict, traced):
     """``warm`` then ``steps`` timed train steps of ``cfg`` on the card
-    (seeded f32 params, the launcher's sampler); returns the losses.
+    (seeded f32 params, the launcher's sampler); returns the losses and
+    the timed steps' launches.
     Logs ms a step, tokens/s, the card's busy share of one step
     (profiler, kernel events only), peak memory and each kernel's
     launches a step (the kernels' counts set to 0 just before the timed
     steps and read just after).  On the card the timed steps' peak
     above their inputs is held to the dry run's traced peak of the same
-    step (``traced_step_peak``): from 0.9 to 1.25 times it."""
+    step (``traced``: a ``TracedPeaks``): from 0.9 to 1.25 times it."""
     from repro_torch.launch.train import make_lm_sampler, to_device
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
@@ -5587,8 +5752,7 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
                     f"under the profiler; the port's kernels "
                     + "; ".join(f"{k} {us / 1e3:.1f} ms"
                                 for k, us in sorted(ours.items())))
-    # after the profiled step: the trace's garbage stays off its clock
-    traced = traced_step_peak(torch, cfg, batches[0])
+    traced, trace_s = traced.get(name)
     held = "not measured"
     if dev.type == "cuda":
         # the dry run's traced peak against the allocator's: what a step
@@ -5608,34 +5772,43 @@ def train_run(torch, dev, name, cfg, B, L, warm: int, steps: int,
         f"{B * L / ms * 1e3:.0f} tokens/s over {steps} steps after {warm}; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak:.1f} GB; "
         f"made by a step {held}, the dry run's trace "
-        f"{traced / 1e9:.3f} GB; "
+        f"{traced / 1e9:.3f} GB ({trace_s:.1f} s of host); "
         f"busy {busy}; launches a step: "
         + ", ".join(f"{k} {v / steps:g}" for k, v in counts.items() if v))
     del params, opt
     return losses, counts
 
 
-def train_phase(torch, dev, small: bool, kernels: dict):
-    """Train steps on the card: each config of ``train_configs`` for 2
-    warm-up and 8 timed steps (finite loss and gnorm), then the ~100M
+def train_phase(torch, dev, small: bool, kernels: dict, traced):
+    """Train steps on the card: each config of ``train_configs`` for its
+    warm-up and timed steps (finite loss and gnorm; gemma2-2b's 26
+    attention backwards a step all on the wgmma body), then the ~100M
     example config for 80 of its 250 steps with the reference's
     assertion of a loss drop over 30%.  Every backward kernel must have launched; the
-    kernels line takes their launches from the timed steps."""
+    kernels line takes their launches from the timed steps.  ``traced``:
+    the ``TracedPeaks`` of ``train_configs``."""
     import tempfile
 
     from repro_torch.launch.train import main as train_main
 
     counts = {}
-    steps = 2 if small else 8
-    for name, cfg, B, L in train_configs(small):
-        train_run(torch, dev, name, cfg, B, L, 1 if small else 2, steps,
-                  counts)
+    for name, cfg, B, L, warm, steps in train_configs(small):
+        _, got = train_run(torch, dev, name, cfg, B, L, warm, steps, counts,
+                           traced)
+        if name == "gemma2-2b" and dev.type == "cuda":
+            # every layer's attention backward on the hd-288 wgmma body
+            n = cfg.n_layers * steps
+            check(got["flash_attention_bwd"] == n and
+                  got["flash_attention_bwd[wgmma]"] == n,
+                  f"train {name}: attention backward launches "
+                  f"{got['flash_attention_bwd']}, on wgmma "
+                  f"{got['flash_attention_bwd[wgmma]']}; want {n}")
         release(torch, dev, f"after training {name}")
     for k in bwd_kernels():
         check(counts.get(k, 0) > 0 or dev.type != "cuda",
               f"train: {k} never launched ({counts})")
         kernels.setdefault(k, {})["launches"] = counts.get(k, 0)
-    # every trained config's attention is bf16 at hd 64 or 128
+    # every trained config's attention is bf16 at hd 64, 120, 128 or 288
     check(counts.get("flash_attention_bwd[wgmma]", 0) ==
           counts.get("flash_attention_bwd", 0),
           f"train: the attention backward left the wgmma body ({counts})")
@@ -6842,9 +7015,13 @@ def main() -> int:
                     default=None, help=argparse.SUPPRESS)
     ap.add_argument("--cpu-analyzer", metavar="JSON", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--trace-peaks", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.cpu_analyzer is not None:          # serve_loop's CPU analyzer
         return cpu_analyzer_worker(args.cpu_analyzer, args.rehearse)
+    if args.trace_peaks is not None:           # train's dry-run traces
+        return trace_peaks_worker(args.trace_peaks, args.rehearse)
     if args.multirank_rank is not None:        # one rank of multirank
         return multirank_worker(int(args.multirank_rank[0]),
                                 args.multirank_rank[1], args.rehearse)
@@ -6862,6 +7039,11 @@ def main() -> int:
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 2
         dev = torch.device("cuda", 0)
+    # the train phase's dry-run traces (host only) start now, beside the
+    # build and the first phases
+    traced = TracedPeaks(args.rehearse) if (
+        not args.only or "train" in args.only.split(",")) else None
+    if dev.type == "cuda":
         t0 = time.perf_counter()
         build.build_all(["router_topk", "bandit_update", "flash_attention",
                          "ssd_scan", "moe_gating"])
@@ -6871,7 +7053,7 @@ def main() -> int:
                 if "Compiling entry" in line:
                     line = kernel_name(line)
                 if ("registers" in line or "spill" in line or "error" in line
-                        or line.startswith("kernel ")):
+                        or "serialized" in line or line.startswith("kernel ")):
                     log(f"[build {name}] {line.strip()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {dev}")
@@ -6934,7 +7116,7 @@ def main() -> int:
         "serve_loop": lambda: serve_loop_phase(torch, dev, small, kernels),
         "train_kernels": lambda: kernels.update(
             train_kernel_phase(torch, dev, small)),
-        "train": lambda: train_phase(torch, dev, small, kernels),
+        "train": lambda: train_phase(torch, dev, small, kernels, traced),
         "sharding": lambda: sharding_phase(torch, dev, small, kernels),
         "train_card_vs_cpu": lambda: train_card_vs_cpu_phase(torch, dev,
                                                              small),
@@ -6961,8 +7143,10 @@ def main() -> int:
         log("[rehearse] all phases passed on the CPU; no result printed")
         return 3
     if args.only:
+        log(f"[total] the run: {time.perf_counter() - T_START:.1f} s")
         log(f"[only] phases {only} passed; no result printed")
         return 4
+    log(f"[total] the whole run: {time.perf_counter() - T_START:.1f} s")
     log(card_name())
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -631,17 +631,18 @@ struct Hop {
 };
 
 // whether some / every (query, key) pair of the 64 queries from q0 and
-// the 64 keys from k0 is live (keys at or past `live` are not)
+// the nk keys from k0 is live (keys at or past `live` are not)
 __device__ __forceinline__ void pair_block(const Mask& mk, int live, int q0,
-                                           int k0, bool& some, bool& every) {
+                                           int k0, bool& some, bool& every,
+                                           int nk = 64) {
   const int off = mk.lk - mk.lq;
   some = q0 < mk.lq && k0 < live;
-  every = q0 + 64 <= mk.lq && k0 + 64 <= live;
+  every = q0 + 64 <= mk.lq && k0 + nk <= live;
   if (mk.causal) {
     some = some && k0 <= min(q0 + 63, mk.lq - 1) + off;
-    every = every && k0 + 63 <= q0 + off;
+    every = every && k0 + nk - 1 <= q0 + off;
     if (mk.window) {
-      some = some && min(k0 + 63, live - 1) > q0 + off - mk.window;
+      some = some && min(k0 + nk - 1, live - 1) > q0 + off - mk.window;
       every = every && k0 > q0 + 63 + off - mk.window;
     }
   }
@@ -1101,6 +1102,548 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bf16 at hd 288 (gemma2-2b) on Hopper: TMA rings and wgmma
+// ---------------------------------------------------------------------
+
+// At 288 columns a warpgroup's 64 x 288 f32 accumulator is 144
+// registers a thread: one warpgroup cannot hold both dK and dV, and
+// one 64-row operand is 36 KB of shared memory.  Every operand is
+// stored as the forward's hd-288 tiles are (WgWide): nine 32-column
+// blocks of 64-byte rows under TMA's 64-byte swizzle, read by wgmma
+// descriptors of layout type 2, each 288-column product three m64n96
+// (wide_pv).  384 threads: two consumer warpgroups and the producer's
+// (warp 8 loads), setmaxnreg 40 / 232 as Hop's.
+//  * dK/dV (bwd_dkv_wide_kernel): 64 keys a block, K and V resident
+//    (72 KB), Q and dO streamed in 64-row tiles through 2 stages (144
+//    KB).  The two consumer warpgroups split the roles over the same
+//    keys: warpgroup 0 holds dV and forms S^T = K Q^T, P and dV += P^T
+//    dO; warpgroup 1 holds dK and forms dP^T = V dO^T, dS and dK +=
+//    dS^T Q.  A thread of each holds the same (key, query) elements of
+//    S^T and dP^T, so warpgroup 0 hands each thread's P (1 - t^2) scale
+//    to its twin as bf16 pairs through 8 KB of shared memory (two named
+//    barriers: the buffer full, the buffer free).  No product is
+//    repeated: 4 hd multiply-adds a pair here, 3 in dQ.
+//  * dQ (bwd_dq_wide_kernel): 128 query rows a block (64 a consumer
+//    warpgroup), Q and dO resident (144 KB), K and V in 32-key tiles
+//    through 2 stages (72 KB), so S and dP take 16 registers each beside
+//    dQ's 144.
+// The softcap's tanh on the SFU as the forward's (ex2, rcp): with r =
+// 1 / (2^(2 y log2 e) + 1), t = 1 - 2 r, the capped score in the log2
+// domain is c1 - c2 r (the forward's), and 1 - t^2 = 4 r (1 - r).
+struct WideBwd {
+  static constexpr int HD = 288;
+  static constexpr int ROW = HD * 2;              // bytes of an operand row
+  static constexpr int BK = 64;                   // keys of a dK/dV block
+  static constexpr int BQ = 64;                   // its streamed query rows
+  static constexpr int QR = 128;                  // query rows of a dQ block
+  static constexpr int KT = 32;                   // its streamed keys
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int HAND = 16 * 128 * 4;       // P (1 - t^2) scale, bf16
+  static constexpr int DKV_SMEM = 1024 + 2 * BK * ROW +
+                                  2 * STAGES * BQ * ROW + HAND +
+                                  2 * STAGES * BQ * 4 +
+                                  8 * (1 + 2 * STAGES);
+  static constexpr int DQ_SMEM = 1024 + 2 * QR * ROW +
+                                 2 * STAGES * KT * ROW + 8 * (1 + 2 * STAGES);
+  static constexpr int FULL_BAR = 1, FREE_BAR = 2;  // the hand-over's
+};
+static_assert(WideBwd::DKV_SMEM <= SMEM_MAX && WideBwd::DQ_SMEM <= SMEM_MAX,
+              "the hd-288 backward's tiles fit a block's shared memory");
+
+// D (64 x N) = A B^T over the 288 columns: A's 64 rows at a, B's N rows
+// at b, both in 32-column blocks (la, lb bytes apart)
+template <int N>
+__device__ __forceinline__ void wide_abt(float (&d)[N / 2], const uint8_t* a,
+                                         int la, const uint8_t* b, int lb) {
+#pragma unroll
+  for (int kk = 0; kk < WideBwd::HD / 16; ++kk) {
+    const uint64_t da = sw64_desc(a + (kk / 2) * la + (kk % 2) * 32, 16, 512);
+    const uint64_t db = sw64_desc(b + (kk / 2) * lb + (kk % 2) * 32, 16, 512);
+    if constexpr (N == 64) wgmma_ss_n64(d, da, db, kk > 0);
+    else wgmma_ss_n32(d, da, db, kk > 0);
+  }
+}
+
+// The softcap's constants (log2 domain): k2 turns the raw q . k into 2 y
+// log2 e, c1 - c2 r is the capped score times log2 e; mul is scale
+// log2 e without one
+struct Cap {
+  float k2, c1, c2, mul, s4;
+  __device__ __forceinline__ Cap(float scale, float softcap)
+      : k2(softcap != 0.f ? 2.f * scale * LOG2E / softcap : 0.f),
+        c1(softcap * LOG2E), c2(2.f * softcap * LOG2E),
+        mul(scale * LOG2E), s4(4.f * scale) {}
+};
+
+// P of one score (x the raw q . k, lse2 its row's lse times log2 e) and
+// f = P (1 - t^2) scale, the factor dS = f (dP - delta) takes
+template <bool CAP>
+__device__ __forceinline__ float wide_p(float x, float lse2, float scale,
+                                        const Cap& cp, float& f) {
+  if constexpr (CAP) {
+    const float r = rcp(ex2(x * cp.k2) + 1.f);
+    const float p = ex2(fmaf(-cp.c2, r, cp.c1) - lse2);
+    f = p * cp.s4 * r * (1.f - r);
+    return p;
+  } else {
+    const float p = ex2(fmaf(x, cp.mul, -lse2));
+    f = p * scale;
+    return p;
+  }
+}
+
+// fn(MASK, CAP) with the flags as compile-time constants: unlike by_tile,
+// full tiles with a softcap test no score (every gemma2 layer has one)
+template <typename Fn>
+__device__ __forceinline__ void by_tile_cap(bool every, float softcap,
+                                            Fn fn) {
+  if (softcap != 0.f) {
+    if (every) fn(std::false_type(), std::true_type());
+    else fn(std::true_type(), std::true_type());
+  } else if (every) {
+    fn(std::false_type(), std::false_type());
+  } else {
+    fn(std::true_type(), std::false_type());
+  }
+}
+
+__device__ __forceinline__ void unpack_bf16(uint32_t w, float& lo,
+                                            float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// one thread's rows (r, r + 8) of a 64 x 288 accumulator (three 64 x 96)
+// to bf16 rows of `out` (row pitch sl), rows at or past n left out
+__device__ __forceinline__ void store_wide(
+    const float (&acc)[WgWide::NO][WgWide::ON / 2], __nv_bfloat16* out,
+    long long sl, int r, int n) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int o = 0; o < WgWide::NO; ++o)
+#pragma unroll
+    for (int c = 0; c < WgWide::ON / 8; ++c) {
+      const int d = WgWide::ON * o + 8 * c + 2 * t4;
+      if (r < n)
+        *reinterpret_cast<uint32_t*>(out + r * sl + d) =
+            pack_bf16(acc[o][4 * c], acc[o][4 * c + 1]);
+      if (r + 8 < n)
+        *reinterpret_cast<uint32_t*>(out + (r + 8) * sl + d) =
+            pack_bf16(acc[o][4 * c + 2], acc[o][4 * c + 3]);
+    }
+}
+
+__device__ __forceinline__ void zero_wide(
+    float (&acc)[WgWide::NO][WgWide::ON / 2]) {
+#pragma unroll
+  for (int o = 0; o < WgWide::NO; ++o)
+#pragma unroll
+    for (int i = 0; i < WgWide::ON / 2; ++i) acc[o][i] = 0.f;
+}
+
+// dK and dV of 64 keys: K, V resident; the group's query tiles (Q, dO,
+// their lse and delta) through the ring.  Grid (Hkv, B, key tiles).
+__global__ void __launch_bounds__(WideBwd::THREADS, 1)
+bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, TmaAxes qa,
+                    TmaAxes ka, TmaAxes va, TmaAxes doa,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ kv_valid,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int G, Mask mk,
+                    Strides dks, Strides dvs, float scale, float softcap) {
+  using C = WideBwd;
+  constexpr int BK = C::BK, BQ = C::BQ, S = C::STAGES;
+  constexpr int T_BYTES = BQ * C::ROW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);              // [column block][BK][32]
+  uint8_t* vs = ks + BK * C::ROW;
+  uint8_t* qs = vs + BK * C::ROW;                 // [stage] Q tiles
+  uint8_t* dos = qs + S * T_BYTES;                // [stage] dO tiles
+  uint32_t* hand = reinterpret_cast<uint32_t*>(dos + S * T_BYTES);
+  float* lse_s = reinterpret_cast<float*>(hand + C::HAND / 4);
+  float* del_s = lse_s + S * BQ;                  // [stage][BQ] each
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(del_s + S * BQ);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int Hq = G * gridDim.x;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  const int k1 = min(k0 + BK, live);    // the tile's keys a query may see
+  // query rows that see some key of the tile
+  int qlo = 0, qhi = k1 > k0 ? mk.lq : 0;
+  if (mk.causal && qhi > 0) {
+    qlo = max(0, k0 - off);
+    if (mk.window) qhi = min(qhi, k1 - 1 + mk.window - off);
+  }
+  const int nqt = qhi > qlo ? (qhi - qlo + BQ - 1) / BQ : 0;
+  const int steps = G * nqt;            // (head, query tile) in that order
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 32);            // the producer warp's lanes
+      mbar_init(empty + i, 8);            // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                        // producer: warp 8 loads
+    reg_dealloc<C::PRODUCER_REGS>();
+    if (warp > 8 || steps == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * BK * C::ROW);
+      for (int j = 0; j < WgWide::NB; ++j) {
+        tma_load(ks + j * BK * 64, &tk, kvbar, ka, 32 * j, k0, kh, b);
+        tma_load(vs + j * BK * 64, &tv, kvbar, va, 32 * j, k0, kh, b);
+      }
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % S;
+      if (i >= S) mbar_wait(empty + st, (i / S - 1) & 1);
+      const int h = kh * G + i / nqt, q0 = qlo + (i % nqt) * BQ;
+      const long long row = ((long long)b * Hq + h) * mk.lq;
+      // rows past Lq: lse +inf, so P = 0
+      for (int r = lane; r < BQ; r += 32) {
+        const bool in = q0 + r < mk.lq;
+        lse_s[st * BQ + r] = in ? lse[row + q0 + r] * LOG2E : CUDART_INF_F;
+        del_s[st * BQ + r] = in ? delta[row + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + st, 2 * T_BYTES);
+        for (int j = 0; j < WgWide::NB; ++j) {
+          tma_load(qs + st * T_BYTES + j * BQ * 64, &tq, full + st, qa,
+                   32 * j, q0, h, b);
+          tma_load(dos + st * T_BYTES + j * BQ * 64, &tdo, full + st, doa,
+                   32 * j, q0, h, b);
+        }
+      } else {
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  // consumers: both warpgroups hold keys k0 .. k0 + 63; warpgroup 0 dV,
+  // warpgroup 1 dK
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const int tw = threadIdx.x & 127;       // the thread within its warpgroup
+  const int rA = k0 + 16 * wl + g8;       // this thread's keys: rA, rA + 8
+  // the queries [qlo_k, qhi_k) that see each of this thread's keys
+  int qlo_k[2], qhi_k[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = rA + 8 * j;
+    qlo_k[j] = mk.causal ? key - off : 0;
+    qhi_k[j] = key >= live ? 0
+               : mk.causal && mk.window ? min(mk.lq, key - off + mk.window)
+                                        : mk.lq;
+  }
+  const Cap cp(scale, softcap);
+  float acc[WgWide::NO][WgWide::ON / 2];  // dV (warpgroup 0) or dK (1)
+  zero_wide(acc);
+  if (steps > 0) mbar_wait(kvbar, 0);
+  // Each role walks the steps in its own loop, every product waited for
+  // inside it: no wgmma is in flight across a branch that differs
+  // between the warpgroups.
+  if (wg == 0) {
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % S, q0 = qlo + (i % nqt) * BQ;
+      mbar_wait(full + st, (i / S) & 1);
+      bool some, every;
+      pair_block(mk, live, q0, k0, some, every);
+      if (some) {
+        const uint8_t* qt = qs + st * T_BYTES;
+        float x[32];
+        wg_fence();
+        wide_abt<64>(x, ks, BK * 64, qt, BQ * 64);     // S^T = K Q^T
+        wg_commit();
+        wg_wait0();
+        reg_fence(x);
+        uint32_t pa[4][4];                // P as the A fragments
+        bar_sync(C::FREE_BAR, 256);       // warpgroup 1 read the last one
+        by_tile_cap(every, softcap, [&](auto mask, auto cap) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int qc = 8 * c + 2 * t4;  // queries q0 + qc, + 1
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                lse_s + st * BQ + qc);
+            float p[4], f[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              p[e] = wide_p<decltype(cap)::value>(x[4 * c + e],
+                                                  (e & 1) ? l2.y : l2.x,
+                                                  scale, cp, f[e]);
+              if constexpr (decltype(mask)::value) {
+                const int iq = q0 + qc + (e & 1);
+                if (!(iq >= qlo_k[e >> 1] && iq < qhi_k[e >> 1]))
+                  p[e] = f[e] = 0.f;
+              }
+            }
+            // the accumulator's layout is the A fragment's (p_ds)
+            pa[c / 2][(c & 1) * 2] = pack_bf16(p[0], p[1]);
+            pa[c / 2][(c & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+            hand[(2 * c) * 128 + tw] = pack_bf16(f[0], f[1]);
+            hand[(2 * c + 1) * 128 + tw] = pack_bf16(f[2], f[3]);
+          }
+        });
+        bar_arrive(C::FULL_BAR, 256);
+        wg_fence();
+        wide_pv<64>(acc, pa, dos + st * T_BYTES);      // dV += P^T dO
+        wg_commit();
+        wide_wait_o(acc);
+      }
+      release_stage(empty + st);
+    }
+    bar_sync(C::FREE_BAR, 256);           // the last hand-over was read
+    store_wide(acc, dv + b * dvs.b + kh * dvs.h, dvs.l, rA, mk.lk);
+    return;
+  }
+  bar_arrive(C::FREE_BAR, 256);           // the hand-over starts free
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % S, q0 = qlo + (i % nqt) * BQ;
+    mbar_wait(full + st, (i / S) & 1);
+    bool some, every;
+    pair_block(mk, live, q0, k0, some, every);
+    if (some) {
+      float x[32];
+      wg_fence();
+      wide_abt<64>(x, vs, BK * 64, dos + st * T_BYTES, BQ * 64);  // dP^T
+      wg_commit();
+      wg_wait0();
+      reg_fence(x);
+      bar_sync(C::FULL_BAR, 256);
+      uint32_t fw[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) fw[j] = hand[j * 128 + tw];
+      bar_arrive(C::FREE_BAR, 256);
+      uint32_t da[4][4];                  // dS as the A fragments
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int qc = 8 * c + 2 * t4;
+        const float2 de = *reinterpret_cast<const float2*>(
+            del_s + st * BQ + qc);
+        float f[4], d[4];
+        unpack_bf16(fw[2 * c], f[0], f[1]);
+        unpack_bf16(fw[2 * c + 1], f[2], f[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d[e] = f[e] * (x[4 * c + e] - ((e & 1) ? de.y : de.x));
+        da[c / 2][(c & 1) * 2] = pack_bf16(d[0], d[1]);
+        da[c / 2][(c & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+      }
+      wg_fence();
+      wide_pv<64>(acc, da, qs + st * T_BYTES);        // dK += dS^T Q
+      wg_commit();
+      wide_wait_o(acc);
+    }
+    release_stage(empty + st);
+  }
+  store_wide(acc, dk + b * dks.b + kh * dks.h, dks.l, rA, mk.lk);
+}
+
+// dQ of 128 query rows: Q, dO (and each row's lse, delta in registers)
+// resident; the 32-key tiles the rows see through the ring.  Grid (Hq,
+// B, query tiles), the query-tile index reversed: causal tiles near the
+// end see the most keys and start first.
+__global__ void __launch_bounds__(WideBwd::THREADS, 1)
+bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, TmaAxes qa,
+                   TmaAxes ka, TmaAxes va, TmaAxes doa,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ kv_valid,
+                   __nv_bfloat16* __restrict__ dq, int G, Mask mk,
+                   Strides dqs, float scale, float softcap) {
+  using C = WideBwd;
+  constexpr int QR = C::QR, KT = C::KT, S = C::STAGES;
+  constexpr int T_BYTES = KT * C::ROW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);              // [column block][QR][32]
+  uint8_t* dos = qs + QR * C::ROW;
+  uint8_t* ks = dos + QR * C::ROW;                // [stage] K tiles
+  uint8_t* vs = ks + S * T_BYTES;                 // [stage] V tiles
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vs + S * T_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * QR, kh = h / G;
+  const int live = live_keys(kv_valid, b, mk.lk);
+  const int off = mk.lk - mk.lq;
+  // keys some row of the block sees
+  int kbeg = 0, kend = live;
+  if (mk.causal) {
+    kend = min(kend, min(q0 + QR, mk.lq) + off);
+    if (mk.window) kbeg = max(0, q0 + off - mk.window + 1);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + KT - 1) / KT : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                        // producer: warp 8 loads
+    reg_dealloc<C::PRODUCER_REGS>();
+    if (warp == 8 && lane == 0 && ntiles > 0) {
+      mbar_expect_tx(qbar, 2 * QR * C::ROW);
+      for (int j = 0; j < WgWide::NB; ++j)
+        for (int r = 0; r < QR; r += 64) {
+          tma_load(qs + (j * QR + r) * 64, &tq, qbar, qa, 32 * j, q0 + r, h,
+                   b);
+          tma_load(dos + (j * QR + r) * 64, &tdo, qbar, doa, 32 * j, q0 + r,
+                   h, b);
+        }
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % S, kt0 = kbeg + i * KT;
+        if (i >= S) mbar_wait(empty + st, (i / S - 1) & 1);
+        mbar_expect_tx(full + st, 2 * T_BYTES);
+        for (int j = 0; j < WgWide::NB; ++j) {
+          tma_load(ks + st * T_BYTES + j * KT * 64, &tk, full + st, ka,
+                   32 * j, kt0, kh, b);
+          tma_load(vs + st * T_BYTES + j * KT * 64, &tv, full + st, va,
+                   32 * j, kt0, kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg holds rows rlo .. rlo + 63
+  reg_alloc<C::CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const int rlo = q0 + 64 * wg;
+  const int rA = rlo + 16 * wl + g8;      // this thread's rows: rA, rA + 8
+  const long long row = ((long long)b * gridDim.x + h) * mk.lq;
+  float lse2[2], del[2];                  // rows rA, rA + 8
+  int klo[2], khi[2];                     // the keys [klo, khi) a row sees
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = rA + 8 * j;
+    const bool in = r < mk.lq;
+    lse2[j] = in ? lse[row + r] * LOG2E : CUDART_INF_F;
+    del[j] = in ? delta[row + r] : 0.f;
+    klo[j] = mk.causal && mk.window ? r + off - mk.window + 1 : 0;
+    khi[j] = !in ? 0 : mk.causal ? min(live, r + off + 1) : live;
+  }
+  const uint8_t* qws = qs + wg * 64 * 64;
+  const uint8_t* dows = dos + wg * 64 * 64;
+  const Cap cp(scale, softcap);
+  float dqa[WgWide::NO][WgWide::ON / 2];
+  zero_wide(dqa);
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % S, kt0 = kbeg + i * KT;
+    mbar_wait(full + st, (i / S) & 1);
+    bool some, every;
+    pair_block(mk, live, rlo, kt0, some, every, KT);
+    if (some) {
+      const uint8_t* kt = ks + st * T_BYTES;
+      const uint8_t* vt = vs + st * T_BYTES;
+      float sc[KT / 2], dp[KT / 2];
+      wg_fence();
+      wide_abt<KT>(sc, qws, QR * 64, kt, KT * 64);    // S = Q K^T
+      wide_abt<KT>(dp, dows, QR * 64, vt, KT * 64);   // dP = dO V^T
+      wg_commit();
+      wg_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      uint32_t da[KT / 16][4];
+      by_tile_cap(every, softcap, [&](auto mask, auto cap) {
+#pragma unroll
+        for (int c = 0; c < KT / 8; ++c) {
+          const int kc = kt0 + 8 * c + 2 * t4;        // keys kc, kc + 1
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float f;
+            wide_p<decltype(cap)::value>(sc[4 * c + e], lse2[e >> 1], scale,
+                                         cp, f);
+            if constexpr (decltype(mask)::value) {
+              const int key = kc + (e & 1);
+              if (!(key >= klo[e >> 1] && key < khi[e >> 1])) f = 0.f;
+            }
+            d[e] = f * (dp[4 * c + e] - del[e >> 1]);
+          }
+          da[c / 2][(c & 1) * 2] = pack_bf16(d[0], d[1]);
+          da[c / 2][(c & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+        }
+      });
+      wg_fence();
+      wide_pv<KT>(dqa, da, kt);           // dQ += dS K
+      wg_commit();
+      wide_wait_o(dqa);
+    }
+    release_stage(empty + st);
+  }
+  store_wide(dqa, dq + b * dqs.b + h * dqs.h, dqs.l, rA, mk.lq);
+}
+
+cudaError_t launch_wide_bwd(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const int* kv_valid, void* dq, void* dk,
+                            void* dv, const float* delta, int B, int Hq,
+                            int Hkv, Mask mk, Strides qs, Strides ks,
+                            Strides vs, Strides dos, Strides dqs,
+                            Strides dks, Strides dvs, float scale,
+                            float softcap, cudaStream_t s) {
+  using C = WideBwd;
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::DKV_SMEM);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::DQ_SMEM);
+  if (a1 != cudaSuccess) return a1;
+  if (a2 != cudaSuccess) return a2;
+  // 32-column boxes under the 64-byte swizzle: Q and dO of 64 rows (the
+  // dQ kernel's 128 resident rows are two boxes), K and V of 64 rows for
+  // the dK/dV kernel and of 32 for the dQ kernel's tiles
+  CUtensorMap tq, tdo, tk, tv, tk2, tv2;
+  TmaAxes qa, doa, ka, va, ka2, va2;
+  cudaError_t e;
+  if ((e = make_map(&tq, &qa, q, C::HD, qs, mk.lq, Hq, B, 64, 32)) ||
+      (e = make_map(&tdo, &doa, dout, C::HD, dos, mk.lq, Hq, B, 64, 32)) ||
+      (e = make_map(&tk, &ka, k, C::HD, ks, mk.lk, Hkv, B, C::BK, 32)) ||
+      (e = make_map(&tv, &va, v, C::HD, vs, mk.lk, Hkv, B, C::BK, 32)) ||
+      (e = make_map(&tk2, &ka2, k, C::HD, ks, mk.lk, Hkv, B, C::KT, 32)) ||
+      (e = make_map(&tv2, &va2, v, C::HD, vs, mk.lk, Hkv, B, C::KT, 32)))
+    return e;
+  const int G = Hq / Hkv;
+  bwd_dkv_wide_kernel<<<dim3(Hkv, B, (mk.lk + C::BK - 1) / C::BK),
+                        C::THREADS, C::DKV_SMEM, s>>>(
+      tq, tk, tv, tdo, qa, ka, va, doa, lse, delta, kv_valid,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), G,
+      mk, dks, dvs, scale, softcap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dq_wide_kernel<<<dim3(Hq, B, (mk.lq + C::QR - 1) / C::QR),
+                       C::THREADS, C::DQ_SMEM, s>>>(
+      tq, tk2, tv2, tdo, qa, ka2, va2, doa, lse, delta, kv_valid,
+      static_cast<__nv_bfloat16*>(dq), G, mk, dqs, scale, softcap);
+  return cudaGetLastError();
+}
+
 // every row of an operand's (b, h, l) axes on 16 bytes, hd a whole
 // number of 16-byte loads
 template <typename T>
@@ -1135,7 +1678,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                             dvs.b, dvs.h, dvs.l};
     for (long long x : st)
       if (x % 2) return cudaErrorInvalidValue;
-    if ((hd != 64 && hd != 120 && hd != 128) ||
+    if ((hd != 64 && hd != 120 && hd != 128 && hd != 288) ||
         !tma_ok(q, qs, mk.lq, Hq, B) || !tma_ok(k, ks, mk.lk, Hkv, B) ||
         !tma_ok(v, vs, mk.lk, Hkv, B) || !tma_ok(dout, dos, mk.lq, Hq, B) ||
         (reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
@@ -1158,6 +1701,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (!F32) {
+    if (wg && hd == 288)
+      return launch_wide_bwd(q, k, v, dout, lse, kv_valid, dq, dk, dv, delta,
+                             B, Hq, Hkv, mk, qs, ks, vs, dos, dqs, dks, dvs,
+                             scale, softcap, s);
     if (wg)
       return hd == 64
                  ? launch_wgmma<64>(q, k, v, dout, lse, kv_valid, dq, dk, dv,

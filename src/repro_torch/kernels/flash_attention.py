@@ -50,9 +50,9 @@ per-row log-sum-exp, which the forward returns with ``return_lse``,
 and recomputes the probabilities from them:
 FlashAttention-2's form, three launches (delta, dK/dV, dQ) on the card,
 through the body ``bwd_body`` names: ``"wgmma"`` (TMA rings and wgmma)
-for bf16 at head dims 64, 120 and 128 with q, k, v and do on 16 bytes,
-``"mma"`` (mma.sync) for other bf16 operands, ``"f32"`` (CUDA cores)
-for f32 ones.
+for bf16 at head dims 64, 120, 128 and 288 with q, k, v and do on 16
+bytes, ``"mma"`` (mma.sync) for other bf16 operands, ``"f32"`` (CUDA
+cores) for f32 ones.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ _SIG = {"flash_attention_launch": [
                              ctypes.c_void_p]}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 BWD_BODIES = ("f32", "mma", "wgmma")    # the C launch's body codes
-WGMMA_BWD_HEAD_DIMS = (64, 120, 128)
+WGMMA_BWD_HEAD_DIMS = (64, 120, 128, 288)
 DECODE_BODIES = ("cores", "mma", "wide")  # the decode launch's body codes
 
 
@@ -446,10 +446,11 @@ def _tma_ok(t) -> bool:
 
 def bwd_body(q, k, v, do) -> str:
     """The backward body that takes these operands: ``"f32"`` for f32
-    ones; ``"wgmma"`` for bf16 at head dims 64, 120 and 128 whose q, k,
-    v and do TMA can read (``_tma_ok``); ``"mma"`` for every other bf16
-    shape (hd 32 and 288, rows off 16 bytes).  Decided from dtypes,
-    shapes, strides and addresses alone."""
+    ones; ``"wgmma"`` for bf16 at head dims 64, 120, 128 and 288 whose q,
+    k, v and do TMA can read (``_tma_ok``; at 288 the wide kernels of
+    ``csrc/flash_attention_bwd.cuh``); ``"mma"`` for every other bf16
+    shape (hd 32, rows off 16 bytes).  Decided from dtypes, shapes,
+    strides and addresses alone."""
     if q.dtype == torch.float32:
         return "f32"
     if q.shape[3] in WGMMA_BWD_HEAD_DIMS and all(

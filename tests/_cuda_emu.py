@@ -64,8 +64,9 @@ PRIMS = ("cp16", "cp_commit", "cp_wait", "mma", "ldsm4", "ldsm4_t",
          "ex2", "mbar_init", "mbar_expect_tx", "mbar_arrive", "global_ns",
          "mbar_wait", "tma_box4", "wg_fence", "wg_commit", "wg_wait0",
          "wg_wait1", "rcp", "reg_fence", "reg_alloc", "reg_dealloc",
-         "wgmma_ss_n64", "wgmma_ss_n128", "wgmma_rs_n64", "wgmma_rs_n96",
-         "wgmma_rs_n128", "tma_store4", "bar_sync", "bar_arrive")
+         "wgmma_ss_n32", "wgmma_ss_n64", "wgmma_ss_n128", "wgmma_rs_n64",
+         "wgmma_rs_n96", "wgmma_rs_n128", "tma_store4", "bar_sync",
+         "bar_arrive")
 
 
 def _drop(src: str, name: str) -> str:

@@ -1,5 +1,7 @@
 """Shared body of ``tests/test_torch_train_zoo_*.py``: the port's
 ``make_train_step`` against the reference's jitted one, at ``SMOKE``."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +52,7 @@ def rel_err(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
 
 
-def check_arch(name):
+def check_arch(name, overrides=None, L=None):
     """Loss, aux and gnorm within 1e-5 relative; every gradient leaf
     within 1e-4 of its max |g|; after two AdamW steps (lr 1e-3, warmup
     1: each step moves a param by up to about lr) the moments within
@@ -62,11 +64,15 @@ def check_arch(name):
     (seen on 1-10 in 100,000 entries), and the second step's gradients
     are taken at params that differ that much.  A leaf whose gradient
     is zero but for rounding is held to that on both sides instead: its
-    updates are the signs of rounding noise."""
+    updates are the signs of rounding noise.  ``overrides`` replace
+    fields of both SMOKE configs; ``L`` is the sequence length."""
     jcfg, cfg = jget_smoke(name), get_smoke(name)
+    if overrides:
+        jcfg = dataclasses.replace(jcfg, **overrides)
+        cfg = dataclasses.replace(cfg, **overrides)
     jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
-    L = SEQ.get(name, 24)
+    L = L or SEQ.get(name, 24)
     b0, b1 = batch(jcfg, 2, L, 0), batch(jcfg, 2, L, 1)
 
     (jt, (jl, ja)), jg = jax.jit(jax.value_and_grad(

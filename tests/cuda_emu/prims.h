@@ -343,6 +343,10 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
   emu_wgmma<64>(d, da, nullptr, db, false, scale_d);
 }
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  emu_wgmma<32>(d, da, nullptr, db, false, scale_d);
+}
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   emu_wgmma<128>(d, da, nullptr, db, false, scale_d);

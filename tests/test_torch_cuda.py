@@ -1305,6 +1305,9 @@ def _attn_operand(g, cuda, dt, B, L, H, hd, layout):
     (2, 4, 2, 200, 200, 64, True, 0, 0.0, None, "blhd"),
     (1, 4, 1, 130, 130, 120, True, 50, 0.0, None, "blhd"),
     (1, 2, 1, 100, 100, 288, True, 64, 50.0, None, "blhd"),
+    (2, 8, 4, 200, 200, 288, True, 0, 50.0, None, "blhd"),  # gemma2's G 2
+    (2, 4, 2, 100, 150, 288, True, 0, 50.0, (120, 9), "bhld"),
+    (1, 2, 1, 100, 100, 288, True, 64, 50.0, None, "pad"),
     (1, 4, 2, 150, 150, 128, True, 0, 0.0, None, "blhd"),
     (2, 4, 4, 300, 16, 64, False, 0, 0.0, None, "blhd"),
     (1, 2, 2, 70, 70, 32, True, 0, 0.0, None, "blhd"),
@@ -1323,8 +1326,8 @@ def test_flash_attention_bwd_matches_plain(cuda, dt, tol, B, Hq, Hkv, L, Lk,
     within ``tol`` of its max |g|), the forward's o (``tol`` * (1 +
     |want|)) and lse (1e-5 relative) against the plain ones, the same
     bits on two launches, and the body that ran: wgmma for bf16 at hd
-    64 / 120 / 128 on 16-byte rows, mma for other bf16 operands (hd 32,
-    288, rows off 16 bytes), f32 for f32 ones."""
+    64 / 120 / 128 / 288 on 16-byte rows, mma for other bf16 operands
+    (hd 32, rows off 16 bytes), f32 for f32 ones."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q, do = (_attn_operand(g, cuda, dt, B, L, Hq, hd, layout)
              for _ in range(2))
@@ -1339,7 +1342,7 @@ def test_flash_attention_bwd_matches_plain(cuda, dt, tol, B, Hq, Hkv, L, Lk,
     assert bool(((o.float() - o2.float()).abs()
                  <= tol * (1 + o2.float().abs())).all())
     body = "f32" if dt == torch.float32 else \
-        "wgmma" if hd in (64, 120, 128) and layout != "pad" else "mma"
+        "wgmma" if hd in (64, 120, 128, 288) and layout != "pad" else "mma"
     assert FA.bwd_body(q, k, v, do) == body
     before = dict(FA.flash_attention_bwd.launches_by_body)
     got = FA.flash_attention_bwd(q, k, v, o2, lse2, do, kv, **kw)

@@ -16,10 +16,13 @@ The attention (``csrc/flash_attention_bwd.cuh``), each of its three
 bodies as ``flash_attention.bwd_body`` names it: wgmma (TMA rings and
 wgmma, hd 64, 120, 128: ragged lengths, full and edge tiles, a window,
 Lk < 64 non-causal, kv_valid with a softcap and Lq != Lk, a contiguous
-layout), mma (hd 288
-with its softcap and window, and hd 64 rows off 16 bytes) within 2e-2
-of each gradient's max |g|, f32 within 1e-4.  Beside them, the body
-rule at the zoo's training shapes.
+layout; hd 288 on the wide kernels, whose two consumer warpgroups hand
+P over on named barriers: a window with gemma2's softcap 50, global
+with it at G 2 in a contiguous layout, kv_valid with Lq != Lk, G 2
+non-causal over 40 keys), mma (hd 288 with its softcap and window and
+hd 64, both with rows off 16 bytes) within 2e-2 of each gradient's max
+|g|, f32 within 1e-4.  Beside them, the body rule at the zoo's training
+shapes.
 
 The int8 KV decode (``csrc/flash_attention.cu``) on each body
 ``flash_attention.q8_body`` names, and the bf16 decode on each body
@@ -109,8 +112,16 @@ def fa_lib():
      "wgmma"),
     (1, 2, 1, 100, 100, 64, True, 0, 0.0, None, "pad", torch.bfloat16,
      "mma"),
-    (1, 2, 1, 70, 70, 288, True, 32, 50.0, None, "blhd", torch.bfloat16,
+    (1, 2, 1, 70, 70, 288, True, 32, 50.0, None, "pad", torch.bfloat16,
      "mma"),
+    (1, 2, 1, 100, 100, 288, True, 48, 50.0, None, "blhd", torch.bfloat16,
+     "wgmma"),
+    (1, 4, 2, 130, 130, 288, True, 0, 50.0, None, "bhld", torch.bfloat16,
+     "wgmma"),
+    (2, 2, 1, 80, 110, 288, True, 0, 30.0, (100, 7), "blhd",
+     torch.bfloat16, "wgmma"),
+    (1, 4, 2, 90, 40, 288, False, 0, 0.0, None, "blhd", torch.bfloat16,
+     "wgmma"),
     (1, 2, 1, 70, 70, 64, True, 0, 0.0, (60,), "blhd", torch.float32,
      "f32")])
 def test_flash_attention_bwd_source_matches_plain(fa_lib, B, Hq, Hkv, L, Lk,
@@ -133,13 +144,13 @@ def test_flash_attention_bwd_source_matches_plain(fa_lib, B, Hq, Hkv, L, Lk,
 @pytest.mark.parametrize("name,body", [
     ("llama3.2-1b", "wgmma"), ("qwen3-moe-30b-a3b", "wgmma"),
     ("h2o-danube-3-4b", "wgmma"), ("seamless-m4t-medium", "wgmma"),
-    ("mamba2-1.3b", None), ("gemma2-2b", "mma"),
+    ("mamba2-1.3b", None), ("gemma2-2b", "wgmma"),
     ((32, 4, 128), "wgmma"), ((2, 2, 32), "mma")])
 def test_bwd_body_at_the_zoos_training_shapes(name, body):
     """The body rule at each config's own heads and head dim (or at
     (Hq, Hkv, hd): the hd-128 and hd-32 kernel shapes), in the model's
     (B, L, H, hd) layout seen through ``transpose(1, 2)``: bf16 names
-    the wgmma body at hd 64, 120 and 128 and the mma body at 32 and 288;
+    the wgmma body at hd 64, 120, 128 and 288 and the mma body at 32;
     f32 names the f32 body; a view whose rows lie 8 bytes off 16 (rows
     of a wider bf16 buffer) names the mma body."""
     if isinstance(name, tuple):
